@@ -1,0 +1,9 @@
+"""PyTorch / CUDA port of the decentralized data-parallel training system.
+
+Mirrors the layout of the reference package ``repro``: ``core`` (graphs,
+mixing programs, topologies, DBench), ``optim``, ``data``, ``configs``,
+``models``, ``kernels`` (hand-written CUDA kernels for Hopper, each beside
+its plain PyTorch twin) and ``launch`` (the trainer and its CLI).  It
+imports ``torch`` and nothing of ``jax`` or ``repro``.  Entry points run on
+the CUDA card unless the caller passes ``device="cpu"``.
+"""

@@ -1,0 +1,84 @@
+"""Architecture configuration schema: the counterpart of ``repro/configs/base.py``.
+
+``ArchConfig`` keeps the reference's fields and ``reduced()`` rule (the
+CPU smoke-test variant of the same family: ≤2 layers, d_model ≤ 256,
+float32); only ``dtype`` is a torch dtype here.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional
+
+import torch
+
+__all__ = ["ArchConfig"]
+
+
+@dataclasses.dataclass(frozen=True)
+class ArchConfig:
+    name: str
+    family: str                  # dense | moe | ssm | hybrid | audio | vlm
+    n_layers: int
+    d_model: int
+    d_ff: int
+    vocab: int
+    n_heads: int = 0             # 0 for attention-free
+    n_kv: int = 0
+    d_head: int = 0              # 0 => d_model // n_heads
+    qkv_bias: bool = False
+    norm: str = "rmsnorm"        # rmsnorm | layernorm
+    rope_theta: float = 10_000.0
+    act: str = "silu"
+    # MoE
+    n_experts: int = 0
+    top_k: int = 0
+    n_shared_experts: int = 0
+    capacity_factor: float = 1.25
+    aux_loss_weight: float = 0.01
+    # SSM / hybrid
+    ssm_state: int = 0
+    attn_every: int = 0          # hybrid: shared attn block every N-th block
+    # modality stubs
+    input_kind: str = "tokens"   # tokens | vlm
+    n_patches: int = 0
+    # impl knobs
+    attn_impl: str = "reference"  # only the reference attention is ported
+    attn_chunk: int = 1024
+    sliding_window: Optional[int] = None
+    rec_chunk: int = 64          # recurrence chunk (ssm/hybrid)
+    remat: bool = True           # memory only; the port's 2-layer cut ignores it
+    dtype: Any = torch.bfloat16
+    # citation for the config numbers
+    source: str = ""
+
+    @property
+    def head_dim(self) -> int:
+        if self.d_head:
+            return self.d_head
+        return self.d_model // max(self.n_heads, 1)
+
+    def reduced(self) -> "ArchConfig":
+        """CPU smoke-test variant of the same family."""
+        d_model = min(self.d_model, 256)
+        n_heads = min(self.n_heads, 4) if self.n_heads else 0
+        n_kv = min(self.n_kv, max(n_heads // 2, 1)) if self.n_kv else 0
+        return dataclasses.replace(
+            self,
+            name=self.name + "-reduced",
+            n_layers=min(self.n_layers, 2) if not self.attn_every
+            else min(self.n_layers, self.attn_every + 1),
+            d_model=d_model,
+            d_ff=min(self.d_ff, 512),
+            vocab=min(self.vocab, 512),
+            n_heads=n_heads,
+            n_kv=n_kv,
+            d_head=(d_model // n_heads if n_heads else 0),
+            n_experts=min(self.n_experts, 4) if self.n_experts else 0,
+            top_k=min(self.top_k, 2) if self.top_k else 0,
+            n_shared_experts=min(self.n_shared_experts, 1),
+            ssm_state=min(self.ssm_state, 16) if self.ssm_state else 0,
+            n_patches=min(self.n_patches, 8) if self.n_patches else 0,
+            rec_chunk=8,
+            attn_chunk=64,
+            dtype=torch.float32,
+        )

@@ -1,0 +1,241 @@
+"""Fused gossip apply (kernel K1): momentum-SGD step + weighted neighbor mix.
+
+The counterpart of ``repro/kernels/gossip_update.py::gossip_program_update``
+and its glue ``fused_apply_stacked``.  Per node i and element p:
+
+    m'  = u (beta m + g) + (1 - u) m
+    w0' = w0 + Σ_k (1 - f_k) w_k
+    post: θ' = w0' (θ - lr u m') + Σ_k f_k w_k wire[srcs[i, k], p]
+    pre:  θ' = w0' θ + Σ_k f_k w_k wire[srcs[i, k], p] - lr u m'
+
+with the per-node weight row w, fault row f = [u, edge_1..edge_deg] and
+``srcs`` from the program's ``permute_tables``.
+
+State layout: the port holds the stacked state as flat (G, P) buffers
+(``core/flat.py``).  The reference concatenates θ, g and m into fresh
+(n, P) matrices, pads them to a block multiple and gathers an (n, deg, P)
+neighbor copy; at granite-8b width that glue alone would not fit beside
+the state on one card.  Here the kernel reads neighbor rows straight from
+the (G, P) wire through ``srcs``, masks the ragged tail itself, and writes
+θ' and m' IN PLACE into the state buffers.  The only transient is the
+wire: the senders' post-update θ* for ``mix_order="post"``, a copy of θ
+for ``"pre"`` (the in-place update must not overwrite rows that other
+nodes still read).
+
+``gossip_program_update`` launches the CUDA kernel (``csrc/gossip_update.cu``)
+on CUDA tensors and counts each launch in ``gossip_program_update.launches``;
+for CPU tensors it takes the plain twin ``gossip_program_update_plain``.
+"""
+from __future__ import annotations
+
+import ctypes
+from functools import lru_cache
+
+import numpy as np
+import torch
+
+from repro_torch.kernels import _build
+
+__all__ = [
+    "gossip_program_update",
+    "gossip_program_update_plain",
+    "gossip_wire",
+    "fused_apply_stacked",
+]
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# columns per chunk of the plain wire computation: bounds its float32
+# temporaries to G × 2^24 × 4 bytes whatever the state size
+WIRE_CHUNK = 1 << 24
+
+
+def gossip_program_update_plain(theta, wire, srcs, weights, grad, mom, *,
+                                lr, beta, fault, mix_order="post"):
+    """The plain twin of K1: returns new (θ', m') and leaves its inputs alone.
+
+    theta/wire/grad (G, P); mom (G, P) float32; srcs (G, deg) int;
+    weights/fault (G, deg+1) float32.
+    """
+    deg = srcs.shape[1]
+    g = grad.float()
+    m = mom.float()
+    u = fault[:, :1]
+    m_new = u * (beta * m + g) + (1.0 - u) * m
+    self_w = weights[:, 0]
+    for k in range(deg):
+        self_w = self_w + (1.0 - fault[:, k + 1]) * weights[:, k + 1]
+    self_w = self_w[:, None]
+    base = theta.float()
+    lru = lr * u
+    if mix_order == "post":
+        acc = self_w * (base - lru * m_new)
+    else:
+        acc = self_w * base
+    idx = srcs.long()
+    for k in range(deg):
+        fw = (fault[:, k + 1] * weights[:, k + 1])[:, None]
+        acc = acc + fw * wire.index_select(0, idx[:, k]).float()
+    if mix_order == "pre":
+        acc = acc - lru * m_new
+    return acc.to(theta.dtype), m_new
+
+
+def _check(theta, wire, srcs, weights, grad, mom, fault):
+    if theta.dim() != 2:
+        raise ValueError(f"theta must be (G, P), got shape {tuple(theta.shape)}")
+    g, p = theta.shape
+    if theta.dtype not in _DTYPES:
+        raise TypeError(f"theta dtype {theta.dtype} not supported (float32, bfloat16)")
+    deg = srcs.shape[1] if srcs.dim() == 2 else -1
+    want = {
+        "wire": (wire, (g, p), theta.dtype),
+        "grad": (grad, (g, p), theta.dtype),
+        "mom": (mom, (g, p), torch.float32),
+        "srcs": (srcs, (g, deg), torch.int32),
+        "weights": (weights, (g, deg + 1), torch.float32),
+        "fault": (fault, (g, deg + 1), torch.float32),
+    }
+    for name, (t, shape, dtype) in want.items():
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must have shape {shape}, got {tuple(t.shape)}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+        if t.device != theta.device:
+            raise ValueError(f"{name} is on {t.device}, theta on {theta.device}")
+    for name, t in {"theta": theta, **{n: v[0] for n, v in want.items()}}.items():
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    nbytes = wire.numel() * wire.element_size()
+    for name, t in (("theta", theta), ("mom", mom)):
+        lo, hi = t.data_ptr(), t.data_ptr() + t.numel() * t.element_size()
+        if lo < wire.data_ptr() + nbytes and wire.data_ptr() < hi:
+            raise ValueError(f"wire overlaps {name}: the in-place update needs its own buffer")
+
+
+def gossip_program_update(theta, wire, srcs, weights, grad, mom, *,
+                          lr, beta, fault, mix_order="post"):
+    """K1 over G stacked nodes; updates ``theta`` and ``mom`` IN PLACE and
+    returns them.  Arguments as in ``gossip_program_update_plain``.
+
+    The launch is asynchronous on the current stream; a caller may drop its
+    operands right after (the wire, say), because the caching allocator
+    hands their memory only to work queued later on the same stream."""
+    if mix_order not in ("post", "pre"):
+        raise ValueError(f"mix_order must be 'post'|'pre', got {mix_order!r}")
+    _check(theta, wire, srcs, weights, grad, mom, fault)
+    if theta.device.type == "cpu":
+        new_t, new_m = gossip_program_update_plain(
+            theta, wire, srcs, weights, grad, mom,
+            lr=lr, beta=beta, fault=fault, mix_order=mix_order,
+        )
+        theta.copy_(new_t)
+        mom.copy_(new_m)
+        return theta, mom
+    if theta.device.type != "cuda":
+        raise ValueError(f"unsupported device {theta.device}")
+    fn = _build.load("gossip_update").repro_gossip_program_update
+    g, p = theta.shape
+    with torch.cuda.device(theta.device):
+        stream = torch.cuda.current_stream(theta.device).cuda_stream
+        err = fn(
+            _DTYPES[theta.dtype], int(mix_order == "pre"), theta.data_ptr(),
+            wire.data_ptr(), grad.data_ptr(), mom.data_ptr(), weights.data_ptr(),
+            fault.data_ptr(), srcs.data_ptr(), g, p, srcs.shape[1],
+            ctypes.c_float(float(lr)), ctypes.c_float(float(beta)), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"gossip_program_update kernel launch failed: CUDA error {err}")
+    gossip_program_update.launches += 1
+    return theta, mom
+
+
+gossip_program_update.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Program-level glue: one decentralized SGD round over flat (G, P) buffers
+# ---------------------------------------------------------------------------
+
+@lru_cache(maxsize=64)
+def _device_tables(program, device):
+    """(srcs int32, weights float32, all-ones fault rows, host srcs) on
+    ``device``, cached per program: a step uploads nothing (and so never
+    waits on a host-to-device copy) once its program is known."""
+    tables = program.permute_tables()
+    if tables is None:
+        raise ValueError(
+            f"program {program.name!r} is not an all-PPermute single round; "
+            "fused apply supports permute programs only"
+        )
+    srcs, weights = tables
+    return (
+        torch.as_tensor(srcs, dtype=torch.int32, device=device),
+        torch.as_tensor(weights, dtype=torch.float32, device=device),
+        torch.ones(weights.shape, dtype=torch.float32, device=device),
+        srcs,
+    )
+
+
+def _fault_rows_stacked(fault, srcs: np.ndarray, n: int, device) -> torch.Tensor:
+    """(n, deg+1) kernel fault rows [update, edge_1..deg] from runtime masks
+    ``{"update": (n,), "alive": (n,), "link": (n, n) or None}``: edge k of
+    node i is up iff both endpoints are alive and the link survives."""
+    f32 = lambda v: torch.as_tensor(np.asarray(v), dtype=torch.float32, device=device)
+    idx = torch.as_tensor(srcs, dtype=torch.long, device=device)
+    af = f32(fault["alive"])
+    m = af[idx] * af[:, None]
+    link = fault.get("link")
+    if link is not None:
+        rows = torch.arange(n, device=device)[:, None]
+        m = m * f32(link)[rows, idx]
+    u = f32(fault["update"])
+    return torch.cat([u[:, None], m], dim=1).contiguous()
+
+
+def gossip_wire(theta, grad, mom, *, lr, beta, mix_order="post", update=None):
+    """The (G, P) buffer every node sends, in θ's dtype: the senders'
+    post-update θ* = θ − lr (β m + g) for ``mix_order="post"`` (a node with
+    ``update`` 0 sends its un-updated θ), a copy of θ for ``"pre"``.  Plain
+    torch in column chunks of ``WIRE_CHUNK``, as the reference computes it
+    in plain jnp."""
+    if mix_order != "post":
+        return theta.clone()
+    p = theta.shape[1]
+    wire = torch.empty_like(theta)
+    for a in range(0, p, WIRE_CHUNK):
+        b = min(a + WIRE_CHUNK, p)
+        step = mom[:, a:b] * beta
+        step.add_(grad[:, a:b])
+        if update is not None:
+            step.mul_(update)
+        wire[:, a:b].copy_(step.mul_(-lr).add_(theta[:, a:b]))
+    return wire
+
+
+def fused_apply_stacked(program, theta, grad, mom, *, lr, beta, fault=None,
+                        mix_order: str = "post"):
+    """One fused momentum-SGD + gossip round for a compiled PPermute program.
+
+    ``theta``/``grad`` (G, P) and ``mom`` (G, P) float32 — or None when the
+    optimizer keeps no momentum (beta == 0) — are flat state buffers;
+    ``theta`` and ``mom`` are updated IN PLACE and returned.  ``fault``
+    carries runtime masks (``{"update", "alive", "link"}``): straggling or
+    dead nodes skip the update, dropped edges renormalize onto self inside
+    the kernel.  Raises ``ValueError`` for programs with non-permute ops.
+    """
+    srcs_t, weights_t, ones_t, srcs_np = _device_tables(program, theta.device)
+    n, p = theta.shape
+    had_m = mom is not None
+    if not had_m:
+        mom = torch.zeros((n, p), dtype=torch.float32, device=theta.device)
+    fault_rows = ones_t if fault is None else _fault_rows_stacked(
+        fault, srcs_np, n, theta.device
+    )
+    lr, beta = float(lr), float(beta)
+    wire = gossip_wire(theta, grad, mom, lr=lr, beta=beta, mix_order=mix_order,
+                       update=None if fault is None else fault_rows[:, :1])
+    gossip_program_update(
+        theta, wire, srcs_t, weights_t, grad, mom,
+        lr=lr, beta=beta, fault=fault_rows, mix_order=mix_order,
+    )
+    return theta, (mom if had_m else None)

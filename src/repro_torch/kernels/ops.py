@@ -1,0 +1,35 @@
+"""Public wrappers of the port's kernels (the counterpart of
+``repro/kernels/ops.py``).
+
+Each wrapper launches its hand-written CUDA kernel for CUDA tensors and
+takes its plain twin for CPU tensors; there is no fallback from one to the
+other.  ``launch_counts``/``reset_launch_counts`` read and clear the
+per-kernel launch counters.
+"""
+from __future__ import annotations
+
+from repro_torch.kernels.gossip_update import fused_apply_stacked, gossip_program_update
+from repro_torch.kernels.stats import l2_norms, segment_l2_norms
+
+__all__ = [
+    "gossip_program_update",
+    "fused_apply_stacked",
+    "l2_norms",
+    "segment_l2_norms",
+    "launch_counts",
+    "reset_launch_counts",
+]
+
+_COUNTED = {
+    "gossip_program_update": gossip_program_update,
+    "segment_l2_norms": segment_l2_norms,
+}
+
+
+def launch_counts() -> dict[str, int]:
+    return {name: fn.launches for name, fn in _COUNTED.items()}
+
+
+def reset_launch_counts() -> None:
+    for fn in _COUNTED.values():
+        fn.launches = 0

@@ -1,0 +1,45 @@
+"""Plain-PyTorch oracles of the ported kernels: the counterpart of
+``repro/kernels/ref.py`` (the flash-attention oracle comes with kernel K4).
+
+Both are the kernels' plain twins under the reference's signatures, so
+the arithmetic lives in one place."""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.gossip_update import gossip_program_update_plain
+from repro_torch.kernels.stats import segment_l2_norms_plain
+
+__all__ = ["gossip_update_ref", "l2_norms_ref"]
+
+
+def gossip_update_ref(
+    theta: torch.Tensor,       # (P,) this node's post-backward params
+    neighbors: torch.Tensor,   # (deg, P) neighbor params (post their updates)
+    weights: torch.Tensor,     # (deg + 1,): [self, n_1, ..., n_deg]
+    grad: torch.Tensor,        # (P,)
+    momentum: torch.Tensor,    # (P,)
+    *,
+    lr: float,
+    beta: float,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fused decentralized-SGD apply for one node:
+
+      m'     = beta * m + g
+      theta* = theta - lr * m'          (local descent)
+      theta' = w_0 * theta* + sum_i w_i * n_i   (gossip average)
+
+    K1's twin on a one-node program whose wire rows are the neighbors."""
+    deg = neighbors.shape[0]
+    srcs = torch.arange(deg, dtype=torch.int32, device=theta.device)[None]
+    w = weights.float()[None]
+    new_t, new_m = gossip_program_update_plain(
+        theta[None], neighbors, srcs, w, grad[None], momentum[None],
+        lr=lr, beta=beta, fault=torch.ones_like(w),
+    )
+    return new_t[0], new_m[0]
+
+
+def l2_norms_ref(x: torch.Tensor) -> torch.Tensor:
+    """Row L2 norms of a (R, P) matrix -> (R,) float32 (DBench probe)."""
+    return segment_l2_norms_plain(x, (0, x.shape[1]))[:, 0]

@@ -1,0 +1,119 @@
+"""Shared model machinery: param definitions, norms, RoPE.
+
+The counterpart of ``repro/models/common.py``.  Parameters are declared as
+``ParamDef`` (shape, initializer, dtype); initializers draw from an explicit
+``torch.Generator`` (their bits differ from ``jax.random``'s — parity tests
+carry the reference's weights across instead).  Mesh partition specs are
+not ported: the port holds all gossip nodes on one card.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Callable
+
+import torch
+
+__all__ = [
+    "ParamDef",
+    "init_params",
+    "rms_norm",
+    "layer_norm",
+    "rope",
+    "apply_rope",
+    "he_normal",
+    "normal_init",
+    "zeros_init",
+    "ones_init",
+]
+
+
+# ---------------------------------------------------------------------------
+# Param declaration
+# ---------------------------------------------------------------------------
+
+# init(generator, shape, dtype, device) -> tensor
+Initializer = Callable[[torch.Generator, tuple, Any, Any], torch.Tensor]
+
+
+def _normal(gen, shape, dtype, device, std: float) -> torch.Tensor:
+    x = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
+    return x.mul_(std).to(dtype)
+
+
+def normal_init(stddev: float = 0.02) -> Initializer:
+    return lambda gen, shape, dtype, device: _normal(gen, shape, dtype, device, stddev)
+
+
+def he_normal(fan_in_axes: tuple[int, ...] = (-2,)) -> Initializer:
+    def init(gen, shape, dtype, device):
+        fan_in = 1
+        for a in fan_in_axes:
+            fan_in *= shape[a]
+        return _normal(gen, shape, dtype, device, math.sqrt(2.0 / max(fan_in, 1)))
+
+    return init
+
+
+def zeros_init() -> Initializer:
+    return lambda gen, shape, dtype, device: torch.zeros(shape, dtype=dtype, device=device)
+
+
+def ones_init() -> Initializer:
+    return lambda gen, shape, dtype, device: torch.ones(shape, dtype=dtype, device=device)
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamDef:
+    """Declaration of one weight tensor."""
+
+    shape: tuple[int, ...]
+    init: Initializer = normal_init()
+    dtype: Any = torch.float32
+
+
+def init_params(defs: dict[str, ParamDef], gen: torch.Generator, device) -> dict:
+    """Materialize a flat ParamDef dict into tensors, in the dict's order."""
+    return {k: d.init(gen, d.shape, d.dtype, device) for k, d in defs.items()}
+
+
+# ---------------------------------------------------------------------------
+# Normalization
+# ---------------------------------------------------------------------------
+
+def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    xf = x.float()
+    var = xf.square().mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * gamma.float()).to(x.dtype)
+
+
+def layer_norm(
+    x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, eps: float = 1e-5
+) -> torch.Tensor:
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, keepdim=True, unbiased=False)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * gamma.float() + beta.float()).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embeddings
+# ---------------------------------------------------------------------------
+
+def rope(positions: torch.Tensor, d_head: int, theta: float = 10000.0):
+    """(sin, cos) tables for ``positions`` (any leading shape) -> (..., d_head/2)."""
+    half = d_head // 2
+    exps = torch.arange(0, half, dtype=torch.float32, device=positions.device) / half
+    freqs = 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32), exps)
+    angles = positions.float()[..., None] * freqs
+    return torch.sin(angles), torch.cos(angles)
+
+
+def apply_rope(x: torch.Tensor, sin: torch.Tensor, cos: torch.Tensor) -> torch.Tensor:
+    """Rotate (..., S, H, Dh) by per-position (.., S, Dh/2) tables."""
+    half = x.shape[-1] // 2
+    x1, x2 = x[..., :half], x[..., half:]
+    sin = sin[..., None, :]  # broadcast over heads
+    cos = cos[..., None, :]
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)

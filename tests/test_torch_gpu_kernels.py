@@ -1,0 +1,85 @@
+"""The CUDA kernels against their plain twins, on the card.
+
+Marked ``gpu``: the ``cuda`` fixture skips every test on a machine without
+a CUDA device (the decision is taken when a test runs, never at import).
+On the card the kernels are built from ``src/repro_torch/kernels/csrc`` at
+first use.  Run them there with
+``PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu_kernels.py``.
+
+Tolerances: m' within 1e-6 relative (the same float32 expression; the
+kernels are built without multiply-add contraction); θ' within 2 ulps of its dtype (float32 or bfloat16
+rounding of a float32 accumulation); norms within rtol 1e-5 (float32 sums
+in a different order).
+"""
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.core import graphs  # noqa: E402
+from repro_torch.core.schedule import compile_graph  # noqa: E402
+from repro_torch.kernels.gossip_update import (  # noqa: E402
+    gossip_program_update, gossip_program_update_plain,
+)
+from repro_torch.kernels.stats import (  # noqa: E402
+    segment_l2_norms, segment_l2_norms_plain,
+)
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _ulp(x: torch.Tensor) -> torch.Tensor:
+    bits = 23 if x.dtype == torch.float32 else 7
+    mag = x.float().abs().clamp_min(torch.finfo(x.dtype).tiny)
+    return torch.exp2(torch.floor(torch.log2(mag)) - bits)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("p", [4096, 1003])  # vector path and ragged tail
+@pytest.mark.parametrize("mix_order", ["post", "pre"])
+@pytest.mark.parametrize("faulty", [False, True])
+def test_gossip_program_update_matches_twin(cuda, dtype, p, mix_order, faulty):
+    srcs_np, w_np = compile_graph(graphs.Star(6)).permute_tables()
+    n, deg = srcs_np.shape
+    gen = torch.Generator(device=cuda).manual_seed(p)
+    rnd = lambda *s: torch.randn(s, generator=gen, device=cuda)
+    theta, grad, wire = (rnd(n, p).to(dtype) for _ in range(3))
+    mom = rnd(n, p)
+    srcs = torch.as_tensor(srcs_np, device=cuda)
+    w = torch.as_tensor(w_np, device=cuda)
+    fault = torch.ones(n, deg + 1, device=cuda)
+    if faulty:
+        fault[1, 0] = 0.0   # one node skips its update
+        fault[0, 1] = 0.0   # one masked edge
+    kw = dict(lr=0.05, beta=0.9, fault=fault, mix_order=mix_order)
+    want_t, want_m = gossip_program_update_plain(theta, wire, srcs, w, grad, mom, **kw)
+    before = gossip_program_update.launches
+    got_t, got_m = gossip_program_update(theta, wire, srcs, w, grad, mom, **kw)
+    torch.cuda.synchronize()
+    assert gossip_program_update.launches == before + 1
+    assert got_t.data_ptr() == theta.data_ptr()  # in place
+    assert ((got_m - want_m).abs() <= 1e-6 * want_m.abs() + 1e-30).all()
+    assert ((got_t.float() - want_t.float()).abs() <= 2 * _ulp(want_t)).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("offsets", [(0, 8, 40000, 40000, 70008), (0, 3, 70001)])
+def test_segment_l2_norms_matches_twin(cuda, dtype, offsets):
+    gen = torch.Generator(device=cuda).manual_seed(len(offsets))
+    x = torch.randn((3, offsets[-1]), generator=gen, device=cuda).to(dtype)
+    want = segment_l2_norms_plain(x, offsets)
+    before = segment_l2_norms.launches
+    got = segment_l2_norms(x, offsets)
+    torch.cuda.synchronize()
+    assert segment_l2_norms.launches == before + 1
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=0)
+    again = segment_l2_norms(x, offsets)
+    assert torch.equal(got, again)  # deterministic: no float atomics
