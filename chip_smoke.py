@@ -29,7 +29,20 @@ Phases (any failure exits non-zero and prints no result line):
      on one leaf; then each kernel timed with CUDA events at the main
      path's shapes, beside its plain twin, its bound and (where one exists)
      a PyTorch library call;
-  7. the CLI, ``main(["--reduced", "--steps", "3", "--fused-apply"])``.
+  7. the CLI, ``main(["--reduced", "--steps", "3", "--fused-apply"])``;
+  8. K2 (the one-node fused gossip update of the ranks engine) against its
+     plain twin on one full-width row (P = 838,881,280, bfloat16 θ, g and
+     (2, P) landing buffer, float32 m): post and pre order, all-ones and
+     masked fault rows; then timed beside its twin and its bound;
+  9. the ranks engine: G = 4 ranks spawned on this machine (file-store
+     rendezvous) run phase 4's configuration for its first 3 steps from
+     the same seed-0 weights and batches, with NCCL and a card per rank on
+     a machine with ≥ 4 cards, else over gloo through pinned host buffers
+     on the one card.  Each rank's per-step losses and norms, and θ and m
+     on a seeded sample of 2^20 columns per leaf, are held against phase
+     4's row for that node (phase 5's tolerances); each rank zeroes its
+     launch counters just before its steps and must launch K2 once per
+     step.
 
 The last three lines of standard output are the card's name and power
 limit as nvidia-smi reports them, the per-kernel JSON, and the result
@@ -49,6 +62,9 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM memory rate (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12          # H100 SXM float32 rate outside the tensor cores
 
 G, SEQ, BATCH, LR, STEPS = 4, 512, 2, 1e-2, 4
+# phase 9: the ranks engine repeats the main path's first 3 steps; each rank
+# returns θ and m on up to SAMPLE seeded columns of every leaf
+RANK_STEPS, SAMPLE, RANK_TIMEOUT = STEPS - 1, 1 << 20, 600
 # columns per comparison chunk: bounds the float32 temporaries of a check
 # over a full (G, P) buffer to a few GiB beside the state
 TWIN_CHUNK = 1 << 26
@@ -105,12 +121,42 @@ def ring_tables(dev):
     return torch.as_tensor(srcs_np, device=dev), torch.as_tensor(w_np, device=dev)
 
 
+def against_twin(label, run, twin, p, theta, mom, variants):
+    """For each (order, fault name, kwargs) of ``variants``: ``run(kw)``
+    launches the kernel on ``theta``/``mom`` (clones of the inputs, updated
+    in place); ``twin(a, b, kw)`` gives the plain twin's (θ', m') for
+    columns a:b (the last axis), held against the kernel's chunk by chunk
+    (2^26 columns): m' within 1e-6 relative, θ' within 2 bfloat16 ulps.
+    Returns the max abs error."""
+    worst = 0.0
+    for order, fname, kw in variants:
+        t_out, m_out = theta(), mom()
+        run(t_out, m_out, kw)
+        err_t_max = err_m_max = 0.0
+        for a in range(0, p, TWIN_CHUNK):
+            b = min(a + TWIN_CHUNK, p)
+            want_t, want_m = twin(a, b, kw)
+            err_m = (m_out[..., a:b] - want_m).abs()
+            if not bool((err_m <= 1e-6 * want_m.abs()).all()):
+                fail(f"{label} {order} {fname}: m' differs from the twin by "
+                     f"{float(err_m.max()):.3e} in columns {a}:{b}")
+            err_t = (t_out[..., a:b].float() - want_t.float()).abs()
+            if not bool((err_t <= 2 * bf16_ulp(want_t)).all()):
+                fail(f"{label} {order} {fname}: theta' differs from the twin by more "
+                     f"than 2 bf16 ulps in columns {a}:{b} (max abs {float(err_t.max()):.3e})")
+            err_t_max = max(err_t_max, float(err_t.max()))
+            err_m_max = max(err_m_max, float(err_m.max()))
+            del want_t, want_m, err_m, err_t
+        del t_out, m_out
+        worst = max(worst, err_t_max, err_m_max)
+        log(f"{label} {order} {fname}: max|dtheta|={err_t_max:.3e} "
+            f"max|dm|={err_m_max:.3e} ok")
+    return worst
+
+
 def k1_against_twin(label, theta0, wire, srcs, w, grad, mom0):
-    """Launch K1 on clones of (theta0, mom0) over the whole (G, P) buffer,
-    then hold each 2^26-column chunk of its output against the plain twin
-    on the same inputs: post and pre order, all-ones and masked fault rows;
-    m' within 1e-6 relative, theta' within 2 bfloat16 ulps.  Returns the
-    max abs error."""
+    """K1 over the whole (G, P) buffer against its plain twin on the same
+    inputs: post and pre order, all-ones and masked fault rows."""
     import torch
     from repro_torch.kernels.gossip_update import (
         gossip_program_update, gossip_program_update_plain,
@@ -120,33 +166,53 @@ def k1_against_twin(label, theta0, wire, srcs, w, grad, mom0):
     masked = ones.clone()
     masked[1, 0] = 0.0   # node 1 skips its update
     masked[2, 1] = 0.0   # node 2 drops its first edge
-    p = theta0.shape[1]
-    worst = 0.0
-    for order, fault in (("post", ones), ("pre", ones), ("post", masked), ("pre", masked)):
-        kw = dict(lr=LR, beta=0.9, fault=fault, mix_order=order)
-        theta, mom = theta0.clone(), mom0.clone()
-        gossip_program_update(theta, wire, srcs, w, grad, mom, **kw)
-        err_t_max = err_m_max = 0.0
-        for a in range(0, p, TWIN_CHUNK):
-            b = min(a + TWIN_CHUNK, p)
-            want_t, want_m = gossip_program_update_plain(
-                theta0[:, a:b], wire[:, a:b], srcs, w, grad[:, a:b], mom0[:, a:b], **kw)
-            err_m = (mom[:, a:b] - want_m).abs()
-            if not bool((err_m <= 1e-6 * want_m.abs()).all()):
-                fail(f"K1 {label} {order}: m' differs from the twin by "
-                     f"{float(err_m.max()):.3e} in columns {a}:{b}")
-            err_t = (theta[:, a:b].float() - want_t.float()).abs()
-            if not bool((err_t <= 2 * bf16_ulp(want_t)).all()):
-                fail(f"K1 {label} {order}: theta' differs from the twin by more than "
-                     f"2 bf16 ulps in columns {a}:{b} (max abs {float(err_t.max()):.3e})")
-            err_t_max = max(err_t_max, float(err_t.max()))
-            err_m_max = max(err_m_max, float(err_m.max()))
-            del want_t, want_m, err_m, err_t
-        del theta, mom
-        worst = max(worst, err_t_max, err_m_max)
-        log(f"K1 {label} {order} {'masked' if fault is masked else 'all-ones'}: "
-            f"max|dtheta|={err_t_max:.3e} max|dm|={err_m_max:.3e} ok")
-    return worst
+    variants = [(order, fname, dict(lr=LR, beta=0.9, fault=fault, mix_order=order))
+                for fname, fault in (("all-ones", ones), ("masked", masked))
+                for order in ("post", "pre")]
+    return against_twin(
+        f"K1 {label}",
+        lambda t, m, kw: gossip_program_update(t, wire, srcs, w, grad, m, **kw),
+        lambda a, b, kw: gossip_program_update_plain(
+            theta0[:, a:b], wire[:, a:b], srcs, w, grad[:, a:b], mom0[:, a:b], **kw),
+        theta0.shape[1], theta0.clone, mom0.clone, variants,
+    )
+
+
+def k2_inputs(dev, p):
+    """One full-width node: θ, g (P,) and the (2, P) landing buffer in
+    bfloat16, m (P,) float32, and d_ring's weight row of node 0."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    theta0 = (torch.randn(p, generator=gen, device=dev) * 0.02).bfloat16()
+    grad = torch.randn(p, generator=gen, device=dev).bfloat16()
+    nbrs = (torch.randn((2, p), generator=gen, device=dev) * 0.02).bfloat16()
+    mom0 = torch.randn(p, generator=gen, device=dev)
+    w = ring_tables(dev)[1][0].contiguous()
+    return theta0, grad, nbrs, mom0, w
+
+
+def k2_against_twin(theta0, grad, nbrs, mom0, w):
+    """K2 on one full-width row against its plain twin: post and pre
+    order, the all-ones fault row and a masked one (u = 0, one edge
+    down).  Returns the max abs error."""
+    import torch
+    from repro_torch.kernels.gossip_update import gossip_update, gossip_update_plain
+
+    ones = torch.ones_like(w)
+    masked = ones.clone()
+    masked[0] = 0.0   # the node skips its update
+    masked[1] = 0.0   # and drops its first edge
+    variants = [(order, fname, dict(lr=LR, beta=0.9, fault=fault, mix_order=order))
+                for fname, fault in (("all-ones", ones), ("masked", masked))
+                for order in ("post", "pre")]
+    return against_twin(
+        "K2 full-width row",
+        lambda t, m, kw: gossip_update(t, nbrs, w, grad, m, **kw),
+        lambda a, b, kw: gossip_update_plain(
+            theta0[a:b], nbrs[:, a:b], w, grad[a:b], mom0[a:b], **kw),
+        theta0.shape[0], theta0.clone, mom0.clone, variants,
+    )
 
 
 def phase_k1_twin(dev):
@@ -299,7 +365,151 @@ def phase_k3_twin(dev, layout):
     return float(err.max())
 
 
+def sample_columns(layout, seed=4):
+    """Flat column indices of a fixed seeded sample of up to 2^20 columns
+    of every leaf."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    idx = [off + np.sort(rng.choice(size, min(SAMPLE, size), replace=False))
+           for off, size in zip(layout.offsets[:-1], layout.sizes)]
+    return np.concatenate(idx)
+
+
+def rank_run(comm, sample, steps):
+    """Phase 9 on one rank: the main path's trainer, engine ``ranks``, from
+    the same seed-0 weights and batches; the launch counters are zeroed
+    just before the steps and read just after.  Returns this rank's losses,
+    norms, θ and m on the sampled columns, step times, peak allocation and
+    launch counts."""
+    import numpy as np
+    import torch
+    from repro_torch.core.dsgd import make_topology
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import SPMDTrainer
+    from repro_torch.optim.sgd import sgd
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg, _ = granite_layout()
+    trainer = SPMDTrainer(cfg, make_topology("d_ring", G), sgd(momentum=0.9),
+                          collect_norms=True, fused_apply=True, device=comm.device)
+    if trainer.engine != "ranks":
+        raise RuntimeError(f"rank {comm.rank} runs the {trainer.engine} engine")
+    state = trainer.init_state(seed=0)
+    src = SyntheticLM(vocab=cfg.vocab, seq_len=SEQ, seed=0)
+    batches = [src.stacked(G, t, BATCH) for t in range(steps)]
+    torch.cuda.synchronize(comm.device)
+    torch.cuda.reset_peak_memory_stats(comm.device)
+    ops.reset_launch_counts()
+    step_ms, losses, norms = [], [], []
+    for t in range(steps):
+        t1 = time.perf_counter()
+        state, loss, nrm = trainer.train_step(state, batches[t], LR)
+        torch.cuda.synchronize(comm.device)
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        losses.append(float(loss[0]))
+        norms.append(nrm[0].cpu().numpy())
+    counts = ops.launch_counts()
+    idx = torch.as_tensor(sample, device=comm.device)
+    theta_s, mom_s = state.theta[0, idx].float().cpu().numpy(), state.mom[0, idx].cpu().numpy()
+    # where a rank's step goes: its forward/backward (all ranks at once on
+    # the card, as in a step), and one permute of a full-width row
+    own = {k: torch.as_tensor(v[comm.rank:comm.rank + 1], device=comm.device)
+           for k, v in batches[0].items()}
+    grad = torch.empty_like(state.theta)
+    t1 = time.perf_counter()
+    trainer._grads_into(state.theta, grad, own)
+    torch.cuda.synchronize(comm.device)
+    fwd_bwd_ms = (time.perf_counter() - t1) * 1e3
+    del grad
+    landing = torch.empty_like(state.theta[0])
+    perm = trainer.topology.program_at().ops[0].perm
+    t1 = time.perf_counter()
+    comm.permute(state.theta[0], perm, out=landing)
+    torch.cuda.synchronize(comm.device)
+    permute_ms = (time.perf_counter() - t1) * 1e3
+    return {
+        "transport": comm.transport, "device": str(comm.device), "step_ms": step_ms,
+        "fwd_bwd_ms": fwd_bwd_ms, "permute_ms": permute_ms,
+        "losses": np.array(losses), "norms": np.stack(norms),
+        "theta": theta_s, "mom": mom_s,
+        "peak_allocated_bytes": torch.cuda.max_memory_allocated(comm.device),
+        "launches": counts,
+    }
+
+
+def phase_ranks(layout, ref, sample):
+    """Spawn G ranks of the ranks engine (NCCL with a card per rank, else
+    gloo through pinned host chunks on the one card) and hold each rank's
+    per-step losses (rtol 1e-5), norms (rtol 1e-5), θ (2 bfloat16 ulps plus
+    2^-20 of the mixed terms Σ_k w_k |θ_k| over the node and its senders)
+    and m (1e-6 relative) on the sampled columns against the stacked run's
+    row for that node.  Any rank's failure, or a world that outlives
+    RANK_TIMEOUT, fails the phase.  Returns the phase's numbers."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.comm import spawn_world
+
+    t0 = time.perf_counter()
+    res = spawn_world(rank_run, G, (sample, RANK_STEPS), timeout=RANK_TIMEOUT)
+    wall = time.perf_counter() - t0
+    srcs, w = (a.cpu().numpy() for a in ring_tables(torch.device("cpu")))
+    ref_t = ref["theta"]
+    ulp = np.exp2(np.floor(np.log2(np.maximum(np.abs(ref_t), 2.0 ** -126))) - 7)
+    worst_ulps = worst_m = worst_loss = worst_norm = 0.0
+    for i, r in enumerate(res):
+        lrel = np.abs(r["losses"] - ref["losses"][:, i]) / np.abs(ref["losses"][:, i])
+        nrel = np.abs(r["norms"] - ref["norms"][:, i]) / np.abs(ref["norms"][:, i])
+        if not (lrel <= 1e-5).all() or not (nrel <= 1e-5).all():
+            fail(f"rank {i}: losses {r['losses'].tolist()} vs {ref['losses'][:, i].tolist()} "
+                 f"(rel {lrel.max():.3e}), norms rel {nrel.max():.3e}")
+        terms = w[i, 0] * np.abs(ref_t[i])
+        for k in range(srcs.shape[1]):
+            terms = terms + w[i, k + 1] * np.abs(ref_t[srcs[i, k]])
+        err_t = np.abs(r["theta"] - ref_t[i])
+        if not (err_t <= 2 * ulp[i] + 2.0 ** -20 * terms).all():
+            fail(f"rank {i}: theta differs from the stacked row by up to "
+                 f"{(err_t / ulp[i]).max():.2f} bf16 ulps")
+        err_m = np.abs(r["mom"] - ref["mom"][i])
+        if not (err_m <= 1e-6 * np.abs(ref["mom"][i])).all():
+            fail(f"rank {i}: m differs from the stacked row by {err_m.max():.3e}")
+        want = {"gossip_program_update": 0, "gossip_update": RANK_STEPS,
+                "segment_l2_norms": RANK_STEPS}
+        if r["launches"] != want:
+            fail(f"rank {i}: launch counts {r['launches']}, expected {want}")
+        worst_ulps = max(worst_ulps, float((err_t / ulp[i]).max()))
+        worst_m = max(worst_m, float(err_m.max()))
+        worst_loss = max(worst_loss, float(lrel.max()))
+        worst_norm = max(worst_norm, float(nrel.max()))
+    out = {
+        "ranks": G, "transport": res[0]["transport"],
+        "devices": [r["device"] for r in res],
+        "cards": torch.cuda.device_count(),
+        "step_ms": [r["step_ms"] for r in res],
+        "fwd_bwd_ms": [r["fwd_bwd_ms"] for r in res],
+        "permute_one_row_ms": [r["permute_ms"] for r in res],
+        "peak_allocated_bytes": [int(r["peak_allocated_bytes"]) for r in res],
+        "launches": {k: sum(r["launches"][k] for r in res) for k in res[0]["launches"]},
+        "max_theta_err_bf16_ulps": worst_ulps, "max_mom_abs_err": worst_m,
+        "max_loss_rel_err": worst_loss, "max_norm_rel_err": worst_norm,
+        "sampled_columns": int(sample.size), "wall_s": wall,
+    }
+    log(f"phase 9: {G} ranks over {out['transport']} on {out['cards']} card(s) "
+        f"({'one card per rank' if out['transport'] == 'nccl' else 'all ranks on one card; the transport is gloo through pinned host buffers, not NVLink'}): "
+        f"{RANK_STEPS} steps equal the stacked rows (theta within {worst_ulps:.3f} bf16 ulps, "
+        f"m within {worst_m:.3e}, losses {worst_loss:.3e}, norms {worst_norm:.3e} relative); "
+        f"K2 launches {out['launches']['gossip_update']}; step ms per rank "
+        f"{[[round(x, 1) for x in ms] for ms in out['step_ms']]} (forward/backward "
+        f"{[round(x, 1) for x in out['fwd_bwd_ms']]}, one permute of a full row "
+        f"{[round(x, 1) for x in out['permute_one_row_ms']]}); peak allocated per rank "
+        f"{[round(b / 2**30, 2) for b in out['peak_allocated_bytes']]} GiB; {wall:.1f}s")
+    return out
+
+
 def main():
+    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -314,7 +524,8 @@ def main():
     from repro_torch.data import SyntheticLM
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels.gossip_update import (
-        gossip_program_update, gossip_program_update_plain, gossip_wire,
+        gossip_program_update, gossip_program_update_plain, gossip_update,
+        gossip_update_plain, gossip_wire,
     )
     from repro_torch.kernels.stats import segment_l2_norms, segment_l2_norms_plain
     from repro_torch.launch.train import SPMDTrainer
@@ -354,27 +565,37 @@ def main():
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
-    step_ms, losses, snap, peak = [], [], None, 0
+    step_ms, losses, norm_hist, snap, peak = [], [], [], None, 0
     for t in range(STEPS):
         if t == STEPS - 1:
             peak = torch.cuda.max_memory_allocated()
-            snap = state.clone()   # the state phase 5 restarts from
+            snap = state.clone()   # the state phases 5 and 9 restart from / check
             torch.cuda.synchronize()
         t1 = time.perf_counter()
         state, loss, norms = trainer.train_step(state, batches[t], LR)
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t1) * 1e3)
         losses.append(loss.tolist())
+        norm_hist.append(norms.cpu().numpy())
         if not bool(torch.isfinite(loss).all()) or not bool(torch.isfinite(norms).all()):
             fail(f"step {t}: non-finite loss {loss.tolist()} or norms")
         if tuple(norms.shape) != (G, len(layout.names)):
             fail(f"norms shape {tuple(norms.shape)}")
         log(f"  step {t}: {step_ms[-1]:.1f} ms  loss {[round(x, 4) for x in loss.tolist()]}")
     counts = ops.launch_counts()
-    if counts != {"gossip_program_update": STEPS, "segment_l2_norms": STEPS}:
-        fail(f"main path launch counts {counts}, expected {STEPS} each")
+    if counts != {"gossip_program_update": STEPS, "gossip_update": 0,
+                  "segment_l2_norms": STEPS}:
+        fail(f"main path launch counts {counts}, expected {STEPS} of K1 and K3")
     log(f"phase 4: launches {counts}; peak allocated {peak / 2**30:.2f} GiB over "
         f"{STEPS - 1} steps")
+
+    # what phase 9's ranks must reproduce: the first RANK_STEPS steps
+    sample = sample_columns(layout)
+    idx = torch.as_tensor(sample, device=dev)
+    ref9 = {"losses": np.array(losses[:RANK_STEPS]), "norms": np.stack(norm_hist[:RANK_STEPS]),
+            "theta": snap.theta[:, idx].float().cpu().numpy(),
+            "mom": snap.mom[:, idx].cpu().numpy()}
+    del idx
 
     # 5. the same step without the fused kernel, from the main path's state
     # before its last step (launches from here on are not the main path's)
@@ -464,9 +685,37 @@ def main():
     after = ops.launch_counts()
     if not all(math.isfinite(x) for x in out["losses"]):
         fail(f"CLI losses {out['losses']}")
-    if any(after[k] - before[k] != 3 for k in after):
+    if {k: after[k] - before[k] for k in after} != {
+            "gossip_program_update": 3, "gossip_update": 0, "segment_l2_norms": 3}:
         fail(f"CLI launch counts {before} -> {after}")
     log(f"phase 7: CLI ran 3 steps, losses {[round(x, 4) for x in out['losses']]}")
+    del out
+    torch.cuda.empty_cache()
+
+    # 8. K2 against its twin on one full-width row, then timed
+    p_cols = layout.size
+    theta0, grad1, nbrs, mom0, w_row = k2_inputs(dev, p_cols)
+    err_k2 = k2_against_twin(theta0, grad1, nbrs, mom0, w_row)
+    k2 = dict(lr=LR, beta=0.9, fault=torch.ones_like(w_row), mix_order="post")
+    theta1, mom1 = theta0.clone(), mom0.clone()
+    k2_ms = cuda_ms(lambda: gossip_update(theta1, nbrs, w_row, grad1, mom1, **k2), 10)
+
+    def k2_plain():
+        for a in range(0, p_cols, TWIN_CHUNK):
+            b = min(a + TWIN_CHUNK, p_cols)
+            gossip_update_plain(theta1[a:b], nbrs[:, a:b], w_row, grad1[a:b], mom1[a:b], **k2)
+
+    k2_plain_ms = cuda_ms(k2_plain, 2)
+    deg2 = nbrs.shape[0]
+    k2_bytes = p_cols * (eb + eb + 4 + deg2 * eb) + p_cols * (eb + 4)  # θ g m nbrs in; θ' m' out
+    k2_ops = p_cols * (8 + 2 * deg2)
+    k2_bound = 1e3 * max(k2_bytes / HBM_BYTES_PER_S, k2_ops / F32_OPS_PER_S)
+    log(f"phase 8: K2 {k2_ms:.3f} ms (bound {k2_bound:.3f}, plain {k2_plain_ms:.3f})")
+    del theta0, grad1, nbrs, mom0, theta1, mom1
+    torch.cuda.empty_cache()
+
+    # 9. the ranks engine: G ranks on this machine, against phase 4's rows
+    ranks9 = phase_ranks(layout, ref9, sample)
 
     summary = {
         "card": smi,
@@ -476,6 +725,7 @@ def main():
         "peak_allocated_bytes": int(peak),
         "losses": losses,
         "breakdown": breakdown,
+        "ranks": ranks9,
     }
     log("summary " + json.dumps(summary))
     kernels = [
@@ -486,6 +736,16 @@ def main():
             "launches": counts["gossip_program_update"], "max_abs_err": err_k1,
             "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound,
             "bound_by": "bytes" if k1_bytes / HBM_BYTES_PER_S >= k1_ops / F32_OPS_PER_S
+            else "operations",
+            "library_ms": None,
+        },
+        {
+            "name": "gossip_update", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/gossip_update.cu",
+            "replaces": "src/repro/kernels/gossip_update.py:184",
+            "launches": ranks9["launches"]["gossip_update"], "max_abs_err": err_k2,
+            "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound,
+            "bound_by": "bytes" if k2_bytes / HBM_BYTES_PER_S >= k2_ops / F32_OPS_PER_S
             else "operations",
             "library_ms": None,
         },

@@ -24,6 +24,9 @@ the node axis (a tensor, or a dict of such tensors):
   * ``apply_dense``   — dense mixing-matrix einsum (the oracle).
   * ``apply_stacked`` — rolls / index gathers over the stacked axis.
 
+A third, ``apply_shard``, runs it on one rank's own values with one
+collective per op (the one-rank-per-node engine).
+
 ``compile_graph`` picks the cheapest faithful realization: circulant graph
 → one PPermute per offset; complete graph → AllReduce; any other
 ``EdgeGraph`` → an edge-colored program of ≤ Δ+1 per-node-weighted
@@ -234,6 +237,38 @@ class GossipProgram:
             return acc.to(x.dtype)
 
         return _tree_map(_mix, stacked)
+
+    def apply_shard(self, local, comm):
+        """Mixing on this rank's own values (a tensor, or a dict of them),
+        one collective per op over ``comm`` (``launch/comm.py``): PPermute
+        → ``permute``, AllReduce → ``pmean``, GatherRow → ``all_gather``
+        and this rank's row of W.  Per-node weights are selected by
+        ``comm.rank``; accumulation is float32, the result keeps the
+        input's dtype."""
+        if self.is_identity and self.self_weight == 1.0:
+            return local
+        if comm.world != self.n:
+            raise ValueError(f"program over {self.n} nodes on a world of {comm.world}")
+        i = comm.rank
+
+        def _here(weight):
+            # the float32 weight the stacked interpreter multiplies by
+            return float(np.float32(weight[i] if isinstance(weight, tuple) else weight))
+
+        def _mix(x):
+            xf = x.float().contiguous()
+            acc = _here(self.self_weight) * xf
+            for op in self.ops:
+                if isinstance(op, PPermute):
+                    acc = acc + _here(op.weight) * comm.permute(xf, op.perm)
+                elif isinstance(op, AllReduce):
+                    acc = acc + comm.pmean(xf.clone())
+                else:  # GatherRow
+                    row = torch.as_tensor(op.w[i], dtype=torch.float32, device=x.device)
+                    acc = acc + torch.einsum("g...,g->...", comm.all_gather(xf), row)
+            return acc.to(x.dtype)
+
+        return _tree_map(_mix, local)
 
 
 @lru_cache(maxsize=512)

@@ -35,15 +35,18 @@ _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 
 _VP, _LL, _INT, _F = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
+# source -> {C function: argument types}
 _SIGNATURES = {
-    "gossip_update": (
-        "repro_gossip_program_update",
-        [_INT, _INT, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _LL, _LL, _INT, _F, _F, _VP],
-    ),
-    "l2_norms": (
-        "repro_segment_l2_norms",
-        [_INT, _VP, _LL, _LL, _VP, _VP, _INT, _VP, _INT, _VP, _VP, _INT, _VP],
-    ),
+    "gossip_update": {
+        "repro_gossip_program_update":
+            [_INT, _INT, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _LL, _LL, _INT, _F, _F, _VP],
+        "repro_gossip_update":
+            [_INT, _INT, _VP, _VP, _VP, _VP, _VP, _VP, _LL, _INT, _F, _F, _VP],
+    },
+    "l2_norms": {
+        "repro_segment_l2_norms":
+            [_INT, _VP, _LL, _LL, _VP, _VP, _INT, _VP, _INT, _VP, _VP, _INT, _VP],
+    },
 }
 
 
@@ -78,10 +81,10 @@ def _start(name: str):
 
 def _bind(name: str) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(_target(name)))
-    fn_name, argtypes = _SIGNATURES[name]
-    fn = getattr(lib, fn_name)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
+    for fn_name, argtypes in _SIGNATURES[name].items():
+        fn = getattr(lib, fn_name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
     return lib
 
 

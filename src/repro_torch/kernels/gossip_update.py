@@ -1,30 +1,37 @@
-"""Fused gossip apply (kernel K1): momentum-SGD step + weighted neighbor mix.
+"""Fused gossip apply (kernels K1 and K2): momentum-SGD step + weighted
+neighbor mix.
 
-The counterpart of ``repro/kernels/gossip_update.py::gossip_program_update``
-and its glue ``fused_apply_stacked``.  Per node i and element p:
+The counterpart of ``repro/kernels/gossip_update.py``:
+``gossip_program_update`` (K1) with its glue ``fused_apply_stacked`` runs
+over all G stacked nodes; ``gossip_update`` (K2) with its glue
+``fused_apply_shard`` runs over one rank's own node.  Per node i and
+element p:
 
     m'  = u (beta m + g) + (1 - u) m
     w0' = w0 + Σ_k (1 - f_k) w_k
-    post: θ' = w0' (θ - lr u m') + Σ_k f_k w_k wire[srcs[i, k], p]
-    pre:  θ' = w0' θ + Σ_k f_k w_k wire[srcs[i, k], p] - lr u m'
+    post: θ' = w0' (θ - lr u m') + Σ_k f_k w_k n_k[p]
+    pre:  θ' = w0' θ + Σ_k f_k w_k n_k[p] - lr u m'
 
 with the per-node weight row w, fault row f = [u, edge_1..edge_deg] and
-``srcs`` from the program's ``permute_tables``.
+neighbour rows n_k: ``wire[srcs[i, k]]`` for K1 (``srcs`` from the
+program's ``permute_tables``), row k of the permute landing buffer for K2.
 
 State layout: the port holds the stacked state as flat (G, P) buffers
 (``core/flat.py``).  The reference concatenates θ, g and m into fresh
 (n, P) matrices, pads them to a block multiple and gathers an (n, deg, P)
 neighbor copy; at granite-8b width that glue alone would not fit beside
-the state on one card.  Here the kernel reads neighbor rows straight from
-the (G, P) wire through ``srcs``, masks the ragged tail itself, and writes
+the state on one card.  Here K1 reads neighbor rows straight from the
+(G, P) wire through ``srcs``, masks the ragged tail itself, and writes
 θ' and m' IN PLACE into the state buffers.  The only transient is the
 wire: the senders' post-update θ* for ``mix_order="post"``, a copy of θ
 for ``"pre"`` (the in-place update must not overwrite rows that other
-nodes still read).
+nodes still read).  A rank sends its own θ* (or, for ``"pre"``, θ itself:
+the landing buffer is filled before K2 writes θ) and K2 updates its (P,)
+row in place.
 
-``gossip_program_update`` launches the CUDA kernel (``csrc/gossip_update.cu``)
-on CUDA tensors and counts each launch in ``gossip_program_update.launches``;
-for CPU tensors it takes the plain twin ``gossip_program_update_plain``.
+Each wrapper launches its CUDA kernel (``csrc/gossip_update.cu``) on CUDA
+tensors and counts each launch in its ``launches``; for CPU tensors it
+takes its plain twin (``*_plain``).
 """
 from __future__ import annotations
 
@@ -39,8 +46,11 @@ from repro_torch.kernels import _build
 __all__ = [
     "gossip_program_update",
     "gossip_program_update_plain",
+    "gossip_update",
+    "gossip_update_plain",
     "gossip_wire",
     "fused_apply_stacked",
+    "fused_apply_shard",
 ]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -80,21 +90,9 @@ def gossip_program_update_plain(theta, wire, srcs, weights, grad, mom, *,
     return acc.to(theta.dtype), m_new
 
 
-def _check(theta, wire, srcs, weights, grad, mom, fault):
-    if theta.dim() != 2:
-        raise ValueError(f"theta must be (G, P), got shape {tuple(theta.shape)}")
-    g, p = theta.shape
-    if theta.dtype not in _DTYPES:
-        raise TypeError(f"theta dtype {theta.dtype} not supported (float32, bfloat16)")
-    deg = srcs.shape[1] if srcs.dim() == 2 else -1
-    want = {
-        "wire": (wire, (g, p), theta.dtype),
-        "grad": (grad, (g, p), theta.dtype),
-        "mom": (mom, (g, p), torch.float32),
-        "srcs": (srcs, (g, deg), torch.int32),
-        "weights": (weights, (g, deg + 1), torch.float32),
-        "fault": (fault, (g, deg + 1), torch.float32),
-    }
+def _check_operands(theta, want: dict) -> None:
+    """``want``: name -> (tensor, shape, dtype); all on θ's device and
+    contiguous."""
     for name, (t, shape, dtype) in want.items():
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} must have shape {shape}, got {tuple(t.shape)}")
@@ -105,11 +103,35 @@ def _check(theta, wire, srcs, weights, grad, mom, fault):
     for name, t in {"theta": theta, **{n: v[0] for n, v in want.items()}}.items():
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    nbytes = wire.numel() * wire.element_size()
+
+
+def _check_disjoint(nbrs_name, nbrs, theta, mom) -> None:
+    """The in-place update must not overwrite the neighbour rows it reads."""
+    nbytes = nbrs.numel() * nbrs.element_size()
     for name, t in (("theta", theta), ("mom", mom)):
         lo, hi = t.data_ptr(), t.data_ptr() + t.numel() * t.element_size()
-        if lo < wire.data_ptr() + nbytes and wire.data_ptr() < hi:
-            raise ValueError(f"wire overlaps {name}: the in-place update needs its own buffer")
+        if lo < nbrs.data_ptr() + nbytes and nbrs.data_ptr() < hi:
+            raise ValueError(
+                f"{nbrs_name} overlaps {name}: the in-place update needs its own buffer"
+            )
+
+
+def _check(theta, wire, srcs, weights, grad, mom, fault):
+    if theta.dim() != 2:
+        raise ValueError(f"theta must be (G, P), got shape {tuple(theta.shape)}")
+    g, p = theta.shape
+    if theta.dtype not in _DTYPES:
+        raise TypeError(f"theta dtype {theta.dtype} not supported (float32, bfloat16)")
+    deg = srcs.shape[1] if srcs.dim() == 2 else -1
+    _check_operands(theta, {
+        "wire": (wire, (g, p), theta.dtype),
+        "grad": (grad, (g, p), theta.dtype),
+        "mom": (mom, (g, p), torch.float32),
+        "srcs": (srcs, (g, deg), torch.int32),
+        "weights": (weights, (g, deg + 1), torch.float32),
+        "fault": (fault, (g, deg + 1), torch.float32),
+    })
+    _check_disjoint("wire", wire, theta, mom)
 
 
 def gossip_program_update(theta, wire, srcs, weights, grad, mom, *,
@@ -150,6 +172,71 @@ def gossip_program_update(theta, wire, srcs, weights, grad, mom, *,
 
 
 gossip_program_update.launches = 0
+
+
+def gossip_update_plain(theta, nbrs, weights, grad, mom, *, lr, beta, fault,
+                        mix_order="post"):
+    """The plain twin of K2: returns new (θ', m') and leaves its inputs alone.
+
+    theta/grad (P,); mom (P,) float32; nbrs (deg, P) in θ's dtype;
+    weights/fault (deg+1,) float32.  K1's twin on one node whose wire rows
+    are the neighbours."""
+    deg = nbrs.shape[0]
+    srcs = torch.arange(deg, dtype=torch.int32, device=theta.device)[None]
+    new_t, new_m = gossip_program_update_plain(
+        theta[None], nbrs, srcs, weights[None], grad[None], mom[None],
+        lr=lr, beta=beta, fault=fault[None], mix_order=mix_order,
+    )
+    return new_t[0], new_m[0]
+
+
+def gossip_update(theta, nbrs, weights, grad, mom, *, lr, beta, fault,
+                  mix_order="post"):
+    """K2 over one node; updates ``theta`` and ``mom`` IN PLACE and returns
+    them.  Arguments as in ``gossip_update_plain``.  Asynchronous on the
+    current stream, as K1."""
+    if mix_order not in ("post", "pre"):
+        raise ValueError(f"mix_order must be 'post'|'pre', got {mix_order!r}")
+    if theta.dim() != 1:
+        raise ValueError(f"theta must be (P,), got shape {tuple(theta.shape)}")
+    if theta.dtype not in _DTYPES:
+        raise TypeError(f"theta dtype {theta.dtype} not supported (float32, bfloat16)")
+    (p,) = theta.shape
+    deg = nbrs.shape[0] if nbrs.dim() == 2 else -1
+    _check_operands(theta, {
+        "nbrs": (nbrs, (deg, p), theta.dtype),
+        "grad": (grad, (p,), theta.dtype),
+        "mom": (mom, (p,), torch.float32),
+        "weights": (weights, (deg + 1,), torch.float32),
+        "fault": (fault, (deg + 1,), torch.float32),
+    })
+    _check_disjoint("nbrs", nbrs, theta, mom)
+    if theta.device.type == "cpu":
+        new_t, new_m = gossip_update_plain(
+            theta, nbrs, weights, grad, mom,
+            lr=lr, beta=beta, fault=fault, mix_order=mix_order,
+        )
+        theta.copy_(new_t)
+        mom.copy_(new_m)
+        return theta, mom
+    if theta.device.type != "cuda":
+        raise ValueError(f"unsupported device {theta.device}")
+    fn = _build.load("gossip_update").repro_gossip_update
+    with torch.cuda.device(theta.device):
+        stream = torch.cuda.current_stream(theta.device).cuda_stream
+        err = fn(
+            _DTYPES[theta.dtype], int(mix_order == "pre"), theta.data_ptr(),
+            nbrs.data_ptr(), grad.data_ptr(), mom.data_ptr(), weights.data_ptr(),
+            fault.data_ptr(), p, deg,
+            ctypes.c_float(float(lr)), ctypes.c_float(float(beta)), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"gossip_update kernel launch failed: CUDA error {err}")
+    gossip_update.launches += 1
+    return theta, mom
+
+
+gossip_update.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -238,4 +325,45 @@ def fused_apply_stacked(program, theta, grad, mom, *, lr, beta, fault=None,
         theta, wire, srcs_t, weights_t, grad, mom,
         lr=lr, beta=beta, fault=fault_rows, mix_order=mix_order,
     )
+    return theta, (mom if had_m else None)
+
+
+def fused_apply_shard(program, theta, grad, mom, comm, *, lr, beta, fault=None,
+                      mix_order: str = "post"):
+    """The one-rank-per-node twin of ``fused_apply_stacked``: one fused
+    momentum-SGD + gossip round on this rank's flat (P,) buffers.
+
+    ``theta``/``grad`` (P,) and ``mom`` (P,) float32 (or None when the
+    optimizer keeps no momentum); ``theta`` and ``mom`` are updated IN
+    PLACE and returned.  The rank computes its wire (θ* for ``"post"``, θ
+    for ``"pre"``) as the reference's glue does, runs one ``comm.permute``
+    per compiled permute into a (deg, P) landing buffer (a rank that idles
+    in a round receives zeros, matching the zero weight in its row), then
+    K2 with its own weight and fault rows.  ``fault`` carries the runtime
+    masks ``{"update", "alive", "link"}`` of all nodes; this rank takes its
+    row.  Raises ``ValueError`` for programs with non-permute ops."""
+    srcs_t, weights_t, ones_t, srcs_np = _device_tables(program, theta.device)
+    n, deg = srcs_np.shape
+    if comm.world != n:
+        raise ValueError(f"program over {n} nodes on a world of {comm.world}")
+    i = comm.rank
+    (p,) = theta.shape
+    had_m = mom is not None
+    if not had_m:
+        mom = torch.zeros(p, dtype=torch.float32, device=theta.device)
+    frow = ones_t[i] if fault is None else _fault_rows_stacked(
+        fault, srcs_np, n, theta.device
+    )[i]
+    lr, beta = float(lr), float(beta)
+    if mix_order == "post":
+        wire = gossip_wire(theta[None], grad[None], mom[None], lr=lr, beta=beta,
+                           update=None if fault is None else frow[None, :1])[0]
+    else:
+        wire = theta
+    landing = torch.empty((deg, p), dtype=theta.dtype, device=theta.device)
+    for k, op in enumerate(program.ops):
+        comm.permute(wire, op.perm, out=landing[k])
+    del wire
+    gossip_update(theta, landing, weights_t[i], grad, mom,
+                  lr=lr, beta=beta, fault=frow, mix_order=mix_order)
     return theta, (mom if had_m else None)

@@ -8,12 +8,16 @@ per-kernel launch counters.
 """
 from __future__ import annotations
 
-from repro_torch.kernels.gossip_update import fused_apply_stacked, gossip_program_update
+from repro_torch.kernels.gossip_update import (
+    fused_apply_shard, fused_apply_stacked, gossip_program_update, gossip_update,
+)
 from repro_torch.kernels.stats import l2_norms, segment_l2_norms
 
 __all__ = [
     "gossip_program_update",
+    "gossip_update",
     "fused_apply_stacked",
+    "fused_apply_shard",
     "l2_norms",
     "segment_l2_norms",
     "launch_counts",
@@ -22,6 +26,7 @@ __all__ = [
 
 _COUNTED = {
     "gossip_program_update": gossip_program_update,
+    "gossip_update": gossip_update,
     "segment_l2_norms": segment_l2_norms,
 }
 

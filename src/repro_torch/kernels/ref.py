@@ -7,7 +7,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.gossip_update import gossip_program_update_plain
+from repro_torch.kernels.gossip_update import gossip_update_plain
 from repro_torch.kernels.stats import segment_l2_norms_plain
 
 __all__ = ["gossip_update_ref", "l2_norms_ref"]
@@ -29,15 +29,10 @@ def gossip_update_ref(
       theta* = theta - lr * m'          (local descent)
       theta' = w_0 * theta* + sum_i w_i * n_i   (gossip average)
 
-    K1's twin on a one-node program whose wire rows are the neighbors."""
-    deg = neighbors.shape[0]
-    srcs = torch.arange(deg, dtype=torch.int32, device=theta.device)[None]
-    w = weights.float()[None]
-    new_t, new_m = gossip_program_update_plain(
-        theta[None], neighbors, srcs, w, grad[None], momentum[None],
-        lr=lr, beta=beta, fault=torch.ones_like(w),
-    )
-    return new_t[0], new_m[0]
+    K2's twin with the all-ones fault row."""
+    w = weights.float()
+    return gossip_update_plain(theta, neighbors, w, grad, momentum,
+                               lr=lr, beta=beta, fault=torch.ones_like(w))
 
 
 def l2_norms_ref(x: torch.Tensor) -> torch.Tensor:

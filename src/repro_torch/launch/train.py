@@ -1,47 +1,61 @@
 """Decentralized training engine and CLI: the counterpart of
 ``repro/launch/train.py``.
 
-``SPMDTrainer`` is the reference's *stacked* realization with all G gossip
-nodes held on one card.  The state is three flat (G, P) buffers
-(``core/flat.py``) in the reference's leaf order — parameters (model dtype),
-gradients (model dtype) and momentum (float32) — and every node's
-parameters are views into them.  One iteration (paper §2.1 order):
+``SPMDTrainer`` has the reference's two realizations of one step:
+
+* **stacked** — all G gossip nodes on one card (the reference's GSPMD
+  engine);
+* **ranks** — one ``torch.distributed`` rank per node (the reference's
+  shard_map engine, ``_node_step``), taken as the reference takes
+  shard_map: whenever a process group of world size G > 1 is up.  The
+  collectives go through ``launch/comm.py``: NCCL with a card per rank,
+  gloo through pinned host chunks on a machine with fewer cards, gloo on
+  the CPU when asked.
+
+The state is flat (rows, P) buffers (``core/flat.py``) in the reference's
+leaf order — parameters (model dtype), gradients (model dtype) and
+momentum (float32) — with rows = G stacked, 1 (the rank's own node) for
+ranks; every node's parameters are views into them.  One iteration
+(paper §2.1 order):
 
   1. per-node forward and backward, one node at a time (only one node's
      activations are alive), into the gradient buffer;
   2. the DBench probe: per-leaf L2 norms *before* mixing (kernel K3);
-  3. c_complete: average gradients over the nodes;
+  3. c_complete: average gradients over the nodes (ranks: ``pmean``);
      d_*: local momentum-SGD update and gossip mixing θ ← Wθ through the
      step's compiled ``GossipProgram``.
 
 With ``fused_apply`` an all-PPermute program runs update and mixing as one
-pass of kernel K1 (``kernels/gossip_update.py``), in place on the state
-buffers; programs with AllReduce or GatherRow ops (the complete graph,
+pass of a fused kernel (``kernels/gossip_update.py``) in place on the
+state buffers: K1 over the stacked nodes, K2 on a rank after one permute
+per op; programs with AllReduce or GatherRow ops (the complete graph,
 ``mixing="dense"``) and non-mixing steps take the interpreter, exactly as
 the reference does.  Without it the optimizer and the program's stacked
-interpreter run leaf by leaf, which keeps their float32 temporaries to one
-leaf at a time.
+(or, for ranks, shard) interpreter run leaf by leaf, which keeps their
+float32 temporaries to one leaf at a time.
 
-The multi-card trainer (one rank per node over NCCL), faults, buckets,
-checkpoints, telemetry, closed-loop Ada and multi-round fusion are later
-slices; the CLI rejects their flags and names the ROADMAP step that brings
-each.
+Faults, buckets, checkpoints, telemetry, closed-loop Ada and multi-round
+fusion are later slices; the CLI rejects their flags and names the ROADMAP
+step that brings each.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+import os
 import time
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import dbench
 from repro_torch.core.dsgd import Topology
 from repro_torch.core.flat import FlatLayout
 from repro_torch.core.schedule import GossipProgram, compile_graph, dense_program
 from repro_torch.device import resolve_device
-from repro_torch.kernels.gossip_update import fused_apply_stacked
+from repro_torch.kernels.gossip_update import fused_apply_shard, fused_apply_stacked
+from repro_torch.launch.comm import Comm, rank_device
 from repro_torch.models import transformer as tfm
 from repro_torch.optim.sgd import Optimizer
 
@@ -50,10 +64,10 @@ __all__ = ["SPMDTrainer", "TrainState", "main"]
 
 @dataclasses.dataclass
 class TrainState:
-    """Gossip-stacked training state as flat buffers."""
+    """Training state as flat buffers: G rows stacked, one row on a rank."""
 
-    theta: torch.Tensor            # (G, P) parameters, model dtype
-    mom: Optional[torch.Tensor]    # (G, P) float32 momentum; None without momentum
+    theta: torch.Tensor            # (rows, P) parameters, model dtype
+    mom: Optional[torch.Tensor]    # (rows, P) float32 momentum; None without momentum
     step: int = 0
 
     def clone(self) -> "TrainState":
@@ -65,7 +79,8 @@ class TrainState:
 
 
 class SPMDTrainer:
-    """Runs the decentralized train step for one (arch × topology) on one card."""
+    """Runs the decentralized train step for one (arch × topology): all
+    nodes on one card, or this rank's node when a process group is up."""
 
     def __init__(
         self,
@@ -81,9 +96,12 @@ class SPMDTrainer:
     ):
         """mix_every: gossip once every H optimizer steps (the H−1 local
         steps run no mixing).  fused_apply: run optimizer update + gossip
-        averaging as one pass of kernel K1 whenever the step's program is
-        all-PPermute; requires plain momentum-SGD.  ``device``: the card by
-        default; ``"cpu"`` runs every kernel's plain twin."""
+        averaging as one pass of a fused kernel (K1 stacked, K2 on a rank)
+        whenever the step's program is all-PPermute; requires plain momentum-SGD.  ``device``: the current
+        card by default; ``"cpu"`` runs every kernel's plain twin.  With an
+        initialised process group of world size > 1 the trainer is one rank
+        of the ranks engine, which raises unless the world size equals the
+        topology's node count."""
         if mixing not in ("ppermute", "dense"):
             raise ValueError(f"mixing must be 'ppermute'|'dense', got {mixing!r}")
         hyper = optimizer.hyper or {}
@@ -107,6 +125,16 @@ class SPMDTrainer:
         self.mix_every = max(int(mix_every), 1)
         self.g = topology.n_nodes
         self.device = resolve_device(device)
+        self.comm = None
+        if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
+            self.comm = Comm(self.device)
+            if self.comm.world != self.g:
+                raise ValueError(
+                    f"topology has {self.g} nodes but the process group has "
+                    f"{self.comm.world} ranks"
+                )
+        self.engine = "stacked" if self.comm is None else "ranks"
+        self.rows = self.g if self.comm is None else 1
         self.defs = tfm.model_defs(cfg)
         self.layout = FlatLayout.from_shapes({k: d.shape for k, d in self.defs.items()})
 
@@ -147,7 +175,7 @@ class SPMDTrainer:
             gen = torch.Generator(device=self.device)
             gen.manual_seed(seed)
             params = tfm.init_model(self.cfg, gen, self.device)
-        theta = torch.empty((self.g, self.layout.size), dtype=self.cfg.dtype,
+        theta = torch.empty((self.rows, self.layout.size), dtype=self.cfg.dtype,
                             device=self.device)
         for name, view in self.layout.views(theta[0]).items():
             if tuple(params[name].shape) != tuple(view.shape):
@@ -155,21 +183,22 @@ class SPMDTrainer:
                     f"{name}: shape {tuple(params[name].shape)} != {tuple(view.shape)}"
                 )
             view.copy_(params[name])
-        theta[1:].copy_(theta[:1].expand(self.g - 1, -1))
+        theta[1:].copy_(theta[:1].expand(self.rows - 1, -1))
         mom = None
         if self.beta != 0.0:
             mom = torch.zeros(theta.shape, dtype=torch.float32, device=self.device)
         return TrainState(theta, mom, 0)
 
     def stacked_params(self, state: TrainState) -> dict[str, torch.Tensor]:
-        """(G, ...) views of every leaf of the state's parameters."""
+        """(rows, ...) views of every leaf of the state's parameters."""
         return self.layout.stacked_views(state.theta)
 
     # -- the step ------------------------------------------------------------------
     def _grads_into(self, theta, grad, batch) -> torch.Tensor:
-        """Per-node loss and gradients, one node at a time; returns (G,) losses."""
-        losses = torch.empty(self.g, dtype=torch.float32, device=self.device)
-        for i in range(self.g):
+        """Per-node loss and gradients, one node (row) at a time; returns
+        (rows,) losses."""
+        losses = torch.empty(self.rows, dtype=torch.float32, device=self.device)
+        for i in range(self.rows):
             params = {
                 k: v.detach().requires_grad_()
                 for k, v in self.layout.views(theta[i]).items()
@@ -181,9 +210,14 @@ class SPMDTrainer:
             losses[i] = loss.detach()
         return losses
 
+    def _mix(self, program: GossipProgram, x: torch.Tensor) -> torch.Tensor:
+        if self.comm is None:
+            return program.apply_stacked(x)
+        return program.apply_shard(x, self.comm)
+
     def _interpreted_update(self, state: TrainState, grad, lr, program) -> None:
-        """Optimizer update + program interpreter, leaf by leaf, written back
-        into the state buffers."""
+        """Optimizer update + program interpreter (stacked, or shard on a
+        rank), leaf by leaf, written back into the state buffers."""
         order = self.topology.mix_order
         p_views = self.layout.stacked_views(state.theta)
         g_views = self.layout.stacked_views(grad)
@@ -191,7 +225,7 @@ class SPMDTrainer:
         for name in self.layout.names:
             p = p_views[name]
             if order == "pre" and program is not None:
-                p_in = program.apply_stacked(p)
+                p_in = self._mix(program, p)
             else:
                 p_in = p
             m_in = () if m_views is None else {name: m_views[name]}
@@ -200,16 +234,18 @@ class SPMDTrainer:
             )
             out = new_p[name]
             if order == "post" and program is not None:
-                out = program.apply_stacked(out)
+                out = self._mix(program, out)
             p.copy_(out)
             if m_views is not None:
                 m_views[name].copy_(new_m[name])
 
     def train_step(self, state: TrainState, batch, lr: float, *, epoch: int = 0):
         """One iteration; updates the state's buffers in place and returns
-        ``(state, losses (G,), norms (G, n_leaves))``.  ``batch`` holds
-        (G, B, S) token arrays (numpy or tensors)."""
-        batch = {k: torch.as_tensor(v, device=self.device) for k, v in batch.items()}
+        ``(state, losses (rows,), norms (rows, n_leaves))``: every node's
+        stacked, this rank's own on a rank.  ``batch`` holds (G, B, S)
+        token arrays (numpy or tensors); a rank moves only its own row."""
+        own = slice(None) if self.comm is None else slice(self.comm.rank, self.comm.rank + 1)
+        batch = {k: torch.as_tensor(v[own], device=self.device) for k, v in batch.items()}
         topo = self.topology
         mix = (state.step + 1) % self.mix_every == 0
         # time-varying schedules advance per gossip round, not per raw step
@@ -223,13 +259,23 @@ class SPMDTrainer:
             norms = (
                 dbench.param_l2_norms(state.theta, self.layout)
                 if self.collect_norms
-                else torch.zeros((self.g, 0), dtype=torch.float32, device=self.device)
+                else torch.zeros((self.rows, 0), dtype=torch.float32, device=self.device)
             )
             if topo.centralized:
-                # C_complete: average gradients globally; replicas stay identical
+                # C_complete: average gradients globally (float32, leaf by
+                # leaf); replicas stay identical
                 for g in self.layout.stacked_views(grad).values():
-                    g.copy_(g.float().mean(dim=0, keepdim=True).to(g.dtype).expand_as(g))
-            if self._use_fused(program):
+                    if self.comm is None:
+                        g.copy_(g.float().mean(dim=0, keepdim=True).to(g.dtype).expand_as(g))
+                    else:
+                        g.copy_(self.comm.pmean(g.float().contiguous()))
+            if self._use_fused(program) and self.comm is not None:
+                fused_apply_shard(
+                    program, state.theta[0], grad[0],
+                    None if state.mom is None else state.mom[0], self.comm,
+                    lr=lr, beta=self.beta, mix_order=topo.mix_order,
+                )
+            elif self._use_fused(program):
                 fused_apply_stacked(
                     program, state.theta, grad, state.mom,
                     lr=lr, beta=self.beta, mix_order=topo.mix_order,
@@ -289,7 +335,8 @@ def _parser():
     ap.add_argument("--lr-scaling", default="sqrt", choices=["none", "linear", "sqrt"])
     ap.add_argument("--optimizer", default="sgd", choices=["sgd", "adamw", "lars"])
     ap.add_argument("--mesh", default="4,1",
-                    help="data,model: G gossip nodes on one card; model must be 1")
+                    help="data,model: G gossip nodes (on one card, or one per "
+                         "rank under torch.distributed.run); model must be 1")
     ap.add_argument("--ckpt-dir", default="")
     ap.add_argument("--ckpt-every", type=int, default=0)
     ap.add_argument("--resume", action="store_true")
@@ -322,15 +369,29 @@ def _unsupported(args) -> list[str]:
     return out
 
 
+def _join_group(device):
+    """Under ``torch.distributed.run`` (WORLD_SIZE > 1 in the environment)
+    join the process group: the rank's own card over NCCL when the machine
+    has a card per rank, the one card over gloo-host when it has fewer, the
+    CPU over gloo when ``device="cpu"``.  Returns (device, whether this
+    call initialised the group)."""
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world <= 1 or dist.is_initialized():
+        return resolve_device(device), False
+    local = int(os.environ.get("LOCAL_RANK", "0"))
+    local_world = int(os.environ.get("LOCAL_WORLD_SIZE", str(world)))
+    dev, backend = rank_device(local, local_world, device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    dist.init_process_group(backend)
+    return dev, True
+
+
 def main(argv=None, *, device=None) -> dict:
     """Run the CLI; ``device`` (a keyword, not a flag) selects the CPU for
-    tests.  Returns ``{"losses": [mean loss per step], "trainer", "state"}``."""
-    from repro_torch.configs import get_config
-    from repro_torch.core.dsgd import make_topology
-    from repro_torch.data import SyntheticLM
-    from repro_torch.optim.schedules import lr_scale
-    from repro_torch.optim.sgd import get_optimizer
-
+    tests.  Under ``torch.distributed.run --nproc-per-node G`` every process
+    is one rank of the ranks engine.  Returns ``{"losses": [mean loss over
+    the nodes per step], "trainer", "state"}``."""
     args = _parser().parse_args(argv)
     rejected = _unsupported(args)
     try:
@@ -343,14 +404,10 @@ def main(argv=None, *, device=None) -> dict:
     if tp != 1:
         rejected.append(
             f"--mesh {args.mesh}: a model axis > 1 (tensor parallelism inside a "
-            "node) comes after ROADMAP queue 1 step 13; the multi-card "
-            "one-rank-per-node trainer is step 9"
+            "node) comes after ROADMAP queue 1 step 13"
         )
     if rejected:
         raise SystemExit("not ported yet:\n  " + "\n  ".join(rejected))
-    dev = resolve_device(device)
-    cfg = get_config(args.arch + ("-reduced" if args.reduced or dev.type == "cpu" else ""))
-    cfg = dataclasses.replace(cfg, name=args.arch)
     if args.k_floor == "one_peer":
         k_floor = "one_peer"
     else:
@@ -360,24 +417,44 @@ def main(argv=None, *, device=None) -> dict:
             raise SystemExit(
                 f"--k-floor must be an integer or 'one_peer', got {args.k_floor!r}"
             )
+    dev, own_group = _join_group(device)
+    try:
+        return _train(args, g, tp, k_floor, dev)
+    finally:
+        if own_group:
+            dist.destroy_process_group()
+
+
+def _train(args, g, tp, k_floor, dev) -> dict:
+    from repro_torch.configs import get_config
+    from repro_torch.core.dsgd import make_topology
+    from repro_torch.data import SyntheticLM
+    from repro_torch.optim.schedules import lr_scale
+    from repro_torch.optim.sgd import get_optimizer
+
+    cfg = get_config(args.arch + ("-reduced" if args.reduced or dev.type == "cpu" else ""))
+    cfg = dataclasses.replace(cfg, name=args.arch)
     topo = make_topology(args.topology, g, k_floor=k_floor)
     trainer = SPMDTrainer(
         cfg, topo, get_optimizer(args.optimizer), collect_norms=True,
         mixing=args.mixing, mix_every=args.mix_every,
         fused_apply=args.fused_apply, device=dev,
     )
+    comm = trainer.comm
+    say = print if comm is None or comm.rank == 0 else (lambda *a, **k: None)
     # report the apply path the step will ACTUALLY take: fused_apply takes
     # the interpreter for non-PPermute programs (complete, dense)
     apply_mode = "interpreter"
     if args.fused_apply and trainer._use_fused(trainer._program_at(0, 0)):
-        apply_mode = "fused kernel K1"
+        apply_mode = "fused kernel " + ("K1" if comm is None else "K2")
     elif args.fused_apply:
         apply_mode = "interpreter (program not fused-eligible)"
-    print(topo.describe(), "| mesh", {"data": g, "model": tp}, "| mixing",
-          args.mixing, "| engine stacked | rounds 1 | apply", apply_mode,
-          "| device", dev)
+    engine = "stacked" if comm is None else f"ranks | transport {comm.transport}"
+    say(topo.describe(), "| mesh", {"data": g, "model": tp}, "| mixing",
+        args.mixing, "| engine", engine, "| rounds 1 | apply", apply_mode,
+        "| device", dev)
     n_progs = len(trainer.precompile_programs(args.steps // args.steps_per_epoch + 1))
-    print(f"{n_progs} distinct mixing program(s) over the run")
+    say(f"{n_progs} distinct mixing program(s) over the run")
     state = trainer.init_state(seed=0)
     src = SyntheticLM(vocab=cfg.vocab, seq_len=args.seq, seed=0)
     scale = lr_scale(
@@ -390,13 +467,15 @@ def main(argv=None, *, device=None) -> dict:
         batch = src.stacked(g, t, args.per_node_batch)
         epoch = t // args.steps_per_epoch
         state, loss, norms = trainer.train_step(state, batch, args.lr * scale, epoch=epoch)
+        if comm is not None:   # every node's loss, for the printout
+            loss = comm.all_gather(loss).reshape(-1)
         losses.append(float(loss.mean()))
         if not math.isfinite(losses[-1]):
             raise SystemExit(f"step {t}: loss is not finite ({losses[-1]})")
         if t % 5 == 0 or t == args.steps - 1:
-            print(f"step {t:4d} k={topo.degree_at(epoch, t)} loss={losses[-1]:.4f} "
-                  f"spread={float(loss.max() - loss.min()):.4f}")
-    print(f"{args.steps} steps in {time.time() - t0:.1f}s")
+            say(f"step {t:4d} k={topo.degree_at(epoch, t)} loss={losses[-1]:.4f} "
+                f"spread={float(loss.max() - loss.min()):.4f}")
+    say(f"{args.steps} steps in {time.time() - t0:.1f}s")
     return {"losses": losses, "trainer": trainer, "state": state}
 
 

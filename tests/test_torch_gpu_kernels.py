@@ -18,7 +18,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.core import graphs  # noqa: E402
 from repro_torch.core.schedule import compile_graph  # noqa: E402
 from repro_torch.kernels.gossip_update import (  # noqa: E402
-    gossip_program_update, gossip_program_update_plain,
+    gossip_program_update, gossip_program_update_plain, gossip_update, gossip_update_plain,
 )
 from repro_torch.kernels.stats import (  # noqa: E402
     segment_l2_norms, segment_l2_norms_plain,
@@ -65,6 +65,33 @@ def test_gossip_program_update_matches_twin(cuda, dtype, p, mix_order, faulty):
     got_t, got_m = gossip_program_update(theta, wire, srcs, w, grad, mom, **kw)
     torch.cuda.synchronize()
     assert gossip_program_update.launches == before + 1
+    assert got_t.data_ptr() == theta.data_ptr()  # in place
+    assert ((got_m - want_m).abs() <= 1e-6 * want_m.abs() + 1e-30).all()
+    assert ((got_t.float() - want_t.float()).abs() <= 2 * _ulp(want_t)).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("p", [4096, 1003])  # vector path and ragged tail
+@pytest.mark.parametrize("mix_order", ["post", "pre"])
+@pytest.mark.parametrize("faulty", [False, True])
+def test_gossip_update_matches_twin(cuda, dtype, p, mix_order, faulty):
+    deg = 3
+    gen = torch.Generator(device=cuda).manual_seed(p + 1)
+    rnd = lambda *s: torch.randn(s, generator=gen, device=cuda)
+    theta, grad = (rnd(p).to(dtype) for _ in range(2))
+    nbrs = rnd(deg, p).to(dtype)
+    mom = rnd(p)
+    w = torch.softmax(rnd(deg + 1), 0)
+    fault = torch.ones(deg + 1, device=cuda)
+    if faulty:
+        fault[0] = 0.0   # the node skips its update
+        fault[2] = 0.0   # one masked edge
+    kw = dict(lr=0.05, beta=0.9, fault=fault, mix_order=mix_order)
+    want_t, want_m = gossip_update_plain(theta, nbrs, w, grad, mom, **kw)
+    before = gossip_update.launches
+    got_t, got_m = gossip_update(theta, nbrs, w, grad, mom, **kw)
+    torch.cuda.synchronize()
+    assert gossip_update.launches == before + 1
     assert got_t.data_ptr() == theta.data_ptr()  # in place
     assert ((got_m - want_m).abs() <= 1e-6 * want_m.abs() + 1e-30).all()
     assert ((got_t.float() - want_t.float()).abs() <= 2 * _ulp(want_t)).all()

@@ -6,7 +6,9 @@ Inputs are numpy arrays from a seed, handed to both sides in float32.
 
 Tolerances: the fused update agrees within atol 1e-6 (both accumulate in
 float32 in the same order, up to XLA's and PyTorch's rounding of the same
-expressions); the norms within rtol 1e-5 (float32 sums in different orders).
+expressions); the one-node update (K2's twin) at the reference kernel
+test's own bounds (θ' 1e-5 in float32 and 2e-2 in bfloat16, m' 1e-5); the
+norms within rtol 1e-5 (float32 sums in different orders).
 """
 import numpy as np
 import pytest
@@ -21,6 +23,7 @@ from repro.core import graphs as jgraphs  # noqa: E402
 from repro.core.schedule import compile_graph as jcompile  # noqa: E402
 from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels.gossip_update import fused_apply_stacked as j_fused  # noqa: E402
+from repro.kernels.gossip_update import gossip_update as j_gossip_update  # noqa: E402
 from repro_torch.core import dbench as tdbench  # noqa: E402
 from repro_torch.core import graphs as tgraphs  # noqa: E402
 from repro_torch.core.flat import FlatLayout  # noqa: E402
@@ -28,6 +31,8 @@ from repro_torch.core.schedule import compile_graph as tcompile  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
 from repro_torch.kernels.gossip_update import fused_apply_stacked as t_fused  # noqa: E402
+from repro_torch.kernels.gossip_update import gossip_update, gossip_update_plain  # noqa: E402
+from repro_torch.launch.comm import spawn_world  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -214,3 +219,123 @@ def test_dispersion_metrics_match_reference():
     series = {"a": rng.random((4, 5)), "b": rng.random((4, 5)), "c": rng.random((4, 5))}
     for k, v in jdbench.rank_analysis(series).items():
         np.testing.assert_array_equal(tdbench.rank_analysis(series)[k], v)
+
+
+# ---------------------------------------------------------------------------
+# K2: one node's update (the ranks engine's fused apply)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("faulty", [False, True], ids=["all-ones", "masked"])
+@pytest.mark.parametrize("mix_order", ["post", "pre"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("p,deg,block", [(1024, 2, 256), (4096, 6, 1024), (2048, 1, 2048)])
+def test_gossip_update_twin_matches_reference_kernel(p, deg, block, dtype, mix_order, faulty):
+    """K2's plain twin against the reference kernel ``gossip_update`` run
+    in interpret mode, on the sweep of ``tests/test_kernels.py``."""
+    rng = np.random.default_rng(p + deg)
+    theta, g, m = (rng.standard_normal(p).astype(np.float32) for _ in range(3))
+    nbrs = rng.standard_normal((deg, p)).astype(np.float32)
+    w = rng.dirichlet(np.ones(deg + 1)).astype(np.float32)
+    fault = np.ones(deg + 1, np.float32)
+    if faulty:
+        fault[0] = 0.0   # the node skips its update (u = 0)
+        fault[1] = 0.0   # and its first edge is down
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    tdt = getattr(torch, dtype)
+    jt, jm = j_gossip_update(
+        jnp.asarray(theta).astype(jdt), jnp.asarray(nbrs).astype(jdt), jnp.asarray(w),
+        jnp.asarray(g).astype(jdt), jnp.asarray(m), lr=0.1, beta=0.9,
+        fault=jnp.asarray(fault), block=block, interpret=True, mix_order=mix_order,
+    )
+    t = lambda a: torch.from_numpy(a)
+    tt, tm = gossip_update_plain(
+        t(theta).to(tdt), t(nbrs).to(tdt), t(w), t(g).to(tdt), t(m),
+        lr=0.1, beta=0.9, fault=t(fault), mix_order=mix_order,
+    )
+    assert tt.dtype == tdt and tm.dtype == torch.float32
+    tol = 1e-5 if dtype == "float32" else 2e-2
+    np.testing.assert_allclose(tt.float().numpy(), np.asarray(jt, np.float32), atol=tol)
+    np.testing.assert_allclose(tm.numpy(), np.asarray(jm), atol=1e-5)
+
+
+def test_gossip_update_wrapper_in_place_and_checks():
+    """On CPU tensors the wrapper writes the twin's result in place; it
+    refuses a landing buffer that aliases θ and mismatched rows."""
+    rng = np.random.default_rng(4)
+    theta = torch.from_numpy(rng.standard_normal(300).astype(np.float32))
+    grad, mom = torch.ones(300), torch.zeros(300)
+    nbrs = torch.from_numpy(rng.standard_normal((2, 300)).astype(np.float32))
+    w = torch.full((3,), 1 / 3)
+    want_t, want_m = gossip_update_plain(theta, nbrs, w, grad, mom, lr=0.1, beta=0.9,
+                                         fault=torch.ones(3))
+    got_t, got_m = gossip_update(theta, nbrs, w, grad, mom, lr=0.1, beta=0.9,
+                                 fault=torch.ones(3))
+    assert got_t.data_ptr() == theta.data_ptr() and got_m.data_ptr() == mom.data_ptr()
+    assert torch.equal(got_t, want_t) and torch.equal(got_m, want_m)
+    assert gossip_update.launches == 0   # the twin is no launch
+    with pytest.raises(ValueError, match="overlaps"):
+        gossip_update(theta, theta.view(1, -1), w[:2], grad, mom, lr=0.1, beta=0.9,
+                      fault=torch.ones(2))
+    with pytest.raises(ValueError, match="shape"):
+        gossip_update(theta, nbrs, w[:2], grad, mom, lr=0.1, beta=0.9, fault=torch.ones(3))
+
+
+SHARD_GRAPHS = {
+    "ring": ("Ring", 4),
+    "star": ("Star", 4),
+    "matching": ("random_matching", 4, 3),
+    "irregular": ("from_adjacency", [(0, 1), (1, 2), (0, 2), (2, 3)]),
+}
+SHARD_VARIANTS = {
+    "post": dict(lr=0.07, beta=0.9),
+    "pre": dict(lr=0.07, beta=0.9, mix_order="pre"),
+    "momentumless": dict(lr=0.07, beta=0.0),
+    "fault": dict(lr=0.07, beta=0.9, fault={
+        "update": np.array([1, 1, 0, 1], np.float32),
+        "alive": np.ones(4, np.float32),
+        "link": np.array([[1, 0, 1, 1], [0, 1, 1, 1], [1, 1, 1, 1], [1, 1, 1, 1]],
+                         np.float32),
+    }),
+}
+SHARD_CASES = [(gname, v) for gname in SHARD_GRAPHS for v in SHARD_VARIANTS
+               if gname == "ring" or v == "post"]
+
+
+def _shard_inputs(case):
+    rng = np.random.default_rng(len(case[0]) * 7 + len(case[1]))
+    mk = lambda: rng.standard_normal((4, 1003)).astype(np.float32)
+    theta, grad, mom = mk(), mk(), mk()
+    return theta, grad, (None if case[1] == "momentumless" else mom)
+
+
+@pytest.fixture(scope="module")
+def shard_world(tmp_path_factory):
+    """``fused_apply_shard`` on every rank of one 4-rank gloo world."""
+    cases = {f"{g}-{v}": (SHARD_GRAPHS[g], _shard_inputs((g, v)), SHARD_VARIANTS[v])
+             for g, v in SHARD_CASES}
+    import _torch_rank_worker
+
+    results = spawn_world(_torch_rank_worker.fused_shard_cases, 4, (cases,), timeout=120,
+                          device="cpu", workdir=tmp_path_factory.mktemp("shard"))
+    return results
+
+
+@pytest.mark.parametrize("case", SHARD_CASES, ids=lambda c: f"{c[0]}-{c[1]}")
+def test_fused_apply_shard_matches_stacked_rows(shard_world, case):
+    """Each rank's K2 path (wire, one permute per op, K2's twin) equals its
+    row of ``fused_apply_stacked`` (K1's twin) within 1e-6."""
+    g, v = case
+    theta, grad, mom = _shard_inputs(case)
+    graph = SHARD_GRAPHS[g]
+    prog = tcompile(getattr(tgraphs, graph[0])(*graph[1:]))
+    want_t, want_m = t_fused(
+        prog, torch.from_numpy(theta.copy()), torch.from_numpy(grad),
+        None if mom is None else torch.from_numpy(mom.copy()), **SHARD_VARIANTS[v],
+    )
+    for rank, res in enumerate(shard_world):
+        got_t, got_m = res[f"{g}-{v}"]
+        np.testing.assert_allclose(got_t, want_t[rank].numpy(), rtol=0, atol=1e-6)
+        if mom is None:
+            assert got_m is None
+        else:
+            np.testing.assert_allclose(got_m, want_m[rank].numpy(), rtol=0, atol=1e-6)
