@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's training path on one CUDA card and check it.
+"""Drive the PyTorch port's training and serving paths on one CUDA card and check them.
 
     python3 chip_smoke.py
 
@@ -42,11 +42,38 @@ Phases (any failure exits non-zero and prints no result line):
      on a seeded sample of 2^20 columns per leaf, are held against phase
      4's row for that node (phase 5's tolerances); each rank zeroes its
      launch counters just before its steps and must launch K2 once per
-     step.
+     step;
+ 10. K4 (flash attention) against its plain twin on the reference kernel's
+     own sweep (``tests/test_kernels.py``: four shapes, causal and not,
+     64-blocks; float32 and bfloat16; windows 32 and 96), a fully masked
+     case (Sq 256, Sk 128, causal, window 32: rows 159.. exactly 0) and a
+     ragged one (Sq = Sk = 96, which the kernel's 64-row tiles do not
+     divide), at the reference's bars (2e-5 float32, 2e-2 bfloat16);
+ 11. serving granite-8b at full width and depth (36 layers, bfloat16,
+     seed-0 weights): ``ServeEngine.prefill_fn()`` on 4 prompts of 4096
+     tokens (time, peak memory), ``generate`` on 4 prompts of 128 tokens
+     with 32 new tokens, twice, with equal tokens (and ms per decode step
+     timed apart), then the ``decode_step`` chain over 32 tokens against
+     ``forward``'s logits at full width in float32 with depth cut to 2
+     (atol 3e-3, rtol 1e-3); no K1-K4 launch may happen here;
+ 12. K4 at full width on the model's own attention: layer 0's q, k, v after
+     RoPE from phase 11's weights and prompts, (B, H, KV, S, D) =
+     (4, 32, 8, 4096, 128) bfloat16, causal and with window 1024, held
+     against the plain twin and the layer's ``impl="chunked"`` attention
+     (atol 2e-2 plus one bfloat16 rounding step of the element; the
+     largest difference in bfloat16 ulps of its row's largest element is
+     reported), and at
+     B = 1, S = 32768 on seeded inputs against the twin.  The launch
+     counters are zeroed just before these three calls and read just
+     after.  Then K4, the twin and the library yardstick
+     ``scaled_dot_product_attention`` (which the port never calls) are
+     timed.
 
 The last three lines of standard output are the card's name and power
-limit as nvidia-smi reports them, the per-kernel JSON, and the result
-``{"ok": true, "device": {...}}``.  TF32 is off throughout.
+limit as nvidia-smi reports them, the per-kernel JSON (K1-K4, each with its
+launches on its path, error against its twin, ms, plain ms, bound and
+library ms) and the result ``{"ok": true, "device": {...}}``.  TF32 is off
+throughout.
 """
 import dataclasses
 import json
@@ -60,6 +87,7 @@ ROOT = Path(__file__).resolve().parent
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM memory rate (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12          # H100 SXM float32 rate outside the tensor cores
+BF16_TC_FLOPS_PER_S = 989e12   # H100 SXM dense bf16 tensor-core rate (NVIDIA data sheet)
 
 G, SEQ, BATCH, LR, STEPS = 4, 512, 2, 1e-2, 4
 # phase 9: the ranks engine repeats the main path's first 3 steps; each rank
@@ -68,6 +96,11 @@ RANK_STEPS, SAMPLE, RANK_TIMEOUT = STEPS - 1, 1 << 20, 600
 # columns per comparison chunk: bounds the float32 temporaries of a check
 # over a full (G, P) buffer to a few GiB beside the state
 TWIN_CHUNK = 1 << 26
+# phases 11-12: serving granite-8b at full width and depth
+SERVE_B, SERVE_S = 4, 4096          # prefill batch and prompt length
+GEN_PROMPT, GEN_NEW = 128, 32       # generate: prompt length and new tokens
+DEC_B, DEC_S, DEC_LAYERS = 2, 32, 2  # decode-vs-forward check, float32
+ATTN_WINDOW, LONG_S = 1024, 32768    # K4's window case; prefill_32k's length
 
 
 def log(msg):
@@ -306,6 +339,8 @@ def kernel_group(name):
         return "K1 gossip_program_update"
     if "partial_kernel" in name or "finish_kernel" in name:
         return "K3 segment_l2_norms"
+    if "flash_fwd_kernel" in name:
+        return "K4 flash_attention"
     low = name.lower()
     if any(k in low for k in ("gemm", "nvjet", "cutlass", "xmma", "cublas")):
         return "matmul"
@@ -314,12 +349,17 @@ def kernel_group(name):
 
 def profile_step(trainer, state, batch):
     """One fused step under torch.profiler: (wall ms, {group: device ms})."""
+    return profile_call(lambda: trainer.train_step(state, batch, LR))
+
+
+def profile_call(fn):
+    """``fn()`` once under torch.profiler: (wall ms, {group: device ms})."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t1 = time.perf_counter()
-        trainer.train_step(state, batch, LR)
+        fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t1) * 1e3
     busy = {}
@@ -476,7 +516,7 @@ def phase_ranks(layout, ref, sample):
         if not (err_m <= 1e-6 * np.abs(ref["mom"][i])).all():
             fail(f"rank {i}: m differs from the stacked row by {err_m.max():.3e}")
         want = {"gossip_program_update": 0, "gossip_update": RANK_STEPS,
-                "segment_l2_norms": RANK_STEPS}
+                "segment_l2_norms": RANK_STEPS, "flash_attention": 0}
         if r["launches"] != want:
             fail(f"rank {i}: launch counts {r['launches']}, expected {want}")
         worst_ulps = max(worst_ulps, float((err_t / ulp[i]).max()))
@@ -506,6 +546,310 @@ def phase_ranks(layout, ref, sample):
         f"{[round(x, 1) for x in out['permute_one_row_ms']]}); peak allocated per rank "
         f"{[round(b / 2**30, 2) for b in out['peak_allocated_bytes']]} GiB; {wall:.1f}s")
     return out
+
+
+def attention_pairs(sq, sk, *, causal, window):
+    """Allowed (q, k) pairs of one head under the mask (positions are the
+    row indices): the least work of any tiling, 4·D FLOPs each."""
+    import numpy as np
+
+    q = np.arange(sq, dtype=np.int64)
+    hi = np.minimum(q, sk - 1) if causal else np.full(sq, sk - 1, np.int64)
+    lo = np.maximum(q - window + 1, 0) if window is not None else np.zeros(sq, np.int64)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def attention_bound(b, h, kv, sq, sk, d, elem_bytes, *, causal, window):
+    """K4's least time on the card: (ms, "bytes" or "operations", FLOPs,
+    bytes).  FLOPs = 4·D·B·H × allowed pairs at the dense bf16 tensor-core
+    rate (products of bf16 values are exact in float32); bytes = q, k, v
+    read and the output written once each, at the memory rate."""
+    flops = 4 * d * b * h * attention_pairs(sq, sk, causal=causal, window=window)
+    nbytes = (2 * b * h * sq * d + 2 * b * kv * sk * d) * elem_bytes
+    t_ops, t_bytes = flops / BF16_TC_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), flops, nbytes
+
+
+def attention_inputs(dev, b, h, kv, sq, sk, d, dtype, seed):
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((b, h, sq, d), generator=gen, device=dev).to(dtype)
+    k = torch.randn((b, kv, sk, d), generator=gen, device=dev).to(dtype)
+    v = torch.randn((b, kv, sk, d), generator=gen, device=dev).to(dtype)
+    return q, k, v
+
+
+def phase_k4_sweep(dev):
+    """K4 against its twin on the reference kernel's sweep, a fully masked
+    and a ragged case.  Returns {case: max abs error}."""
+    import torch
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    b64 = dict(block_q=64, block_k=64)
+    cases = [(f"sweep {s} causal={c}", s, f32, dict(causal=c, **b64))
+             for s in ((1, 2, 1, 128, 128, 64), (2, 4, 2, 128, 256, 64),
+                       (1, 8, 8, 256, 256, 32), (1, 6, 2, 128, 128, 128))
+             for c in (True, False)]
+    cases += [(f"dtype {dt}", (1, 2, 2, 128, 128, 64), dt, dict(b64)) for dt in (f32, bf16)]
+    cases += [(f"window {w}", (1, 2, 2, 256, 256, 64), f32, dict(window=w, **b64))
+              for w in (32, 96)]
+    cases += [("fully masked rows", (1, 2, 1, 256, 128, 64), f32, dict(causal=True, window=32))]
+    cases += [(f"ragged 96 {dt}", (2, 4, 2, 96, 96, 128), dt, dict(causal=True))
+              for dt in (f32, bf16)]
+    errs = {}
+    for i, (name, shape, dtype, kw) in enumerate(cases):
+        q, k, v = attention_inputs(dev, *shape, dtype, seed=100 + i)
+        got = flash_attention(q, k, v, **kw)
+        want = flash_attention_plain(q, k, v, causal=kw.get("causal", True),
+                                     window=kw.get("window"))
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        tol = 2e-5 if dtype == f32 else 2e-2
+        if not bool(torch.isfinite(got).all()) or not err <= tol:
+            fail(f"K4 {name}: differs from its twin by {err:.3e} (bar {tol:g})")
+        if name == "fully masked rows" and not (
+                bool((got[:, :, 159:] == 0).all()) and bool((got[:, :, :159] != 0).any())):
+            fail("K4 fully masked rows: rows 159.. are not exactly 0")
+        errs[name] = err
+    log(f"phase 10: K4 agrees with its twin on {len(cases)} cases; max abs err "
+        f"f32 {max(e for n, e in errs.items() if 'bfloat16' not in n):.3e}, bf16 "
+        f"{max(e for n, e in errs.items() if 'bfloat16' in n):.3e}")
+    return errs
+
+
+def phase_serve(dev):
+    """Phase 11: granite-8b at 36 layers in bfloat16 served by the port's
+    ServeEngine, then decode against forward in float32 at depth 2.
+    Returns (params, prompts, numbers) for phase 12."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import ServeEngine
+    from repro_torch.models import transformer as tfm
+
+    cfg = get_config("granite-8b")
+    eng = ServeEngine(cfg, dev)
+    before = ops.launch_counts()
+    t0 = time.perf_counter()
+    params = eng.init_params(seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in params.values())
+    weight_bytes = sum(t.numel() * t.element_size() for t in params.values())
+    gen = torch.Generator(device=dev).manual_seed(11)
+    prompts = torch.randint(0, cfg.vocab, (SERVE_B, SERVE_S), generator=gen, device=dev)
+    prefill = eng.prefill_fn()
+    prefill_s, peak = [], 0
+    for _ in range(2):   # the first call includes cuBLAS's start-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        last, state = prefill(params, prompts)
+        torch.cuda.synchronize()
+        prefill_s.append(time.perf_counter() - t0)
+        peak = max(peak, torch.cuda.max_memory_allocated())
+        k_cache = state.kv[0]
+        if tuple(last.shape) != (SERVE_B, cfg.vocab) or not bool(torch.isfinite(last).all()):
+            fail(f"prefill: last logits {tuple(last.shape)} not finite or misshaped")
+        if tuple(k_cache.shape) != (cfg.n_layers, SERVE_B, SERVE_S, cfg.n_kv, cfg.head_dim):
+            fail(f"prefill: cache k {tuple(k_cache.shape)}")
+        del last, state, k_cache
+    torch.cuda.empty_cache()
+    prefill_prof = profile_breakdown(lambda: prefill(params, prompts))
+    torch.cuda.empty_cache()
+    log(f"phase 11: {cfg.name} x{cfg.n_layers} layers bf16, {n_params:,} params "
+        f"({weight_bytes / 1e9:.2f} GB) made in {init_s:.1f}s; prefill "
+        f"{SERVE_B}x{SERVE_S}: {[round(x, 3) for x in prefill_s]} s, peak allocated "
+        f"{peak / 2**30:.2f} GiB")
+
+    p128 = prompts[:, :GEN_PROMPT].contiguous()
+    gen_s, toks = [], []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks.append(eng.generate(params, p128, n_new=GEN_NEW))
+        torch.cuda.synchronize()
+        gen_s.append(time.perf_counter() - t0)
+    if not torch.equal(toks[0], toks[1]):
+        fail("generate: two greedy runs gave different tokens")
+    if tuple(toks[0].shape) != (SERVE_B, GEN_NEW) or not bool(
+            ((toks[0] >= 0) & (toks[0] < cfg.vocab)).all()):
+        fail(f"generate: tokens {tuple(toks[0].shape)} outside the vocabulary")
+    # ms per decode step, timed apart: the prompt replay and the new tokens,
+    # one decode_step each for all SERVE_B sequences
+    step = eng.decode_fn(None)
+    state = tfm.init_decode_state(cfg, SERVE_B, GEN_PROMPT + GEN_NEW, device=dev)
+    feed = torch.cat([p128, toks[0]], dim=1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in range(feed.shape[1]):
+        _, state = step(params, feed[:, t:t + 1], t, state)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / feed.shape[1]
+    last_t = feed.shape[1] - 1   # rewrites the last slot with the same token
+    step_prof = profile_breakdown(lambda: step(params, feed[:, last_t:], last_t, state))
+    del state
+    log(f"phase 11: generate {SERVE_B}x{GEN_PROMPT} + {GEN_NEW} new, twice, same tokens: "
+        f"{[round(x, 3) for x in gen_s]} s; decode step {step_ms:.2f} ms "
+        f"(all {SERVE_B} sequences, one token each); profiled prefill "
+        f"{json.dumps(prefill_prof)}; profiled decode step {json.dumps(step_prof)}")
+
+    # decode == forward at full width in float32, depth cut to DEC_LAYERS
+    cfg32 = dataclasses.replace(cfg, n_layers=DEC_LAYERS, dtype=torch.float32)
+    eng32 = ServeEngine(cfg32, dev)
+    params32 = eng32.init_params(seed=0)
+    tokens = torch.randint(0, cfg.vocab, (DEC_B, DEC_S), generator=gen, device=dev)
+    with torch.no_grad():
+        full = tfm.forward(params32, cfg32, tokens)
+    step32 = eng32.decode_fn(None)
+    state = tfm.init_decode_state(cfg32, DEC_B, DEC_S, device=dev)
+    dec = []
+    for t in range(DEC_S):
+        lg, state = step32(params32, tokens[:, t:t + 1], t, state)
+        dec.append(lg)
+    dec = torch.stack(dec, dim=1)
+    err = (dec - full).abs()
+    if not bool((err <= 3e-3 + 1e-3 * full.abs()).all()):
+        fail(f"decode chain differs from forward by {float(err.max()):.3e}")
+    dec_err = float(err.max())
+    del params32, full, dec, state, err
+    torch.cuda.empty_cache()
+    after = ops.launch_counts()
+    if after != before:
+        fail(f"serving launched kernels: {before} -> {after}")
+    log(f"phase 11: decode chain == forward ({cfg.name} width, {DEC_LAYERS} layers, f32, "
+        f"{DEC_B}x{DEC_S}): max abs err {dec_err:.3e}; no kernel launches")
+    numbers = {
+        "model": f"{cfg.name} x{cfg.n_layers} layers, bf16, seed-0 weights",
+        "params": n_params, "weight_bytes": weight_bytes, "init_s": init_s,
+        "prefill_batch": SERVE_B, "prefill_len": SERVE_S, "prefill_s": prefill_s,
+        "prefill_peak_allocated_bytes": int(peak),
+        "generate": f"{SERVE_B} x {GEN_PROMPT} prompt + {GEN_NEW} new, greedy",
+        "generate_s": gen_s, "decode_step_ms": step_ms,
+        "prefill_profile": prefill_prof, "decode_step_profile": step_prof,
+        "decode_vs_forward_max_abs_err": dec_err,
+    }
+    return cfg, params, prompts, numbers
+
+
+def profile_breakdown(fn):
+    """``fn()`` under torch.profiler: its wall ms, device busy ms by kernel
+    group and the idle share (1 - busy / wall) of that profiled call."""
+    wall, busy = profile_call(fn)
+    total = sum(busy.values())
+    return {"wall_ms": wall, "device_busy_ms_by_group": busy, "device_busy_ms": total,
+            "idle_share": 1.0 - total / wall if wall else None}
+
+
+def layer0_qkv(cfg, params, prompts):
+    """Layer 0's q, k, v after RoPE for ``prompts``, (B, S, heads, D)."""
+    import torch
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.common import apply_rope, rope
+
+    lp = {name[len("blocks."):]: t[0] for name, t in params.items() if name.startswith("blocks.")}
+    b, s = prompts.shape
+    with torch.no_grad():
+        h = params["embed"][prompts.long()]
+        q, k, v = tfm._qkv(lp, cfg, tfm._apply_norm(cfg, lp, "ln1", h))
+        pos = torch.arange(s, dtype=torch.int32, device=prompts.device)[None].expand(b, s)
+        sin, cos = rope(pos, cfg.head_dim, cfg.rope_theta)
+        return apply_rope(q, sin, cos), apply_rope(k, sin, cos), v, pos
+
+
+def phase_k4_model(dev, cfg, params, prompts):
+    """Phase 12: K4 on layer 0's attention at (4, 32, 8, 4096, 128), causal
+    and windowed, and at B = 1, S = 32768; each held against the twin (and
+    the first two against the layer's chunked attention), then timed
+    beside the twin and SDPA.  Returns (launches, numbers)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+    from repro_torch.models.attention import multihead_attention
+
+    q, k, v, pos = layer0_qkv(cfg, params, prompts)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    ql, kl, vl = attention_inputs(dev, 1, cfg.n_heads, cfg.n_kv, LONG_S, LONG_S,
+                                  cfg.head_dim, torch.bfloat16, seed=12)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    outs = {None: flash_attention(qt, kt, vt, causal=True),
+            ATTN_WINDOW: flash_attention(qt, kt, vt, causal=True, window=ATTN_WINDOW)}
+    out_long = flash_attention(ql, kl, vl, causal=True)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    if launches != {"gossip_program_update": 0, "gossip_update": 0, "segment_l2_norms": 0,
+                    "flash_attention": 3}:
+        fail(f"phase 12 launch counts {launches}, expected 3 of K4")
+
+    numbers = {"shape": [SERVE_B, cfg.n_heads, cfg.n_kv, SERVE_S, cfg.head_dim]}
+    for w, got in outs.items():
+        case = "causal" if w is None else f"window{w}"
+        with torch.no_grad():
+            chunk = multihead_attention(q, k, v, q_positions=pos, k_positions=pos, causal=True,
+                                        window=w, impl="chunked", chunk_size=cfg.attn_chunk)
+        chunk = chunk.transpose(1, 2)
+        want = flash_attention_plain(qt, kt, vt, causal=True, window=w)
+        for name, ref in (("twin", want), ("chunked", chunk)):
+            # bar: 2e-2 plus one rounding step of the bfloat16 output (a step
+            # is 0.03125 at |x| >= 4, where the layer's outputs reach; two
+            # float32 results a hair apart may round either way); ulps are
+            # counted at the scale of the row's largest element
+            err = (got.float() - ref.float()).abs()
+            ulps = float((err / bf16_ulp(ref.float().abs().amax(-1, keepdim=True))).max())
+            if not bool(torch.isfinite(got).all()) or not bool((err <= 2e-2 + bf16_ulp(ref)).all()):
+                fail(f"K4 layer 0 {case}: differs from the {name} attention by "
+                     f"{float(err.max()):.3e}")
+            numbers[f"max_abs_err_vs_{name}_{case}"] = float(err.max())
+            numbers[f"max_err_row_bf16_ulps_vs_{name}_{case}"] = ulps
+        del chunk, want, err
+    # the 32k case against the twin, which works in q-row chunks
+    want = flash_attention_plain(ql, kl, vl, causal=True)
+    err_long = float((out_long.float() - want.float()).abs().max())
+    if not bool(torch.isfinite(out_long).all()) or not err_long <= 2e-2:
+        fail(f"K4 at S={LONG_S}: differs from its twin by {err_long:.3e}")
+    numbers[f"max_abs_err_vs_twin_s{LONG_S}"] = err_long
+    del want, out_long
+    torch.cuda.empty_cache()
+    log("phase 12: K4 on layer 0 agrees: " + json.dumps(numbers))
+
+    sdpa = lambda a, b, c: F.scaled_dot_product_attention(a, b, c, is_causal=True,
+                                                          enable_gqa=True)
+    err_sdpa = float((sdpa(qt, kt, vt).float() - outs[None].float()).abs().max())
+    eb = qt.element_size()
+    shape = (SERVE_B, cfg.n_heads, cfg.n_kv, SERVE_S, SERVE_S, cfg.head_dim)
+    bound, bound_by, flops, nbytes = attention_bound(*shape, eb, causal=True, window=None)
+    bound_w, _, flops_w, _ = attention_bound(*shape, eb, causal=True, window=ATTN_WINDOW)
+    lshape = (1, cfg.n_heads, cfg.n_kv, LONG_S, LONG_S, cfg.head_dim)
+    bound_l, bound_by_l, flops_l, _ = attention_bound(*lshape, eb, causal=True, window=None)
+    t = {
+        "k4_ms": cuda_ms(lambda: flash_attention(qt, kt, vt, causal=True), 5),
+        "k4_window_ms": cuda_ms(
+            lambda: flash_attention(qt, kt, vt, causal=True, window=ATTN_WINDOW), 5),
+        "plain_ms": cuda_ms(lambda: flash_attention_plain(qt, kt, vt, causal=True), 2),
+        "sdpa_ms": cuda_ms(lambda: sdpa(qt, kt, vt), 10),
+        "k4_s32k_ms": cuda_ms(lambda: flash_attention(ql, kl, vl, causal=True), 2),
+        "sdpa_s32k_ms": cuda_ms(lambda: sdpa(ql, kl, vl), 3),
+    }
+    numbers.update(t)
+    numbers.update({
+        "bound_ms": bound, "bound_by": bound_by, "flops": flops, "bytes": nbytes,
+        "f32_cuda_core_floor_ms": 1e3 * flops / F32_OPS_PER_S,
+        "bound_window_ms": 1e3 * max(flops_w / BF16_TC_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S),
+        "bound_s32k_ms": bound_l, "bound_by_s32k": bound_by_l,
+        "f32_cuda_core_floor_s32k_ms": 1e3 * flops_l / F32_OPS_PER_S,
+        "sdpa_vs_k4_max_abs": err_sdpa,
+    })
+    log(f"phase 12: K4 {t['k4_ms']:.3f} ms (window {ATTN_WINDOW}: {t['k4_window_ms']:.3f}; "
+        f"bound {bound:.3f}, {bound_by}; plain {t['plain_ms']:.3f}; SDPA {t['sdpa_ms']:.3f}); "
+        f"S={LONG_S}: K4 {t['k4_s32k_ms']:.3f} ms, SDPA {t['sdpa_s32k_ms']:.3f}, bound "
+        f"{bound_l:.3f}")
+    del q, k, v, qt, kt, vt, ql, kl, vl, outs
+    torch.cuda.empty_cache()
+    return launches["flash_attention"], numbers
 
 
 def main():
@@ -584,7 +928,7 @@ def main():
         log(f"  step {t}: {step_ms[-1]:.1f} ms  loss {[round(x, 4) for x in loss.tolist()]}")
     counts = ops.launch_counts()
     if counts != {"gossip_program_update": STEPS, "gossip_update": 0,
-                  "segment_l2_norms": STEPS}:
+                  "segment_l2_norms": STEPS, "flash_attention": 0}:
         fail(f"main path launch counts {counts}, expected {STEPS} of K1 and K3")
     log(f"phase 4: launches {counts}; peak allocated {peak / 2**30:.2f} GiB over "
         f"{STEPS - 1} steps")
@@ -619,14 +963,7 @@ def main():
     grad = torch.empty_like(state.theta)
     fwd_bwd_ms = cuda_ms(lambda: trainer._grads_into(state.theta, grad, batches[0]), 2)
     wire_ms = cuda_ms(lambda: gossip_wire(state.theta, grad, state.mom, lr=LR, beta=0.9), 3)
-    try:
-        prof_wall, busy = profile_step(trainer, state, batches[0])
-    except Exception:  # the profiler is a measurement aid, not a phase
-        import traceback
-
-        traceback.print_exc()
-        prof_wall, busy = None, {}
-        log("phase 6: torch.profiler failed; breakdown from CUDA events only")
+    prof_wall, busy = profile_step(trainer, state, batches[0])
     busy_ms = sum(busy.values())
     breakdown = {
         "fwd_bwd_4_nodes_ms": fwd_bwd_ms, "wire_ms": wire_ms,
@@ -686,7 +1023,8 @@ def main():
     if not all(math.isfinite(x) for x in out["losses"]):
         fail(f"CLI losses {out['losses']}")
     if {k: after[k] - before[k] for k in after} != {
-            "gossip_program_update": 3, "gossip_update": 0, "segment_l2_norms": 3}:
+            "gossip_program_update": 3, "gossip_update": 0, "segment_l2_norms": 3,
+            "flash_attention": 0}:
         fail(f"CLI launch counts {before} -> {after}")
     log(f"phase 7: CLI ran 3 steps, losses {[round(x, 4) for x in out['losses']]}")
     del out
@@ -716,6 +1054,22 @@ def main():
 
     # 9. the ranks engine: G ranks on this machine, against phase 4's rows
     ranks9 = phase_ranks(layout, ref9, sample)
+    torch.cuda.empty_cache()
+
+    # 10. K4 against its twin on the reference kernel's sweep
+    errs10 = phase_k4_sweep(dev)
+    torch.cuda.empty_cache()
+
+    # 11. serving granite-8b at full width and depth; 12. K4 on its attention
+    t11 = time.perf_counter()
+    serve_cfg, serve_params, prompts, serve11 = phase_serve(dev)
+    serve11["wall_s"] = time.perf_counter() - t11
+    t12 = time.perf_counter()
+    k4_launches, attn12 = phase_k4_model(dev, serve_cfg, serve_params, prompts)
+    attn12["wall_s"] = time.perf_counter() - t12
+    attn12["sweep_max_abs_err"] = errs10
+    del serve_params, prompts
+    torch.cuda.empty_cache()
 
     summary = {
         "card": smi,
@@ -726,6 +1080,8 @@ def main():
         "losses": losses,
         "breakdown": breakdown,
         "ranks": ranks9,
+        "serve": serve11,
+        "attention": attn12,
     }
     log("summary " + json.dumps(summary))
     kernels = [
@@ -758,6 +1114,16 @@ def main():
             "bound_by": "bytes" if k3_bytes / HBM_BYTES_PER_S >= k3_ops / F32_OPS_PER_S
             else "operations",
             "library_ms": k3_lib_ms,
+        },
+        {
+            "name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:90",
+            "launches": k4_launches,
+            "max_abs_err": attn12["max_abs_err_vs_twin_causal"],
+            "ms": attn12["k4_ms"], "plain_ms": attn12["plain_ms"],
+            "bound_ms": attn12["bound_ms"], "bound_by": attn12["bound_by"],
+            "library_ms": attn12["sdpa_ms"],
         },
     ]
     print(smi)

@@ -1,8 +1,10 @@
-"""Architecture configuration schema: the counterpart of ``repro/configs/base.py``.
+"""Architecture and input-shape schema: the counterpart of ``repro/configs/base.py``.
 
 ``ArchConfig`` keeps the reference's fields and ``reduced()`` rule (the
 CPU smoke-test variant of the same family: ≤2 layers, d_model ≤ 256,
-float32); only ``dtype`` is a torch dtype here.
+float32); only ``dtype`` is a torch dtype here.  ``InputShape`` and
+``SHAPES`` are the reference's benchmark inputs (serving reads their
+context lengths).
 """
 from __future__ import annotations
 
@@ -11,7 +13,7 @@ from typing import Any, Optional
 
 import torch
 
-__all__ = ["ArchConfig"]
+__all__ = ["ArchConfig", "InputShape", "SHAPES"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,7 +44,7 @@ class ArchConfig:
     input_kind: str = "tokens"   # tokens | vlm
     n_patches: int = 0
     # impl knobs
-    attn_impl: str = "reference"  # only the reference attention is ported
+    attn_impl: str = "reference"  # reference | chunked | chunked_skip
     attn_chunk: int = 1024
     sliding_window: Optional[int] = None
     rec_chunk: int = 64          # recurrence chunk (ssm/hybrid)
@@ -82,3 +84,19 @@ class ArchConfig:
             attn_chunk=64,
             dtype=torch.float32,
         )
+
+
+@dataclasses.dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+SHAPES: dict[str, InputShape] = {
+    "train_4k": InputShape("train_4k", 4_096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32_768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524_288, 1, "decode"),
+}

@@ -22,11 +22,12 @@ __all__ = ["load", "load_all", "SOURCES", "BUILD_DIR"]
 _HERE = Path(__file__).resolve().parent
 CSRC = _HERE / "csrc"
 BUILD_DIR = _HERE.parents[2] / "build" / "repro_torch"
-SOURCES = ("gossip_update", "l2_norms")
+SOURCES = ("gossip_update", "l2_norms", "flash_attention")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    # no multiply-add contraction: the kernels round every product and sum
-    # as their plain twins do (the kernels are memory-bound; FMA buys nothing)
+    # no multiply-add contraction: the memory-bound kernels round every
+    # product and sum as their plain twins do (FMA buys them nothing);
+    # flash_attention, held to a tolerance, calls fmaf explicitly
     "-fmad=false",
     "-shared", "-Xcompiler", "-fPIC",
 )
@@ -46,6 +47,10 @@ _SIGNATURES = {
     "l2_norms": {
         "repro_segment_l2_norms":
             [_INT, _VP, _LL, _LL, _VP, _VP, _INT, _VP, _INT, _VP, _VP, _INT, _VP],
+    },
+    "flash_attention": {
+        "repro_flash_attention":
+            [_INT, _VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT, _INT, _INT, _INT, _INT, _INT, _VP],
     },
 }
 

@@ -8,12 +8,14 @@ per-kernel launch counters.
 """
 from __future__ import annotations
 
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.gossip_update import (
     fused_apply_shard, fused_apply_stacked, gossip_program_update, gossip_update,
 )
 from repro_torch.kernels.stats import l2_norms, segment_l2_norms
 
 __all__ = [
+    "flash_attention",
     "gossip_program_update",
     "gossip_update",
     "fused_apply_stacked",
@@ -28,6 +30,7 @@ _COUNTED = {
     "gossip_program_update": gossip_program_update,
     "gossip_update": gossip_update,
     "segment_l2_norms": segment_l2_norms,
+    "flash_attention": flash_attention,
 }
 
 

@@ -1,16 +1,31 @@
 """Plain-PyTorch oracles of the ported kernels: the counterpart of
-``repro/kernels/ref.py`` (the flash-attention oracle comes with kernel K4).
+``repro/kernels/ref.py``.
 
-Both are the kernels' plain twins under the reference's signatures, so
-the arithmetic lives in one place."""
+Each is a kernel's plain twin under the reference's signature, so the
+arithmetic lives in one place."""
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
+from repro_torch.kernels.flash_attention import flash_attention_plain
 from repro_torch.kernels.gossip_update import gossip_update_plain
 from repro_torch.kernels.stats import segment_l2_norms_plain
 
-__all__ = ["gossip_update_ref", "l2_norms_ref"]
+__all__ = ["flash_attention_ref", "gossip_update_ref", "l2_norms_ref"]
+
+
+def flash_attention_ref(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+) -> torch.Tensor:
+    """q: (B, H, Sq, D); k/v: (B, KV, Sk, D) -> (B, H, Sq, D).  K4's twin."""
+    return flash_attention_plain(q, k, v, causal=causal, window=window)
 
 
 def gossip_update_ref(

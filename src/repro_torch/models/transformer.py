@@ -1,16 +1,18 @@
 """Dense transformer: the counterpart of ``repro/models/transformer.py``.
 
 Token embeddings → pre-norm GQA attention blocks with a gated MLP → final
-norm → LM head, for the dense family.  Parameters are one flat dict keyed
-by the reference tree's paths joined with dots ("blocks.ffn.w_up"), in the
-reference's leaf order (sorted keys, depth first); layer parameters carry a
-leading L axis as ``stack_defs`` makes them, and the reference's
-``lax.scan`` over layers is a Python loop.  ``remat`` is a memory knob of
-the reference and is not needed at the port's depths.
+norm → LM head, for the dense family: training forward and loss, and
+serving (``prefill`` into a KV cache, ``decode_step`` one token at a time
+against it).  Parameters are one flat dict keyed by the reference tree's
+paths joined with dots ("blocks.ffn.w_up"), in the reference's leaf order
+(sorted keys, depth first); layer parameters carry a leading L axis as
+``stack_defs`` makes them, and the reference's ``lax.scan`` over layers is
+a Python loop.  ``remat`` is a memory knob of the reference and is not
+needed here (no activations are kept for a backward pass in serving).
 """
 from __future__ import annotations
 
-from typing import Any, Mapping, Optional
+from typing import Any, Mapping, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -38,6 +40,11 @@ __all__ = [
     "loss_fn",
     "cross_entropy",
     "params_from_jax",
+    "attn_dims",
+    "DecodeState",
+    "init_decode_state",
+    "prefill",
+    "decode_step",
 ]
 
 
@@ -75,9 +82,15 @@ def _apply_norm(cfg: ArchConfig, p: Mapping, prefix: str, x):
     return rms_norm(x, p[prefix + ".g"])
 
 
+def attn_dims(cfg: ArchConfig) -> tuple[int, int]:
+    """(query heads, KV heads).  The reference pads heads for tensor
+    parallelism (``cfg.pad_heads``); the port runs no model axis yet."""
+    return cfg.n_heads, cfg.n_kv
+
+
 def attn_block_defs(cfg: ArchConfig) -> dict:
     d, dh, dt = cfg.d_model, cfg.head_dim, cfg.dtype
-    h, kv = cfg.n_heads, cfg.n_kv
+    h, kv = attn_dims(cfg)
     defs = {
         "ln1": _norm_defs(cfg, d),
         "wq": ParamDef((d, h, dh), he_normal((-3,)), dt),
@@ -135,26 +148,56 @@ def params_from_jax(tree: Mapping) -> dict[str, torch.Tensor]:
 # Blocks
 # ---------------------------------------------------------------------------
 
-def apply_attn_block(p: Mapping, cfg: ArchConfig, h: torch.Tensor, *,
-                     positions: torch.Tensor, window: Optional[int]):
-    """One pre-norm attention + MLP block. h: (B, S, D); positions: (B, S)."""
-    hn = _apply_norm(cfg, p, "ln1", h)
+def _qkv(p: Mapping, cfg: ArchConfig, hn: torch.Tensor):
     q = torch.einsum("bsd,dhk->bshk", hn, p["wq"])
     k = torch.einsum("bsd,dhk->bshk", hn, p["wk"])
     v = torch.einsum("bsd,dhk->bshk", hn, p["wv"])
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    return q, k, v
+
+
+def _ffn(p: Mapping, cfg: ArchConfig, h: torch.Tensor) -> torch.Tensor:
+    hn2 = _apply_norm(cfg, p, "ln2", h)
+    ffn = {name[len("ffn."):]: t for name, t in p.items() if name.startswith("ffn.")}
+    return h + apply_mlp(ffn, hn2, act=cfg.act)
+
+
+def apply_attn_block(p: Mapping, cfg: ArchConfig, h: torch.Tensor, *,
+                     positions: torch.Tensor, window: Optional[int],
+                     collect_cache: bool = False):
+    """One pre-norm attention + MLP block. h: (B, S, D); positions: (B, S).
+
+    Returns (h', (k, v, positions) after RoPE when ``collect_cache`` else None)."""
+    hn = _apply_norm(cfg, p, "ln1", h)
+    q, k, v = _qkv(p, cfg, hn)
     sin, cos = rope(positions, cfg.head_dim, cfg.rope_theta)
     q = apply_rope(q, sin, cos)
     k = apply_rope(k, sin, cos)
     out = attn_lib.multihead_attention(
         q, k, v, q_positions=positions, k_positions=positions,
-        causal=True, window=window, impl=cfg.attn_impl,
+        causal=True, window=window, impl=cfg.attn_impl, chunk_size=cfg.attn_chunk,
     )
-    h = h + torch.einsum("bshk,hkd->bsd", out, p["wo"])
-    hn2 = _apply_norm(cfg, p, "ln2", h)
-    ffn = {name[len("ffn."):]: t for name, t in p.items() if name.startswith("ffn.")}
-    return h + apply_mlp(ffn, hn2, act=cfg.act)
+    h = _ffn(p, cfg, h + torch.einsum("bshk,hkd->bsd", out, p["wo"]))
+    return h, ((k, v, positions) if collect_cache else None)
+
+
+def decode_attn_block(p: Mapping, cfg: ArchConfig, h: torch.Tensor,
+                      cache_k: torch.Tensor, cache_v: torch.Tensor,
+                      cache_pos: torch.Tensor, *, pos: int, window: Optional[int]):
+    """Single-token attention + MLP block against a cache (updated in place).
+
+    h: (B, 1, D); cache_k/v: (B, slots, KV, Dh); cache_pos: (B, slots).
+    """
+    hn = _apply_norm(cfg, p, "ln1", h)
+    q, k, v = _qkv(p, cfg, hn)
+    posb = torch.full((h.shape[0], 1), pos, dtype=torch.int32, device=h.device)
+    sin, cos = rope(posb, cfg.head_dim, cfg.rope_theta)
+    q = apply_rope(q, sin, cos)
+    k = apply_rope(k, sin, cos)
+    attn_lib.cache_update(cache_k, cache_v, cache_pos, k, v, pos, ring=window is not None)
+    out = attn_lib.decode_attention(q, cache_k, cache_v, cache_pos, pos=pos, window=window)
+    return _ffn(p, cfg, h + torch.einsum("bshk,hkd->bsd", out, p["wo"]))
 
 
 # ---------------------------------------------------------------------------
@@ -175,23 +218,96 @@ def cross_entropy(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     return torch.sum((lse - tgt) * valid) / torch.clamp(valid.sum(), min=1.0)
 
 
-def forward(params: Mapping, cfg: ArchConfig, tokens: torch.Tensor, *,
-            window: Optional[int] = None) -> torch.Tensor:
-    """Full-sequence forward: tokens (B, S) -> logits (B, S, V)."""
-    h = params["embed"][tokens.long()]
-    b, s, _ = h.shape
-    positions = torch.arange(s, dtype=torch.int32, device=h.device)[None].expand(b, s)
-    layers = {
+def _layers(params: Mapping, n_layers: int):
+    """Per-layer views of the stacked block parameters."""
+    stacked = {
         name[len("blocks."):]: t.unbind(0)
         for name, t in params.items() if name.startswith("blocks.")
     }
-    for li in range(cfg.n_layers):
-        lp = {name: ts[li] for name, ts in layers.items()}
-        h = apply_attn_block(lp, cfg, h, positions=positions, window=window)
-    return _logits(params, cfg, h)
+    return [{name: ts[li] for name, ts in stacked.items()} for li in range(n_layers)]
+
+
+def forward(params: Mapping, cfg: ArchConfig, tokens: torch.Tensor, *,
+            window: Optional[int] = None, collect_cache: bool = False):
+    """Full-sequence forward: tokens (B, S) -> logits (B, S, V).
+
+    With ``collect_cache`` it returns (logits, (k, v, positions)): every
+    layer's keys (after RoPE) and values stacked to (L, B, S, KV, Dh), and
+    the positions to (L, B, S)."""
+    h = params["embed"][tokens.long()]
+    b, s, _ = h.shape
+    positions = torch.arange(s, dtype=torch.int32, device=h.device)[None].expand(b, s)
+    entries = []
+    for lp in _layers(params, cfg.n_layers):
+        h, entry = apply_attn_block(lp, cfg, h, positions=positions, window=window,
+                                    collect_cache=collect_cache)
+        entries.append(entry)
+    logits = _logits(params, cfg, h)
+    if not collect_cache:
+        return logits
+    return logits, tuple(torch.stack(xs) for xs in zip(*entries))
 
 
 def loss_fn(params: Mapping, cfg: ArchConfig, batch: Mapping) -> torch.Tensor:
     """Next-token CE.  batch: tokens/targets (B, S)."""
     logits = forward(params, cfg, batch["tokens"])
     return cross_entropy(logits, batch["targets"])
+
+
+# ---------------------------------------------------------------------------
+# Serving: prefill + decode
+# ---------------------------------------------------------------------------
+
+class DecodeState(NamedTuple):
+    """Decode state of the dense family: ``kv`` = (k, v, positions), k and v
+    (L, B, slots, KV, Dh), positions (L, B, slots) with -1 for an empty slot.
+    The reference's rwkv and hybrid fields come with those families."""
+
+    kv: tuple
+
+
+def _dense_only(cfg: ArchConfig) -> None:
+    if cfg.family != "dense" or cfg.n_experts:
+        raise ValueError(
+            f"family {cfg.family!r} is not ported yet (dense only); the model "
+            "zoo is ROADMAP queue 1 step 12"
+        )
+
+
+def init_decode_state(cfg: ArchConfig, batch: int, seq_len: int, *,
+                      window: Optional[int] = None, device=None) -> DecodeState:
+    """Empty decode state sized for a ``seq_len`` context (``window`` slots
+    in a ring when a window is given)."""
+    _dense_only(cfg)
+    slots = min(window, seq_len) if window else seq_len
+    _, kv = attn_dims(cfg)
+    shape = (cfg.n_layers, batch, slots, kv, cfg.head_dim)
+    return DecodeState(kv=(
+        torch.zeros(shape, dtype=cfg.dtype, device=device),
+        torch.zeros(shape, dtype=cfg.dtype, device=device),
+        torch.full(shape[:3], -1, dtype=torch.int32, device=device),
+    ))
+
+
+def prefill(params: Mapping, cfg: ArchConfig, tokens: torch.Tensor):
+    """Process a prompt; returns (last-token logits (B, V), DecodeState)."""
+    _dense_only(cfg)
+    logits, (k, v, p) = forward(params, cfg, tokens, collect_cache=True)
+    return logits[:, -1], DecodeState(kv=(k, v, p))
+
+
+def decode_step(params: Mapping, cfg: ArchConfig, tokens: torch.Tensor, pos: int,
+                state: DecodeState, *, window: Optional[int] = None):
+    """One token for every sequence in the batch.
+
+    tokens: (B, 1); pos: the current absolute position.  The state's cache
+    is updated IN PLACE (the reference returns a new one).
+    Returns (logits (B, V), the DecodeState).
+    """
+    _dense_only(cfg)
+    pos = int(pos)
+    h = params["embed"][tokens.long()]  # (B, 1, D)
+    k, v, p = state.kv
+    for li, lp in enumerate(_layers(params, cfg.n_layers)):
+        h = decode_attn_block(lp, cfg, h, k[li], v[li], p[li], pos=pos, window=window)
+    return _logits(params, cfg, h)[:, 0], state

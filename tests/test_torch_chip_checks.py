@@ -62,3 +62,33 @@ def test_phase5_passes_the_true_step_and_fails_a_wrong_mix(setup, mutant, monkey
         monkeypatch.setattr(gu, "gossip_program_update", mutant(gu.gossip_program_update))
         with pytest.raises(SystemExit):
             chip_smoke.phase_fused_vs_interpreter(fused, plain, state.clone(), batch)
+
+
+@pytest.mark.parametrize("sq,sk,causal,window", [
+    (64, 64, True, None), (64, 64, False, None), (64, 64, True, 16),
+    (64, 64, False, 16), (96, 40, True, 7), (40, 96, True, None),
+    (256, 128, True, 32), (33, 77, False, 100), (50, 50, True, 0),
+])
+def test_attention_pair_count_matches_brute_force(sq, sk, causal, window):
+    """K4's bound counts the (q, k) pairs its mask allows; held against a
+    brute-force count of the reference kernel's mask."""
+    q = torch.arange(sq)[:, None]
+    k = torch.arange(sk)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool)
+    if causal:
+        mask &= k <= q
+    if window is not None:
+        mask &= k > q - window
+    assert chip_smoke.attention_pairs(sq, sk, causal=causal, window=window) == int(mask.sum())
+
+
+def test_attention_bound_at_granite_prefill():
+    """The figures the bound gives at phase 12's shapes (B, H, KV, S, D)."""
+    ms, by, flops, nbytes = chip_smoke.attention_bound(4, 32, 8, 4096, 4096, 128, 2,
+                                                      causal=True, window=None)
+    assert chip_smoke.attention_pairs(4096, 4096, causal=True, window=None) == 8_390_656
+    assert flops == 4 * 128 * 4 * 32 * 8_390_656 and nbytes == 335_544_320
+    assert by == "operations" and abs(ms - 0.556) < 1e-3
+    ms_l, by_l, _, _ = chip_smoke.attention_bound(1, 32, 8, 32768, 32768, 128, 2,
+                                                 causal=True, window=None)
+    assert by_l == "operations" and abs(ms_l - 8.894) < 1e-3

@@ -9,7 +9,8 @@ first use.  Run them there with
 Tolerances: m' within 1e-6 relative (the same float32 expression; the
 kernels are built without multiply-add contraction); θ' within 2 ulps of its dtype (float32 or bfloat16
 rounding of a float32 accumulation); norms within rtol 1e-5 (float32 sums
-in a different order).
+in a different order); attention within the reference's own bars, atol
+2e-5 in float32 and 2e-2 in bfloat16 (online against one-pass softmax).
 """
 import pytest
 
@@ -17,6 +18,9 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.core import graphs  # noqa: E402
 from repro_torch.core.schedule import compile_graph  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    flash_attention, flash_attention_plain,
+)
 from repro_torch.kernels.gossip_update import (  # noqa: E402
     gossip_program_update, gossip_program_update_plain, gossip_update, gossip_update_plain,
 )
@@ -110,3 +114,69 @@ def test_segment_l2_norms_matches_twin(cuda, dtype, offsets):
     torch.testing.assert_close(got, want, rtol=1e-5, atol=0)
     again = segment_l2_norms(x, offsets)
     assert torch.equal(got, again)  # deterministic: no float atomics
+
+
+def _attention_case(cuda, shape_q, shape_kv, dtype, seed):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    q = torch.randn(shape_q, generator=gen, device=cuda).to(dtype)
+    k = torch.randn(shape_kv, generator=gen, device=cuda).to(dtype)
+    v = torch.randn(shape_kv, generator=gen, device=cuda).to(dtype)
+    return q, k, v
+
+
+def _check_attention(q, k, v, **kw):
+    want = flash_attention_plain(q, k, v, causal=kw.get("causal", True),
+                                 window=kw.get("window"))
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert got.dtype == q.dtype and got.shape == q.shape
+    tol = 2e-5 if q.dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=0)
+    return got
+
+
+# the sweep of tests/test_kernels.py (the reference kernel's own tests)
+@pytest.mark.parametrize(
+    "b,h,kv,sq,sk,d",
+    [
+        (1, 2, 1, 128, 128, 64),
+        (2, 4, 2, 128, 256, 64),
+        (1, 8, 8, 256, 256, 32),
+        (1, 6, 2, 128, 128, 128),
+    ],
+)
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_sweep_matches_twin(cuda, b, h, kv, sq, sk, d, causal):
+    q, k, v = _attention_case(cuda, (b, h, sq, d), (b, kv, sk, d), torch.float32, b * 100 + h)
+    _check_attention(q, k, v, causal=causal, block_q=64, block_k=64)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_dtypes_match_twin(cuda, dtype):
+    q, k, v = _attention_case(cuda, (1, 2, 128, 64), (1, 2, 128, 64), dtype, 0)
+    _check_attention(q, k, v, block_q=64, block_k=64)
+
+
+@pytest.mark.parametrize("window", [32, 96])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_window_matches_twin(cuda, window, causal):
+    q, k, v = _attention_case(cuda, (1, 2, 256, 64), (1, 2, 256, 64), torch.float32, 5)
+    _check_attention(q, k, v, causal=causal, window=window, block_q=64, block_k=64)
+
+
+def test_flash_attention_fully_masked_rows_are_zero(cuda):
+    q, k, v = _attention_case(cuda, (1, 2, 256, 64), (1, 1, 128, 64), torch.float32, 6)
+    got = _check_attention(q, k, v, causal=True, window=32)
+    assert torch.isfinite(got).all()
+    assert (got[:, :, 159:] == 0).all() and (got[:, :, :159].abs().sum(-1) > 0).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_ragged_tiles_match_twin(cuda, dtype):
+    # Sq = Sk = 96 passes the reference's check with 128-blocks (bq = 96);
+    # the kernel's own 64-row tiles do not divide it
+    q, k, v = _attention_case(cuda, (2, 4, 96, 128), (2, 2, 96, 128), dtype, 7)
+    _check_attention(q, k, v, causal=True)
+    _check_attention(q, k, v, causal=False, window=40)

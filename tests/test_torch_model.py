@@ -124,7 +124,7 @@ def test_reference_attention_matches(window):
         *(torch.from_numpy(a) for a in (q, k, v)), q_positions=torch.from_numpy(pos),
         k_positions=torch.from_numpy(pos), window=window)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
-    with pytest.raises(ValueError, match="not ported"):
+    with pytest.raises(ValueError, match="unknown attention impl"):   # as the reference
         tattn.multihead_attention(
             *(torch.from_numpy(a) for a in (q, k, v)), q_positions=torch.from_numpy(pos),
-            k_positions=torch.from_numpy(pos), impl="chunked")
+            k_positions=torch.from_numpy(pos), impl="pallas")
