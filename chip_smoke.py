@@ -45,10 +45,13 @@ Phases (any failure exits non-zero and prints no result line):
      step;
  10. K4 (flash attention) against its plain twin on the reference kernel's
      own sweep (``tests/test_kernels.py``: four shapes, causal and not,
-     64-blocks; float32 and bfloat16; windows 32 and 96), a fully masked
-     case (Sq 256, Sk 128, causal, window 32: rows 159.. exactly 0) and a
-     ragged one (Sq = Sk = 96, which the kernel's 64-row tiles do not
-     divide), at the reference's bars (2e-5 float32, 2e-2 bfloat16);
+     64-blocks; windows 32 and 96), a fully masked case (Sq 256, Sk 128,
+     causal, window 32: rows 159.. exactly 0) and two ragged ones (Sq =
+     Sk = 96; Sq 200, Sk 328, which tile by neither 64 nor 128), each in
+     float32 (the CUDA-core route) and bfloat16 (the tensor-core route), at
+     the reference's bars (2e-5 float32, 2e-2 bfloat16); then bfloat16 at
+     large magnitudes (q ×8, v ×8, (1, 8, 2, 512, 128) causal) at phase
+     12's bar;
  11. serving granite-8b at full width and depth (36 layers, bfloat16,
      seed-0 weights): ``ServeEngine.prefill_fn()`` on 4 prompts of 4096
      tokens (time, peak memory), ``generate`` on 4 prompts of 128 tokens
@@ -67,7 +70,7 @@ Phases (any failure exits non-zero and prints no result line):
      counters are zeroed just before these three calls and read just
      after.  Then K4, the twin and the library yardstick
      ``scaled_dot_product_attention`` (which the port never calls) are
-     timed.
+     timed, and K4's float32 route at the prefill shape.
 
 The last three lines of standard output are the card's name and power
 limit as nvidia-smi reports them, the per-kernel JSON (K1-K4, each with its
@@ -581,23 +584,26 @@ def attention_inputs(dev, b, h, kv, sq, sk, d, dtype, seed):
 
 
 def phase_k4_sweep(dev):
-    """K4 against its twin on the reference kernel's sweep, a fully masked
-    and a ragged case.  Returns {case: max abs error}."""
+    """K4 against its twin on the reference kernel's sweep, windows, a fully
+    masked and two ragged cases, each in float32 (the CUDA-core route) and
+    bfloat16 (the tensor-core route), and on one bfloat16 case at large
+    magnitudes.  Returns {case: max abs error}."""
     import torch
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
 
-    f32, bf16 = torch.float32, torch.bfloat16
     b64 = dict(block_q=64, block_k=64)
-    cases = [(f"sweep {s} causal={c}", s, f32, dict(causal=c, **b64))
-             for s in ((1, 2, 1, 128, 128, 64), (2, 4, 2, 128, 256, 64),
-                       (1, 8, 8, 256, 256, 32), (1, 6, 2, 128, 128, 128))
-             for c in (True, False)]
-    cases += [(f"dtype {dt}", (1, 2, 2, 128, 128, 64), dt, dict(b64)) for dt in (f32, bf16)]
-    cases += [(f"window {w}", (1, 2, 2, 256, 256, 64), f32, dict(window=w, **b64))
-              for w in (32, 96)]
-    cases += [("fully masked rows", (1, 2, 1, 256, 128, 64), f32, dict(causal=True, window=32))]
-    cases += [(f"ragged 96 {dt}", (2, 4, 2, 96, 96, 128), dt, dict(causal=True))
-              for dt in (f32, bf16)]
+    shapes = [(f"sweep {s} causal={c}", s, dict(causal=c, **b64))
+              for s in ((1, 2, 1, 128, 128, 64), (2, 4, 2, 128, 256, 64),
+                        (1, 8, 8, 256, 256, 32), (1, 6, 2, 128, 128, 128))
+              for c in (True, False)]
+    shapes += [("dtype", (1, 2, 2, 128, 128, 64), dict(b64))]
+    shapes += [(f"window {w}", (1, 2, 2, 256, 256, 64), dict(window=w, **b64)) for w in (32, 96)]
+    shapes += [("fully masked rows", (1, 2, 1, 256, 128, 64), dict(causal=True, window=32))]
+    shapes += [("ragged 96", (2, 4, 2, 96, 96, 128), dict(causal=True))]
+    shapes += [("ragged 200x328", (1, 4, 2, 200, 328, 128),
+                dict(causal=True, window=40, block_q=200, block_k=328))]
+    cases = [(f"{name} {str(dt)[6:]}", shape, dt, kw)
+             for name, shape, kw in shapes for dt in (torch.float32, torch.bfloat16)]
     errs = {}
     for i, (name, shape, dtype, kw) in enumerate(cases):
         q, k, v = attention_inputs(dev, *shape, dtype, seed=100 + i)
@@ -606,16 +612,27 @@ def phase_k4_sweep(dev):
                                      window=kw.get("window"))
         torch.cuda.synchronize()
         err = float((got.float() - want.float()).abs().max())
-        tol = 2e-5 if dtype == f32 else 2e-2
+        tol = 2e-5 if dtype == torch.float32 else 2e-2
         if not bool(torch.isfinite(got).all()) or not err <= tol:
             fail(f"K4 {name}: differs from its twin by {err:.3e} (bar {tol:g})")
-        if name == "fully masked rows" and not (
+        if name.startswith("fully masked rows") and not (
                 bool((got[:, :, 159:] == 0).all()) and bool((got[:, :, :159] != 0).any())):
-            fail("K4 fully masked rows: rows 159.. are not exactly 0")
+            fail(f"K4 {name}: rows 159.. are not exactly 0")
         errs[name] = err
-    log(f"phase 10: K4 agrees with its twin on {len(cases)} cases; max abs err "
-        f"f32 {max(e for n, e in errs.items() if 'bfloat16' not in n):.3e}, bf16 "
-        f"{max(e for n, e in errs.items() if 'bfloat16' in n):.3e}")
+    # q ×8, v ×8 (outputs reach |x| >= 8): phase 12's bar, 2e-2 plus one
+    # bfloat16 rounding step of the element
+    q, k, v = attention_inputs(dev, 1, 8, 2, 512, 512, 128, torch.float32, seed=99)
+    q, k, v = (8 * q).bfloat16(), k.bfloat16(), (8 * v).bfloat16()
+    got = flash_attention(q, k, v, causal=True).float()
+    want = flash_attention_plain(q, k, v, causal=True).float()
+    err = (got - want).abs()
+    if not bool(torch.isfinite(got).all()) or not bool((err <= 2e-2 + bf16_ulp(want)).all()):
+        fail(f"K4 large magnitudes bfloat16: differs from its twin by {float(err.max()):.3e}")
+    errs["large magnitudes bfloat16"] = float(err.max())
+    log(f"phase 10: K4 agrees with its twin on {len(errs)} cases; max abs err "
+        f"f32 {max(e for n, e in errs.items() if n.endswith('float32')):.3e}, bf16 "
+        f"{max(e for n, e in errs.items() if n.endswith('bfloat16') and 'large' not in n):.3e}"
+        f", bf16 at large magnitudes {errs['large magnitudes bfloat16']:.3e}")
     return errs
 
 
@@ -831,9 +848,15 @@ def phase_k4_model(dev, cfg, params, prompts):
             lambda: flash_attention(qt, kt, vt, causal=True, window=ATTN_WINDOW), 5),
         "plain_ms": cuda_ms(lambda: flash_attention_plain(qt, kt, vt, causal=True), 2),
         "sdpa_ms": cuda_ms(lambda: sdpa(qt, kt, vt), 10),
-        "k4_s32k_ms": cuda_ms(lambda: flash_attention(ql, kl, vl, causal=True), 2),
+        "k4_s32k_ms": cuda_ms(lambda: flash_attention(ql, kl, vl, causal=True), 3),
         "sdpa_s32k_ms": cuda_ms(lambda: sdpa(ql, kl, vl), 3),
     }
+    del ql, kl, vl
+    torch.cuda.empty_cache()
+    # the float32 route (PR 13's CUDA-core kernel) at the same shape
+    qf, kf, vf = qt.float(), kt.float(), vt.float()
+    t["k4_f32_ms"] = cuda_ms(lambda: flash_attention(qf, kf, vf, causal=True), 3)
+    del qf, kf, vf
     numbers.update(t)
     numbers.update({
         "bound_ms": bound, "bound_by": bound_by, "flops": flops, "bytes": nbytes,
@@ -846,8 +869,8 @@ def phase_k4_model(dev, cfg, params, prompts):
     log(f"phase 12: K4 {t['k4_ms']:.3f} ms (window {ATTN_WINDOW}: {t['k4_window_ms']:.3f}; "
         f"bound {bound:.3f}, {bound_by}; plain {t['plain_ms']:.3f}; SDPA {t['sdpa_ms']:.3f}); "
         f"S={LONG_S}: K4 {t['k4_s32k_ms']:.3f} ms, SDPA {t['sdpa_s32k_ms']:.3f}, bound "
-        f"{bound_l:.3f}")
-    del q, k, v, qt, kt, vt, ql, kl, vl, outs
+        f"{bound_l:.3f}; float32 route at S={SERVE_S}: {t['k4_f32_ms']:.3f} ms")
+    del q, k, v, qt, kt, vt, outs
     torch.cuda.empty_cache()
     return launches["flash_attention"], numbers
 

@@ -27,7 +27,8 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     # no multiply-add contraction: the memory-bound kernels round every
     # product and sum as their plain twins do (FMA buys them nothing);
-    # flash_attention, held to a tolerance, calls fmaf explicitly
+    # flash_attention, held to a tolerance, calls fmaf explicitly (the f32
+    # route's products, the bf16 route's scaled exponent)
     "-fmad=false",
     "-shared", "-Xcompiler", "-fPIC",
 )

@@ -10,9 +10,11 @@ with the reference's layouts and signature:
 Scores use scale 1/√D in float32; the mask allows ``k <= q`` when causal and
 ``k > q - window`` with a window (positions are the row indices); a row
 with no allowed key gives 0.  ``block_q``/``block_k`` keep the reference's
-tiling check (it raises on exactly the same inputs); the CUDA kernel
-(``csrc/flash_attention.cu``) tiles by its own 64 × 64 blocks and masks its
-ragged edges.  CUDA tensors launch it and count the launch in
+tiling check (it raises on exactly the same inputs); the CUDA kernels
+(``csrc/flash_attention.cu``) tile by their own blocks and mask their
+ragged edges: bfloat16 runs on the tensor cores (``wgmma``, TMA, 128-row q
+tiles × 128-key tiles), float32 on the CUDA cores (64 × 64 tiles).  CUDA
+tensors launch the kernel of their dtype and count the launch in
 ``flash_attention.launches``; CPU tensors take the plain twin.
 """
 from __future__ import annotations

@@ -10,7 +10,9 @@ Tolerances: m' within 1e-6 relative (the same float32 expression; the
 kernels are built without multiply-add contraction); θ' within 2 ulps of its dtype (float32 or bfloat16
 rounding of a float32 accumulation); norms within rtol 1e-5 (float32 sums
 in a different order); attention within the reference's own bars, atol
-2e-5 in float32 and 2e-2 in bfloat16 (online against one-pass softmax).
+2e-5 in float32 and 2e-2 in bfloat16 (online against one-pass softmax),
+and at large magnitudes within the bar of chip_smoke.py's phase 12 (2e-2
+plus one bfloat16 rounding step of the element).
 """
 import pytest
 
@@ -180,3 +182,70 @@ def test_flash_attention_ragged_tiles_match_twin(cuda, dtype):
     q, k, v = _attention_case(cuda, (2, 4, 96, 128), (2, 2, 96, 128), dtype, 7)
     _check_attention(q, k, v, causal=True)
     _check_attention(q, k, v, causal=False, window=40)
+
+
+# the bfloat16 route (tensor cores, 128-row × 128-key tiles) on the same cases
+@pytest.mark.parametrize(
+    "b,h,kv,sq,sk,d",
+    [
+        (1, 2, 1, 128, 128, 64),
+        (2, 4, 2, 128, 256, 64),
+        (1, 8, 8, 256, 256, 32),
+        (1, 6, 2, 128, 128, 128),
+    ],
+)
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_bf16_sweep_matches_twin(cuda, b, h, kv, sq, sk, d, causal):
+    q, k, v = _attention_case(cuda, (b, h, sq, d), (b, kv, sk, d), torch.bfloat16, b * 100 + h)
+    _check_attention(q, k, v, causal=causal, block_q=64, block_k=64)
+
+
+@pytest.mark.parametrize("window", [32, 96])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_bf16_window_matches_twin(cuda, window, causal):
+    q, k, v = _attention_case(cuda, (1, 2, 256, 64), (1, 2, 256, 64), torch.bfloat16, 5)
+    _check_attention(q, k, v, causal=causal, window=window, block_q=64, block_k=64)
+
+
+def test_flash_attention_bf16_fully_masked_rows_are_zero(cuda):
+    q, k, v = _attention_case(cuda, (1, 2, 256, 64), (1, 1, 128, 64), torch.bfloat16, 6)
+    got = _check_attention(q, k, v, causal=True, window=32)
+    assert torch.isfinite(got).all()
+    assert (got[:, :, 159:] == 0).all() and (got[:, :, :159].abs().sum(-1) > 0).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [32, 128])
+def test_flash_attention_ragged_200_by_328_matches_twin(cuda, dtype, d):
+    # neither 200 nor 328 tiles by 64 or 128: ragged q and k edges, the
+    # bf16 route's TMA zero-fills the rows past them
+    q, k, v = _attention_case(cuda, (1, 4, 200, d), (1, 2, 328, d), dtype, 8)
+    _check_attention(q, k, v, causal=False, block_q=200, block_k=328)
+    _check_attention(q, k, v, causal=True, window=40, block_q=200, block_k=328)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kv", [8, 2, 1])   # group sizes 1, 4 and 8
+def test_flash_attention_group_sizes_match_twin(cuda, dtype, kv):
+    q, k, v = _attention_case(cuda, (2, 8, 384, 128), (2, kv, 384, 128), dtype, 9 + kv)
+    _check_attention(q, k, v, causal=True)
+
+
+def test_flash_attention_bf16_large_magnitudes(cuda):
+    # q ×8, v ×8: one bf16 rounding of P would be off by ~3e-2 here
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    q = (8 * torch.randn((1, 8, 512, 128), generator=gen, device=cuda)).bfloat16()
+    k = torch.randn((1, 2, 512, 128), generator=gen, device=cuda).bfloat16()
+    v = (8 * torch.randn((1, 2, 512, 128), generator=gen, device=cuda)).bfloat16()
+    want = flash_attention_plain(q, k, v, causal=True).float()
+    got = flash_attention(q, k, v, causal=True).float()
+    assert bool(torch.isfinite(got).all()) and float(want.abs().max()) >= 8
+    assert bool(((got - want).abs() <= 2e-2 + _ulp(want.bfloat16())).all())
+
+
+def test_flash_attention_bf16_is_deterministic(cuda):
+    q, k, v = _attention_case(cuda, (2, 8, 1024, 128), (2, 2, 1024, 128), torch.bfloat16, 13)
+    a = flash_attention(q, k, v, causal=True)
+    b = flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
