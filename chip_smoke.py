@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's training and serving paths on one CUDA card and check them.
+"""Drive the PyTorch port's training, simulator and serving paths on one CUDA card and check them.
 
     python3 chip_smoke.py
 
@@ -70,12 +70,37 @@ Phases (any failure exits non-zero and prints no result line):
      counters are zeroed just before these three calls and read just
      after.  Then K4, the twin and the library yardstick
      ``scaled_dot_product_attention`` (which the port never calls) are
-     timed, and K4's float32 route at the prefill shape.
+     timed, and K4's float32 route at the prefill shape;
+ 13. ``DecentralizedSimulator`` (the DBench engine) at phase 4's width and
+     configuration with dense mixing, 3 steps from the seed-0 weights and
+     batches, one node's gradients at a time: K3 once per step, K1 and K2
+     never; each node's losses, norms, and θ and m on phase 9's sampled
+     columns held against ``SPMDTrainer`` with ``fused_apply=False`` on the
+     same inputs (phase 9's tolerances); ms per step and peak memory;
+ 14. the trainer at the same width with multi-round gossip: d_one_peer_exp
+     with 2 rounds and d_star with 3 hub-balanced rounds, fused apply (K1
+     runs the update and round 1 once per step, the interpreter the later
+     rounds), 3 steps each, then one step from each run's state against
+     ``fused_apply=False`` (phase 5's comparison with its bound carried
+     through the later rounds; offset σ = 0.1); closed-loop d_ada (target
+     0.7, probe every step, one-peer floor) for 6 steps: each probe's Ξ
+     against a leaf-by-leaf float64 recomputation (rtol 1e-5) and the rung
+     walk;
+ 15. the paper's configurations through the simulator: closed-loop Ada
+     on the mini ResNet (``benchmarks/ada.py``: 16 channels, depth 2, 10
+     classes, 16 × 16 images, 8 per node, N = 16, k0 12, one-peer floor,
+     target 0.7, a probe per 5-step epoch, lr 0.1) and the LSTM variance
+     run (``benchmarks/variance.py``: vocab 128, d 64, seq 24, 4 per node,
+     d_ring, N = 16, lr 0.5), each 20 steps on the card and on the CPU from
+     the same weights and batches (losses, norms, Ξ trace rtol 1e-4, Gini
+     series rtol 1e-4 plus 1e-6, identical transitions), then 120 and 50
+     steps on the card alone.  Each run of phases 13-15 zeroes the launch
+     counters just before its steps and reads them just after.
 
 The last three lines of standard output are the card's name and power
 limit as nvidia-smi reports them, the per-kernel JSON (K1-K4, each with its
-launches on its path, error against its twin, ms, plain ms, bound and
-library ms) and the result ``{"ok": true, "device": {...}}``.  TF32 is off
+launches on its paths, in all and by phase, error against its twin, ms,
+plain ms, bound and library ms) and the result ``{"ok": true, "device": {...}}``.  TF32 is off
 throughout.
 """
 import dataclasses
@@ -265,41 +290,56 @@ def phase_k1_twin(dev):
     return k1_against_twin("w_up leaf", theta0, wire, srcs, w, grad, mom0)
 
 
-def phase_fused_vs_interpreter(trainer, plain_trainer, start, batch):
+def program_stages(trainer, step):
+    """The mixing rounds of ``trainer``'s program at ``step``, in order."""
+    from repro_torch.core.schedule import FusedProgram
+
+    prog = trainer._program_at(step // trainer.mix_every, 0)
+    return prog.stages if isinstance(prog, FusedProgram) else (prog,)
+
+
+def phase_fused_vs_interpreter(trainer, plain_trainer, start, batch, noise=0.01):
     """One step from the same state through K1 (``trainer``) and through the
     optimizer and program interpreter (``plain_trainer``), compared element
     by element.  ``start`` is consumed.
 
-    Every node's θ is first offset by its own noise (σ = 0.01, half a
-    weight's scale), so that the mix moves θ by far more than the
+    Every node's θ is first offset by its own noise (σ = ``noise``; 0.01
+    is half a weight's scale), so that the mix moves θ by far more than the
     tolerance: a wrong neighbour table or a lost neighbour term fails.
-    θ' agrees within 2 bfloat16 ulps of the larger of |θ*| (the node's own
-    θ − lr·m') and |θ'| (the interpreter rounds θ* to bfloat16 before
-    mixing, the kernel after: ≤ w0/2 ulp of θ*, plus one rounding each),
-    plus 2^-20 of Σ_k w_k |θ*_k| over the node and its senders (16 float32
-    roundings of the sums, which matter where the terms cancel); m' within
-    1e-6 relative.  Returns (the fused state after the step, worst θ' error
-    in bfloat16 ulps and as a share of its tolerance, worst m' relative
-    error, share of elements the mix moved by more than the tolerance)."""
+    After the first round θ' agrees within 2 bfloat16 ulps of the larger of
+    |θ*| (the node's own θ − lr·m') and |θ'| (the interpreter rounds θ* to
+    bfloat16 before mixing, the kernel after: ≤ w0/2 ulp of θ*, plus one
+    rounding each), plus 2^-20 of Σ_k w_k |θ*_k| over the node and its
+    senders (16 float32 roundings of the sums, which matter where the terms
+    cancel).  A multi-round program (``mix_rounds``) runs its later rounds
+    through the interpreter on both sides, so each round s carries the
+    bound on: |W_s| times the bound before it, plus 2 ulps of the round's
+    output and 2^-20 of |W_s| |input|; the interpreter's rounds are
+    recomputed from θ* and must give its θ' bit for bit.  m' within 1e-6
+    relative.  Returns (the fused state after the step, worst θ' error in
+    bfloat16 ulps and as a share of its tolerance, worst m' relative error,
+    share of elements the mix moved by more than the tolerance)."""
+    import numpy as np
     import torch
 
     dev = start.theta.device
-    srcs_np, w_np = trainer.topology.program_at().permute_tables()
-    srcs = torch.as_tensor(srcs_np, dtype=torch.long, device=dev)
-    w = torch.as_tensor(w_np, dtype=torch.float32, device=dev)
+    stages = program_stages(trainer, start.step)
+    absw = [torch.as_tensor(np.abs(st.matrix()), dtype=torch.float32, device=dev)
+            for st in stages]
     gen = torch.Generator(device=dev).manual_seed(3)
-    p = start.theta.shape[1]
+    g, p = start.theta.shape
     for a in range(0, p, TWIN_CHUNK):
         b = min(a + TWIN_CHUNK, p)
-        noise = torch.randn((G, b - a), generator=gen, device=start.theta.device)
-        start.theta[:, a:b] += (noise * 0.01).to(start.theta.dtype)
-        del noise
+        offset = torch.randn((g, b - a), generator=gen, device=start.theta.device)
+        start.theta[:, a:b] += (offset * noise).to(start.theta.dtype)
+        del offset
     theta0 = start.theta.clone()
     fused = start.clone()
     fused, loss_f, _ = trainer.train_step(fused, batch, LR)
     ref, loss_r, _ = plain_trainer.train_step(start, batch, LR)
     if not torch.allclose(loss_f, loss_r, rtol=1e-5, atol=0):
         fail(f"fused and interpreter losses differ: {loss_f.tolist()} vs {loss_r.tolist()}")
+    mix = lambda w, x: torch.einsum("ij,jc->ic", w, x)
     worst_ulps = worst_tol = worst_m = 0.0
     moved = 0
     for a in range(0, p, TWIN_CHUNK):
@@ -307,13 +347,27 @@ def phase_fused_vs_interpreter(trainer, plain_trainer, start, batch):
         tf, tr = fused.theta[:, a:b].float(), ref.theta[:, a:b].float()
         mf, mr = fused.mom[:, a:b], ref.mom[:, a:b]
         own = theta0[:, a:b].float() - LR * mr   # every node's own θ*
-        ulp = bf16_ulp(torch.maximum(own.abs(), tr.abs()))
-        # the scale of the mixed terms: where they cancel, both sides'
-        # float32 sums round at this scale, not at θ''s
-        terms = w[:, :1] * own.abs()
-        for k in range(srcs.shape[1]):
-            terms += w[:, k + 1:k + 2] * own.abs().index_select(0, srcs[:, k])
-        tol = 2 * ulp + 2.0 ** -20 * terms
+        # round 1: the kernel's; later rounds carry its bound
+        x = own.to(theta0.dtype)
+        x = stages[0].apply_stacked(x)
+        tol = 2 * bf16_ulp(torch.maximum(own.abs(), x.float().abs())) + 2.0 ** -20 * mix(
+            absw[0], own.abs())
+        for st, w in zip(stages[1:], absw[1:]):
+            y = st.apply_stacked(x)
+            tol = mix(w, tol) + 2 * bf16_ulp(y.float()) + 2.0 ** -20 * mix(w, x.float().abs())
+            x = y
+        if not torch.equal(x.float(), tr):
+            fail(f"the interpreter's rounds recomputed from theta* differ from its step "
+                 f"in columns {a}:{b}")
+        # ulps at the scale of the node's own θ* and θ'; after several
+        # rounds, at the scale of the terms they mixed as well
+        scale = torch.maximum(own.abs(), tr.abs())
+        if len(stages) > 1:
+            mag = own.abs()
+            for w in absw:
+                mag = mix(w, mag)
+            scale = torch.maximum(scale, mag)
+        ulp = bf16_ulp(scale)
         err = (tf - tr).abs()
         if not bool((err <= tol).all()):
             bad = float((err / tol).max())
@@ -327,7 +381,7 @@ def phase_fused_vs_interpreter(trainer, plain_trainer, start, batch):
             fail(f"fused vs interpreter step: m' differs by {float(err_m.max()):.3e} "
                  f"in columns {a}:{b}")
         worst_m = max(worst_m, float((err_m / mr.abs().clamp_min(1e-30)).max()))
-        del tf, tr, mf, mr, own, ulp, terms, tol, err, err_m
+        del tf, tr, mf, mr, own, x, scale, ulp, tol, err, err_m
     moved_share = moved / fused.theta.numel()
     if moved_share < 0.9:
         fail(f"the mix moved only {moved_share:.3f} of the elements past the "
@@ -483,6 +537,41 @@ def rank_run(comm, sample, steps):
     }
 
 
+def compare_rows(label, rows, ref):
+    """Hold each node's run (``rows[i]``: per-step ``losses`` and ``norms``,
+    θ and m on the sampled columns) against row i of the reference run
+    ``ref`` (d_ring, stacked): losses and norms within rtol 1e-5, θ within
+    2 bfloat16 ulps plus 2^-20 of the mixed terms Σ_k w_k |θ_k| over the
+    node and its senders, m within 1e-6 relative.  Returns the worst θ
+    error in ulps, m abs error, loss and norm relative errors."""
+    import numpy as np
+    from repro_torch.core.dsgd import make_topology
+
+    absw = np.abs(make_topology("d_ring", G).program_at().matrix())
+    ref_t = ref["theta"]
+    ulp = np.exp2(np.floor(np.log2(np.maximum(np.abs(ref_t), 2.0 ** -126))) - 7)
+    terms = absw @ np.abs(ref_t)
+    worst_ulps = worst_m = worst_loss = worst_norm = 0.0
+    for i, r in enumerate(rows):
+        lrel = np.abs(r["losses"] - ref["losses"][:, i]) / np.abs(ref["losses"][:, i])
+        nrel = np.abs(r["norms"] - ref["norms"][:, i]) / np.abs(ref["norms"][:, i])
+        if not (lrel <= 1e-5).all() or not (nrel <= 1e-5).all():
+            fail(f"{label} {i}: losses {r['losses'].tolist()} vs {ref['losses'][:, i].tolist()} "
+                 f"(rel {lrel.max():.3e}), norms rel {nrel.max():.3e}")
+        err_t = np.abs(r["theta"] - ref_t[i])
+        if not (err_t <= 2 * ulp[i] + 2.0 ** -20 * terms[i]).all():
+            fail(f"{label} {i}: theta differs from the reference row by up to "
+                 f"{(err_t / ulp[i]).max():.2f} bf16 ulps")
+        err_m = np.abs(r["mom"] - ref["mom"][i])
+        if not (err_m <= 1e-6 * np.abs(ref["mom"][i])).all():
+            fail(f"{label} {i}: m differs from the reference row by {err_m.max():.3e}")
+        worst_ulps = max(worst_ulps, float((err_t / ulp[i]).max()))
+        worst_m = max(worst_m, float(err_m.max()))
+        worst_loss = max(worst_loss, float(lrel.max()))
+        worst_norm = max(worst_norm, float(nrel.max()))
+    return worst_ulps, worst_m, worst_loss, worst_norm
+
+
 def phase_ranks(layout, ref, sample):
     """Spawn G ranks of the ranks engine (NCCL with a card per rank, else
     gloo through pinned host chunks on the one card) and hold each rank's
@@ -498,34 +587,12 @@ def phase_ranks(layout, ref, sample):
     t0 = time.perf_counter()
     res = spawn_world(rank_run, G, (sample, RANK_STEPS), timeout=RANK_TIMEOUT)
     wall = time.perf_counter() - t0
-    srcs, w = (a.cpu().numpy() for a in ring_tables(torch.device("cpu")))
-    ref_t = ref["theta"]
-    ulp = np.exp2(np.floor(np.log2(np.maximum(np.abs(ref_t), 2.0 ** -126))) - 7)
-    worst_ulps = worst_m = worst_loss = worst_norm = 0.0
+    want = {"gossip_program_update": 0, "gossip_update": RANK_STEPS,
+            "segment_l2_norms": RANK_STEPS, "flash_attention": 0}
     for i, r in enumerate(res):
-        lrel = np.abs(r["losses"] - ref["losses"][:, i]) / np.abs(ref["losses"][:, i])
-        nrel = np.abs(r["norms"] - ref["norms"][:, i]) / np.abs(ref["norms"][:, i])
-        if not (lrel <= 1e-5).all() or not (nrel <= 1e-5).all():
-            fail(f"rank {i}: losses {r['losses'].tolist()} vs {ref['losses'][:, i].tolist()} "
-                 f"(rel {lrel.max():.3e}), norms rel {nrel.max():.3e}")
-        terms = w[i, 0] * np.abs(ref_t[i])
-        for k in range(srcs.shape[1]):
-            terms = terms + w[i, k + 1] * np.abs(ref_t[srcs[i, k]])
-        err_t = np.abs(r["theta"] - ref_t[i])
-        if not (err_t <= 2 * ulp[i] + 2.0 ** -20 * terms).all():
-            fail(f"rank {i}: theta differs from the stacked row by up to "
-                 f"{(err_t / ulp[i]).max():.2f} bf16 ulps")
-        err_m = np.abs(r["mom"] - ref["mom"][i])
-        if not (err_m <= 1e-6 * np.abs(ref["mom"][i])).all():
-            fail(f"rank {i}: m differs from the stacked row by {err_m.max():.3e}")
-        want = {"gossip_program_update": 0, "gossip_update": RANK_STEPS,
-                "segment_l2_norms": RANK_STEPS, "flash_attention": 0}
         if r["launches"] != want:
             fail(f"rank {i}: launch counts {r['launches']}, expected {want}")
-        worst_ulps = max(worst_ulps, float((err_t / ulp[i]).max()))
-        worst_m = max(worst_m, float(err_m.max()))
-        worst_loss = max(worst_loss, float(lrel.max()))
-        worst_norm = max(worst_norm, float(nrel.max()))
+    worst_ulps, worst_m, worst_loss, worst_norm = compare_rows("rank", res, ref)
     out = {
         "ranks": G, "transport": res[0]["transport"],
         "devices": [r["device"] for r in res],
@@ -875,6 +942,369 @@ def phase_k4_model(dev, cfg, params, prompts):
     return launches["flash_attention"], numbers
 
 
+SIM_STEPS = 3
+
+
+def sampled_run(state_theta, state_mom, idx, losses, norms):
+    """A run's numbers in ``compare_rows``' form: per node, per-step losses
+    and norms and θ, m on the sampled columns ``idx``."""
+    import numpy as np
+
+    losses, norms = np.stack(losses), np.stack(norms)
+    theta = state_theta[:, idx].float().cpu().numpy()
+    mom = state_mom[:, idx].cpu().numpy()
+    rows = [{"losses": losses[:, i], "norms": norms[:, i], "theta": theta[i], "mom": mom[i]}
+            for i in range(theta.shape[0])]
+    return rows, {"losses": losses, "norms": norms, "theta": theta, "mom": mom}
+
+
+def phase_simulator(cfg, batches, sample):
+    """Phase 13: ``DecentralizedSimulator`` at granite-8b width (the main
+    path's configuration: d_ring, dense mixing, momentum-SGD, DBench norms
+    on K3), SIM_STEPS steps from the seed-0 weights, held node by node
+    against ``SPMDTrainer`` with ``fused_apply=False`` and the dense
+    program on the same inputs (``compare_rows``: phase 5's tolerances on
+    the sampled columns).  The simulator takes one node's gradients at a
+    time (``node_loop``), as the trainer does.  The launch counters are
+    zeroed just before the simulator's steps and read just after: K3 once
+    per step, K1 and K2 never.  Returns (launches, numbers)."""
+    import torch
+    from repro_torch.core.dsgd import make_topology
+    from repro_torch.core.simulator import DecentralizedSimulator
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import SPMDTrainer
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim.sgd import sgd
+
+    dev = batches[0]["tokens"].device
+    idx = torch.as_tensor(sample, device=dev)
+    topo = make_topology("d_ring", G)
+    sim = DecentralizedSimulator(lambda p, b: tfm.loss_fn(p, cfg, b), sgd(momentum=0.9), topo,
+                                 mixing="dense", collect_norms=True, node_loop=True)
+    params = tfm.init_model(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    state = sim.init(params)
+    del params
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    step_ms, losses, norms = [], [], []
+    for t in range(SIM_STEPS):
+        t1 = time.perf_counter()
+        state, loss, nrm = sim.train_step(state, batches[t], LR)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        if not bool(torch.isfinite(loss).all()) or not bool(torch.isfinite(nrm).all()):
+            fail(f"simulator step {t}: non-finite loss {loss.tolist()} or norms")
+        losses.append(loss.cpu().numpy())
+        norms.append(nrm.cpu().numpy())
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    if launches != {"gossip_program_update": 0, "gossip_update": 0,
+                    "segment_l2_norms": SIM_STEPS, "flash_attention": 0}:
+        fail(f"simulator launch counts {launches}, expected {SIM_STEPS} of K3 only")
+    rows, _ = sampled_run(state.theta, state.opt["mom"], idx, losses, norms)
+    del state, sim
+    torch.cuda.empty_cache()
+    trainer = SPMDTrainer(cfg, topo, sgd(momentum=0.9), collect_norms=True, mixing="dense",
+                          fused_apply=False)
+    tstate = trainer.init_state(seed=0)
+    losses, norms = [], []
+    for t in range(SIM_STEPS):
+        tstate, loss, nrm = trainer.train_step(tstate, batches[t], LR)
+        losses.append(loss.cpu().numpy())
+        norms.append(nrm.cpu().numpy())
+    _, ref = sampled_run(tstate.theta, tstate.mom, idx, losses, norms)
+    del tstate, trainer
+    torch.cuda.empty_cache()
+    ulps, err_m, err_l, err_n = compare_rows("simulator node", rows, ref)
+    numbers = {
+        "config": f"{cfg.name} x{cfg.n_layers} layers, bf16, G={G}, d_ring, dense mixing, "
+                  f"sgd(0.9), lr {LR}, seq {SEQ}, per-node batch {BATCH}, node_loop",
+        "step_ms": step_ms, "peak_allocated_bytes": int(peak),
+        "losses": [r["losses"].tolist() for r in rows],
+        "max_theta_err_bf16_ulps": ulps, "max_mom_abs_err": err_m,
+        "max_loss_rel_err": err_l, "max_norm_rel_err": err_n, "launches": launches,
+    }
+    log(f"phase 13: simulator {SIM_STEPS} steps at granite width == the trainer (theta "
+        f"within {ulps:.3f} bf16 ulps, m {err_m:.3e}, losses {err_l:.3e}, norms {err_n:.3e} "
+        f"relative); step ms {[round(x, 1) for x in step_ms]}; peak allocated "
+        f"{peak / 2**30:.2f} GiB; launches {launches}")
+    return launches, numbers
+
+
+ROUND_STEPS, ROUND_NOISE, ADA_STEPS, ADA_TARGET = 3, 0.1, 6, 0.7
+
+
+def xi_float64(theta, layout):
+    """Ξ of a flat (G, P) state recomputed leaf by leaf in float64."""
+    import torch
+
+    total = torch.zeros(theta.shape[0], dtype=torch.float64, device=theta.device)
+    for a0, b0 in zip(layout.offsets[:-1], layout.offsets[1:]):
+        for a in range(a0, b0, TWIN_CHUNK // 4):
+            x = theta[:, a:min(a + TWIN_CHUNK // 4, b0)].double()
+            total += (x - x.mean(dim=0, keepdim=True)).square().sum(dim=1)
+            del x
+    return float(total.mean().sqrt())
+
+
+def phase_rounds(cfg, layout, batches):
+    """Phase 14: the trainer at granite-8b width (fused apply, DBench norms
+    on) with multi-round gossip — d_one_peer_exp with 2 rounds per step and
+    d_star with 3 hub-balanced rounds — ROUND_STEPS steps each from the
+    seed-0 weights, K1 running the update and round 1 once per step and
+    the interpreter the later rounds; then one more step from each run's
+    state held against ``fused_apply=False`` (phase 5's comparison, its
+    bound carried through the later rounds).  Then closed-loop d_ada
+    (target ADA_TARGET, probe every step, one-peer floor) for ADA_STEPS
+    steps: each probe's Ξ against a float64 recomputation (rtol 1e-5) and
+    the rung walk.  Each run's launch counters are zeroed just before its
+    steps and read just after.  Returns (launches summed, numbers)."""
+    import torch
+    from repro_torch.core.dsgd import make_topology
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import SPMDTrainer
+    from repro_torch.optim.sgd import sgd
+
+    total = {}
+    numbers = {}
+
+    def run(trainer, steps, before=None):
+        state = trainer.init_state(seed=0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        step_ms, losses = [], []
+        for t in range(steps):
+            if before is not None:
+                before(t, state)
+            t1 = time.perf_counter()
+            state, loss, nrm = trainer.train_step(state, batches[t], LR)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t1) * 1e3)
+            if not bool(torch.isfinite(loss).all()) or not bool(torch.isfinite(nrm).all()):
+                fail(f"phase 14 step {t}: non-finite loss {loss.tolist()} or norms")
+            losses.append(loss.tolist())
+        counts = ops.launch_counts()
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        return state, counts, step_ms, losses, torch.cuda.max_memory_allocated()
+
+    for label, name, kw in (("d_one_peer_exp rounds 2", "d_one_peer_exp", {"mix_rounds": 2}),
+                            ("d_star rounds 3 hub-balanced", "d_star",
+                             {"mix_rounds": 3, "hub_balance": True})):
+        topo = make_topology(name, G)
+        trainer = SPMDTrainer(cfg, topo, sgd(momentum=0.9), collect_norms=True,
+                              fused_apply=True, **kw)
+        state, counts, step_ms, losses, peak = run(trainer, ROUND_STEPS)
+        if counts != {"gossip_program_update": ROUND_STEPS, "gossip_update": 0,
+                      "segment_l2_norms": ROUND_STEPS, "flash_attention": 0}:
+            fail(f"phase 14 {label}: launch counts {counts}, expected {ROUND_STEPS} of K1 and K3")
+        stages = [st.name for st in program_stages(trainer, state.step)]
+        plain = SPMDTrainer(cfg, topo, sgd(momentum=0.9), collect_norms=True,
+                            fused_apply=False, **kw)
+        # a larger offset than phase 5's: the bound grows by ~2 ulps a round,
+        # and a hub-balanced leaf moves by only w = 1/4 of its difference
+        after, ulps, tol_share, rel_m, moved = phase_fused_vs_interpreter(
+            trainer, plain, state, batches[ROUND_STEPS], noise=ROUND_NOISE)
+        del after, state, trainer, plain
+        torch.cuda.empty_cache()
+        numbers[label] = {"stages": stages, "step_ms": step_ms, "losses": losses,
+                          "peak_allocated_bytes": int(peak), "launches": counts,
+                          "fused_vs_interpreter": {"theta_bf16_ulps": ulps,
+                                                   "share_of_tolerance": tol_share,
+                                                   "mom_rel_err": rel_m,
+                                                   "moved_share": moved}}
+        log(f"phase 14: {label} (stages {stages}): step ms {[round(x, 1) for x in step_ms]}, "
+            f"peak {peak / 2**30:.2f} GiB, launches {counts}; the fused step == the "
+            f"interpreter's (theta within {ulps:.3f} bf16 ulps, {tol_share:.3f} of its "
+            f"tolerance; m {rel_m:.3e} relative; mix moved {moved:.4f})")
+
+    topo = make_topology("d_ada", G, k_floor="one_peer", consensus_target=ADA_TARGET,
+                         consensus_probe_every=1)
+    trainer = SPMDTrainer(cfg, topo, sgd(momentum=0.9), collect_norms=True, fused_apply=True)
+    xi64 = {}
+    state, counts, step_ms, losses, peak = run(
+        trainer, ADA_STEPS, before=lambda t, st: xi64.__setitem__(t, xi_float64(st.theta, layout)))
+    del state, trainer
+    torch.cuda.empty_cache()
+    ctl = topo.controller
+    if [s for s, _, _ in ctl.trace] != list(range(ADA_STEPS)):
+        fail(f"phase 14 closed loop: probes at {[s for s, _, _ in ctl.trace]}")
+    worst = 0.0
+    for s, xi, _ in ctl.trace:
+        err = abs(xi - xi64[s])
+        if not err <= 1e-5 * abs(xi64[s]):
+            fail(f"phase 14 closed loop: Xi at step {s} is {xi!r}, float64 {xi64[s]!r}")
+        worst = max(worst, err / abs(xi64[s]) if xi64[s] else 0.0)
+    if counts["gossip_program_update"] != ADA_STEPS or counts["segment_l2_norms"] != ADA_STEPS:
+        fail(f"phase 14 closed loop: launch counts {counts}")
+    walk = " -> ".join(str(ctl.ladder[r]) for _, r in [(0, 0)] + ctl.transitions)
+    numbers["d_ada closed loop"] = {
+        "target": ADA_TARGET, "ladder": [str(r) for r in ctl.ladder],
+        "trace": [[s, xi, r] for s, xi, r in ctl.trace], "xi_float64": xi64,
+        "max_xi_rel_err": worst, "transitions": ctl.transitions, "rung_walk": walk,
+        "step_ms": step_ms, "losses": losses, "peak_allocated_bytes": int(peak),
+        "launches": counts,
+    }
+    log(f"phase 14: closed-loop d_ada, probes (step, Xi, rung) "
+        f"{[(s, round(xi, 6), r) for s, xi, r in ctl.trace]} == float64 within {worst:.3e} "
+        f"relative; rung walk {walk}; step ms {[round(x, 1) for x in step_ms]}")
+    return total, numbers
+
+
+PAPER_N, PAPER_CHECK_STEPS = 16, 20
+PAPER_RUNS = {
+    # benchmarks/ada.py's closed-loop Ada: mini ResNet, k0 12, one-peer
+    # floor, target 0.7, a probe per 5-step epoch, lr 0.1
+    "resnet closed-loop Ada": dict(steps=120, lr=0.1),
+    # benchmarks/variance.py's LSTM run on d_ring, lr 0.5
+    "lstm variance d_ring": dict(steps=50, lr=0.5),
+}
+
+
+def paper_inputs(name, steps):
+    """Seeded weights (on the CPU) and numpy batches of a phase-15 run."""
+    import torch
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models.common import init_params
+    from repro_torch.models.paper_models import lstm_defs, mini_resnet_defs, synthetic_images
+
+    n = PAPER_N
+    if name.startswith("resnet"):
+        params = init_params(mini_resnet_defs(channels=16, n_classes=10, depth=2),
+                             torch.Generator().manual_seed(0), "cpu")
+        batches = []
+        for t in range(steps):
+            b = synthetic_images(torch.Generator().manual_seed(1000 + t), n_classes=10,
+                                 batch=8 * n, size=16)
+            batches.append({"images": b["images"].reshape(n, 8, 16, 16, 3).numpy(),
+                            "labels": b["labels"].reshape(n, 8).numpy()})
+        return params, batches
+    params = init_params(lstm_defs(vocab=128, d=64), torch.Generator().manual_seed(1), "cpu")
+    src = SyntheticLM(vocab=128, seq_len=24, seed=0)
+    return params, [src.stacked(n, t, 4) for t in range(steps)]
+
+
+def paper_run(name, device, params, batches):
+    """One phase-15 run through ``DecentralizedSimulator`` (dense mixing,
+    momentum-SGD 0.9, DBench norms on; gradients under vmap over the 16
+    nodes) on ``device``: per-step losses, norms and Gini series, the
+    controller's trace and transitions, and ms per step."""
+    import numpy as np
+    import torch
+    from repro_torch.core.dbench import DBenchRecorder
+    from repro_torch.core.dsgd import make_topology
+    from repro_torch.core.simulator import DecentralizedSimulator
+    from repro_torch.models.paper_models import lstm_loss, mini_resnet_loss
+    from repro_torch.optim.sgd import sgd
+
+    if name.startswith("resnet"):
+        topo = make_topology("d_ada", PAPER_N, k0=12, k_floor="one_peer",
+                             consensus_target=0.7, consensus_probe_every=5)
+        loss_fn = mini_resnet_loss
+    else:
+        topo = make_topology("d_ring", PAPER_N)
+        loss_fn = lstm_loss
+    sim = DecentralizedSimulator(loss_fn, sgd(momentum=0.9), topo, collect_norms=True,
+                                 device=device)
+    state = sim.init(params)
+    rec = DBenchRecorder(impl=name, n_nodes=PAPER_N)
+    cuda = torch.device(device).type == "cuda"
+    step_ms = []
+    for t, b in enumerate(batches):
+        t1 = time.perf_counter()
+        state, loss, norms = sim.train_step(state, b, PAPER_RUNS[name]["lr"], epoch=t // 5)
+        if cuda:
+            torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        rec.record(t, loss.cpu().numpy(), norms.cpu().numpy())
+    ctl = topo.controller
+    losses = np.stack(rec.losses)
+    if not np.isfinite(losses).all():
+        fail(f"phase 15 {name} on {device}: non-finite losses")
+    return {
+        "losses": losses, "norms": np.stack(rec.norms), "gini": rec.metric_series("gini"),
+        "trace": None if ctl is None else list(ctl.trace),
+        "transitions": None if ctl is None else list(ctl.transitions),
+        "ladder": None if ctl is None else [str(r) for r in ctl.ladder],
+        "step_ms": step_ms, "final_loss": float(losses[-1].mean()),
+    }
+
+
+def phase_paper(dev):
+    """Phase 15: the paper's configurations through the simulator.  Each
+    runs PAPER_CHECK_STEPS steps on the card and on the CPU from the same
+    weights and batches: losses and norms within rtol 1e-4, the Gini series
+    within rtol 1e-4 plus 1e-6 (its float32 floor: each norm carries ~1e-7
+    relative rounding, and the Gini of nearly equal norms is their relative
+    spread), the Ξ trace within rtol 1e-4 and identical transitions.  Then
+    the full run on the card alone.  The launch counters are zeroed just
+    before each card run and read just after: K3 once per step.  Returns
+    (launches summed, numbers)."""
+    import numpy as np
+    from repro_torch.kernels import ops
+
+    total, numbers = {}, {}
+    for name, spec in PAPER_RUNS.items():
+        params, batches = paper_inputs(name, spec["steps"])
+        runs = {}
+        for label, device, steps in (("card", dev, PAPER_CHECK_STEPS),
+                                     ("cpu", "cpu", PAPER_CHECK_STEPS),
+                                     ("card long", dev, spec["steps"])):
+            if label != "cpu":
+                ops.reset_launch_counts()
+            runs[label] = paper_run(name, device, params, batches[:steps])
+            if label != "cpu":
+                counts = ops.launch_counts()
+                if counts != {"gossip_program_update": 0, "gossip_update": 0,
+                              "segment_l2_norms": steps, "flash_attention": 0}:
+                    fail(f"phase 15 {name} {label}: launch counts {counts}")
+                for k, v in counts.items():
+                    total[k] = total.get(k, 0) + v
+        card, cpu = runs["card"], runs["cpu"]
+        errs = {}
+        for key, atol in (("losses", 0.0), ("norms", 0.0), ("gini", 1e-6)):
+            a, b = card[key], cpu[key]
+            if not np.allclose(a, b, rtol=1e-4, atol=atol):
+                fail(f"phase 15 {name}: {key} on the card differ from the CPU's by "
+                     f"{np.abs(a - b).max():.3e}")
+            # the Gini's error is absolute (it is 0 at the first step); the
+            # others relative, where the CPU's value is not 0 (a zero bias)
+            errs[key] = float(np.abs(a - b).max() if key == "gini" else
+                              (np.abs(a - b) / np.where(b == 0, 1.0, np.abs(b))).max())
+        if card["transitions"] != cpu["transitions"]:
+            fail(f"phase 15 {name}: transitions {card['transitions']} on the card, "
+                 f"{cpu['transitions']} on the CPU")
+        if card["trace"] is not None:
+            xa = np.array([x for _, x, _ in card["trace"]])
+            xb = np.array([x for _, x, _ in cpu["trace"]])
+            if [(s, r) for s, _, r in card["trace"]] != [(s, r) for s, _, r in cpu["trace"]] \
+                    or not np.allclose(xa, xb, rtol=1e-4, atol=0.0):
+                fail(f"phase 15 {name}: Xi trace {card['trace']} vs {cpu['trace']}")
+            errs["xi"] = float((np.abs(xa - xb) / np.where(xb == 0, 1.0, np.abs(xb))).max())
+        long = runs["card long"]
+        gini = long["gini"].mean(axis=1)
+        numbers[name] = {
+            "check_steps": PAPER_CHECK_STEPS, "card_vs_cpu_max_rel_err": errs,
+            "steps": spec["steps"], "ladder": long["ladder"], "transitions": long["transitions"],
+            "trace": long["trace"], "final_loss": long["final_loss"],
+            "first_loss": float(long["losses"][0].mean()),
+            "step_ms_median": float(np.median(long["step_ms"][1:])),
+            "first_step_ms": long["step_ms"][0],
+            "cpu_step_ms_median": float(np.median(cpu["step_ms"][1:])),
+            "gini_mean_early": float(gini[:15].mean()), "gini_mean_late": float(gini[-10:].mean()),
+        }
+        log(f"phase 15: {name}: {PAPER_CHECK_STEPS} steps card == CPU (max err, Gini abs, "
+            f"others rel: "
+            f"{json.dumps(errs)}); {spec['steps']} steps on the card: loss "
+            f"{numbers[name]['first_loss']:.4f} -> {long['final_loss']:.4f}, transitions "
+            f"{long['transitions']} on ladder {long['ladder']}, median step "
+            f"{numbers[name]['step_ms_median']:.2f} ms (CPU "
+            f"{numbers[name]['cpu_step_ms_median']:.2f} ms)")
+    return total, numbers
+
+
 def main():
     import numpy as np
     import torch
@@ -1094,6 +1524,27 @@ def main():
     del serve_params, prompts
     torch.cuda.empty_cache()
 
+    # 13. the simulator at granite width, against the trainer
+    t13 = time.perf_counter()
+    launches13, sim13 = phase_simulator(cfg, batches, sample)
+    sim13["wall_s"] = time.perf_counter() - t13
+    torch.cuda.empty_cache()
+
+    # 14. the trainer with multi-round gossip and closed-loop Ada
+    t14 = time.perf_counter()
+    batches14 = batches + [
+        {k: torch.as_tensor(v, device=dev) for k, v in src.stacked(G, t, BATCH).items()}
+        for t in range(len(batches), ADA_STEPS)]
+    launches14, rounds14 = phase_rounds(cfg, layout, batches14)
+    rounds14["wall_s"] = time.perf_counter() - t14
+    del batches14
+    torch.cuda.empty_cache()
+
+    # 15. the paper's configurations through the simulator, card against CPU
+    t15 = time.perf_counter()
+    launches15, paper15 = phase_paper(dev)
+    paper15["wall_s"] = time.perf_counter() - t15
+
     summary = {
         "card": smi,
         "model": f"{cfg.name} x{cfg.n_layers} layers, bf16, G={G}, seq {SEQ}, "
@@ -1105,14 +1556,30 @@ def main():
         "ranks": ranks9,
         "serve": serve11,
         "attention": attn12,
+        "simulator": sim13,
+        "rounds": rounds14,
+        "paper": paper15,
     }
     log("summary " + json.dumps(summary))
+    # each kernel's launches on every main path that runs it
+    by_path = {
+        "gossip_program_update": {"phase 4": counts["gossip_program_update"],
+                                  "phase 14": launches14["gossip_program_update"]},
+        "gossip_update": {"phase 9": ranks9["launches"]["gossip_update"]},
+        "segment_l2_norms": {"phase 4": counts["segment_l2_norms"],
+                             "phase 9": ranks9["launches"]["segment_l2_norms"],
+                             "phase 13": launches13["segment_l2_norms"],
+                             "phase 14": launches14["segment_l2_norms"],
+                             "phase 15": launches15["segment_l2_norms"]},
+        "flash_attention": {"phase 12": k4_launches},
+    }
     kernels = [
         {
             "name": "gossip_program_update", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/gossip_update.cu",
             "replaces": "src/repro/kernels/gossip_update.py:254",
-            "launches": counts["gossip_program_update"], "max_abs_err": err_k1,
+            "launches": sum(by_path["gossip_program_update"].values()),
+            "launches_by_path": by_path["gossip_program_update"], "max_abs_err": err_k1,
             "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound,
             "bound_by": "bytes" if k1_bytes / HBM_BYTES_PER_S >= k1_ops / F32_OPS_PER_S
             else "operations",
@@ -1122,7 +1589,8 @@ def main():
             "name": "gossip_update", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/gossip_update.cu",
             "replaces": "src/repro/kernels/gossip_update.py:184",
-            "launches": ranks9["launches"]["gossip_update"], "max_abs_err": err_k2,
+            "launches": sum(by_path["gossip_update"].values()),
+            "launches_by_path": by_path["gossip_update"], "max_abs_err": err_k2,
             "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound,
             "bound_by": "bytes" if k2_bytes / HBM_BYTES_PER_S >= k2_ops / F32_OPS_PER_S
             else "operations",
@@ -1132,7 +1600,8 @@ def main():
             "name": "segment_l2_norms", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/l2_norms.cu",
             "replaces": "src/repro/kernels/stats.py:38",
-            "launches": counts["segment_l2_norms"], "max_abs_err": err_k3,
+            "launches": sum(by_path["segment_l2_norms"].values()),
+            "launches_by_path": by_path["segment_l2_norms"], "max_abs_err": err_k3,
             "ms": k3_ms, "plain_ms": k3_plain_ms, "bound_ms": k3_bound,
             "bound_by": "bytes" if k3_bytes / HBM_BYTES_PER_S >= k3_ops / F32_OPS_PER_S
             else "operations",
@@ -1142,7 +1611,8 @@ def main():
             "name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:90",
-            "launches": k4_launches,
+            "launches": sum(by_path["flash_attention"].values()),
+            "launches_by_path": by_path["flash_attention"],
             "max_abs_err": attn12["max_abs_err_vs_twin_causal"],
             "ms": attn12["k4_ms"], "plain_ms": attn12["plain_ms"],
             "bound_ms": attn12["bound_ms"], "bound_by": attn12["bound_by"],

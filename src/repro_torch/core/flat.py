@@ -12,11 +12,13 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Mapping
+from typing import Callable, Mapping, Optional
 
 import torch
 
-__all__ = ["FlatLayout"]
+from repro_torch.optim.sgd import state_from, state_parts
+
+__all__ = ["FlatLayout", "node_grads_into", "opt_buffers", "update_leaves"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,3 +77,70 @@ class FlatLayout:
         leaves = [tree[name] for name in self.names]
         g = leaves[0].shape[0]
         return torch.cat([x.reshape(g, -1) for x in leaves], dim=1).contiguous()
+
+
+def opt_buffers(optimizer, layout: FlatLayout, theta: torch.Tensor) -> dict:
+    """The optimizer's initial state for every row of ``theta`` as flat
+    buffers: one (rows, P) float32 buffer per slot, and ``"t"`` (rows,)
+    int32 for a step-counted optimizer; every row starts as row 0's."""
+    rows = theta.shape[0]
+    parts, t = state_parts(optimizer, optimizer.init(layout.views(theta[0])))
+    opt = {}
+    for slot, leaves in parts.items():
+        buf = torch.empty(theta.shape, dtype=torch.float32, device=theta.device)
+        for name, view in layout.views(buf[0]).items():
+            view.copy_(leaves[name])
+        buf[1:].copy_(buf[:1].expand(rows - 1, -1))
+        opt[slot] = buf
+    if t is not None:
+        opt["t"] = t.reshape(1).expand(rows).to(torch.int32).clone()
+    return opt
+
+
+def update_leaves(optimizer, update: Callable, layout: FlatLayout, theta: torch.Tensor,
+                  opt: dict, grads: Mapping[str, torch.Tensor], lr: float, *,
+                  mix: Optional[Callable] = None, mix_order: str = "post") -> None:
+    """One local optimizer step and gossip mix over flat state, leaf by leaf,
+    written back IN PLACE, so float32 temporaries stay one leaf's.
+
+    ``theta`` (rows, P) and ``opt`` (a (rows, P) float32 buffer per
+    optimizer slot, ``"t"`` (rows,) for a step-counted optimizer) are laid
+    out by ``layout``; ``grads`` maps each leaf to its (rows, ...) gradient;
+    ``update`` is ``optimizer.update`` vmapped over the rows.  ``mix`` (a
+    function of one (rows, ...) leaf) runs after the update for ``"post"``,
+    on the parameters before it for ``"pre"``.
+    """
+    p_views = layout.stacked_views(theta)
+    slot_views = {s: layout.stacked_views(opt[s]) for s in optimizer.slots}
+    t, new_t = opt.get("t"), None
+    for name in layout.names:
+        p = p_views[name]
+        p_in = mix(p) if mix is not None and mix_order == "pre" else p
+        st = state_from(optimizer, {s: {name: v[name]} for s, v in slot_views.items()}, t)
+        new_p, new_st = update({name: grads[name]}, st, {name: p_in}, lr)
+        out = new_p[name]
+        if mix is not None and mix_order == "post":
+            out = mix(out)
+        p.copy_(out)
+        parts, new_t = state_parts(optimizer, new_st)
+        for s, leaves in parts.items():
+            slot_views[s][name].copy_(leaves[name])
+    if new_t is not None:
+        opt["t"].copy_(new_t)
+
+
+def node_grads_into(loss_fn: Callable, layout: FlatLayout, theta: torch.Tensor,
+                    grad: torch.Tensor, batch: Mapping, *extra) -> torch.Tensor:
+    """Per-node loss and gradients, one node (row) at a time, so only one
+    node's activations are alive: ``loss_fn(params, node_batch, *extra)``
+    on row i's leaf views of ``theta``, its gradients written into row i of
+    ``grad`` (same shape and dtype).  Returns the (rows,) float32 losses."""
+    losses = torch.empty(theta.shape[0], dtype=torch.float32, device=theta.device)
+    for i in range(theta.shape[0]):
+        params = {k: v.detach().requires_grad_() for k, v in layout.views(theta[i]).items()}
+        loss = loss_fn(params, {k: v[i] for k, v in batch.items()}, *extra)
+        grads = torch.autograd.grad(loss, list(params.values()))
+        for view, gi in zip(layout.views(grad[i]).values(), grads):
+            view.copy_(gi)
+        losses[i] = loss.detach()
+    return losses

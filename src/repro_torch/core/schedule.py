@@ -27,6 +27,14 @@ the node axis (a tensor, or a dict of such tensors):
 A third, ``apply_shard``, runs it on one rank's own values with one
 collective per op (the one-rank-per-node engine).
 
+Multi-step fusion: ``GossipProgram.fuse`` composes H consecutive programs
+(a full one-peer cycle, say) into one ``FusedProgram`` whose interpreters
+run the H rounds in sequence; ``hub_balanced_rounds`` spreads a static
+multi-matching program's matchings over the H rounds, so a hub no longer
+sends in every round.  ``program_comm_bytes`` and
+``program_max_node_bytes`` are the comm-cost model (fault-free; the fault
+masks and ``degrade`` come with the fault slice).
+
 ``compile_graph`` picks the cheapest faithful realization: circulant graph
 → one PPermute per offset; complete graph → AllReduce; any other
 ``EdgeGraph`` → an edge-colored program of ≤ Δ+1 per-node-weighted
@@ -50,11 +58,16 @@ __all__ = [
     "AllReduce",
     "GatherRow",
     "GossipProgram",
+    "FusedProgram",
     "compile_graph",
     "dense_program",
     "edge_coloring",
+    "hub_balanced_rounds",
     "identity_program",
+    "maybe_hub_balanced",
     "permutation_for_offset",
+    "program_comm_bytes",
+    "program_max_node_bytes",
 ]
 
 
@@ -147,6 +160,10 @@ class GossipProgram:
     def is_identity(self) -> bool:
         return not self.ops
 
+    @property
+    def num_collectives(self) -> int:
+        return len(self.ops)
+
     def matrix(self) -> np.ndarray:
         """The dense (n, n) mixing matrix W this program realizes (float64)."""
         return _program_matrix(self)
@@ -176,6 +193,31 @@ class GossipProgram:
                 srcs[d, k] = s
                 weights[d, k + 1] = wv[d]
         return srcs, weights
+
+    @staticmethod
+    def fuse(programs: Sequence["GossipProgram"], name: Optional[str] = None):
+        """Compose H consecutive mixing steps into one program that applies
+        ``programs[0]`` first (``matrix() == W_H ··· W_1``).  Nested fused
+        programs flatten; a single program passes through unchanged."""
+        stages: list[GossipProgram] = []
+        for p in programs:
+            if isinstance(p, FusedProgram):
+                stages.extend(p.stages)
+            else:
+                stages.append(p)
+        if not stages:
+            raise ValueError("fuse needs at least one program")
+        if len({p.n for p in stages}) > 1:
+            raise ValueError("cannot fuse programs over different node counts")
+        if len(stages) == 1:
+            return stages[0]
+        return FusedProgram(
+            name=name or f"fuse[{'+'.join(p.name for p in stages)}]",
+            n=stages[0].n,
+            ops=tuple(op for p in stages for op in p.ops),
+            self_weight=0.0,
+            stages=tuple(stages),
+        )
 
     # -- interpreters --------------------------------------------------------
     def apply(self, tree, *, engine: str = "stacked"):
@@ -269,6 +311,65 @@ class GossipProgram:
             return acc.to(x.dtype)
 
         return _tree_map(_mix, local)
+
+
+@dataclasses.dataclass(frozen=True)
+class FusedProgram(GossipProgram):
+    """H mixing rounds applied in sequence (``GossipProgram.fuse``):
+    ``out = W_H ··· W_1 x``.  ``ops`` holds the stages' ops concatenated,
+    so collective counts and the comm-cost model sum over the rounds; the
+    interpreters fold over ``stages`` instead."""
+
+    stages: tuple[GossipProgram, ...] = ()
+
+    @property
+    def cache_key(self):
+        key = self.__dict__.get("_cache_key")
+        if key is None:
+            key = ("fused",) + tuple(p.cache_key for p in self.stages)
+            object.__setattr__(self, "_cache_key", key)
+        return key
+
+    @property
+    def is_identity(self) -> bool:
+        return all(p.is_identity and p.self_weight == 1.0 for p in self.stages)
+
+    def matrix(self) -> np.ndarray:
+        w = np.eye(self.n)
+        for p in self.stages:
+            w = p.matrix() @ w
+        return w
+
+    def describe(self) -> str:
+        inner = ", ".join(p.describe() for p in self.stages)
+        return f"{self.name}(n={self.n}, stages=[{inner}])"
+
+    def permute_tables(self):
+        """Fused programs mix in sequence: one round's kernel tables do not
+        apply (each stage has its own)."""
+        return None
+
+    def apply_dense(self, stacked):
+        """One einsum with the *product* matrix: the fused dense oracle."""
+        if self.is_identity:
+            return stacked
+        w64 = self.matrix()
+
+        def _mix(x):
+            w = torch.as_tensor(w64, dtype=torch.float32, device=x.device)
+            return torch.einsum("ij,j...->i...", w, x.float()).to(x.dtype)
+
+        return _tree_map(_mix, stacked)
+
+    def apply_stacked(self, stacked):
+        for p in self.stages:
+            stacked = p.apply_stacked(stacked)
+        return stacked
+
+    def apply_shard(self, local, comm):
+        for p in self.stages:
+            local = p.apply_shard(local, comm)
+        return local
 
 
 @lru_cache(maxsize=512)
@@ -504,3 +605,113 @@ def _compile_one(graph) -> GossipProgram:
         )
 
     raise TypeError(f"cannot compile {type(graph).__name__} into a GossipProgram")
+
+
+# ---------------------------------------------------------------------------
+# Hub-balanced round scheduling
+# ---------------------------------------------------------------------------
+
+def hub_balanced_rounds(
+    program: GossipProgram, rounds: int, name: Optional[str] = None
+) -> GossipProgram:
+    """Spread a static permute program's C matchings over ``rounds`` fused
+    steps: stage h applies ``ops[h::rounds]`` and keeps the unapplied
+    neighbour mass on its self weight, so every stage is row-stochastic and
+    each matching runs once per cycle.  A hub of degree Δ then sends
+    ⌈Δ/rounds⌉·P per step instead of Δ·P."""
+    rounds = int(rounds)
+    if rounds <= 1:
+        return program
+    if not all(isinstance(op, PPermute) for op in program.ops):
+        raise ValueError(
+            f"hub_balanced_rounds needs an all-PPermute program, got "
+            f"{program.describe()}"
+        )
+    if len(program.ops) <= 1:
+        return program
+    n = program.n
+    base_self = _weight_column(program.self_weight, n)
+    cols = [_weight_column(op.weight, n) for op in program.ops]
+    # receiver-side mass per op: only perm-participating dsts carry weight
+    masks = []
+    for op in program.ops:
+        m = np.zeros(n)
+        for _, d in op.perm:
+            m[d] = 1.0
+        masks.append(m)
+    stages = []
+    for h in range(rounds):
+        picked = list(range(h, len(program.ops), rounds))
+        sw = base_self.copy()
+        for k, (wv, m) in enumerate(zip(cols, masks)):
+            if k not in picked:
+                sw += wv * m  # unapplied matchings self-average this step
+        stages.append(
+            GossipProgram(
+                name=f"{program.name}@round{h}",
+                n=n,
+                ops=tuple(program.ops[k] for k in picked),
+                self_weight=tuple(float(v) for v in sw),
+            )
+        )
+    return GossipProgram.fuse(
+        stages, name=name or f"hub_balanced[{program.name}/H{rounds}]"
+    )
+
+
+def maybe_hub_balanced(progs: Sequence[GossipProgram], rounds: int):
+    """The shared eligibility rule: hub-balance only when the ``rounds``
+    fused steps are one static multi-matching permute program repeated.
+    Returns the rescheduled program, or ``None`` when plain fusion
+    applies."""
+    if (
+        rounds > 1
+        and len({p.cache_key for p in progs}) == 1
+        and progs[0].permute_tables() is not None
+        and len(progs[0].ops) > 1
+    ):
+        return hub_balanced_rounds(progs[0], rounds)
+    return None
+
+
+# ---------------------------------------------------------------------------
+# Cost model
+# ---------------------------------------------------------------------------
+
+def _live_pairs(op: PPermute, n: int):
+    """The (src, dst) pairs that move bytes: a pair whose receiver weight
+    is zero moves nothing."""
+    wv = _weight_column(op.weight, n)
+    return [(s, d) for s, d in op.perm if wv[d] != 0.0]
+
+
+def program_comm_bytes(program: GossipProgram, param_bytes: int) -> int:
+    """Mean bytes each node sends per mixing step under this program: a
+    permute costs ``P · pairs/n`` per node, the all-reduce 2·P·(n−1)/n, the
+    dense all-gather P·(n−1)."""
+    total = 0.0
+    n = program.n
+    for op in program.ops:
+        if isinstance(op, PPermute):
+            total += param_bytes * (len(_live_pairs(op, n)) / n)
+        elif isinstance(op, AllReduce):
+            total += 2 * param_bytes * (n - 1) / n
+        else:  # GatherRow: ring all-gather — each node forwards P to n-1 peers
+            total += param_bytes * (n - 1)
+    return int(total)
+
+
+def program_max_node_bytes(program: GossipProgram, param_bytes: int) -> int:
+    """Bytes the busiest node sends per mixing step (a star hub sends Δ·P
+    though the mean is ~2P; ``hub_balanced_rounds`` caps this)."""
+    n = program.n
+    sends = np.zeros(n)
+    for op in program.ops:
+        if isinstance(op, PPermute):
+            for s, _ in _live_pairs(op, n):
+                sends[s] += param_bytes
+        elif isinstance(op, AllReduce):
+            sends += 2 * param_bytes * (n - 1) / n
+        else:  # GatherRow
+            sends += param_bytes * (n - 1)
+    return int(sends.max()) if n else 0

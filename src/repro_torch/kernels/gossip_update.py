@@ -29,6 +29,11 @@ nodes still read).  A rank sends its own θ* (or, for ``"pre"``, θ itself:
 the landing buffer is filled before K2 writes θ) and K2 updates its (P,)
 row in place.
 
+A multi-round program (``GossipProgram.fuse``) runs its first round in
+the kernel and the remaining rounds through ``mix_in_place``: the
+program's interpreter over the flat buffer in column chunks, so no
+whole-buffer float32 copy is made.
+
 Each wrapper launches its CUDA kernel (``csrc/gossip_update.cu``) on CUDA
 tensors and counts each launch in its ``launches``; for CPU tensors it
 takes its plain twin (``*_plain``).
@@ -51,6 +56,7 @@ __all__ = [
     "gossip_wire",
     "fused_apply_stacked",
     "fused_apply_shard",
+    "mix_in_place",
 ]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -367,3 +373,20 @@ def fused_apply_shard(program, theta, grad, mom, comm, *, lr, beta, fault=None,
     gossip_update(theta, landing, weights_t[i], grad, mom,
                   lr=lr, beta=beta, fault=frow, mix_order=mix_order)
     return theta, (mom if had_m else None)
+
+
+def mix_in_place(stages, theta, mix) -> None:
+    """Run ``stages`` (mixing programs, in order) over the flat (rows, P)
+    buffer ``theta`` IN PLACE, ``WIRE_CHUNK`` columns at a time: ``mix(stage,
+    x)`` applies one stage to a (rows, k) block (the stacked interpreter,
+    or the shard interpreter on a rank).  Mixing is column-wise, so the
+    chunks are independent."""
+    if not stages:
+        return
+    p = theta.shape[1]
+    for a in range(0, p, WIRE_CHUNK):
+        block = theta[:, a:min(a + WIRE_CHUNK, p)]
+        x = block
+        for stage in stages:
+            x = mix(stage, x)
+        block.copy_(x)

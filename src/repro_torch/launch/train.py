@@ -13,30 +13,38 @@
   the CPU when asked.
 
 The state is flat (rows, P) buffers (``core/flat.py``) in the reference's
-leaf order — parameters (model dtype), gradients (model dtype) and
-momentum (float32) — with rows = G stacked, 1 (the rank's own node) for
-ranks; every node's parameters are views into them.  One iteration
-(paper §2.1 order):
+leaf order — parameters (model dtype), gradients (model dtype) and one
+float32 buffer per optimizer-state slot (momentum; AdamW's ``mu``, ``nu``
+and its (rows,) step count) — with rows = G stacked, 1 (the rank's own
+node) for ranks; every node's parameters are views into them.  One
+iteration (paper §2.1 order):
 
+  0. closed-loop Ada: before a probe step the consensus distance Ξ_t
+     (stacked: over the state; ranks: two ``pmean``s) goes to the
+     topology's controller, before the step's program is resolved;
   1. per-node forward and backward, one node at a time (only one node's
      activations are alive), into the gradient buffer;
   2. the DBench probe: per-leaf L2 norms *before* mixing (kernel K3);
   3. c_complete: average gradients over the nodes (ranks: ``pmean``);
-     d_*: local momentum-SGD update and gossip mixing θ ← Wθ through the
-     step's compiled ``GossipProgram``.
+     d_*: the local optimizer update and gossip mixing θ ← Wθ through the
+     step's compiled ``GossipProgram`` — with ``mix_rounds`` H, the H
+     schedule steps of the gossip round fused (``hub_balance`` spreads a
+     static multi-matching program's matchings over them).
 
-With ``fused_apply`` an all-PPermute program runs update and mixing as one
-pass of a fused kernel (``kernels/gossip_update.py``) in place on the
-state buffers: K1 over the stacked nodes, K2 on a rank after one permute
-per op; programs with AllReduce or GatherRow ops (the complete graph,
-``mixing="dense"``) and non-mixing steps take the interpreter, exactly as
-the reference does.  Without it the optimizer and the program's stacked
-(or, for ranks, shard) interpreter run leaf by leaf, which keeps their
-float32 temporaries to one leaf at a time.
+With ``fused_apply`` (plain momentum-SGD) a program whose first round is
+all-PPermute runs the update and that round as one pass of a fused kernel
+(``kernels/gossip_update.py``) in place on the state buffers — K1 over the
+stacked nodes, K2 on a rank after one permute per op — and the program's
+interpreter runs its later rounds over the flat buffer in column chunks
+(the reference's ``_fused_split``).  Programs with AllReduce or GatherRow
+first rounds (the complete graph, ``mixing="dense"``), ``mix_order="pre"``
+with H > 1 and non-mixing steps take the interpreter, exactly as the
+reference does.  Without it the optimizer (vmapped over the rows) and the
+program's stacked (or, for ranks, shard) interpreter run leaf by leaf,
+which keeps their float32 temporaries to one leaf at a time.
 
-Faults, buckets, checkpoints, telemetry, closed-loop Ada and multi-round
-fusion are later slices; the CLI rejects their flags and names the ROADMAP
-step that brings each.
+Faults, buckets, checkpoints and telemetry are later slices; the CLI
+rejects their flags and names the ROADMAP step that brings each.
 """
 from __future__ import annotations
 
@@ -50,11 +58,20 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.core import dbench
+from repro_torch.core.consensus import (
+    consensus_distance_shard, consensus_distance_stacked,
+)
 from repro_torch.core.dsgd import Topology
-from repro_torch.core.flat import FlatLayout
-from repro_torch.core.schedule import GossipProgram, compile_graph, dense_program
+from repro_torch.core.flat import (
+    FlatLayout, node_grads_into, opt_buffers, update_leaves,
+)
+from repro_torch.core.schedule import (
+    FusedProgram, GossipProgram, compile_graph, dense_program, maybe_hub_balanced,
+)
 from repro_torch.device import resolve_device
-from repro_torch.kernels.gossip_update import fused_apply_shard, fused_apply_stacked
+from repro_torch.kernels.gossip_update import (
+    fused_apply_shard, fused_apply_stacked, mix_in_place,
+)
 from repro_torch.launch.comm import Comm, rank_device
 from repro_torch.models import transformer as tfm
 from repro_torch.optim.sgd import Optimizer
@@ -66,16 +83,18 @@ __all__ = ["SPMDTrainer", "TrainState", "main"]
 class TrainState:
     """Training state as flat buffers: G rows stacked, one row on a rank."""
 
-    theta: torch.Tensor            # (rows, P) parameters, model dtype
-    mom: Optional[torch.Tensor]    # (rows, P) float32 momentum; None without momentum
+    theta: torch.Tensor   # (rows, P) parameters, model dtype
+    opt: dict             # slot -> (rows, P) float32; "t" -> (rows,) int32
     step: int = 0
 
+    @property
+    def mom(self) -> Optional[torch.Tensor]:
+        """The momentum buffer (momentum-SGD, LARS); None without one."""
+        return self.opt.get("mom")
+
     def clone(self) -> "TrainState":
-        return TrainState(
-            self.theta.clone(),
-            None if self.mom is None else self.mom.clone(),
-            self.step,
-        )
+        return TrainState(self.theta.clone(), {k: v.clone() for k, v in self.opt.items()},
+                          self.step)
 
 
 class SPMDTrainer:
@@ -91,27 +110,28 @@ class SPMDTrainer:
         collect_norms: bool = False,
         mixing: str = "ppermute",  # ppermute (compiled program) | dense
         mix_every: int = 1,
+        mix_rounds: int = 1,
+        hub_balance: bool = False,
         fused_apply: bool = False,
         device=None,
     ):
         """mix_every: gossip once every H optimizer steps (the H−1 local
-        steps run no mixing).  fused_apply: run optimizer update + gossip
-        averaging as one pass of a fused kernel (K1 stacked, K2 on a rank)
-        whenever the step's program is all-PPermute; requires plain momentum-SGD.  ``device``: the current
-        card by default; ``"cpu"`` runs every kernel's plain twin.  With an
-        initialised process group of world size > 1 the trainer is one rank
-        of the ranks engine, which raises unless the world size equals the
-        topology's node count."""
+        steps run no mixing).  mix_rounds: fuse H consecutive schedule
+        steps into each gossip round.  hub_balance: with mix_rounds > 1 on
+        a static multi-matching program, rotate its matchings over the H
+        rounds.  fused_apply: run the optimizer update and the first gossip
+        round as one pass of a fused kernel (K1 stacked, K2 on a rank)
+        whenever that round is all-PPermute; requires plain momentum-SGD.
+        ``device``: the current card by default; ``"cpu"`` runs every
+        kernel's plain twin.  With an initialised process group of world
+        size > 1 the trainer is one rank of the ranks engine, which raises
+        unless the world size equals the topology's node count."""
         if mixing not in ("ppermute", "dense"):
             raise ValueError(f"mixing must be 'ppermute'|'dense', got {mixing!r}")
         hyper = optimizer.hyper or {}
-        if hyper.get("kind") != "sgd":
-            raise ValueError(
-                f"optimizer {optimizer.name} is not ported yet (sgd only): "
-                "ROADMAP queue 1 step 3"
-            )
         self.fused_apply = bool(fused_apply)
-        if self.fused_apply and (hyper.get("nesterov") or hyper.get("weight_decay")):
+        if self.fused_apply and (hyper.get("kind") != "sgd" or hyper.get("nesterov")
+                                 or hyper.get("weight_decay")):
             raise ValueError(
                 "fused_apply re-implements the update inside the kernel and "
                 f"supports plain momentum-SGD only; got {optimizer.name}"
@@ -123,6 +143,9 @@ class SPMDTrainer:
         self.collect_norms = collect_norms
         self.mixing = mixing
         self.mix_every = max(int(mix_every), 1)
+        self.mix_rounds = max(int(mix_rounds), 1)
+        self.hub_balance = bool(hub_balance)
+        self._update = torch.func.vmap(optimizer.update, in_dims=(0, 0, 0, None))
         self.g = topology.n_nodes
         self.device = resolve_device(device)
         self.comm = None
@@ -139,7 +162,7 @@ class SPMDTrainer:
         self.layout = FlatLayout.from_shapes({k: d.shape for k, d in self.defs.items()})
 
     # -- mixing program -------------------------------------------------------
-    def _program_at(self, step: int, epoch: int) -> Optional[GossipProgram]:
+    def _one_program(self, step: int, epoch: int) -> Optional[GossipProgram]:
         graph = self.topology.graph_at(epoch, step)
         if graph is None:
             return None
@@ -147,25 +170,57 @@ class SPMDTrainer:
             return dense_program(graph)
         return compile_graph(graph)
 
+    def _program_at(self, step: int, epoch: int) -> Optional[GossipProgram]:
+        """Gossip round ``step``'s program: schedule steps step·H … step·H+H−1
+        fused (hub-balanced when eligible)."""
+        if self.mix_rounds <= 1:
+            return self._one_program(step, epoch)
+        progs = [self._one_program(step * self.mix_rounds + r, epoch)
+                 for r in range(self.mix_rounds)]
+        if any(p is None for p in progs):
+            return None
+        if self.hub_balance:
+            balanced = maybe_hub_balanced(progs, self.mix_rounds)
+            if balanced is not None:
+                return balanced
+        return GossipProgram.fuse(progs)
+
     def precompile_programs(self, n_epochs: int = 1) -> list[GossipProgram]:
-        """Every distinct program a run will rotate through."""
+        """Every distinct program a run will rotate through; a closed-loop
+        controller's rungs are pinned in turn."""
         progs, seen = [], set()
+        ctl = self.topology.controller
         for (e, s), _ in self.topology.distinct_programs(n_epochs):
-            p = self._program_at(s, e)
+            if ctl is not None:
+                # closed-loop keys are (rung, phase)
+                with ctl.pinned(e):
+                    p = self._program_at(s, 0)
+            else:
+                p = self._program_at(s, e)
             if p is not None and p.cache_key not in seen:
                 seen.add(p.cache_key)
                 progs.append(p)
         return progs
 
+    def _fused_split(self, program: Optional[GossipProgram]):
+        """(kernel round, interpreter rounds) when the fused kernel can run
+        this program's first round, else None: not for non-PPermute first
+        rounds, non-mixing steps, or multi-round ``mix_order="pre"`` (the
+        descent must follow ALL rounds there)."""
+        if not self.fused_apply or program is None or self.topology.centralized:
+            return None
+        if isinstance(program, FusedProgram):
+            if self.topology.mix_order != "post":
+                return None
+            first, rest = program.stages[0], program.stages[1:]
+        else:
+            first, rest = program, ()
+        if first.permute_tables() is None:
+            return None
+        return first, rest
+
     def _use_fused(self, program: Optional[GossipProgram]) -> bool:
-        """K1 runs one all-PPermute round; everything else takes the
-        interpreter (the reference's ``_fused_split``)."""
-        return (
-            self.fused_apply
-            and program is not None
-            and not self.topology.centralized
-            and program.permute_tables() is not None
-        )
+        return self._fused_split(program) is not None
 
     # -- state ----------------------------------------------------------------
     def init_state(self, seed: int = 0, params: Optional[dict] = None) -> TrainState:
@@ -184,10 +239,8 @@ class SPMDTrainer:
                 )
             view.copy_(params[name])
         theta[1:].copy_(theta[:1].expand(self.rows - 1, -1))
-        mom = None
-        if self.beta != 0.0:
-            mom = torch.zeros(theta.shape, dtype=torch.float32, device=self.device)
-        return TrainState(theta, mom, 0)
+        opt = opt_buffers(self.optimizer, self.layout, theta)
+        return TrainState(theta, opt, 0)
 
     def stacked_params(self, state: TrainState) -> dict[str, torch.Tensor]:
         """(rows, ...) views of every leaf of the state's parameters."""
@@ -197,47 +250,19 @@ class SPMDTrainer:
     def _grads_into(self, theta, grad, batch) -> torch.Tensor:
         """Per-node loss and gradients, one node (row) at a time; returns
         (rows,) losses."""
-        losses = torch.empty(self.rows, dtype=torch.float32, device=self.device)
-        for i in range(self.rows):
-            params = {
-                k: v.detach().requires_grad_()
-                for k, v in self.layout.views(theta[i]).items()
-            }
-            loss = tfm.loss_fn(params, self.cfg, {k: v[i] for k, v in batch.items()})
-            grads = torch.autograd.grad(loss, list(params.values()))
-            for view, gi in zip(self.layout.views(grad[i]).values(), grads):
-                view.copy_(gi)
-            losses[i] = loss.detach()
-        return losses
+        return node_grads_into(lambda p, b: tfm.loss_fn(p, self.cfg, b), self.layout,
+                               theta, grad, batch)
 
     def _mix(self, program: GossipProgram, x: torch.Tensor) -> torch.Tensor:
         if self.comm is None:
             return program.apply_stacked(x)
         return program.apply_shard(x, self.comm)
 
-    def _interpreted_update(self, state: TrainState, grad, lr, program) -> None:
-        """Optimizer update + program interpreter (stacked, or shard on a
-        rank), leaf by leaf, written back into the state buffers."""
-        order = self.topology.mix_order
-        p_views = self.layout.stacked_views(state.theta)
-        g_views = self.layout.stacked_views(grad)
-        m_views = None if state.mom is None else self.layout.stacked_views(state.mom)
-        for name in self.layout.names:
-            p = p_views[name]
-            if order == "pre" and program is not None:
-                p_in = self._mix(program, p)
-            else:
-                p_in = p
-            m_in = () if m_views is None else {name: m_views[name]}
-            new_p, new_m = self.optimizer.update(
-                {name: g_views[name]}, m_in, {name: p_in}, lr
-            )
-            out = new_p[name]
-            if order == "post" and program is not None:
-                out = self._mix(program, out)
-            p.copy_(out)
-            if m_views is not None:
-                m_views[name].copy_(new_m[name])
+    def consensus_distance(self, state: TrainState) -> torch.Tensor:
+        """Ξ of the state: over the stacked rows, or across the ranks."""
+        if self.comm is None:
+            return consensus_distance_stacked(state.theta)
+        return consensus_distance_shard(state.theta[0], self.comm)
 
     def train_step(self, state: TrainState, batch, lr: float, *, epoch: int = 0):
         """One iteration; updates the state's buffers in place and returns
@@ -247,6 +272,11 @@ class SPMDTrainer:
         own = slice(None) if self.comm is None else slice(self.comm.rank, self.comm.rank + 1)
         batch = {k: torch.as_tensor(v[own], device=self.device) for k, v in batch.items()}
         topo = self.topology
+        ctl = topo.controller
+        if ctl is not None and self.g > 1 and ctl.should_probe(state.step):
+            # the probe may change the rung, and so this step's program
+            with torch.no_grad():
+                ctl.observe(float(self.consensus_distance(state)), state.step)
         mix = (state.step + 1) % self.mix_every == 0
         # time-varying schedules advance per gossip round, not per raw step
         program = (
@@ -269,21 +299,30 @@ class SPMDTrainer:
                         g.copy_(g.float().mean(dim=0, keepdim=True).to(g.dtype).expand_as(g))
                     else:
                         g.copy_(self.comm.pmean(g.float().contiguous()))
-            if self._use_fused(program) and self.comm is not None:
-                fused_apply_shard(
-                    program, state.theta[0], grad[0],
-                    None if state.mom is None else state.mom[0], self.comm,
-                    lr=lr, beta=self.beta, mix_order=topo.mix_order,
-                )
-            elif self._use_fused(program):
-                fused_apply_stacked(
-                    program, state.theta, grad, state.mom,
-                    lr=lr, beta=self.beta, mix_order=topo.mix_order,
+            split = self._fused_split(program)
+            if split is None:
+                update_leaves(
+                    self.optimizer, self._update, self.layout, state.theta, state.opt,
+                    self.layout.stacked_views(grad), lr,
+                    mix=None if program is None else (lambda x: self._mix(program, x)),
+                    mix_order=topo.mix_order,
                 )
             else:
-                self._interpreted_update(state, grad, lr, program)
+                first, rest = split
+                if self.comm is not None:
+                    fused_apply_shard(
+                        first, state.theta[0], grad[0],
+                        None if state.mom is None else state.mom[0], self.comm,
+                        lr=lr, beta=self.beta, mix_order=topo.mix_order,
+                    )
+                else:
+                    fused_apply_stacked(
+                        first, state.theta, grad, state.mom,
+                        lr=lr, beta=self.beta, mix_order=topo.mix_order,
+                    )
+                mix_in_place(rest, state.theta, self._mix)
         del grad
-        return TrainState(state.theta, state.mom, state.step + 1), losses, norms
+        return TrainState(state.theta, state.opt, state.step + 1), losses, norms
 
 
 # ---------------------------------------------------------------------------
@@ -303,8 +342,11 @@ def _parser():
     ap.add_argument("--topology", default="d_ada")
     ap.add_argument("--mixing", default="ppermute", choices=["ppermute", "dense"])
     ap.add_argument("--mix-every", type=int, default=1)
-    ap.add_argument("--mix-rounds", type=int, default=1)
-    ap.add_argument("--hub-balance", action="store_true")
+    ap.add_argument("--mix-rounds", type=int, default=1,
+                    help="fuse H consecutive schedule steps into each gossip round")
+    ap.add_argument("--hub-balance", action="store_true",
+                    help="with --mix-rounds > 1, rotate a static multi-matching "
+                         "program's matchings across the rounds")
     ap.add_argument("--fused-apply", action="store_true",
                     help="run optimizer+gossip as one pass of the fused CUDA "
                          "kernel for all-PPermute programs (plain momentum-SGD)")
@@ -324,9 +366,15 @@ def _parser():
     ap.add_argument("--deadline-backoff", type=float, default=2.0)
     ap.add_argument("--k-floor", default="2",
                     help="Ada decay floor: an int, or 'one_peer'")
-    ap.add_argument("--consensus-target", type=float, default=None)
-    ap.add_argument("--consensus-every", type=int, default=1)
-    ap.add_argument("--consensus-spike", type=float, default=None)
+    ap.add_argument("--consensus-target", type=float, default=None,
+                    help="closed-loop d_ada: step down one rung whenever the "
+                         "measured consensus distance falls to this fraction "
+                         "of its phase peak")
+    ap.add_argument("--consensus-every", type=int, default=1,
+                    help="consensus-distance probe cadence in steps")
+    ap.add_argument("--consensus-spike", type=float, default=None,
+                    help="re-densify one rung when Xi reaches this multiple of "
+                         "the phase peak (needs --consensus-target)")
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--steps-per-epoch", type=int, default=10)
     ap.add_argument("--seq", type=int, default=64)
@@ -348,9 +396,6 @@ def _parser():
 def _unsupported(args) -> list[str]:
     """Messages for every flag of a later slice that this run sets."""
     out = []
-    if args.mix_rounds != 1 or args.hub_balance:
-        out.append("--mix-rounds > 1 / --hub-balance (fused multi-round gossip): "
-                   "ROADMAP queue 1 step 8")
     if args.bucket_mb is not None:
         out.append("--bucket-mb (overlap-scheduled buckets): ROADMAP queue 1 step 10")
     if args.fault_model != "none" or args.spare_ranks:
@@ -361,11 +406,6 @@ def _unsupported(args) -> list[str]:
                    "ROADMAP queue 1 step 10")
     if args.telemetry:
         out.append("--telemetry (run telemetry): ROADMAP queue 1 step 11")
-    if (args.consensus_target is not None or args.consensus_spike is not None
-            or args.consensus_every != 1):
-        out.append("--consensus-* (closed-loop Ada): ROADMAP queue 1 step 7")
-    if args.optimizer != "sgd":
-        out.append(f"--optimizer {args.optimizer}: ROADMAP queue 1 step 3")
     return out
 
 
@@ -434,10 +474,16 @@ def _train(args, g, tp, k_floor, dev) -> dict:
 
     cfg = get_config(args.arch + ("-reduced" if args.reduced or dev.type == "cpu" else ""))
     cfg = dataclasses.replace(cfg, name=args.arch)
-    topo = make_topology(args.topology, g, k_floor=k_floor)
+    topo = make_topology(
+        args.topology, g, k_floor=k_floor,
+        consensus_target=args.consensus_target,
+        consensus_spike=args.consensus_spike,
+        consensus_probe_every=args.consensus_every,
+    )
     trainer = SPMDTrainer(
         cfg, topo, get_optimizer(args.optimizer), collect_norms=True,
         mixing=args.mixing, mix_every=args.mix_every,
+        mix_rounds=args.mix_rounds, hub_balance=args.hub_balance,
         fused_apply=args.fused_apply, device=dev,
     )
     comm = trainer.comm
@@ -451,8 +497,8 @@ def _train(args, g, tp, k_floor, dev) -> dict:
         apply_mode = "interpreter (program not fused-eligible)"
     engine = "stacked" if comm is None else f"ranks | transport {comm.transport}"
     say(topo.describe(), "| mesh", {"data": g, "model": tp}, "| mixing",
-        args.mixing, "| engine", engine, "| rounds 1 | apply", apply_mode,
-        "| device", dev)
+        args.mixing, "| engine", engine, "| rounds", args.mix_rounds, "| apply",
+        apply_mode, "| optimizer", trainer.optimizer.name, "| device", dev)
     n_progs = len(trainer.precompile_programs(args.steps // args.steps_per_epoch + 1))
     say(f"{n_progs} distinct mixing program(s) over the run")
     state = trainer.init_state(seed=0)
@@ -476,6 +522,11 @@ def _train(args, g, tp, k_floor, dev) -> dict:
             say(f"step {t:4d} k={topo.degree_at(epoch, t)} loss={losses[-1]:.4f} "
                 f"spread={float(loss.max() - loss.min()):.4f}")
     say(f"{args.steps} steps in {time.time() - t0:.1f}s")
+    if topo.controller is not None:
+        ctl = topo.controller
+        rungs = " -> ".join(str(ctl.ladder[r]) for _, r in [(0, 0)] + ctl.transitions)
+        say(f"consensus controller: xi0={ctl.xi0} rungs {rungs} "
+            f"handoff_step={ctl.handoff_step}")
     return {"losses": losses, "trainer": trainer, "state": state}
 
 

@@ -1,1 +1,2 @@
-"""Models: the dense transformer family (the counterpart of ``repro/models``)."""
+"""Models: the dense transformer family and the paper's own benchmark models
+(the counterpart of ``repro/models``)."""

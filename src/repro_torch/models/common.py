@@ -1,22 +1,28 @@
 """Shared model machinery: param definitions, norms, RoPE.
 
 The counterpart of ``repro/models/common.py``.  Parameters are declared as
-``ParamDef`` (shape, initializer, dtype); initializers draw from an explicit
-``torch.Generator`` (their bits differ from ``jax.random``'s — parity tests
-carry the reference's weights across instead).  Mesh partition specs are
-not ported: the port holds all gossip nodes on one card.
+``ParamDef`` (shape, initializer, dtype), one per leaf of a dict, or of a
+nested dict as the reference's trees are; initializers draw from an
+explicit ``torch.Generator`` (their bits differ from ``jax.random``'s —
+parity tests carry the reference's weights across instead).
+``flatten_tree`` names a nested tree's leaves by their dotted paths in
+``jax.tree.leaves``' order (keys sorted at each level, depth first), the
+order of the engines' flat state.  Mesh partition specs are not ported:
+the port holds all gossip nodes on one card.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable
+from typing import Any, Callable, Mapping
 
 import torch
 
 __all__ = [
     "ParamDef",
     "init_params",
+    "param_count",
+    "flatten_tree",
     "rms_norm",
     "layer_norm",
     "rope",
@@ -72,9 +78,38 @@ class ParamDef:
     dtype: Any = torch.float32
 
 
-def init_params(defs: dict[str, ParamDef], gen: torch.Generator, device) -> dict:
-    """Materialize a flat ParamDef dict into tensors, in the dict's order."""
-    return {k: d.init(gen, d.shape, d.dtype, device) for k, d in defs.items()}
+def flatten_tree(tree: Mapping, prefix: str = "") -> dict[str, Any]:
+    """Nested dict -> flat dict keyed by dotted paths, in the reference's
+    leaf order (sorted keys at each level, depth first)."""
+    out: dict[str, Any] = {}
+    for k in sorted(tree):
+        v = tree[k]
+        path = f"{prefix}{k}"
+        if isinstance(v, Mapping):
+            out.update(flatten_tree(v, path + "."))
+        else:
+            out[path] = v
+    return out
+
+
+def init_params(defs: Mapping, gen: torch.Generator, device, dtype=None) -> dict:
+    """Materialize a ParamDef dict into tensors of the same structure.  A
+    flat dict draws in its own order, a nested tree in leaf order; ``dtype``
+    overrides every leaf's."""
+
+    def make(d: ParamDef):
+        return d.init(gen, d.shape, dtype if dtype is not None else d.dtype, device)
+
+    if any(isinstance(v, Mapping) for v in defs.values()):
+        return {k: (init_params(v, gen, device, dtype) if isinstance(v, Mapping)
+                    else make(v))
+                for k, v in sorted(defs.items())}
+    return {k: make(d) for k, d in defs.items()}
+
+
+def param_count(tree: Mapping) -> int:
+    """Elements over every leaf of a (nested) dict of ParamDefs or tensors."""
+    return sum(math.prod(x.shape) for x in flatten_tree(tree).values())
 
 
 # ---------------------------------------------------------------------------

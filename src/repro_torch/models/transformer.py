@@ -12,7 +12,7 @@ needed here (no activations are kept for a backward pass in serving).
 """
 from __future__ import annotations
 
-from typing import Any, Mapping, NamedTuple, Optional
+from typing import Mapping, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -22,6 +22,7 @@ from repro_torch.models import attention as attn_lib
 from repro_torch.models.common import (
     ParamDef,
     apply_rope,
+    flatten_tree,
     he_normal,
     init_params,
     layer_norm,
@@ -46,19 +47,6 @@ __all__ = [
     "prefill",
     "decode_step",
 ]
-
-
-def _flatten_sorted(tree: Mapping, prefix: str = "") -> dict[str, Any]:
-    """Nested dict -> flat dotted-path dict in reference leaf order."""
-    out: dict[str, Any] = {}
-    for k in sorted(tree):
-        v = tree[k]
-        path = f"{prefix}{k}"
-        if isinstance(v, Mapping):
-            out.update(_flatten_sorted(v, path + "."))
-        else:
-            out[path] = v
-    return out
 
 
 def stack_defs(defs: dict[str, ParamDef], n: int) -> dict[str, ParamDef]:
@@ -115,14 +103,14 @@ def model_defs(cfg: ArchConfig) -> dict[str, ParamDef]:
             "zoo is ROADMAP queue 1 step 12"
         )
     dt = cfg.dtype
-    block = _flatten_sorted(attn_block_defs(cfg))
+    block = flatten_tree(attn_block_defs(cfg))
     nested = {
         "embed": ParamDef((cfg.vocab, cfg.d_model), normal_init(0.02), dt),
         "final_norm": _norm_defs(cfg, cfg.d_model),
         "head": ParamDef((cfg.d_model, cfg.vocab), normal_init(0.02), dt),
         "blocks": stack_defs(block, cfg.n_layers),
     }
-    return _flatten_sorted(nested)
+    return flatten_tree(nested)
 
 
 def init_model(cfg: ArchConfig, gen: torch.Generator, device) -> dict[str, torch.Tensor]:
@@ -134,7 +122,7 @@ def params_from_jax(tree: Mapping) -> dict[str, torch.Tensor]:
     like the reference tree -> the port's flat dict (CPU tensors, same
     dtype; bfloat16 arrays are carried bit for bit)."""
     out = {}
-    for k, v in _flatten_sorted(tree).items():
+    for k, v in flatten_tree(tree).items():
         a = np.asarray(v)
         if a.dtype.name == "bfloat16":
             t = torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)

@@ -11,29 +11,37 @@ from repro_torch.core.dsgd import make_topology
 from repro_torch.data import SyntheticLM
 from repro_torch.kernels import ops
 from repro_torch.launch.train import SPMDTrainer
-from repro_torch.optim.sgd import sgd
+from repro_torch.optim.sgd import get_optimizer
 
 
 def run_cases(comm, cases, params, steps, seq, batch, lr):
-    """Each case ``name -> (topology, fused, mix_order, mixing)`` trained
-    ``steps`` steps on this rank from ``params`` (numpy leaves).  Returns
-    ``name -> {"params", "losses", "norms", "engine", "launches"}`` with
-    this rank's final parameters, per-step losses and norms, and the launch
-    counts of the run."""
+    """Each case ``name -> (topology, fused, mix_order, mixing[, extra])``
+    trained ``steps`` steps on this rank from ``params`` (numpy leaves);
+    ``extra`` may hold make_topology kwargs (``topo_kw``), trainer kwargs
+    (``engine_kw``), the optimizer (``opt``: name, kwargs) and ``lr``.
+    Returns ``name -> {"params", "losses", "norms", "engine", "launches",
+    "transitions"}`` with this rank's final parameters, per-step losses and
+    norms, the launch counts of the run and the controller's transitions
+    (None without one)."""
     cfg = get_config("granite-8b-reduced")
     out = {}
-    for name, (topology, fused, mix_order, mixing) in cases.items():
+    for name, (topology, fused, mix_order, mixing, *extra) in cases.items():
+        extra = extra[0] if extra else {}
+        opt_name, opt_kw = extra.get("opt", ("sgd", {"momentum": 0.9}))
+        topo = make_topology(topology, comm.world, mix_order=mix_order,
+                             **extra.get("topo_kw", {}))
         trainer = SPMDTrainer(
-            cfg, make_topology(topology, comm.world, mix_order=mix_order),
-            sgd(momentum=0.9), collect_norms=True, fused_apply=fused,
-            mixing=mixing, device=comm.device,
+            cfg, topo, get_optimizer(opt_name, **opt_kw), collect_norms=True,
+            fused_apply=fused, mixing=mixing, device=comm.device,
+            **extra.get("engine_kw", {}),
         )
         state = trainer.init_state(params={k: torch.from_numpy(v) for k, v in params.items()})
         src = SyntheticLM(vocab=cfg.vocab, seq_len=seq, seed=0)
         ops.reset_launch_counts()
         losses, norms = [], []
         for t in range(steps):
-            state, loss, nrm = trainer.train_step(state, src.stacked(comm.world, t, batch), lr)
+            state, loss, nrm = trainer.train_step(state, src.stacked(comm.world, t, batch),
+                                                  extra.get("lr", lr))
             losses.append(loss.numpy().copy())
             norms.append(nrm.numpy().copy())
         out[name] = {
@@ -42,6 +50,7 @@ def run_cases(comm, cases, params, steps, seq, batch, lr):
             "norms": np.concatenate(norms),
             "engine": (trainer.engine, comm.transport),
             "launches": ops.launch_counts(),
+            "transitions": None if topo.controller is None else topo.controller.transitions,
         }
     return out
 
@@ -60,6 +69,31 @@ def fused_shard_cases(comm, cases):
         row = lambda a: None if a is None else torch.from_numpy(a[comm.rank].copy())
         t, m = fused_apply_shard(program, row(theta), row(grad), row(mom), comm, **kw)
         out[name] = (t.numpy().copy(), None if m is None else m.numpy().copy())
+    return out
+
+
+def consensus_shard(comm, tree, chunk):
+    """This rank's (‖x_i - x̄‖², Ξ) from its rows of the stacked numpy
+    ``tree``, in chunks of ``chunk`` elements."""
+    from repro_torch.core import consensus
+
+    consensus.CHUNK = chunk
+    local = {k: torch.from_numpy(v[comm.rank].copy()) for k, v in tree.items()}
+    return (float(consensus.consensus_sq_shard(local, comm)),
+            float(consensus.consensus_distance_shard(local, comm)))
+
+
+def mix_ppermute_cases(comm, cases):
+    """Each case ``name -> (graph, x, kw)``: ``mix_ppermute`` of this rank's
+    row of the stacked numpy ``x``.  Returns ``name -> row``."""
+    from repro_torch.core import graphs
+    from repro_torch.core.mixing import mix_ppermute
+
+    out = {}
+    for name, (graph, x, kw) in cases.items():
+        g = getattr(graphs, graph[0])(*graph[1:])
+        row = torch.from_numpy(x[comm.rank].copy())
+        out[name] = mix_ppermute({"x": row}, g, comm, **kw)["x"].numpy().copy()
     return out
 
 

@@ -1,7 +1,11 @@
-"""chip_smoke.py's comparison of the fused and the interpreted training step
-(its phase 5), run on the CPU at the reduced granite-8b size in bfloat16:
-the two true steps pass it, and a step that mixes wrongly fails it."""
+"""chip_smoke.py's checks run on the CPU at the reduced granite-8b size in
+bfloat16: the comparison of the fused and the interpreted training step
+(phase 5; phase 14 with multi-round programs) passes the true steps and
+fails a step that mixes wrongly; the simulator equals the trainer (phase
+13); the paper's configurations run through the simulator (phase 15,
+shortened)."""
 import dataclasses
+import math
 import sys
 from pathlib import Path
 
@@ -92,3 +96,106 @@ def test_attention_bound_at_granite_prefill():
     ms_l, by_l, _, _ = chip_smoke.attention_bound(1, 32, 8, 32768, 32768, 128, 2,
                                                  causal=True, window=None)
     assert by_l == "operations" and abs(ms_l - 8.894) < 1e-3
+
+
+# ---------------------------------------------------------------------------
+# Phases 13-15 on the CPU, at the reduced granite-8b size in bfloat16
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def on_cpu(monkeypatch):
+    """chip_smoke's phases on the CPU: CUDA bookkeeping calls do nothing,
+    the engines' default device is the CPU, and every call of K1's or K3's
+    plain twin counts as a launch of that kernel (the wrapper counts its
+    CUDA launches only)."""
+    from repro_torch.core import simulator as sim_mod
+    from repro_torch.kernels import stats
+    from repro_torch.launch import train as train_mod
+
+    for name, value in (("synchronize", lambda *a: None),
+                        ("reset_peak_memory_stats", lambda *a: None),
+                        ("max_memory_allocated", lambda *a: 0),
+                        ("empty_cache", lambda: None)):
+        monkeypatch.setattr(torch.cuda, name, value)
+    cpu = lambda device=None: torch.device("cpu" if device is None else device)
+    monkeypatch.setattr(sim_mod, "resolve_device", cpu)
+    monkeypatch.setattr(train_mod, "resolve_device", cpu)
+
+    def counting(twin, wrapper):
+        def run(*args, **kw):
+            wrapper.launches += 1
+            return twin(*args, **kw)
+        return run
+
+    monkeypatch.setattr(stats, "segment_l2_norms_plain",
+                        counting(stats.segment_l2_norms_plain, stats.segment_l2_norms))
+    monkeypatch.setattr(gu, "gossip_program_update_plain",
+                        counting(gu.gossip_program_update_plain, gu.gossip_program_update))
+
+
+def _reduced(steps):
+    cfg = dataclasses.replace(get_config("granite-8b-reduced"), dtype=torch.bfloat16)
+    src = SyntheticLM(vocab=cfg.vocab, seq_len=16, seed=0)
+    batches = [{k: torch.as_tensor(v) for k, v in src.stacked(chip_smoke.G, t, 2).items()}
+               for t in range(steps)]
+    from repro_torch.core.flat import FlatLayout
+    from repro_torch.models import transformer as tfm
+
+    layout = FlatLayout.from_shapes({k: d.shape for k, d in tfm.model_defs(cfg).items()})
+    return cfg, layout, batches
+
+
+def test_phase13_simulator_equals_trainer_on_cpu(on_cpu, monkeypatch):
+    cfg, layout, batches = _reduced(chip_smoke.SIM_STEPS)
+    monkeypatch.setattr(chip_smoke, "SAMPLE", 64)
+    launches, numbers = chip_smoke.phase_simulator(cfg, batches,
+                                                   chip_smoke.sample_columns(layout))
+    assert launches["segment_l2_norms"] == chip_smoke.SIM_STEPS
+    # the same arithmetic as the trainer: equal, not merely within the bars
+    assert numbers["max_theta_err_bf16_ulps"] == 0.0 and numbers["max_mom_abs_err"] == 0.0
+
+
+def _skip_later_rounds(orig):
+    def run(stages, theta, mix):
+        return orig(stages[:0], theta, mix)
+    return run
+
+
+@pytest.mark.parametrize("mutant", [None, "rolled", "later-rounds"])
+def test_phase14_passes_true_rounds_and_fails_wrong_ones(on_cpu, monkeypatch, mutant):
+    from repro_torch.launch import train as train_mod
+
+    cfg, layout, batches = _reduced(chip_smoke.ADA_STEPS)
+    monkeypatch.setattr(chip_smoke, "TWIN_CHUNK", 4096)   # several chunks
+    if mutant == "rolled":
+        monkeypatch.setattr(gu, "gossip_program_update", _rolled_neighbours(gu.gossip_program_update))
+    elif mutant == "later-rounds":
+        monkeypatch.setattr(train_mod, "mix_in_place", _skip_later_rounds(train_mod.mix_in_place))
+    if mutant is not None:
+        with pytest.raises(SystemExit):
+            chip_smoke.phase_rounds(cfg, layout, batches)
+        return
+    launches, numbers = chip_smoke.phase_rounds(cfg, layout, batches)
+    assert launches["gossip_program_update"] == 2 * chip_smoke.ROUND_STEPS + chip_smoke.ADA_STEPS
+    for label in ("d_one_peer_exp rounds 2", "d_star rounds 3 hub-balanced"):
+        cmp = numbers[label]["fused_vs_interpreter"]
+        assert cmp["share_of_tolerance"] <= 1.0 and cmp["moved_share"] > 0.9
+    assert len(numbers["d_star rounds 3 hub-balanced"]["stages"]) == 3
+    ada = numbers["d_ada closed loop"]
+    assert [s for s, _, _ in ada["trace"]] == list(range(chip_smoke.ADA_STEPS))
+    assert ada["max_xi_rel_err"] <= 1e-5
+
+
+def test_phase15_runs_the_paper_configurations_on_cpu(on_cpu, monkeypatch):
+    monkeypatch.setattr(chip_smoke, "PAPER_CHECK_STEPS", 6)
+    monkeypatch.setattr(chip_smoke, "PAPER_RUNS", {
+        "resnet closed-loop Ada": dict(steps=11, lr=0.1),
+        "lstm variance d_ring": dict(steps=7, lr=0.5),
+    })
+    launches, numbers = chip_smoke.phase_paper("cpu")
+    assert launches["segment_l2_norms"] == 6 + 11 + 6 + 7
+    ada = numbers["resnet closed-loop Ada"]
+    assert ada["ladder"][0] == "12" and ada["ladder"][-1] == "one_peer"
+    assert [s for s, _, _ in ada["trace"]] == [0, 5, 10]
+    assert numbers["lstm variance d_ring"]["trace"] is None
+    assert all(math.isfinite(n["final_loss"]) for n in numbers.values())

@@ -55,4 +55,7 @@ def test_importing_every_module_loads_no_jax():
                          env=env, timeout=300)
     assert out.returncode == 0, out.stderr
     assert "BAD=\n" in out.stdout, out.stdout
-    assert len(mods) >= 25
+    assert len(mods) >= 29
+    for m in ("repro_torch.core.consensus", "repro_torch.core.mixing",
+              "repro_torch.core.simulator", "repro_torch.models.paper_models"):
+        assert m in mods

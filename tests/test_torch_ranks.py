@@ -4,9 +4,11 @@ against the reference's dense oracle and the port's stacked trainer.
 One world of 4 gloo ranks on the CPU per module (file-store rendezvous in
 a temporary directory, so concurrent test workers never race for a port)
 trains every case below for 4 steps from the reference's weights
-(granite-8b-reduced, float32, seq 16, per-node batch 2, ``sgd(0.9)``,
-DBench norms on), as ``tests/test_torch_train.py`` trains the stacked
-trainer.  Bounds: parameters and losses within 5e-5 of the dense oracle,
+(granite-8b-reduced, float32, seq 16, per-node batch 2, ``sgd(0.9)`` unless
+a case names AdamW or LARS, DBench norms on), as
+``tests/test_torch_train.py`` trains the stacked trainer; the cases include
+multi-round programs (hub-balanced too) and closed-loop Ada, whose
+transitions every rank must share with the oracle.  Bounds: parameters and losses within 5e-5 of the dense oracle,
 norms within rtol 1e-5; the fused cases equal the stacked trainer (K1's
 twin on the same rows) within 1e-6.  Every world ends within its hard
 timeout: a deadlock fails, it does not hang.
@@ -25,7 +27,9 @@ torch = pytest.importorskip("torch")
 import _torch_rank_worker  # noqa: E402
 from repro_torch.launch.comm import spawn_world  # noqa: E402
 from repro_torch.models.transformer import params_from_jax  # noqa: E402
-from test_torch_train import BATCH, G, LR, SEQ, STEPS, _init, _oracle, _port  # noqa: E402
+from test_torch_train import (  # noqa: E402
+    BATCH, EXTRA, G, LR, SEQ, STEPS, _freeze, _init, _oracle_case, _port_case,
+)
 
 ROOT = Path(__file__).resolve().parents[1]
 WORLD_TIMEOUT = 120
@@ -43,6 +47,38 @@ CASES = {
     "d_ring-dense": ("d_ring", False, "post", "dense"),
     "d_ring-pre": ("d_ring", True, "pre", "ppermute"),
 }
+
+
+def _extra_case(name, fused):
+    """A case of ``test_torch_train.EXTRA`` in the worker's form."""
+    topology, topo_kw, engine_kw, opt, lr = EXTRA[name]
+    topo_kw = dict(topo_kw)
+    mix_order = topo_kw.pop("mix_order", "post")
+    return (topology, fused, mix_order, "ppermute",
+            {"topo_kw": topo_kw, "engine_kw": engine_kw, "opt": opt, "lr": lr})
+
+
+# multi-round programs (the shard interpreter folds over the stages; with
+# fused_apply K2 runs round 1), closed-loop Ada (Ξ from two pmeans) and the
+# other optimizers
+CASES.update({
+    "d_one_peer_exp-rounds2-fused": _extra_case("d_one_peer_exp-rounds2", True),
+    "d_star-rounds3-hub-fused": _extra_case("d_star-rounds3-hub", True),
+    "d_ring-rounds2-pre": _extra_case("d_ring-rounds2-pre", False),
+    "d_ada-closed-fused": _extra_case("d_ada-closed", True),
+    "d_ring-adamw": _extra_case("d_ring-adamw", False),
+    "d_exponential-lars": _extra_case("d_exponential-lars", False),
+})
+
+
+def _spec(case):
+    """The oracle's spec of a case (``test_torch_train._freeze`` form)."""
+    topology, _, mix_order, _, *extra = CASES[case]
+    if not extra:
+        return _freeze((topology, {"mix_order": mix_order}, {}, ("sgd", {}), LR))
+    e = extra[0]
+    return _freeze((topology, {"mix_order": mix_order, **e["topo_kw"]}, e["engine_kw"],
+                    e["opt"], e["lr"]))
 
 
 @pytest.fixture(scope="module")
@@ -67,11 +103,12 @@ def _stacked(per_rank):
 
 @pytest.mark.parametrize("case", list(CASES))
 def test_ranks_match_dense_oracle(world, case):
-    topology, fused, mix_order, mixing = CASES[case]
+    topology = CASES[case][0]
     per_rank = world[case]
     assert all(r["engine"] == ("ranks", "gloo") for r in per_rank)
     got_p, got_l, got_n = _stacked(per_rank)
-    want_p, want_l, want_n = _oracle(topology, mix_order)
+    want_p, want_l, want_n, want_tr = _oracle_case(_spec(case))
+    assert all(r["transitions"] == want_tr for r in per_rank)
     assert list(got_p) == list(want_p)
     maxdiff = max(float(np.abs(got_p[k] - want_p[k]).max()) for k in want_p)
     lossdiff = max(float(np.abs(a - b).max()) for a, b in zip(got_l, want_l))
@@ -92,9 +129,10 @@ def test_ranks_match_dense_oracle(world, case):
 def test_fused_ranks_match_stacked_trainer(world, case):
     """The ranks' K2 path against the stacked trainer's K1 path on the same
     rows: the same arithmetic, so within 1e-6."""
-    topology, _, mix_order, _ = CASES[case]
+    topology, topo_kw, engine_kw, (opt, opt_kw), lr = _spec(case)
     got_p, got_l, got_n = _stacked(world[case])
-    want_p, want_l, want_n = _port(topology, True, mix_order)
+    want_p, want_l, want_n, _ = _port_case(
+        (topology, dict(topo_kw), dict(engine_kw), (opt, dict(opt_kw)), lr), True)
     for k in want_p:
         np.testing.assert_allclose(got_p[k], want_p[k], rtol=0, atol=1e-6, err_msg=k)
     for a, b in zip(got_l, want_l):

@@ -101,7 +101,9 @@ def test_edge_coloring_and_dense_program_match_reference():
 
 
 def test_rejects_unported_topology_options():
-    with pytest.raises(ValueError, match="step 7"):
-        tdsgd.make_topology("d_ada", 4, consensus_target=0.5)
+    # closed-loop Ada is ported: it is a d_ada option, as in the reference
+    with pytest.raises(ValueError, match="d_ada"):
+        tdsgd.make_topology("d_ring", 4, consensus_target=0.5)
+    assert tdsgd.make_topology("d_ada", 4, consensus_target=0.5).closed_loop
     with pytest.raises(ValueError, match="step 10"):
         tdsgd.make_topology("d_ring", 4, fault_model=object())
