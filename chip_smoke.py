@@ -83,9 +83,10 @@ Phases (any failure exits non-zero and prints no result line):
      rounds), 3 steps each, then one step from each run's state against
      ``fused_apply=False`` (phase 5's comparison with its bound carried
      through the later rounds; offset σ = 0.1); closed-loop d_ada (target
-     0.7, probe every step, one-peer floor) for 6 steps: each probe's Ξ
-     against a leaf-by-leaf float64 recomputation (rtol 1e-5) and the rung
-     walk;
+     0.7, probe every step, one-peer floor) for 6 steps from replicas
+     offset by σ = 0.01, so that gossip shrinks Ξ and the rung moves: each
+     probe's Ξ against a leaf-by-leaf float64 recomputation (rtol 1e-5)
+     and the rung walk, which must take a transition;
  15. the paper's configurations through the simulator: closed-loop Ada
      on the mini ResNet (``benchmarks/ada.py``: 16 channels, depth 2, 10
      classes, 16 × 16 images, 8 per node, N = 16, k0 12, one-peer floor,
@@ -94,8 +95,42 @@ Phases (any failure exits non-zero and prints no result line):
      d_ring, N = 16, lr 0.5), each 20 steps on the card and on the CPU from
      the same weights and batches (losses, norms, Ξ trace rtol 1e-4, Gini
      series rtol 1e-4 plus 1e-6, identical transitions), then 120 and 50
-     steps on the card alone.  Each run of phases 13-15 zeroes the launch
-     counters just before its steps and reads them just after.
+     steps on the card alone;
+ 16. bucketed gossip: phase 4's trainer with ``bucket_mb`` 4, 64 and 256
+     (K1 launched once per bucket, in place on the bucket's column slice
+     of the flat state), 3 steps each, bit for bit phase 4's first 3 steps
+     (losses, norms, θ and m on phase 9's sampled columns and on every
+     bucket size's tail in full); step ms and peak memory per size; then
+     one more step under ``torch.cuda.set_sync_debug_mode("error")`` (the
+     inert recorder must not synchronize; phase 6 runs the monolithic step
+     under the same check and records what it finds); then K1 launched on
+     the run's own state, in place on the column slices of an interior and
+     the tail bucket (at 4 MiB also a slice off the 16-byte alignment, the
+     scalar path) with the wire built for the slice, against its plain
+     twin on the same slices: post and pre order, all-ones and masked
+     fault rows, bit for bit, the columns beside the slice untouched.
+     Then the bucketed trainer without fused apply (the optimizer and the
+     dense program per bucket) at 64 MiB, bit for bit phase 13's
+     monolithic ``fused_apply=False`` trainer;
+ 17. the folded Ξ probe: phase 14's closed-loop d_ada (offset replicas
+     included) through the bucketed trainer at 4 MiB, whose buckets do not
+     line up with the standalone probe's chunks: one standalone probe
+     (step 0), folded ones after, each within rtol 1e-5 of the standalone
+     probe, of float64 and of phase 14's Ξ, with phase 14's rung walk and
+     transitions; then the simulator with ``bucket_mb=64`` bit for bit
+     phase 13's run;
+ 18. run telemetry: phase 4's trainer for 6 steps with telemetry off, with
+     a ``JsonlSink`` (metrics every 5 steps) and with ``record_spans``
+     (every record through the schema; ``comm_bytes`` equal to
+     ``program_comm_bytes`` summed offline; the streamed variance equal to
+     ``variance_report`` of the step's norms), then phase 15's ResNet run
+     (20 steps) with a sink on the card and on the CPU: the same stream,
+     spans aside (phase 15's bars), its comm counters equal to the offline
+     replay of the rung walk.  The streams are written under
+     ``build/repro_torch/telemetry``.
+     Each run of phases 13-18 zeroes the launch counters just before its
+     steps and reads them just after; each of phases 16-18 prints its
+     prediction before its measurements.
 
 The last three lines of standard output are the card's name and power
 limit as nvidia-smi reports them, the per-kernel JSON (K1-K4, each with its
@@ -298,6 +333,20 @@ def program_stages(trainer, step):
     return prog.stages if isinstance(prog, FusedProgram) else (prog,)
 
 
+def offset_nodes(theta, noise, seed=3):
+    """Offset every node's row of the flat (G, P) ``theta`` in place by its
+    own seeded Gaussian noise of σ = ``noise``, chunk by chunk."""
+    import torch
+
+    gen = torch.Generator(device=theta.device).manual_seed(seed)
+    g, p = theta.shape
+    for a in range(0, p, TWIN_CHUNK):
+        b = min(a + TWIN_CHUNK, p)
+        offset = torch.randn((g, b - a), generator=gen, device=theta.device)
+        theta[:, a:b] += (offset * noise).to(theta.dtype)
+        del offset
+
+
 def phase_fused_vs_interpreter(trainer, plain_trainer, start, batch, noise=0.01):
     """One step from the same state through K1 (``trainer``) and through the
     optimizer and program interpreter (``plain_trainer``), compared element
@@ -326,13 +375,8 @@ def phase_fused_vs_interpreter(trainer, plain_trainer, start, batch, noise=0.01)
     stages = program_stages(trainer, start.step)
     absw = [torch.as_tensor(np.abs(st.matrix()), dtype=torch.float32, device=dev)
             for st in stages]
-    gen = torch.Generator(device=dev).manual_seed(3)
-    g, p = start.theta.shape
-    for a in range(0, p, TWIN_CHUNK):
-        b = min(a + TWIN_CHUNK, p)
-        offset = torch.randn((g, b - a), generator=gen, device=start.theta.device)
-        start.theta[:, a:b] += (offset * noise).to(start.theta.dtype)
-        del offset
+    p = start.theta.shape[1]
+    offset_nodes(start.theta, noise)
     theta0 = start.theta.clone()
     fused = start.clone()
     fused, loss_f, _ = trainer.train_step(fused, batch, LR)
@@ -958,29 +1002,24 @@ def sampled_run(state_theta, state_mom, idx, losses, norms):
     return rows, {"losses": losses, "norms": norms, "theta": theta, "mom": mom}
 
 
-def phase_simulator(cfg, batches, sample):
-    """Phase 13: ``DecentralizedSimulator`` at granite-8b width (the main
-    path's configuration: d_ring, dense mixing, momentum-SGD, DBench norms
-    on K3), SIM_STEPS steps from the seed-0 weights, held node by node
-    against ``SPMDTrainer`` with ``fused_apply=False`` and the dense
-    program on the same inputs (``compare_rows``: phase 5's tolerances on
-    the sampled columns).  The simulator takes one node's gradients at a
-    time (``node_loop``), as the trainer does.  The launch counters are
-    zeroed just before the simulator's steps and read just after: K3 once
-    per step, K1 and K2 never.  Returns (launches, numbers)."""
+def simulator_run(cfg, batches, idx, **kw):
+    """SIM_STEPS steps of ``DecentralizedSimulator`` at granite-8b width
+    (d_ring, dense mixing, momentum-SGD, DBench norms on K3, one node's
+    gradients at a time) from the seed-0 weights; ``kw`` goes to the
+    simulator.  The launch counters are zeroed just before the steps and
+    read just after.  Returns (rows in ``sampled_run``'s form, step ms,
+    peak allocated bytes, launches)."""
     import torch
     from repro_torch.core.dsgd import make_topology
     from repro_torch.core.simulator import DecentralizedSimulator
     from repro_torch.kernels import ops
-    from repro_torch.launch.train import SPMDTrainer
     from repro_torch.models import transformer as tfm
     from repro_torch.optim.sgd import sgd
 
     dev = batches[0]["tokens"].device
-    idx = torch.as_tensor(sample, device=dev)
-    topo = make_topology("d_ring", G)
-    sim = DecentralizedSimulator(lambda p, b: tfm.loss_fn(p, cfg, b), sgd(momentum=0.9), topo,
-                                 mixing="dense", collect_norms=True, node_loop=True)
+    sim = DecentralizedSimulator(lambda p, b: tfm.loss_fn(p, cfg, b), sgd(momentum=0.9),
+                                 make_topology("d_ring", G), mixing="dense",
+                                 collect_norms=True, node_loop=True, **kw)
     params = tfm.init_model(cfg, torch.Generator(device=dev).manual_seed(0), dev)
     state = sim.init(params)
     del params
@@ -999,14 +1038,37 @@ def phase_simulator(cfg, batches, sample):
         norms.append(nrm.cpu().numpy())
     launches = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated()
-    if launches != {"gossip_program_update": 0, "gossip_update": 0,
-                    "segment_l2_norms": SIM_STEPS, "flash_attention": 0}:
-        fail(f"simulator launch counts {launches}, expected {SIM_STEPS} of K3 only")
     rows, _ = sampled_run(state.theta, state.opt["mom"], idx, losses, norms)
     del state, sim
     torch.cuda.empty_cache()
-    trainer = SPMDTrainer(cfg, topo, sgd(momentum=0.9), collect_norms=True, mixing="dense",
-                          fused_apply=False)
+    return rows, step_ms, peak, launches
+
+
+def phase_simulator(cfg, batches, sample):
+    """Phase 13: ``DecentralizedSimulator`` at granite-8b width (the main
+    path's configuration: d_ring, dense mixing, momentum-SGD, DBench norms
+    on K3), SIM_STEPS steps from the seed-0 weights, held node by node
+    against ``SPMDTrainer`` with ``fused_apply=False`` and the dense
+    program on the same inputs (``compare_rows``: phase 5's tolerances on
+    the sampled columns).  The simulator takes one node's gradients at a
+    time (``node_loop``), as the trainer does.  The launch counters are
+    zeroed just before the simulator's steps and read just after: K3 once
+    per step, K1 and K2 never.  Returns (launches, numbers, the
+    simulator's rows for phase 17, the trainer's numbers with its columns
+    from INTERP_MB's tail bucket on for phase 16)."""
+    import torch
+    from repro_torch.core.dsgd import make_topology
+    from repro_torch.launch.train import SPMDTrainer
+    from repro_torch.optim.sgd import sgd
+
+    dev = batches[0]["tokens"].device
+    idx = torch.as_tensor(sample, device=dev)
+    rows, step_ms, peak, launches = simulator_run(cfg, batches, idx)
+    if launches != {"gossip_program_update": 0, "gossip_update": 0,
+                    "segment_l2_norms": SIM_STEPS, "flash_attention": 0}:
+        fail(f"simulator launch counts {launches}, expected {SIM_STEPS} of K3 only")
+    trainer = SPMDTrainer(cfg, make_topology("d_ring", G), sgd(momentum=0.9),
+                          collect_norms=True, mixing="dense", fused_apply=False)
     tstate = trainer.init_state(seed=0)
     losses, norms = [], []
     for t in range(SIM_STEPS):
@@ -1014,6 +1076,9 @@ def phase_simulator(cfg, batches, sample):
         losses.append(loss.cpu().numpy())
         norms.append(nrm.cpu().numpy())
     _, ref = sampled_run(tstate.theta, tstate.mom, idx, losses, norms)
+    tail0 = tail_start(trainer.layout, INTERP_MB)
+    ref_interp = dict(ref, tail_start=tail0, theta_tail=tstate.theta[:, tail0:].clone(),
+                      mom_tail=tstate.mom[:, tail0:].clone())
     del tstate, trainer
     torch.cuda.empty_cache()
     ulps, err_m, err_l, err_n = compare_rows("simulator node", rows, ref)
@@ -1029,10 +1094,13 @@ def phase_simulator(cfg, batches, sample):
         f"within {ulps:.3f} bf16 ulps, m {err_m:.3e}, losses {err_l:.3e}, norms {err_n:.3e} "
         f"relative); step ms {[round(x, 1) for x in step_ms]}; peak allocated "
         f"{peak / 2**30:.2f} GiB; launches {launches}")
-    return launches, numbers
+    return launches, numbers, rows, ref_interp
 
 
 ROUND_STEPS, ROUND_NOISE, ADA_STEPS, ADA_TARGET = 3, 0.1, 6, 0.7
+# the closed loop's nodes start apart by this much (σ, half a weight's
+# scale), so that gossip shrinks Ξ and the rung moves within ADA_STEPS
+ADA_NOISE = 0.01
 
 
 def xi_float64(theta, layout):
@@ -1048,6 +1116,17 @@ def xi_float64(theta, layout):
     return float(total.mean().sqrt())
 
 
+def ada_before(xi64, layout):
+    """The closed loop's hook before step t: at t = 0 every node's θ is
+    offset by its own noise (ADA_NOISE); then Ξ of the state in float64
+    goes to ``xi64[t]``."""
+    def before(t, state):
+        if t == 0:
+            offset_nodes(state.theta, ADA_NOISE)
+        xi64[t] = xi_float64(state.theta, layout)
+    return before
+
+
 def phase_rounds(cfg, layout, batches):
     """Phase 14: the trainer at granite-8b width (fused apply, DBench norms
     on) with multi-round gossip — d_one_peer_exp with 2 rounds per step and
@@ -1057,8 +1136,8 @@ def phase_rounds(cfg, layout, batches):
     state held against ``fused_apply=False`` (phase 5's comparison, its
     bound carried through the later rounds).  Then closed-loop d_ada
     (target ADA_TARGET, probe every step, one-peer floor) for ADA_STEPS
-    steps: each probe's Ξ against a float64 recomputation (rtol 1e-5) and
-    the rung walk.  Each run's launch counters are zeroed just before its
+    steps from replicas offset by ADA_NOISE: each probe's Ξ against a
+    float64 recomputation (rtol 1e-5) and the rung walk, which must move.  Each run's launch counters are zeroed just before its
     steps and read just after.  Returns (launches summed, numbers)."""
     import torch
     from repro_torch.core.dsgd import make_topology
@@ -1124,13 +1203,14 @@ def phase_rounds(cfg, layout, batches):
                          consensus_probe_every=1)
     trainer = SPMDTrainer(cfg, topo, sgd(momentum=0.9), collect_norms=True, fused_apply=True)
     xi64 = {}
-    state, counts, step_ms, losses, peak = run(
-        trainer, ADA_STEPS, before=lambda t, st: xi64.__setitem__(t, xi_float64(st.theta, layout)))
+    state, counts, step_ms, losses, peak = run(trainer, ADA_STEPS, before=ada_before(xi64, layout))
     del state, trainer
     torch.cuda.empty_cache()
     ctl = topo.controller
     if [s for s, _, _ in ctl.trace] != list(range(ADA_STEPS)):
         fail(f"phase 14 closed loop: probes at {[s for s, _, _ in ctl.trace]}")
+    if not ctl.transitions:
+        fail(f"phase 14 closed loop: no transition in {ADA_STEPS} steps (trace {ctl.trace})")
     worst = 0.0
     for s, xi, _ in ctl.trace:
         err = abs(xi - xi64[s])
@@ -1141,7 +1221,7 @@ def phase_rounds(cfg, layout, batches):
         fail(f"phase 14 closed loop: launch counts {counts}")
     walk = " -> ".join(str(ctl.ladder[r]) for _, r in [(0, 0)] + ctl.transitions)
     numbers["d_ada closed loop"] = {
-        "target": ADA_TARGET, "ladder": [str(r) for r in ctl.ladder],
+        "target": ADA_TARGET, "noise": ADA_NOISE, "ladder": [str(r) for r in ctl.ladder],
         "trace": [[s, xi, r] for s, xi, r in ctl.trace], "xi_float64": xi64,
         "max_xi_rel_err": worst, "transitions": ctl.transitions, "rung_walk": walk,
         "step_ms": step_ms, "losses": losses, "peak_allocated_bytes": int(peak),
@@ -1186,11 +1266,13 @@ def paper_inputs(name, steps):
     return params, [src.stacked(n, t, 4) for t in range(steps)]
 
 
-def paper_run(name, device, params, batches):
+def paper_run(name, device, params, batches, telemetry=None):
     """One phase-15 run through ``DecentralizedSimulator`` (dense mixing,
     momentum-SGD 0.9, DBench norms on; gradients under vmap over the 16
-    nodes) on ``device``: per-step losses, norms and Gini series, the
-    controller's trace and transitions, and ms per step."""
+    nodes) on ``device``, with the run telemetry ``telemetry`` (phase 18):
+    per-step losses, norms and Gini series, the controller's trace and
+    transitions, ms per step, the topology and the per-node parameter
+    bytes."""
     import numpy as np
     import torch
     from repro_torch.core.dbench import DBenchRecorder
@@ -1207,7 +1289,7 @@ def paper_run(name, device, params, batches):
         topo = make_topology("d_ring", PAPER_N)
         loss_fn = lstm_loss
     sim = DecentralizedSimulator(loss_fn, sgd(momentum=0.9), topo, collect_norms=True,
-                                 device=device)
+                                 device=device, telemetry=telemetry)
     state = sim.init(params)
     rec = DBenchRecorder(impl=name, n_nodes=PAPER_N)
     cuda = torch.device(device).type == "cuda"
@@ -1229,6 +1311,7 @@ def paper_run(name, device, params, batches):
         "transitions": None if ctl is None else list(ctl.transitions),
         "ladder": None if ctl is None else [str(r) for r in ctl.ladder],
         "step_ms": step_ms, "final_loss": float(losses[-1].mean()),
+        "topology": topo, "param_bytes": state.theta.shape[1] * state.theta.element_size(),
     }
 
 
@@ -1302,6 +1385,489 @@ def phase_paper(dev):
             f"{long['transitions']} on ladder {long['ladder']}, median step "
             f"{numbers[name]['step_ms_median']:.2f} ms (CPU "
             f"{numbers[name]['cpu_step_ms_median']:.2f} ms)")
+    return total, numbers
+
+
+# phases 16-18: buckets and telemetry at phase 4's configuration
+BUCKET_MBS, BUCKET_STEPS = (4, 64, 256), RANK_STEPS
+# phase 16's run through the interpreter (fused_apply=False) against phase
+# 13's monolithic trainer; phase 17's closed loop, whose 2^20-column
+# buckets do not line up with the standalone probe's 2^24-column chunks,
+# and its simulator
+INTERP_MB, FOLD_MB, SIM_BUCKET_MB = 64, 4, 64
+# columns checked on each side of a bucket K1 ran on
+EDGE = 4096
+TEL_STEPS, TEL_EVERY = 6, 5
+
+
+def tail_start(layout, bucket_mb):
+    """First column of the last bucket of ``bucket_mb`` over ``layout``."""
+    from repro_torch.core.buckets import BucketLayout
+
+    return BucketLayout(layout.sizes, BucketLayout.elems_for_mb(bucket_mb)).bounds[-2]
+
+
+def sync_error(trainer, state, batch):
+    """One step of ``trainer`` under ``torch.cuda.set_sync_debug_mode("error")``:
+    None when it ran with no synchronizing call, else the error's text."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        trainer.train_step(state, batch, LR)
+        err = None
+    except RuntimeError as exc:
+        err = str(exc).splitlines()[0]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return err
+
+
+def k1_slice_against_twin(label, theta, mom, grad, srcs, w, a, b):
+    """K1 launched in place on the column slice a:b of the flat (G, P)
+    buffers (row stride P, as the bucketed step hands it a bucket), with
+    the wire ``gossip_wire`` builds for the slice as the bucketed step
+    does, against the plain twin on the same strided slices: post and pre
+    order, all-ones and masked fault rows, bit for bit (θ', m'); the
+    EDGE columns on each side of the slice must stay as they were.  The
+    slice is restored after each variant.  Returns the max abs error."""
+    import torch
+    from repro_torch.kernels.gossip_update import (
+        gossip_program_update, gossip_program_update_plain, gossip_wire,
+    )
+
+    tv, mv, gv = theta[:, a:b], mom[:, a:b], grad[:, a:b]
+    t_saved, m_saved = tv.clone(), mv.clone()
+    lo, hi = max(a - EDGE, 0), min(b + EDGE, theta.shape[1])
+    edges = [(x, c, d, x[:, c:d].clone()) for x in (theta, mom) for c, d in ((lo, a), (b, hi))]
+    ones = torch.ones_like(w)
+    masked = ones.clone()
+    masked[1, 0] = 0.0   # node 1 skips its update
+    masked[2, 1] = 0.0   # node 2 drops its first edge
+    worst = 0.0
+    for fname, fault in (("all-ones", ones), ("masked", masked)):
+        for order in ("post", "pre"):
+            kw = dict(lr=LR, beta=0.9, fault=fault, mix_order=order)
+            wire = gossip_wire(tv, gv, mv, lr=LR, beta=0.9, mix_order=order,
+                               update=fault[:, :1])
+            want = [(c, min(c + TWIN_CHUNK, b - a)) for c in range(0, b - a, TWIN_CHUNK)]
+            want = [(c, d) + gossip_program_update_plain(
+                tv[:, c:d], wire[:, c:d], srcs, w, gv[:, c:d], mv[:, c:d], **kw)
+                for c, d in want]
+            gossip_program_update(tv, wire, srcs, w, gv, mv, **kw)
+            for c, d, want_t, want_m in want:
+                err = max(float((tv[:, c:d].float() - want_t.float()).abs().max()),
+                          float((mv[:, c:d] - want_m).abs().max()))
+                if err != 0.0:
+                    fail(f"K1 {label} {order} {fname}: the slice {a}:{b} differs from the "
+                         f"twin by {err:.3e} in its columns {c}:{d}")
+                worst = max(worst, err)
+            for x, c, d, saved in edges:
+                if not torch.equal(x[:, c:d], saved):
+                    fail(f"K1 {label} {order} {fname}: columns {c}:{d} beside the slice "
+                         f"{a}:{b} changed")
+            tv.copy_(t_saved)
+            mv.copy_(m_saved)
+            del wire, want
+    log(f"K1 {label} (columns {a}:{b} of {theta.shape[1]}, row stride "
+        f"{theta.stride(0)}): post and pre, all-ones and masked == the twin bit for bit")
+    return worst
+
+
+def check_equal(label, got, want):
+    """Bit-for-bit equality of two dicts of arrays (numpy or tensors)."""
+    import numpy as np
+
+    for key in want:
+        a, b = got[key], want[key]
+        a = a.float().cpu().numpy() if hasattr(a, "cpu") else np.asarray(a)
+        b = b.float().cpu().numpy() if hasattr(b, "cpu") else np.asarray(b)
+        if a.shape != b.shape or not np.array_equal(a, b):
+            diff = np.abs(a - b).max() if a.shape == b.shape else "shape"
+            fail(f"{label}: {key} differs from the monolithic run (max abs {diff})")
+
+
+def bucketed_run(trainer, batches, label):
+    """BUCKET_STEPS steps of a bucketed trainer from the seed-0 weights;
+    the launch counters are zeroed just before the steps and read just
+    after.  Returns (state, losses, norms, step ms, peak bytes, launches)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+
+    state = trainer.init_state(seed=0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    step_ms, losses, norms = [], [], []
+    for t in range(BUCKET_STEPS):
+        t1 = time.perf_counter()
+        state, loss, nrm = trainer.train_step(state, batches[t], LR)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        if not bool(torch.isfinite(loss).all()) or not bool(torch.isfinite(nrm).all()):
+            fail(f"{label} step {t}: non-finite loss {loss.tolist()} or norms")
+        losses.append(loss.cpu().numpy())
+        norms.append(nrm.cpu().numpy())
+    counts = ops.launch_counts()
+    return (state, np.stack(losses), np.stack(norms), step_ms,
+            torch.cuda.max_memory_allocated(), counts)
+
+
+def check_against(label, state, losses, norms, ref, idx, a):
+    """A bucketed run bit for bit a monolithic one (``ref``: losses, norms,
+    θ and m on the sampled columns ``idx`` and from column
+    ``ref["tail_start"]`` on): losses, norms, the sampled columns and the
+    columns from ``a`` (the run's tail bucket) on."""
+    b = a - ref["tail_start"]
+    if b < 0:
+        fail(f"{label}: tail {a} lies outside the saved columns")
+    check_equal(label, {
+        "losses": losses, "norms": norms,
+        "theta": state.theta[:, idx], "mom": state.mom[:, idx],
+        "theta_tail": state.theta[:, a:], "mom_tail": state.mom[:, a:],
+    }, {
+        "losses": ref["losses"], "norms": ref["norms"], "theta": ref["theta"],
+        "mom": ref["mom"], "theta_tail": ref["theta_tail"][:, b:],
+        "mom_tail": ref["mom_tail"][:, b:],
+    })
+
+
+def phase_buckets(cfg, layout, batches, ref, sample, ref_interp):
+    """Phase 16: the bucketed trainer (fused apply, d_ring) at bucket_mb in
+    BUCKET_MBS, BUCKET_STEPS steps each from the seed-0 weights, against
+    phase 4's monolithic run after the same steps (``ref``: its losses and
+    norms, θ and m on the sampled columns and on the columns from the
+    largest bucket size's tail on, which hold every size's tail): all
+    bit for bit.  K1 launches once per bucket per step.  Then one more
+    step under ``set_sync_debug_mode("error")``, and K1 on the run's own
+    state, on the column slices of an interior and the tail bucket (at
+    4 MiB also a slice off the 16-byte alignment: the scalar path), with
+    a gradient of that state, against its plain twin (``k1_slice_against_twin``).
+    Then the bucketed trainer without fused apply (the optimizer and the
+    interpreter per bucket, dense mixing) at INTERP_MB against phase 13's
+    monolithic ``fused_apply=False`` trainer (``ref_interp``), bit for
+    bit.  Returns (launches summed, numbers, K1's max abs error against
+    its twin)."""
+    import torch
+    from repro_torch.core.dsgd import make_topology
+    from repro_torch.launch.train import SPMDTrainer
+    from repro_torch.optim.sgd import sgd
+
+    dev = batches[0]["tokens"].device
+    idx = torch.as_tensor(sample, device=dev)
+    srcs, w = ring_tables(dev)
+    total, numbers, err_k1 = {}, {}, 0.0
+    log("phase 16 prediction (PERF.md §6): theta and m equal phase 4's bit for bit; "
+        "K1 once per bucket per step; peak allocated ~25-26 GiB (phase 4's 31.81 less its "
+        "whole-state wire); step ms within 15% of phase 4's at 64 and 256 MiB, slower at "
+        "4 MiB (host dispatch of ~800 buckets); K1 on bucket slices == its twin bit for bit; "
+        f"the interpreter's bucketed run at {INTERP_MB} MiB == phase 13's trainer bit for bit")
+    for mb in BUCKET_MBS:
+        trainer = SPMDTrainer(cfg, make_topology("d_ring", G), sgd(momentum=0.9),
+                              collect_norms=True, fused_apply=True, bucket_mb=mb)
+        bl = trainer._bucket_layout
+        n_buckets = bl.num_buckets
+        label = f"phase 16 bucket_mb {mb}"
+        state, losses, norms, step_ms, peak, counts = bucketed_run(trainer, batches, label)
+        want = {"gossip_program_update": n_buckets * BUCKET_STEPS, "gossip_update": 0,
+                "segment_l2_norms": BUCKET_STEPS, "flash_attention": 0}
+        if counts != want:
+            fail(f"{label}: launch counts {counts}, expected {want}")
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        a = tail_start(layout, mb)
+        check_against(label, state, losses, norms, ref, idx, a)
+        err = sync_error(trainer, state, batches[BUCKET_STEPS])
+        if err is not None:
+            fail(f"{label}: a step with the inert recorder synchronizes: {err}")
+        # K1 on this run's state, bucket by bucket as the step hands it over
+        grad = torch.empty_like(state.theta)
+        trainer._grads_into(state.theta, grad, batches[0])
+        mid = n_buckets // 2
+        slices = [(f"interior bucket {mid}", bl.bounds[mid], bl.bounds[mid + 1]),
+                  (f"tail bucket {n_buckets - 1}", bl.bounds[-2], bl.bounds[-1])]
+        if mb == min(BUCKET_MBS):
+            slices.append(("misaligned slice (scalar path)", bl.bounds[mid] + 3,
+                           bl.bounds[mid + 1] - 2))
+        for what, c, d in slices:
+            err_k1 = max(err_k1, k1_slice_against_twin(f"{label} {what}", state.theta,
+                                                       state.mom, grad, srcs, w, c, d))
+        del grad
+        numbers[f"{mb} MiB"] = {"buckets": n_buckets, "step_ms": step_ms,
+                                "peak_allocated_bytes": int(peak), "launches": counts,
+                                "tail_columns": layout.size - a}
+        log(f"{label} ({n_buckets} buckets): {BUCKET_STEPS} steps == phase "
+            f"4 bit for bit (losses, norms, theta and m on {idx.numel()} sampled columns and "
+            f"the {layout.size - a} tail columns); step ms {[round(x, 1) for x in step_ms]}; "
+            f"peak allocated {peak / 2**30:.2f} GiB; launches {counts}; a step with the inert "
+            "recorder runs under set_sync_debug_mode('error')")
+        del state, trainer
+        torch.cuda.empty_cache()
+    # the per-bucket interpreter: the optimizer and the dense program per bucket
+    trainer = SPMDTrainer(cfg, make_topology("d_ring", G), sgd(momentum=0.9),
+                          collect_norms=True, mixing="dense", fused_apply=False,
+                          bucket_mb=INTERP_MB)
+    label = f"phase 16 bucket_mb {INTERP_MB} without fused apply"
+    state, losses, norms, step_ms, peak, counts = bucketed_run(trainer, batches, label)
+    if counts != {"gossip_program_update": 0, "gossip_update": 0,
+                  "segment_l2_norms": BUCKET_STEPS, "flash_attention": 0}:
+        fail(f"{label}: launch counts {counts}, expected {BUCKET_STEPS} of K3 only")
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+    a = tail_start(layout, INTERP_MB)
+    check_against(label, state, losses, norms, ref_interp, idx, a)
+    numbers[f"{INTERP_MB} MiB interpreter"] = {
+        "buckets": trainer._bucket_layout.num_buckets, "step_ms": step_ms,
+        "peak_allocated_bytes": int(peak), "launches": counts}
+    log(f"{label} (dense mixing): {BUCKET_STEPS} steps == phase 13's monolithic trainer "
+        f"bit for bit (losses, norms, theta and m on the sampled columns and the "
+        f"{layout.size - a} tail columns); step ms {[round(x, 1) for x in step_ms]}; peak "
+        f"allocated {peak / 2**30:.2f} GiB")
+    del state, trainer
+    torch.cuda.empty_cache()
+    return total, numbers, err_k1
+
+
+def phase_folded_probe(cfg, layout, batches, ref14, rows13, sample):
+    """Phase 17: closed-loop d_ada (phase 14's settings, its offset
+    replicas included) through the bucketed trainer at FOLD_MB, whose
+    buckets do not line up with the standalone probe's chunks: Ξ after a
+    bucketed step is folded into its buckets (one standalone probe in
+    all, at step 0).  Each probe's Ξ within rtol 1e-5 of the standalone
+    probe and of float64 on the same state and of phase 14's monolithic
+    Ξ; phase 14's rung walk, transitions included.  Then the simulator at
+    SIM_BUCKET_MB against phase 13's rows, bit for bit.  Returns
+    (launches summed, numbers)."""
+    import torch
+    from repro_torch.core.consensus import consensus_distance_stacked
+    from repro_torch.core.dsgd import make_topology
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import SPMDTrainer
+    from repro_torch.optim.sgd import sgd
+
+    dev = batches[0]["tokens"].device
+    log("phase 17 prediction (PERF.md §6): the same transitions as phase 14 (2 -> one_peer "
+        "at step 1); folded Xi over 4 MiB buckets within 1e-5 of the standalone probe and of "
+        "float64, not equal to the probe's bits; a step slower than phase 14's closed loop "
+        "by the host dispatch of ~800 buckets (phase 16's 4 MiB cost, +30-80 ms); the "
+        "bucketed simulator equals phase 13 bit for bit at 190-250 ms a step and a lower "
+        "peak (30-34 GiB)")
+    if not ref14["transitions"]:
+        fail("phase 17: phase 14's closed loop took no transition, nothing to compare")
+    topo = make_topology("d_ada", G, k_floor="one_peer", consensus_target=ADA_TARGET,
+                         consensus_probe_every=1)
+    trainer = SPMDTrainer(cfg, topo, sgd(momentum=0.9), collect_norms=True, fused_apply=True,
+                          bucket_mb=FOLD_MB)
+    n_buckets = trainer._bucket_layout.num_buckets
+    standalone = trainer.consensus_distance
+    probes = []
+    trainer.consensus_distance = lambda st: (probes.append(st.step), standalone(st))[1]
+    state = trainer.init_state(seed=0)
+    xi64, xi_alone = {}, {}
+    before = ada_before(xi64, layout)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    step_ms = []
+    for t in range(ADA_STEPS):
+        before(t, state)
+        xi_alone[t] = float(consensus_distance_stacked(state.theta))
+        t1 = time.perf_counter()
+        state, loss, _ = trainer.train_step(state, batches[t], LR)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    del state, trainer
+    torch.cuda.empty_cache()
+    if probes != [0]:
+        fail(f"phase 17: standalone probes at steps {probes}, expected [0] (folds after)")
+    want = {"gossip_program_update": n_buckets * ADA_STEPS, "gossip_update": 0,
+            "segment_l2_norms": ADA_STEPS, "flash_attention": 0}
+    if counts != want:
+        fail(f"phase 17: launch counts {counts}, expected {want}")
+    ctl = topo.controller
+    ref_trace = ref14["trace"]
+    if ctl.transitions != ref14["transitions"] or [(s, r) for s, _, r in ctl.trace] != [
+            (s, r) for s, _, r in ref_trace]:
+        fail(f"phase 17: rung walk {ctl.trace} vs phase 14's {ref_trace}")
+    worst = {"standalone": 0.0, "float64": 0.0, "phase 14": 0.0}
+    for (s, xi, _), (_, xi14, _) in zip(ctl.trace, ref_trace):
+        for key, other in (("standalone", xi_alone[s]), ("float64", xi64[s]),
+                           ("phase 14", xi14)):
+            err = abs(xi - other)
+            if not err <= 1e-5 * abs(other):
+                fail(f"phase 17: Xi at step {s} is {xi!r}, {key} {other!r}")
+            worst[key] = max(worst[key], err / abs(other) if other else 0.0)
+    idx = torch.as_tensor(sample, device=dev)
+    rows, sim_ms, sim_peak, sim_counts = simulator_run(cfg, batches, idx,
+                                                       bucket_mb=SIM_BUCKET_MB)
+    if sim_counts != {"gossip_program_update": 0, "gossip_update": 0,
+                      "segment_l2_norms": SIM_STEPS, "flash_attention": 0}:
+        fail(f"phase 17 simulator: launch counts {sim_counts}, expected {SIM_STEPS} of K3")
+    for i, (r, r13) in enumerate(zip(rows, rows13)):
+        check_equal(f"phase 17 simulator node {i}", r, r13)
+    for k, v in sim_counts.items():
+        counts[k] += v
+    walk = " -> ".join(str(ctl.ladder[r]) for _, r in [(0, 0)] + ctl.transitions)
+    numbers = {
+        "bucket_mb": FOLD_MB, "buckets": n_buckets, "step_ms": step_ms,
+        "peak_allocated_bytes": int(peak), "trace": [[s, xi, r] for s, xi, r in ctl.trace],
+        "transitions": ctl.transitions, "rung_walk": walk, "max_xi_rel_err": worst,
+        "standalone_probes_at": probes,
+        "simulator": {"bucket_mb": SIM_BUCKET_MB, "step_ms": sim_ms, "peak_allocated_bytes": int(sim_peak),
+                      "launches": sim_counts},
+    }
+    log(f"phase 17: bucketed closed loop ({n_buckets} buckets of {FOLD_MB} MiB) took phase "
+        f"14's rung walk {walk}; folded Xi within {json.dumps(worst)} relative; step ms "
+        f"{[round(x, 1) for x in step_ms]}; peak {peak / 2**30:.2f} GiB; the bucketed simulator "
+        f"== phase 13 bit for bit, step ms {[round(x, 1) for x in sim_ms]}, peak "
+        f"{sim_peak / 2**30:.2f} GiB ({SIM_BUCKET_MB} MiB buckets)")
+    return counts, numbers
+
+
+def compare_streams(label, got, want, *, rtol, atol=0.0):
+    """Two record streams, manifests and spans aside: the same sequence of
+    (kind, name, step); counters exactly; events equal; gauges and
+    variance metrics (mean and per layer) within ``rtol`` plus ``atol``."""
+    key = lambda r: (r["kind"], r.get("name"), r.get("step"))
+    got = [r for r in got if r["kind"] not in ("manifest", "span")]
+    want = [r for r in want if r["kind"] not in ("manifest", "span")]
+    if [key(r) for r in got] != [key(r) for r in want]:
+        fail(f"{label}: record sequences differ: {[key(r) for r in got]} vs "
+             f"{[key(r) for r in want]}")
+
+    def close(a, b):
+        return (a is None and b is None) or (
+            a is not None and b is not None and abs(a - b) <= atol + rtol * abs(b))
+
+    for g, w in zip(got, want):
+        if g["kind"] in ("counter", "event"):
+            ok = g == w
+        elif g["kind"] == "gauge":
+            ok = close(g["value"], w["value"])
+        else:  # variance
+            ok = all(close(g["metrics"][m], w["metrics"][m]) and all(
+                close(a, b) for a, b in zip(g["per_layer"][m], w["per_layer"][m]))
+                for m in w["metrics"])
+        if not ok:
+            fail(f"{label}: {g} differs from {w}")
+
+
+def phase_telemetry(cfg, layout, batches, dev):
+    """Phase 18: run telemetry on the card.  Phase 4's trainer for
+    TEL_STEPS steps with telemetry off, with a ``JsonlSink`` (metrics
+    every TEL_EVERY steps) and with ``record_spans=True``: every record
+    passes the schema, ``comm_bytes`` equals ``program_comm_bytes`` summed
+    offline, the streamed variance equals ``variance_report`` of the
+    step's own norms.  Then phase 15's ResNet closed-loop run (20 steps)
+    with a ``JsonlSink`` on the card and on the CPU: the same stream
+    (phase 15's bars), its comm counters equal to the offline replay of
+    the realized rung walk.  Returns (launches summed, numbers)."""
+    import numpy as np
+    import torch
+    from repro_torch.core.dbench import variance_report
+    from repro_torch.core.dsgd import make_topology
+    from repro_torch.core.schedule import program_comm_bytes
+    from repro_torch.kernels import _build, ops
+    from repro_torch.launch.train import SPMDTrainer
+    from repro_torch.optim.sgd import sgd
+    from repro_torch.telemetry import JsonlSink, MetricsRecorder, read_jsonl
+
+    out_dir = _build.BUILD_DIR / "telemetry"
+    log("phase 18 prediction (PERF.md §6): every record valid; comm_bytes == the offline "
+        "sum; streamed variance == variance_report of the same norms; the card's ResNet "
+        "stream == the CPU's; step ms with telemetry off, on and with spans within 5% of "
+        "each other (the loop synchronizes every step anyway)")
+    total, numbers, paths = {}, {}, {}
+    for label, kw in (("off", None), ("on", {}), ("spans", {"record_spans": True})):
+        rec = None
+        if kw is not None:
+            paths[label] = out_dir / f"trainer_{label}.jsonl"
+            rec = MetricsRecorder(sinks=[JsonlSink(str(paths[label]))],
+                                  metrics_every=TEL_EVERY, **kw)
+            rec.manifest({"engine": "stacked", "phase": 18, "telemetry": label})
+        topo = make_topology("d_ring", G)
+        trainer = SPMDTrainer(cfg, topo, sgd(momentum=0.9), collect_norms=True,
+                              fused_apply=True, telemetry=rec)
+        state = trainer.init_state(seed=0)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        step_ms, norms = [], []
+        for t in range(TEL_STEPS):
+            t1 = time.perf_counter()
+            state, _, nrm = trainer.train_step(state, batches[t], LR)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t1) * 1e3)
+            norms.append(nrm.cpu().numpy())
+        counts = ops.launch_counts()
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        numbers[f"trainer {label}"] = {"step_ms": step_ms, "launches": counts}
+        del state, trainer
+        torch.cuda.empty_cache()
+        if rec is None:
+            continue
+        rec.close()
+        records = read_jsonl(str(paths[label]))   # every record through the schema
+        prog = topo.program_at()
+        want = TEL_STEPS * program_comm_bytes(prog, layout.size * 2)
+        got = [r for r in records if r["kind"] == "counter" and r["name"] == "comm_bytes"]
+        if not got or got[-1]["total"] != want:
+            fail(f"phase 18 trainer {label}: comm_bytes {got[-1:]} != offline {want}")
+        var = [r for r in records if r["kind"] == "variance"]
+        if [r["step"] for r in var] != list(range(0, TEL_STEPS, TEL_EVERY)):
+            fail(f"phase 18 trainer {label}: variance records at {[r['step'] for r in var]}")
+        for r in var:
+            for m, per_leaf in variance_report(norms[r["step"]]).items():
+                if not np.allclose(r["per_layer"][m], per_leaf, rtol=1e-12, atol=0):
+                    fail(f"phase 18 trainer {label}: streamed {m} differs at step {r['step']}")
+        spans = [r["step"] for r in records if r["kind"] == "span"]
+        if spans != (list(range(TEL_STEPS)) if label == "spans" else []):
+            fail(f"phase 18 trainer {label}: round spans at steps {spans}")
+        numbers[f"trainer {label}"]["records"] = len(records)
+    # the ResNet closed-loop run, card against CPU
+    name = "resnet closed-loop Ada"
+    params, paper_batches = paper_inputs(name, PAPER_CHECK_STEPS)
+    runs = {}
+    for label, device in (("card", dev), ("cpu", "cpu")):
+        paths[label] = out_dir / f"resnet_{label}.jsonl"
+        rec = MetricsRecorder(sinks=[JsonlSink(str(paths[label]))], metrics_every=TEL_EVERY,
+                              record_spans=True)
+        if label == "card":
+            ops.reset_launch_counts()
+        runs[label] = paper_run(name, device, params, paper_batches, telemetry=rec)
+        if label == "card":
+            for k, v in ops.launch_counts().items():
+                total[k] = total.get(k, 0) + v
+        rec.close()
+        runs[label]["records"] = read_jsonl(str(paths[label]))
+    compare_streams("phase 18 resnet card vs CPU", runs["card"]["records"],
+                    runs["cpu"]["records"], rtol=1e-4, atol=1e-6)
+    card = runs["card"]
+    topo, ctl = card["topology"], card["topology"].controller
+    want = 0
+    for t in range(PAPER_CHECK_STEPS):
+        with ctl.pinned(ctl.rung_at(t)):
+            want += program_comm_bytes(topo.fused_program_at(step=t, epoch=t // 5),
+                                       card["param_bytes"])
+    got = [r for r in card["records"] if r["kind"] == "counter" and r["name"] == "comm_bytes"]
+    if got[-1]["total"] != want:
+        fail(f"phase 18 resnet: comm_bytes {got[-1]['total']} != offline replay {want}")
+    numbers[name] = {"records": len(card["records"]),
+                     "step_ms_median": float(np.median(card["step_ms"][1:])),
+                     "cpu_step_ms_median": float(np.median(runs["cpu"]["step_ms"][1:])),
+                     "transitions": card["transitions"]}
+    numbers["paths"] = {k: str(v) for k, v in paths.items()}
+    log(f"phase 18: trainer step ms off {[round(x, 1) for x in numbers['trainer off']['step_ms']]}, "
+        f"on {[round(x, 1) for x in numbers['trainer on']['step_ms']]}, spans "
+        f"{[round(x, 1) for x in numbers['trainer spans']['step_ms']]}; every record valid, "
+        f"comm_bytes == offline, streamed variance == variance_report; the ResNet stream "
+        f"({len(card['records'])} records, median step {numbers[name]['step_ms_median']:.2f} ms) "
+        f"on the card == the CPU's; streams under {out_dir}")
     return total, numbers
 
 
@@ -1393,6 +1959,12 @@ def main():
             "theta": snap.theta[:, idx].float().cpu().numpy(),
             "mom": snap.mom[:, idx].cpu().numpy()}
     del idx
+    # what phase 16's bucketed runs must reproduce bit for bit: the same
+    # steps, with the tail of the largest bucket size (it holds the others')
+    tail0 = min(tail_start(layout, mb) for mb in BUCKET_MBS)
+    ref16 = {"losses": ref9["losses"], "norms": ref9["norms"], "theta": ref9["theta"],
+             "mom": ref9["mom"], "tail_start": tail0,
+             "theta_tail": snap.theta[:, tail0:].clone(), "mom_tail": snap.mom[:, tail0:].clone()}
 
     # 5. the same step without the fused kernel, from the main path's state
     # before its last step (launches from here on are not the main path's)
@@ -1427,6 +1999,11 @@ def main():
         ),
     }
     log("phase 6: breakdown " + json.dumps(breakdown))
+    # the monolithic step (the parent's path) under the check phase 16 runs
+    sync6 = sync_error(trainer, state, batches[0])
+    breakdown["sync_debug_error"] = sync6
+    log("phase 6: a monolithic step with the inert recorder under "
+        f"set_sync_debug_mode('error'): {sync6 or 'no synchronizing call'}")
     theta, mom = state.theta, state.mom
     p_cols = theta.shape[1]
     srcs, w = ring_tables(dev)
@@ -1526,7 +2103,7 @@ def main():
 
     # 13. the simulator at granite width, against the trainer
     t13 = time.perf_counter()
-    launches13, sim13 = phase_simulator(cfg, batches, sample)
+    launches13, sim13, rows13, ref_interp16 = phase_simulator(cfg, batches, sample)
     sim13["wall_s"] = time.perf_counter() - t13
     torch.cuda.empty_cache()
 
@@ -1537,13 +2114,34 @@ def main():
         for t in range(len(batches), ADA_STEPS)]
     launches14, rounds14 = phase_rounds(cfg, layout, batches14)
     rounds14["wall_s"] = time.perf_counter() - t14
-    del batches14
     torch.cuda.empty_cache()
 
     # 15. the paper's configurations through the simulator, card against CPU
     t15 = time.perf_counter()
     launches15, paper15 = phase_paper(dev)
     paper15["wall_s"] = time.perf_counter() - t15
+    torch.cuda.empty_cache()
+
+    # 16. the bucketed trainer against phase 4's monolithic run
+    t16 = time.perf_counter()
+    launches16, buckets16, err_k1_slices = phase_buckets(cfg, layout, batches, ref16, sample,
+                                                         ref_interp16)
+    buckets16["wall_s"] = time.perf_counter() - t16
+    err_k1 = max(err_k1, err_k1_slices)
+    del ref16, ref_interp16
+    torch.cuda.empty_cache()
+
+    # 17. closed-loop Ada with the folded probe; the bucketed simulator
+    t17 = time.perf_counter()
+    launches17, fold17 = phase_folded_probe(cfg, layout, batches14,
+                                            rounds14["d_ada closed loop"], rows13, sample)
+    fold17["wall_s"] = time.perf_counter() - t17
+    torch.cuda.empty_cache()
+
+    # 18. run telemetry on the card
+    t18 = time.perf_counter()
+    launches18, tel18 = phase_telemetry(cfg, layout, batches14, dev)
+    tel18["wall_s"] = time.perf_counter() - t18
 
     summary = {
         "card": smi,
@@ -1559,18 +2157,27 @@ def main():
         "simulator": sim13,
         "rounds": rounds14,
         "paper": paper15,
+        "buckets": buckets16,
+        "folded_probe": fold17,
+        "telemetry": tel18,
     }
     log("summary " + json.dumps(summary))
     # each kernel's launches on every main path that runs it
     by_path = {
         "gossip_program_update": {"phase 4": counts["gossip_program_update"],
-                                  "phase 14": launches14["gossip_program_update"]},
+                                  "phase 14": launches14["gossip_program_update"],
+                                  "phase 16": launches16["gossip_program_update"],
+                                  "phase 17": launches17["gossip_program_update"],
+                                  "phase 18": launches18["gossip_program_update"]},
         "gossip_update": {"phase 9": ranks9["launches"]["gossip_update"]},
         "segment_l2_norms": {"phase 4": counts["segment_l2_norms"],
                              "phase 9": ranks9["launches"]["segment_l2_norms"],
                              "phase 13": launches13["segment_l2_norms"],
                              "phase 14": launches14["segment_l2_norms"],
-                             "phase 15": launches15["segment_l2_norms"]},
+                             "phase 15": launches15["segment_l2_norms"],
+                             "phase 16": launches16["segment_l2_norms"],
+                             "phase 17": launches17["segment_l2_norms"],
+                             "phase 18": launches18["segment_l2_norms"]},
         "flash_attention": {"phase 12": k4_launches},
     }
     kernels = [

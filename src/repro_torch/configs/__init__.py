@@ -2,7 +2,7 @@
 
 Every architecture of the reference registry is known by name; only the
 ported ones load, the others raise "not yet ported" (ROADMAP queue 1
-step 12 brings the model zoo).
+item 6 brings the model zoo).
 """
 from repro_torch.configs.base import ArchConfig
 
@@ -33,7 +33,7 @@ def get_config(name: str) -> ArchConfig:
     if _MODULES[base] is None:
         raise ValueError(
             f"arch {base!r} is not yet ported (ported: {PORTED}); the model "
-            "zoo is ROADMAP queue 1 step 12"
+            "zoo is ROADMAP queue 1 item 6"
         )
     mod = importlib.import_module(f"repro_torch.configs.{_MODULES[base]}")
     cfg = mod.CONFIG

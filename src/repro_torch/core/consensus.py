@@ -25,10 +25,10 @@ temporaries stay a few hundred MB.
 probed ratio Ξ_t / Ξ_0 falls to ``target`` the schedule steps one rung
 down the pre-enumerated ladder ``k0, k0-1, …, floor[, one_peer]``; with
 ``spike`` a disagreement spike walks one rung back up.  Its ``transitions``,
-``trace`` and ``events`` lists are the reference's, entry for entry.  The
-reference mirrors transitions into its run telemetry; telemetry is a later
-slice of the port (ROADMAP queue 1 step 11), as is the masked Ξ of fault
-runs (step 10).
+``trace`` and ``events`` lists are the reference's, entry for entry, and
+``bind_recorder`` mirrors every transition, rearm and redensify into the
+run's telemetry (``repro_torch.telemetry``).  The masked Ξ of fault runs
+comes with the fault slice (ROADMAP queue 1 item 3).
 """
 from __future__ import annotations
 
@@ -44,6 +44,7 @@ from repro_torch.core.ada import AdaSchedule
 from repro_torch.core.graphs import (
     CommGraph, RingLattice, one_peer_exponential, one_peer_period,
 )
+from repro_torch.telemetry import coalesce_into
 
 __all__ = [
     "consensus_sq_stacked",
@@ -159,6 +160,8 @@ class ConsensusController:
         # the re-densify reference: the current phase's peak Ξ, kept through
         # rearm() (unlike xi0) so a membership event cannot hide its spike
         self._spike_ref: Optional[float] = None
+        # the run's telemetry recorder (bind_recorder), None until bound
+        self._recorder = None
         n = self.schedule.n_nodes
         floor = (
             2
@@ -228,6 +231,7 @@ class ConsensusController:
         ):
             self.rung -= 1
             self.transitions.append((int(step), self.rung))
+            self._emit_transition(step)
             self._log_event(step, "redensify")
             # both references restart, so this spike is consumed
             self.xi0 = None
@@ -253,6 +257,7 @@ class ConsensusController:
         if fired:
             self.rung += 1
             self.transitions.append((int(step), self.rung))
+            self._emit_transition(step)
             self.xi0 = None  # re-arm the phase reference on the new rung
             self._spike_ref = None  # sparser graphs run hotter: new baseline
         self.trace.append((int(step), xi, self.rung))
@@ -266,17 +271,31 @@ class ConsensusController:
         self.xi0 = None
         self._log_event(step, reason)
 
+    def bind_recorder(self, recorder) -> None:
+        """Attach the run's :class:`repro_torch.telemetry.MetricsRecorder`:
+        every transition/rearm/redensify log entry is mirrored as a
+        telemetry event.  Both engines bind at construction, so the event
+        stream, coalescing included, does not depend on the engine."""
+        self._recorder = recorder
+
+    def _emit_transition(self, step: int) -> None:
+        if self._recorder is not None:
+            self._recorder.event(
+                "transition", int(step),
+                data={"rung": int(self.rung), "k": str(self.current)},
+            )
+
     def _log_event(self, step: int, reason: str) -> None:
         """Append to ``events``, merging distinct same-step reasons into one
-        ``"a+b"`` entry (a repeated reason is not added twice)."""
-        step, reason = int(step), str(reason)
-        if self.events and self.events[-1][0] == step:
-            prev = self.events[-1][1]
-            if reason in prev.split("+"):
-                return
-            self.events[-1] = (step, f"{prev}+{reason}")
-        else:
-            self.events.append((step, reason))
+        ``"a+b"`` entry (``telemetry.coalesce_into``, the one coalescing
+        implementation); when the entry changes, the merged reason is
+        re-emitted as a ``controller`` telemetry event (consumers keep the
+        last emission per step)."""
+        merged = coalesce_into(self.events, int(step), str(reason))
+        if merged is not None and self._recorder is not None:
+            self._recorder.event(
+                "controller", int(step), data={"reason": merged}
+            )
 
     # -- resume / adoption ----------------------------------------------------
     def state_dict(self) -> dict:

@@ -27,7 +27,7 @@ topologies rotate through a small program set that ``distinct_programs``
 enumerates up front; ``fused_program_at`` fuses H consecutive schedule
 steps into one program per gossip round.
 
-Fault models are not ported yet (ROADMAP queue 1 step 10);
+Fault models are not ported yet (ROADMAP queue 1 item 3);
 ``make_topology`` rejects them.
 
 Update order (paper §2.1):
@@ -286,7 +286,7 @@ def make_topology(
         )
     if fault_model is not None:
         raise ValueError(
-            "fault models are not ported yet: ROADMAP queue 1 step 10 "
+            "fault models are not ported yet: ROADMAP queue 1 item 3 "
             "(core/faults.py)"
         )
     base = dict(name=name, n_nodes=n_nodes, mix_order=mix_order)

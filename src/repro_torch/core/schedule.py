@@ -25,7 +25,9 @@ the node axis (a tensor, or a dict of such tensors):
   * ``apply_stacked`` — rolls / index gathers over the stacked axis.
 
 A third, ``apply_shard``, runs it on one rank's own values with one
-collective per op (the one-rank-per-node engine).
+collective per op (the one-rank-per-node engine).  ``apply_stacked_bucketed``
+and ``apply_shard_bucketed`` run the stacked and shard interpreters one
+bucket (a column range of the flat state, ``core/buckets.py``) at a time.
 
 Multi-step fusion: ``GossipProgram.fuse`` composes H consecutive programs
 (a full one-peer cycle, say) into one ``FusedProgram`` whose interpreters
@@ -311,6 +313,42 @@ class GossipProgram:
             return acc.to(x.dtype)
 
         return _tree_map(_mix, local)
+
+    # -- bucketed interpreters (one call per bucket) -------------------------
+    # Each bucket's mixing runs over its own column range of the flat state
+    # (``core.buckets.BucketLayout``).  They delegate to the per-bucket
+    # applies, so ``FusedProgram`` inherits them with every stage run on
+    # the same bucket.
+
+    def apply_stacked_bucketed(self, stacked: torch.Tensor, layout) -> torch.Tensor:
+        """``apply_stacked`` over a flat (n, P) buffer, one call per bucket;
+        a new buffer (the input itself for the identity)."""
+        if self.is_identity and self.self_weight == 1.0:
+            return stacked
+        out = torch.empty_like(stacked)
+        for src, dst in zip(layout.views(stacked), layout.views(out)):
+            dst.copy_(self.apply_stacked(src))
+        return out
+
+    def apply_shard_bucketed(self, local: torch.Tensor, comm, layout) -> torch.Tensor:
+        """``apply_shard`` over this rank's flat (P,) buffer, one chain of
+        collectives per bucket; a new buffer (the input for the identity)."""
+        if self.is_identity and self.self_weight == 1.0:
+            return local
+        out = torch.empty_like(local)
+        for src, dst in zip(layout.views(local), layout.views(out)):
+            dst.copy_(self.apply_shard(src, comm))
+        return out
+
+    def apply_masked_bucketed(self, stacked, alive, *, link_up=None, layout):
+        from repro_torch.core.buckets import faults_not_ported
+
+        raise faults_not_ported("apply_masked_bucketed")
+
+    def apply_shard_masked_bucketed(self, local, comm, alive, *, link_up=None, layout):
+        from repro_torch.core.buckets import faults_not_ported
+
+        raise faults_not_ported("apply_shard_masked_bucketed")
 
 
 @dataclasses.dataclass(frozen=True)

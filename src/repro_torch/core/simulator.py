@@ -31,10 +31,22 @@ One step:
 
 ``mix_every`` gossips once every H steps and ``mix_rounds`` fuses H
 consecutive schedule steps into each gossip round (``hub_balance``
-spreads a static multi-matching program's matchings over them).  Faults
-and elastic membership, buckets, telemetry, node sharding and the retrace
-guard are later slices (ROADMAP queue 1 steps 10, 11 and 13); their
-arguments raise.
+spreads a static multi-matching program's matchings over them).
+
+``bucket_mb`` runs a mixing step's update and gossip bucket by bucket
+(``core/buckets.py``: column ranges of the flat state, the program's
+interpreter per bucket, as in the reference) instead of leaf by leaf, bit
+for bit the same numbers, and folds Ξ² into the buckets when the next
+step probes (``XiFold``), so that probe reads the fold: an eager
+reduction over each bucket after its mix, about the standalone probe's
+cost until a fused fold kernel exists.  ``telemetry``
+takes a ``repro_torch.telemetry.MetricsRecorder``: comm billed at
+dispatch, the loss, lr, Ξ (and, on the bucketed path, gradient-norm)
+gauges, round and bucket spans, the streamed DBench variance and the
+controller's events.
+
+Faults and elastic membership, node sharding and the retrace guard are
+later slices (ROADMAP queue 1 items 3 and 7); their arguments raise.
 """
 from __future__ import annotations
 
@@ -45,6 +57,9 @@ import numpy as np
 import torch
 
 from repro_torch.core import dbench
+from repro_torch.core.buckets import (
+    BucketLayout, XiFold, build_bucket_step, check_bucketable,
+)
 from repro_torch.core.consensus import consensus_distance_stacked
 from repro_torch.core.dsgd import Topology
 from repro_torch.core.flat import (
@@ -53,6 +68,7 @@ from repro_torch.core.flat import (
 from repro_torch.device import resolve_device
 from repro_torch.models.common import flatten_tree
 from repro_torch.optim.sgd import Optimizer
+from repro_torch.telemetry import MetricsRecorder
 
 __all__ = ["SimState", "DecentralizedSimulator"]
 
@@ -83,8 +99,8 @@ class SimState:
         return {k: v.float().mean(dim=0).to(v.dtype) for k, v in self.params.items()}
 
 
-def _later_slice(arg: str, step: str) -> ValueError:
-    return ValueError(f"{arg} is not ported yet: ROADMAP queue 1 step {step}")
+def _later_slice(arg: str, item: str) -> ValueError:
+    return ValueError(f"{arg} is not ported yet: ROADMAP queue 1 item {item}")
 
 
 class DecentralizedSimulator:
@@ -120,21 +136,29 @@ class DecentralizedSimulator:
           mix_every / mix_rounds / hub_balance: as in the reference.
           node_loop: gradients one node at a time instead of under vmap.
           device: the current CUDA card by default; ``"cpu"`` on request.
+          bucket_mb: run each mixing step bucket by bucket, ~bucket_mb MiB
+            of float32 per bucket; SGD-family optimizers, decentralized
+            topologies and ``mix_order="post"`` only.
+          telemetry: the run's ``MetricsRecorder`` (an inert one by
+            default, which costs nothing).
         """
         if mixing not in _ENGINES:
             raise ValueError(
                 f"mixing must be one of {sorted(_ENGINES)}, got {mixing!r}"
             )
         if getattr(topology, "fault_model", None) is not None:
-            raise _later_slice("a fault model", "10")
+            raise _later_slice("a fault model", "3 (faults)")
         if shard_nodes:
-            raise _later_slice("shard_nodes=True (virtual-node sharding)", "13")
-        if bucket_mb is not None:
-            raise _later_slice("bucket_mb (overlap-scheduled buckets)", "10")
+            raise _later_slice("shard_nodes=True (virtual-node sharding)", "7 (tooling)")
         if debug_no_retrace:
-            raise _later_slice("debug_no_retrace=True (the recompile guard)", "13")
-        if telemetry is not None:
-            raise _later_slice("telemetry (run telemetry)", "11")
+            raise _later_slice("debug_no_retrace=True (the recompile guard)", "7 (tooling)")
+        if bucket_mb is not None:
+            check_bucketable(optimizer, topology)
+        self.bucket_mb = bucket_mb
+        self.telemetry = telemetry if telemetry is not None else MetricsRecorder()
+        if topology.controller is not None:
+            topology.controller.bind_recorder(self.telemetry)
+        self._fold = XiFold()
         self.loss_fn = loss_fn
         self.optimizer = optimizer
         self.topology = topology
@@ -168,15 +192,16 @@ class DecentralizedSimulator:
 
     # -- one training step ------------------------------------------------------
     def _grads(self, state: SimState, batch, rng):
-        """(losses (n,) float32, grads {leaf: (n, ...)})."""
+        """(losses (n,) float32, grads {leaf: (n, ...)}, the flat (n, P)
+        gradient buffer the grads are views of, or None under vmap)."""
         if not self.node_loop:
             grads, losses = torch.func.vmap(torch.func.grad_and_value(self.loss_fn))(
                 state.params, batch)
-            return losses.float(), grads
+            return losses.float(), grads, None
         grad = torch.empty_like(state.theta)
         extra = (rng,) if self.has_rng else ()
         losses = node_grads_into(self.loss_fn, state.layout, state.theta, grad, batch, *extra)
-        return losses, state.layout.stacked_views(grad)
+        return losses, state.layout.stacked_views(grad), grad
 
     def _resolve_program(self, step: int, epoch: int):
         """This gossip round's (fused) program."""
@@ -201,10 +226,11 @@ class DecentralizedSimulator:
         Returns:
           (new_state, per_node_loss (n,), per_node_norms (n, n_leaves)).
         """
+        tel = self.telemetry
+        t_start = tel.round_start()
         topo = self.topology
-        ctl = topo.controller
-        if ctl is not None and ctl.should_probe(state.step):
-            ctl.observe(float(consensus_distance_stacked(state.theta)), state.step)
+        self._fold.probe(topo.controller, tel, state.step,
+                         lambda: consensus_distance_stacked(state.theta))
         mix = (state.step + 1) % self.mix_every == 0
         # time-varying schedules advance per gossip round, not per raw step
         program = None
@@ -213,24 +239,60 @@ class DecentralizedSimulator:
         batch = {k: torch.as_tensor(v, device=self.device) for k, v in batch.items()}
         if self.has_rng and rng is None:
             rng = torch.Generator(device=self.device).manual_seed(0)
-        losses, grads = self._grads(state, batch, rng)
+        losses, grads, flat_grad = self._grads(state, batch, rng)
         with torch.no_grad():
             norms = (
                 dbench.param_l2_norms(state.theta, state.layout)
                 if self.collect_norms
                 else torch.zeros((self.n, 0), dtype=torch.float32, device=self.device)
             )
-            if topo.centralized:
-                # C_complete: average gradients globally; replicas stay identical
-                grads = {k: g.float().mean(dim=0, keepdim=True).to(g.dtype).expand_as(g)
-                         for k, g in grads.items()}
+            if program is not None:
+                tel.comm(program, state.theta.shape[1] * state.theta.element_size(),
+                         step=state.step)
             engine = _ENGINES[self.mixing]
-            update_leaves(
-                self.optimizer, self._update, state.layout, state.theta, state.opt, grads,
-                lr, mix_order=topo.mix_order,
-                mix=None if program is None else (lambda x: program.apply(x, engine=engine)),
-            )
+            bucket_grad = None   # the gradient buffer of a bucketed step
+            if self.bucket_mb is not None and program is not None:
+                bucket_grad = self._bucketed_update(state, grads, flat_grad, lr, program,
+                                                    engine)
+            else:
+                if topo.centralized:
+                    # C_complete: average gradients globally; replicas stay identical
+                    grads = {k: g.float().mean(dim=0, keepdim=True).to(g.dtype).expand_as(g)
+                             for k, g in grads.items()}
+                update_leaves(
+                    self.optimizer, self._update, state.layout, state.theta, state.opt, grads,
+                    lr, mix_order=topo.mix_order,
+                    mix=None if program is None else (lambda x: program.apply(x, engine=engine)),
+                )
+        self._finish_round(losses, norms, t_start, step=state.step, mix=mix, lr=lr,
+                           grads=bucket_grad)
         return SimState(state.theta, state.opt, state.layout, state.step + 1), losses, norms
+
+    def _bucketed_update(self, state: SimState, grads, flat_grad, lr, program, engine):
+        """A mixing step's update and gossip bucket by bucket, IN PLACE on
+        the buckets' column views of θ, m and the gradient buffer; when the
+        next step probes, each bucket's Ξ² partial sum is folded into a
+        running (n,) token for it.  Returns the flat gradient buffer."""
+        grad = flat_grad if flat_grad is not None else state.layout.flatten(grads)
+        mom = state.opt.get("mom")
+        fn = build_bucket_step(program, hyper=self.optimizer.hyper,
+                               has_momentum=mom is not None, engine=engine)
+        self._fold.run(fn, BucketLayout.for_stacked(state.params, self.bucket_mb),
+                       state.theta, mom, grad, lr, controller=self.topology.controller,
+                       telemetry=self.telemetry, step=state.step)
+        return grad
+
+    def _finish_round(self, losses, norms, t_start, *, step: int, mix: bool, lr: float,
+                      grads=None) -> None:
+        """Post-step telemetry: closes the ``round`` span (after a device
+        synchronize, only when the recorder times rounds) and, at the
+        metrics cadence, emits the loss/lr/variance (and gradient-norm)
+        sample, reading each device value once."""
+        tel = self.telemetry
+        tel.round_end(t_start, step=step, mix=mix, device=self.device)
+        if tel.due(step):
+            tel.step_metrics(step, loss=losses, lr=lr,
+                             norms=norms if self.collect_norms else None, grads=grads)
 
     # -- full run helper ---------------------------------------------------------
     def run(

@@ -41,7 +41,8 @@ _VP, _LL, _INT, _F = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_
 _SIGNATURES = {
     "gossip_update": {
         "repro_gossip_program_update":
-            [_INT, _INT, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _LL, _LL, _INT, _F, _F, _VP],
+            [_INT, _INT, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _LL, _LL, _LL, _LL, _INT, _F, _F,
+             _VP],
         "repro_gossip_update":
             [_INT, _INT, _VP, _VP, _VP, _VP, _VP, _VP, _LL, _INT, _F, _F, _VP],
     },

@@ -28,7 +28,9 @@
 // thread handles 8 consecutive elements with 16-byte loads and stores,
 // K1 reads neighbour rows straight from the wire through the srcs table
 // (no gathered (G, deg, P) copy), K2 straight from the landing buffer,
-// and the ragged tail is masked in-kernel (no zero-padded copy).  The weight, fault and srcs rows, lr and beta are
+// and the ragged tail is masked in-kernel (no zero-padded copy).  K1 takes
+// row strides, so the bucketed step launches it in place on a bucket, a
+// column slice of the flat (G, P) state, with no copy either.  The weight, fault and srcs rows, lr and beta are
 // runtime operands, so a new schedule or fault never rebuilds anything.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -165,22 +167,26 @@ __device__ __forceinline__ void update_chunk(T* __restrict__ theta, const T* __r
 }
 
 // K1 — grid: (blocks per row, G); each thread walks chunks of 8 elements
-// of row i and reads neighbour k from wire row srcs[i, k].
-// VEC: P % 8 == 0 and every pointer 16-byte aligned, so each chunk is one
-// (bfloat16) or two (float32) 16-byte transactions per operand.
+// of row i and reads neighbour k from wire row srcs[i, k].  Rows are P
+// elements wide and start every ld_state elements in theta, grad and mom,
+// every ld_wire elements in the wire: the whole flat state has
+// ld_state == P, a bucket (a column slice of it) ld_state > P.
+// VEC: P, ld_state and ld_wire % 8 == 0 and every pointer 16-byte aligned,
+// so each chunk is one (bfloat16) or two (float32) 16-byte transactions
+// per operand.
 template <typename T, bool PRE, bool VEC>
 __global__ void __launch_bounds__(kThreads)
 program_update_kernel(T* __restrict__ theta, const T* __restrict__ wire,
                       const T* __restrict__ grad, float* __restrict__ mom,
                       const float* __restrict__ weights, const float* __restrict__ fault,
-                      const int* __restrict__ srcs, long long P, int deg, float lr,
-                      float beta) {
+                      const int* __restrict__ srcs, long long P, long long ld_state,
+                      long long ld_wire, int deg, float lr, float beta) {
   const int i = blockIdx.y;
   const float* wrow = weights + (size_t)i * (deg + 1);
   const float* frow = fault + (size_t)i * (deg + 1);
   const int* srow = srcs + (size_t)i * deg;
   const RowCoeffs c = row_coeffs(wrow, frow, deg, lr);
-  const size_t row = (size_t)i * (size_t)P;
+  const size_t row = (size_t)i * (size_t)ld_state;
   const long long nchunks = (P + kElems - 1) / kElems;
   for (long long ch = (long long)blockIdx.x * blockDim.x + threadIdx.x; ch < nchunks;
        ch += (long long)gridDim.x * blockDim.x) {
@@ -188,7 +194,7 @@ program_update_kernel(T* __restrict__ theta, const T* __restrict__ wire,
     const int n = VEC ? kElems : (int)min((long long)kElems, P - (long long)p0);
     update_chunk<T, PRE, VEC>(
         theta + row + p0, grad + row + p0, mom + row + p0, n, c, wrow, frow, deg, beta,
-        [&](int k) { return wire + (size_t)srow[k] * (size_t)P + p0; });
+        [&](int k) { return wire + (size_t)srow[k] * (size_t)ld_wire + p0; });
   }
 }
 
@@ -246,15 +252,20 @@ inline bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 
 }  // namespace
 
 // K1.  dtype: 0 = float32, 1 = bfloat16 (theta, wire and grad share it).
+// theta, grad and mom are G rows of P elements with row stride ld_state,
+// the wire G rows with row stride ld_wire (both >= P).
 // Returns cudaGetLastError() after the launch (0 = launched).
 extern "C" int repro_gossip_program_update(int dtype, int pre, void* theta,
                                            const void* wire, const void* grad, void* mom,
                                            const void* weights, const void* fault,
                                            const void* srcs, long long G, long long P,
-                                           int deg, float lr, float beta, void* stream) {
+                                           long long ld_state, long long ld_wire, int deg,
+                                           float lr, float beta, void* stream) {
   if (G <= 0 || P <= 0) return 0;
   if (G > 65535) return (int)cudaErrorInvalidConfiguration;
-  const bool vec = (P % kElems == 0) && aligned16(theta) && aligned16(wire) &&
+  if (ld_state < P || ld_wire < P) return (int)cudaErrorInvalidValue;
+  const bool vec = (P % kElems == 0) && (ld_state % kElems == 0) &&
+                   (ld_wire % kElems == 0) && aligned16(theta) && aligned16(wire) &&
                    aligned16(grad) && aligned16(mom);
   const dim3 grid(blocks_per_row(P), (unsigned)G);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -264,7 +275,8 @@ extern "C" int repro_gossip_program_update(int dtype, int pre, void* theta,
         <<<grid, kThreads, 0, s>>>(
             static_cast<T*>(theta), static_cast<const T*>(wire), static_cast<const T*>(grad),
             static_cast<float*>(mom), static_cast<const float*>(weights),
-            static_cast<const float*>(fault), static_cast<const int*>(srcs), P, deg, lr, beta);
+            static_cast<const float*>(fault), static_cast<const int*>(srcs), P, ld_state,
+            ld_wire, deg, lr, beta);
   });
 }
 

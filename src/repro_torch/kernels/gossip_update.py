@@ -3,7 +3,8 @@ neighbor mix.
 
 The counterpart of ``repro/kernels/gossip_update.py``:
 ``gossip_program_update`` (K1) with its glue ``fused_apply_stacked`` runs
-over all G stacked nodes; ``gossip_update`` (K2) with its glue
+over all G stacked nodes, and with ``fused_bucket_update`` over one
+bucket (a column slice) of them; ``gossip_update`` (K2) with its glue
 ``fused_apply_shard`` runs over one rank's own node.  Per node i and
 element p:
 
@@ -56,6 +57,7 @@ __all__ = [
     "gossip_wire",
     "fused_apply_stacked",
     "fused_apply_shard",
+    "fused_bucket_update",
     "mix_in_place",
 ]
 
@@ -70,7 +72,8 @@ def gossip_program_update_plain(theta, wire, srcs, weights, grad, mom, *,
     """The plain twin of K1: returns new (θ', m') and leaves its inputs alone.
 
     theta/wire/grad (G, P); mom (G, P) float32; srcs (G, deg) int;
-    weights/fault (G, deg+1) float32.
+    weights/fault (G, deg+1) float32.  θ, g, m and the wire may be column
+    slices of wider buffers, as K1's operands may.
     """
     deg = srcs.shape[1]
     g = grad.float()
@@ -96,9 +99,9 @@ def gossip_program_update_plain(theta, wire, srcs, weights, grad, mom, *,
     return acc.to(theta.dtype), m_new
 
 
-def _check_operands(theta, want: dict) -> None:
-    """``want``: name -> (tensor, shape, dtype); all on θ's device and
-    contiguous."""
+def _check_operands(theta, want: dict, *, contiguous=True) -> None:
+    """``want``: name -> (tensor, shape, dtype); each on θ's device, and
+    contiguous unless ``contiguous`` is False."""
     for name, (t, shape, dtype) in want.items():
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} must have shape {shape}, got {tuple(t.shape)}")
@@ -106,23 +109,39 @@ def _check_operands(theta, want: dict) -> None:
             raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
         if t.device != theta.device:
             raise ValueError(f"{name} is on {t.device}, theta on {theta.device}")
-    for name, t in {"theta": theta, **{n: v[0] for n, v in want.items()}}.items():
+    if not contiguous:
+        return
+    for name, (t, _, _) in want.items():
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
 
 
+def _span(t):
+    """[first, last) byte addresses a tensor's elements occupy."""
+    last = sum((n - 1) * st for n, st in zip(t.shape, t.stride())) + 1
+    return t.data_ptr(), t.data_ptr() + last * t.element_size()
+
+
 def _check_disjoint(nbrs_name, nbrs, theta, mom) -> None:
     """The in-place update must not overwrite the neighbour rows it reads."""
-    nbytes = nbrs.numel() * nbrs.element_size()
+    lo_n, hi_n = _span(nbrs)
     for name, t in (("theta", theta), ("mom", mom)):
-        lo, hi = t.data_ptr(), t.data_ptr() + t.numel() * t.element_size()
-        if lo < nbrs.data_ptr() + nbytes and nbrs.data_ptr() < hi:
+        lo, hi = _span(t)
+        if lo < hi_n and lo_n < hi:
             raise ValueError(
                 f"{nbrs_name} overlaps {name}: the in-place update needs its own buffer"
             )
 
 
+def _row_stride(t) -> int:
+    return t.stride(0) if t.shape[0] > 1 else t.shape[1]
+
+
 def _check(theta, wire, srcs, weights, grad, mom, fault):
+    """K1's operands; returns the row strides (ld_state, ld_wire).  θ, g
+    and m may be column slices of wider buffers (a bucket of the flat
+    state) but share one row stride; the wire its own; each row's
+    elements are contiguous."""
     if theta.dim() != 2:
         raise ValueError(f"theta must be (G, P), got shape {tuple(theta.shape)}")
     g, p = theta.shape
@@ -130,27 +149,43 @@ def _check(theta, wire, srcs, weights, grad, mom, fault):
         raise TypeError(f"theta dtype {theta.dtype} not supported (float32, bfloat16)")
     deg = srcs.shape[1] if srcs.dim() == 2 else -1
     _check_operands(theta, {
-        "wire": (wire, (g, p), theta.dtype),
-        "grad": (grad, (g, p), theta.dtype),
-        "mom": (mom, (g, p), torch.float32),
         "srcs": (srcs, (g, deg), torch.int32),
         "weights": (weights, (g, deg + 1), torch.float32),
         "fault": (fault, (g, deg + 1), torch.float32),
     })
+    rows = {"theta": theta, "wire": wire, "grad": grad, "mom": mom}
+    _check_operands(theta, {
+        "wire": (wire, (g, p), theta.dtype),
+        "grad": (grad, (g, p), theta.dtype),
+        "mom": (mom, (g, p), torch.float32),
+    }, contiguous=False)
+    for name, t in rows.items():
+        if p > 1 and t.stride(1) != 1:
+            raise ValueError(f"{name} must have contiguous rows, got strides {t.stride()}")
+    ld_state = _row_stride(theta)
+    if _row_stride(grad) != ld_state or _row_stride(mom) != ld_state:
+        raise ValueError(
+            "theta, grad and mom must share one row stride; got "
+            f"{theta.stride()}, {grad.stride()}, {mom.stride()}"
+        )
     _check_disjoint("wire", wire, theta, mom)
+    return ld_state, _row_stride(wire)
 
 
 def gossip_program_update(theta, wire, srcs, weights, grad, mom, *,
                           lr, beta, fault, mix_order="post"):
     """K1 over G stacked nodes; updates ``theta`` and ``mom`` IN PLACE and
-    returns them.  Arguments as in ``gossip_program_update_plain``.
+    returns them.  Arguments as in ``gossip_program_update_plain``: θ, g
+    and m may be column slices of wider buffers with one row stride (a
+    bucket of the flat state), the wire has its own row stride; every row
+    is contiguous.
 
     The launch is asynchronous on the current stream; a caller may drop its
     operands right after (the wire, say), because the caching allocator
     hands their memory only to work queued later on the same stream."""
     if mix_order not in ("post", "pre"):
         raise ValueError(f"mix_order must be 'post'|'pre', got {mix_order!r}")
-    _check(theta, wire, srcs, weights, grad, mom, fault)
+    ld_state, ld_wire = _check(theta, wire, srcs, weights, grad, mom, fault)
     if theta.device.type == "cpu":
         new_t, new_m = gossip_program_update_plain(
             theta, wire, srcs, weights, grad, mom,
@@ -168,7 +203,7 @@ def gossip_program_update(theta, wire, srcs, weights, grad, mom, *,
         err = fn(
             _DTYPES[theta.dtype], int(mix_order == "pre"), theta.data_ptr(),
             wire.data_ptr(), grad.data_ptr(), mom.data_ptr(), weights.data_ptr(),
-            fault.data_ptr(), srcs.data_ptr(), g, p, srcs.shape[1],
+            fault.data_ptr(), srcs.data_ptr(), g, p, ld_state, ld_wire, srcs.shape[1],
             ctypes.c_float(float(lr)), ctypes.c_float(float(beta)), stream,
         )
     if err != 0:
@@ -210,6 +245,7 @@ def gossip_update(theta, nbrs, weights, grad, mom, *, lr, beta, fault,
     (p,) = theta.shape
     deg = nbrs.shape[0] if nbrs.dim() == 2 else -1
     _check_operands(theta, {
+        "theta": (theta, (p,), theta.dtype),
         "nbrs": (nbrs, (deg, p), theta.dtype),
         "grad": (grad, (p,), theta.dtype),
         "mom": (mom, (p,), torch.float32),
@@ -286,15 +322,16 @@ def _fault_rows_stacked(fault, srcs: np.ndarray, n: int, device) -> torch.Tensor
 
 
 def gossip_wire(theta, grad, mom, *, lr, beta, mix_order="post", update=None):
-    """The (G, P) buffer every node sends, in θ's dtype: the senders'
-    post-update θ* = θ − lr (β m + g) for ``mix_order="post"`` (a node with
-    ``update`` 0 sends its un-updated θ), a copy of θ for ``"pre"``.  Plain
-    torch in column chunks of ``WIRE_CHUNK``, as the reference computes it
-    in plain jnp."""
+    """The (G, P) buffer every node sends, in θ's dtype and contiguous
+    (θ, g and m may be column slices): the senders' post-update
+    θ* = θ − lr (β m + g) for ``mix_order="post"`` (a node with ``update``
+    0 sends its un-updated θ), a copy of θ for ``"pre"``.  Plain torch in
+    column chunks of ``WIRE_CHUNK``, as the reference computes it in plain
+    jnp."""
     if mix_order != "post":
-        return theta.clone()
+        return theta.clone(memory_format=torch.contiguous_format)
     p = theta.shape[1]
-    wire = torch.empty_like(theta)
+    wire = torch.empty(theta.shape, dtype=theta.dtype, device=theta.device)
     for a in range(0, p, WIRE_CHUNK):
         b = min(a + WIRE_CHUNK, p)
         step = mom[:, a:b] * beta
@@ -332,6 +369,37 @@ def fused_apply_stacked(program, theta, grad, mom, *, lr, beta, fault=None,
         lr=lr, beta=beta, fault=fault_rows, mix_order=mix_order,
     )
     return theta, (mom if had_m else None)
+
+
+def fused_bucket_update(program, theta_b, grad_b, mom_b, *, lr, beta, fault=None,
+                        mix_order: str = "post"):
+    """One bucket's fused momentum-SGD + gossip round: K1 launched IN PLACE
+    on the bucket's (G, w) column views of the flat θ, g and m buffers.
+
+    The bucket is the kernel's outer dispatch unit: the engines call this
+    once per ``BucketLayout`` bucket.  The weight rows and the all-ones
+    fault rows are the program's cached device tables (a bucket's width
+    never enters them); the bucket's wire, the senders' θ* over its
+    columns, is a fresh contiguous (G, w) buffer.  ``mom_b`` None (a
+    momentum-free optimizer) runs K1 on contiguous copies of the bucket
+    with a zero momentum buffer.  Returns ``(theta_b, mom_b)``."""
+    if fault is not None:
+        from repro_torch.core.buckets import faults_not_ported
+
+        raise faults_not_ported("fused_bucket_update with fault masks")
+    if mom_b is None:
+        theta = theta_b.contiguous()
+        mom = torch.zeros(theta.shape, dtype=torch.float32, device=theta.device)
+        fused_bucket_update(program, theta, grad_b.contiguous(), mom, lr=lr, beta=beta,
+                            mix_order=mix_order)
+        theta_b.copy_(theta)
+        return theta_b, None
+    srcs_t, weights_t, ones_t, _ = _device_tables(program, theta_b.device)
+    lr, beta = float(lr), float(beta)
+    wire = gossip_wire(theta_b, grad_b, mom_b, lr=lr, beta=beta, mix_order=mix_order)
+    gossip_program_update(theta_b, wire, srcs_t, weights_t, grad_b, mom_b,
+                          lr=lr, beta=beta, fault=ones_t, mix_order=mix_order)
+    return theta_b, mom_b
 
 
 def fused_apply_shard(program, theta, grad, mom, comm, *, lr, beta, fault=None,

@@ -43,8 +43,30 @@ reference does.  Without it the optimizer (vmapped over the rows) and the
 program's stacked (or, for ranks, shard) interpreter run leaf by leaf,
 which keeps their float32 temporaries to one leaf at a time.
 
-Faults, buckets, checkpoints and telemetry are later slices; the CLI
-rejects their flags and names the ROADMAP step that brings each.
+``bucket_mb`` runs a mixing step of the stacked engine bucket by bucket
+(``core/buckets.py``: column ranges of the flat state): with
+``fused_apply`` K1 launches once per bucket, in place on the bucket's
+column views, and the later rounds of a multi-round program follow on the
+same columns; without it the optimizer and the interpreter run per
+bucket.  Either way the numbers are the monolithic step's, bit for bit,
+and when the next step probes, Ξ² is folded into the buckets
+(``XiFold``) and that probe reads the fold: an eager reduction over each
+bucket after its mix, which reads the state as the standalone probe
+would and costs about as much until a fused fold kernel exists.  The
+ranks engine keeps the monolithic step under
+``bucket_mb``, as the reference's shard_map realization does (its
+per-bucket overlap is a later slice).
+
+``telemetry`` takes a ``repro_torch.telemetry.MetricsRecorder``: comm
+billed once per program application at dispatch, the loss, lr, Ξ (and,
+bucketed, gradient-norm) gauges, round and bucket spans, the streamed
+DBench variance and the controller's events.  On the ranks engine rank 0
+alone writes records; on a metrics step every rank joins one ``pmean`` of
+the loss and one ``all_gather`` of the norms, so a run of G ranks writes
+the stacked run's record stream, spans aside.
+
+Faults and checkpoints are later slices; the CLI rejects their flags and
+names the ROADMAP item that brings each.
 """
 from __future__ import annotations
 
@@ -58,6 +80,9 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.core import dbench
+from repro_torch.core.buckets import (
+    BucketLayout, XiFold, build_bucket_step, check_bucketable,
+)
 from repro_torch.core.consensus import (
     consensus_distance_shard, consensus_distance_stacked,
 )
@@ -75,6 +100,7 @@ from repro_torch.kernels.gossip_update import (
 from repro_torch.launch.comm import Comm, rank_device
 from repro_torch.models import transformer as tfm
 from repro_torch.optim.sgd import Optimizer
+from repro_torch.telemetry import MetricsRecorder
 
 __all__ = ["SPMDTrainer", "TrainState", "main"]
 
@@ -113,6 +139,8 @@ class SPMDTrainer:
         mix_rounds: int = 1,
         hub_balance: bool = False,
         fused_apply: bool = False,
+        bucket_mb: Optional[float] = None,
+        telemetry=None,
         device=None,
     ):
         """mix_every: gossip once every H optimizer steps (the H−1 local
@@ -122,6 +150,11 @@ class SPMDTrainer:
         rounds.  fused_apply: run the optimizer update and the first gossip
         round as one pass of a fused kernel (K1 stacked, K2 on a rank)
         whenever that round is all-PPermute; requires plain momentum-SGD.
+        bucket_mb: run the stacked engine's mixing steps bucket by bucket,
+        ~bucket_mb MiB of float32 per bucket (SGD family, decentralized,
+        ``mix_order="post"``); the ranks engine keeps the monolithic step.
+        telemetry: the run's ``MetricsRecorder`` (an inert one by default,
+        which costs nothing); on the ranks engine give rank 0 the sinks.
         ``device``: the current card by default; ``"cpu"`` runs every
         kernel's plain twin.  With an initialised process group of world
         size > 1 the trainer is one rank of the ranks engine, which raises
@@ -160,6 +193,24 @@ class SPMDTrainer:
         self.rows = self.g if self.comm is None else 1
         self.defs = tfm.model_defs(cfg)
         self.layout = FlatLayout.from_shapes({k: d.shape for k, d in self.defs.items()})
+        if bucket_mb is not None:
+            check_bucketable(optimizer, topology)
+        self.bucket_mb = bucket_mb
+        self._bucket_layout = (
+            None if bucket_mb is None
+            else BucketLayout(self.layout.sizes, BucketLayout.elems_for_mb(bucket_mb))
+        )
+        self._fold = XiFold()
+        self.telemetry = telemetry if telemetry is not None else MetricsRecorder()
+        if topology.controller is not None:
+            topology.controller.bind_recorder(self.telemetry)
+        self._metrics_every = self.telemetry.metrics_every if self.telemetry.active else 0
+        if self.comm is not None:
+            # every rank joins the metrics steps' collectives: rank 0's
+            # recorder (the one with sinks) sets the cadence for all
+            mine = torch.tensor([self._metrics_every], dtype=torch.float32,
+                                device=self.device)
+            self._metrics_every = int(self.comm.all_gather(mine)[0, 0])
 
     # -- mixing program -------------------------------------------------------
     def _one_program(self, step: int, epoch: int) -> Optional[GossipProgram]:
@@ -264,19 +315,23 @@ class SPMDTrainer:
             return consensus_distance_stacked(state.theta)
         return consensus_distance_shard(state.theta[0], self.comm)
 
+    @property
+    def _bucketed(self) -> bool:
+        return self.bucket_mb is not None and self.g > 1 and self.engine == "stacked"
+
     def train_step(self, state: TrainState, batch, lr: float, *, epoch: int = 0):
         """One iteration; updates the state's buffers in place and returns
         ``(state, losses (rows,), norms (rows, n_leaves))``: every node's
         stacked, this rank's own on a rank.  ``batch`` holds (G, B, S)
         token arrays (numpy or tensors); a rank moves only its own row."""
+        tel = self.telemetry
+        t_start = tel.round_start()
         own = slice(None) if self.comm is None else slice(self.comm.rank, self.comm.rank + 1)
         batch = {k: torch.as_tensor(v[own], device=self.device) for k, v in batch.items()}
         topo = self.topology
-        ctl = topo.controller
-        if ctl is not None and self.g > 1 and ctl.should_probe(state.step):
-            # the probe may change the rung, and so this step's program
-            with torch.no_grad():
-                ctl.observe(float(self.consensus_distance(state)), state.step)
+        with torch.no_grad():
+            self._fold.probe(topo.controller if self.g > 1 else None, tel, state.step,
+                             lambda: self.consensus_distance(state))
         mix = (state.step + 1) % self.mix_every == 0
         # time-varying schedules advance per gossip round, not per raw step
         program = (
@@ -285,12 +340,16 @@ class SPMDTrainer:
         )
         grad = torch.empty_like(state.theta)
         losses = self._grads_into(state.theta, grad, batch)
+        bucket_grad = None   # the gradient buffer of a bucketed step
         with torch.no_grad():
             norms = (
                 dbench.param_l2_norms(state.theta, self.layout)
                 if self.collect_norms
                 else torch.zeros((self.rows, 0), dtype=torch.float32, device=self.device)
             )
+            if program is not None and self.g > 1:
+                tel.comm(program, self.layout.size * state.theta.element_size(),
+                         step=state.step)
             if topo.centralized:
                 # C_complete: average gradients globally (float32, leaf by
                 # leaf); replicas stay identical
@@ -300,7 +359,10 @@ class SPMDTrainer:
                     else:
                         g.copy_(self.comm.pmean(g.float().contiguous()))
             split = self._fused_split(program)
-            if split is None:
+            if self._bucketed and program is not None:
+                self._bucketed_update(state, grad, lr, program, split)
+                bucket_grad = grad
+            elif split is None:
                 update_leaves(
                     self.optimizer, self._update, self.layout, state.theta, state.opt,
                     self.layout.stacked_views(grad), lr,
@@ -321,8 +383,40 @@ class SPMDTrainer:
                         lr=lr, beta=self.beta, mix_order=topo.mix_order,
                     )
                 mix_in_place(rest, state.theta, self._mix)
-        del grad
+            del grad
+            self._finish_round(losses, norms, t_start, step=state.step, mix=mix, lr=lr,
+                               grads=bucket_grad)
         return TrainState(state.theta, state.opt, state.step + 1), losses, norms
+
+    def _bucketed_update(self, state: TrainState, grad, lr, program, split) -> None:
+        """A mixing step's update and gossip bucket by bucket, IN PLACE on
+        the buckets' column views of θ, m and ``grad``: K1 once per bucket
+        with ``split`` (then the later rounds on the same columns), else
+        the optimizer and the stacked interpreter.  When the next step
+        probes, each bucket's Ξ² partial sum is folded for it."""
+        fn = build_bucket_step(program, hyper=self.optimizer.hyper,
+                               has_momentum=state.mom is not None, kernel_split=split)
+        self._fold.run(fn, self._bucket_layout, state.theta, state.mom, grad, lr,
+                       controller=self.topology.controller, telemetry=self.telemetry,
+                       step=state.step)
+
+    def _finish_round(self, losses, norms, t_start, *, step: int, mix: bool, lr: float,
+                      grads=None) -> None:
+        """Post-step telemetry: closes the ``round`` span (after a device
+        synchronize, only when the recorder times rounds) and, on a metrics
+        step, emits the loss/lr/variance (and gradient-norm) sample.  A
+        rank joins the ``pmean`` of the loss and the ``all_gather`` of the
+        norms on every metrics step; rank 0 emits them."""
+        tel = self.telemetry
+        tel.round_end(t_start, step=step, mix=mix, device=self.device)
+        if not (self._metrics_every and step % self._metrics_every == 0):
+            return
+        if self.comm is not None:
+            losses = self.comm.pmean(losses.float().clone())
+            norms = self.comm.all_gather(norms[0].contiguous()) if self.collect_norms else norms
+        if tel.active:
+            tel.step_metrics(step, loss=losses, lr=lr,
+                             norms=norms if self.collect_norms else None, grads=grads)
 
 
 # ---------------------------------------------------------------------------
@@ -350,7 +444,11 @@ def _parser():
     ap.add_argument("--fused-apply", action="store_true",
                     help="run optimizer+gossip as one pass of the fused CUDA "
                          "kernel for all-PPermute programs (plain momentum-SGD)")
-    ap.add_argument("--bucket-mb", type=float, default=None)
+    ap.add_argument("--bucket-mb", type=float, default=None,
+                    help="run each mixing step bucket by bucket, ~this many MiB "
+                         "of float32 per bucket (the stacked engine; SGD family "
+                         "and post-mixing only; folds the next probe's Xi into "
+                         "the buckets)")
     ap.add_argument("--fault-model", default="none",
                     choices=["none", "crash", "concurrent", "preempt", "join",
                              "deadline", "dropout", "link", "straggler"])
@@ -388,24 +486,26 @@ def _parser():
     ap.add_argument("--ckpt-dir", default="")
     ap.add_argument("--ckpt-every", type=int, default=0)
     ap.add_argument("--resume", action="store_true")
-    ap.add_argument("--telemetry", default="")
-    ap.add_argument("--metrics-every", type=int, default=10)
+    ap.add_argument("--telemetry", default="",
+                    help="stream structured run telemetry (JSONL) to this path: "
+                         "round spans, comm-bytes counters, loss/xi/lr gauges, "
+                         "streamed DBench variance and controller events; read "
+                         "it with python -m repro_torch.telemetry summarize PATH")
+    ap.add_argument("--metrics-every", type=int, default=10,
+                    help="gauge/variance emission cadence in steps (with "
+                         "--telemetry; spans and counters are per step)")
     return ap
 
 
 def _unsupported(args) -> list[str]:
     """Messages for every flag of a later slice that this run sets."""
     out = []
-    if args.bucket_mb is not None:
-        out.append("--bucket-mb (overlap-scheduled buckets): ROADMAP queue 1 step 10")
     if args.fault_model != "none" or args.spare_ranks:
         out.append("--fault-model / --spare-ranks (fault injection): "
-                   "ROADMAP queue 1 step 10")
+                   "ROADMAP queue 1 item 3 (faults)")
     if args.ckpt_dir or args.ckpt_every or args.resume:
         out.append("--ckpt-dir / --ckpt-every / --resume (checkpoints): "
-                   "ROADMAP queue 1 step 10")
-    if args.telemetry:
-        out.append("--telemetry (run telemetry): ROADMAP queue 1 step 11")
+                   "ROADMAP queue 1 item 4 (checkpoint)")
     return out
 
 
@@ -444,7 +544,7 @@ def main(argv=None, *, device=None) -> dict:
     if tp != 1:
         rejected.append(
             f"--mesh {args.mesh}: a model axis > 1 (tensor parallelism inside a "
-            "node) comes after ROADMAP queue 1 step 13"
+            "node) comes after the queue, ROADMAP queue 1 item 8"
         )
     if rejected:
         raise SystemExit("not ported yet:\n  " + "\n  ".join(rejected))
@@ -480,14 +580,33 @@ def _train(args, g, tp, k_floor, dev) -> dict:
         consensus_spike=args.consensus_spike,
         consensus_probe_every=args.consensus_every,
     )
+    recorder = None
+    if args.telemetry:
+        from repro_torch.telemetry import JsonlSink, MetricsRecorder
+
+        # rank 0 alone writes the stream
+        rank0 = not dist.is_initialized() or dist.get_rank() == 0
+        recorder = MetricsRecorder(
+            sinks=[JsonlSink(args.telemetry)] if rank0 else [],
+            metrics_every=args.metrics_every, record_spans=True,
+        )
     trainer = SPMDTrainer(
         cfg, topo, get_optimizer(args.optimizer), collect_norms=True,
         mixing=args.mixing, mix_every=args.mix_every,
         mix_rounds=args.mix_rounds, hub_balance=args.hub_balance,
-        fused_apply=args.fused_apply, device=dev,
+        fused_apply=args.fused_apply, bucket_mb=args.bucket_mb, telemetry=recorder,
+        device=dev,
     )
     comm = trainer.comm
     say = print if comm is None or comm.rank == 0 else (lambda *a, **k: None)
+    trainer.telemetry.manifest({
+        "engine": trainer.engine,
+        "config": {k: v for k, v in sorted(vars(args).items())},
+        "topology": topo.describe(),
+        "mesh": {"data": g, "model": tp},
+        "seed": 0,
+        "resumed": False,
+    })
     # report the apply path the step will ACTUALLY take: fused_apply takes
     # the interpreter for non-PPermute programs (complete, dense)
     apply_mode = "interpreter"
@@ -495,6 +614,8 @@ def _train(args, g, tp, k_floor, dev) -> dict:
         apply_mode = "fused kernel " + ("K1" if comm is None else "K2")
     elif args.fused_apply:
         apply_mode = "interpreter (program not fused-eligible)"
+    if trainer._bucketed:
+        apply_mode += f" | bucketed {args.bucket_mb}MiB"
     engine = "stacked" if comm is None else f"ranks | transport {comm.transport}"
     say(topo.describe(), "| mesh", {"data": g, "model": tp}, "| mixing",
         args.mixing, "| engine", engine, "| rounds", args.mix_rounds, "| apply",
@@ -527,6 +648,10 @@ def _train(args, g, tp, k_floor, dev) -> dict:
         rungs = " -> ".join(str(ctl.ladder[r]) for _, r in [(0, 0)] + ctl.transitions)
         say(f"consensus controller: xi0={ctl.xi0} rungs {rungs} "
             f"handoff_step={ctl.handoff_step}")
+    if args.telemetry:
+        trainer.telemetry.close()
+        say(f"telemetry: {args.telemetry} "
+            f"(python -m repro_torch.telemetry summarize {args.telemetry})")
     return {"losses": losses, "trainer": trainer, "state": state}
 
 

@@ -7,8 +7,11 @@ against it).  Parameters are one flat dict keyed by the reference tree's
 paths joined with dots ("blocks.ffn.w_up"), in the reference's leaf order
 (sorted keys, depth first); layer parameters carry a leading L axis as
 ``stack_defs`` makes them, and the reference's ``lax.scan`` over layers is
-a Python loop.  ``remat`` is a memory knob of the reference and is not
-needed here (no activations are kept for a backward pass in serving).
+a Python loop.  ``remat`` (per-layer activation checkpointing in the
+reference) is ignored here today: serving keeps no activations, but both
+trainers backprop through ``loss_fn`` and keep every layer's, which at
+full depth decides what fits one card; ``torch.utils.checkpoint`` per
+layer is ROADMAP queue 1 item 6.
 """
 from __future__ import annotations
 
@@ -100,7 +103,7 @@ def model_defs(cfg: ArchConfig) -> dict[str, ParamDef]:
     if cfg.family != "dense" or cfg.n_experts:
         raise ValueError(
             f"family {cfg.family!r} is not ported yet (dense only); the model "
-            "zoo is ROADMAP queue 1 step 12"
+            "zoo is ROADMAP queue 1 item 6"
         )
     dt = cfg.dtype
     block = flatten_tree(attn_block_defs(cfg))
@@ -258,7 +261,7 @@ def _dense_only(cfg: ArchConfig) -> None:
     if cfg.family != "dense" or cfg.n_experts:
         raise ValueError(
             f"family {cfg.family!r} is not ported yet (dense only); the model "
-            "zoo is ROADMAP queue 1 step 12"
+            "zoo is ROADMAP queue 1 item 6"
         )
 
 

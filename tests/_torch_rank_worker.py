@@ -55,6 +55,48 @@ def run_cases(comm, cases, params, steps, seq, batch, lr):
     return out
 
 
+def telemetry_cases(comm, cases, params, steps, seq, batch, lr, metrics_every):
+    """Each case ``name -> (topology, topo_kw, engine_kw)`` trained
+    ``steps`` steps with run telemetry: rank 0's recorder writes to a
+    ``MemorySink``, the other ranks' recorders have no sink.  Returns
+    ``name -> records`` (empty on ranks other than 0)."""
+    from repro_torch.telemetry import MemorySink, MetricsRecorder
+
+    cfg = get_config("granite-8b-reduced")
+    out = {}
+    for name, (topology, topo_kw, engine_kw) in cases.items():
+        sink = MemorySink()
+        rec = MetricsRecorder(sinks=[sink] if comm.rank == 0 else [],
+                              metrics_every=metrics_every)
+        trainer = SPMDTrainer(cfg, make_topology(topology, comm.world, **topo_kw),
+                              get_optimizer("sgd", momentum=0.9), collect_norms=True,
+                              telemetry=rec, device=comm.device, **engine_kw)
+        state = trainer.init_state(params={k: torch.from_numpy(v) for k, v in params.items()})
+        src = SyntheticLM(vocab=cfg.vocab, seq_len=seq, seed=0)
+        for t in range(steps):
+            state, _, _ = trainer.train_step(state, src.stacked(comm.world, t, batch), lr)
+        out[name] = sink.records
+    return out
+
+
+def shard_bucketed_cases(comm, cases):
+    """Each case ``name -> (graph, x, sizes, bucket_elems)``: this rank's
+    row of the stacked numpy ``x`` through ``apply_shard_bucketed`` over
+    ``BucketLayout(sizes, bucket_elems)`` and through ``apply_shard``.
+    Returns ``name -> (bucketed row, monolithic row)``."""
+    from repro_torch.core import graphs
+    from repro_torch.core.buckets import BucketLayout
+    from repro_torch.core.schedule import compile_graph
+
+    out = {}
+    for name, (graph, x, sizes, bucket_elems) in cases.items():
+        program = compile_graph(getattr(graphs, graph[0])(*graph[1:]))
+        row = torch.from_numpy(x[comm.rank].copy())
+        got = program.apply_shard_bucketed(row, comm, BucketLayout(sizes, bucket_elems))
+        out[name] = (got.numpy().copy(), program.apply_shard(row, comm).numpy().copy())
+    return out
+
+
 def fused_shard_cases(comm, cases):
     """Each case ``name -> (graph, inputs, kw)``: ``fused_apply_shard`` on
     this rank's rows of the stacked numpy ``inputs`` (theta, grad, mom or

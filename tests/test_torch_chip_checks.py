@@ -3,7 +3,9 @@ bfloat16: the comparison of the fused and the interpreted training step
 (phase 5; phase 14 with multi-round programs) passes the true steps and
 fails a step that mixes wrongly; the simulator equals the trainer (phase
 13); the paper's configurations run through the simulator (phase 15,
-shortened)."""
+shortened); the bucketed trainer equals the monolithic one and K1 with a
+wrong row stride fails (phase 16); the folded probe holds and a bucket
+left out of the fold fails (phase 17); run telemetry (phase 18)."""
 import dataclasses
 import math
 import sys
@@ -148,8 +150,8 @@ def _reduced(steps):
 def test_phase13_simulator_equals_trainer_on_cpu(on_cpu, monkeypatch):
     cfg, layout, batches = _reduced(chip_smoke.SIM_STEPS)
     monkeypatch.setattr(chip_smoke, "SAMPLE", 64)
-    launches, numbers = chip_smoke.phase_simulator(cfg, batches,
-                                                   chip_smoke.sample_columns(layout))
+    launches, numbers, _, _ = chip_smoke.phase_simulator(cfg, batches,
+                                                         chip_smoke.sample_columns(layout))
     assert launches["segment_l2_norms"] == chip_smoke.SIM_STEPS
     # the same arithmetic as the trainer: equal, not merely within the bars
     assert numbers["max_theta_err_bf16_ulps"] == 0.0 and numbers["max_mom_abs_err"] == 0.0
@@ -184,6 +186,8 @@ def test_phase14_passes_true_rounds_and_fails_wrong_ones(on_cpu, monkeypatch, mu
     ada = numbers["d_ada closed loop"]
     assert [s for s, _, _ in ada["trace"]] == list(range(chip_smoke.ADA_STEPS))
     assert ada["max_xi_rel_err"] <= 1e-5
+    # the offset replicas make the rung move: 2 -> one_peer
+    assert ada["transitions"] and ada["rung_walk"].endswith("one_peer")
 
 
 def test_phase15_runs_the_paper_configurations_on_cpu(on_cpu, monkeypatch):
@@ -199,3 +203,177 @@ def test_phase15_runs_the_paper_configurations_on_cpu(on_cpu, monkeypatch):
     assert [s for s, _, _ in ada["trace"]] == [0, 5, 10]
     assert numbers["lstm variance d_ring"]["trace"] is None
     assert all(math.isfinite(n["final_loss"]) for n in numbers.values())
+
+
+# ---------------------------------------------------------------------------
+# Phases 16-18 on the CPU, at the reduced granite-8b size in bfloat16
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def no_sync_debug(monkeypatch):
+    """The CPU build has no CUDA sync debug mode: the check is a no-op."""
+    monkeypatch.setattr(torch.cuda, "set_sync_debug_mode", lambda mode: None)
+
+
+def _monolithic_ref(cfg, layout, batches, steps, sample, tail0, **kw):
+    """What main() keeps from phase 4 (and, with ``fused_apply=False`` and
+    dense mixing, from phase 13) for phase 16: the monolithic trainer's
+    losses, norms, sampled θ and m, and the tail columns."""
+    import numpy as np
+
+    kw = {"fused_apply": True, **kw}
+    trainer = SPMDTrainer(cfg, make_topology("d_ring", chip_smoke.G), sgd(momentum=0.9),
+                          collect_norms=True, device="cpu", **kw)
+    state = trainer.init_state(seed=0)
+    losses, norms = [], []
+    for t in range(steps):
+        state, loss, nrm = trainer.train_step(state, batches[t], chip_smoke.LR)
+        losses.append(loss.numpy().copy())
+        norms.append(nrm.numpy().copy())
+    idx = torch.as_tensor(sample)
+    return {"losses": np.stack(losses), "norms": np.stack(norms),
+            "theta": state.theta[:, idx].float().numpy(), "mom": state.mom[:, idx].numpy(),
+            "tail_start": tail0, "theta_tail": state.theta[:, tail0:].clone(),
+            "mom_tail": state.mom[:, tail0:].clone()}
+
+
+def _width_as_row_stride(orig):
+    """K1 with ``ld_state`` taken as the slice's width: right on the whole
+    state, wrong rows on a bucket (a column slice)."""
+    def run(theta, wire, srcs, weights, grad, mom, **kw):
+        restride = lambda t: t.as_strided(t.shape, (t.shape[1], 1))
+        return orig(restride(theta), wire, srcs, weights, restride(grad), restride(mom), **kw)
+    return run
+
+
+# bucket sizes over the reduced state's 1,443,072 columns: 551, 111 and
+# 23 buckets, boundaries inside leaves, ragged tails
+SMALL_MBS = (0.01, 0.05, 0.25)
+
+
+@pytest.mark.parametrize("mutant", [None, "wrong-stride"])
+def test_phase16_buckets_equal_monolithic_and_a_wrong_stride_fails(on_cpu, no_sync_debug,
+                                                                    monkeypatch, mutant):
+    cfg, layout, batches = _reduced(chip_smoke.BUCKET_STEPS + 1)
+    monkeypatch.setattr(chip_smoke, "SAMPLE", 64)
+    monkeypatch.setattr(chip_smoke, "BUCKET_MBS", SMALL_MBS)
+    monkeypatch.setattr(chip_smoke, "INTERP_MB", 0.05)
+    monkeypatch.setattr(chip_smoke, "EDGE", 64)
+    sample = chip_smoke.sample_columns(layout)
+    tail0 = min(chip_smoke.tail_start(layout, mb) for mb in SMALL_MBS)
+    ref = _monolithic_ref(cfg, layout, batches, chip_smoke.BUCKET_STEPS, sample, tail0)
+    ref_interp = _monolithic_ref(cfg, layout, batches, chip_smoke.BUCKET_STEPS, sample,
+                                 chip_smoke.tail_start(layout, 0.05), fused_apply=False,
+                                 mixing="dense")
+    if mutant is not None:
+        monkeypatch.setattr(gu, "gossip_program_update",
+                            _width_as_row_stride(gu.gossip_program_update))
+        with pytest.raises(SystemExit):
+            chip_smoke.phase_buckets(cfg, layout, batches, ref, sample, ref_interp)
+        return
+    launches, numbers, err = chip_smoke.phase_buckets(cfg, layout, batches, ref, sample,
+                                                      ref_interp)
+    buckets = [numbers[f"{mb} MiB"]["buckets"] for mb in SMALL_MBS]
+    assert buckets == [551, 111, 23] and err == 0.0
+    assert numbers["0.05 MiB interpreter"]["buckets"] == 111
+    assert launches["gossip_program_update"] == chip_smoke.BUCKET_STEPS * sum(buckets)
+    assert launches["segment_l2_norms"] == 4 * chip_smoke.BUCKET_STEPS
+
+
+@pytest.mark.parametrize("mutant", [None, "wrong-stride"])
+def test_k1_slice_check_holds_the_twin_and_fails_a_wrong_stride(monkeypatch, mutant):
+    """``k1_slice_against_twin`` on interior, tail and misaligned column
+    slices of a (G, P) state: the true wrapper passes with error 0, one
+    that takes the slice's width as its row stride fails."""
+    g, p = chip_smoke.G, 1000
+    gen = torch.Generator().manual_seed(0)
+    theta = (torch.randn((g, p), generator=gen) * 0.02).bfloat16()
+    grad = torch.randn((g, p), generator=gen).bfloat16()
+    mom = torch.randn((g, p), generator=gen)
+    srcs, w = chip_smoke.ring_tables("cpu")
+    monkeypatch.setattr(chip_smoke, "EDGE", 16)
+    monkeypatch.setattr(chip_smoke, "TWIN_CHUNK", 64)   # several chunks per slice
+    theta0, mom0 = theta.clone(), mom.clone()
+    if mutant is not None:
+        monkeypatch.setattr(gu, "gossip_program_update",
+                            _width_as_row_stride(gu.gossip_program_update))
+        with pytest.raises(SystemExit):
+            chip_smoke.k1_slice_against_twin("mutant", theta, mom, grad, srcs, w, 200, 456)
+        return
+    for a, b in ((200, 456), (768, 1000), (203, 454)):
+        assert chip_smoke.k1_slice_against_twin("slice", theta, mom, grad, srcs, w, a, b) == 0.0
+    # each variant restores the slice: the state is as it was
+    assert torch.equal(theta, theta0) and torch.equal(mom, mom0)
+
+
+def _drop_first_bucket(orig):
+    """A bucket step that leaves bucket 0's Ξ² partial out of the fold."""
+    def build(*args, **kw):
+        fn = orig(*args, **kw)
+
+        def step(theta_b, mom_b, grad_b, lr, tok):
+            out = fn(theta_b, mom_b, grad_b, lr, tok)
+            return tok if tok is not None and theta_b.storage_offset() == 0 else out
+        return step
+    return build
+
+
+@pytest.mark.parametrize("mutant", [None, "dropped-bucket"])
+def test_phase17_folded_probe_and_a_dropped_bucket_fails(on_cpu, monkeypatch, mutant):
+    from repro_torch.launch import train as train_mod
+
+    cfg, layout, batches = _reduced(chip_smoke.ADA_STEPS)
+    monkeypatch.setattr(chip_smoke, "SAMPLE", 64)
+    monkeypatch.setattr(chip_smoke, "FOLD_MB", 0.05)
+    monkeypatch.setattr(chip_smoke, "SIM_BUCKET_MB", 0.05)
+    sample = chip_smoke.sample_columns(layout)
+    # phase 14's monolithic closed loop and phase 13's simulator rows
+    topo = make_topology("d_ada", chip_smoke.G, k_floor="one_peer",
+                         consensus_target=chip_smoke.ADA_TARGET, consensus_probe_every=1)
+    trainer = SPMDTrainer(cfg, topo, sgd(momentum=0.9), collect_norms=True, fused_apply=True,
+                          device="cpu")
+    state = trainer.init_state(seed=0)
+    before = chip_smoke.ada_before({}, layout)
+    for t in range(chip_smoke.ADA_STEPS):
+        before(t, state)
+        state, _, _ = trainer.train_step(state, batches[t], chip_smoke.LR)
+    ref14 = {"trace": [list(x) for x in topo.controller.trace],
+             "transitions": topo.controller.transitions}
+    rows13, _, _, _ = chip_smoke.simulator_run(cfg, batches, torch.as_tensor(sample))
+    if mutant is not None:
+        monkeypatch.setattr(train_mod, "build_bucket_step",
+                            _drop_first_bucket(train_mod.build_bucket_step))
+        with pytest.raises(SystemExit):
+            chip_smoke.phase_folded_probe(cfg, layout, batches, ref14, rows13, sample)
+        return
+    launches, numbers = chip_smoke.phase_folded_probe(cfg, layout, batches, ref14, rows13,
+                                                      sample)
+    assert numbers["standalone_probes_at"] == [0] and numbers["buckets"] == 111
+    assert launches["gossip_program_update"] == 111 * chip_smoke.ADA_STEPS
+    assert max(numbers["max_xi_rel_err"].values()) <= 1e-5
+    assert numbers["transitions"] == ref14["transitions"] != []
+
+
+def test_phase18_telemetry_on_cpu(on_cpu, monkeypatch, tmp_path):
+    from repro_torch.kernels import _build
+
+    cfg, layout, batches = _reduced(chip_smoke.TEL_STEPS)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(chip_smoke, "PAPER_CHECK_STEPS", 6)
+    launches, numbers = chip_smoke.phase_telemetry(cfg, layout, batches, "cpu")
+    assert launches["gossip_program_update"] == 3 * chip_smoke.TEL_STEPS
+    assert numbers["trainer on"]["records"] > 0
+    assert (tmp_path / "telemetry" / "resnet_cpu.jsonl").exists()
+
+
+def test_compare_streams_holds_counters_exactly_and_gauges_to_the_bar():
+    base = [{"kind": "counter", "step": 0, "name": "comm_bytes", "inc": 8, "total": 8},
+            {"kind": "gauge", "step": 0, "name": "loss", "value": 2.0},
+            {"kind": "span", "step": 0, "name": "round", "ms": 1.0}]
+    chip_smoke.compare_streams("same", base, base[:2], rtol=1e-4)   # spans aside
+    near = [dict(base[0]), dict(base[1], value=2.0001)]
+    chip_smoke.compare_streams("near", near, base, rtol=1e-4)
+    for bad in ([dict(base[0], inc=9, total=9), base[1]],
+                [base[0], dict(base[1], value=2.01)], base[:1]):
+        with pytest.raises(SystemExit):
+            chip_smoke.compare_streams("bad", bad, base, rtol=1e-4)

@@ -76,6 +76,39 @@ def test_gossip_program_update_matches_twin(cuda, dtype, p, mix_order, faulty):
     assert ((got_t.float() - want_t.float()).abs() <= 2 * _ulp(want_t)).all()
 
 
+# column slices [lo, hi) of a (6, 4104) state: aligned with a width that
+# is a multiple of 8 (the vector path), aligned with a ragged width, and
+# unaligned (the scalar path)
+@pytest.mark.parametrize("lo,hi", [(1024, 3072), (8, 1011), (3, 4100)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gossip_program_update_on_a_column_slice(cuda, lo, hi, dtype):
+    """K1 launched in place on a bucket (a column slice with the state's
+    row stride, a contiguous wire of the bucket's width): bit for bit K1
+    on a contiguous copy, the columns outside the slice untouched."""
+    from repro_torch.kernels.gossip_update import fused_bucket_update, gossip_wire
+
+    program = compile_graph(graphs.Star(6))
+    srcs_np, w_np = program.permute_tables()
+    n, deg = srcs_np.shape
+    gen = torch.Generator(device=cuda).manual_seed(lo)
+    rnd = lambda *s: torch.randn(s, generator=gen, device=cuda)
+    theta, grad = (rnd(n, 4104).to(dtype) for _ in range(2))
+    mom = rnd(n, 4104)
+    srcs = torch.as_tensor(srcs_np, device=cuda)
+    w = torch.as_tensor(w_np, device=cuda)
+    kw = dict(lr=0.05, beta=0.9, fault=torch.ones(n, deg + 1, device=cuda))
+    sl = (slice(None), slice(lo, hi))
+    wire = gossip_wire(theta[sl], grad[sl], mom[sl], lr=0.05, beta=0.9)
+    want_t, want_m = theta[sl].contiguous(), mom[sl].contiguous()
+    gossip_program_update(want_t, wire, srcs, w, grad[sl].contiguous(), want_m, **kw)
+    t2, m2 = theta.clone(), mom.clone()
+    fused_bucket_update(program, t2[sl], grad[sl], m2[sl], lr=0.05, beta=0.9)
+    torch.cuda.synchronize()
+    assert torch.equal(t2[sl], want_t) and torch.equal(m2[sl], want_m)
+    assert torch.equal(t2[:, :lo], theta[:, :lo]) and torch.equal(t2[:, hi:], theta[:, hi:])
+    assert torch.equal(m2[:, :lo], mom[:, :lo]) and torch.equal(m2[:, hi:], mom[:, hi:])
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("p", [4096, 1003])  # vector path and ragged tail
 @pytest.mark.parametrize("mix_order", ["post", "pre"])

@@ -105,5 +105,5 @@ def test_rejects_unported_topology_options():
     with pytest.raises(ValueError, match="d_ada"):
         tdsgd.make_topology("d_ring", 4, consensus_target=0.5)
     assert tdsgd.make_topology("d_ada", 4, consensus_target=0.5).closed_loop
-    with pytest.raises(ValueError, match="step 10"):
+    with pytest.raises(ValueError, match="item 3"):
         tdsgd.make_topology("d_ring", 4, fault_model=object())
