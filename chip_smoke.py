@@ -9,7 +9,9 @@ Phases (any failure exits non-zero and prints no result line):
      per source, in parallel);
   2. K1 (fused gossip update) against its plain twin on one full-width
      granite-8b leaf (G = 4 × the 58,720,256-element ``w_up``, bfloat16):
-     post and pre order, all-ones rows and a masked row;
+     post and pre order, all-ones rows, a masked row and the rows of a
+     real realization (a drain boost of 1.5 and a ghost's all-zero row),
+     these bit for bit;
   3. K3 (segmented L2 norms) against its twin over a (4, 838,881,280)
      bfloat16 buffer cut into granite-8b's leaf segments;
   4. the main path: ``SPMDTrainer`` at granite-8b width (d_model 4096,
@@ -32,8 +34,9 @@ Phases (any failure exits non-zero and prints no result line):
   7. the CLI, ``main(["--reduced", "--steps", "3", "--fused-apply"])``;
   8. K2 (the one-node fused gossip update of the ranks engine) against its
      plain twin on one full-width row (P = 838,881,280, bfloat16 θ, g and
-     (2, P) landing buffer, float32 m): post and pre order, all-ones and
-     masked fault rows; then timed beside its twin and its bound;
+     (2, P) landing buffer, float32 m): post and pre order, all-ones,
+     masked, boost and ghost fault rows (the last two bit for bit); then
+     timed beside its twin and its bound;
   9. the ranks engine: G = 4 ranks spawned on this machine (file-store
      rendezvous) run phase 4's configuration for its first 3 steps from
      the same seed-0 weights and batches, with NCCL and a card per rank on
@@ -128,9 +131,26 @@ Phases (any failure exits non-zero and prints no result line):
      spans aside (phase 15's bars), its comm counters equal to the offline
      replay of the rung walk.  The streams are written under
      ``build/repro_torch/telemetry``.
-     Each run of phases 13-18 zeroes the launch counters just before its
-     steps and reads them just after; each of phases 16-18 prints its
+     Each run of phases 13-22 zeroes the launch counters just before its
+     steps and reads them just after; each of phases 16-22 prints its
      prediction before its measurements.
+ 19. faults: phase 4's fused trainer for 6 steps under each of four fault
+     models (``FAULT_RUNS``: a crash with a degraded program and a rejoin,
+     a preemption drain with boost 1.5 and its handoff, a spare pool with
+     a ghost rank over link failures, stragglers), from the seed-0
+     replicas, each node pushed apart by its own noise (σ = 0.01) before
+     every step so that every mix shows; K1 once per step on the realized fault
+     rows, and each step held against the trainer without fused apply run
+     in lockstep from the same state (the masked interpreter; phase 5's
+     tolerances); the crash model's fault-free step 0 bit for bit phase
+     4's step 0;
+ 20. the same runs at ``bucket_mb`` 64: K1 once per bucket, the fault rows
+     built once a step, the final state bit for bit phase 19's;
+ 21. the simulator under the same models (stacked mixing, one node's
+     gradients at a time) bit for bit the trainer without fused apply;
+ 22. 4 ranks (as phase 9) under a crash at step 1 with a rejoin at step 2,
+     3 steps: each rank bit for bit its stacked row, K2 once per step on
+     every rank.
 
 The last three lines of standard output are the card's name and power
 limit as nvidia-smi reports them, the per-kernel JSON (K1-K4, each with its
@@ -208,6 +228,24 @@ def bf16_ulp(x):
     return torch.exp2(torch.floor(torch.log2(mag)) - 7)
 
 
+# fault rows of a real realization, held bit for bit against the twins:
+# node 1 draining (alive 1.5: its edges, and its neighbours' edges to it,
+# boosted) and node 3 a ghost (alive 0, update 0: an all-zero row)
+EXACT_ROWS = ("boost+ghost",)
+
+
+def boost_ghost_rows(dev):
+    """d_ring's (G, 3) kernel fault rows for alive (1, 1.5, 1, 0) and
+    update (1, 1, 1, 0), as ``fault_rows`` builds them in a step."""
+    import torch
+    from repro_torch.core.dsgd import make_topology
+    from repro_torch.kernels.gossip_update import fault_rows
+
+    masks = {"alive": torch.tensor([1.0, 1.5, 1.0, 0.0], device=dev),
+             "update": torch.tensor([1.0, 1.0, 1.0, 0.0], device=dev), "link": None}
+    return fault_rows(make_topology("d_ring", G).program_at(), masks, dev)
+
+
 def ring_tables(dev):
     """d_ring's (srcs int32, weights float32) on ``dev``."""
     import torch
@@ -222,8 +260,9 @@ def against_twin(label, run, twin, p, theta, mom, variants):
     launches the kernel on ``theta``/``mom`` (clones of the inputs, updated
     in place); ``twin(a, b, kw)`` gives the plain twin's (θ', m') for
     columns a:b (the last axis), held against the kernel's chunk by chunk
-    (2^26 columns): m' within 1e-6 relative, θ' within 2 bfloat16 ulps.
-    Returns the max abs error."""
+    (2^26 columns): m' within 1e-6 relative, θ' within 2 bfloat16 ulps,
+    and bit for bit for the fault rows of a real realization (names in
+    EXACT_ROWS).  Returns the max abs error."""
     worst = 0.0
     for order, fname, kw in variants:
         t_out, m_out = theta(), mom()
@@ -242,6 +281,9 @@ def against_twin(label, run, twin, p, theta, mom, variants):
                      f"than 2 bf16 ulps in columns {a}:{b} (max abs {float(err_t.max()):.3e})")
             err_t_max = max(err_t_max, float(err_t.max()))
             err_m_max = max(err_m_max, float(err_m.max()))
+            if fname in EXACT_ROWS and max(err_t_max, err_m_max) != 0.0:
+                fail(f"{label} {order} {fname}: not bit for bit the twin in columns {a}:{b} "
+                     f"(theta {err_t_max:.3e}, m {err_m_max:.3e})")
             del want_t, want_m, err_m, err_t
         del t_out, m_out
         worst = max(worst, err_t_max, err_m_max)
@@ -262,8 +304,10 @@ def k1_against_twin(label, theta0, wire, srcs, w, grad, mom0):
     masked = ones.clone()
     masked[1, 0] = 0.0   # node 1 skips its update
     masked[2, 1] = 0.0   # node 2 drops its first edge
+    rows = boost_ghost_rows(w.device)
     variants = [(order, fname, dict(lr=LR, beta=0.9, fault=fault, mix_order=order))
-                for fname, fault in (("all-ones", ones), ("masked", masked))
+                for fname, fault in (("all-ones", ones), ("masked", masked),
+                                     ("boost+ghost", rows))
                 for order in ("post", "pre")]
     return against_twin(
         f"K1 {label}",
@@ -299,8 +343,11 @@ def k2_against_twin(theta0, grad, nbrs, mom0, w):
     masked = ones.clone()
     masked[0] = 0.0   # the node skips its update
     masked[1] = 0.0   # and drops its first edge
+    rows = boost_ghost_rows(w.device)
     variants = [(order, fname, dict(lr=LR, beta=0.9, fault=fault, mix_order=order))
-                for fname, fault in (("all-ones", ones), ("masked", masked))
+                for fname, fault in (("all-ones", ones), ("masked", masked),
+                                     ("boost+ghost", rows[1].contiguous()),
+                                     ("boost+ghost", rows[3].contiguous()))
                 for order in ("post", "pre")]
     return against_twin(
         "K2 full-width row",
@@ -355,27 +402,17 @@ def phase_fused_vs_interpreter(trainer, plain_trainer, start, batch, noise=0.01)
     Every node's θ is first offset by its own noise (σ = ``noise``; 0.01
     is half a weight's scale), so that the mix moves θ by far more than the
     tolerance: a wrong neighbour table or a lost neighbour term fails.
-    After the first round θ' agrees within 2 bfloat16 ulps of the larger of
-    |θ*| (the node's own θ − lr·m') and |θ'| (the interpreter rounds θ* to
-    bfloat16 before mixing, the kernel after: ≤ w0/2 ulp of θ*, plus one
-    rounding each), plus 2^-20 of Σ_k w_k |θ*_k| over the node and its
-    senders (16 float32 roundings of the sums, which matter where the terms
-    cancel).  A multi-round program (``mix_rounds``) runs its later rounds
-    through the interpreter on both sides, so each round s carries the
-    bound on: |W_s| times the bound before it, plus 2 ulps of the round's
-    output and 2^-20 of |W_s| |input|; the interpreter's rounds are
-    recomputed from θ* and must give its θ' bit for bit.  m' within 1e-6
-    relative.  Returns (the fused state after the step, worst θ' error in
-    bfloat16 ulps and as a share of its tolerance, worst m' relative error,
-    share of elements the mix moved by more than the tolerance)."""
+    The comparison is ``check_step_against_interpreter``'s.  Returns (the
+    fused state after the step, worst θ' error in bfloat16 ulps and as a
+    share of its tolerance, worst m' relative error, share of elements the
+    mix moved by more than the tolerance)."""
     import numpy as np
     import torch
 
     dev = start.theta.device
-    stages = program_stages(trainer, start.step)
-    absw = [torch.as_tensor(np.abs(st.matrix()), dtype=torch.float32, device=dev)
-            for st in stages]
-    p = start.theta.shape[1]
+    rounds = [(st.apply_stacked,
+               torch.as_tensor(np.abs(st.matrix()), dtype=torch.float32, device=dev))
+              for st in program_stages(trainer, start.step)]
     offset_nodes(start.theta, noise)
     theta0 = start.theta.clone()
     fused = start.clone()
@@ -383,55 +420,91 @@ def phase_fused_vs_interpreter(trainer, plain_trainer, start, batch, noise=0.01)
     ref, loss_r, _ = plain_trainer.train_step(start, batch, LR)
     if not torch.allclose(loss_f, loss_r, rtol=1e-5, atol=0):
         fail(f"fused and interpreter losses differ: {loss_f.tolist()} vs {loss_r.tolist()}")
+    worst_ulps, worst_tol, worst_m, moved_share = check_step_against_interpreter(
+        "fused vs interpreter step", theta0, fused, ref, rounds)
+    del theta0, ref
+    return fused, worst_ulps, worst_tol, worst_m, moved_share
+
+
+def check_step_against_interpreter(label, theta0, fused, ref, rounds, update=None,
+                                   rows=None):
+    """The fused step (``fused``: K1 on round 1) against the interpreter's
+    (``ref``) from the same θ (``theta0``, after any membership handoff),
+    element by element; ``rounds`` holds per mixing round (the
+    interpreter's mix of a (G, k) block, |W| of the round as a (G, G)
+    float32 tensor), under faults the masked mix and |W'| of the degraded
+    matrix.  ``update`` ((G, 1) float32, None for all ones) marks the
+    nodes that took their local step; ``rows`` the nodes whose first-round
+    row is not the identity (default all), over which the mix must move θ.
+
+    After the first round θ' agrees within 2 bfloat16 ulps of the larger of
+    |θ*| (the node's own θ − lr·u·m') and |θ'| (the interpreter rounds θ* to
+    bfloat16 before mixing, the kernel after: ≤ w0/2 ulp of θ*, plus one
+    rounding each), plus 2^-20 of Σ_k |w_k| |θ*_k| over the node and its
+    senders (16 float32 roundings of the sums, which matter where the terms
+    cancel).  A multi-round program (``mix_rounds``) runs its later rounds
+    through the interpreter on both sides, so each round s carries the
+    bound on: |W_s| times the bound before it, plus 2 ulps of the round's
+    output and 2^-20 of |W_s| |input|; the interpreter's rounds are
+    recomputed from θ* and must give its θ' bit for bit.  m' within 1e-6
+    relative.  Returns (worst θ' error in bfloat16 ulps and as a share of
+    its tolerance, worst m' relative error, share of the moving rows'
+    elements the mix moved by more than the tolerance, None when no row
+    mixes)."""
+    import torch
+
+    p = theta0.shape[1]
+    rows = slice(None) if rows is None else rows
     mix = lambda w, x: torch.einsum("ij,jc->ic", w, x)
     worst_ulps = worst_tol = worst_m = 0.0
-    moved = 0
+    moved = counted = 0
     for a in range(0, p, TWIN_CHUNK):
         b = min(a + TWIN_CHUNK, p)
         tf, tr = fused.theta[:, a:b].float(), ref.theta[:, a:b].float()
         mf, mr = fused.mom[:, a:b], ref.mom[:, a:b]
-        own = theta0[:, a:b].float() - LR * mr   # every node's own θ*
+        step = LR * mr if update is None else LR * update * mr
+        own = theta0[:, a:b].float() - step   # every node's own θ*
         # round 1: the kernel's; later rounds carry its bound
-        x = own.to(theta0.dtype)
-        x = stages[0].apply_stacked(x)
+        x = rounds[0][0](own.to(theta0.dtype))
         tol = 2 * bf16_ulp(torch.maximum(own.abs(), x.float().abs())) + 2.0 ** -20 * mix(
-            absw[0], own.abs())
-        for st, w in zip(stages[1:], absw[1:]):
-            y = st.apply_stacked(x)
+            rounds[0][1], own.abs())
+        for st_mix, w in rounds[1:]:
+            y = st_mix(x)
             tol = mix(w, tol) + 2 * bf16_ulp(y.float()) + 2.0 ** -20 * mix(w, x.float().abs())
             x = y
         if not torch.equal(x.float(), tr):
-            fail(f"the interpreter's rounds recomputed from theta* differ from its step "
-                 f"in columns {a}:{b}")
+            fail(f"{label}: the interpreter's rounds recomputed from theta* differ from "
+                 f"its step in columns {a}:{b}")
         # ulps at the scale of the node's own θ* and θ'; after several
         # rounds, at the scale of the terms they mixed as well
         scale = torch.maximum(own.abs(), tr.abs())
-        if len(stages) > 1:
+        if len(rounds) > 1:
             mag = own.abs()
-            for w in absw:
+            for _, w in rounds:
                 mag = mix(w, mag)
             scale = torch.maximum(scale, mag)
         ulp = bf16_ulp(scale)
         err = (tf - tr).abs()
         if not bool((err <= tol).all()):
             bad = float((err / tol).max())
-            fail(f"fused vs interpreter step: theta' differs by {bad:.2f}x its "
-                 f"tolerance in columns {a}:{b}")
+            fail(f"{label}: theta' differs by {bad:.2f}x its tolerance in columns {a}:{b}")
         worst_ulps = max(worst_ulps, float((err / ulp).max()))
         worst_tol = max(worst_tol, float((err / tol).max()))
-        moved += int(((tr - own).abs() > tol).sum())
+        moved_el = (tr - own).abs() > tol
+        moved += int(moved_el[rows].sum())
+        counted += moved_el[rows].numel()
         err_m = (mf - mr).abs()
         if not bool((err_m <= 1e-6 * mr.abs()).all()):
-            fail(f"fused vs interpreter step: m' differs by {float(err_m.max()):.3e} "
-                 f"in columns {a}:{b}")
+            fail(f"{label}: m' differs by {float(err_m.max()):.3e} in columns {a}:{b}")
         worst_m = max(worst_m, float((err_m / mr.abs().clamp_min(1e-30)).max()))
-        del tf, tr, mf, mr, own, x, scale, ulp, tol, err, err_m
-    moved_share = moved / fused.theta.numel()
+        del tf, tr, mf, mr, own, x, scale, ulp, tol, err, err_m, moved_el
+    if counted == 0:   # every row is the identity this step: nothing to move
+        return worst_ulps, worst_tol, worst_m, None
+    moved_share = moved / counted
     if moved_share < 0.9:
-        fail(f"the mix moved only {moved_share:.3f} of the elements past the "
+        fail(f"{label}: the mix moved only {moved_share:.3f} of the elements past the "
              "tolerance: the comparison cannot see a wrong mix")
-    del theta0, ref
-    return fused, worst_ulps, worst_tol, worst_m, moved_share
+    return worst_ulps, worst_tol, worst_m, moved_share
 
 
 def kernel_group(name):
@@ -1664,7 +1737,7 @@ def phase_folded_probe(cfg, layout, batches, ref14, rows13, sample):
     n_buckets = trainer._bucket_layout.num_buckets
     standalone = trainer.consensus_distance
     probes = []
-    trainer.consensus_distance = lambda st: (probes.append(st.step), standalone(st))[1]
+    trainer.consensus_distance = lambda st, *a: (probes.append(st.step), standalone(st, *a))[1]
     state = trainer.init_state(seed=0)
     xi64, xi_alone = {}, {}
     before = ada_before(xi64, layout)
@@ -1871,6 +1944,522 @@ def phase_telemetry(cfg, layout, batches, dev):
     return total, numbers
 
 
+# phases 19-22: faults and elastic membership at phase 4's configuration
+FAULT_STEPS, FAULT_NOISE, FAULT_BUCKET_MB, FAULT_RANK_STEPS = 6, 0.01, 64, RANK_STEPS
+# name -> (kind, make_fault_model kwargs) at G = 4 on d_ring; together they
+# realize a degraded program, a rejoin, a drain with boost > 1 and its
+# handoff, ghost rows, dropped edges and stragglers
+FAULT_RUNS = {
+    # node 2 dies at step 1 (its degraded program runs at steps 1-2) and
+    # rejoins at step 3 with its neighbours' average
+    "crash": ("crash", dict(rate=0.5, seed=2, down_steps=2)),
+    # node 2 drains at steps 1-2 (its edges ×1.5), hands off and departs at
+    # step 3; the degraded program from then on
+    "preempt": ("preempt", dict(rate=0.5, seed=2, drain_steps=2)),
+    # rank 3 rides as a ghost (all-zero fault row); links among the active
+    # ranks fail at steps 1-5
+    "spare-link": ("link", dict(rate=0.3, seed=0, spare_ranks=1)),
+    # stragglers skip their update at steps 0, 4 and 5
+    "straggler": ("straggler", dict(rate=0.3, seed=0)),
+}
+# phase 22: node 2 dies at step 1 and rejoins at step 2
+FAULT_RANK_MODEL = ("crash", dict(rate=0.5, seed=2, down_steps=1))
+
+
+def sync(dev):
+    import torch
+
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def fault_trainer(cfg, name, **kw):
+    """Phase 4's trainer (d_ring, momentum-SGD, DBench norms) under the
+    fault model of FAULT_RUNS[name]; ``kw`` goes to the trainer."""
+    from repro_torch.core.dsgd import make_topology
+    from repro_torch.core.faults import make_fault_model
+    from repro_torch.launch.train import SPMDTrainer
+    from repro_torch.optim.sgd import sgd
+
+    kind, fkw = FAULT_RUNS[name] if name in FAULT_RUNS else FAULT_RANK_MODEL
+    fm = make_fault_model(kind, G, **fkw)
+    return SPMDTrainer(cfg, make_topology("d_ring", G, fault_model=fm), sgd(momentum=0.9),
+                       collect_norms=True, **kw)
+
+
+def equal_in_chunks(label, other, got, want):
+    """Each (G, P) buffer of ``got`` bit for bit ``want``'s (on the card or
+    in host memory), TWIN_CHUNK columns at a time."""
+    import torch
+
+    for what, a in got.items():
+        b = want[what]
+        for c in range(0, a.shape[1], TWIN_CHUNK):
+            d = min(c + TWIN_CHUNK, a.shape[1])
+            if not torch.equal(a[:, c:d].to(b.device), b[:, c:d]):
+                fail(f"{label} {what} differs from {other} in columns {c}:{d}")
+
+
+def push_apart(theta, step):
+    """Before step ``step`` of every run of phases 19-21: each node's θ
+    offset by its own noise (σ FAULT_NOISE, seeded by the step), so that
+    the step's mix and handoffs move θ past the comparison's tolerance
+    (gossip shrinks the disagreement about 3× a step on d_ring)."""
+    offset_nodes(theta, FAULT_NOISE, seed=1000 + step)
+
+
+def fault_rounds(trainer, step):
+    """Step ``step``'s mixing rounds under its realization, as
+    ``check_step_against_interpreter`` takes them (the masked interpreter
+    and |W'| of the degraded matrix per round), the (G, 1) update mask and
+    the rows whose first-round row is not the identity (less the nodes
+    rejoining at this step)."""
+    import numpy as np
+    import torch
+    from repro_torch.core.faults import degraded_matrix
+
+    fr = trainer.fault_model.at(step)
+    stages = program_stages(trainer, step)
+    sel = fr.selection_mask()
+    if not sel.all():
+        stages = [st.degrade(sel) for st in stages]
+    dev = trainer.device
+    alive = torch.as_tensor(np.asarray(fr.alive, np.float32), device=dev)
+    link = None if fr.link_up is None else torch.as_tensor(
+        fr.link_up.astype(np.float32), device=dev)
+    rounds = []
+    for st in stages:
+        wd = degraded_matrix(st.matrix(), fr.alive, fr.link_up)
+        rounds.append((lambda x, st=st: st.apply_masked(x, alive, link_up=link),
+                       torch.as_tensor(np.abs(wd), dtype=torch.float32, device=dev)))
+    first = degraded_matrix(stages[0].matrix(), fr.alive, fr.link_up)
+    # a rejoining node holds its neighbours' average: its own mix hardly moves it
+    moving = [i for i in range(G)
+              if not np.array_equal(first[i], np.eye(G)[i]) and i not in fr.rejoin]
+    update = torch.as_tensor(np.asarray(fr.update, np.float32), device=dev)[:, None]
+    return fr, rounds, update, torch.as_tensor(moving, dtype=torch.long, device=dev)
+
+
+def after_handoffs(trainer, theta, fr, step):
+    """A copy of θ after the step's membership handoffs, as the trainer
+    makes them before its update (``faults.membership_events``)."""
+    from repro_torch.core.faults import membership_events
+
+    theta0 = theta.clone()
+    membership_events(fr, [theta0], trainer.topology, None, step=step, epoch=0)
+    return theta0
+
+
+def realized_events(fm, steps):
+    """What a fault model realizes over ``steps`` steps, for the logs."""
+    import numpy as np
+
+    out = {"degraded_program_steps": [], "rejoin_steps": [], "depart_steps": [],
+           "boost_steps": [], "dropped_edge_steps": [], "straggler_steps": [],
+           "ghost_rows": []}
+    for t in range(steps):
+        fr = fm.at(t)
+        alive = np.asarray(fr.alive, np.float64)
+        if not fr.selection_mask().all():
+            out["degraded_program_steps"].append(t)
+        if fr.rejoin:
+            out["rejoin_steps"].append(t)
+        if fr.depart:
+            out["depart_steps"].append(t)
+        if (alive > 1).any():
+            out["boost_steps"].append(t)
+        if fr.link_up is not None and not fr.link_up.all():
+            out["dropped_edge_steps"].append(t)
+        if ((np.asarray(fr.update) == 0) & (alive != 0)).any():
+            out["straggler_steps"].append(t)
+        ghosts = [i for i in range(len(alive)) if alive[i] == 0 and not fr.update[i]
+                  and not fr.program_alive[i]]
+        if ghosts and t == 0:
+            out["ghost_rows"] = ghosts
+    return out
+
+
+PREDICT_19 = (
+    "phase 19 prediction (PERF.md §6): K1 once per step on the realized fault rows; every "
+    "step within phase 5's tolerances of the masked interpreter (boost, ghost, dead and "
+    "straggling rows included); the fault-free step 0 == phase 4's bit for bit; step ms "
+    "near phase 4's (139-163) plus ~0-10 ms of mask work; a rejoin or departure step adds "
+    "its handoff (~10-40 ms); peak as phase 4's (31.81 GiB) plus the plain trainer's state "
+    "(~20 GiB) held for the lockstep comparison")
+PREDICT_20 = (
+    f"phase 20 prediction (PERF.md §6): each run at {FAULT_BUCKET_MB} MiB == phase 19's bit "
+    "for bit; K1 once per bucket per step, the fault rows built once a step; step ms within "
+    "15% of phase 19's, peak below it (no whole-state wire, no plain state)")
+
+
+def phase_fault_run(cfg, batches, name):
+    """Phase 19 for one model of FAULT_RUNS: the fused trainer (K1 on the
+    realized fault rows) for FAULT_STEPS steps from phase 4's seed-0
+    replicas, with the trainer without fused apply in
+    lockstep: before each step the nodes are pushed apart (``push_apart``),
+    the plain trainer takes the fused run's state, both run the step, and
+    ``check_step_against_interpreter`` holds
+    K1's step against the masked interpreter's (phase 5's tolerances).  K1
+    launches once per step; the launch counters are zeroed just before
+    each fused step and read just after.  Returns (launches of the fused
+    steps, numbers, the run's final state for phase 20)."""
+    import torch
+    from repro_torch.kernels import ops
+
+    dev = batches[0]["tokens"].device
+    fused = fault_trainer(cfg, name, fused_apply=True)
+    plain = fault_trainer(cfg, name, fused_apply=False)
+    state = fused.init_state(seed=0)
+    ref = plain.init_state(seed=0)
+    events = realized_events(fused.fault_model, FAULT_STEPS)
+    sync(dev)
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, worst = [], {"ulps": 0.0, "share_of_tolerance": 0.0, "m_rel": 0.0,
+                          "moved_share_min": 1.0}
+    counts = dict.fromkeys(ops.launch_counts(), 0)
+    for t in range(FAULT_STEPS):
+        push_apart(state.theta, t)
+        ref.theta.copy_(state.theta)
+        ref.mom.copy_(state.mom)
+        ref.step = t
+        fr, rounds, update, moving = fault_rounds(fused, t)
+        theta0 = after_handoffs(fused, state.theta, fr, t)
+        sync(dev)
+        ops.reset_launch_counts()
+        t1 = time.perf_counter()
+        state, loss, nrm = fused.train_step(state, batches[t], LR)
+        sync(dev)
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        c = ops.launch_counts()
+        counts = {k: counts[k] + c[k] for k in c}
+        if c["gossip_program_update"] != 1:
+            fail(f"phase 19 {name} step {t}: K1 launched {c['gossip_program_update']} "
+                 "times, expected once")
+        if not bool(torch.isfinite(loss).all()) or not bool(torch.isfinite(nrm).all()):
+            fail(f"phase 19 {name} step {t}: non-finite loss {loss.tolist()} or norms")
+        ref, loss_r, _ = plain.train_step(ref, batches[t], LR)
+        if not torch.allclose(loss, loss_r, rtol=1e-5, atol=0):
+            fail(f"phase 19 {name} step {t}: losses {loss.tolist()} vs {loss_r.tolist()}")
+        ulps, share, m_rel, moved = check_step_against_interpreter(
+            f"phase 19 {name} step {t}", theta0, state, ref, rounds, update=update,
+            rows=moving)
+        worst = {"ulps": max(worst["ulps"], ulps),
+                 "share_of_tolerance": max(worst["share_of_tolerance"], share),
+                 "m_rel": max(worst["m_rel"], m_rel),
+                 "moved_share_min": min(worst["moved_share_min"],
+                                        1.0 if moved is None else moved)}
+        del theta0
+    peak = torch.cuda.max_memory_allocated()
+    numbers = {"model": fused.fault_model.describe(), "realized": events, "step_ms": step_ms,
+               "peak_allocated_bytes": int(peak), "launches": counts,
+               "fused_vs_interpreter": worst}
+    log(f"phase 19 {name} ({numbers['model']}; realized {events}): {FAULT_STEPS} steps, each "
+        f"within phase 5's tolerances of the masked interpreter (theta {worst['ulps']:.3f} "
+        f"bf16 ulps, {worst['share_of_tolerance']:.3f} of its tolerance; m "
+        f"{worst['m_rel']:.3e} relative; moved share >= {worst['moved_share_min']:.4f}); "
+        f"step ms {[round(x, 1) for x in step_ms]}; peak allocated {peak / 2**30:.2f} GiB; "
+        f"launches {counts}")
+    del ref, plain, fused
+    torch.cuda.empty_cache()
+    return counts, numbers, state
+
+
+def phase_fault_free_step(cfg, batches, step0, sample):
+    """Phase 19's last check: one step from the seed-0 weights (no offset)
+    under the crash model, whose step 0 realizes no fault (all-ones fault
+    rows): bit for bit phase 4's first step (``step0``: losses, norms, θ and
+    m on the sampled columns)."""
+    import torch
+
+    trainer = fault_trainer(cfg, "crash", fused_apply=True)
+    if trainer.fault_model.at(0).faulty:
+        fail("phase 19: the crash model realizes a fault at step 0")
+    state = trainer.init_state(seed=0)
+    state, loss, nrm = trainer.train_step(state, batches[0], LR)
+    idx = torch.as_tensor(sample, device=state.theta.device)
+    check_equal("phase 19 fault-free step 0 under the crash model", {
+        "losses": loss, "norms": nrm, "theta": state.theta[:, idx], "mom": state.mom[:, idx],
+    }, step0)
+    log("phase 19: the crash model's step 0 (all-ones fault rows) == phase 4's step 0 bit "
+        f"for bit (losses, norms, theta and m on {idx.numel()} sampled columns)")
+    del state, trainer
+    torch.cuda.empty_cache()
+
+
+def phase_fault_bucket_run(cfg, batches, name, final):
+    """Phase 20 for one model: phase 19's fused run at bucket_mb
+    FAULT_BUCKET_MB: K1 once per bucket per step on the step's fault rows,
+    built once a step (``fault_rows`` counted), and the final θ and m
+    equal to phase 19's (``final``) bit for bit over the whole state.
+    Returns (launches, numbers)."""
+    import torch
+    from repro_torch.kernels import gossip_update as gu
+    from repro_torch.kernels import ops
+
+    dev = batches[0]["tokens"].device
+    real, built = gu.fault_rows, []
+
+    def counting(*args, **kw):
+        built.append(1)
+        return real(*args, **kw)
+
+    trainer = fault_trainer(cfg, name, fused_apply=True, bucket_mb=FAULT_BUCKET_MB)
+    n_buckets = trainer._bucket_layout.num_buckets
+    state = trainer.init_state(seed=0)
+    sync(dev)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    step_ms = []
+    gu.fault_rows = counting
+    try:
+        for t in range(FAULT_STEPS):
+            push_apart(state.theta, t)
+            t1 = time.perf_counter()
+            state, _, _ = trainer.train_step(state, batches[t], LR)
+            sync(dev)
+            step_ms.append((time.perf_counter() - t1) * 1e3)
+    finally:
+        gu.fault_rows = real
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    want = {"gossip_program_update": n_buckets * FAULT_STEPS, "gossip_update": 0,
+            "segment_l2_norms": FAULT_STEPS, "flash_attention": 0}
+    if counts != want:
+        fail(f"phase 20 {name}: launch counts {counts}, expected {want}")
+    if len(built) != FAULT_STEPS:
+        fail(f"phase 20 {name}: fault rows built {len(built)} times in {FAULT_STEPS} steps, "
+             "expected once a step")
+    equal_in_chunks(f"phase 20 {name}", "phase 19's", {"theta": state.theta, "mom": state.mom},
+                    {"theta": final.theta, "mom": final.mom})
+    numbers = {"buckets": n_buckets, "step_ms": step_ms, "peak_allocated_bytes": int(peak),
+               "launches": counts, "fault_rows_built": len(built)}
+    log(f"phase 20 {name} ({n_buckets} buckets): {FAULT_STEPS} steps == phase 19 bit for bit "
+        f"(whole state); fault rows built {len(built)} times; step ms "
+        f"{[round(x, 1) for x in step_ms]}; peak allocated {peak / 2**30:.2f} GiB; launches "
+        f"{counts}")
+    del state, trainer
+    torch.cuda.empty_cache()
+    return counts, numbers
+
+
+def phase_fault_simulator(cfg, batches):
+    """Phase 21: ``DecentralizedSimulator`` (stacked mixing, one node's
+    gradients at a time) under each model of FAULT_RUNS from phase 19's
+    start, against the trainer without fused apply on the same inputs: θ
+    and m bit for bit over the whole state, losses and norms equal.  K3
+    once per step, K1 and K2 never.  Returns (launches, numbers)."""
+    import torch
+    from repro_torch.core.dsgd import make_topology
+    from repro_torch.core.faults import make_fault_model
+    from repro_torch.core.simulator import DecentralizedSimulator
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim.sgd import sgd
+
+    dev = batches[0]["tokens"].device
+    log("phase 21 prediction (PERF.md §6): the simulator == the unfused trainer bit for bit "
+        "under each model; K3 once per step; step ms near phase 13's (204-221) plus the "
+        "masked tables; peak near phase 13's 41 GiB (the trainer's final state waits in host "
+        "memory)")
+    total, numbers = {}, {}
+    for name, (kind, fkw) in FAULT_RUNS.items():
+        trainer = fault_trainer(cfg, name, fused_apply=False)
+        tstate = trainer.init_state(seed=0)
+        t_losses, t_norms = [], []
+        for t in range(FAULT_STEPS):
+            push_apart(tstate.theta, t)
+            tstate, loss, nrm = trainer.train_step(tstate, batches[t], LR)
+            t_losses.append(loss)
+            t_norms.append(nrm)
+        # the trainer's final state waits in host memory: the card holds the
+        # simulator's run alone
+        want = {"theta": tstate.theta.cpu(), "mom": tstate.mom.cpu()}
+        del trainer, tstate
+        torch.cuda.empty_cache()
+        sim = DecentralizedSimulator(
+            lambda p, b: tfm.loss_fn(p, cfg, b), sgd(momentum=0.9),
+            make_topology("d_ring", G, fault_model=make_fault_model(kind, G, **fkw)),
+            mixing="shift", collect_norms=True, node_loop=True, device=dev)
+        params = tfm.init_model(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+        state = sim.init(params)
+        del params
+        sync(dev)
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        step_ms = []
+        for t in range(FAULT_STEPS):
+            push_apart(state.theta, t)
+            t1 = time.perf_counter()
+            state, loss, nrm = sim.train_step(state, batches[t], LR)
+            sync(dev)
+            step_ms.append((time.perf_counter() - t1) * 1e3)
+            if not torch.equal(loss, t_losses[t]) or not torch.equal(nrm, t_norms[t]):
+                fail(f"phase 21 {name} step {t}: simulator losses or norms differ from the "
+                     "trainer's")
+        counts = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        if counts != {"gossip_program_update": 0, "gossip_update": 0,
+                      "segment_l2_norms": FAULT_STEPS, "flash_attention": 0}:
+            fail(f"phase 21 {name}: launch counts {counts}, expected {FAULT_STEPS} of K3 only")
+        equal_in_chunks(f"phase 21 {name}: the simulator's", "the trainer's",
+                        {"theta": state.theta, "mom": state.opt["mom"]}, want)
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        numbers[name] = {"step_ms": step_ms, "peak_allocated_bytes": int(peak),
+                         "launches": counts}
+        log(f"phase 21 {name}: simulator {FAULT_STEPS} steps == the unfused trainer bit for "
+            f"bit (whole state, losses, norms); step ms {[round(x, 1) for x in step_ms]}; "
+            f"peak allocated {peak / 2**30:.2f} GiB; launches {counts}")
+        del state, sim, want, t_losses, t_norms
+        torch.cuda.empty_cache()
+    return total, numbers
+
+
+def fault_rank_run(comm, sample, steps):
+    """Phase 22 on one rank: the fused trainer, engine ``ranks``, under
+    FAULT_RANK_MODEL from the seed-0 weights and batches; the launch
+    counters are zeroed just before the steps and read just after.
+    Returns this rank's losses, norms, θ and m on the sampled columns, step
+    times, peak allocation and launch counts."""
+    import numpy as np
+    import torch
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels import ops
+
+    if comm.device.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    cfg = fault_rank_cfg(comm.device)
+    trainer = fault_trainer(cfg, "ranks", fused_apply=True, device=comm.device)
+    if trainer.engine != "ranks":
+        raise RuntimeError(f"rank {comm.rank} runs the {trainer.engine} engine")
+    state = trainer.init_state(seed=0)
+    src = SyntheticLM(vocab=cfg.vocab, seq_len=fault_rank_seq(comm.device), seed=0)
+    sync(comm.device)
+    if comm.device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(comm.device)
+    ops.reset_launch_counts()
+    step_ms, losses, norms = [], [], []
+    for t in range(steps):
+        t1 = time.perf_counter()
+        state, loss, nrm = trainer.train_step(state, src.stacked(G, t, BATCH), LR)
+        sync(comm.device)
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        losses.append(loss.cpu().numpy())
+        norms.append(nrm.cpu().numpy())
+    counts = ops.launch_counts()
+    idx = torch.as_tensor(sample, device=comm.device)
+    return {
+        "transport": comm.transport, "step_ms": step_ms,
+        "losses": np.concatenate(losses), "norms": np.concatenate(norms),
+        "theta": state.theta[0, idx].float().cpu().numpy(),
+        "mom": state.mom[0, idx].cpu().numpy(),
+        "peak_allocated_bytes": (torch.cuda.max_memory_allocated(comm.device)
+                                 if comm.device.type == "cuda" else 0),
+        "launches": counts,
+    }
+
+
+def fault_rank_cfg(dev):
+    """Phase 4's configuration on the card; the reduced one on the CPU."""
+    import torch
+    from repro_torch.configs import get_config
+
+    if torch.device(dev).type == "cuda":
+        return granite_layout()[0]
+    return dataclasses.replace(get_config("granite-8b-reduced"), dtype=torch.bfloat16)
+
+
+def fault_rank_seq(dev):
+    import torch
+
+    return SEQ if torch.device(dev).type == "cuda" else 16
+
+
+def stacked_fault_reference(dev, sample, steps):
+    """Phase 22's reference: the stacked fused trainer under the same model
+    and inputs as the ranks: per node, losses, norms, θ and m on the
+    sampled columns."""
+    import numpy as np
+    import torch
+    from repro_torch.data import SyntheticLM
+
+    cfg = fault_rank_cfg(dev)
+    trainer = fault_trainer(cfg, "ranks", fused_apply=True, device=dev)
+    state = trainer.init_state(seed=0)
+    src = SyntheticLM(vocab=cfg.vocab, seq_len=fault_rank_seq(dev), seed=0)
+    losses, norms = [], []
+    for t in range(steps):
+        state, loss, nrm = trainer.train_step(state, src.stacked(G, t, BATCH), LR)
+        losses.append(loss.cpu().numpy())
+        norms.append(nrm.cpu().numpy())
+    idx = torch.as_tensor(sample, device=dev)
+    ref = {"losses": np.stack(losses, 1), "norms": np.stack(norms, 1),
+           "theta": state.theta[:, idx].float().cpu().numpy(),
+           "mom": state.mom[:, idx].cpu().numpy()}
+    del state, trainer
+    return ref
+
+
+def compare_rows_exact(label, rows, ref):
+    """Each rank's losses, norms, θ and m on the sampled columns equal to
+    its row of the stacked run (``ref``) bit for bit."""
+    import numpy as np
+
+    for i, r in enumerate(rows):
+        for key in ("losses", "norms", "theta", "mom"):
+            if not np.array_equal(r[key], ref[key][i]):
+                fail(f"{label} {i}: {key} differs from the stacked row (max abs "
+                     f"{np.abs(r[key] - ref[key][i]).max():.3e})")
+
+
+def phase_fault_ranks(sample, device=None):
+    """Phase 22: G ranks of the ranks engine (as phase 9) under a crash at
+    step 1 with a rejoin at step 2 (FAULT_RANK_MODEL), FAULT_RANK_STEPS
+    steps: every rank computes the realization itself, the dead rank
+    joins every permute, gather and mean, the rejoin gathers its
+    neighbours' rows across ranks; each rank equal to its stacked row bit
+    for bit, K2 once per step on every rank (on the dead rank its row of
+    the degraded program is the identity).  Returns the phase's numbers."""
+    import torch
+    from repro_torch.launch.comm import spawn_world
+
+    dev = torch.device("cuda", 0) if device is None else torch.device(device)
+    log("phase 22 prediction (PERF.md §6): each rank == its stacked row bit for bit; K2 "
+        "3 per rank; rank step near phase 9's (2.9-5.2 s over gloo-host), the rejoin step "
+        "longer by the gathers of theta and m (~4 full-row transfers per rank)")
+    ref = stacked_fault_reference(dev, sample, FAULT_RANK_STEPS)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    res = spawn_world(fault_rank_run, G, (sample, FAULT_RANK_STEPS), timeout=RANK_TIMEOUT,
+                      device=device)
+    wall = time.perf_counter() - t0
+    # the wrappers count CUDA launches; on the CPU (the tests) they take the twins
+    per_rank = FAULT_RANK_STEPS if dev.type == "cuda" else 0
+    want = {"gossip_program_update": 0, "gossip_update": per_rank,
+            "segment_l2_norms": per_rank, "flash_attention": 0}
+    for i, r in enumerate(res):
+        if r["launches"] != want:
+            fail(f"phase 22 rank {i}: launch counts {r['launches']}, expected {want}")
+    compare_rows_exact("phase 22 rank", res, ref)
+    out = {
+        "model": FAULT_RANK_MODEL[0] + " " + json.dumps(FAULT_RANK_MODEL[1]),
+        "ranks": G, "transport": res[0]["transport"],
+        "step_ms": [r["step_ms"] for r in res],
+        "peak_allocated_bytes": [int(r["peak_allocated_bytes"]) for r in res],
+        "launches": {k: sum(r["launches"][k] for r in res) for k in res[0]["launches"]},
+        "sampled_columns": int(len(sample)), "wall_s": wall,
+    }
+    log(f"phase 22: {G} ranks over {out['transport']} under {out['model']}: "
+        f"{FAULT_RANK_STEPS} steps == the stacked rows bit for bit (losses, norms, theta and "
+        f"m on {out['sampled_columns']} sampled columns); K2 launches "
+        f"{out['launches']['gossip_update']}; step ms per rank "
+        f"{[[round(x, 1) for x in ms] for ms in out['step_ms']]}; peak allocated per rank "
+        f"{[round(b / 2**30, 2) for b in out['peak_allocated_bytes']]} GiB")
+    return out
+
+
 def main():
     import numpy as np
     import torch
@@ -1925,6 +2514,8 @@ def main():
     src = SyntheticLM(vocab=cfg.vocab, seq_len=SEQ, seed=0)
     batches = [{k: torch.as_tensor(v, device=dev) for k, v in src.stacked(G, t, BATCH).items()}
                for t in range(STEPS)]
+    sample = sample_columns(layout)
+    idx = torch.as_tensor(sample, device=dev)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
@@ -1945,6 +2536,9 @@ def main():
         if tuple(norms.shape) != (G, len(layout.names)):
             fail(f"norms shape {tuple(norms.shape)}")
         log(f"  step {t}: {step_ms[-1]:.1f} ms  loss {[round(x, 4) for x in loss.tolist()]}")
+        if t == 0:   # what phase 19's fault-free step must equal bit for bit
+            step0 = {"losses": loss.clone(), "norms": norms.clone(),
+                     "theta": state.theta[:, idx].clone(), "mom": state.mom[:, idx].clone()}
     counts = ops.launch_counts()
     if counts != {"gossip_program_update": STEPS, "gossip_update": 0,
                   "segment_l2_norms": STEPS, "flash_attention": 0}:
@@ -1953,8 +2547,6 @@ def main():
         f"{STEPS - 1} steps")
 
     # what phase 9's ranks must reproduce: the first RANK_STEPS steps
-    sample = sample_columns(layout)
-    idx = torch.as_tensor(sample, device=dev)
     ref9 = {"losses": np.array(losses[:RANK_STEPS]), "norms": np.stack(norm_hist[:RANK_STEPS]),
             "theta": snap.theta[:, idx].float().cpu().numpy(),
             "mom": snap.mom[:, idx].cpu().numpy()}
@@ -2142,6 +2734,35 @@ def main():
     t18 = time.perf_counter()
     launches18, tel18 = phase_telemetry(cfg, layout, batches14, dev)
     tel18["wall_s"] = time.perf_counter() - t18
+    torch.cuda.empty_cache()
+
+    # 19-20. the fused trainer under faults, monolithic then bucketed
+    t19 = time.perf_counter()
+    log(PREDICT_19)
+    log(PREDICT_20)
+    launches19, launches20, faults19, faults20 = {}, {}, {}, {}
+    for name in FAULT_RUNS:
+        c19, faults19[name], final = phase_fault_run(cfg, batches14, name)
+        c20, faults20[name] = phase_fault_bucket_run(cfg, batches14, name, final)
+        del final
+        torch.cuda.empty_cache()
+        for total, c in ((launches19, c19), (launches20, c20)):
+            for k, v in c.items():
+                total[k] = total.get(k, 0) + v
+    phase_fault_free_step(cfg, batches, step0, sample)
+    faults19["fault_free_step_equals_phase_4"] = True
+    faults19["wall_s"] = time.perf_counter() - t19
+    torch.cuda.empty_cache()
+
+    # 21. the simulator under the same models, against the unfused trainer
+    t21 = time.perf_counter()
+    launches21, faults21 = phase_fault_simulator(cfg, batches14)
+    faults21["wall_s"] = time.perf_counter() - t21
+    torch.cuda.empty_cache()
+
+    # 22. the ranks engine under a crash with rejoin, against the stacked rows
+    ranks22 = phase_fault_ranks(sample)
+    torch.cuda.empty_cache()
 
     summary = {
         "card": smi,
@@ -2160,6 +2781,10 @@ def main():
         "buckets": buckets16,
         "folded_probe": fold17,
         "telemetry": tel18,
+        "faults": faults19,
+        "fault_buckets": faults20,
+        "fault_simulator": faults21,
+        "fault_ranks": ranks22,
     }
     log("summary " + json.dumps(summary))
     # each kernel's launches on every main path that runs it
@@ -2168,8 +2793,11 @@ def main():
                                   "phase 14": launches14["gossip_program_update"],
                                   "phase 16": launches16["gossip_program_update"],
                                   "phase 17": launches17["gossip_program_update"],
-                                  "phase 18": launches18["gossip_program_update"]},
-        "gossip_update": {"phase 9": ranks9["launches"]["gossip_update"]},
+                                  "phase 18": launches18["gossip_program_update"],
+                                  "phase 19": launches19["gossip_program_update"],
+                                  "phase 20": launches20["gossip_program_update"]},
+        "gossip_update": {"phase 9": ranks9["launches"]["gossip_update"],
+                          "phase 22": ranks22["launches"]["gossip_update"]},
         "segment_l2_norms": {"phase 4": counts["segment_l2_norms"],
                              "phase 9": ranks9["launches"]["segment_l2_norms"],
                              "phase 13": launches13["segment_l2_norms"],
@@ -2177,7 +2805,11 @@ def main():
                              "phase 15": launches15["segment_l2_norms"],
                              "phase 16": launches16["segment_l2_norms"],
                              "phase 17": launches17["segment_l2_norms"],
-                             "phase 18": launches18["segment_l2_norms"]},
+                             "phase 18": launches18["segment_l2_norms"],
+                             "phase 19": launches19["segment_l2_norms"],
+                             "phase 20": launches20["segment_l2_norms"],
+                             "phase 21": launches21["segment_l2_norms"],
+                             "phase 22": ranks22["launches"]["segment_l2_norms"]},
         "flash_attention": {"phase 12": k4_launches},
     }
     kernels = [

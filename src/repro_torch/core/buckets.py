@@ -37,8 +37,10 @@ as much as that probe until a fused fold kernel exists.
 
 On one card every bucket's work goes to one CUDA stream, which orders the
 buckets by itself: the engines neither wait for a bucket nor hold a
-dispatch window.  Faults (the masked variants and ``faulty=True``) come
-with ROADMAP queue 1 item 3 and raise here.
+dispatch window.  Under faults the bucket step gates the update and mixes
+with the runtime masks (``build_bucket_step(fault=...)``); the kernel's
+fault rows are built once per step, since they are per node, not per
+column.
 """
 from __future__ import annotations
 
@@ -55,7 +57,6 @@ __all__ = [
     "build_bucket_step",
     "bucket_eligible_optimizer",
     "check_bucketable",
-    "faults_not_ported",
     "XiFold",
     "xi_from_folded_sq",
 ]
@@ -69,12 +70,6 @@ _F32_BYTES = 4  # layout accounting is dtype-independent by design
 # kept for parity with the reference (its tests read it) until the ranks
 # engine's overlap brings a caller.
 MAX_INFLIGHT_BUCKETS = 4
-
-
-def faults_not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet: faults come with ROADMAP queue 1 item 3"
-    )
 
 
 def _sizes(tree: Mapping[str, torch.Tensor], lead: int) -> tuple[int, ...]:
@@ -241,7 +236,7 @@ def build_bucket_step(
     hyper: dict,
     has_momentum: bool,
     mix_order: str = "post",
-    faulty: bool = False,
+    fault: Optional[dict] = None,
     kernel_split=None,
     engine: str = "stacked",
 ) -> Callable:
@@ -262,14 +257,18 @@ def build_bucket_step(
     later rounds through the stacked interpreter; None runs the update
     (the optimizer's own arithmetic, so bit for bit the monolithic step's)
     and the program's ``engine`` interpreter ("stacked" or "dense").
+    ``fault`` (the step's runtime masks, ``core/faults.realization_arrays``)
+    builds the fault-aware step: a node with ``update`` 0 keeps its θ and
+    m, and every round mixes with ``apply_masked``; on the kernel path
+    the fault rows are built here, once, for every bucket of the step.
     Only ``mix_order="post"`` buckets: with "pre" the descent must follow
     the whole mix, so the engines keep the monolithic step.
     """
-    from repro_torch.kernels.gossip_update import fused_bucket_update, mix_in_place
+    from repro_torch.kernels.gossip_update import (
+        fault_rows, fused_bucket_update, mix_in_place,
+    )
     from repro_torch.optim.sgd import sgd
 
-    if faulty:
-        raise faults_not_ported("the fault-masked bucket step (faulty=True)")
     if mix_order != "post":
         raise ValueError("bucketed execution requires mix_order='post'")
     if hyper.get("kind") != "sgd":
@@ -280,16 +279,31 @@ def build_bucket_step(
     if kernel_split is not None and (wd or nesterov):
         raise ValueError("the fused kernel path supports plain momentum-SGD only")
     update = sgd(momentum=beta, weight_decay=wd, nesterov=nesterov).update
+    rows = None
+    if fault is None:
+        mix = lambda stage, x, eng="stacked": stage.apply(x, engine=eng)
+    else:
+        mix = lambda stage, x, eng="stacked": stage.apply_masked(
+            x, fault["alive"], link_up=fault["link"], engine=eng)
+        ucol = torch.as_tensor(fault["update"])[:, None] > 0
+        if kernel_split is not None:
+            rows = fault_rows(kernel_split[0], fault, ucol.device)
 
     def bucket_step(theta_b, mom_b, grad_b, lr, tok: Optional[torch.Tensor]):
         if kernel_split is not None:
             first, rest = kernel_split
-            fused_bucket_update(first, theta_b, grad_b, mom_b, lr=lr, beta=beta)
-            mix_in_place(rest, theta_b, lambda stage, x: stage.apply_stacked(x))
+            fused_bucket_update(first, theta_b, grad_b, mom_b, lr=lr, beta=beta, fault=rows)
+            mix_in_place(rest, theta_b, mix)
         else:
             state = {"b": mom_b} if has_momentum else ()
             new_p, new_m = update({"b": grad_b}, state, {"b": theta_b}, lr)
-            theta_b.copy_(program.apply(new_p["b"], engine=engine))
+            new_t = new_p["b"]
+            if fault is not None:
+                # stragglers and dead nodes skip their local update
+                new_t = torch.where(ucol, new_t, theta_b)
+                if has_momentum:
+                    new_m = {"b": torch.where(ucol, new_m["b"], mom_b)}
+            theta_b.copy_(mix(program, new_t, engine))
             if has_momentum:
                 mom_b.copy_(new_m["b"])
         if tok is None:
@@ -318,12 +332,13 @@ class XiFold:
         self.step = -1                           # the probe it is valid for
 
     def run(self, fn, layout: BucketLayout, theta, mom, grad, lr, *, controller, telemetry,
-            step: int) -> None:
+            step: int, fold: bool = True) -> None:
         """Run the bucket step ``fn`` (``build_bucket_step``) over every
         bucket of the flat (n, P) buffers ``theta``, ``mom`` (None without
         momentum) and ``grad``, in bucket order, with a ``bucket`` span per
-        bucket (host dispatch time; nothing waits for the device)."""
-        fold = controller is not None and controller.should_probe(step + 1)
+        bucket (host dispatch time; nothing waits for the device).  A fault
+        run passes ``fold=False``: its probes are over the members only."""
+        fold = fold and controller is not None and controller.should_probe(step + 1)
         tok = torch.zeros(theta.shape[0], dtype=torch.float32, device=theta.device) if fold else None
         moms = layout.views(mom) if mom is not None else [None] * layout.num_buckets
         for b, (tb, mb, gb) in enumerate(zip(layout.views(theta), moms, layout.views(grad))):

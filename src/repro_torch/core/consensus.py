@@ -27,8 +27,13 @@ down the pre-enumerated ladder ``k0, k0-1, …, floor[, one_peer]``; with
 ``spike`` a disagreement spike walks one rung back up.  Its ``transitions``,
 ``trace`` and ``events`` lists are the reference's, entry for entry, and
 ``bind_recorder`` mirrors every transition, rearm and redensify into the
-run's telemetry (``repro_torch.telemetry``).  The masked Ξ of fault runs
-comes with the fault slice (ROADMAP queue 1 item 3).
+run's telemetry (``repro_torch.telemetry``).
+
+Under faults the engines probe Ξ over the *members* only
+(``consensus_distance_masked`` stacked, ``consensus_distance_masked_shard``
+on a rank): a dead node's frozen replica or a ghost is not part of the
+training population.  The mask is the membership (``alive != 0``), never
+a float drain boost.
 """
 from __future__ import annotations
 
@@ -49,6 +54,8 @@ from repro_torch.telemetry import coalesce_into
 __all__ = [
     "consensus_sq_stacked",
     "consensus_distance_stacked",
+    "consensus_distance_masked",
+    "consensus_distance_masked_shard",
     "consensus_sq_shard",
     "consensus_distance_shard",
     "ConsensusController",
@@ -92,6 +99,50 @@ def consensus_sq_stacked(stacked) -> torch.Tensor:
 def consensus_distance_stacked(stacked) -> torch.Tensor:
     """Ξ = sqrt(1/n Σ_i ‖x_i - x̄‖²) over the leading node axis (scalar)."""
     return consensus_sq_stacked(stacked).mean().sqrt()
+
+
+def _mask(alive, device) -> torch.Tensor:
+    return torch.as_tensor(alive, device=device).to(torch.float32).reshape(-1)
+
+
+def consensus_distance_masked(stacked, alive) -> torch.Tensor:
+    """Ξ over the members only: sqrt(1/|A| Σ_{i∈A} ‖x_i − x̄_A‖²), with
+    ``alive`` an (n,) 0/1 membership mask.  Centred on the first member's
+    row first, as ``consensus_sq_stacked`` on node 0's; with every node a
+    member it is ``consensus_distance_stacked``."""
+    total = count = None
+    for x in _columns(stacked):
+        if total is None:
+            af = _mask(alive, x.device)
+            count = af.sum().clamp_min(1.0)
+            ref = int(torch.nonzero(af).reshape(-1)[0]) if bool(af.any()) else 0
+            acol = af[:, None]
+        xf = x.float()
+        d = xf - xf[ref:ref + 1]
+        d = (d - (d * acol).sum(dim=0, keepdim=True) / count) * acol
+        sq = d.square().sum(dim=1)
+        total = sq if total is None else total + sq
+    return (total.sum() / count).sqrt()
+
+
+def consensus_distance_masked_shard(local, alive, comm) -> torch.Tensor:
+    """``consensus_distance_masked`` on a rank: the member mean from one
+    ``pmean`` per chunk of the masked values, this rank's ‖x_i − x̄_A‖² if
+    it is a member, and a second ``pmean`` over the ranks; the same scalar
+    on every rank, every rank joining."""
+    flat = ({k: v[None] for k, v in local.items()} if isinstance(local, dict)
+            else local[None])
+    total = None
+    for x in _columns(flat):
+        xf = x[0].float().contiguous()
+        if total is None:
+            af = _mask(alive, xf.device)
+            scale = comm.world / af.sum().clamp_min(1.0)
+            mine = af[comm.rank]
+            total = torch.zeros((), dtype=torch.float32, device=xf.device)
+        mean = comm.pmean(xf * mine) * scale
+        total = total + mine * (xf - mean).square().sum()
+    return (comm.pmean(total.reshape(1).contiguous())[0] * scale).sqrt()
 
 
 def consensus_sq_shard(local, comm) -> torch.Tensor:

@@ -27,8 +27,10 @@ topologies rotate through a small program set that ``distinct_programs``
 enumerates up front; ``fused_program_at`` fuses H consecutive schedule
 steps into one program per gossip round.
 
-Fault models are not ported yet (ROADMAP queue 1 item 3);
-``make_topology`` rejects them.
+A ``fault_model`` (``core/faults.py``) rides on the topology: its
+permanent memberships fold their degraded programs into
+``distinct_programs``, and ``resized`` re-derives the family at another n
+for an elastic join.
 
 Update order (paper §2.1):
   ``post``: local SGD update, then gossip-average parameters (default)
@@ -124,7 +126,11 @@ class Topology:
     ada: Optional[AdaSchedule] = None
     sequence: Optional[GraphSequence] = None
     controller: Optional[ConsensusController] = None
+    fault_model: Any = None  # core/faults.py FaultModel, or None
     mix_order: str = "post"  # "post" | "pre"
+    # (name, kwargs) recipe make_topology records so the same family can be
+    # re-derived at another n (elastic joins); not part of equality
+    spec: Any = dataclasses.field(default=None, compare=False)
 
     def graph_at(self, epoch: int = 0, step: int = 0) -> Optional[CommGraph]:
         """The parameter-mixing graph in force; None => centralized.  With a
@@ -186,7 +192,10 @@ class Topology:
         """((first_epoch, step_phase), program) for every distinct compiled
         program over a run.  For a closed-loop controller the first key
         component is the *rung*: each rung of its ladder is pinned in turn,
-        so the set is the ladder's programs whatever the measured walk."""
+        so the set is the ladder's programs whatever the measured walk.
+        A fault model's permanent memberships add each base program's
+        degraded variant; an elastic model's growth schedule adds the
+        family's programs at every size the joins reach."""
         if self.centralized:
             return []
         out: list[tuple[tuple[int, int], GossipProgram]] = []
@@ -206,7 +215,46 @@ class Topology:
             for e in range(max(int(n_epochs), 1)):
                 for s in range(self.period_at(e)):
                     add((e, s), self.program_at(step=s, epoch=e))
+        if self.fault_model is not None:
+            from repro_torch.core.faults import fold_degraded_programs
+
+            key_of = {p.cache_key: k for k, p in out}
+            for base_p, deg in fold_degraded_programs([p for _, p in out], self.fault_model):
+                out.append((key_of[base_p.cache_key], deg))
+            if self.fault_model.elastic:
+                # the resized topology drops the model: its masks are sized
+                # for the initial n, and grown sizes realize all-ones anyway
+                for m in self.fault_model.membership_sizes():
+                    if m == self.n_nodes:
+                        continue
+                    grown = dataclasses.replace(self.resized(m), fault_model=None)
+                    for gk, p in grown.distinct_programs(n_epochs):
+                        if p.cache_key not in seen:
+                            seen.add(p.cache_key)
+                            out.append((gk, p))
         return out
+
+    def resized(self, n_new: int) -> "Topology":
+        """The same family re-derived at ``n_new`` nodes from the ``spec``
+        recipe ``make_topology`` recorded (elastic joins); the fault model
+        is carried over, the controller is new (it should ``adopt`` the
+        old one's run state)."""
+        if self.spec is None:
+            raise ValueError(
+                "topology has no spec recipe (hand-constructed?); build via "
+                "make_topology to support elastic resizing"
+            )
+        name, kwargs = self.spec
+        if name == "d_custom":
+            raise ValueError(
+                "d_custom has no size-parameterized family to re-derive; "
+                "elastic membership needs a named topology"
+            )
+        return make_topology(name, int(n_new), fault_model=self.fault_model, **kwargs)
+
+    @property
+    def adaptive(self) -> bool:
+        return self.ada is not None
 
     @property
     def closed_loop(self) -> bool:
@@ -228,6 +276,13 @@ class Topology:
         return self.n_nodes - 1 if g is None else g.degree
 
     def describe(self) -> str:
+        suffix = (
+            f" [faults: {self.fault_model.describe()}]"
+            if self.fault_model is not None else ""
+        )
+        return self._describe_base() + suffix
+
+    def _describe_base(self) -> str:
         if self.centralized:
             return f"{self.name}: centralized all-reduce over {self.n_nodes} nodes"
         if self.controller is not None:
@@ -272,7 +327,9 @@ def make_topology(
     reference ``make_topology``).  ``consensus_target`` closes ``d_ada``'s
     loop (probe cadence ``consensus_probe_every`` steps; ``consensus_spike``
     re-densifies on a Ξ spike); ``gamma_k`` is the open-loop law and is
-    rejected beside it."""
+    rejected beside it.  ``fault_model`` (``core/faults.make_fault_model``)
+    is decentralized only and covers ``n_nodes`` (an elastic model its
+    initial size)."""
     if mix_order not in ("post", "pre"):
         raise ValueError(f"mix_order must be 'post'|'pre', got {mix_order!r}")
     if consensus_target is not None and name != "d_ada":
@@ -285,11 +342,23 @@ def make_topology(
             "consensus_target"
         )
     if fault_model is not None:
-        raise ValueError(
-            "fault models are not ported yet: ROADMAP queue 1 item 3 "
-            "(core/faults.py)"
-        )
-    base = dict(name=name, n_nodes=n_nodes, mix_order=mix_order)
+        if name == "c_complete":
+            raise ValueError("fault injection is decentralized-only")
+        if fault_model.n != n_nodes and not fault_model.elastic:
+            raise ValueError(
+                f"fault model covers {fault_model.n} nodes but n_nodes={n_nodes}"
+            )
+    base = dict(
+        name=name, n_nodes=n_nodes, mix_order=mix_order, fault_model=fault_model,
+        # the resize recipe: everything size-independent (torus_grid and
+        # adjacency are size-specific)
+        spec=(name, dict(
+            k=k, k0=k0, gamma_k=gamma_k, k_floor=k_floor, seed=seed, pool=pool,
+            mix_order=mix_order, consensus_target=consensus_target,
+            consensus_probe_every=consensus_probe_every,
+            consensus_spike=consensus_spike,
+        )),
+    )
     if name == "c_complete":
         return Topology(centralized=True, **base)
     if name == "d_complete":

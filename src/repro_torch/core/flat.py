@@ -99,7 +99,8 @@ def opt_buffers(optimizer, layout: FlatLayout, theta: torch.Tensor) -> dict:
 
 def update_leaves(optimizer, update: Callable, layout: FlatLayout, theta: torch.Tensor,
                   opt: dict, grads: Mapping[str, torch.Tensor], lr: float, *,
-                  mix: Optional[Callable] = None, mix_order: str = "post") -> None:
+                  mix: Optional[Callable] = None, mix_order: str = "post",
+                  gate: Optional[torch.Tensor] = None) -> None:
     """One local optimizer step and gossip mix over flat state, leaf by leaf,
     written back IN PLACE, so float32 temporaries stay one leaf's.
 
@@ -108,25 +109,33 @@ def update_leaves(optimizer, update: Callable, layout: FlatLayout, theta: torch.
     out by ``layout``; ``grads`` maps each leaf to its (rows, ...) gradient;
     ``update`` is ``optimizer.update`` vmapped over the rows.  ``mix`` (a
     function of one (rows, ...) leaf) runs after the update for ``"post"``,
-    on the parameters before it for ``"pre"``.
+    on the parameters before it for ``"pre"``.  ``gate`` (a (rows,) fault
+    mask, ``update``) keeps the rows where it is 0 at their parameters
+    (mixed first for ``"pre"``) and optimizer state: stragglers and dead
+    nodes skip their local update.
     """
     p_views = layout.stacked_views(theta)
     slot_views = {s: layout.stacked_views(opt[s]) for s in optimizer.slots}
     t, new_t = opt.get("t"), None
+    keep = None if gate is None else torch.as_tensor(gate, device=theta.device) > 0
     for name in layout.names:
         p = p_views[name]
         p_in = mix(p) if mix is not None and mix_order == "pre" else p
         st = state_from(optimizer, {s: {name: v[name]} for s, v in slot_views.items()}, t)
         new_p, new_st = update({name: grads[name]}, st, {name: p_in}, lr)
         out = new_p[name]
+        col = None if keep is None else keep.reshape((-1,) + (1,) * (out.dim() - 1))
+        if col is not None:
+            out = torch.where(col, out, p_in)
         if mix is not None and mix_order == "post":
             out = mix(out)
         p.copy_(out)
         parts, new_t = state_parts(optimizer, new_st)
         for s, leaves in parts.items():
-            slot_views[s][name].copy_(leaves[name])
+            view = slot_views[s][name]
+            view.copy_(leaves[name] if col is None else torch.where(col, leaves[name], view))
     if new_t is not None:
-        opt["t"].copy_(new_t)
+        opt["t"].copy_(new_t if keep is None else torch.where(keep, new_t, opt["t"]))
 
 
 def node_grads_into(loss_fn: Callable, layout: FlatLayout, theta: torch.Tensor,

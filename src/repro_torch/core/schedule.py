@@ -29,13 +29,21 @@ collective per op (the one-rank-per-node engine).  ``apply_stacked_bucketed``
 and ``apply_shard_bucketed`` run the stacked and shard interpreters one
 bucket (a column range of the flat state, ``core/buckets.py``) at a time.
 
+Faults (``core/faults.py``): ``degraded_matrix`` is the dense oracle of a
+fault realization; ``GossipProgram.degrade`` is the pre-enumerated program
+of a permanent membership; ``apply_masked`` (dense and stacked engines)
+and ``apply_shard_masked`` run the base program under *runtime* masks, and
+their bucketed variants one bucket at a time.  Float masks are linear: a
+drain boost above 1 up-weights a node's edges and lowers the receivers'
+self weight by the same mass.
+
 Multi-step fusion: ``GossipProgram.fuse`` composes H consecutive programs
 (a full one-peer cycle, say) into one ``FusedProgram`` whose interpreters
 run the H rounds in sequence; ``hub_balanced_rounds`` spreads a static
 multi-matching program's matchings over the H rounds, so a hub no longer
 sends in every round.  ``program_comm_bytes`` and
-``program_max_node_bytes`` are the comm-cost model (fault-free; the fault
-masks and ``degrade`` come with the fault slice).
+``program_max_node_bytes`` are the comm-cost model (a fault realization
+bills its surviving edges only).
 
 ``compile_graph`` picks the cheapest faithful realization: circulant graph
 → one PPermute per offset; complete graph → AllReduce; any other
@@ -62,6 +70,7 @@ __all__ = [
     "GossipProgram",
     "FusedProgram",
     "compile_graph",
+    "degraded_matrix",
     "dense_program",
     "edge_coloring",
     "hub_balanced_rounds",
@@ -132,6 +141,37 @@ def _col(v: torch.Tensor, ndim: int) -> torch.Tensor:
     return v.reshape((v.shape[0],) + (1,) * (ndim - 1))
 
 
+def _f32(v, device) -> torch.Tensor:
+    return torch.as_tensor(v, dtype=torch.float32, device=device)
+
+
+def degraded_matrix(w, alive, link_up=None) -> np.ndarray:
+    """The fault-degraded mixing matrix W' (the dense oracle, float64).
+
+    Every off-diagonal entry whose edge is down (either endpoint not in
+    ``alive``, or the link masked by ``link_up``) is zeroed and its mass
+    moved onto the *receiver's* diagonal, so W' stays row-stochastic,
+    symmetric when W and the masks are (so doubly stochastic when W is); a
+    node that loses every edge self-averages (identity row).  ``degrade``,
+    the masked interpreters and the fused kernels' fault rows all realize
+    this matrix.
+
+    Degrading by mask A and then masking by B realizes ``degraded_matrix(W,
+    A & B)`` (composition).  The formula is linear in ``alive``: a float
+    b > 1 at node d scales d's edges by b, the excess subtracted from the
+    receivers' diagonals (the preemption drain).  A ghost (alive 0 from
+    step 0, ``faults.SparePool``) is an identity row and column."""
+    w = np.asarray(w, dtype=np.float64)
+    n = w.shape[0]
+    alive = np.asarray(alive, dtype=np.float64).reshape(n)
+    em = np.outer(alive, alive)
+    if link_up is not None:
+        em = em * np.asarray(link_up, dtype=np.float64)
+    off = w * em
+    np.fill_diagonal(off, 0.0)
+    return off + np.diag(1.0 - off.sum(axis=1))
+
+
 # ---------------------------------------------------------------------------
 # The program
 # ---------------------------------------------------------------------------
@@ -195,6 +235,103 @@ class GossipProgram:
                 srcs[d, k] = s
                 weights[d, k + 1] = wv[d]
         return srcs, weights
+
+    def degrade(self, alive) -> "GossipProgram":
+        """The program for the surviving membership ``alive`` ((n,) bools):
+        permute pairs with a dead endpoint removed and their weight moved
+        onto the receiver's self weight, so it realizes exactly
+        ``degraded_matrix(self.matrix(), alive)``; programs with AllReduce
+        or GatherRow ops become one GatherRow of the degraded matrix.  One
+        cached program per alive-set (the permanent-crash path)."""
+        alive_t = tuple(bool(a) for a in np.asarray(alive).reshape(-1))
+        if len(alive_t) != self.n:
+            raise ValueError(f"alive mask has {len(alive_t)} entries, n={self.n}")
+        if all(alive_t):
+            return self
+        return _degrade_cached(self, alive_t)
+
+    # -- runtime-masked interpreters (transient faults) ---------------------
+    def _masked_tables(self, alive, link_up, device):
+        """(host srcs, per-node effective weight rows (n, deg+1) float32 on
+        ``device``) under runtime masks, or None for a program that is not
+        all-PPermute.  ``alive`` may be a float mask (values > 1 up-weight
+        a node's edges); the self weight keeps every row sum at 1."""
+        tables = self.permute_tables()
+        if tables is None:
+            return None
+        srcs_np, weights_np = tables
+        srcs = torch.as_tensor(srcs_np, dtype=torch.long, device=device)
+        w = torch.as_tensor(weights_np, device=device)
+        af = _f32(alive, device).reshape(self.n)
+        m = af[srcs] * af[:, None]
+        if link_up is not None:
+            rows = torch.arange(self.n, device=device)[:, None]
+            m = m * _f32(link_up, device)[rows, srcs]
+        wn = w[:, 1:] * m
+        w0 = w[:, 0] + torch.sum(w[:, 1:] * (1.0 - m), dim=1)
+        return srcs_np, torch.cat([w0[:, None], wn], dim=1)
+
+    def _masked_matrix(self, alive, link_up, device) -> torch.Tensor:
+        """The runtime degraded matrix in float32 (the dense fallback)."""
+        w0 = torch.as_tensor(self.matrix(), dtype=torch.float32, device=device)
+        af = _f32(alive, device).reshape(self.n)
+        em = af[:, None] * af[None, :]
+        if link_up is not None:
+            em = em * _f32(link_up, device)
+        off = w0 * em * (1.0 - torch.eye(self.n, dtype=torch.float32, device=device))
+        return off + torch.diag(1.0 - torch.sum(off, dim=1))
+
+    def apply_masked(self, tree, alive, *, link_up=None, engine: str = "stacked"):
+        """One fault-degraded mixing step with *runtime* masks ``alive``
+        ((n,), bool or float) and ``link_up`` ((n, n) or None), numpy or
+        tensors: ``self.degrade(alive)`` plus link masking, with no new
+        program.  ``engine="dense"`` multiplies by the degraded matrix;
+        ``"stacked"`` uses the masked permute tables (the dense matrix for
+        a program that is not all-PPermute)."""
+        if engine not in ("dense", "stacked"):
+            raise ValueError(f"unknown engine {engine!r}")
+
+        def _mix(x):
+            dev = x.device
+            masked = None if engine == "dense" else self._masked_tables(alive, link_up, dev)
+            if masked is None:
+                wm = self._masked_matrix(alive, link_up, dev)
+                return torch.einsum("ij,j...->i...", wm, x.float()).to(x.dtype)
+            srcs_np, weights = masked
+            xf = x.float()
+            acc = _col(weights[:, 0], x.ndim) * xf
+            for k in range(srcs_np.shape[1]):
+                idx = torch.as_tensor(srcs_np[:, k].astype(np.int64), device=dev)
+                acc = acc + _col(weights[:, k + 1], x.ndim) * xf.index_select(0, idx)
+            return acc.to(x.dtype)
+
+        return _tree_map(_mix, tree)
+
+    def apply_shard_masked(self, local, comm, alive, *, link_up=None):
+        """``apply_masked`` on this rank's own values over ``comm``: every
+        compiled permute still runs (dropped edges move bytes, weight 0 at
+        the receiver); this rank multiplies by its row of the masked
+        tables, so it equals the stacked interpreter's row bit for bit.
+        Programs that are not all-PPermute gather every row and take this
+        rank's row of the degraded matrix."""
+        if comm.world != self.n:
+            raise ValueError(f"program over {self.n} nodes on a world of {comm.world}")
+        i = comm.rank
+
+        def _mix(x):
+            dev = x.device
+            xf = x.float().contiguous()
+            masked = self._masked_tables(alive, link_up, dev)
+            if masked is None:
+                row = self._masked_matrix(alive, link_up, dev)[i]
+                return torch.einsum("g...,g->...", comm.all_gather(xf), row).to(x.dtype)
+            wrow = masked[1][i]
+            acc = wrow[0] * xf
+            for k, op in enumerate(self.ops):
+                acc = acc + wrow[k + 1] * comm.permute(xf, op.perm)
+            return acc.to(x.dtype)
+
+        return _tree_map(_mix, local)
 
     @staticmethod
     def fuse(programs: Sequence["GossipProgram"], name: Optional[str] = None):
@@ -340,15 +477,23 @@ class GossipProgram:
             dst.copy_(self.apply_shard(src, comm))
         return out
 
-    def apply_masked_bucketed(self, stacked, alive, *, link_up=None, layout):
-        from repro_torch.core.buckets import faults_not_ported
+    def apply_masked_bucketed(self, stacked: torch.Tensor, alive, *, link_up=None,
+                              layout) -> torch.Tensor:
+        """``apply_masked`` over a flat (n, P) buffer, one call per bucket
+        (the masks are the same for every bucket); a new buffer."""
+        out = torch.empty_like(stacked)
+        for src, dst in zip(layout.views(stacked), layout.views(out)):
+            dst.copy_(self.apply_masked(src, alive, link_up=link_up))
+        return out
 
-        raise faults_not_ported("apply_masked_bucketed")
-
-    def apply_shard_masked_bucketed(self, local, comm, alive, *, link_up=None, layout):
-        from repro_torch.core.buckets import faults_not_ported
-
-        raise faults_not_ported("apply_shard_masked_bucketed")
+    def apply_shard_masked_bucketed(self, local: torch.Tensor, comm, alive, *,
+                                    link_up=None, layout) -> torch.Tensor:
+        """``apply_shard_masked`` over this rank's flat (P,) buffer, one
+        chain of collectives per bucket; a new buffer."""
+        out = torch.empty_like(local)
+        for src, dst in zip(layout.views(local), layout.views(out)):
+            dst.copy_(self.apply_shard_masked(src, comm, alive, link_up=link_up))
+        return out
 
 
 @dataclasses.dataclass(frozen=True)
@@ -408,6 +553,57 @@ class FusedProgram(GossipProgram):
         for p in self.stages:
             local = p.apply_shard(local, comm)
         return local
+
+    def degrade(self, alive) -> "GossipProgram":
+        """Stage by stage: each round renormalizes on its own (faults apply
+        to every wire round, not to the product matrix)."""
+        alive_t = tuple(bool(a) for a in np.asarray(alive).reshape(-1))
+        if all(alive_t):
+            return self
+        dead = ",".join(str(i) for i, a in enumerate(alive_t) if not a)
+        return GossipProgram.fuse([p.degrade(alive_t) for p in self.stages],
+                                  name=f"{self.name}!dead[{dead}]")
+
+    def apply_masked(self, tree, alive, *, link_up=None, engine="stacked"):
+        for p in self.stages:
+            tree = p.apply_masked(tree, alive, link_up=link_up, engine=engine)
+        return tree
+
+    def apply_shard_masked(self, local, comm, alive, *, link_up=None):
+        for p in self.stages:
+            local = p.apply_shard_masked(local, comm, alive, link_up=link_up)
+        return local
+
+
+@lru_cache(maxsize=512)
+def _degrade_cached(program: GossipProgram, alive: tuple) -> GossipProgram:
+    n = program.n
+    dead = [i for i, a in enumerate(alive) if not a]
+    name = f"{program.name}!dead[{','.join(map(str, dead))}]"
+    if not all(isinstance(op, PPermute) for op in program.ops):
+        # AllReduce / GatherRow programs: one dense row of the degraded W
+        return GossipProgram(
+            name=name, n=n,
+            ops=(GatherRow(_matrix_to_tuple(degraded_matrix(program.matrix(), alive))),),
+            self_weight=0.0,
+        )
+    self_w = _weight_column(program.self_weight, n).copy()
+    ops = []
+    for op in program.ops:
+        wv = _weight_column(op.weight, n)
+        perm, weight = [], np.zeros(n)
+        for s, d in op.perm:
+            if alive[s] and alive[d]:
+                perm.append((s, d))
+                weight[d] = wv[d]
+            elif alive[d]:
+                self_w[d] += wv[d]  # the receiver renormalizes the lost edge
+        if perm:
+            ops.append(PPermute(tuple(perm), tuple(float(v) for v in weight)))
+    for i in dead:
+        self_w[i] = 1.0  # dead nodes self-average: parameters frozen
+    return GossipProgram(name=name, n=n, ops=tuple(ops),
+                         self_weight=tuple(float(v) for v in self_w))
 
 
 @lru_cache(maxsize=512)
@@ -716,22 +912,41 @@ def maybe_hub_balanced(progs: Sequence[GossipProgram], rounds: int):
 # Cost model
 # ---------------------------------------------------------------------------
 
-def _live_pairs(op: PPermute, n: int):
-    """The (src, dst) pairs that move bytes: a pair whose receiver weight
-    is zero moves nothing."""
+def _live_pairs(op: PPermute, n: int, alive=None, link_up=None):
+    """The (src, dst) pairs that move bytes: not a pair whose receiver
+    weight is zero, nor one whose endpoint or link a fault mask kills."""
     wv = _weight_column(op.weight, n)
-    return [(s, d) for s, d in op.perm if wv[d] != 0.0]
+    pairs = []
+    for s, d in op.perm:
+        if wv[d] == 0.0:
+            continue
+        if alive is not None and not (alive[s] and alive[d]):
+            continue
+        if link_up is not None and not link_up[s][d]:
+            continue
+        pairs.append((s, d))
+    return pairs
 
 
-def program_comm_bytes(program: GossipProgram, param_bytes: int) -> int:
+def _mask_lists(alive, link_up):
+    alive_l = None if alive is None else [bool(a) for a in np.asarray(alive)]
+    link_l = None if link_up is None else np.asarray(link_up).tolist()
+    return alive_l, link_l
+
+
+def program_comm_bytes(program: GossipProgram, param_bytes: int, *, alive=None,
+                       link_up=None) -> int:
     """Mean bytes each node sends per mixing step under this program: a
     permute costs ``P · pairs/n`` per node, the all-reduce 2·P·(n−1)/n, the
-    dense all-gather P·(n−1)."""
+    dense all-gather P·(n−1).  ``alive``/``link_up`` bill a fault
+    realization by its surviving edges (the all-gather moves every
+    replica regardless)."""
     total = 0.0
     n = program.n
+    alive_l, link_l = _mask_lists(alive, link_up)
     for op in program.ops:
         if isinstance(op, PPermute):
-            total += param_bytes * (len(_live_pairs(op, n)) / n)
+            total += param_bytes * (len(_live_pairs(op, n, alive_l, link_l)) / n)
         elif isinstance(op, AllReduce):
             total += 2 * param_bytes * (n - 1) / n
         else:  # GatherRow: ring all-gather — each node forwards P to n-1 peers
@@ -739,14 +954,16 @@ def program_comm_bytes(program: GossipProgram, param_bytes: int) -> int:
     return int(total)
 
 
-def program_max_node_bytes(program: GossipProgram, param_bytes: int) -> int:
+def program_max_node_bytes(program: GossipProgram, param_bytes: int, *, alive=None,
+                           link_up=None) -> int:
     """Bytes the busiest node sends per mixing step (a star hub sends Δ·P
     though the mean is ~2P; ``hub_balanced_rounds`` caps this)."""
     n = program.n
     sends = np.zeros(n)
+    alive_l, link_l = _mask_lists(alive, link_up)
     for op in program.ops:
         if isinstance(op, PPermute):
-            for s, _ in _live_pairs(op, n):
+            for s, _ in _live_pairs(op, n, alive_l, link_l):
                 sends[s] += param_bytes
         elif isinstance(op, AllReduce):
             sends += 2 * param_bytes * (n - 1) / n

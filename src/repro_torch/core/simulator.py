@@ -45,8 +45,18 @@ dispatch, the loss, lr, Ξ (and, on the bucketed path, gradient-norm)
 gauges, round and bucket spans, the streamed DBench variance and the
 controller's events.
 
-Faults and elastic membership, node sharding and the retrace guard are
-later slices (ROADMAP queue 1 items 3 and 7); their arguments raise.
+A topology with a ``fault_model`` (``core/faults.py``) runs the
+fault-aware step, as the reference's: the step's realization is drawn from
+``(seed, step)``; joins grow the state (``_admit``: the topology
+re-derived at the new n, the new rows their neighbours' average), rejoins
+adopt their neighbours' average and departures hand their state off
+(``drain_handoff``) before the step; a membership change re-arms the
+controller, whose probe is over the members only; a permanent membership
+selects its degraded program; stragglers and dead nodes skip their local
+update and the mix runs under the runtime masks (``apply_masked``).
+
+Node sharding and the retrace guard are later slices (ROADMAP queue 1
+item 7); their arguments raise.
 """
 from __future__ import annotations
 
@@ -60,8 +70,13 @@ from repro_torch.core import dbench
 from repro_torch.core.buckets import (
     BucketLayout, XiFold, build_bucket_step, check_bucketable,
 )
-from repro_torch.core.consensus import consensus_distance_stacked
+from repro_torch.core.consensus import (
+    consensus_distance_masked, consensus_distance_stacked,
+)
 from repro_torch.core.dsgd import Topology
+from repro_torch.core.faults import (
+    admit_node, membership_events, realization_arrays, rejoin_neighbors,
+)
 from repro_torch.core.flat import (
     FlatLayout, node_grads_into, opt_buffers, update_leaves,
 )
@@ -146,8 +161,6 @@ class DecentralizedSimulator:
             raise ValueError(
                 f"mixing must be one of {sorted(_ENGINES)}, got {mixing!r}"
             )
-        if getattr(topology, "fault_model", None) is not None:
-            raise _later_slice("a fault model", "3 (faults)")
         if shard_nodes:
             raise _later_slice("shard_nodes=True (virtual-node sharding)", "7 (tooling)")
         if debug_no_retrace:
@@ -155,7 +168,10 @@ class DecentralizedSimulator:
         if bucket_mb is not None:
             check_bucketable(optimizer, topology)
         self.bucket_mb = bucket_mb
+        self.fault_model = topology.fault_model
+        self._last_membership = None
         self.telemetry = telemetry if telemetry is not None else MetricsRecorder()
+        self.telemetry.configure(deadline_ms=getattr(self.fault_model, "deadline_ms", None))
         if topology.controller is not None:
             topology.controller.bind_recorder(self.telemetry)
         self._fold = XiFold()
@@ -203,12 +219,68 @@ class DecentralizedSimulator:
         losses = node_grads_into(self.loss_fn, state.layout, state.theta, grad, batch, *extra)
         return losses, state.layout.stacked_views(grad), grad
 
-    def _resolve_program(self, step: int, epoch: int):
-        """This gossip round's (fused) program."""
-        return self.topology.fused_program_at(
+    def _resolve_program(self, step: int, epoch: int, program_alive=None):
+        """This gossip round's (fused) program, degraded for a permanent
+        membership ``program_alive``."""
+        program = self.topology.fused_program_at(
             step=step, epoch=epoch, rounds=self.mix_rounds,
             hub_balance=self.hub_balance,
         )
+        if program is not None and program_alive is not None:
+            program = program.degrade(program_alive)
+        return program
+
+    # -- the deadline trace (views of the recorder's) ---------------------------
+    @property
+    def round_ms(self) -> list:
+        return self.telemetry.round_ms
+
+    @property
+    def deadline_overruns(self) -> int:
+        return self.telemetry.deadline_overruns
+
+    # -- faults and elastic membership -------------------------------------------
+    def _membership_events(self, state: SimState, epoch: int):
+        """The step's realization and its membership events, before the
+        step: joins grow the state (``_admit``), then rejoins, departures
+        and the membership tracking (``faults.membership_events``).
+        Returns (state, realization)."""
+        tel = self.telemetry
+        fr = self.fault_model.at(state.step)
+        if fr.joins:
+            if tel.active:
+                tel.event("join", state.step, data={"nodes": sorted(int(j) for j in fr.joins)})
+            state = self._admit(state, fr, epoch)
+        self._last_membership = membership_events(
+            fr, [state.theta] + list(state.opt.values()), self.topology,
+            self._last_membership, step=state.step, epoch=epoch, mix_every=self.mix_every,
+            telemetry=tel)
+        return state, fr
+
+    def _admit(self, state: SimState, fr, epoch: int) -> SimState:
+        """Grow membership to ``len(fr.program_alive)``: the topology family
+        re-derived at the new n (the new controller adopts the old one's
+        run state and keeps the run's recorder), and one new row per joining
+        node, in index order, seeded with its neighbourhood's average."""
+        m = len(fr.program_alive)
+        old_ctl = self.topology.controller
+        topo = self.topology.resized(m)
+        if topo.controller is not None:
+            if old_ctl is not None:
+                topo.controller.adopt(old_ctl)
+            topo.controller.bind_recorder(self.telemetry)
+        self.topology = topo
+        self.n = m
+        theta, opt = state.theta, dict(state.opt)
+        rows = m - len(fr.joins)
+        for node in sorted(fr.joins):
+            # a later joiner of the same step is not a row yet
+            nbrs = [i for i in rejoin_neighbors(topo, fr, node, step=state.step, epoch=epoch,
+                                                mix_every=self.mix_every) if i < rows]
+            theta = admit_node(theta, nbrs)
+            opt = {k: admit_node(v, nbrs) for k, v in opt.items()}
+            rows += 1
+        return SimState(theta, opt, state.layout, state.step)
 
     def train_step(
         self,
@@ -228,14 +300,26 @@ class DecentralizedSimulator:
         """
         tel = self.telemetry
         t_start = tel.round_start()
+        fr = fault = None
+        if self.fault_model is not None:
+            state, fr = self._membership_events(state, epoch)
+            fault = realization_arrays(fr, self.device)
+            # the membership mask, not the raw alive mask: a float drain
+            # boost must not weight the draining node in the probe
+            members = np.asarray(fr.alive) != 0
+            probe = lambda: consensus_distance_masked(state.theta, members)
+        else:
+            probe = lambda: consensus_distance_stacked(state.theta)
         topo = self.topology
-        self._fold.probe(topo.controller, tel, state.step,
-                         lambda: consensus_distance_stacked(state.theta))
+        self._fold.probe(topo.controller, tel, state.step, probe)
         mix = (state.step + 1) % self.mix_every == 0
-        # time-varying schedules advance per gossip round, not per raw step
+        # time-varying schedules advance per gossip round, not per raw step;
+        # a permanent membership selects its degraded program
         program = None
         if mix and not topo.centralized:
-            program = self._resolve_program(state.step // self.mix_every, epoch)
+            sel = None if fr is None else fr.selection_mask()
+            palive = sel if sel is not None and not sel.all() else None
+            program = self._resolve_program(state.step // self.mix_every, epoch, palive)
         batch = {k: torch.as_tensor(v, device=self.device) for k, v in batch.items()}
         if self.has_rng and rng is None:
             rng = torch.Generator(device=self.device).manual_seed(0)
@@ -248,38 +332,48 @@ class DecentralizedSimulator:
             )
             if program is not None:
                 tel.comm(program, state.theta.shape[1] * state.theta.element_size(),
-                         step=state.step)
+                         step=state.step, alive=None if fr is None else fr.alive,
+                         link_up=None if fr is None else fr.link_up)
             engine = _ENGINES[self.mixing]
             bucket_grad = None   # the gradient buffer of a bucketed step
             if self.bucket_mb is not None and program is not None:
                 bucket_grad = self._bucketed_update(state, grads, flat_grad, lr, program,
-                                                    engine)
+                                                    engine, fault)
             else:
                 if topo.centralized:
                     # C_complete: average gradients globally; replicas stay identical
                     grads = {k: g.float().mean(dim=0, keepdim=True).to(g.dtype).expand_as(g)
                              for k, g in grads.items()}
+                if program is None:
+                    mix_fn = None
+                elif fault is None:
+                    mix_fn = lambda x: program.apply(x, engine=engine)
+                else:
+                    mix_fn = lambda x: program.apply_masked(
+                        x, fault["alive"], link_up=fault["link"], engine=engine)
                 update_leaves(
                     self.optimizer, self._update, state.layout, state.theta, state.opt, grads,
-                    lr, mix_order=topo.mix_order,
-                    mix=None if program is None else (lambda x: program.apply(x, engine=engine)),
+                    lr, mix_order=topo.mix_order, mix=mix_fn,
+                    gate=None if fault is None else fault["update"],
                 )
         self._finish_round(losses, norms, t_start, step=state.step, mix=mix, lr=lr,
                            grads=bucket_grad)
         return SimState(state.theta, state.opt, state.layout, state.step + 1), losses, norms
 
-    def _bucketed_update(self, state: SimState, grads, flat_grad, lr, program, engine):
+    def _bucketed_update(self, state: SimState, grads, flat_grad, lr, program, engine,
+                         fault=None):
         """A mixing step's update and gossip bucket by bucket, IN PLACE on
-        the buckets' column views of θ, m and the gradient buffer; when the
-        next step probes, each bucket's Ξ² partial sum is folded into a
-        running (n,) token for it.  Returns the flat gradient buffer."""
+        the buckets' column views of θ, m and the gradient buffer (under
+        the runtime masks ``fault``); on a fault-free step whose successor
+        probes, each bucket's Ξ² partial sum is folded into a running (n,)
+        token for it.  Returns the flat gradient buffer."""
         grad = flat_grad if flat_grad is not None else state.layout.flatten(grads)
         mom = state.opt.get("mom")
         fn = build_bucket_step(program, hyper=self.optimizer.hyper,
-                               has_momentum=mom is not None, engine=engine)
+                               has_momentum=mom is not None, engine=engine, fault=fault)
         self._fold.run(fn, BucketLayout.for_stacked(state.params, self.bucket_mb),
                        state.theta, mom, grad, lr, controller=self.topology.controller,
-                       telemetry=self.telemetry, step=state.step)
+                       telemetry=self.telemetry, step=state.step, fold=fault is None)
         return grad
 
     def _finish_round(self, losses, norms, t_start, *, step: int, mix: bool, lr: float,

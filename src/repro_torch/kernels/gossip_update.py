@@ -44,7 +44,6 @@ from __future__ import annotations
 import ctypes
 from functools import lru_cache
 
-import numpy as np
 import torch
 
 from repro_torch.kernels import _build
@@ -58,6 +57,7 @@ __all__ = [
     "fused_apply_stacked",
     "fused_apply_shard",
     "fused_bucket_update",
+    "fault_rows",
     "mix_in_place",
 ]
 
@@ -305,17 +305,22 @@ def _device_tables(program, device):
     )
 
 
-def _fault_rows_stacked(fault, srcs: np.ndarray, n: int, device) -> torch.Tensor:
-    """(n, deg+1) kernel fault rows [update, edge_1..deg] from runtime masks
-    ``{"update": (n,), "alive": (n,), "link": (n, n) or None}``: edge k of
-    node i is up iff both endpoints are alive and the link survives."""
-    f32 = lambda v: torch.as_tensor(np.asarray(v), dtype=torch.float32, device=device)
-    idx = torch.as_tensor(srcs, dtype=torch.long, device=device)
+def fault_rows(program, fault, device) -> torch.Tensor:
+    """(n, deg+1) float32 kernel fault rows [update, edge_1..deg] of a
+    permute program on ``device``, from the runtime masks ``{"update":
+    (n,), "alive": (n,), "link": (n, n) or None}`` (``core/faults.py``'s
+    ``realization_arrays``): edge k of node i carries alive[i] ·
+    alive[srcs[i, k]] (· link[i, srcs[i, k]]), so a float drain boost is
+    linear, as in the masked interpreters.  Device ops over the cached
+    tables: an engine builds them once per step, never per bucket."""
+    srcs_t = _device_tables(program, device)[0]
+    f32 = lambda v: torch.as_tensor(v, dtype=torch.float32, device=device)
+    idx = srcs_t.long()
     af = f32(fault["alive"])
     m = af[idx] * af[:, None]
     link = fault.get("link")
     if link is not None:
-        rows = torch.arange(n, device=device)[:, None]
+        rows = torch.arange(program.n, device=device)[:, None]
         m = m * f32(link)[rows, idx]
     u = f32(fault["update"])
     return torch.cat([u[:, None], m], dim=1).contiguous()
@@ -350,23 +355,22 @@ def fused_apply_stacked(program, theta, grad, mom, *, lr, beta, fault=None,
     optimizer keeps no momentum (beta == 0) — are flat state buffers;
     ``theta`` and ``mom`` are updated IN PLACE and returned.  ``fault``
     carries runtime masks (``{"update", "alive", "link"}``): straggling or
-    dead nodes skip the update, dropped edges renormalize onto self inside
-    the kernel.  Raises ``ValueError`` for programs with non-permute ops.
+    dead nodes skip the update and send their un-updated rows, dropped
+    edges renormalize onto self inside the kernel.  Raises ``ValueError``
+    for programs with non-permute ops.
     """
-    srcs_t, weights_t, ones_t, srcs_np = _device_tables(program, theta.device)
+    srcs_t, weights_t, ones_t, _ = _device_tables(program, theta.device)
     n, p = theta.shape
     had_m = mom is not None
     if not had_m:
         mom = torch.zeros((n, p), dtype=torch.float32, device=theta.device)
-    fault_rows = ones_t if fault is None else _fault_rows_stacked(
-        fault, srcs_np, n, theta.device
-    )
+    rows = ones_t if fault is None else fault_rows(program, fault, theta.device)
     lr, beta = float(lr), float(beta)
     wire = gossip_wire(theta, grad, mom, lr=lr, beta=beta, mix_order=mix_order,
-                       update=None if fault is None else fault_rows[:, :1])
+                       update=None if fault is None else rows[:, :1])
     gossip_program_update(
         theta, wire, srcs_t, weights_t, grad, mom,
-        lr=lr, beta=beta, fault=fault_rows, mix_order=mix_order,
+        lr=lr, beta=beta, fault=rows, mix_order=mix_order,
     )
     return theta, (mom if had_m else None)
 
@@ -379,26 +383,28 @@ def fused_bucket_update(program, theta_b, grad_b, mom_b, *, lr, beta, fault=None
     The bucket is the kernel's outer dispatch unit: the engines call this
     once per ``BucketLayout`` bucket.  The weight rows and the all-ones
     fault rows are the program's cached device tables (a bucket's width
-    never enters them); the bucket's wire, the senders' θ* over its
-    columns, is a fresh contiguous (G, w) buffer.  ``mom_b`` None (a
-    momentum-free optimizer) runs K1 on contiguous copies of the bucket
-    with a zero momentum buffer.  Returns ``(theta_b, mom_b)``."""
-    if fault is not None:
-        from repro_torch.core.buckets import faults_not_ported
-
-        raise faults_not_ported("fused_bucket_update with fault masks")
+    never enters them); ``fault``, under faults, is the step's (G, deg+1)
+    kernel fault rows (``fault_rows``), built once per step and shared by
+    every bucket, since they are per node, not per column: stragglers and
+    dead nodes send their un-updated columns.  The bucket's wire, the
+    senders' θ* over its columns, is a fresh contiguous (G, w) buffer.
+    ``mom_b`` None (a momentum-free optimizer) runs K1 on contiguous copies
+    of the bucket with a zero momentum buffer.  Returns ``(theta_b,
+    mom_b)``."""
     if mom_b is None:
         theta = theta_b.contiguous()
         mom = torch.zeros(theta.shape, dtype=torch.float32, device=theta.device)
         fused_bucket_update(program, theta, grad_b.contiguous(), mom, lr=lr, beta=beta,
-                            mix_order=mix_order)
+                            fault=fault, mix_order=mix_order)
         theta_b.copy_(theta)
         return theta_b, None
     srcs_t, weights_t, ones_t, _ = _device_tables(program, theta_b.device)
     lr, beta = float(lr), float(beta)
-    wire = gossip_wire(theta_b, grad_b, mom_b, lr=lr, beta=beta, mix_order=mix_order)
+    wire = gossip_wire(theta_b, grad_b, mom_b, lr=lr, beta=beta, mix_order=mix_order,
+                       update=None if fault is None else fault[:, :1])
     gossip_program_update(theta_b, wire, srcs_t, weights_t, grad_b, mom_b,
-                          lr=lr, beta=beta, fault=ones_t, mix_order=mix_order)
+                          lr=lr, beta=beta, fault=ones_t if fault is None else fault,
+                          mix_order=mix_order)
     return theta_b, mom_b
 
 
@@ -425,9 +431,7 @@ def fused_apply_shard(program, theta, grad, mom, comm, *, lr, beta, fault=None,
     had_m = mom is not None
     if not had_m:
         mom = torch.zeros(p, dtype=torch.float32, device=theta.device)
-    frow = ones_t[i] if fault is None else _fault_rows_stacked(
-        fault, srcs_np, n, theta.device
-    )[i]
+    frow = ones_t[i] if fault is None else fault_rows(program, fault, theta.device)[i]
     lr, beta = float(lr), float(beta)
     if mix_order == "post":
         wire = gossip_wire(theta[None], grad[None], mom[None], lr=lr, beta=beta,

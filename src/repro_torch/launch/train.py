@@ -65,8 +65,23 @@ alone writes records; on a metrics step every rank joins one ``pmean`` of
 the loss and one ``all_gather`` of the norms, so a run of G ranks writes
 the stacked run's record stream, spans aside.
 
-Faults and checkpoints are later slices; the CLI rejects their flags and
-names the ROADMAP item that brings each.
+A topology with a ``fault_model`` (``core/faults.py``) runs the
+reference's fault-aware step in both engines.  Every engine (every rank)
+draws the step's realization from ``(seed, step)`` with no
+communication; rejoins adopt their neighbours' average and departures
+hand their state off before the step (on a rank through gathers of the
+column chunks, every rank joining); a membership change re-arms the
+controller, whose probe is over the members only; a permanent membership
+selects its degraded program (a composed concurrent crash and a spare
+pool keep the base program); stragglers and dead nodes skip their local
+update.  The kernels take the realization's fault rows (K1 over all
+nodes, once a step even when bucketed; K2 this rank's row), the
+interpreters the runtime masks.  Elastic ``Join`` models grow past the
+fixed set of nodes and are refused: ``SparePool`` takes joins as spare
+activations instead.
+
+Checkpoints are a later slice; the CLI rejects their flags and names the
+ROADMAP item that brings them.
 """
 from __future__ import annotations
 
@@ -84,9 +99,13 @@ from repro_torch.core.buckets import (
     BucketLayout, XiFold, build_bucket_step, check_bucketable,
 )
 from repro_torch.core.consensus import (
+    consensus_distance_masked, consensus_distance_masked_shard,
     consensus_distance_shard, consensus_distance_stacked,
 )
 from repro_torch.core.dsgd import Topology
+from repro_torch.core.faults import (
+    fold_degraded_programs, membership_events, realization_arrays,
+)
 from repro_torch.core.flat import (
     FlatLayout, node_grads_into, opt_buffers, update_leaves,
 )
@@ -169,6 +188,17 @@ class SPMDTrainer:
                 "fused_apply re-implements the update inside the kernel and "
                 f"supports plain momentum-SGD only; got {optimizer.name}"
             )
+        self.fault_model = topology.fault_model
+        if self.fault_model is not None and self.fault_model.elastic:
+            raise ValueError(
+                "elastic (join) fault models grow membership past the mesh's "
+                "gossip size; the SPMD trainer's device mesh is fixed — "
+                "over-provision the mesh with spare ranks instead "
+                "(--spare-ranks / faults.SparePool: joins activate "
+                "alive-masked ghost ranks with zero recompiles), or use the "
+                "DecentralizedSimulator for true mid-run growth"
+            )
+        self._last_membership = None
         self.cfg = cfg
         self.topology = topology
         self.optimizer = optimizer
@@ -202,6 +232,7 @@ class SPMDTrainer:
         )
         self._fold = XiFold()
         self.telemetry = telemetry if telemetry is not None else MetricsRecorder()
+        self.telemetry.configure(deadline_ms=getattr(self.fault_model, "deadline_ms", None))
         if topology.controller is not None:
             topology.controller.bind_recorder(self.telemetry)
         self._metrics_every = self.telemetry.metrics_every if self.telemetry.active else 0
@@ -251,6 +282,9 @@ class SPMDTrainer:
             if p is not None and p.cache_key not in seen:
                 seen.add(p.cache_key)
                 progs.append(p)
+        if self.fault_model is not None:
+            # permanent memberships select degraded variants of these programs
+            progs += [d for _, d in fold_degraded_programs(progs, self.fault_model)]
         return progs
 
     def _fused_split(self, program: Optional[GossipProgram]):
@@ -304,16 +338,36 @@ class SPMDTrainer:
         return node_grads_into(lambda p, b: tfm.loss_fn(p, self.cfg, b), self.layout,
                                theta, grad, batch)
 
-    def _mix(self, program: GossipProgram, x: torch.Tensor) -> torch.Tensor:
+    def _mix(self, program: GossipProgram, x: torch.Tensor, fault=None) -> torch.Tensor:
+        """One program's mix of ``x``: stacked or on this rank, under the
+        runtime masks ``fault`` when given."""
+        if fault is None:
+            if self.comm is None:
+                return program.apply_stacked(x)
+            return program.apply_shard(x, self.comm)
         if self.comm is None:
-            return program.apply_stacked(x)
-        return program.apply_shard(x, self.comm)
+            return program.apply_masked(x, fault["alive"], link_up=fault["link"])
+        return program.apply_shard_masked(x, self.comm, fault["alive"], link_up=fault["link"])
 
-    def consensus_distance(self, state: TrainState) -> torch.Tensor:
-        """Ξ of the state: over the stacked rows, or across the ranks."""
+    def consensus_distance(self, state: TrainState, members=None) -> torch.Tensor:
+        """Ξ of the state: over the stacked rows, or across the ranks; over
+        the ``members`` ((G,) 0/1 mask) only when given."""
+        if members is not None:
+            if self.comm is None:
+                return consensus_distance_masked(state.theta, members)
+            return consensus_distance_masked_shard(state.theta[0], members, self.comm)
         if self.comm is None:
             return consensus_distance_stacked(state.theta)
         return consensus_distance_shard(state.theta[0], self.comm)
+
+    # -- the deadline trace (views of the recorder's) ---------------------------
+    @property
+    def round_ms(self) -> list:
+        return self.telemetry.round_ms
+
+    @property
+    def deadline_overruns(self) -> int:
+        return self.telemetry.deadline_overruns
 
     @property
     def _bucketed(self) -> bool:
@@ -329,15 +383,32 @@ class SPMDTrainer:
         own = slice(None) if self.comm is None else slice(self.comm.rank, self.comm.rank + 1)
         batch = {k: torch.as_tensor(v[own], device=self.device) for k, v in batch.items()}
         topo = self.topology
+        fr = fault = members = None
         with torch.no_grad():
+            if self.fault_model is not None and self.g > 1:
+                fr = self.fault_model.at(state.step)
+                self._last_membership = membership_events(
+                    fr, [state.theta] + list(state.opt.values()), topo,
+                    self._last_membership, step=state.step, epoch=epoch,
+                    mix_every=self.mix_every, telemetry=tel, comm=self.comm)
+                fault = realization_arrays(fr, self.device)
+                # the membership mask, not the raw alive mask: a float drain
+                # boost must not weight the draining node in the probe
+                members = torch.as_tensor(fr.alive != 0, dtype=torch.float32,
+                                          device=self.device)
             self._fold.probe(topo.controller if self.g > 1 else None, tel, state.step,
-                             lambda: self.consensus_distance(state))
+                             lambda: self.consensus_distance(state, members))
         mix = (state.step + 1) % self.mix_every == 0
-        # time-varying schedules advance per gossip round, not per raw step
+        # time-varying schedules advance per gossip round, not per raw step;
+        # a permanent membership selects its degraded program (the selection
+        # mask of a composed concurrent crash or a spare pool stays all-ones)
         program = (
             self._program_at(state.step // self.mix_every, epoch)
             if mix and not topo.centralized else None
         )
+        sel = None if fr is None else fr.selection_mask()
+        if program is not None and sel is not None and not sel.all():
+            program = program.degrade(sel)
         grad = torch.empty_like(state.theta)
         losses = self._grads_into(state.theta, grad, batch)
         bucket_grad = None   # the gradient buffer of a bucketed step
@@ -349,7 +420,8 @@ class SPMDTrainer:
             )
             if program is not None and self.g > 1:
                 tel.comm(program, self.layout.size * state.theta.element_size(),
-                         step=state.step)
+                         step=state.step, alive=None if fr is None else fr.alive,
+                         link_up=None if fr is None else fr.link_up)
             if topo.centralized:
                 # C_complete: average gradients globally (float32, leaf by
                 # leaf); replicas stay identical
@@ -360,14 +432,15 @@ class SPMDTrainer:
                         g.copy_(self.comm.pmean(g.float().contiguous()))
             split = self._fused_split(program)
             if self._bucketed and program is not None:
-                self._bucketed_update(state, grad, lr, program, split)
+                self._bucketed_update(state, grad, lr, program, split, fault)
                 bucket_grad = grad
             elif split is None:
                 update_leaves(
                     self.optimizer, self._update, self.layout, state.theta, state.opt,
                     self.layout.stacked_views(grad), lr,
-                    mix=None if program is None else (lambda x: self._mix(program, x)),
+                    mix=None if program is None else (lambda x: self._mix(program, x, fault)),
                     mix_order=topo.mix_order,
+                    gate=None if fault is None else self._own(fault["update"]),
                 )
             else:
                 first, rest = split
@@ -375,30 +448,38 @@ class SPMDTrainer:
                     fused_apply_shard(
                         first, state.theta[0], grad[0],
                         None if state.mom is None else state.mom[0], self.comm,
-                        lr=lr, beta=self.beta, mix_order=topo.mix_order,
+                        lr=lr, beta=self.beta, fault=fault, mix_order=topo.mix_order,
                     )
                 else:
                     fused_apply_stacked(
                         first, state.theta, grad, state.mom,
-                        lr=lr, beta=self.beta, mix_order=topo.mix_order,
+                        lr=lr, beta=self.beta, fault=fault, mix_order=topo.mix_order,
                     )
-                mix_in_place(rest, state.theta, self._mix)
+                mix_in_place(rest, state.theta, lambda st, x: self._mix(st, x, fault))
             del grad
             self._finish_round(losses, norms, t_start, step=state.step, mix=mix, lr=lr,
                                grads=bucket_grad)
         return TrainState(state.theta, state.opt, state.step + 1), losses, norms
 
-    def _bucketed_update(self, state: TrainState, grad, lr, program, split) -> None:
+    def _own(self, mask: torch.Tensor) -> torch.Tensor:
+        """The rows of a (G,) per-node mask that this engine holds."""
+        return mask if self.comm is None else mask[self.comm.rank:self.comm.rank + 1]
+
+    def _bucketed_update(self, state: TrainState, grad, lr, program, split,
+                         fault=None) -> None:
         """A mixing step's update and gossip bucket by bucket, IN PLACE on
         the buckets' column views of θ, m and ``grad``: K1 once per bucket
         with ``split`` (then the later rounds on the same columns), else
-        the optimizer and the stacked interpreter.  When the next step
-        probes, each bucket's Ξ² partial sum is folded for it."""
+        the optimizer and the stacked interpreter, under the runtime masks
+        ``fault`` (the kernel's fault rows built once for the step).  On a
+        fault-free step whose successor probes, each bucket's Ξ² partial
+        sum is folded for it."""
         fn = build_bucket_step(program, hyper=self.optimizer.hyper,
-                               has_momentum=state.mom is not None, kernel_split=split)
+                               has_momentum=state.mom is not None, kernel_split=split,
+                               fault=fault)
         self._fold.run(fn, self._bucket_layout, state.theta, state.mom, grad, lr,
                        controller=self.topology.controller, telemetry=self.telemetry,
-                       step=state.step)
+                       step=state.step, fold=fault is None)
 
     def _finish_round(self, losses, norms, t_start, *, step: int, mix: bool, lr: float,
                       grads=None) -> None:
@@ -451,17 +532,36 @@ def _parser():
                          "the buckets)")
     ap.add_argument("--fault-model", default="none",
                     choices=["none", "crash", "concurrent", "preempt", "join",
-                             "deadline", "dropout", "link", "straggler"])
-    ap.add_argument("--fault-rate", type=float, default=0.1)
-    ap.add_argument("--fault-seed", type=int, default=0)
-    ap.add_argument("--fault-down-steps", type=int, default=None)
-    ap.add_argument("--fault-k", type=int, default=2)
-    ap.add_argument("--fault-drain-steps", type=int, default=5)
-    ap.add_argument("--fault-enumerate", action="store_true")
-    ap.add_argument("--fault-join-steps", default="")
-    ap.add_argument("--spare-ranks", type=int, default=0)
-    ap.add_argument("--gossip-deadline-ms", type=float, default=30.0)
-    ap.add_argument("--deadline-backoff", type=float, default=2.0)
+                             "deadline", "dropout", "link", "straggler"],
+                    help="seeded fault injection (core/faults.py): a permanent "
+                         "crash, k concurrent crashes, a preemption drain, joins "
+                         "(with --spare-ranks), gossip deadlines with backoff, "
+                         "node dropout, link failure or stragglers")
+    ap.add_argument("--fault-rate", type=float, default=0.1,
+                    help="per-step fault probability (crash/concurrent/preempt: "
+                         "geometric onset)")
+    ap.add_argument("--fault-seed", type=int, default=0,
+                    help="realization seed: every engine and rank draws the same masks")
+    ap.add_argument("--fault-down-steps", type=int, default=None,
+                    help="crash/concurrent: steps until a victim rejoins with its "
+                         "neighbours' average (default: never)")
+    ap.add_argument("--fault-k", type=int, default=2,
+                    help="concurrent: number of victims")
+    ap.add_argument("--fault-drain-steps", type=int, default=5,
+                    help="preempt: the drain window before the clean departure")
+    ap.add_argument("--fault-enumerate", action="store_true",
+                    help="concurrent: pre-enumerate the degraded programs instead "
+                         "of composing runtime masks")
+    ap.add_argument("--fault-join-steps", default="",
+                    help="join: comma-separated steps at which a spare rank activates")
+    ap.add_argument("--spare-ranks", type=int, default=0,
+                    help="ghost ranks riding from step 0 as alive-masked "
+                         "zero-weight nodes; joins activate them (faults.SparePool)")
+    ap.add_argument("--gossip-deadline-ms", type=float, default=30.0,
+                    help="deadline: nodes whose seeded round latency misses it sit "
+                         "the round out and keep their local step")
+    ap.add_argument("--deadline-backoff", type=float, default=2.0,
+                    help="deadline: exponential readmission backoff base")
     ap.add_argument("--k-floor", default="2",
                     help="Ada decay floor: an int, or 'one_peer'")
     ap.add_argument("--consensus-target", type=float, default=None,
@@ -500,9 +600,6 @@ def _parser():
 def _unsupported(args) -> list[str]:
     """Messages for every flag of a later slice that this run sets."""
     out = []
-    if args.fault_model != "none" or args.spare_ranks:
-        out.append("--fault-model / --spare-ranks (fault injection): "
-                   "ROADMAP queue 1 item 3 (faults)")
     if args.ckpt_dir or args.ckpt_every or args.resume:
         out.append("--ckpt-dir / --ckpt-every / --resume (checkpoints): "
                    "ROADMAP queue 1 item 4 (checkpoint)")
@@ -568,17 +665,27 @@ def main(argv=None, *, device=None) -> dict:
 def _train(args, g, tp, k_floor, dev) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.core.dsgd import make_topology
+    from repro_torch.core.faults import make_fault_model
     from repro_torch.data import SyntheticLM
     from repro_torch.optim.schedules import lr_scale
     from repro_torch.optim.sgd import get_optimizer
 
     cfg = get_config(args.arch + ("-reduced" if args.reduced or dev.type == "cpu" else ""))
     cfg = dataclasses.replace(cfg, name=args.arch)
+    join_steps = tuple(int(x) for x in args.fault_join_steps.split(",") if x.strip()) or None
+    fault_model = make_fault_model(
+        args.fault_model, g, rate=args.fault_rate, seed=args.fault_seed,
+        down_steps=args.fault_down_steps, k=args.fault_k,
+        drain_steps=args.fault_drain_steps, join_steps=join_steps,
+        enumerate_programs=args.fault_enumerate, spare_ranks=args.spare_ranks,
+        deadline_ms=args.gossip_deadline_ms, deadline_backoff=args.deadline_backoff,
+    )
     topo = make_topology(
         args.topology, g, k_floor=k_floor,
         consensus_target=args.consensus_target,
         consensus_spike=args.consensus_spike,
         consensus_probe_every=args.consensus_every,
+        fault_model=fault_model,
     )
     recorder = None
     if args.telemetry:

@@ -25,10 +25,16 @@ implementation, and the consensus controller routes its transition /
 rearm / redensify log through it, so the simulator and the trainer
 produce identical event streams for identical runs.
 
-The reference's fault-model deadlines (``deadline_ms``, ``configure``),
-its checkpoint payload (``state_dict``/``load_state_dict``) and its bench
-``provenance`` stamp have no caller in the port yet: they come with the
-faults, checkpoint and analysis items of ROADMAP queue 1 (3, 4 and 7).
+A gossip deadline (``GossipDeadline``'s ``deadline_ms``, set by the
+engines through ``configure``) turns round timing on even without sinks:
+every ``round`` span is measured (the engine synchronizes the device once
+a step), kept in ``round_ms`` and marked as an overrun when it is longer
+than the deadline.  The trace is observational: the seeded model drives
+the masks.
+
+The reference's checkpoint payload (``state_dict``/``load_state_dict``)
+and its bench ``provenance`` stamp have no caller in the port yet: they
+come with the checkpoint and analysis items of ROADMAP queue 1 (4 and 7).
 """
 from __future__ import annotations
 
@@ -92,12 +98,22 @@ class MetricsRecorder:
         self.sinks = list(sinks)
         self.metrics_every = max(int(metrics_every), 0)
         self.record_spans = bool(record_spans)
+        self.deadline_ms: Optional[float] = None   # set by the engine (configure)
+        # this run's measured round durations (ms) and deadline overruns
+        self.round_ms: list = []
+        self.deadline_overruns = 0
         self.totals: dict[str, float] = {}
         self.last_gauges: dict[str, Optional[float]] = {}
         self.last_variance: Optional[dict] = None
         self.event_count = 0
 
     # -- wiring ----------------------------------------------------------------
+    def configure(self, *, deadline_ms: Optional[float] = None) -> None:
+        """Late configuration by the engine: the deadline rides on the fault
+        model, which the recorder's creator does not see."""
+        if deadline_ms is not None:
+            self.deadline_ms = float(deadline_ms)
+
     @property
     def active(self) -> bool:
         """True when records fan out to sinks (telemetry requested)."""
@@ -106,8 +122,9 @@ class MetricsRecorder:
     @property
     def timing(self) -> bool:
         """True when ``round`` spans are measured, for which the engine
-        synchronizes the device at the end of every step."""
-        return self.active and self.record_spans
+        synchronizes the device at the end of every step: with a deadline,
+        or with sinks and ``record_spans``."""
+        return self.deadline_ms is not None or (self.active and self.record_spans)
 
     def _emit(self, rec: dict) -> None:
         if not self.sinks:
@@ -133,16 +150,18 @@ class MetricsRecorder:
         self._emit({"kind": "counter", "step": int(step), "name": name,
                     "inc": inc, "total": total})
 
-    def comm(self, program, param_bytes: int, *, step: int) -> None:
+    def comm(self, program, param_bytes: int, *, step: int, alive=None,
+             link_up=None) -> None:
         """Bill one program application at dispatch time: bytes on the wire
         (``program_comm_bytes``, the accounting the reference's
-        ``benchmarks/ada.py`` replays offline) and the PPermute dispatch
-        count."""
+        ``benchmarks/ada.py`` replays offline; under faults the surviving
+        edges of the realization's ``alive``/``link_up`` only) and the
+        PPermute dispatch count."""
         if program is None or not self.active:
             return
         from repro_torch.core.schedule import PPermute, program_comm_bytes
 
-        bytes_ = program_comm_bytes(program, int(param_bytes))
+        bytes_ = program_comm_bytes(program, int(param_bytes), alive=alive, link_up=link_up)
         step = int(step)
         self.counter("comm_bytes", int(bytes_), step=step)
         permutes = sum(1 for op in program.ops if isinstance(op, PPermute))
@@ -173,8 +192,15 @@ class MetricsRecorder:
         if device is not None and torch.device(device).type == "cuda":
             torch.cuda.synchronize(device)
         ms = (time.perf_counter() - t_start) * 1e3
-        self._emit({"kind": "span", "step": int(step), "name": "round",
-                    "ms": ms, "mix": bool(mix)})
+        self.round_ms.append(ms)
+        rec = {"kind": "span", "step": int(step), "name": "round", "ms": ms,
+               "mix": bool(mix)}
+        if self.deadline_ms is not None:
+            overrun = ms > float(self.deadline_ms)
+            self.deadline_overruns += int(overrun)
+            rec["deadline_ms"] = float(self.deadline_ms)
+            rec["overrun"] = overrun
+        self._emit(rec)
 
     def bucket_span(self, t_start: Optional[float], *, step: int,
                     index: int) -> None:

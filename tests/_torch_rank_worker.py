@@ -175,3 +175,85 @@ def sleep_forever(comm):
 
     while True:
         time.sleep(1)
+
+
+def fault_cases(comm, cases, params, steps, seq, batch, lr):
+    """Each case ``name -> (topology, fused, fault kind, fault kwargs)``
+    trained ``steps`` steps on this rank under the fault model, from
+    ``params``.  Returns ``name -> {"params", "mom", "losses", "launches",
+    "events"}``: this rank's final flat θ and momentum rows, per-step
+    losses, launch counts and the controller's events (None without
+    one)."""
+    from repro_torch.core.faults import make_fault_model
+
+    cfg = get_config("granite-8b-reduced")
+    out = {}
+    for name, (topology, fused, kind, fkw, *topo_kw) in cases.items():
+        fm = make_fault_model(kind, comm.world, **fkw)
+        topo = make_topology(topology, comm.world, fault_model=fm, **(topo_kw[0] if topo_kw else {}))
+        trainer = SPMDTrainer(cfg, topo, get_optimizer("sgd", momentum=0.9),
+                              collect_norms=True, fused_apply=fused, device=comm.device)
+        state = trainer.init_state(params={k: torch.from_numpy(v) for k, v in params.items()})
+        src = SyntheticLM(vocab=cfg.vocab, seq_len=seq, seed=0)
+        losses = []
+        for t in range(steps):
+            state, loss, _ = trainer.train_step(state, src.stacked(comm.world, t, batch), lr)
+            losses.append(float(loss[0]))
+        out[name] = {
+            "params": state.theta[0].numpy().copy(),
+            "mom": state.mom[0].numpy().copy(),
+            "losses": np.array(losses),
+            "events": None if topo.controller is None else list(topo.controller.events),
+        }
+    return out
+
+
+def masked_shard_cases(comm, cases):
+    """Each case ``name -> (graph, x, alive, link, bucket)``: this rank's
+    row of the stacked numpy ``x`` through ``apply_shard_masked`` (and,
+    with ``bucket`` ``(sizes, bucket_elems)``, ``apply_shard_masked_bucketed``).
+    Returns ``name -> (row, bucketed row or None)``."""
+    from repro_torch.core import graphs
+    from repro_torch.core.buckets import BucketLayout
+    from repro_torch.core.schedule import compile_graph
+
+    out = {}
+    for name, (graph, x, alive, link, bucket) in cases.items():
+        program = compile_graph(getattr(graphs, graph[0])(*graph[1:]))
+        row = torch.from_numpy(x[comm.rank].copy())
+        got = program.apply_shard_masked(row, comm, alive, link_up=link)
+        bucketed = None
+        if bucket is not None:
+            bucketed = program.apply_shard_masked_bucketed(
+                row, comm, alive, link_up=link, layout=BucketLayout(*bucket)).numpy().copy()
+        out[name] = (got.numpy().copy(), bucketed)
+    return out
+
+
+def handoff_cases(comm, x, alive, chunk):
+    """This rank's row of the stacked numpy ``x`` after
+    ``adopt_neighbor_average(node 1, [0, 2])`` and after
+    ``drain_handoff(node 3, [2, 0], alive)``, both on the rank's (1, P)
+    row (gathers in chunks of ``chunk`` columns), and the member Ξ under
+    ``alive``."""
+    from repro_torch.core import faults
+    from repro_torch.core.consensus import consensus_distance_masked_shard
+
+    faults.HANDOFF_CHUNK = chunk
+    row = torch.from_numpy(x[comm.rank:comm.rank + 1].copy())
+    faults.adopt_neighbor_average(row, 1, [0, 2], comm=comm)
+    adopted = row.numpy().copy()
+    row = torch.from_numpy(x[comm.rank:comm.rank + 1].copy())
+    faults.drain_handoff(row, 3, [2, 0], alive, comm=comm)
+    xi = float(consensus_distance_masked_shard(torch.from_numpy(x[comm.rank].copy()),
+                                               alive != 0, comm))
+    return adopted, row.numpy().copy(), xi
+
+
+def fault_world(comm, cases, mask_cases, x, alive, params, steps, seq, batch, lr):
+    """``tests/test_torch_elastic_ranks.py``'s world: ``fault_cases``,
+    ``masked_shard_cases`` and ``handoff_cases`` (chunks of 8 columns) in
+    one spawn."""
+    return (fault_cases(comm, cases, params, steps, seq, batch, lr),
+            masked_shard_cases(comm, mask_cases),
+            handoff_cases(comm, x, alive, 8))

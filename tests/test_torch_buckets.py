@@ -188,12 +188,15 @@ def test_bucketed_apply_identity_program_shortcircuits():
 
 
 def test_masked_bucketed_variants_raise_with_the_fault_item():
+    """The fault slice ported the masked bucketed variants, which raised
+    here before: one bucket at a time they equal ``apply_masked`` (a new
+    buffer), with a float boost and a dead node in the mask."""
     prog = compile_graph(Ring(4))
     layout = BucketLayout((6,), 5)
-    with pytest.raises(NotImplementedError, match="item 3"):
-        prog.apply_masked_bucketed(torch.zeros(4, 6), torch.ones(4), layout=layout)
-    with pytest.raises(NotImplementedError, match="item 3"):
-        prog.apply_shard_masked_bucketed(torch.zeros(6), None, torch.ones(4), layout=layout)
+    x = torch.arange(24.0).reshape(4, 6)
+    alive = torch.tensor([1.0, 1.5, 0.0, 1.0])
+    out = prog.apply_masked_bucketed(x, alive, layout=layout)
+    assert out is not x and torch.equal(out, prog.apply_masked(x, alive))
 
 
 # ---------------------------------------------------------------------------
@@ -286,8 +289,14 @@ def test_bucket_step_validation_gates():
     with pytest.raises(ValueError, match="plain momentum-SGD"):
         build_bucket_step(prog, hyper={"kind": "sgd", "momentum": 0.9, "weight_decay": 1e-4},
                           has_momentum=True, kernel_split=(prog, ()))
-    with pytest.raises(NotImplementedError, match="item 3"):
-        build_bucket_step(prog, hyper=sgd_h, has_momentum=True, faulty=True)
+    # the fault-aware step (ported with the fault slice, which raised here
+    # before) takes the step's masks; a node with update 0 keeps its row
+    fault = {"update": torch.tensor([1.0, 0.0, 1.0, 1.0]), "alive": torch.ones(4),
+             "link": None}
+    fn = build_bucket_step(prog, hyper=sgd_h, has_momentum=True, fault=fault)
+    t, g, m = torch.zeros(4, 3), torch.ones(4, 3), torch.zeros(4, 3)
+    fn(t, m, g, 0.1, None)
+    assert torch.equal(m[1], torch.zeros(3)) and torch.equal(m[0], torch.ones(3))
 
 
 def test_bucket_eligibility():
@@ -365,9 +374,20 @@ def test_fused_bucket_update_equals_fused_apply_stacked(dtype, momentum):
     assert torch.equal(bt, whole_t)
     if momentum:
         assert torch.equal(bm, whole_m)
-    with pytest.raises(NotImplementedError, match="item 3"):
-        gu.fused_bucket_update(prog, bt, grad, bm, lr=0.05, beta=momentum,
-                               fault={"update": np.ones(4), "alive": np.ones(4)})
+    # under faults (the step's kernel fault rows, built once for every
+    # bucket) the buckets equal the monolithic faulty apply bit for bit
+    fault = {"update": np.array([1, 0, 1, 1], np.float32),
+             "alive": np.array([1, 1, 1.5, 0], np.float32), "link": None}
+    rows = gu.fault_rows(prog, fault, "cpu")
+    whole_t, whole_m = theta.clone(), (mom.clone() if momentum else None)
+    gu.fused_apply_stacked(prog, whole_t, grad, whole_m, lr=0.05, beta=momentum, fault=fault)
+    bt, bm = theta.clone(), (mom.clone() if momentum else None)
+    moms = layout.views(bm) if momentum else [None] * layout.num_buckets
+    for tb, gb, mb in zip(layout.views(bt), layout.views(grad), moms):
+        gu.fused_bucket_update(prog, tb, gb, mb, lr=0.05, beta=momentum, fault=rows)
+    assert torch.equal(bt, whole_t)
+    if momentum:
+        assert torch.equal(bm, whole_m)
 
 
 # ---------------------------------------------------------------------------

@@ -5,7 +5,11 @@ fails a step that mixes wrongly; the simulator equals the trainer (phase
 13); the paper's configurations run through the simulator (phase 15,
 shortened); the bucketed trainer equals the monolithic one and K1 with a
 wrong row stride fails (phase 16); the folded probe holds and a bucket
-left out of the fold fails (phase 17); run telemetry (phase 18)."""
+left out of the fold fails (phase 17); run telemetry (phase 18); the fault
+runs hold and a K1 that ignores the fault rows fails (phase 19), their
+bucketed runs hold and fault rows built per bucket fail (phase 20), the
+simulator under faults equals the trainer (phase 21) and 4 gloo ranks
+under a crash with rejoin equal their stacked rows (phase 22)."""
 import dataclasses
 import math
 import sys
@@ -377,3 +381,112 @@ def test_compare_streams_holds_counters_exactly_and_gauges_to_the_bar():
                 [base[0], dict(base[1], value=2.01)], base[:1]):
         with pytest.raises(SystemExit):
             chip_smoke.compare_streams("bad", bad, base, rtol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# Phases 19-22 (faults) on the CPU, at the reduced granite-8b size in bfloat16
+# ---------------------------------------------------------------------------
+
+def _all_ones_rows(orig):
+    """K1 that ignores the realization: all-ones fault rows."""
+    def run(theta, wire, srcs, weights, grad, mom, *, fault, **kw):
+        return orig(theta, wire, srcs, weights, grad, mom, fault=torch.ones_like(fault), **kw)
+    return run
+
+
+@pytest.mark.parametrize("mutant", [None, "all-ones-rows"])
+@pytest.mark.parametrize("name", list(chip_smoke.FAULT_RUNS))
+def test_phase19_20_fault_runs_and_a_kernel_ignoring_the_faults_fails(on_cpu, monkeypatch,
+                                                                       name, mutant):
+    cfg, layout, batches = _reduced(chip_smoke.FAULT_STEPS)
+    monkeypatch.setattr(chip_smoke, "TWIN_CHUNK", 100_000)   # several chunks
+    monkeypatch.setattr(chip_smoke, "FAULT_BUCKET_MB", 0.05)
+    if mutant is not None:
+        monkeypatch.setattr(gu, "gossip_program_update", _all_ones_rows(gu.gossip_program_update))
+        with pytest.raises(SystemExit):
+            chip_smoke.phase_fault_run(cfg, batches, name)
+        return
+    counts, numbers, final = chip_smoke.phase_fault_run(cfg, batches, name)
+    assert counts["gossip_program_update"] == chip_smoke.FAULT_STEPS
+    assert numbers["fused_vs_interpreter"]["share_of_tolerance"] <= 1.0
+    realized = numbers["realized"]
+    expect = {"crash": ("degraded_program_steps", "rejoin_steps"),
+              "preempt": ("boost_steps", "depart_steps", "degraded_program_steps"),
+              "spare-link": ("dropped_edge_steps", "ghost_rows"),
+              "straggler": ("straggler_steps",)}[name]
+    assert all(realized[k] for k in expect), realized
+    counts20, numbers20 = chip_smoke.phase_fault_bucket_run(cfg, batches, name, final)
+    assert numbers20["fault_rows_built"] == chip_smoke.FAULT_STEPS
+    assert counts20["gossip_program_update"] == numbers20["buckets"] * chip_smoke.FAULT_STEPS
+
+
+def test_phase20_fails_when_the_fault_rows_are_built_per_bucket(on_cpu, monkeypatch):
+    from repro_torch.core import buckets
+
+    cfg, layout, batches = _reduced(chip_smoke.FAULT_STEPS)
+    monkeypatch.setattr(chip_smoke, "FAULT_BUCKET_MB", 0.05)
+    _, _, final = chip_smoke.phase_fault_run(cfg, batches, "crash")
+    orig = buckets.build_bucket_step
+
+    def per_bucket(program, *, fault=None, kernel_split=None, **kw):
+        fn = orig(program, fault=fault, kernel_split=kernel_split, **kw)
+        if fault is None or kernel_split is None:
+            return fn
+
+        def step(theta_b, mom_b, grad_b, lr, tok):
+            gu.fault_rows(kernel_split[0], fault, theta_b.device)
+            return fn(theta_b, mom_b, grad_b, lr, tok)
+        return step
+
+    from repro_torch.launch import train as train_mod
+
+    monkeypatch.setattr(train_mod, "build_bucket_step", per_bucket)
+    with pytest.raises(SystemExit):
+        chip_smoke.phase_fault_bucket_run(cfg, batches, "crash", final)
+
+
+def test_phase19_fault_free_step_equals_the_fault_free_trainer(on_cpu, monkeypatch):
+    import numpy as np
+
+    cfg, layout, batches = _reduced(1)
+    monkeypatch.setattr(chip_smoke, "SAMPLE", 64)
+    sample = chip_smoke.sample_columns(layout)
+    ref = _monolithic_ref(cfg, layout, batches, 1, sample, 0)
+    step0 = {"losses": ref["losses"][0], "norms": ref["norms"][0], "theta": ref["theta"],
+             "mom": ref["mom"]}
+    chip_smoke.phase_fault_free_step(cfg, batches, step0, sample)
+    bad = dict(step0, mom=np.asarray(step0["mom"]) * 2)
+    with pytest.raises(SystemExit):
+        chip_smoke.phase_fault_free_step(cfg, batches, bad, sample)
+
+
+def test_phase21_simulator_equals_trainer_under_faults(on_cpu, monkeypatch):
+    cfg, layout, batches = _reduced(chip_smoke.FAULT_STEPS)
+    monkeypatch.setattr(chip_smoke, "FAULT_RUNS", {
+        k: chip_smoke.FAULT_RUNS[k] for k in ("crash", "preempt", "spare-link")})
+    counts, numbers = chip_smoke.phase_fault_simulator(cfg, batches)
+    assert counts["segment_l2_norms"] == 3 * chip_smoke.FAULT_STEPS
+    assert counts["gossip_program_update"] == 0
+
+
+def test_phase22_ranks_equal_stacked_rows_on_cpu(monkeypatch):
+    monkeypatch.setattr(chip_smoke, "SAMPLE", 64)
+    cfg = chip_smoke.fault_rank_cfg("cpu")
+    from repro_torch.core.flat import FlatLayout
+    from repro_torch.models import transformer as tfm
+
+    layout = FlatLayout.from_shapes({k: d.shape for k, d in tfm.model_defs(cfg).items()})
+    out = chip_smoke.phase_fault_ranks(chip_smoke.sample_columns(layout), device="cpu")
+    assert out["transport"] == "gloo" and out["ranks"] == chip_smoke.G
+
+
+def test_compare_rows_exact_fails_a_one_ulp_difference():
+    import numpy as np
+
+    row = {"losses": np.ones(3), "norms": np.ones((3, 2)), "theta": np.ones(5),
+           "mom": np.ones(5)}
+    ref = {k: np.stack([v] * 2) for k, v in row.items()}
+    chip_smoke.compare_rows_exact("ok", [row, row], ref)
+    bad = dict(row, theta=np.nextafter(row["theta"], 2))
+    with pytest.raises(SystemExit):
+        chip_smoke.compare_rows_exact("bad", [row, bad], ref)

@@ -136,6 +136,76 @@ def test_gossip_update_matches_twin(cuda, dtype, p, mix_order, faulty):
     assert ((got_t.float() - want_t.float()).abs() <= 2 * _ulp(want_t)).all()
 
 
+# a realization's masks on Star(6): the hub draining (boost 1.5), node 3 a
+# ghost (alive 0, update 0), node 5 a straggler (update 0)
+_ALIVE = [1.5, 1.0, 1.0, 0.0, 1.0, 1.0]
+_UPDATE = [1.0, 1.0, 1.0, 0.0, 1.0, 0.0]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mix_order", ["post", "pre"])
+def test_kernels_on_boost_and_ghost_rows_equal_twin_bit_for_bit(cuda, dtype, mix_order):
+    """K1 on the fault rows ``fault_rows`` builds for a drain boost, a ghost
+    and a straggler (entries above 1, an all-zero row), and K2 on the
+    boosted and the ghost row: bit for bit their twins."""
+    from repro_torch.kernels.gossip_update import fault_rows
+
+    program = compile_graph(graphs.Star(6))
+    srcs_np, w_np = program.permute_tables()
+    n, deg = srcs_np.shape
+    rows = fault_rows(program, {"alive": torch.tensor(_ALIVE, device=cuda),
+                                "update": torch.tensor(_UPDATE, device=cuda), "link": None},
+                      cuda)
+    assert float(rows.max()) == 1.5 and not bool(rows[3].any())
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    rnd = lambda *s: torch.randn(s, generator=gen, device=cuda)
+    p = 4099
+    theta, grad, wire = (rnd(n, p).to(dtype) for _ in range(3))
+    mom = rnd(n, p)
+    srcs = torch.as_tensor(srcs_np, device=cuda)
+    w = torch.as_tensor(w_np, device=cuda)
+    kw = dict(lr=0.05, beta=0.9, fault=rows, mix_order=mix_order)
+    want_t, want_m = gossip_program_update_plain(theta, wire, srcs, w, grad, mom, **kw)
+    got_t, got_m = gossip_program_update(theta.clone(), wire, srcs, w, grad, mom.clone(), **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got_t, want_t) and torch.equal(got_m, want_m)
+    nbrs = rnd(deg, p).to(dtype)
+    for i in (0, 3):   # the boosted hub, the ghost
+        kw = dict(lr=0.05, beta=0.9, fault=rows[i].contiguous(), mix_order=mix_order)
+        want_t, want_m = gossip_update_plain(theta[i], nbrs, w[i], grad[i], mom[i], **kw)
+        got_t, got_m = gossip_update(theta[i].clone(), nbrs, w[i].contiguous(), grad[i].clone(),
+                                     mom[i].clone(), **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got_t, want_t) and torch.equal(got_m, want_m)
+        if i == 3:   # a ghost row is the identity: θ and m unchanged
+            assert torch.equal(got_t, theta[i]) and torch.equal(got_m, mom[i])
+
+
+def test_fused_bucket_update_under_faults_equals_monolithic(cuda):
+    """K1 per bucket on the step's fault rows (built once) == the monolithic
+    fused apply under the same masks, bit for bit."""
+    from repro_torch.core.buckets import BucketLayout
+    from repro_torch.kernels.gossip_update import (
+        fault_rows, fused_apply_stacked, fused_bucket_update,
+    )
+
+    program = compile_graph(graphs.Star(6))
+    masks = {"alive": torch.tensor(_ALIVE, device=cuda),
+             "update": torch.tensor(_UPDATE, device=cuda), "link": None}
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    theta = torch.randn((6, 5003), generator=gen, device=cuda).bfloat16()
+    grad = torch.randn((6, 5003), generator=gen, device=cuda).bfloat16()
+    mom = torch.randn((6, 5003), generator=gen, device=cuda)
+    whole_t, whole_m = theta.clone(), mom.clone()
+    fused_apply_stacked(program, whole_t, grad, whole_m, lr=0.05, beta=0.9, fault=masks)
+    rows = fault_rows(program, masks, cuda)
+    layout = BucketLayout((2000, 3003), 1024)
+    for tb, gb, mb in zip(layout.views(theta), layout.views(grad), layout.views(mom)):
+        fused_bucket_update(program, tb, gb, mb, lr=0.05, beta=0.9, fault=rows)
+    torch.cuda.synchronize()
+    assert torch.equal(theta, whole_t) and torch.equal(mom, whole_m)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("offsets", [(0, 8, 40000, 40000, 70008), (0, 3, 70001)])
 def test_segment_l2_norms_matches_twin(cuda, dtype, offsets):

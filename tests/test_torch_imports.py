@@ -56,6 +56,7 @@ def test_importing_every_module_loads_no_jax():
     assert out.returncode == 0, out.stderr
     assert "BAD=\n" in out.stdout, out.stdout
     assert len(mods) >= 29
-    for m in ("repro_torch.core.consensus", "repro_torch.core.mixing",
-              "repro_torch.core.simulator", "repro_torch.models.paper_models"):
+    for m in ("repro_torch.core.consensus", "repro_torch.core.faults",
+              "repro_torch.core.mixing", "repro_torch.core.simulator",
+              "repro_torch.models.paper_models"):
         assert m in mods

@@ -105,5 +105,12 @@ def test_rejects_unported_topology_options():
     with pytest.raises(ValueError, match="d_ada"):
         tdsgd.make_topology("d_ring", 4, consensus_target=0.5)
     assert tdsgd.make_topology("d_ada", 4, consensus_target=0.5).closed_loop
-    with pytest.raises(ValueError, match="item 3"):
-        tdsgd.make_topology("d_ring", 4, fault_model=object())
+    # fault models are ported (they raised here before): decentralized
+    # only, and covering the topology's nodes
+    from repro_torch.core.faults import make_fault_model
+
+    with pytest.raises(ValueError, match="decentralized"):
+        tdsgd.make_topology("c_complete", 4,
+                            fault_model=make_fault_model("dropout", 4, rate=0.2))
+    with pytest.raises(ValueError, match="covers"):
+        tdsgd.make_topology("d_ring", 4, fault_model=make_fault_model("dropout", 5, rate=0.2))

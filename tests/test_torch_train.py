@@ -204,8 +204,6 @@ def test_main_fused_apply_launches_through_the_wrapper(capsys):
 
 
 @pytest.mark.parametrize("argv,step", [
-    (["--spare-ranks", "1"], "item 3"),
-    (["--fault-model", "crash"], "item 3"),
     (["--ckpt-dir", "x"], "item 4"),
     (["--resume"], "item 4"),
     (["--ckpt-every", "2"], "item 4"),
