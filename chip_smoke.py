@@ -131,8 +131,8 @@ Phases (any failure exits non-zero and prints no result line):
      spans aside (phase 15's bars), its comm counters equal to the offline
      replay of the rung walk.  The streams are written under
      ``build/repro_torch/telemetry``.
-     Each run of phases 13-22 zeroes the launch counters just before its
-     steps and reads them just after; each of phases 16-22 prints its
+     Each run of phases 13-26 zeroes the launch counters just before its
+     steps and reads them just after; each of phases 16-26 prints its
      prediction before its measurements.
  19. faults: phase 4's fused trainer for 6 steps under each of four fault
      models (``FAULT_RUNS``: a crash with a degraded program and a rejoin,
@@ -150,7 +150,29 @@ Phases (any failure exits non-zero and prints no result line):
      gradients at a time) bit for bit the trainer without fused apply;
  22. 4 ranks (as phase 9) under a crash at step 1 with a rejoin at step 2,
      3 steps: each rank bit for bit its stacked row, K2 once per step on
-     every rank.
+     every rank;
+ 23. checkpoint and resume, stacked: phase 4's trainer on phase 14's
+     closed-loop d_ada from offset replicas, 4 steps with a checkpoint
+     after step 2 (``save_checkpoint``, keep=1, under ``build/``, removed
+     after; the disk's free space checked first), then a fresh trainer
+     restores it in place and runs steps 2-3: losses, norms, θ, m and the
+     extra payload (controller, telemetry) bit for bit the uninterrupted
+     run's; the file's size, save and load seconds and GB/s, the device
+     peak above the live state during each;
+ 24. the same for 4 ranks (as phase 9): 3 steps, a checkpoint after step 1
+     (every leaf gathered to rank 0's host memory, column chunk by column
+     chunk), a fresh trainer per rank restores it (rank 0 reads, each rank
+     receives its row) and runs steps 1-2, bit for bit its uninterrupted
+     row; the file has phase 23's members and, on phase 9's sampled
+     columns, θ and m of phase 4's state after step 0 bit for bit;
+ 25. the simulator: phase 15's ResNet closed loop, 120 steps, checkpointed
+     after step 60 and resumed in a fresh simulator (cuDNN deterministic):
+     losses, norms, θ, m and the controller's log bit for bit;
+ 26. the trainer's knobs: phase 4's trainer for 3 steps with accum_steps 1
+     and 2 (within the bar of ``accum_bar``) and with remat on (bit for bit
+     remat off), ms a step and peak memory each; then ``python -m
+     repro_torch.examples.quickstart`` (its loss must fall) and
+     ``dbench_whitebox --steps 20`` on the card.
 
 The last three lines of standard output are the card's name and power
 limit as nvidia-smi reports them, the per-kernel JSON (K1-K4, each with its
@@ -553,7 +575,9 @@ def granite_layout():
     from repro_torch.core.flat import FlatLayout
     from repro_torch.models import transformer as tfm
 
-    cfg = dataclasses.replace(get_config("granite-8b"), n_layers=2)
+    # remat off, as phases 1-22 ran before the model honoured it; phase 26
+    # holds remat on against it
+    cfg = dataclasses.replace(get_config("granite-8b"), n_layers=2, remat=False)
     defs = tfm.model_defs(cfg)
     return cfg, FlatLayout.from_shapes({k: d.shape for k, d in defs.items()})
 
@@ -2460,6 +2484,567 @@ def phase_fault_ranks(sample, device=None):
     return out
 
 
+# phases 23-26: checkpoints and the trainer's knobs at phase 4's configuration
+RESUME_STEPS, RESUME_CUT = 4, 2          # phase 23: 4 steps, the checkpoint after step 2
+RANK_RESUME_STEPS, RANK_RESUME_CUT = 3, 1  # phase 24
+SIM_RESUME_STEPS, SIM_RESUME_CUT = 120, 60  # phase 25
+KNOB_STEPS = 3                           # phase 26
+EXAMPLE_STEPS = 20                       # phase 26: dbench_whitebox's short --steps
+# checkpoints are written here and removed by the phase that wrote them
+CKPT_DIR = ROOT / "build" / "repro_torch" / "ckpt"
+
+PREDICT_23 = (
+    "phase 23 prediction (PERF.md §6): the resumed steps 2-3 == the uninterrupted run bit "
+    "for bit (losses, norms, theta, m, the extra payload); file 20.1 GB (4 x 838,881,280 "
+    "bf16 theta and f32 m); save and load 10-40 s each (disk-bound); the peak during save "
+    "and load gains at most one leaf's host-copy staging on the card over the live state")
+PREDICT_24 = (
+    "phase 24 prediction (PERF.md §6): each rank's resumed steps 1-2 == its uninterrupted "
+    "row bit for bit; the ranks engine's file == the stacked engine's (member names; theta "
+    "and m on the sampled columns == phase 4's state after step 0); K2 5 per rank; "
+    "gather-and-write and read-and-scatter 20-60 s each through gloo-host")
+PREDICT_25 = (
+    "phase 25 prediction (PERF.md §6): the ResNet closed loop resumed at step 60 == the "
+    "uninterrupted 120 steps bit for bit (losses, norms, final parameters and momentum, the "
+    "controller's log); K3 180; a few seconds")
+PREDICT_26 = (
+    "phase 26 prediction (PERF.md §6): remat == no remat bit for bit; accum_steps 2 within "
+    "its bar of accum_steps 1 (losses within 2 bf16 ulps of the loss; per leaf, theta within "
+    "2 bf16 ulps a step of the leaf's largest |theta|, m within 2^-6 a step of its largest "
+    "|m|); remat step +20-40 % (one more "
+    "forward), peak lower by most of the activations; accum 2 step +0-30 %; both examples "
+    "finish and the quickstart's loss falls")
+
+
+def checkpoint_dir(need_bytes):
+    """A fresh directory under CKPT_DIR, after checking that its disk holds
+    ``need_bytes`` with room to spare."""
+    import shutil
+    import tempfile
+
+    CKPT_DIR.mkdir(parents=True, exist_ok=True)
+    free = shutil.disk_usage(CKPT_DIR).free
+    if free < 1.05 * need_bytes + (2 << 30):
+        fail(f"a checkpoint of {need_bytes / 1e9:.2f} GB needs more disk than the "
+             f"{free / 1e9:.2f} GB free under {CKPT_DIR}")
+    return Path(tempfile.mkdtemp(dir=CKPT_DIR))
+
+
+def state_bytes(layout):
+    """Bytes of a G-node momentum-SGD checkpoint: bfloat16 θ, float32 m."""
+    return G * layout.size * (2 + 4)
+
+
+def resume_trainer(cfg):
+    """Phase 23's trainer: phase 4's (fused, DBench norms) on phase 14's
+    closed-loop d_ada (a probe every step, one-peer floor)."""
+    from repro_torch.core.dsgd import make_topology
+    from repro_torch.launch.train import SPMDTrainer
+    from repro_torch.optim.sgd import sgd
+
+    topo = make_topology("d_ada", G, k_floor="one_peer", consensus_target=ADA_TARGET,
+                         consensus_probe_every=1)
+    return SPMDTrainer(cfg, topo, sgd(momentum=0.9), collect_norms=True, fused_apply=True)
+
+
+def timed(fn):
+    """(fn's result, seconds, peak device bytes allocated during it beyond
+    what was allocated before it)."""
+    import torch
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, torch.cuda.max_memory_allocated() - base
+
+
+def phase_stacked_resume(cfg, layout, batches, peak4):
+    """Phase 23: phase 4's trainer on phase 14's closed loop, from replicas
+    offset by ADA_NOISE (so the controller's rung walk depends on the
+    restored phase peak), RESUME_STEPS steps with a checkpoint after step
+    RESUME_CUT (keep=1); then a fresh trainer restores the file in place
+    and runs the remaining steps.  Its losses, norms, θ and m and the
+    extra payload must equal the uninterrupted run's bit for bit.  The
+    launch counters are zeroed before the first run and read after the
+    second.  Returns (launches, numbers, the file's member names)."""
+    import os
+    import shutil
+    import zipfile
+
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import TrainState
+
+    log(PREDICT_23)
+    need = state_bytes(layout)
+    d = checkpoint_dir(need)
+    try:
+        a = resume_trainer(cfg)
+        state = a.init_state(seed=0)
+        offset_nodes(state.theta, ADA_NOISE)
+        ops.reset_launch_counts()
+        losses, norms, step_ms = [], [], []
+        for t in range(RESUME_STEPS):
+            t1 = time.perf_counter()
+            state, loss, nrm = a.train_step(state, batches[t], LR)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t1) * 1e3)
+            losses.append(loss.clone())
+            norms.append(nrm.clone())
+            if state.step == RESUME_CUT:
+                saved_extra = a.snapshot_extra()
+                path, save_s, save_peak = timed(lambda: a.save_checkpoint(str(d), state,
+                                                                          keep=1))
+        size = os.path.getsize(path)
+        with zipfile.ZipFile(path) as zf:
+            members = zf.namelist()
+        want_extra = a.snapshot_extra()
+        want = {"theta": state.theta, "mom": state.mom}
+        del a
+        torch.cuda.empty_cache()
+        b = resume_trainer(cfg)
+        fresh = b.init_state(seed=0)
+        step, load_s, load_peak = timed(lambda: b.restore_checkpoint(str(d), fresh))
+        if step != RESUME_CUT:
+            fail(f"phase 23: restored step {step}, expected {RESUME_CUT}")
+        resumed = TrainState(fresh.theta, fresh.opt, step)
+        for t in range(step, RESUME_STEPS):
+            resumed, loss, nrm = b.train_step(resumed, batches[t], LR)
+            if not (torch.equal(loss, losses[t]) and torch.equal(nrm, norms[t])):
+                fail(f"phase 23: resumed step {t}: losses {loss.tolist()} vs "
+                     f"{losses[t].tolist()} or norms differ from the uninterrupted run")
+        counts = ops.launch_counts()
+        equal_in_chunks("phase 23 resumed", "the uninterrupted run",
+                        {"theta": resumed.theta, "mom": resumed.mom}, want)
+        got_extra = b.snapshot_extra()
+        if got_extra != want_extra:
+            fail(f"phase 23: extra payload {got_extra} != {want_extra}")
+        ctl = saved_extra.get("controller") or {}
+        if len(ctl.get("trace", [])) != RESUME_CUT or not want_extra["controller"]["transitions"]:
+            fail(f"phase 23: the checkpoint's controller state {ctl} or the run's transitions "
+                 f"{want_extra['controller']['transitions']} are not what the phase needs")
+        runs = RESUME_STEPS + RESUME_STEPS - RESUME_CUT
+        if counts != {"gossip_program_update": runs, "gossip_update": 0,
+                      "segment_l2_norms": runs, "flash_attention": 0}:
+            fail(f"phase 23: launch counts {counts}, expected {runs} of K1 and K3")
+        del b, resumed, fresh, want
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    torch.cuda.empty_cache()
+    numbers = {
+        "file_bytes": size, "expected_bytes": need, "members": len(members),
+        "save_s": save_s, "load_s": load_s, "save_gb_per_s": size / save_s / 1e9,
+        "load_gb_per_s": size / load_s / 1e9,
+        "save_peak_above_live_bytes": int(save_peak), "load_peak_above_live_bytes": int(load_peak),
+        "phase4_peak_bytes": int(peak4), "step_ms": step_ms, "launches": counts,
+        "transitions": want_extra["controller"]["transitions"],
+    }
+    log(f"phase 23: resumed at step {RESUME_CUT} == the uninterrupted run bit for bit "
+        f"(losses, norms, theta, m, extra payload); file {size / 1e9:.3f} GB "
+        f"({len(members)} members); save {save_s:.1f} s ({numbers['save_gb_per_s']:.2f} GB/s), "
+        f"load {load_s:.1f} s ({numbers['load_gb_per_s']:.2f} GB/s); device peak above the "
+        f"live state: save {save_peak / 2**30:.3f} GiB, load {load_peak / 2**30:.3f} GiB "
+        f"(phase 4's peak {peak4 / 2**30:.2f} GiB); launches {counts}")
+    return counts, numbers, members
+
+
+def resume_rank_run(comm, ckpt_dir, steps, cut):
+    """Phase 24 on one rank: phase 9's trainer (engine ``ranks``) for
+    ``steps`` steps from the seed-0 weights, a checkpoint after step
+    ``cut`` (every rank gathers to rank 0, which writes); then a fresh
+    trainer restores it (rank 0 reads, every rank receives its row) and
+    runs the remaining steps.  Returns whether the resumed losses, norms,
+    θ and m equal the uninterrupted run's, the save and load seconds and
+    the launch counts of both runs."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core.dsgd import make_topology
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import SPMDTrainer, TrainState
+    from repro_torch.optim.sgd import sgd
+
+    if comm.device.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    cfg = fault_rank_cfg(comm.device)
+    src = SyntheticLM(vocab=cfg.vocab, seq_len=fault_rank_seq(comm.device), seed=0)
+    batches = [src.stacked(G, t, BATCH) for t in range(steps)]
+
+    def trainer():
+        tr = SPMDTrainer(cfg, make_topology("d_ring", G), sgd(momentum=0.9),
+                         collect_norms=True, fused_apply=True, device=comm.device)
+        if tr.engine != "ranks":
+            raise RuntimeError(f"rank {comm.rank} runs the {tr.engine} engine")
+        return tr
+
+    def timed_rank(fn):
+        sync(comm.device)
+        dist.barrier()
+        t0 = time.perf_counter()
+        out = fn()
+        sync(comm.device)
+        dist.barrier()
+        return out, time.perf_counter() - t0
+
+    a = trainer()
+    state = a.init_state(seed=0)
+    ops.reset_launch_counts()
+    losses, norms = [], []
+    for t in range(steps):
+        state, loss, nrm = a.train_step(state, batches[t], LR)
+        losses.append(loss.clone())
+        norms.append(nrm.clone())
+        if state.step == cut:
+            _, save_s = timed_rank(lambda: a.save_checkpoint(ckpt_dir, state, keep=1))
+    want = {"theta": state.theta.cpu(), "mom": state.mom.cpu()}
+    del a, state
+    if comm.device.type == "cuda":
+        torch.cuda.empty_cache()
+    b = trainer()
+    fresh = b.init_state(seed=0)
+    step, load_s = timed_rank(lambda: b.restore_checkpoint(ckpt_dir, fresh))
+    resumed = TrainState(fresh.theta, fresh.opt, step)
+    same = step == cut
+    for t in range(step, steps):
+        resumed, loss, nrm = b.train_step(resumed, batches[t], LR)
+        same = same and torch.equal(loss, losses[t]) and torch.equal(nrm, norms[t])
+    counts = ops.launch_counts()
+    for key, buf in (("theta", resumed.theta), ("mom", resumed.mom)):
+        for c in range(0, buf.shape[1], TWIN_CHUNK):
+            d = min(c + TWIN_CHUNK, buf.shape[1])
+            same = same and torch.equal(buf[:, c:d].cpu(), want[key][:, c:d])
+    return {"transport": comm.transport, "equal": bool(same), "save_s": save_s,
+            "load_s": load_s, "launches": counts}
+
+
+def file_rows(path, layout, sample):
+    """θ and m of a trainer checkpoint on the sampled columns (G, n)."""
+    import zipfile
+
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint.ckpt import read_leaf
+
+    out = {"theta": [], "mom": []}
+    with zipfile.ZipFile(path) as zf:
+        for name, off, size in zip(layout.names, layout.offsets[:-1], layout.sizes):
+            local = torch.as_tensor(sample[(sample >= off) & (sample < off + size)] - off)
+            key = name.replace(".", "/")
+            for what, prefix, dtype in (("theta", "p/", torch.bfloat16),
+                                        ("mom", "o/", torch.float32)):
+                leaf = read_leaf(zf, prefix + key, dtype)
+                out[what].append(leaf.reshape(leaf.shape[0], -1)[:, local].clone())
+                del leaf
+    return {k: torch.cat(v, dim=1) for k, v in out.items()}
+
+
+def phase_ranks_resume(layout, sample, step0, members23, device=None):
+    """Phase 24: G ranks (as phase 9) run RANK_RESUME_STEPS steps with a
+    checkpoint after step RANK_RESUME_CUT, then restore it and resume
+    (``resume_rank_run``): every rank bit for bit its uninterrupted row,
+    K2 once per step on every rank.  The ranks engine's file holds the
+    stacked engine's members (phase 23's names) and, on the sampled
+    columns, θ and m of phase 4's state after step 0 (``step0``) bit for
+    bit.  Returns the phase's numbers."""
+    import shutil
+
+    import numpy as np
+    import torch
+    import zipfile
+    from repro_torch.launch.comm import spawn_world
+
+    dev = torch.device("cuda", 0) if device is None else torch.device(device)
+    log(PREDICT_24)
+    d = checkpoint_dir(state_bytes(layout))
+    try:
+        t0 = time.perf_counter()
+        res = spawn_world(resume_rank_run, G, (str(d), RANK_RESUME_STEPS, RANK_RESUME_CUT),
+                          timeout=RANK_TIMEOUT, device=device)
+        wall = time.perf_counter() - t0
+        per_rank = RANK_RESUME_STEPS + RANK_RESUME_STEPS - RANK_RESUME_CUT
+        per_rank = per_rank if dev.type == "cuda" else 0
+        want = {"gossip_program_update": 0, "gossip_update": per_rank,
+                "segment_l2_norms": per_rank, "flash_attention": 0}
+        for i, r in enumerate(res):
+            if r["launches"] != want:
+                fail(f"phase 24 rank {i}: launch counts {r['launches']}, expected {want}")
+            if not r["equal"]:
+                fail(f"phase 24 rank {i}: the resumed run differs from the uninterrupted one")
+        path = d / f"step_{RANK_RESUME_CUT:010d}.npz"
+        with zipfile.ZipFile(path) as zf:
+            names = zf.namelist()
+        if names != members23:
+            fail(f"phase 24: the ranks engine's members {names[:4]}... differ from the stacked "
+                 f"engine's {members23[:4]}...")
+        t1 = time.perf_counter()
+        rows = file_rows(path, layout, sample)
+        read_s = time.perf_counter() - t1
+        for what in ("theta", "mom"):
+            ref = step0[what].cpu()
+            if not torch.equal(rows[what], ref):
+                diff = (rows[what].float() - ref.float()).abs().max()
+                fail(f"phase 24: the file's {what} differs from phase 4's state after step 0 "
+                     f"on the sampled columns (max abs {float(diff):.3e})")
+        size = path.stat().st_size
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    out = {
+        "ranks": G, "transport": res[0]["transport"], "file_bytes": size,
+        "gather_and_write_s": res[0]["save_s"], "read_and_scatter_s": res[0]["load_s"],
+        "save_s_per_rank": [r["save_s"] for r in res],
+        "load_s_per_rank": [r["load_s"] for r in res],
+        "launches": {k: sum(r["launches"][k] for r in res) for k in res[0]["launches"]},
+        "sampled_file_read_s": read_s, "wall_s": wall,
+    }
+    log(f"phase 24: {G} ranks over {out['transport']}: resumed at step {RANK_RESUME_CUT} == "
+        f"each rank's uninterrupted row bit for bit; the file ({size / 1e9:.3f} GB) holds the "
+        f"stacked engine's members and phase 4's state after step 0 on {len(sample)} sampled "
+        f"columns; gather-and-write {out['gather_and_write_s']:.1f} s, read-and-scatter "
+        f"{out['read_and_scatter_s']:.1f} s; K2 launches {out['launches']['gossip_update']}; "
+        f"{wall:.1f} s")
+    return out
+
+
+def phase_sim_resume(dev):
+    """Phase 25: phase 15's ResNet closed loop (N = 16) for
+    SIM_RESUME_STEPS steps with a checkpoint after SIM_RESUME_CUT, then a
+    fresh simulator restores the run state and the arrays and runs the
+    rest: losses, norms, final θ and m and the controller's log bit for
+    bit the uninterrupted run's.  cuDNN runs its deterministic algorithms
+    here (a bit-exact replay needs a reproducible convolution backward).
+    Returns (launches, numbers)."""
+    import shutil
+
+    import torch
+    from repro_torch.checkpoint import (
+        load_checkpoint_extra, restore_checkpoint, save_checkpoint,
+    )
+    from repro_torch.core.dsgd import make_topology
+    from repro_torch.core.simulator import DecentralizedSimulator, SimState
+    from repro_torch.kernels import ops
+    from repro_torch.models.paper_models import mini_resnet_loss
+    from repro_torch.optim.sgd import sgd
+
+    log(PREDICT_25)
+    name = "resnet closed-loop Ada"
+    params, batches = paper_inputs(name, SIM_RESUME_STEPS)
+    lr = PAPER_RUNS[name]["lr"]
+
+    def simulator():
+        topo = make_topology("d_ada", PAPER_N, k0=12, k_floor="one_peer",
+                             consensus_target=0.7, consensus_probe_every=5)
+        return DecentralizedSimulator(mini_resnet_loss, sgd(momentum=0.9), topo,
+                                      collect_norms=True, device=dev)
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    d = checkpoint_dir(1 << 20)
+    try:
+        ops.reset_launch_counts()
+        a = simulator()
+        state = a.init(params)
+        losses, norms = [], []
+        for t, b in enumerate(batches):
+            state, loss, nrm = a.train_step(state, b, lr, epoch=t // 5)
+            losses.append(loss.clone())
+            norms.append(nrm.clone())
+            if state.step == SIM_RESUME_CUT:
+                save_checkpoint(str(d), state.step, a.checkpoint_tree(state), keep=1,
+                                extra=a.snapshot_extra())
+        want = {"theta": state.theta, "mom": state.opt["mom"]}
+        want_extra = a.snapshot_extra()
+        t0 = time.perf_counter()
+        b_sim = simulator()
+        b_sim.restore_extra(load_checkpoint_extra(str(d)))
+        fresh = b_sim.init(params)
+        step = restore_checkpoint(str(d), b_sim.checkpoint_tree(fresh))
+        load_s = time.perf_counter() - t0
+        resumed = SimState(fresh.theta, fresh.opt, fresh.layout, step)
+        for t in range(step, SIM_RESUME_STEPS):
+            resumed, loss, nrm = b_sim.train_step(resumed, batches[t], lr, epoch=t // 5)
+            if not (torch.equal(loss, losses[t]) and torch.equal(nrm, norms[t])):
+                fail(f"phase 25: resumed step {t}: losses or norms differ from the "
+                     "uninterrupted run")
+        counts = ops.launch_counts()
+        equal_in_chunks("phase 25 resumed", "the uninterrupted run",
+                        {"theta": resumed.theta, "mom": resumed.opt["mom"]}, want)
+        got_extra = b_sim.snapshot_extra()
+        if got_extra != want_extra:
+            fail(f"phase 25: the run state {got_extra} != {want_extra}")
+        runs = 2 * SIM_RESUME_STEPS - SIM_RESUME_CUT
+        if counts != {"gossip_program_update": 0, "gossip_update": 0,
+                      "segment_l2_norms": runs, "flash_attention": 0}:
+            fail(f"phase 25: launch counts {counts}, expected {runs} of K3")
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        shutil.rmtree(d, ignore_errors=True)
+    ctl = want_extra["controller"]
+    numbers = {"steps": SIM_RESUME_STEPS, "cut": SIM_RESUME_CUT, "probes": len(ctl["trace"]),
+               "transitions": ctl["transitions"], "restore_s": load_s, "launches": counts}
+    log(f"phase 25: the ResNet closed loop resumed at step {SIM_RESUME_CUT} == the "
+        f"uninterrupted {SIM_RESUME_STEPS} steps bit for bit (losses, norms, theta, m, the "
+        f"controller's log of {len(ctl['trace'])} probes, transitions {ctl['transitions']}); "
+        f"restore {load_s:.2f} s; launches {counts}")
+    return counts, numbers
+
+
+def knob_run(cfg, batches, **kw):
+    """KNOB_STEPS steps of phase 4's trainer (``kw`` to the trainer) from
+    the seed-0 weights: (state, losses, norms, ms a step, the run's peak
+    bytes above what was allocated before it)."""
+    import torch
+    from repro_torch.core.dsgd import make_topology
+    from repro_torch.launch.train import SPMDTrainer
+    from repro_torch.optim.sgd import sgd
+
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    trainer = SPMDTrainer(cfg, make_topology("d_ring", G), sgd(momentum=0.9),
+                          collect_norms=True, fused_apply=True, **kw)
+    state = trainer.init_state(seed=0)
+    torch.cuda.reset_peak_memory_stats()
+    losses, norms, step_ms = [], [], []
+    for t in range(KNOB_STEPS):
+        t1 = time.perf_counter()
+        state, loss, nrm = trainer.train_step(state, batches[t], LR)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        losses.append(loss.clone())
+        norms.append(nrm.clone())
+    return state, torch.stack(losses), torch.stack(norms), step_ms, \
+        torch.cuda.max_memory_allocated() - before
+
+
+def accum_bar(layout, base, other):
+    """``other`` (accum_steps 2) against ``base`` (accum_steps 1) after
+    KNOB_STEPS steps, leaf by leaf.  Microbatch summation rounds each
+    gradient's partial sums to bfloat16 (where two microbatches' gradients
+    cancel, the element's sum can change sign) and runs the matrix products
+    at another row count, so the bar is set at the scale of the leaf, not
+    of the element: losses within 2 bfloat16 ulps of the loss; θ within 2
+    bfloat16 ulps a step of the leaf's largest |θ|; m within 2^-6 a step
+    of the leaf's largest |m| (about two bfloat16 roundings of a gradient
+    a step).  Returns the worst θ error in bfloat16 ulps of its leaf's
+    scale, the worst share of a bar (θ or m), the share of θ elements that
+    differ, the worst loss error in bfloat16 ulps and the worst m error
+    relative to its leaf's scale."""
+    import torch
+
+    (sa, la), (sb, lb) = base, other
+    loss_ulps = float(((la - lb).abs() / bf16_ulp(la)).max())
+    if loss_ulps > 2:
+        fail(f"phase 26: accum_steps 2 losses {lb.tolist()} vs {la.tolist()}: "
+             f"{loss_ulps:.2f} bf16 ulps")
+    worst_ulps = worst_share = worst_m = 0.0
+    differ = 0
+    for name, off, size in zip(layout.names, layout.offsets[:-1], layout.sizes):
+        err_t = err_m = scale_t = scale_m = 0.0
+        for a in range(off, off + size, TWIN_CHUNK):
+            b = min(a + TWIN_CHUNK, off + size)
+            ta, tb = sa.theta[:, a:b].float(), sb.theta[:, a:b].float()
+            ma, mb = sa.mom[:, a:b], sb.mom[:, a:b]
+            d = (ta - tb).abs()
+            err_t = max(err_t, float(d.max()))
+            differ += int((d > 0).sum())
+            err_m = max(err_m, float((ma - mb).abs().max()))
+            scale_t = max(scale_t, float(ta.abs().max()), float(tb.abs().max()))
+            scale_m = max(scale_m, float(ma.abs().max()), float(mb.abs().max()))
+            del ta, tb, ma, mb, d
+        ulp = float(bf16_ulp(torch.tensor(scale_t)))
+        share = max(err_t / (2 * KNOB_STEPS * ulp),
+                    err_m / (KNOB_STEPS * 2.0 ** -6 * scale_m) if scale_m else 0.0)
+        if share > 1:
+            fail(f"phase 26: accum_steps 2 differs in {name} by {err_t:.3e} (theta) and "
+                 f"{err_m:.3e} (m): {share:.2f}x the bar")
+        worst_ulps = max(worst_ulps, err_t / ulp)
+        worst_share = max(worst_share, share)
+        worst_m = max(worst_m, err_m / scale_m if scale_m else 0.0)
+    return worst_ulps, worst_share, differ / sa.theta.numel(), loss_ulps, worst_m
+
+
+def run_example(args):
+    """``python -m repro_torch.examples.<args>`` on the card: (stdout,
+    seconds)."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m"] + args, capture_output=True, text=True,
+                         env=env, cwd=ROOT, timeout=600)
+    if out.returncode != 0:
+        fail(f"python -m {' '.join(args)} exited {out.returncode}: {out.stderr[-2000:]}")
+    return out.stdout, time.perf_counter() - t0
+
+
+def phase_knobs(cfg, layout, batches):
+    """Phase 26: phase 4's trainer for KNOB_STEPS steps with accum_steps 1
+    and 2 (``accum_bar``) and with remat on (bit for bit remat off), ms a
+    step and peak per variant; then the two examples as modules on the
+    card (the quickstart's loss must fall).  The launch counters are zeroed
+    before the three runs and read after them.  Returns (launches,
+    numbers)."""
+    import re
+
+    import torch
+    from repro_torch.kernels import ops
+
+    log(PREDICT_26)
+    ops.reset_launch_counts()
+    base = knob_run(cfg, batches)
+    accum = knob_run(cfg, batches, accum_steps=2)
+    ulps, share, differ, loss_ulps, m_rel = accum_bar(layout, base[:2], accum[:2])
+    accum_numbers = {"step_ms": accum[3], "peak_bytes": int(accum[4])}
+    del accum
+    torch.cuda.empty_cache()
+    remat = knob_run(dataclasses.replace(cfg, remat=True), batches)
+    counts = ops.launch_counts()
+    if not (torch.equal(remat[1], base[1]) and torch.equal(remat[2], base[2])):
+        fail("phase 26: remat losses or norms differ from the run without remat")
+    equal_in_chunks("phase 26 remat", "the run without remat",
+                    {"theta": remat[0].theta, "mom": remat[0].mom},
+                    {"theta": base[0].theta, "mom": base[0].mom})
+    runs = 3 * KNOB_STEPS
+    if counts != {"gossip_program_update": runs, "gossip_update": 0,
+                  "segment_l2_norms": runs, "flash_attention": 0}:
+        fail(f"phase 26: launch counts {counts}, expected {runs} of K1 and K3")
+    variants = {
+        "accum_steps 1": {"step_ms": base[3], "peak_bytes": int(base[4])},
+        "accum_steps 2": accum_numbers,
+        "remat": {"step_ms": remat[3], "peak_bytes": int(remat[4])},
+    }
+    del base, remat
+    torch.cuda.empty_cache()
+    quick, quick_s = run_example(["repro_torch.examples.quickstart"])
+    m = re.search(r"final mean-replica loss: ([0-9.]+) \(from ([0-9.]+)\)", quick)
+    if m is None or not float(m.group(1)) < float(m.group(2)):
+        fail(f"phase 26: the quickstart's loss did not fall: {quick[-500:]}")
+    white, white_s = run_example(["repro_torch.examples.dbench_whitebox", "--steps",
+                                  str(EXAMPLE_STEPS)])
+    if "variance-rank integration" not in white:
+        fail(f"phase 26: dbench_whitebox printed no rank table: {white[-500:]}")
+    numbers = {
+        "variants": variants, "launches": counts,
+        "accum": {"theta_bf16_ulps": ulps, "share_of_bar": share, "theta_differing_share": differ,
+                  "loss_bf16_ulps": loss_ulps, "mom_rel_err": m_rel},
+        "quickstart": {"loss_from": float(m.group(2)), "loss_to": float(m.group(1)),
+                       "seconds": quick_s},
+        "dbench_whitebox": {"steps": EXAMPLE_STEPS, "seconds": white_s},
+    }
+    log(f"phase 26: remat == no remat bit for bit; accum_steps 2 within its bar (theta "
+        f"{ulps:.2f} bf16 ulps of its leaf's scale, {differ:.4f} of the elements differ; m "
+        f"{m_rel:.3e} of its leaf's scale; {share:.3f} of the bar; losses {loss_ulps:.2f} "
+        f"bf16 ulps); ms a step / peak GiB: "
+        + "; ".join(f"{k} {[round(x, 1) for x in v['step_ms']]} / {v['peak_bytes'] / 2**30:.2f}"
+                    for k, v in variants.items())
+        + f"; quickstart loss {m.group(2)} -> {m.group(1)} ({quick_s:.1f} s), dbench_whitebox "
+          f"--steps {EXAMPLE_STEPS} ({white_s:.1f} s); launches {counts}")
+    return counts, numbers
+
+
 def main():
     import numpy as np
     import torch
@@ -2764,6 +3349,29 @@ def main():
     ranks22 = phase_fault_ranks(sample)
     torch.cuda.empty_cache()
 
+    # 23. the stacked trainer checkpointed and resumed
+    t23 = time.perf_counter()
+    launches23, resume23, members23 = phase_stacked_resume(cfg, layout, batches14, peak)
+    resume23["wall_s"] = time.perf_counter() - t23
+    torch.cuda.empty_cache()
+
+    # 24. the ranks engine checkpointed and resumed; its file against phase 4
+    ranks24 = phase_ranks_resume(layout, sample, step0, members23)
+    del step0
+    torch.cuda.empty_cache()
+
+    # 25. the simulator checkpointed and resumed
+    t25 = time.perf_counter()
+    launches25, sim25 = phase_sim_resume(dev)
+    sim25["wall_s"] = time.perf_counter() - t25
+    torch.cuda.empty_cache()
+
+    # 26. the trainer's knobs and the examples
+    t26 = time.perf_counter()
+    launches26, knobs26 = phase_knobs(cfg, layout, batches)
+    knobs26["wall_s"] = time.perf_counter() - t26
+    torch.cuda.empty_cache()
+
     summary = {
         "card": smi,
         "model": f"{cfg.name} x{cfg.n_layers} layers, bf16, G={G}, seq {SEQ}, "
@@ -2785,6 +3393,10 @@ def main():
         "fault_buckets": faults20,
         "fault_simulator": faults21,
         "fault_ranks": ranks22,
+        "stacked_resume": resume23,
+        "ranks_resume": ranks24,
+        "simulator_resume": sim25,
+        "knobs": knobs26,
     }
     log("summary " + json.dumps(summary))
     # each kernel's launches on every main path that runs it
@@ -2795,9 +3407,12 @@ def main():
                                   "phase 17": launches17["gossip_program_update"],
                                   "phase 18": launches18["gossip_program_update"],
                                   "phase 19": launches19["gossip_program_update"],
-                                  "phase 20": launches20["gossip_program_update"]},
+                                  "phase 20": launches20["gossip_program_update"],
+                                  "phase 23": launches23["gossip_program_update"],
+                                  "phase 26": launches26["gossip_program_update"]},
         "gossip_update": {"phase 9": ranks9["launches"]["gossip_update"],
-                          "phase 22": ranks22["launches"]["gossip_update"]},
+                          "phase 22": ranks22["launches"]["gossip_update"],
+                          "phase 24": ranks24["launches"]["gossip_update"]},
         "segment_l2_norms": {"phase 4": counts["segment_l2_norms"],
                              "phase 9": ranks9["launches"]["segment_l2_norms"],
                              "phase 13": launches13["segment_l2_norms"],
@@ -2809,7 +3424,11 @@ def main():
                              "phase 19": launches19["segment_l2_norms"],
                              "phase 20": launches20["segment_l2_norms"],
                              "phase 21": launches21["segment_l2_norms"],
-                             "phase 22": ranks22["launches"]["segment_l2_norms"]},
+                             "phase 22": ranks22["launches"]["segment_l2_norms"],
+                             "phase 23": launches23["segment_l2_norms"],
+                             "phase 24": ranks24["launches"]["segment_l2_norms"],
+                             "phase 25": launches25["segment_l2_norms"],
+                             "phase 26": launches26["segment_l2_norms"]},
         "flash_attention": {"phase 12": k4_launches},
     }
     kernels = [

@@ -48,7 +48,8 @@ class ArchConfig:
     attn_chunk: int = 1024
     sliding_window: Optional[int] = None
     rec_chunk: int = 64          # recurrence chunk (ssm/hybrid)
-    remat: bool = True           # memory only; the port's 2-layer cut ignores it
+    remat: bool = True           # checkpoint every layer (the reference's default)
+    remat_policy: str = "full"   # full | dots (keep the matrix products' outputs)
     dtype: Any = torch.bfloat16
     # citation for the config numbers
     source: str = ""

@@ -348,6 +348,18 @@ class XiFold:
         if fold:
             self.sq, self.step = tok, step + 1
 
+    def state_dict(self) -> Optional[dict]:
+        """The pending fold for a checkpoint's ``extra`` (None without one):
+        a resumed closed loop reads the very Ξ the uninterrupted run would."""
+        if self.sq is None:
+            return None
+        return {"step": self.step, "sq": [float(x) for x in self.sq.cpu()]}
+
+    def load_state_dict(self, d: Optional[dict], device) -> None:
+        if d is not None:
+            self.sq = torch.tensor(d["sq"], dtype=torch.float32, device=device)
+            self.step = int(d["step"])
+
     def probe(self, controller, telemetry, step: int, standalone: Callable[[], float]) -> None:
         """The closed-loop probe at ``step``, when ``controller`` (None
         for no controller) probes there; the probe may change the rung,

@@ -16,9 +16,11 @@ from typing import Callable, Mapping, Optional
 
 import torch
 
+from repro_torch.models.common import unflatten_tree
 from repro_torch.optim.sgd import state_from, state_parts
 
-__all__ = ["FlatLayout", "node_grads_into", "opt_buffers", "update_leaves"]
+__all__ = ["FlatLayout", "checkpoint_tree", "node_grads_into", "opt_buffers",
+           "update_leaves"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -139,17 +141,61 @@ def update_leaves(optimizer, update: Callable, layout: FlatLayout, theta: torch.
 
 
 def node_grads_into(loss_fn: Callable, layout: FlatLayout, theta: torch.Tensor,
-                    grad: torch.Tensor, batch: Mapping, *extra) -> torch.Tensor:
+                    grad: torch.Tensor, batch: Mapping, *extra,
+                    accum_steps: int = 1) -> torch.Tensor:
     """Per-node loss and gradients, one node (row) at a time, so only one
     node's activations are alive: ``loss_fn(params, node_batch, *extra)``
     on row i's leaf views of ``theta``, its gradients written into row i of
-    ``grad`` (same shape and dtype).  Returns the (rows,) float32 losses."""
+    ``grad`` (same shape and dtype).  Returns the (rows,) float32 losses.
+
+    With ``accum_steps`` k > 1 a node's batch splits along its first axis
+    into k microbatches (the reference's reshape to (k, B/k, ...)); the
+    loss and the gradients are their means, summed from zero in microbatch
+    order as the reference's scan sums them, the gradients IN PLACE in the
+    node's row of ``grad`` (in its dtype: a bfloat16 row rounds each
+    partial sum, where the reference carries a float32 tree)."""
     losses = torch.empty(theta.shape[0], dtype=torch.float32, device=theta.device)
     for i in range(theta.shape[0]):
-        params = {k: v.detach().requires_grad_() for k, v in layout.views(theta[i]).items()}
-        loss = loss_fn(params, {k: v[i] for k, v in batch.items()}, *extra)
-        grads = torch.autograd.grad(loss, list(params.values()))
-        for view, gi in zip(layout.views(grad[i]).values(), grads):
-            view.copy_(gi)
-        losses[i] = loss.detach()
+        node_batch = {k: v[i] for k, v in batch.items()}
+        views = layout.views(grad[i]).values()
+        if accum_steps == 1:
+            loss, grads = _loss_and_grads(loss_fn, layout, theta[i], node_batch, extra)
+            for view, gi in zip(views, grads):
+                view.copy_(gi)
+            losses[i] = loss
+            continue
+        micro = {}
+        for k, v in node_batch.items():
+            if v.shape[0] % accum_steps:
+                raise ValueError(f"per-node batch {v.shape[0]} ({k}) does not split into "
+                                 f"{accum_steps} microbatches")
+            micro[k] = v.reshape((accum_steps, v.shape[0] // accum_steps) + v.shape[1:])
+        total = torch.zeros((), dtype=torch.float32, device=theta.device)
+        for view in views:
+            view.zero_()
+        for m in range(accum_steps):
+            loss, grads = _loss_and_grads(loss_fn, layout, theta[i],
+                                          {k: v[m] for k, v in micro.items()}, extra)
+            for view, gi in zip(views, grads):
+                view.add_(gi / accum_steps)
+            total = total + loss.float() / accum_steps
+        losses[i] = total
     return losses
+
+
+def _loss_and_grads(loss_fn, layout: FlatLayout, row: torch.Tensor, batch, extra):
+    """One node's loss (detached) and its gradients, in leaf order."""
+    params = {k: v.detach().requires_grad_() for k, v in layout.views(row).items()}
+    loss = loss_fn(params, batch, *extra)
+    return loss.detach(), torch.autograd.grad(loss, list(params.values()))
+
+
+def checkpoint_tree(optimizer, layout: FlatLayout, theta: torch.Tensor, opt: dict) -> dict:
+    """The flat state as the reference's ``{"p": params, "o": opt_state}``
+    tree of (rows, ...) leaves: views into the buffers, no copy, nested by
+    the leaves' dotted names (``checkpoint/ckpt.py`` keys them by their
+    tree paths).  The optimizer state takes the reference's shape:
+    params-like (momentum, LARS), ``{"mu", "nu", "t"}`` (AdamW) or ``()``."""
+    parts = {s: unflatten_tree(layout.stacked_views(opt[s])) for s in optimizer.slots}
+    return {"p": unflatten_tree(layout.stacked_views(theta)),
+            "o": state_from(optimizer, parts, opt.get("t"))}

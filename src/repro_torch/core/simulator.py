@@ -55,6 +55,14 @@ controller, whose probe is over the members only; a permanent membership
 selects its degraded program; stragglers and dead nodes skip their local
 update and the mix runs under the runtime masks (``apply_masked``).
 
+A checkpoint holds ``checkpoint_tree(state)`` (the reference's ``{"p",
+"o"}`` tree of (n, ...) views) and ``snapshot_extra()``: the run
+configuration, ``n`` (outside the validated configuration: joins grow it,
+and ``restore_extra`` resizes the topology to match), the membership
+tracking, the controller's and the recorder's state and a pending Ξ fold;
+fault realizations are pure in ``(seed, step)``, so a resumed run replays
+the uninterrupted one bit for bit.
+
 Node sharding and the retrace guard are later slices (ROADMAP queue 1
 item 7); their arguments raise.
 """
@@ -67,6 +75,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import dbench
+from repro_torch.checkpoint.ckpt import validate_run_config
 from repro_torch.core.buckets import (
     BucketLayout, XiFold, build_bucket_step, check_bucketable,
 )
@@ -78,7 +87,7 @@ from repro_torch.core.faults import (
     admit_node, membership_events, realization_arrays, rejoin_neighbors,
 )
 from repro_torch.core.flat import (
-    FlatLayout, node_grads_into, opt_buffers, update_leaves,
+    FlatLayout, checkpoint_tree, node_grads_into, opt_buffers, update_leaves,
 )
 from repro_torch.device import resolve_device
 from repro_torch.models.common import flatten_tree
@@ -387,6 +396,59 @@ class DecentralizedSimulator:
         if tel.due(step):
             tel.step_metrics(step, loss=losses, lr=lr,
                              norms=norms if self.collect_norms else None, grads=grads)
+
+    # -- crash-consistent resume -------------------------------------------------
+    def checkpoint_tree(self, state: SimState) -> dict:
+        """The state as the reference's ``{"p", "o"}`` tree of (n, ...)
+        views into its buffers (``checkpoint.save_checkpoint`` writes it,
+        ``checkpoint.restore_checkpoint`` fills it in place)."""
+        return checkpoint_tree(self.optimizer, state.layout, state.theta, state.opt)
+
+    def snapshot_extra(self) -> dict:
+        """Engine run state a crash-consistent checkpoint must carry beyond
+        the arrays: the run configuration (topology, bucket layout), ``n``
+        (outside ``run_config``: elastic joins grow it), the membership
+        tracking, the controller's and the recorder's state, and a pending
+        Ξ fold.  JSON-serializable."""
+        d: dict = {
+            "run_config": {
+                "topology": self.topology.name,
+                "bucket_mb": None if self.bucket_mb is None else float(self.bucket_mb),
+            },
+            "n": int(self.n),
+            "last_membership": (None if self._last_membership is None
+                                else [bool(b) for b in self._last_membership]),
+        }
+        ctl = self.topology.controller
+        if ctl is not None:
+            d["controller"] = ctl.state_dict()
+        d["telemetry"] = self.telemetry.state_dict()
+        fold = self._fold.state_dict()
+        if fold is not None:
+            d["xi_fold"] = fold
+        return d
+
+    def restore_extra(self, d: dict) -> None:
+        """Inverse of ``snapshot_extra`` on a freshly built engine: the
+        recorded ``run_config`` (topology and bucket layout, not n) is
+        validated first; a grown ``n`` resizes the topology (an elastic
+        resume), so that ``init`` then builds the state at that size."""
+        validate_run_config(d.get("run_config") or {}, topology=self.topology.name,
+                            bucket_mb=self.bucket_mb)
+        n = int(d.get("n", self.n))
+        if n != self.n:
+            self.topology = self.topology.resized(n)
+            self.n = n
+            if self.topology.controller is not None:
+                self.topology.controller.bind_recorder(self.telemetry)
+        lm = d.get("last_membership")
+        self._last_membership = None if lm is None else tuple(bool(b) for b in lm)
+        ctl = self.topology.controller
+        if ctl is not None and d.get("controller") is not None:
+            ctl.load_state_dict(d["controller"])
+        if d.get("telemetry") is not None:
+            self.telemetry.load_state_dict(d["telemetry"])
+        self._fold.load_state_dict(d.get("xi_fold"), self.device)
 
     # -- full run helper ---------------------------------------------------------
     def run(

@@ -1,1 +1,1 @@
-from repro_torch.data.synthetic import SyntheticLM
+from repro_torch.data.synthetic import SyntheticLM, node_batch_iterator

@@ -1,7 +1,8 @@
 """Deterministic synthetic LM data with per-node disjoint shards.
 
 A numpy copy of the reference ``SyntheticLM`` (``repro/data/synthetic.py``):
-seeded per (seed, node, step), so both packages draw bit-identical batches.
+seeded per (seed, node, step), so both packages draw bit-identical batches;
+``node_batch_iterator`` yields them as tensors on a device.
 
 The token stream is a learnable-structure Markov-ish source (next token =
 affine function of current + noise) so that training loss decreases.
@@ -9,10 +10,14 @@ affine function of current + noise) so that training loss decreases.
 from __future__ import annotations
 
 import dataclasses
+from typing import Iterator, Optional
 
 import numpy as np
+import torch
 
-__all__ = ["SyntheticLM"]
+from repro_torch.device import resolve_device
+
+__all__ = ["SyntheticLM", "node_batch_iterator"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,3 +59,26 @@ class SyntheticLM:
         outs = [self.sample(i, step, per_node_batch) for i in range(n_nodes)]
         return {k: np.stack([o[k] for o in outs]) for k in outs[0]}
 
+
+
+def node_batch_iterator(
+    source: SyntheticLM,
+    n_nodes: int,
+    per_node_batch: int,
+    *,
+    start_step: int = 0,
+    extra: Optional[dict] = None,
+    device=None,
+) -> Iterator[dict]:
+    """Infinite iterator of stacked per-node batches from ``start_step`` on,
+    as tensors on ``device`` (the card by default); ``extra`` entries are
+    added to every batch."""
+    dev = resolve_device(device)
+    step = start_step
+    while True:
+        b = source.stacked(n_nodes, step, per_node_batch)
+        out = {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+        if extra:
+            out.update(extra)
+        yield out
+        step += 1

@@ -190,6 +190,76 @@ class Comm:
                 rows[:, a:b].copy_(r)
         return out
 
+    # -- gather to and scatter from one rank's host memory -------------------------
+    def _rows_chunks(self, nbytes: int):
+        """Byte ranges [a, b) of a row of which ``world`` rows fit one
+        staged chunk."""
+        per = CHUNK_BYTES // self.world
+        for a in range(0, nbytes, per):
+            yield a, min(a + per, nbytes)
+
+    def _staged_rows(self, n: int) -> torch.Tensor:
+        """(world, n) staging bytes: the pinned receive chunk (gloo-host) or
+        a device buffer (NCCL)."""
+        if self.transport == "gloo-host":
+            return self._host_buffers(torch.uint8)[1][: self.world * n].view(self.world, n)
+        return torch.empty((self.world, n), dtype=torch.uint8, device=self.device)
+
+    def gather_host(self, x: torch.Tensor, dst: int = 0):
+        """Every rank's ``x`` (the same shape everywhere) gathered into
+        ``dst``'s host memory, column chunk by column chunk: a (world,
+        x.numel()) CPU tensor, rows in rank order, on ``dst``; None
+        elsewhere.  Every rank must call it.  Unlike ``all_gather`` no rank
+        holds more than a chunk of the result on its device."""
+        self._check(x)
+        dtype = x.dtype
+        x = x.view(-1).view(torch.uint8)   # bytes: every backend moves them
+        mine = self.rank == dst
+        out = torch.empty((self.world, x.numel()), dtype=x.dtype) if mine else None
+        for a, b in self._rows_chunks(x.numel()):
+            if self.transport == "gloo":
+                dist.gather(x[a:b], list(out[:, a:b].unbind(0)) if mine else None, dst=dst)
+                continue
+            send = x[a:b]
+            if self.transport == "gloo-host":
+                send = self._host_buffers(torch.uint8)[0][: b - a]
+                send.copy_(x[a:b])
+            rows = self._staged_rows(b - a) if mine else None
+            dist.gather(send, list(rows.unbind(0)) if mine else None, dst=dst)
+            if mine:
+                out[:, a:b].copy_(rows)
+        return None if out is None else out.view(dtype)
+
+    def scatter_host(self, out: torch.Tensor, rows=None, src: int = 0) -> torch.Tensor:
+        """Inverse of ``gather_host``: ``src`` holds ``rows`` ((world,
+        out.numel()) in host memory) and every rank receives its own row
+        into ``out``, IN PLACE, column chunk by column chunk.  Every rank
+        must call it; returns ``out``."""
+        self._check(out)
+        mine = self.rank == src
+        if mine and (rows is None or tuple(rows.shape) != (self.world, out.numel())):
+            raise ValueError(f"scatter_host needs ({self.world}, {out.numel()}) rows on "
+                             f"rank {src}")
+        flat = out.view(-1).view(torch.uint8)   # bytes: every backend moves them
+        if mine:
+            rows = rows.to(out.dtype).contiguous().view(torch.uint8)
+        for a, b in self._rows_chunks(flat.numel()):
+            if self.transport == "gloo":
+                parts = [r.contiguous() for r in rows[:, a:b].unbind(0)] if mine else None
+                dist.scatter(flat[a:b], parts, src=src)
+                continue
+            staged = None
+            if mine:
+                staged = self._staged_rows(b - a)
+                staged.copy_(rows[:, a:b])
+            recv = flat[a:b]
+            if self.transport == "gloo-host":
+                recv = self._host_buffers(torch.uint8)[0][: b - a]
+            dist.scatter(recv, list(staged.unbind(0)) if mine else None, src=src)
+            if self.transport == "gloo-host":
+                flat[a:b].copy_(recv)
+        return out
+
 
 # ---------------------------------------------------------------------------
 # A world of ranks on this machine

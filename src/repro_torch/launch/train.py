@@ -80,8 +80,23 @@ interpreters the runtime masks.  Elastic ``Join`` models grow past the
 fixed set of nodes and are refused: ``SparePool`` takes joins as spare
 activations instead.
 
-Checkpoints are a later slice; the CLI rejects their flags and names the
-ROADMAP item that brings them.
+``loss_fn`` replaces the transformer's loss (a function of one node's flat
+parameter dict and batch); ``accum_steps`` k splits every node's batch into
+k microbatches whose loss and gradients are averaged as the reference's
+``_grads_of`` does, the gradients accumulated in place in the gradient
+buffer, on every path (fused or not, both engines).  The model's ``remat``
+checkpoints each layer (``models/transformer.py``).
+
+Checkpoints are the reference's files (``checkpoint/ckpt.py``): the state
+as the ``{"p": params, "o": opt_state}`` tree of (G, ...) leaves, saved from
+and restored into the flat buffers in place, with ``snapshot_extra`` (the
+run configuration, G included, the membership tracking, the controller's
+and the recorder's state, a pending Ξ fold) in the same file.  The ranks
+engine writes the stacked engine's file: every leaf is gathered to rank
+0's host memory column chunk by column chunk, and restored by the inverse
+scatter, each rank receiving only its own row; rank 0 alone touches the
+file.  The CLI's ``--ckpt-dir``/``--ckpt-every``/``--resume`` drive it, and
+a resumed run continues the uninterrupted one bit for bit.
 """
 from __future__ import annotations
 
@@ -89,11 +104,16 @@ import dataclasses
 import math
 import os
 import time
+import zipfile
 from typing import Optional
 
 import torch
 import torch.distributed as dist
 
+from repro_torch.checkpoint.ckpt import (
+    checkpoint_path, flatten, leaf_shapes, load_checkpoint_extra, map_leaves, read_leaf,
+    resolve_step, restore_checkpoint, save_checkpoint, validate_run_config,
+)
 from repro_torch.core import dbench
 from repro_torch.core.buckets import (
     BucketLayout, XiFold, build_bucket_step, check_bucketable,
@@ -107,7 +127,7 @@ from repro_torch.core.faults import (
     fold_degraded_programs, membership_events, realization_arrays,
 )
 from repro_torch.core.flat import (
-    FlatLayout, node_grads_into, opt_buffers, update_leaves,
+    FlatLayout, checkpoint_tree, node_grads_into, opt_buffers, update_leaves,
 )
 from repro_torch.core.schedule import (
     FusedProgram, GossipProgram, compile_graph, dense_program, maybe_hub_balanced,
@@ -152,6 +172,8 @@ class SPMDTrainer:
         topology: Topology,
         optimizer: Optimizer,
         *,
+        loss_fn=None,
+        accum_steps: int = 1,
         collect_norms: bool = False,
         mixing: str = "ppermute",  # ppermute (compiled program) | dense
         mix_every: int = 1,
@@ -162,7 +184,10 @@ class SPMDTrainer:
         telemetry=None,
         device=None,
     ):
-        """mix_every: gossip once every H optimizer steps (the H−1 local
+        """loss_fn: ``loss_fn(params, batch)`` of one node's flat parameter
+        dict and batch (the transformer's loss by default).  accum_steps:
+        average the loss and gradients over this many microbatches of each
+        node's batch.  mix_every: gossip once every H optimizer steps (the H−1 local
         steps run no mixing).  mix_rounds: fuse H consecutive schedule
         steps into each gossip round.  hub_balance: with mix_rounds > 1 on
         a static multi-matching program, rotate its matchings over the H
@@ -202,6 +227,8 @@ class SPMDTrainer:
         self.cfg = cfg
         self.topology = topology
         self.optimizer = optimizer
+        self.loss_fn = loss_fn or (lambda p, b: tfm.loss_fn(p, cfg, b))
+        self.accum_steps = max(int(accum_steps), 1)
         self.beta = float(hyper.get("momentum", 0.0))
         self.collect_norms = collect_norms
         self.mixing = mixing
@@ -335,8 +362,8 @@ class SPMDTrainer:
     def _grads_into(self, theta, grad, batch) -> torch.Tensor:
         """Per-node loss and gradients, one node (row) at a time; returns
         (rows,) losses."""
-        return node_grads_into(lambda p, b: tfm.loss_fn(p, self.cfg, b), self.layout,
-                               theta, grad, batch)
+        return node_grads_into(self.loss_fn, self.layout, theta, grad, batch,
+                               accum_steps=self.accum_steps)
 
     def _mix(self, program: GossipProgram, x: torch.Tensor, fault=None) -> torch.Tensor:
         """One program's mix of ``x``: stacked or on this rank, under the
@@ -500,6 +527,124 @@ class SPMDTrainer:
                              norms=norms if self.collect_norms else None, grads=grads)
 
 
+    # -- crash-consistent resume -------------------------------------------------
+    def checkpoint_tree(self, state: TrainState) -> dict:
+        """The state as the reference's ``{"p", "o"}`` tree of (rows, ...)
+        views into its flat buffers."""
+        return checkpoint_tree(self.optimizer, self.layout, state.theta, state.opt)
+
+    def snapshot_extra(self) -> dict:
+        """Engine run state a crash-consistent checkpoint must carry beyond
+        the arrays: ``run_config`` (topology, the gossip size G, the bucket
+        layout: a mismatched resume fails fast), the membership tracking,
+        the controller's and the recorder's state, and a pending Ξ fold.
+        Fault realizations are pure in ``(seed, step)`` and a
+        ``GossipDeadline`` rebuilds its backoff by replay: neither needs
+        persisting."""
+        d: dict = {
+            "run_config": {
+                "topology": self.topology.name,
+                "n": int(self.g),
+                "bucket_mb": None if self.bucket_mb is None else float(self.bucket_mb),
+            },
+            "last_membership": (None if self._last_membership is None
+                                else [bool(b) for b in self._last_membership]),
+        }
+        ctl = self.topology.controller
+        if ctl is not None:
+            d["controller"] = ctl.state_dict()
+        d["telemetry"] = self.telemetry.state_dict()
+        fold = self._fold.state_dict()
+        if fold is not None:
+            d["xi_fold"] = fold
+        return d
+
+    def restore_extra(self, d: dict) -> None:
+        """Inverse of ``snapshot_extra`` on a freshly built trainer; the
+        recorded ``run_config`` is validated first."""
+        validate_run_config(d.get("run_config") or {}, topology=self.topology.name,
+                            n=int(self.g), bucket_mb=self.bucket_mb,
+                            n_label="mesh gossip size")
+        lm = d.get("last_membership")
+        self._last_membership = None if lm is None else tuple(bool(b) for b in lm)
+        ctl = self.topology.controller
+        if ctl is not None and d.get("controller") is not None:
+            ctl.load_state_dict(d["controller"])
+        if d.get("telemetry") is not None:
+            # resumed counters and span totals continue instead of restarting
+            self.telemetry.load_state_dict(d["telemetry"])
+        self._fold.load_state_dict(d.get("xi_fold"), self.device)
+
+    def save_checkpoint(self, directory: str, state: TrainState, *, keep: int = 3):
+        """Write ``state`` at its step with ``snapshot_extra`` (the
+        reference's file).  On the ranks engine every rank must call it:
+        each leaf is gathered to rank 0's host memory, column chunk by
+        column chunk, and rank 0 alone writes.  Returns the file's path
+        (None on the other ranks)."""
+        tree = self.checkpoint_tree(state)
+        if self.comm is None:
+            return save_checkpoint(directory, state.step, tree, keep=keep,
+                                   extra=self.snapshot_extra())
+        comm = self.comm
+        gathered = map_leaves(
+            lambda v: lambda: _gathered(comm.gather_host(v), v.shape[1:]), tree)
+        if comm.rank == 0:
+            return save_checkpoint(directory, state.step, gathered, keep=keep,
+                                   extra=self.snapshot_extra())
+        for _, gather in flatten(gathered):
+            gather()
+        return None
+
+    def restore_checkpoint(self, directory: str, state: TrainState,
+                           step: Optional[int] = None) -> int:
+        """Restore a checkpoint (the latest by default) into ``state``'s
+        buffers IN PLACE: first the run state (``restore_extra``, whose
+        validation fails a mismatched resume before anything is restored),
+        then every leaf, shapes checked first.  On the ranks engine every
+        rank must call it: rank 0 alone reads the file, the run state goes
+        to every rank, and each leaf is scattered column chunk by column
+        chunk, every rank receiving only its own row.  Returns the step
+        (``state.step`` is left to the caller)."""
+        if self.comm is None:
+            step = resolve_step(directory, step)
+            self.restore_extra(load_checkpoint_extra(directory, step) or {})
+            return restore_checkpoint(directory, self.checkpoint_tree(state), step)
+        comm = self.comm
+        leaves = flatten(self.checkpoint_tree(state))
+        head = [None, None, None]   # step, extra, a shape error
+        if comm.rank == 0:
+            head[0] = resolve_step(directory, step)
+            head[1] = load_checkpoint_extra(directory, head[0]) or {}
+            with zipfile.ZipFile(checkpoint_path(directory, head[0])) as zf:
+                shapes = leaf_shapes(zf)
+            bad = [f"checkpoint leaf {k}: shape {shapes.get(k)} != template "
+                   f"{(self.g,) + tuple(v.shape[1:])}" for k, v in leaves
+                   if shapes.get(k) != (self.g,) + tuple(v.shape[1:])]
+            head[2] = bad[0] if bad else None
+        dist.broadcast_object_list(head, src=0)
+        step, extra, bad = head
+        self.restore_extra(extra)
+        if bad:
+            raise ValueError(bad)
+        zf = zipfile.ZipFile(checkpoint_path(directory, step)) if comm.rank == 0 else None
+        try:
+            for key, v in leaves:
+                rows = None
+                if zf is not None:
+                    rows = read_leaf(zf, key, v.dtype).reshape(comm.world, -1)
+                comm.scatter_host(v, rows)
+        finally:
+            if zf is not None:
+                zf.close()
+        return step
+
+
+def _gathered(rows: Optional[torch.Tensor], shape) -> Optional[torch.Tensor]:
+    """A leaf gathered by ``Comm.gather_host`` as its (world, *shape) tree
+    leaf (None off rank 0)."""
+    return None if rows is None else rows.view((rows.shape[0],) + tuple(shape))
+
+
 # ---------------------------------------------------------------------------
 # CLI launcher:  PYTHONPATH=src python -m repro_torch.launch.train --reduced
 # ---------------------------------------------------------------------------
@@ -508,8 +653,8 @@ def _parser():
     import argparse
 
     ap = argparse.ArgumentParser(
-        description="decentralized training launcher (PyTorch port; flags of "
-                    "later slices are parsed and rejected)"
+        description="decentralized training launcher (PyTorch port; a model "
+                    "axis in --mesh is rejected until tensor parallelism is ported)"
     )
     ap.add_argument("--arch", default="granite-8b")
     ap.add_argument("--reduced", action="store_true",
@@ -583,27 +728,26 @@ def _parser():
     ap.add_argument("--mesh", default="4,1",
                     help="data,model: G gossip nodes (on one card, or one per "
                          "rank under torch.distributed.run); model must be 1")
-    ap.add_argument("--ckpt-dir", default="")
-    ap.add_argument("--ckpt-every", type=int, default=0)
-    ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--ckpt-dir", default="",
+                    help="write checkpoints here (the reference's step_<n>.npz files)")
+    ap.add_argument("--ckpt-every", type=int, default=0,
+                    help="checkpoint every this many steps (with --ckpt-dir)")
+    ap.add_argument("--resume", action="store_true",
+                    help="resume from the latest checkpoint in --ckpt-dir: parameters, "
+                         "optimizer state, the controller's run state, membership "
+                         "tracking and telemetry totals; fault realizations are pure "
+                         "in (seed, step), so the run continues bit for bit")
     ap.add_argument("--telemetry", default="",
                     help="stream structured run telemetry (JSONL) to this path: "
                          "round spans, comm-bytes counters, loss/xi/lr gauges, "
-                         "streamed DBench variance and controller events; read "
-                         "it with python -m repro_torch.telemetry summarize PATH")
+                         "streamed DBench variance, controller and checkpoint "
+                         "events; read it with python -m repro_torch.telemetry "
+                         "summarize PATH (with --resume the file is appended and "
+                         "the counters continue from the checkpoint)")
     ap.add_argument("--metrics-every", type=int, default=10,
                     help="gauge/variance emission cadence in steps (with "
                          "--telemetry; spans and counters are per step)")
     return ap
-
-
-def _unsupported(args) -> list[str]:
-    """Messages for every flag of a later slice that this run sets."""
-    out = []
-    if args.ckpt_dir or args.ckpt_every or args.resume:
-        out.append("--ckpt-dir / --ckpt-every / --resume (checkpoints): "
-                   "ROADMAP queue 1 item 4 (checkpoint)")
-    return out
 
 
 def _join_group(device):
@@ -628,9 +772,8 @@ def main(argv=None, *, device=None) -> dict:
     """Run the CLI; ``device`` (a keyword, not a flag) selects the CPU for
     tests.  Under ``torch.distributed.run --nproc-per-node G`` every process
     is one rank of the ranks engine.  Returns ``{"losses": [mean loss over
-    the nodes per step], "trainer", "state"}``."""
+    the nodes per step run], "trainer", "state"}``."""
     args = _parser().parse_args(argv)
-    rejected = _unsupported(args)
     try:
         shape = tuple(int(x) for x in args.mesh.split(","))
     except ValueError:
@@ -639,12 +782,10 @@ def main(argv=None, *, device=None) -> dict:
         raise SystemExit(f"--mesh must be 'data,model', got {args.mesh!r}")
     g, tp = shape
     if tp != 1:
-        rejected.append(
-            f"--mesh {args.mesh}: a model axis > 1 (tensor parallelism inside a "
-            "node) comes after the queue, ROADMAP queue 1 item 8"
+        raise SystemExit(
+            f"not ported yet:\n  --mesh {args.mesh}: a model axis > 1 (tensor "
+            "parallelism inside a node) comes after the queue, ROADMAP queue 1 item 8"
         )
-    if rejected:
-        raise SystemExit("not ported yet:\n  " + "\n  ".join(rejected))
     if args.k_floor == "one_peer":
         k_floor = "one_peer"
     else:
@@ -694,7 +835,7 @@ def _train(args, g, tp, k_floor, dev) -> dict:
         # rank 0 alone writes the stream
         rank0 = not dist.is_initialized() or dist.get_rank() == 0
         recorder = MetricsRecorder(
-            sinks=[JsonlSink(args.telemetry)] if rank0 else [],
+            sinks=[JsonlSink(args.telemetry, append=args.resume)] if rank0 else [],
             metrics_every=args.metrics_every, record_spans=True,
         )
     trainer = SPMDTrainer(
@@ -712,7 +853,7 @@ def _train(args, g, tp, k_floor, dev) -> dict:
         "topology": topo.describe(),
         "mesh": {"data": g, "model": tp},
         "seed": 0,
-        "resumed": False,
+        "resumed": bool(args.resume),
     })
     # report the apply path the step will ACTUALLY take: fused_apply takes
     # the interpreter for non-PPermute programs (complete, dense)
@@ -730,6 +871,14 @@ def _train(args, g, tp, k_floor, dev) -> dict:
     n_progs = len(trainer.precompile_programs(args.steps // args.steps_per_epoch + 1))
     say(f"{n_progs} distinct mixing program(s) over the run")
     state = trainer.init_state(seed=0)
+    start_step = 0
+    if args.resume:
+        if not args.ckpt_dir:
+            raise SystemExit("--resume requires --ckpt-dir")
+        start_step = trainer.restore_checkpoint(args.ckpt_dir, state)
+        state = TrainState(state.theta, state.opt, start_step)
+        trainer.telemetry.event("checkpoint_restore", start_step, data={"dir": args.ckpt_dir})
+        say(f"resumed from {args.ckpt_dir} at step {start_step}")
     src = SyntheticLM(vocab=cfg.vocab, seq_len=args.seq, seed=0)
     scale = lr_scale(
         args.lr_scaling, global_batch=g * args.per_node_batch,
@@ -737,7 +886,7 @@ def _train(args, g, tp, k_floor, dev) -> dict:
     )
     losses = []
     t0 = time.time()
-    for t in range(args.steps):
+    for t in range(start_step, args.steps):
         batch = src.stacked(g, t, args.per_node_batch)
         epoch = t // args.steps_per_epoch
         state, loss, norms = trainer.train_step(state, batch, args.lr * scale, epoch=epoch)
@@ -749,6 +898,9 @@ def _train(args, g, tp, k_floor, dev) -> dict:
         if t % 5 == 0 or t == args.steps - 1:
             say(f"step {t:4d} k={topo.degree_at(epoch, t)} loss={losses[-1]:.4f} "
                 f"spread={float(loss.max() - loss.min()):.4f}")
+        if args.ckpt_dir and args.ckpt_every and (t + 1) % args.ckpt_every == 0:
+            trainer.save_checkpoint(args.ckpt_dir, state)
+            trainer.telemetry.event("checkpoint_save", t + 1, data={"dir": args.ckpt_dir})
     say(f"{args.steps} steps in {time.time() - t0:.1f}s")
     if topo.controller is not None:
         ctl = topo.controller

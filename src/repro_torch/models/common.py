@@ -23,6 +23,7 @@ __all__ = [
     "init_params",
     "param_count",
     "flatten_tree",
+    "unflatten_tree",
     "rms_norm",
     "layer_norm",
     "rope",
@@ -89,6 +90,19 @@ def flatten_tree(tree: Mapping, prefix: str = "") -> dict[str, Any]:
             out.update(flatten_tree(v, path + "."))
         else:
             out[path] = v
+    return out
+
+
+def unflatten_tree(flat: Mapping[str, Any]) -> dict:
+    """Inverse of ``flatten_tree``: a flat dict keyed by dotted paths ->
+    the nested dict."""
+    out: dict = {}
+    for path, v in flat.items():
+        *parents, leaf = path.split(".")
+        node = out
+        for k in parents:
+            node = node.setdefault(k, {})
+        node[leaf] = v
     return out
 
 

@@ -7,14 +7,24 @@ against it).  Parameters are one flat dict keyed by the reference tree's
 paths joined with dots ("blocks.ffn.w_up"), in the reference's leaf order
 (sorted keys, depth first); layer parameters carry a leading L axis as
 ``stack_defs`` makes them, and the reference's ``lax.scan`` over layers is
-a Python loop.  ``remat`` (per-layer activation checkpointing in the
-reference) is ignored here today: serving keeps no activations, but both
-trainers backprop through ``loss_fn`` and keep every layer's, which at
-full depth decides what fits one card; ``torch.utils.checkpoint`` per
-layer is ROADMAP queue 1 item 6.
+a Python loop.
+
+``cfg.remat`` checkpoints every layer, as the reference's ``_maybe_remat``
+does: each block runs under ``torch.utils.checkpoint.checkpoint`` (non
+reentrant), which keeps the block's input and recomputes its activations
+in the backward pass; the numbers are those without remat, bit for bit.
+``remat_policy="dots"`` keeps the outputs of the matrix products
+(``mm``/``bmm``/``addmm``, which the block's ``einsum``s lower to) through
+a selective-checkpoint policy and recomputes the rest: the closest torch
+form of ``jax.checkpoint_policies.dots_saveable``, which keeps every dot
+with no batch dimension, where this keeps the lowered products, batched or
+not.  Remat applies only where autograd records the forward, and not under
+a ``torch.func`` transform (the simulator's vmapped gradients), which cannot
+run the saved-tensor hooks it needs; there the layers run as they are.
 """
 from __future__ import annotations
 
+import functools
 from typing import Mapping, NamedTuple, Optional
 
 import numpy as np
@@ -218,6 +228,38 @@ def _layers(params: Mapping, n_layers: int):
     return [{name: ts[li] for name, ts in stacked.items()} for li in range(n_layers)]
 
 
+# the matrix products a "dots" remat keeps (what the blocks' einsums lower to)
+_DOT_OPS = ("mm", "bmm", "addmm", "baddbmm")
+
+
+def _keep_dots(ctx, op, *args, **kwargs):
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    packet = getattr(op, "overloadpacket", None)
+    if packet is not None and packet.__name__ in _DOT_OPS:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(cfg: ArchConfig, block):
+    """``block`` under per-layer activation checkpointing when ``cfg.remat``
+    asks for it and autograd records outside any ``torch.func`` transform."""
+    if not cfg.remat or not torch.is_grad_enabled():
+        return block
+    if torch._C._functorch.peek_interpreter_stack() is not None:
+        return block
+    from torch.utils import checkpoint as ckpt
+
+    kw = {}
+    if cfg.remat_policy == "dots":
+        kw["context_fn"] = functools.partial(ckpt.create_selective_checkpoint_contexts,
+                                             _keep_dots)
+    elif cfg.remat_policy != "full":
+        raise ValueError(f"remat_policy must be 'full' or 'dots', got {cfg.remat_policy!r}")
+    return lambda *args, **kwargs: ckpt.checkpoint(block, *args, use_reentrant=False,
+                                                   **kw, **kwargs)
+
+
 def forward(params: Mapping, cfg: ArchConfig, tokens: torch.Tensor, *,
             window: Optional[int] = None, collect_cache: bool = False):
     """Full-sequence forward: tokens (B, S) -> logits (B, S, V).
@@ -229,9 +271,10 @@ def forward(params: Mapping, cfg: ArchConfig, tokens: torch.Tensor, *,
     b, s, _ = h.shape
     positions = torch.arange(s, dtype=torch.int32, device=h.device)[None].expand(b, s)
     entries = []
+    block = apply_attn_block if collect_cache else _remat(cfg, apply_attn_block)
     for lp in _layers(params, cfg.n_layers):
-        h, entry = apply_attn_block(lp, cfg, h, positions=positions, window=window,
-                                    collect_cache=collect_cache)
+        h, entry = block(lp, cfg, h, positions=positions, window=window,
+                         collect_cache=collect_cache)
         entries.append(entry)
     logits = _logits(params, cfg, h)
     if not collect_cache:

@@ -32,9 +32,11 @@ a step), kept in ``round_ms`` and marked as an overrun when it is longer
 than the deadline.  The trace is observational: the seeded model drives
 the masks.
 
-The reference's checkpoint payload (``state_dict``/``load_state_dict``)
-and its bench ``provenance`` stamp have no caller in the port yet: they
-come with the checkpoint and analysis items of ROADMAP queue 1 (4 and 7).
+A checkpoint carries the recorder's run totals (``state_dict``: counter
+totals, rounds, overruns, events), and ``load_state_dict`` continues them
+on a resumed run: ``rounds_total``/``overruns_total`` count both segments.
+The reference's bench ``provenance`` stamp comes with the analysis item of
+ROADMAP queue 1 (7).
 """
 from __future__ import annotations
 
@@ -102,6 +104,9 @@ class MetricsRecorder:
         # this run's measured round durations (ms) and deadline overruns
         self.round_ms: list = []
         self.deadline_overruns = 0
+        # totals carried across a --resume (load_state_dict)
+        self._rounds_prior = 0
+        self._overruns_prior = 0
         self.totals: dict[str, float] = {}
         self.last_gauges: dict[str, Optional[float]] = {}
         self.last_variance: Optional[dict] = None
@@ -125,6 +130,14 @@ class MetricsRecorder:
         synchronizes the device at the end of every step: with a deadline,
         or with sinks and ``record_spans``."""
         return self.deadline_ms is not None or (self.active and self.record_spans)
+
+    @property
+    def rounds_total(self) -> int:
+        return self._rounds_prior + len(self.round_ms)
+
+    @property
+    def overruns_total(self) -> int:
+        return self._overruns_prior + self.deadline_overruns
 
     def _emit(self, rec: dict) -> None:
         if not self.sinks:
@@ -281,3 +294,22 @@ class MetricsRecorder:
         self.last_variance = {"step": int(step), "metrics": metrics}
         self._emit({"kind": "variance", "step": int(step),
                     "metrics": metrics, "per_layer": per_layer})
+
+    # -- resume ----------------------------------------------------------------
+    def state_dict(self) -> dict:
+        """JSON-serializable run totals for the checkpoint's ``extra``
+        payload: a resumed run continues its counters and span/overrun
+        totals instead of restarting them at zero."""
+        return {
+            "schema": SCHEMA_VERSION,
+            "counters": dict(self.totals),
+            "rounds": self.rounds_total,
+            "overruns": self.overruns_total,
+            "events": int(self.event_count),
+        }
+
+    def load_state_dict(self, d: dict) -> None:
+        self.totals.update(d.get("counters") or {})
+        self._rounds_prior = int(d.get("rounds", 0))
+        self._overruns_prior = int(d.get("overruns", 0))
+        self.event_count += int(d.get("events", 0))

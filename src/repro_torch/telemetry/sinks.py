@@ -32,9 +32,8 @@ class JsonlSink:
 
     ``append=True`` continues an existing file — the ``--resume`` pathway:
     the resumed segment re-emits its own manifest (``resumed: true``) so
-    ``summarize`` can count run segments.  (The reference's recorder also
-    carries its counters across a resume; the port's gains that with
-    checkpoints, ROADMAP queue 1 item 4.)
+    ``summarize`` can count run segments, and the recorder, restored from
+    the checkpoint (``load_state_dict``), continues its counter totals.
 
     Per-record flush is deliberate: telemetry exists for runs that die —
     a crash must not lose the rounds that led up to it.  The cost is one

@@ -163,6 +163,35 @@ def comm_checks(comm, n):
     }
 
 
+def host_gather_checks(comm, n, dtype, chunk_bytes):
+    """``gather_host`` of every rank's (n,) rank-valued tensor into rank 0's
+    host memory, and ``scatter_host`` of those rows times two back, in
+    chunks of ``chunk_bytes`` (the transport's default when None).  Returns
+    ``{collective: equal}``."""
+    from repro_torch.launch import comm as comm_mod
+
+    if chunk_bytes is not None:
+        comm_mod.CHUNK_BYTES = chunk_bytes
+    dt = getattr(torch, dtype)
+    x = _rank_values(comm.rank, n, comm.device).to(dt)
+    # the device's values (its arange rounds past 2^24 as the CPU's may not)
+    want = torch.stack([_rank_values(r, n, comm.device).to(dt) for r in range(comm.world)]).cpu()
+    rows = comm.gather_host(x)
+    gather = rows is None if comm.rank else (rows.device.type == "cpu" and torch.equal(rows, want))
+    out = torch.full_like(x, float("nan"))
+    comm.scatter_host(out, None if comm.rank else rows * 2)
+    return {"transport": comm.transport, "gather": bool(gather),
+            "scatter": bool(torch.equal(out, x * 2))}
+
+
+def run_main(comm, argv):
+    """The CLI on this rank (the group is up, so it runs the ranks engine);
+    returns its per-step losses."""
+    from repro_torch.launch.train import main
+
+    return main(argv, device=comm.device)["losses"]
+
+
 def fail_on_rank_1(comm):
     """Rank 1 raises; the others wait for it in a collective."""
     if comm.rank == 1:

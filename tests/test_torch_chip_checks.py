@@ -8,8 +8,13 @@ wrong row stride fails (phase 16); the folded probe holds and a bucket
 left out of the fold fails (phase 17); run telemetry (phase 18); the fault
 runs hold and a K1 that ignores the fault rows fails (phase 19), their
 bucketed runs hold and fault rows built per bucket fail (phase 20), the
-simulator under faults equals the trainer (phase 21) and 4 gloo ranks
-under a crash with rejoin equal their stacked rows (phase 22)."""
+simulator under faults equals the trainer (phase 21), 4 gloo ranks
+under a crash with rejoin equal their stacked rows (phase 22), and the
+checkpoint phases hold: the stacked trainer's resume (phase 23; a restore
+that loses the controller or the momentum fails), the ranks engine's
+(phase 24; a file off phase 4's state fails), the simulator's (phase 25;
+a lost controller fails) and the knobs (phase 26; a θ or a loss off its
+bar fails the accumulation check)."""
 import dataclasses
 import math
 import sys
@@ -490,3 +495,136 @@ def test_compare_rows_exact_fails_a_one_ulp_difference():
     bad = dict(row, theta=np.nextafter(row["theta"], 2))
     with pytest.raises(SystemExit):
         chip_smoke.compare_rows_exact("bad", [row, bad], ref)
+
+
+# ---------------------------------------------------------------------------
+# Phases 23-26 on the CPU, at the reduced granite-8b size in bfloat16
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def ckpt_on_cpu(on_cpu, monkeypatch, tmp_path):
+    """Checkpoints under the test's directory; the device memory counters
+    read 0."""
+    monkeypatch.setattr(chip_smoke, "CKPT_DIR", tmp_path / "ckpt")
+    monkeypatch.setattr(torch.cuda, "memory_allocated", lambda *a: 0)
+    return tmp_path
+
+
+def _no_controller_restore(orig):
+    def run(self, d):
+        return orig(self, {k: v for k, v in d.items() if k != "controller"})
+    return run
+
+
+@pytest.mark.parametrize("mutant", [None, "controller", "momentum"])
+def test_phase23_stacked_resume_and_a_lost_restore_fails(ckpt_on_cpu, monkeypatch, mutant):
+    from repro_torch.launch import train as train_mod
+
+    cfg, layout, batches = _reduced(chip_smoke.RESUME_STEPS)
+    if mutant == "controller":
+        monkeypatch.setattr(train_mod.SPMDTrainer, "restore_extra",
+                            _no_controller_restore(train_mod.SPMDTrainer.restore_extra))
+    elif mutant == "momentum":   # the momentum is left as initialised
+        from repro_torch.checkpoint import ckpt as ckpt_mod
+
+        monkeypatch.setattr(train_mod, "restore_checkpoint", lambda d, target, step=None:
+                            ckpt_mod.restore_checkpoint(d, {"p": target["p"]}, step))
+    if mutant is not None:
+        with pytest.raises(SystemExit):
+            chip_smoke.phase_stacked_resume(cfg, layout, batches, 0)
+        return
+    counts, numbers, members = chip_smoke.phase_stacked_resume(cfg, layout, batches, 0)
+    runs = 2 * chip_smoke.RESUME_STEPS - chip_smoke.RESUME_CUT
+    assert counts["gossip_program_update"] == runs and counts["segment_l2_norms"] == runs
+    assert numbers["file_bytes"] >= numbers["expected_bytes"]
+    assert members[0].startswith("o/") and members[-1] == "__extra__.npy"
+    assert numbers["transitions"]
+    assert not list((ckpt_on_cpu / "ckpt").iterdir())   # the phase removed its file
+
+
+def test_phase24_ranks_resume_on_cpu(ckpt_on_cpu, monkeypatch):
+    import numpy as np
+
+    from repro_torch.checkpoint.ckpt import flatten
+
+    monkeypatch.setattr(chip_smoke, "SAMPLE", 64)
+    cfg = chip_smoke.fault_rank_cfg("cpu")
+    from repro_torch.core.flat import FlatLayout
+    from repro_torch.models import transformer as tfm
+
+    layout = FlatLayout.from_shapes({k: d.shape for k, d in tfm.model_defs(cfg).items()})
+    sample = chip_smoke.sample_columns(layout)
+    trainer = SPMDTrainer(cfg, make_topology("d_ring", chip_smoke.G), sgd(momentum=0.9),
+                          collect_norms=True, fused_apply=True, device="cpu")
+    state = trainer.init_state(seed=0)
+    src = SyntheticLM(vocab=cfg.vocab, seq_len=chip_smoke.fault_rank_seq("cpu"), seed=0)
+    state, _, _ = trainer.train_step(state, src.stacked(chip_smoke.G, 0, chip_smoke.BATCH),
+                                     chip_smoke.LR)
+    idx = torch.as_tensor(sample)
+    step0 = {"theta": state.theta[:, idx].clone(), "mom": state.mom[:, idx].clone()}
+    members = [k + ".npy" for k, _ in flatten(trainer.checkpoint_tree(state))] + ["__extra__.npy"]
+    out = chip_smoke.phase_ranks_resume(layout, sample, step0, members, device="cpu")
+    assert out["transport"] == "gloo" and out["file_bytes"] > 0
+    bad = dict(step0, mom=step0["mom"] * np.float32(2))
+    with pytest.raises(SystemExit):
+        chip_smoke.phase_ranks_resume(layout, sample, bad, members, device="cpu")
+
+
+@pytest.mark.parametrize("mutant", [None, "controller"])
+def test_phase25_simulator_resume_and_a_lost_controller_fails(ckpt_on_cpu, monkeypatch,
+                                                               mutant):
+    from repro_torch.core import simulator as sim_mod
+
+    monkeypatch.setattr(chip_smoke, "SIM_RESUME_STEPS", 12)
+    monkeypatch.setattr(chip_smoke, "SIM_RESUME_CUT", 6)
+    if mutant == "controller":
+        monkeypatch.setattr(sim_mod.DecentralizedSimulator, "restore_extra",
+                            _no_controller_restore(sim_mod.DecentralizedSimulator.restore_extra))
+        with pytest.raises(SystemExit):
+            chip_smoke.phase_sim_resume("cpu")
+        return
+    counts, numbers = chip_smoke.phase_sim_resume("cpu")
+    assert counts["segment_l2_norms"] == 18 and numbers["probes"] == 3
+
+
+def test_phase26_knobs_on_cpu(on_cpu, monkeypatch):
+    import contextlib
+    import io
+
+    from repro_torch.examples import dbench_whitebox, quickstart
+
+    def run_example(args):
+        mod = {"repro_torch.examples.quickstart": quickstart,
+               "repro_torch.examples.dbench_whitebox": dbench_whitebox}[args[0]]
+        argv = args[1:] if mod is dbench_whitebox else ["--steps", "12"]
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            mod.main(argv + (["--nodes", "8"] if mod is dbench_whitebox else []), device="cpu")
+        return buf.getvalue(), 0.0
+
+    monkeypatch.setattr(chip_smoke, "run_example", run_example)
+    monkeypatch.setattr(chip_smoke, "EXAMPLE_STEPS", 3)
+    cfg, layout, batches = _reduced(chip_smoke.KNOB_STEPS)
+    counts, numbers = chip_smoke.phase_knobs(cfg, layout, batches)
+    assert counts["gossip_program_update"] == 3 * chip_smoke.KNOB_STEPS
+    assert numbers["accum"]["share_of_bar"] <= 1.0
+    assert numbers["quickstart"]["loss_to"] < numbers["quickstart"]["loss_from"]
+
+
+def test_accum_bar_fails_a_step_off_by_more_than_its_bar():
+    cfg, layout, batches = _reduced(1)
+    trainer = SPMDTrainer(cfg, make_topology("d_ring", chip_smoke.G), sgd(momentum=0.9),
+                          fused_apply=True, device="cpu")
+    state = trainer.init_state(seed=0)
+    state, loss, _ = trainer.train_step(state, batches[0], chip_smoke.LR)
+    other = state.clone()
+    chip_smoke.accum_bar(layout, (state, loss), (other, loss.clone()))
+    other.theta[0, 5] += 0.05
+    with pytest.raises(SystemExit):
+        chip_smoke.accum_bar(layout, (state, loss), (other, loss.clone()))
+    other = state.clone()
+    other.mom[1, -3] += 1.0
+    with pytest.raises(SystemExit):
+        chip_smoke.accum_bar(layout, (state, loss), (other, loss.clone()))
+    with pytest.raises(SystemExit):
+        chip_smoke.accum_bar(layout, (state, loss), (state.clone(), loss * 1.1))

@@ -1,5 +1,6 @@
 """The port stands alone: no module of ``repro_torch``, and not
-``chip_smoke.py``, imports ``jax`` or the reference package ``repro``."""
+``chip_smoke.py``, imports ``jax``, the reference package ``repro`` or
+``ml_dtypes`` (which the card's machine does not have)."""
 import ast
 import os
 import subprocess
@@ -12,7 +13,7 @@ pytest.importorskip("torch")
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-FORBIDDEN = ("jax", "jaxlib", "repro")
+FORBIDDEN = ("jax", "jaxlib", "repro", "ml_dtypes")
 
 
 def _modules():

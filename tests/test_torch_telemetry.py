@@ -6,8 +6,9 @@ provenance check):
 
 * the recorder's units: coalescing, counters, the inert recorder (and a
   step under it that reads nothing from the device), span gating, the
-  schema (the reference's deadline, resume-totals and provenance cases go
-  with the faults and checkpoint items that bring their code);
+  schema, the resume totals (``state_dict``/``load_state_dict`` against
+  the reference's); the reference's provenance case goes with the analysis
+  item that brings its code;
 * the engines: telemetry leaves the numbers alone; comm counters equal the
   offline ``program_comm_bytes`` accounting; the streamed variance equals
   the offline ``DBenchRecorder``; round spans per step;
@@ -30,6 +31,7 @@ import importlib
 import os
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -228,6 +230,32 @@ def test_span_timing_gating():
     assert MetricsRecorder(sinks=[MemorySink()], record_spans=True).round_start() is not None
 
 
+def test_state_dict_roundtrip_continues_totals():
+    """The reference's case, and the payload equal to the reference
+    recorder's after the same records."""
+    import json
+
+    recs = []
+    for lib in (MetricsRecorder, jtel.MetricsRecorder):
+        rec = lib()
+        rec.configure(deadline_ms=1.0)
+        rec.counter("comm_bytes", 100, step=0)
+        rec.event("join", 0)
+        rec.round_end(time.perf_counter() - 0.05, step=0)   # 50 ms > 1 ms: an overrun
+        recs.append(rec)
+    saved = recs[0].state_dict()
+    assert saved == recs[1].state_dict()
+    json.dumps(saved)  # must ride the checkpoint extra payload
+    fresh = MetricsRecorder()
+    fresh.configure(deadline_ms=1.0)
+    fresh.load_state_dict(saved)
+    assert fresh.totals["comm_bytes"] == 100 and fresh.event_count == 1
+    assert fresh.rounds_total == 1 and fresh.overruns_total == 1
+    assert fresh.round_ms == []  # per-process view restarts
+    fresh.round_end(fresh.round_start(), step=1)
+    assert fresh.rounds_total == 2 and len(fresh.round_ms) == 1
+
+
 def test_schema_rejects_malformed_records():
     good = {"kind": "gauge", "step": 0, "name": "xi", "value": 1.0}
     validate_record(good)
@@ -350,8 +378,9 @@ def test_jsonl_resume_roundtrip(tmp_path):
     _, state, _ = _run_sim(steps=4, telemetry=rec)
     rec.close()
 
-    # resumed segment: a fresh recorder appending to the same stream (the
-    # counters restart: carrying them over comes with checkpoints)
+    # resumed segment: a fresh recorder appending to the same stream (no
+    # checkpoint restores its totals here, so the counters restart;
+    # tests/test_torch_resume.py carries them across a checkpoint)
     rec2 = MetricsRecorder(sinks=[JsonlSink(path, append=True)], metrics_every=2,
                            record_spans=True)
     rec2.manifest({"engine": "simulator", "topology": "d_ring", "n": N, "resumed": True})
