@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's training, simulator and serving paths on one CUDA card and check them.
+"""Drive the port's trainer, simulator, serving and model zoo on one CUDA card; check them.
 
     python3 chip_smoke.py
 
@@ -173,6 +173,42 @@ Phases (any failure exits non-zero and prints no result line):
      remat off), ms a step and peak memory each; then ``python -m
      repro_torch.examples.quickstart`` (its loss must fall) and
      ``dbench_whitebox --steps 20`` on the card.
+ 27. the model zoo, MoE: ``SPMDTrainer`` on phi3.5-moe at its published
+     width (d_model 4096, 32 heads, 8 KV heads, 16 experts top-2 of d_ff
+     6400, vocab 32064), bfloat16, depth cut to 1 layer (1.563e9
+     parameters a node), G = 4 when its θ, gradient, wire and m fit in
+     75 GiB, d_ring, fused apply, seq 512, per-node batch 2, 3 steps
+     (K1 and K3 once a step, the counters zeroed just before and read just
+     after); K1 against its twin on three column slices of the run's own
+     state (post and pre order, all-ones, masked and boost+ghost rows) and
+     K3 over the whole state; both timed beside their twins and bounds;
+     serving 2 prompts of 512 tokens (prefill twice) and 16 decode tokens;
+     the assignments dropped at capacity factor 1.25; the decode chain
+     against ``forward`` in float32 at the reference test's bar (atol 3e-3,
+     rtol 1e-3; capacity factor 16);
+ 28. the same for rwkv6 (d_model 2048, 32 heads, d_ff 7168, vocab 65536):
+     training at 4 layers (0.487e9 a node), serving the full 24 layers
+     (prefill 4 × 2048, 32 decode tokens), decode against forward at 2;
+ 29. the same for zamba2 (d_model 3584, 32 heads, d_ff 14336, state 64,
+     vocab 32000) at 7 layers (one group of 5 Mamba2 blocks and the shared
+     attention block, one tail block; 0.903e9 a node), bfloat16 with
+     float32 ``a_log``/``d_skip``: the mixed-dtype flat state (float32,
+     the bfloat16 leaves rounded after every update); K1 and K3 on it
+     against their twins; one fused step from pushed-apart replicas
+     against the interpreter (phase 5's bound in each leaf's dtype); the
+     reduced bf16 model's fused step on the card against the CPU's on the
+     same gradients (float32 leaves within 1e-6, bfloat16 within one
+     ulp); serving prefill 2 × 2048 and 32 decode tokens;
+ 30. internvl2 (d_model 2048, 16 heads, 8 KV heads, d_ff 8192, vocab
+     92553) served at its full 24 layers with 1024 patch embeddings
+     (prefill 2 × (1024 + 512), 16 decode tokens after them), trained one
+     step at 2 layers, G = 4, with patch_embeds in the batch; then the ten
+     reduced archs in float32: loss, gradients and one decode step on the
+     card against the CPU port within 5e-5 (for ssm and hybrid plus both
+     sides' float32 rounding against their float64 runs).
+     Each of phases 27-30 prints its prediction first, and its step ms,
+     peak GiB, prefill s and decode ms a token with the card's name and
+     power limit.
 
 The last three lines of standard output are the card's name and power
 limit as nvidia-smi reports them, the per-kernel JSON (K1-K4, each with its
@@ -282,9 +318,12 @@ def against_twin(label, run, twin, p, theta, mom, variants):
     launches the kernel on ``theta``/``mom`` (clones of the inputs, updated
     in place); ``twin(a, b, kw)`` gives the plain twin's (θ', m') for
     columns a:b (the last axis), held against the kernel's chunk by chunk
-    (2^26 columns): m' within 1e-6 relative, θ' within 2 bfloat16 ulps,
-    and bit for bit for the fault rows of a real realization (names in
-    EXACT_ROWS).  Returns the max abs error."""
+    (2^26 columns): m' within 1e-6 relative, θ' within 2 ulps of its
+    dtype (bfloat16, or float32 for a mixed model's state), and bit for
+    bit for the fault rows of a real realization (names in EXACT_ROWS).
+    Returns the max abs error."""
+    import torch
+
     worst = 0.0
     for order, fname, kw in variants:
         t_out, m_out = theta(), mom()
@@ -298,9 +337,11 @@ def against_twin(label, run, twin, p, theta, mom, variants):
                 fail(f"{label} {order} {fname}: m' differs from the twin by "
                      f"{float(err_m.max()):.3e} in columns {a}:{b}")
             err_t = (t_out[..., a:b].float() - want_t.float()).abs()
-            if not bool((err_t <= 2 * bf16_ulp(want_t)).all()):
+            ulp_of = f32_ulp if want_t.dtype == torch.float32 else bf16_ulp
+            if not bool((err_t <= 2 * ulp_of(want_t)).all()):
                 fail(f"{label} {order} {fname}: theta' differs from the twin by more "
-                     f"than 2 bf16 ulps in columns {a}:{b} (max abs {float(err_t.max()):.3e})")
+                     f"than 2 {want_t.dtype} ulps in columns {a}:{b} (max abs "
+                     f"{float(err_t.max()):.3e})")
             err_t_max = max(err_t_max, float(err_t.max()))
             err_m_max = max(err_m_max, float(err_m.max()))
             if fname in EXACT_ROWS and max(err_t_max, err_m_max) != 0.0:
@@ -448,8 +489,31 @@ def phase_fused_vs_interpreter(trainer, plain_trainer, start, batch, noise=0.01)
     return fused, worst_ulps, worst_tol, worst_m, moved_share
 
 
+def f32_ulp(x):
+    import torch
+
+    mag = x.float().abs().clamp_min(torch.finfo(torch.float32).tiny)
+    return torch.exp2(torch.floor(torch.log2(mag)) - 23)
+
+
+def state_chunks(p, dtype, layout=None):
+    """(a, b, dtype, ulp) column chunks of a (G, P) state: TWIN_CHUNK
+    columns of ``dtype``, or, for a mixed layout, chunks inside each leaf
+    with the leaf's own dtype (its bfloat16 or float32 ulp)."""
+    import torch
+
+    if layout is None or not layout.mixed:
+        for a in range(0, p, TWIN_CHUNK):
+            yield a, min(a + TWIN_CHUNK, p), dtype, bf16_ulp
+        return
+    for off, size, dt in zip(layout.offsets[:-1], layout.sizes, layout.dtypes):
+        for a in range(off, off + size, TWIN_CHUNK):
+            yield (a, min(a + TWIN_CHUNK, off + size), dt,
+                   bf16_ulp if dt == torch.bfloat16 else f32_ulp)
+
+
 def check_step_against_interpreter(label, theta0, fused, ref, rounds, update=None,
-                                   rows=None):
+                                   rows=None, layout=None):
     """The fused step (``fused``: K1 on round 1) against the interpreter's
     (``ref``) from the same θ (``theta0``, after any membership handoff),
     element by element; ``rounds`` holds per mixing round (the
@@ -469,30 +533,41 @@ def check_step_against_interpreter(label, theta0, fused, ref, rounds, update=Non
     bound on: |W_s| times the bound before it, plus 2 ulps of the round's
     output and 2^-20 of |W_s| |input|; the interpreter's rounds are
     recomputed from θ* and must give its θ' bit for bit.  m' within 1e-6
-    relative.  Returns (worst θ' error in bfloat16 ulps and as a share of
-    its tolerance, worst m' relative error, share of the moving rows'
-    elements the mix moved by more than the tolerance, None when no row
-    mixes)."""
+    relative.  With a mixed ``layout`` (a float32 state whose bfloat16
+    leaves the fused step rounds after its float32 kernel, and the
+    interpreter updates and mixes in bfloat16) each leaf's columns take
+    their own dtype's ulps and θ* is rounded to that dtype; since the
+    kernel's wire carries the senders' θ* in float32 (as the reference's
+    fused step does) where the interpreter rounds each, the first round's
+    bound adds Σ_k |w_k| ulp(θ*_k).  ``theta0``
+    and ``fused`` may wait in host memory; each chunk moves to the card.
+    Returns (worst θ' error in ulps and as a share of its tolerance, worst
+    m' relative error, share of the moving rows' elements the mix moved by
+    more than the tolerance, None when no row mixes)."""
     import torch
 
     p = theta0.shape[1]
+    dev = ref.theta.device
     rows = slice(None) if rows is None else rows
     mix = lambda w, x: torch.einsum("ij,jc->ic", w, x)
     worst_ulps = worst_tol = worst_m = 0.0
     moved = counted = 0
-    for a in range(0, p, TWIN_CHUNK):
-        b = min(a + TWIN_CHUNK, p)
-        tf, tr = fused.theta[:, a:b].float(), ref.theta[:, a:b].float()
-        mf, mr = fused.mom[:, a:b], ref.mom[:, a:b]
+    for a, b, dt, ulp_of in state_chunks(p, theta0.dtype, layout):
+        tf, tr = fused.theta[:, a:b].to(dev).float(), ref.theta[:, a:b].float()
+        mf, mr = fused.mom[:, a:b].to(dev), ref.mom[:, a:b]
         step = LR * mr if update is None else LR * update * mr
-        own = theta0[:, a:b].float() - step   # every node's own θ*
+        own = theta0[:, a:b].to(dev).float() - step   # every node's own θ*
         # round 1: the kernel's; later rounds carry its bound
-        x = rounds[0][0](own.to(theta0.dtype))
-        tol = 2 * bf16_ulp(torch.maximum(own.abs(), x.float().abs())) + 2.0 ** -20 * mix(
+        x = rounds[0][0](own.to(dt))
+        tol = 2 * ulp_of(torch.maximum(own.abs(), x.float().abs())) + 2.0 ** -20 * mix(
             rounds[0][1], own.abs())
+        if layout is not None and layout.mixed:
+            # the kernel's wire carries every sender's θ* in float32, the
+            # interpreter's each rounded to the leaf's dtype
+            tol = tol + mix(rounds[0][1], ulp_of(own))
         for st_mix, w in rounds[1:]:
             y = st_mix(x)
-            tol = mix(w, tol) + 2 * bf16_ulp(y.float()) + 2.0 ** -20 * mix(w, x.float().abs())
+            tol = mix(w, tol) + 2 * ulp_of(y.float()) + 2.0 ** -20 * mix(w, x.float().abs())
             x = y
         if not torch.equal(x.float(), tr):
             fail(f"{label}: the interpreter's rounds recomputed from theta* differ from "
@@ -505,7 +580,7 @@ def check_step_against_interpreter(label, theta0, fused, ref, rounds, update=Non
             for _, w in rounds:
                 mag = mix(w, mag)
             scale = torch.maximum(scale, mag)
-        ulp = bf16_ulp(scale)
+        ulp = ulp_of(scale)
         err = (tf - tr).abs()
         if not bool((err <= tol).all()):
             bad = float((err / tol).max())
@@ -3045,6 +3120,617 @@ def phase_knobs(cfg, layout, batches):
     return counts, numbers
 
 
+# ---------------------------------------------------------------------------
+# phases 27-30: the model zoo at published widths, depth cut
+# ---------------------------------------------------------------------------
+
+ZOO_STEPS = 3                     # training steps of each zoo phase
+ZOO_BUDGET = 75 * 2 ** 30         # phase 27 runs G = 4 if its bytes fit here
+ZOO_DEC_B, ZOO_DEC_S = 2, 32      # decode-vs-forward batch and length (float32)
+MOE_CAPACITY_DEC = 16.0           # the reference test's capacity factor there
+# (arch, layers trained, layers served, prefill batch, prompt length,
+#  new tokens); the VLM's prompts carry its n_patches patch embeddings first
+ZOO = {
+    27: ("phi3.5-moe-42b-a6.6b", 1, 1, 2, 512, 16),
+    28: ("rwkv6-1.6b", 4, 24, 4, 2048, 32),
+    29: ("zamba2-7b", 7, 7, 2, 2048, 32),
+    30: ("internvl2-2b", 2, 24, 2, 512, 16),
+}
+ZOO_NOISE = 0.03                  # phase 29: replicas pushed apart for the mix check
+
+PREDICT_27 = (
+    "phase 27 prediction (PERF.md §6): phi3.5-moe x1 layer bf16, 1.563e9 params/node: "
+    "G = 4 fits (theta, grad, wire bf16, m f32: 62.5 GB = 58.2 GiB), peak 59-64 GiB; "
+    "step 250-450 ms (K1 ~38 ms of a 30 ms bound, the plain wire 60-100 ms); K3 ~4 ms; "
+    "prefill 2x512 0.02-0.1 s, decode 2-8 ms a token (host-bound); 0-3 % of the top-2 "
+    "assignments dropped at capacity factor 1.25; decode == forward in f32")
+PREDICT_28 = (
+    "phase 28 prediction (PERF.md §6): rwkv6 x4 layers bf16, 0.487e9 params/node, G = 4: "
+    "state 19.5 GB, step 250-600 ms (the chunked WKV, eager); K1 ~12 ms; serving x24: "
+    "prefill 4x2048 0.5-2 s, decode 10-20 ms a token; decode == forward")
+PREDICT_29 = (
+    "phase 29 prediction (PERF.md §6): zamba2 x7 layers bf16, 0.903e9 params/node, mixed "
+    "dtypes: float32 state (16 B a parameter a node: 57.8 GB = 53.8 GiB), peak 55-62 GiB, "
+    "step 300-600 ms (K1 on f32 theta ~34 ms of a 26 ms bound, the bf16 leaves' rounding "
+    "20-30 ms); the fused step within phase 5's bound of the interpreter; the reduced "
+    "card step == the CPU's; prefill 2x2048 0.3-1.5 s, decode 5-15 ms a token")
+PREDICT_30 = (
+    "phase 30 prediction (PERF.md §6): internvl2 x24 bf16 serving with 1024 patches: "
+    "prefill 2x(1024+512) 0.1-0.4 s, decode 6-15 ms a token; x2 training G = 4 with "
+    "patch_embeds: step 150-300 ms; the ten reduced archs' loss, gradients and one decode "
+    "step == the CPU port within 5e-5 (+ their float32 rounding for ssm/hybrid)")
+
+
+def zoo_cfg(arch, layers, dtype=None, **kw):
+    """``arch`` at its published width with the depth cut to ``layers``."""
+    import torch
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(arch), n_layers=layers, remat=False,
+                               dtype=dtype or torch.bfloat16, **kw)
+
+
+def zoo_batches(cfg, g, steps, dev):
+    """``steps`` seeded (G, BATCH, SEQ) batches; a VLM's with seeded
+    (G, BATCH, n_patches, D) patch embeddings."""
+    import torch
+    from repro_torch.data import SyntheticLM
+
+    src = SyntheticLM(vocab=cfg.vocab, seq_len=SEQ, seed=0)
+    out = []
+    for t in range(steps):
+        b = {k: torch.as_tensor(v, device=dev) for k, v in src.stacked(g, t, BATCH).items()}
+        if cfg.input_kind == "vlm":
+            gen = torch.Generator(device=dev).manual_seed(100 + t)
+            b["patch_embeds"] = (0.1 * torch.randn((g, BATCH, cfg.n_patches, cfg.d_model),
+                                                   generator=gen, device=dev)).to(cfg.dtype)
+        out.append(b)
+    return out
+
+
+def zoo_state_bytes(layout, g):
+    """θ, gradient and wire in the state's dtype and m in float32, G nodes."""
+    import torch
+
+    eb = torch.empty((), dtype=layout.state_dtype).element_size()
+    return g * layout.size * (3 * eb + 4)
+
+
+def zoo_train(label, cfg, g, dev, steps=None):
+    """``steps`` (ZOO_STEPS) fused steps of ``cfg`` on d_ring with G = ``g`` from the
+    seed-0 weights, the launch counters zeroed just before and read just
+    after.  Returns (trainer, state, batches, numbers)."""
+    import torch
+    from repro_torch.core.dsgd import make_topology
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import SPMDTrainer
+    from repro_torch.optim.sgd import sgd
+
+    steps = ZOO_STEPS if steps is None else steps
+    trainer = SPMDTrainer(cfg, make_topology("d_ring", g), sgd(momentum=0.9),
+                          collect_norms=True, fused_apply=True)
+    layout = trainer.layout
+    need = zoo_state_bytes(layout, g)
+    log(f"{label}: {cfg.name} x{cfg.n_layers} layers {cfg.dtype}, {layout.size:,} "
+        f"params/node, G={g}, state dtype {layout.state_dtype}"
+        f"{' (mixed leaf dtypes)' if layout.mixed else ''}: theta, grad, wire and m "
+        f"{need / 2**30:.2f} GiB")
+    state = trainer.init_state(seed=0)
+    batches = zoo_batches(cfg, g, steps, dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    step_ms, losses = [], []
+    for t in range(steps):
+        t1 = time.perf_counter()
+        state, loss, norms = trainer.train_step(state, batches[t], LR)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        losses.append(loss.tolist())
+        if not bool(torch.isfinite(loss).all()) or not bool(torch.isfinite(norms).all()):
+            fail(f"{label} step {t}: non-finite loss {loss.tolist()} or norms")
+        if tuple(norms.shape) != (g, len(layout.names)):
+            fail(f"{label}: norms shape {tuple(norms.shape)}")
+    counts = ops.launch_counts()
+    want = {"gossip_program_update": steps, "gossip_update": 0,
+            "segment_l2_norms": steps, "flash_attention": 0}
+    if counts != want:
+        fail(f"{label}: launch counts {counts}, expected {want}")
+    peak = torch.cuda.max_memory_allocated()
+    log(f"{label}: steps {[round(x, 1) for x in step_ms]} ms, losses "
+        f"{[[round(x, 4) for x in l] for l in losses]}, peak {peak / 2**30:.2f} GiB, "
+        f"launches {counts}")
+    return trainer, state, batches, {
+        "model": f"{cfg.name} x{cfg.n_layers} layers, {cfg.dtype}, G={g}, d_ring, seq {SEQ}, "
+                 f"per-node batch {BATCH}, fused_apply, collect_norms",
+        "params_per_node": layout.size, "state_dtype": str(layout.state_dtype),
+        "mixed_leaf_dtypes": layout.mixed, "predicted_state_bytes": need,
+        "step_ms": step_ms, "losses": losses, "peak_allocated_bytes": int(peak),
+        "launches": counts,
+    }
+
+
+def zoo_kernel_twins(label, trainer, state, batch):
+    """K1 against its twin on column slices of the run's own state (its
+    first columns, a slice off the 16-byte alignment in the middle, the
+    tail), with the run's gradients and the wire built for each slice;
+    K3 over the whole state against its twin (1e-5 relative).  Returns
+    (K1 max abs err, K3 max abs err)."""
+    import torch
+    from repro_torch.kernels.gossip_update import gossip_wire
+    from repro_torch.kernels.stats import segment_l2_norms, segment_l2_norms_plain
+
+    theta, mom = state.theta, state.mom
+    grad = torch.empty_like(theta)
+    trainer._grads_into(theta, grad, batch)
+    srcs, w = ring_tables(theta.device)
+    p = theta.shape[1]
+    width = min(TWIN_CHUNK, p // 4)
+    err1 = 0.0
+    for a in (0, p // 2 + 3, p - width):
+        b = a + width
+        t0, m0, g0 = (x[:, a:b].contiguous() for x in (theta, mom, grad))
+        wire = gossip_wire(t0, g0, m0, lr=LR, beta=0.9)
+        err1 = max(err1, k1_against_twin(f"{label} columns {a}:{b}", t0, wire, srcs, w, g0, m0))
+        del t0, m0, g0, wire
+    del grad
+    offs = trainer.layout.offsets
+    want = segment_l2_norms_plain(theta, offs)
+    got = segment_l2_norms(theta, offs)
+    err = (got - want).abs()
+    if not bool((err <= 1e-5 * want.abs()).all()):
+        fail(f"{label}: K3 differs from its twin by {float((err / want.abs()).max()):.3e}")
+    log(f"{label}: K1 == twin on 3 column slices of the run's state (max abs {err1:.3e}); "
+        f"K3 == twin over {len(offs) - 1} leaves (max rel "
+        f"{float((err / want.abs().clamp_min(1e-30)).max()):.3e})")
+    return err1, float(err.max())
+
+
+def zoo_kernel_times(trainer, state, batch):
+    """K1 and K3 timed at the run's shapes (CUDA events) beside their twins,
+    with the bound of each from this state's bytes and operations; then
+    one more step under torch.profiler: device time by kernel group and
+    the idle share (the state takes the step)."""
+    import torch
+    from repro_torch.kernels.gossip_update import (
+        gossip_program_update, gossip_program_update_plain, gossip_wire,
+    )
+    from repro_torch.kernels.stats import segment_l2_norms, segment_l2_norms_plain
+
+    theta, mom = state.theta, state.mom
+    grad = torch.empty_like(theta)
+    trainer._grads_into(theta, grad, batch)
+    wire = gossip_wire(theta, grad, mom, lr=LR, beta=0.9)
+    srcs, w = ring_tables(theta.device)
+    kw = dict(lr=LR, beta=0.9, fault=torch.ones_like(w), mix_order="post")
+    k1_ms = cuda_ms(lambda: gossip_program_update(theta, wire, srcs, w, grad, mom, **kw), 3)
+    p = theta.shape[1]
+
+    def plain():
+        for a in range(0, p, TWIN_CHUNK):
+            b = min(a + TWIN_CHUNK, p)
+            gossip_program_update_plain(theta[:, a:b], wire[:, a:b], srcs, w, grad[:, a:b],
+                                        mom[:, a:b], **kw)
+
+    k1_plain = cuda_ms(plain, 1)
+    n_el, eb, deg = theta.numel(), theta.element_size(), srcs.shape[1]
+    k1_bytes = n_el * (eb + eb + 4 + eb) + n_el * (eb + 4)
+    k1_ops = n_el * (8 + 2 * deg)
+    del grad, wire
+    offs = trainer.layout.offsets
+    k3_ms = cuda_ms(lambda: segment_l2_norms(theta, offs), 5)
+    k3_plain = cuda_ms(lambda: segment_l2_norms_plain(theta, offs), 1)
+    k3_bytes = n_el * eb + theta.shape[0] * (len(offs) - 1) * 4
+    k3_ops = 2 * n_el
+    bound = lambda by, op: 1e3 * max(by / HBM_BYTES_PER_S, op / F32_OPS_PER_S)
+    prof = profile_breakdown(lambda: trainer.train_step(state, batch, LR))
+    return {"step_profile": prof,
+            "k1_ms": k1_ms, "k1_plain_ms": k1_plain, "k1_bound_ms": bound(k1_bytes, k1_ops),
+            "k3_ms": k3_ms, "k3_plain_ms": k3_plain, "k3_bound_ms": bound(k3_bytes, k3_ops),
+            "state_elements": n_el, "state_element_bytes": eb}
+
+
+def zoo_serve(label, cfg, b, s, n_new, dev, patches=False):
+    """Serving ``cfg`` (bf16, seed-0 weights): prefill of b prompts of s
+    tokens (a VLM's n_patches patch embeddings first), twice (the first
+    includes the libraries' start-up), then n_new greedy decode steps
+    after the prompt, in a decode state grown to hold them.  No K1-K4
+    launch may happen.  Returns numbers."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import ServeEngine, grow_caches
+    from repro_torch.models import transformer as tfm
+
+    eng = ServeEngine(cfg, dev)
+    params = eng.init_params(seed=0)
+    n_params = sum(t.numel() for t in params.values())
+    gen = torch.Generator(device=dev).manual_seed(12)
+    prompts = torch.randint(0, cfg.vocab, (b, s), generator=gen, device=dev)
+    pe = None
+    if patches:
+        pe = (0.1 * torch.randn((b, cfg.n_patches, cfg.d_model), generator=gen,
+                                device=dev)).to(cfg.dtype)
+    n_prompt = s + (cfg.n_patches if pe is not None else 0)
+    before = ops.launch_counts()
+    prefill = eng.prefill_fn()
+    prefill_s, peak = [], 0
+    for _ in range(2):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        last, state = prefill(params, prompts, pe)
+        torch.cuda.synchronize()
+        prefill_s.append(time.perf_counter() - t0)
+        peak = max(peak, torch.cuda.max_memory_allocated())
+        if tuple(last.shape) != (b, cfg.vocab) or not bool(torch.isfinite(last).all()):
+            fail(f"{label}: prefill logits {tuple(last.shape)} not finite or misshaped")
+    state = grow_caches(state, n_prompt + n_new)
+    step = eng.decode_fn(None)
+    toks = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in range(n_new):
+        tok = torch.argmax(last, dim=-1)[:, None]
+        toks.append(tok)
+        last, state = step(params, tok, n_prompt + t, state)
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t0) * 1e3 / n_new
+    toks = torch.cat(toks, dim=1)
+    if not bool(torch.isfinite(last).all()) or not bool(((toks >= 0) & (toks < cfg.vocab)).all()):
+        fail(f"{label}: decode gave non-finite logits or tokens outside the vocabulary")
+    after = ops.launch_counts()
+    if after != before:
+        fail(f"{label}: serving launched kernels: {before} -> {after}")
+    log(f"{label}: serving {cfg.name} x{cfg.n_layers} layers bf16 ({n_params:,} params): "
+        f"prefill {b}x{n_prompt} {[round(x, 3) for x in prefill_s]} s, peak "
+        f"{peak / 2**30:.2f} GiB; {n_new} decode steps {decode_ms:.2f} ms a token")
+    del params, state, last
+    return {"model": f"{cfg.name} x{cfg.n_layers} layers, bf16, seed-0 weights",
+            "params": n_params, "prefill_batch": b, "prefill_len": n_prompt,
+            "prefill_s": prefill_s, "prefill_peak_allocated_bytes": int(peak),
+            "decode_tokens": n_new, "decode_ms_per_token": decode_ms}
+
+
+def zoo_decode_vs_forward(label, cfg, dev):
+    """``cfg`` in float32 (TF32 off; MoE at capacity factor 16): the decode
+    chain over ZOO_DEC_S tokens against ``forward``'s logits at the
+    reference test's bar (atol 3e-3, rtol 1e-3).  Returns the max abs err."""
+    import torch
+    from repro_torch.launch.serve import ServeEngine
+    from repro_torch.models import transformer as tfm
+
+    if cfg.n_experts:
+        cfg = dataclasses.replace(cfg, capacity_factor=MOE_CAPACITY_DEC)
+    eng = ServeEngine(cfg, dev)
+    params = eng.init_params(seed=0)
+    tokens = torch.randint(0, cfg.vocab, (ZOO_DEC_B, ZOO_DEC_S),
+                           generator=torch.Generator(device=dev).manual_seed(13), device=dev)
+    with torch.no_grad():
+        full = tfm.forward(params, cfg, tokens)
+        state = tfm.init_decode_state(cfg, ZOO_DEC_B, ZOO_DEC_S, device=dev)
+        dec = torch.stack([tfm.decode_step(params, cfg, tokens[:, t:t + 1], t, state)[0]
+                           for t in range(ZOO_DEC_S)], dim=1)
+    err = (dec - full).abs()
+    if not bool((err <= 3e-3 + 1e-3 * full.abs()).all()):
+        fail(f"{label}: decode chain differs from forward by {float(err.max()):.3e}")
+    log(f"{label}: decode chain == forward ({cfg.name} width, {cfg.n_layers} layers, f32, "
+        f"{ZOO_DEC_B}x{ZOO_DEC_S}): max abs err {float(err.max()):.3e}")
+    return float(err.max())
+
+
+def moe_dropped(cfg, dev, b, s):
+    """Assignments past the expert capacity (capacity factor
+    ``cfg.capacity_factor``) in every layer's MoE over a forward of b
+    seeded prompts of s tokens: (dropped, assignments)."""
+    import torch
+    from repro_torch.launch.serve import ServeEngine
+    from repro_torch.models import moe, transformer as tfm
+
+    eng = ServeEngine(cfg, dev)
+    params = eng.init_params(seed=0)
+    tokens = torch.randint(0, cfg.vocab, (b, s),
+                           generator=torch.Generator(device=dev).manual_seed(12), device=dev)
+    seen = [0, 0]
+    orig = moe.dispatch_slots
+
+    def counting(ids, n_experts, capacity):
+        out = orig(ids, n_experts, capacity)
+        seen[0] += int((~out[3]).sum())
+        seen[1] += out[3].numel()
+        return out
+
+    moe.dispatch_slots = counting
+    try:
+        with torch.no_grad():
+            tfm.forward(params, cfg, tokens)
+    finally:
+        moe.dispatch_slots = orig
+    del params
+    return seen[0], seen[1]
+
+
+def phase_moe(dev):
+    """Phase 27: phi3.5-moe at its published width, 1 layer, bf16."""
+    import torch
+
+    from repro_torch.core.flat import FlatLayout
+    from repro_torch.models import transformer as tfm
+
+    arch, layers, serve_layers, pb, ps, n_new = ZOO[27]
+    cfg = zoo_cfg(arch, layers)
+    layout = FlatLayout.of_defs(tfm.model_defs(cfg))
+    g = 4 if zoo_state_bytes(layout, 4) <= ZOO_BUDGET else 2
+    if g != G:
+        fail(f"phase 27: G = {g}: the d_ring tables of the twin checks are G = {G}'s")
+    trainer, state, batches, out = zoo_train("phase 27", cfg, g, dev)
+    out["k1_err"], out["k3_err"] = zoo_kernel_twins("phase 27", trainer, state, batches[0])
+    out.update(zoo_kernel_times(trainer, state, batches[0]))
+    del trainer, state, batches
+    torch.cuda.empty_cache()
+    out["serve"] = zoo_serve("phase 27", zoo_cfg(arch, serve_layers), pb, ps, n_new, dev)
+    dropped, total = moe_dropped(zoo_cfg(arch, serve_layers), dev, pb, ps)
+    out["dropped_assignments"] = {"dropped": dropped, "assignments": total,
+                                  "capacity_factor": cfg.capacity_factor}
+    log(f"phase 27: {dropped} of {total} top-{cfg.top_k} assignments dropped at capacity "
+        f"factor {cfg.capacity_factor} over {pb}x{ps} tokens")
+    torch.cuda.empty_cache()
+    out["decode_vs_forward_max_abs_err"] = zoo_decode_vs_forward(
+        "phase 27", zoo_cfg(arch, layers, torch.float32), dev)
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_ssm(dev):
+    """Phase 28: rwkv6 at its published width: training at 4 layers, serving
+    at the full 24."""
+    import torch
+
+    arch, layers, serve_layers, pb, ps, n_new = ZOO[28]
+    trainer, state, batches, out = zoo_train("phase 28", zoo_cfg(arch, layers), G, dev)
+    out["k1_err"], out["k3_err"] = zoo_kernel_twins("phase 28", trainer, state, batches[0])
+    out.update(zoo_kernel_times(trainer, state, batches[0]))
+    del trainer, state, batches
+    torch.cuda.empty_cache()
+    out["serve"] = zoo_serve("phase 28", zoo_cfg(arch, serve_layers), pb, ps, n_new, dev)
+    torch.cuda.empty_cache()
+    out["decode_vs_forward_max_abs_err"] = zoo_decode_vs_forward(
+        "phase 28", zoo_cfg(arch, 2, torch.float32), dev)
+    torch.cuda.empty_cache()
+    return out
+
+
+def mixed_start(trainer, seed=0):
+    """The seed-0 replicas pushed apart by ZOO_NOISE, each leaf rounded
+    back to its dtype: a state whose mix moves every element."""
+    state = trainer.init_state(seed=seed)
+    offset_nodes(state.theta, ZOO_NOISE)
+    trainer.layout.round_leaves_(state.theta)
+    return state
+
+
+def phase_hybrid_mixed_check(trainer, cfg, batch, dev):
+    """Phase 29's fused step against the interpreter on the mixed state:
+    one step from the same pushed-apart replicas through K1 and through a
+    trainer with fused_apply=False, held by ``check_step_against_interpreter``
+    with the layout (each leaf's own dtype).  The replicas and the fused
+    result wait in host memory while the interpreter runs."""
+    import numpy as np
+    import torch
+    from repro_torch.core.dsgd import make_topology
+    from repro_torch.launch.train import SPMDTrainer, TrainState
+    from repro_torch.optim.sgd import sgd
+
+    rounds = [(st.apply_stacked,
+               torch.as_tensor(np.abs(st.matrix()), dtype=torch.float32, device=dev))
+              for st in program_stages(trainer, 0)]
+    host = lambda x: torch.empty(x.shape, dtype=x.dtype, device="cpu").copy_(x)
+    start = mixed_start(trainer)
+    theta0 = host(start.theta)
+    fused, loss_f, _ = trainer.train_step(start, batch, LR)
+    fused_host = TrainState(host(fused.theta), {"mom": host(fused.mom)}, 1)
+    del fused, start
+    torch.cuda.empty_cache()
+    plain = SPMDTrainer(cfg, make_topology("d_ring", G), sgd(momentum=0.9),
+                        collect_norms=True, fused_apply=False)
+    ref, loss_r, _ = plain.train_step(mixed_start(plain), batch, LR)
+    if not torch.allclose(loss_f, loss_r, rtol=1e-5, atol=0):
+        fail(f"phase 29: fused and interpreter losses differ: {loss_f.tolist()} vs "
+             f"{loss_r.tolist()}")
+    out = check_step_against_interpreter("phase 29 fused vs interpreter step", theta0,
+                                         fused_host, ref, rounds, layout=trainer.layout)
+    del ref, plain, theta0, fused_host
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_hybrid_cpu(dev):
+    """zamba2-reduced in bfloat16 (mixed leaf dtypes): one fused trainer step
+    on the card (K1) and on the CPU (its twin) from the same seed-0 weights
+    on the same gradients (the CPU's): the float32 leaves (a_log, d_skip) stay
+    float32 and equal the CPU's within 1e-6 relative, the bfloat16 leaves
+    within one bfloat16 ulp (plus float32 rounding at the leaf's scale)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.dsgd import make_topology
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch.train import SPMDTrainer
+    from repro_torch.optim.sgd import sgd
+
+    from repro_torch.models import transformer as tfm
+
+    cfg = dataclasses.replace(get_config("zamba2-7b-reduced"), dtype=torch.bfloat16,
+                              remat=False)
+    params = tfm.init_model(cfg, torch.Generator().manual_seed(0), "cpu")
+    batch = SyntheticLM(vocab=cfg.vocab, seq_len=16, seed=0).stacked(G, 0, 2)
+    runs, grads = {}, {}
+    for where in ("cpu", dev):
+        trainer = SPMDTrainer(cfg, make_topology("d_ring", G), sgd(momentum=0.9),
+                              fused_apply=True, device=where)
+        own = trainer._grads_into
+
+        def grads_into(theta, grad, b, own=own):
+            losses = own(theta, grad, b)
+            if "cpu" in grads:
+                grad.copy_(grads["cpu"])
+            else:
+                grads["cpu"] = grad.clone()
+            return losses
+
+        trainer._grads_into = grads_into
+        state, _, _ = trainer.train_step(trainer.init_state(params=params), batch, LR)
+        runs[str(where)] = (trainer, state)
+    (tc, sc), (tg, sg) = runs["cpu"], runs[str(dev)]
+    worst = {}
+    for (name, a), b, dt in zip(tc.stacked_params(sc).items(),
+                                tg.stacked_params(sg).values(), tc.layout.dtypes):
+        want, got = a.float(), b.float().cpu()
+        scale = float(want.abs().max())
+        err = (got - want).abs()
+        if dt == torch.float32:
+            if b.dtype != torch.float32 or not bool((err <= 1e-6 * scale).all()):
+                fail(f"phase 29: reduced {name} (float32) on the card off the CPU's by "
+                     f"{float(err.max()):.3e}")
+        elif not bool((err <= bf16_ulp(want) + 1e-6 * scale).all()):
+            fail(f"phase 29: reduced {name} (bfloat16) on the card off the CPU's by "
+                 f"{float(err.max()):.3e}")
+        worst[str(dt)] = max(worst.get(str(dt), 0.0), float(err.max()))
+    f32 = [n for n, dt in zip(tc.layout.names, tc.layout.dtypes) if dt == torch.float32]
+    log(f"phase 29: zamba2-reduced bf16 (float32 leaves {f32}), one fused step on the card "
+        f"== the CPU's on the same gradients: max abs err by dtype {worst}")
+    return {"f32_leaves": f32, "max_abs_err_by_dtype": worst}
+
+
+def phase_hybrid(dev):
+    """Phase 29: zamba2 at its published width, 7 layers (one group of 5
+    Mamba2 blocks and the shared attention block, one tail block), bf16
+    with float32 a_log/d_skip: the mixed-dtype flat state."""
+    import torch
+
+    arch, layers, serve_layers, pb, ps, n_new = ZOO[29]
+    cfg = zoo_cfg(arch, layers)
+    trainer, state, batches, out = zoo_train("phase 29", cfg, G, dev)
+    views = trainer.layout.leaf_views(state.theta[0])
+    f32 = sorted(k for k, v in views.items() if v.dtype == torch.float32)
+    if state.theta.dtype != torch.float32 or f32 != sorted(
+            ["mamba_groups.a_log", "mamba_groups.d_skip", "tail_mamba.a_log",
+             "tail_mamba.d_skip"]):
+        fail(f"phase 29: state {state.theta.dtype}, float32 leaves {f32}")
+    narrow = torch.cat([state.theta[:, a:b] for a, b, _ in trainer.layout.narrow_leaves()],
+                       dim=1)
+    if not torch.equal(narrow, narrow.bfloat16().float()):
+        fail("phase 29: a bfloat16 leaf holds a value that is not a bfloat16")
+    del narrow, views
+    out["f32_leaves"] = f32
+    out["k1_err"], out["k3_err"] = zoo_kernel_twins("phase 29", trainer, state, batches[0])
+    out.update(zoo_kernel_times(trainer, state, batches[0]))
+    del state
+    torch.cuda.empty_cache()
+    _, tol, rel_m, moved = phase_hybrid_mixed_check(trainer, cfg, batches[0], dev)
+    out["fused_vs_interpreter"] = {"share_of_tolerance": tol, "m_rel": rel_m,
+                                   "moved_share": moved}
+    log(f"phase 29: fused step == interpreter step on the mixed state: theta' within "
+        f"{tol:.3f} of its tolerance (each leaf in its dtype), m' within {rel_m:.3e} "
+        f"relative; the mix moved {moved:.4f} of the elements")
+    del trainer, batches
+    torch.cuda.empty_cache()
+    out["reduced_card_vs_cpu"] = phase_hybrid_cpu(dev)
+    out["serve"] = zoo_serve("phase 29", zoo_cfg(arch, serve_layers), pb, ps, n_new, dev)
+    torch.cuda.empty_cache()
+    out["decode_vs_forward_max_abs_err"] = zoo_decode_vs_forward(
+        "phase 29", zoo_cfg(arch, layers, torch.float32), dev)
+    torch.cuda.empty_cache()
+    return out
+
+
+def reduced_parity(dev):
+    """The ten reduced archs (float32, seed-0 weights): loss, every gradient
+    and one decode step on the card against the CPU port on the same
+    inputs, within 5e-5; for ssm and hybrid plus both sides' float32
+    rounding, each against its own float64 run (heads whose variance sits
+    near the group norm's epsilon amplify rounding, as on the CPU against
+    the reference).  Returns {arch: worst gradient error}."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import ARCH_NAMES, get_config
+    from repro_torch.models import transformer as tfm
+
+    def run(cfg, params, batch, where, dtype):
+        c = dataclasses.replace(cfg, dtype=dtype)
+        p = {k: v.to(where, dtype).requires_grad_() for k, v in params.items()}
+        b = {k: (v.to(where, dtype) if v.is_floating_point() else v.to(where))
+             for k, v in batch.items()}
+        loss = tfm.loss_fn(p, c, b)
+        grads = torch.autograd.grad(loss, list(p.values()))
+        with torch.no_grad():
+            pd = {k: v.detach() for k, v in p.items()}
+            state = tfm.init_decode_state(c, 2, 4, device=where)
+            logits, _ = tfm.decode_step(pd, c, b["tokens"][:, :1], 0, state)
+        return (float(loss.detach()), {k: g.double().cpu().numpy() for k, g in zip(p, grads)},
+                logits.double().cpu().numpy())
+
+    worst = {}
+    for arch in ARCH_NAMES:
+        cfg = dataclasses.replace(get_config(arch + "-reduced"), remat=False)
+        params = tfm.init_model(cfg, torch.Generator().manual_seed(0), "cpu")
+        gen = torch.Generator().manual_seed(1)
+        batch = {"tokens": torch.randint(0, cfg.vocab, (2, 16), generator=gen),
+                 "targets": torch.randint(0, cfg.vocab, (2, 16), generator=gen)}
+        if cfg.input_kind == "vlm":
+            batch["patch_embeds"] = 0.1 * torch.randn((2, cfg.n_patches, cfg.d_model),
+                                                      generator=gen)
+        lc, gc, dc = run(cfg, params, batch, "cpu", torch.float32)
+        lg, gg, dg = run(cfg, params, batch, dev, torch.float32)
+        rounding = {k: 0.0 for k in gc}
+        r_dec = 0.0
+        if cfg.family in ("ssm", "hybrid"):
+            _, gc64, dc64 = run(cfg, params, batch, "cpu", torch.float64)
+            _, gg64, dg64 = run(cfg, params, batch, dev, torch.float64)
+            rounding = {k: np.abs(gc[k] - gc64[k]).max() + np.abs(gg[k] - gg64[k]).max()
+                        for k in gc}
+            r_dec = np.abs(dc - dc64).max() + np.abs(dg - dg64).max()
+        if abs(lc - lg) > 5e-5:
+            fail(f"phase 30: {arch}-reduced loss on the card {lg} vs the CPU's {lc}")
+        err = 0.0
+        for k in gc:
+            e = float(np.abs(gg[k] - gc[k]).max())
+            if e > 5e-5 + rounding[k]:
+                fail(f"phase 30: {arch}-reduced gradient {k} on the card off the CPU's by "
+                     f"{e:.3e} (bar {5e-5 + rounding[k]:.3e})")
+            err = max(err, e)
+        e_dec = float(np.abs(dg - dc).max())
+        if e_dec > 5e-5 + r_dec:
+            fail(f"phase 30: {arch}-reduced decode step on the card off the CPU's by {e_dec:.3e}")
+        worst[arch] = {"loss": abs(lc - lg), "grad": err, "decode": e_dec}
+    log(f"phase 30: ten reduced archs, card == CPU (loss, gradients, one decode step): "
+        f"{json.dumps(worst)}")
+    return worst
+
+
+def phase_vlm(dev):
+    """Phase 30: internvl2 served at its full 24 layers with 1024 patch
+    embeddings, trained one step at 2 layers with patch_embeds in the
+    batch; then the ten reduced archs, card against CPU."""
+    import torch
+
+    arch, layers, serve_layers, pb, ps, n_new = ZOO[30]
+    out = {"serve": zoo_serve("phase 30", zoo_cfg(arch, serve_layers), pb, ps, n_new, dev,
+                              patches=True)}
+    torch.cuda.empty_cache()
+    # one step with patch embeddings in the batch
+    trainer, state, batches, train = zoo_train("phase 30", zoo_cfg(arch, layers), G, dev,
+                                               steps=1)
+    train["k1_err"], train["k3_err"] = zoo_kernel_twins("phase 30", trainer, state,
+                                                        batches[0])
+    out["train"] = train
+    del trainer, state, batches
+    torch.cuda.empty_cache()
+    out["decode_vs_forward_max_abs_err"] = zoo_decode_vs_forward(
+        "phase 30", zoo_cfg(arch, layers, torch.float32), dev)
+    torch.cuda.empty_cache()
+    out["reduced_card_vs_cpu"] = reduced_parity(dev)
+    return out
+
+
 def main():
     import numpy as np
     import torch
@@ -3370,7 +4056,20 @@ def main():
     t26 = time.perf_counter()
     launches26, knobs26 = phase_knobs(cfg, layout, batches)
     knobs26["wall_s"] = time.perf_counter() - t26
+    del batches, batches14
     torch.cuda.empty_cache()
+
+    # 27-30. the model zoo at published widths, depth cut
+    zoo = {}
+    for n, run in ((27, phase_moe), (28, phase_ssm), (29, phase_hybrid), (30, phase_vlm)):
+        log(globals()[f"PREDICT_{n}"])
+        t_zoo = time.perf_counter()
+        zoo[n] = run(dev)
+        zoo[n]["wall_s"] = time.perf_counter() - t_zoo
+        zoo[n]["card"] = smi
+        log(f"phase {n}: {time.perf_counter() - t_zoo:.1f} s on {smi}")
+        torch.cuda.empty_cache()
+    train30 = zoo[30]["train"]
 
     summary = {
         "card": smi,
@@ -3397,6 +4096,10 @@ def main():
         "ranks_resume": ranks24,
         "simulator_resume": sim25,
         "knobs": knobs26,
+        "moe": zoo[27],
+        "ssm": zoo[28],
+        "hybrid": zoo[29],
+        "vlm": zoo[30],
     }
     log("summary " + json.dumps(summary))
     # each kernel's launches on every main path that runs it
@@ -3409,7 +4112,11 @@ def main():
                                   "phase 19": launches19["gossip_program_update"],
                                   "phase 20": launches20["gossip_program_update"],
                                   "phase 23": launches23["gossip_program_update"],
-                                  "phase 26": launches26["gossip_program_update"]},
+                                  "phase 26": launches26["gossip_program_update"],
+                                  "phase 27": zoo[27]["launches"]["gossip_program_update"],
+                                  "phase 28": zoo[28]["launches"]["gossip_program_update"],
+                                  "phase 29": zoo[29]["launches"]["gossip_program_update"],
+                                  "phase 30": train30["launches"]["gossip_program_update"]},
         "gossip_update": {"phase 9": ranks9["launches"]["gossip_update"],
                           "phase 22": ranks22["launches"]["gossip_update"],
                           "phase 24": ranks24["launches"]["gossip_update"]},
@@ -3428,7 +4135,11 @@ def main():
                              "phase 23": launches23["segment_l2_norms"],
                              "phase 24": ranks24["launches"]["segment_l2_norms"],
                              "phase 25": launches25["segment_l2_norms"],
-                             "phase 26": launches26["segment_l2_norms"]},
+                             "phase 26": launches26["segment_l2_norms"],
+                             "phase 27": zoo[27]["launches"]["segment_l2_norms"],
+                             "phase 28": zoo[28]["launches"]["segment_l2_norms"],
+                             "phase 29": zoo[29]["launches"]["segment_l2_norms"],
+                             "phase 30": train30["launches"]["segment_l2_norms"]},
         "flash_attention": {"phase 12": k4_launches},
     }
     kernels = [
@@ -3437,7 +4148,9 @@ def main():
             "source": "src/repro_torch/kernels/csrc/gossip_update.cu",
             "replaces": "src/repro/kernels/gossip_update.py:254",
             "launches": sum(by_path["gossip_program_update"].values()),
-            "launches_by_path": by_path["gossip_program_update"], "max_abs_err": err_k1,
+            "launches_by_path": by_path["gossip_program_update"],
+            "max_abs_err": max([err_k1] + [zoo[n]["k1_err"] for n in (27, 28, 29)]
+                               + [train30["k1_err"]]),
             "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound,
             "bound_by": "bytes" if k1_bytes / HBM_BYTES_PER_S >= k1_ops / F32_OPS_PER_S
             else "operations",
@@ -3459,7 +4172,9 @@ def main():
             "source": "src/repro_torch/kernels/csrc/l2_norms.cu",
             "replaces": "src/repro/kernels/stats.py:38",
             "launches": sum(by_path["segment_l2_norms"].values()),
-            "launches_by_path": by_path["segment_l2_norms"], "max_abs_err": err_k3,
+            "launches_by_path": by_path["segment_l2_norms"],
+            "max_abs_err": max([err_k3] + [zoo[n]["k3_err"] for n in (27, 28, 29)]
+                               + [train30["k3_err"]]),
             "ms": k3_ms, "plain_ms": k3_plain_ms, "bound_ms": k3_bound,
             "bound_by": "bytes" if k3_bytes / HBM_BYTES_PER_S >= k3_ops / F32_OPS_PER_S
             else "operations",

@@ -14,7 +14,10 @@ in the same file as the arrays it belongs to.
 The files are the reference's, member for member: a bfloat16 leaf is
 written as the reference writes it (its bits as 2-byte void records, descr
 ``<V2``), an int32 leaf as int32.  A file written by either package loads
-in the other.
+in the other.  ``dtypes`` names the members written in another dtype than
+their leaf's (a mixed-dtype model holds its bfloat16 leaves in a float32
+state, and writes them as bfloat16); a bfloat16 member restores into a
+float32 or float64 leaf exactly.
 
 Nothing of a leaf's size is staged anywhere: a member's payload streams
 between the zip member (zip64, stored) and the leaf's rows in chunks of
@@ -171,9 +174,9 @@ def _stream_in(f, leaf: torch.Tensor) -> None:
     torch.cuda.current_stream(leaf.device).synchronize()
 
 
-def _write_member(zf: zipfile.ZipFile, key: str, leaf) -> None:
+def _write_member(zf: zipfile.ZipFile, key: str, leaf, dtype=None) -> None:
     """One ``.npy`` member, as ``np.savez`` writes it (the same header and
-    payload bytes)."""
+    payload bytes), in ``dtype`` when given."""
     if callable(leaf):
         leaf = leaf()
     if not isinstance(leaf, torch.Tensor):
@@ -181,6 +184,8 @@ def _write_member(zf: zipfile.ZipFile, key: str, leaf) -> None:
         leaf = (torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
                 if arr.dtype.name == "bfloat16" else torch.from_numpy(arr))
     leaf = leaf.detach()
+    if dtype is not None and leaf.dtype != dtype:
+        leaf = leaf.to(dtype)
     header = {"descr": _descr(leaf.dtype), "fortran_order": False, "shape": tuple(leaf.shape)}
     with zf.open(key + ".npy", "w", force_zip64=True) as f:
         np.lib.format.write_array_header_1_0(f, header)
@@ -188,12 +193,15 @@ def _write_member(zf: zipfile.ZipFile, key: str, leaf) -> None:
 
 
 def save_checkpoint(directory: str, step: int, state: Any, *, keep: int = 3,
-                    extra: Optional[dict] = None) -> str:
+                    extra: Optional[dict] = None,
+                    dtypes: Optional[Mapping[str, torch.dtype]] = None) -> str:
     """Write ``<dir>/step_<n>.npz`` (and the manifest); prune to ``keep``
     newest.  ``state`` is a tree of tensors, arrays or callables returning
     a host tensor; ``extra`` an optional JSON-serializable dict that rides
     in the same file under a reserved key (crash-consistent resume needs
-    the engine run state saved with the arrays it belongs to)."""
+    the engine run state saved with the arrays it belongs to); ``dtypes``
+    maps member keys to the dtype they are written in (one leaf cast at a
+    time)."""
     os.makedirs(directory, exist_ok=True)
     path = checkpoint_path(directory, step)
     leaves = flatten(state)
@@ -203,7 +211,7 @@ def save_checkpoint(directory: str, step: int, state: Any, *, keep: int = 3,
     with zipfile.ZipFile(tmp, mode="w", compression=zipfile.ZIP_STORED,
                          allowZip64=True) as zf:
         for key, leaf in leaves:
-            _write_member(zf, key, leaf)
+            _write_member(zf, key, leaf, (dtypes or {}).get(key))
         if extra is not None:
             with zf.open(_EXTRA_KEY + ".npy", "w", force_zip64=True) as f:
                 np.lib.format.write_array(f, np.asarray(json.dumps(extra)))
@@ -268,12 +276,19 @@ def _same_bytes(file_dtype: np.dtype, dtype: torch.dtype) -> bool:
 
 def _read_member_into(zf: zipfile.ZipFile, key: str, target: torch.Tensor) -> None:
     """Member ``key`` into ``target`` (same shape), in place: streamed when
-    the bytes are the target dtype's, else read whole and converted."""
+    the bytes are the target dtype's, else read whole and converted (a
+    bfloat16 member into a float32 or float64 target exactly)."""
     with zf.open(key + ".npy") as f:
         shape, file_dtype = _header(f)
         if shape != tuple(target.shape):
             raise ValueError(f"checkpoint leaf {key}: shape {shape} != template "
                              f"{tuple(target.shape)}")
+        if (file_dtype.kind == "V" and file_dtype.itemsize == 2
+                and target.dtype in (torch.float32, torch.float64)):
+            bits = torch.empty(shape, dtype=torch.bfloat16)
+            _read_exact(f, memoryview(bits.reshape(-1).view(torch.uint8).numpy()))
+            target.copy_(bits)
+            return
         if _same_bytes(file_dtype, target.dtype):
             _stream_in(f, target)
             return

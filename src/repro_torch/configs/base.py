@@ -2,7 +2,12 @@
 
 ``ArchConfig`` keeps the reference's fields and ``reduced()`` rule (the
 CPU smoke-test variant of the same family: ≤2 layers, d_model ≤ 256,
-float32); only ``dtype`` is a torch dtype here.  ``InputShape`` and
+float32); only ``dtype`` is a torch dtype here.  The layout knobs of the
+reference's model axis (``pad_heads``/``pad_kv``, ``moe_shard_ff``,
+``moe_buf_constraint``) are kept and change nothing on one card: head
+padding at a tensor-parallel size of 1 pads no head; ``scan_layers`` is
+the reference's ``lax.scan`` over layers, a Python loop here either way;
+``moe_impl="manual_ep"`` (explicit expert-parallel collectives) raises.  ``InputShape`` and
 ``SHAPES`` are the reference's benchmark inputs (serving reads their
 context lengths).
 """
@@ -46,10 +51,16 @@ class ArchConfig:
     # impl knobs
     attn_impl: str = "reference"  # reference | chunked | chunked_skip
     attn_chunk: int = 1024
+    pad_heads: bool = False      # pad GQA groups so heads shard on a model axis
+    pad_kv: bool = False         # also pad kv heads to the model axis
     sliding_window: Optional[int] = None
     rec_chunk: int = 64          # recurrence chunk (ssm/hybrid)
+    scan_layers: bool = True
     remat: bool = True           # checkpoint every layer (the reference's default)
     remat_policy: str = "full"   # full | dots (keep the matrix products' outputs)
+    moe_shard_ff: bool = False   # layout only: expert d_ff over the data axis
+    moe_buf_constraint: bool = False  # layout only: pin the dispatch buffer
+    moe_impl: str = "gather"     # gather | manual_ep (raises: not ported)
     dtype: Any = torch.bfloat16
     # citation for the config numbers
     source: str = ""
@@ -59,6 +70,10 @@ class ArchConfig:
         if self.d_head:
             return self.d_head
         return self.d_model // max(self.n_heads, 1)
+
+    @property
+    def is_attention_free(self) -> bool:
+        return self.family == "ssm"
 
     def reduced(self) -> "ArchConfig":
         """CPU smoke-test variant of the same family."""

@@ -1,0 +1,9 @@
+"""stablelm-12b — dense GQA [hf:stabilityai/stablelm-2-1_6b family]."""
+from repro_torch.configs.base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="stablelm-12b", family="dense",
+    n_layers=40, d_model=5120, n_heads=32, n_kv=8, d_ff=13824, vocab=100352,
+    norm="layernorm",
+    source="hf:stabilityai/stablelm-2-1_6b",
+)

@@ -7,10 +7,21 @@ no concatenated copy.  Leaves sit in the reference package's leaf order
 (``jax.tree.leaves`` of the nested parameter dict: sorted keys, depth
 first), so column ``offsets[j]:offsets[j+1]`` of a buffer is leaf ``j`` of
 the reference tree.
+
+A model whose leaves are of more than one dtype (a bfloat16 hybrid keeps its
+Mamba2 ``a_log``/``d_skip`` in float32) is held in the promoted dtype:
+``state_dtype`` is float32 there, as the reference's fused step promotes the
+concatenated leaves, and the update keeps it: after every update the
+narrower leaves' columns are rounded back to their own dtype
+(``round_leaves_``), so every parameter holds a value of its leaf's dtype,
+while the f32 leaves stay float32 and the gossip wire carries float32.  The
+forward takes each leaf in its own dtype (``leaf_views``); the gradients,
+each leaf's in its dtype, land in the float32 gradient buffer exactly.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Callable, Mapping, Optional
 
@@ -29,11 +40,21 @@ class FlatLayout:
 
     names: tuple[str, ...]
     shapes: tuple[tuple[int, ...], ...]
+    # each leaf's own dtype (None: every leaf is of the state's dtype)
+    dtypes: Optional[tuple[torch.dtype, ...]] = None
 
     @classmethod
-    def from_shapes(cls, shapes: Mapping[str, tuple[int, ...]]) -> "FlatLayout":
+    def from_shapes(cls, shapes: Mapping[str, tuple[int, ...]],
+                    dtypes: Optional[Mapping[str, torch.dtype]] = None) -> "FlatLayout":
         """Leaves in the mapping's order (the port's dicts keep leaf order)."""
-        return cls(tuple(shapes), tuple(tuple(s) for s in shapes.values()))
+        return cls(tuple(shapes), tuple(tuple(s) for s in shapes.values()),
+                   None if dtypes is None else tuple(dtypes[k] for k in shapes))
+
+    @classmethod
+    def of_defs(cls, defs: Mapping) -> "FlatLayout":
+        """Layout of a flat ParamDef dict, each leaf with its dtype."""
+        return cls.from_shapes({k: d.shape for k, d in defs.items()},
+                               {k: d.dtype for k, d in defs.items()})
 
     @classmethod
     def of_stacked(cls, tree: Mapping[str, torch.Tensor]) -> "FlatLayout":
@@ -56,6 +77,48 @@ class FlatLayout:
     def size(self) -> int:
         """P: elements of one node's flattened state."""
         return self.offsets[-1]
+
+    @property
+    def state_dtype(self) -> torch.dtype:
+        """The flat state's dtype: the leaves' promoted dtype."""
+        return functools.reduce(torch.promote_types, self.dtypes)
+
+    @property
+    def mixed(self) -> bool:
+        """Whether the leaves are of more than one dtype."""
+        return self.dtypes is not None and len(set(self.dtypes)) > 1
+
+    def narrow_leaves(self) -> tuple[tuple[int, int, torch.dtype], ...]:
+        """(start, stop, dtype) column ranges of the leaves narrower than
+        the state's dtype."""
+        if not self.mixed:
+            return ()
+        wide = self.state_dtype
+        off = self.offsets
+        return tuple((off[j], off[j + 1], dt) for j, dt in enumerate(self.dtypes)
+                     if dt != wide)
+
+    def round_leaves_(self, buf: torch.Tensor) -> torch.Tensor:
+        """Round every narrower leaf's columns of a (rows, P) buffer to its
+        own dtype, IN PLACE (a no-op unless the layout is mixed)."""
+        for a, b, dt in self.narrow_leaves():
+            cols = buf[:, a:b]
+            cols.copy_(cols.to(dt))
+        return buf
+
+    @property
+    def row_bytes(self) -> int:
+        """Bytes of one node's parameters, each leaf in its own dtype."""
+        return sum(n * torch.empty((), dtype=dt).element_size()
+                   for n, dt in zip(self.sizes, self.dtypes))
+
+    def leaf_views(self, row: torch.Tensor) -> dict[str, torch.Tensor]:
+        """One node's leaves, each in its own dtype: views into the (P,) row,
+        copies for the leaves narrower than the row."""
+        views = self.views(row)
+        if not self.mixed:
+            return views
+        return {k: v.to(dt) for (k, v), dt in zip(views.items(), self.dtypes)}
 
     def views(self, row: torch.Tensor) -> dict[str, torch.Tensor]:
         """Leaf views into one node's (P,) row."""
@@ -114,14 +177,19 @@ def update_leaves(optimizer, update: Callable, layout: FlatLayout, theta: torch.
     on the parameters before it for ``"pre"``.  ``gate`` (a (rows,) fault
     mask, ``update``) keeps the rows where it is 0 at their parameters
     (mixed first for ``"pre"``) and optimizer state: stragglers and dead
-    nodes skip their local update.
+    nodes skip their local update.  A mixed layout's leaves are updated
+    and mixed in their own dtypes, as the reference's per-leaf interpreter
+    runs them.
     """
     p_views = layout.stacked_views(theta)
     slot_views = {s: layout.stacked_views(opt[s]) for s in optimizer.slots}
     t, new_t = opt.get("t"), None
     keep = None if gate is None else torch.as_tensor(gate, device=theta.device) > 0
+    dtypes = dict(zip(layout.names, layout.dtypes)) if layout.mixed else {}
     for name in layout.names:
         p = p_views[name]
+        if name in dtypes:   # a mixed layout: the leaf in its own dtype
+            p = p.to(dtypes[name])
         p_in = mix(p) if mix is not None and mix_order == "pre" else p
         st = state_from(optimizer, {s: {name: v[name]} for s, v in slot_views.items()}, t)
         new_p, new_st = update({name: grads[name]}, st, {name: p_in}, lr)
@@ -131,7 +199,7 @@ def update_leaves(optimizer, update: Callable, layout: FlatLayout, theta: torch.
             out = torch.where(col, out, p_in)
         if mix is not None and mix_order == "post":
             out = mix(out)
-        p.copy_(out)
+        p_views[name].copy_(out)
         parts, new_t = state_parts(optimizer, new_st)
         for s, leaves in parts.items():
             view = slot_views[s][name]
@@ -184,8 +252,9 @@ def node_grads_into(loss_fn: Callable, layout: FlatLayout, theta: torch.Tensor,
 
 
 def _loss_and_grads(loss_fn, layout: FlatLayout, row: torch.Tensor, batch, extra):
-    """One node's loss (detached) and its gradients, in leaf order."""
-    params = {k: v.detach().requires_grad_() for k, v in layout.views(row).items()}
+    """One node's loss (detached) and its gradients, in leaf order, each
+    leaf in its own dtype."""
+    params = {k: v.detach().requires_grad_() for k, v in layout.leaf_views(row).items()}
     loss = loss_fn(params, batch, *extra)
     return loss.detach(), torch.autograd.grad(loss, list(params.values()))
 

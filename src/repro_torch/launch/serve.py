@@ -1,8 +1,10 @@
 """Serving: prefill and decode for one replica on one card.
 
 The counterpart of ``repro/launch/serve.py``.  ``ServeEngine`` builds the
-prefill and decode step functions of a dense model and runs batched
-greedy or sampled generation against a KV cache.  The reference's
+prefill and decode step functions of any family and runs batched greedy
+or sampled generation against its decode state (KV caches, RWKV states,
+or the hybrid's Mamba2 states and shared-attention caches).  A VLM's
+prompt takes its precomputed patch embeddings first.  The reference's
 ``lower_prefill``/``lower_decode`` and its mesh shardings are XLA lowering
 and tensor/data-parallel layout; one card has no counterpart of them.
 
@@ -24,7 +26,7 @@ from repro_torch.configs.base import ArchConfig, InputShape
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as tfm
 
-__all__ = ["ServeEngine", "DEFAULT_WINDOW", "main"]
+__all__ = ["ServeEngine", "DEFAULT_WINDOW", "grow_caches", "main"]
 
 DEFAULT_WINDOW = 8192  # sliding window for full-attention archs on long_500k
 
@@ -52,8 +54,8 @@ class ServeEngine:
         )
 
         @torch.no_grad()
-        def fn(params, tokens):
-            return tfm.prefill(params, cfg, tokens)
+        def fn(params, tokens, patch_embeds=None):
+            return tfm.prefill(params, cfg, tokens, patch_embeds=patch_embeds)
 
         return fn
 
@@ -83,6 +85,7 @@ class ServeEngine:
         prompts: torch.Tensor,
         n_new: int,
         *,
+        patch_embeds: Optional[torch.Tensor] = None,
         max_len: Optional[int] = None,
         temperature: float = 0.0,
         generator: Optional[torch.Generator] = None,
@@ -90,19 +93,29 @@ class ServeEngine:
         """Batched greedy (or, with ``temperature > 0`` and a ``generator``,
         sampled) generation: (B, S0) prompts -> (B, n_new) tokens.
 
-        As in the reference, the prompt's prefill is run and discarded; the
-        prompt is then replayed token by token into a ``max_len`` cache."""
+        As in the reference, a text prompt's prefill is run and discarded;
+        the prompt is then replayed token by token into a ``max_len``
+        state.  A VLM prompt with ``patch_embeds`` (B, n_patches, D) keeps
+        its prefill instead (decode steps take tokens, not patches): the
+        prefill's caches grow to ``max_len`` slots (n_patches + S0 + n_new
+        by default) and decoding continues at position n_patches + S0."""
         cfg = self.cfg
         prompts = torch.as_tensor(prompts, device=self.device)
         b, s0 = prompts.shape
-        max_len = max_len or (s0 + n_new)
-        tfm.prefill(params, cfg, prompts)
-        state = tfm.init_decode_state(cfg, b, max_len, device=self.device)
-        last = None
-        pos = 0
-        for t in range(s0):
-            last, state = tfm.decode_step(params, cfg, prompts[:, t : t + 1], pos, state)
-            pos += 1
+        vlm = cfg.input_kind == "vlm" and patch_embeds is not None
+        n_patches = cfg.n_patches if vlm else 0
+        max_len = max_len or (s0 + n_patches + n_new)
+        last, state = tfm.prefill(params, cfg, prompts, patch_embeds=patch_embeds)
+        if vlm:
+            state = grow_caches(state, max_len)
+            pos = n_patches + s0
+        else:
+            state = tfm.init_decode_state(cfg, b, max_len, device=self.device)
+            last = None
+            pos = 0
+            for t in range(s0):
+                last, state = tfm.decode_step(params, cfg, prompts[:, t : t + 1], pos, state)
+                pos += 1
         out = []
         for _ in range(n_new):
             if temperature > 0.0 and generator is not None:
@@ -114,6 +127,28 @@ class ServeEngine:
             last, state = tfm.decode_step(params, cfg, tok, pos, state)
             pos += 1
         return torch.cat(out, dim=1)
+
+
+def grow_caches(state: tfm.DecodeState, slots: int) -> tfm.DecodeState:
+    """A prefill's decode state with its KV caches grown to ``slots`` slots
+    (empty slots: zero k and v, position -1)."""
+
+    def grow(kv):
+        k, v, p = kv
+        extra = slots - k.shape[2]
+        if extra <= 0:
+            return kv
+        pad = lambda x, fill: torch.cat(
+            [x, torch.full(x.shape[:2] + (extra,) + x.shape[3:], fill, dtype=x.dtype,
+                           device=x.device)], dim=2)
+        return pad(k, 0), pad(v, 0), pad(p, -1)
+
+    if state.kv is not None:
+        return state._replace(kv=grow(state.kv))
+    if state.hybrid is not None:
+        return state._replace(hybrid=dict(state.hybrid,
+                                          attn_cache=grow(state.hybrid["attn_cache"])))
+    return state
 
 
 def _parser() -> argparse.ArgumentParser:

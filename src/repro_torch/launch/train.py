@@ -16,7 +16,12 @@ The state is flat (rows, P) buffers (``core/flat.py``) in the reference's
 leaf order — parameters (model dtype), gradients (model dtype) and one
 float32 buffer per optimizer-state slot (momentum; AdamW's ``mu``, ``nu``
 and its (rows,) step count) — with rows = G stacked, 1 (the rank's own
-node) for ranks; every node's parameters are views into them.  One
+node) for ranks; every node's parameters are views into them.  A model of
+mixed leaf dtypes (the bf16 hybrid's float32 ``a_log``/``d_skip``) holds
+parameters and gradients in float32, its narrower leaves rounded to their
+dtype after every update and round, as the reference's fused step casts
+each leaf back after its float32 kernel; checkpoints write each leaf in
+its own dtype.  One
 iteration (paper §2.1 order):
 
   0. closed-loop Ada: before a probe step the consensus distance Ξ_t
@@ -249,7 +254,7 @@ class SPMDTrainer:
         self.engine = "stacked" if self.comm is None else "ranks"
         self.rows = self.g if self.comm is None else 1
         self.defs = tfm.model_defs(cfg)
-        self.layout = FlatLayout.from_shapes({k: d.shape for k, d in self.defs.items()})
+        self.layout = FlatLayout.of_defs(self.defs)
         if bucket_mb is not None:
             check_bucketable(optimizer, topology)
         self.bucket_mb = bucket_mb
@@ -342,8 +347,8 @@ class SPMDTrainer:
             gen = torch.Generator(device=self.device)
             gen.manual_seed(seed)
             params = tfm.init_model(self.cfg, gen, self.device)
-        theta = torch.empty((self.rows, self.layout.size), dtype=self.cfg.dtype,
-                            device=self.device)
+        theta = torch.empty((self.rows, self.layout.size),
+                            dtype=self.layout.state_dtype, device=self.device)
         for name, view in self.layout.views(theta[0]).items():
             if tuple(params[name].shape) != tuple(view.shape):
                 raise ValueError(
@@ -446,7 +451,7 @@ class SPMDTrainer:
                 else torch.zeros((self.rows, 0), dtype=torch.float32, device=self.device)
             )
             if program is not None and self.g > 1:
-                tel.comm(program, self.layout.size * state.theta.element_size(),
+                tel.comm(program, self.layout.row_bytes,
                          step=state.step, alive=None if fr is None else fr.alive,
                          link_up=None if fr is None else fr.link_up)
             if topo.centralized:
@@ -457,9 +462,11 @@ class SPMDTrainer:
                         g.copy_(g.float().mean(dim=0, keepdim=True).to(g.dtype).expand_as(g))
                     else:
                         g.copy_(self.comm.pmean(g.float().contiguous()))
+                self.layout.round_leaves_(grad)
             split = self._fused_split(program)
             if self._bucketed and program is not None:
                 self._bucketed_update(state, grad, lr, program, split, fault)
+                self.layout.round_leaves_(state.theta)
                 bucket_grad = grad
             elif split is None:
                 update_leaves(
@@ -482,11 +489,24 @@ class SPMDTrainer:
                         first, state.theta, grad, state.mom,
                         lr=lr, beta=self.beta, fault=fault, mix_order=topo.mix_order,
                     )
-                mix_in_place(rest, state.theta, lambda st, x: self._mix(st, x, fault))
+                self._later_rounds(rest, state.theta, fault)
             del grad
             self._finish_round(losses, norms, t_start, step=state.step, mix=mix, lr=lr,
                                grads=bucket_grad)
         return TrainState(state.theta, state.opt, state.step + 1), losses, norms
+
+    def _later_rounds(self, rest, theta, fault) -> None:
+        """The rounds after the fused one, IN PLACE; a mixed layout rounds
+        its narrower leaves after the kernel's round and after each later
+        one, as the reference mixes those leaves in their own dtype."""
+        mix = lambda st, x: self._mix(st, x, fault)
+        if not self.layout.mixed:
+            mix_in_place(rest, theta, mix)
+            return
+        self.layout.round_leaves_(theta)
+        for stage in rest:
+            mix_in_place((stage,), theta, mix)
+            self.layout.round_leaves_(theta)
 
     def _own(self, mask: torch.Tensor) -> torch.Tensor:
         """The rows of a (G,) per-node mask that this engine holds."""
@@ -582,15 +602,19 @@ class SPMDTrainer:
         column chunk, and rank 0 alone writes.  Returns the file's path
         (None on the other ranks)."""
         tree = self.checkpoint_tree(state)
+        # a mixed layout's narrower leaves are written in their own dtype
+        dtypes = {"p/" + self.layout.names[j].replace(".", "/"): self.layout.dtypes[j]
+                  for j in range(len(self.layout.names))
+                  if self.layout.mixed and self.layout.dtypes[j] != state.theta.dtype}
         if self.comm is None:
             return save_checkpoint(directory, state.step, tree, keep=keep,
-                                   extra=self.snapshot_extra())
+                                   extra=self.snapshot_extra(), dtypes=dtypes)
         comm = self.comm
         gathered = map_leaves(
             lambda v: lambda: _gathered(comm.gather_host(v), v.shape[1:]), tree)
         if comm.rank == 0:
             return save_checkpoint(directory, state.step, gathered, keep=keep,
-                                   extra=self.snapshot_extra())
+                                   extra=self.snapshot_extra(), dtypes=dtypes)
         for _, gather in flatten(gathered):
             gather()
         return None

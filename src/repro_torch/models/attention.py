@@ -23,7 +23,10 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models.common import at_least_f32
+
 __all__ = [
+    "head_padding",
     "multihead_attention",
     "decode_attention",
     "cache_update",
@@ -31,6 +34,21 @@ __all__ = [
 ]
 
 _NEG_INF = -1e30
+
+
+def head_padding(n_heads: int, n_kv: int, tp: int, *, pad_kv: bool = False
+                 ) -> tuple[int, int, int]:
+    """The reference's grouped head padding for a ``tp``-way model axis:
+    (h_pad, kv_pad, group_pad) with h_pad = kv_pad · group_pad.  At tp = 1
+    nothing is padded: (n_heads, n_kv, n_heads // n_kv)."""
+    group = n_heads // max(n_kv, 1)
+    kv_pad = n_kv
+    if pad_kv and n_kv % tp:
+        kv_pad = -(-n_kv // tp) * tp
+    g_pad = group
+    while (kv_pad * g_pad) % tp:
+        g_pad += 1
+    return kv_pad * g_pad, kv_pad, g_pad
 
 
 def _mask(
@@ -83,7 +101,7 @@ def multihead_attention(
     qg = q.reshape(b, sq, n_kv, h // n_kv, d) * scale  # (B, Q, KV, G, D)
 
     if impl == "reference":
-        scores = torch.einsum("bqhgd,bshd->bhgqs", qg.float(), k.float())
+        scores = torch.einsum("bqhgd,bshd->bhgqs", at_least_f32(qg), at_least_f32(k))
         m = _mask(q_positions, k_positions, causal, window, k_valid)
         scores = torch.where(m[:, None, None], scores, _NEG_INF)
         p = torch.softmax(scores, dim=-1)

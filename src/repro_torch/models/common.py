@@ -24,6 +24,7 @@ __all__ = [
     "param_count",
     "flatten_tree",
     "unflatten_tree",
+    "at_least_f32",
     "rms_norm",
     "layer_norm",
     "rope",
@@ -130,32 +131,40 @@ def param_count(tree: Mapping) -> int:
 # Normalization
 # ---------------------------------------------------------------------------
 
+def at_least_f32(x: torch.Tensor) -> torch.Tensor:
+    """x in float32, or as it is if it is wider (a float64 run of a model,
+    as the precision checks take one, stays float64 throughout)."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
 def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    xf = x.float()
+    xf = at_least_f32(x)
     var = xf.square().mean(dim=-1, keepdim=True)
-    return (xf * torch.rsqrt(var + eps) * gamma.float()).to(x.dtype)
+    return (xf * torch.rsqrt(var + eps) * at_least_f32(gamma)).to(x.dtype)
 
 
 def layer_norm(
     x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, eps: float = 1e-5
 ) -> torch.Tensor:
-    xf = x.float()
+    xf = at_least_f32(x)
     mu = xf.mean(dim=-1, keepdim=True)
     var = xf.var(dim=-1, keepdim=True, unbiased=False)
     y = (xf - mu) * torch.rsqrt(var + eps)
-    return (y * gamma.float() + beta.float()).to(x.dtype)
+    return (y * at_least_f32(gamma) + at_least_f32(beta)).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
 # Rotary position embeddings
 # ---------------------------------------------------------------------------
 
-def rope(positions: torch.Tensor, d_head: int, theta: float = 10000.0):
-    """(sin, cos) tables for ``positions`` (any leading shape) -> (..., d_head/2)."""
+def rope(positions: torch.Tensor, d_head: int, theta: float = 10000.0,
+         dtype: torch.dtype = torch.float32):
+    """(sin, cos) tables for ``positions`` (any leading shape) -> (..., d_head/2),
+    in ``dtype`` (float32, as the reference's; float64 for a float64 run)."""
     half = d_head // 2
-    exps = torch.arange(0, half, dtype=torch.float32, device=positions.device) / half
-    freqs = 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32), exps)
-    angles = positions.float()[..., None] * freqs
+    exps = torch.arange(0, half, dtype=dtype, device=positions.device) / half
+    freqs = 1.0 / torch.pow(torch.tensor(theta, dtype=dtype), exps)
+    angles = positions.to(dtype)[..., None] * freqs
     return torch.sin(angles), torch.cos(angles)
 
 

@@ -55,6 +55,24 @@ def run_cases(comm, cases, params, steps, seq, batch, lr):
     return out
 
 
+def zoo_rows(comm, arch, dtype_name, steps, seq, batch, lr):
+    """``arch``'s reduced config in ``dtype_name`` on d_ring with fused
+    apply, ``steps`` steps from the seed-0 weights.  Returns this rank's
+    (θ row, m row, the trainer's engine)."""
+    import dataclasses
+
+    cfg = dataclasses.replace(get_config(arch + "-reduced"), remat=False,
+                              dtype=getattr(torch, dtype_name))
+    trainer = SPMDTrainer(cfg, make_topology("d_ring", comm.world),
+                          get_optimizer("sgd", momentum=0.9), fused_apply=True,
+                          device=comm.device)
+    state = trainer.init_state(seed=0)
+    src = SyntheticLM(vocab=cfg.vocab, seq_len=seq, seed=0)
+    for t in range(steps):
+        state, _, _ = trainer.train_step(state, src.stacked(comm.world, t, batch), lr)
+    return state.theta[0].numpy().copy(), state.mom[0].numpy().copy(), trainer.engine
+
+
 def telemetry_cases(comm, cases, params, steps, seq, batch, lr, metrics_every):
     """Each case ``name -> (topology, topo_kw, engine_kw)`` trained
     ``steps`` steps with run telemetry: rank 0's recorder writes to a

@@ -62,8 +62,10 @@ def test_config_and_layout_match_reference(granite):
     assert list(defs) == list(flat)  # reference leaf order
     for k, d in defs.items():
         assert d.shape == flat[k].shape, k
-    with pytest.raises(ValueError, match="not yet ported"):
-        tget_config("qwen2.5-14b")
+    qwen = tget_config("qwen2.5-14b")   # every reference arch loads
+    assert (qwen.n_heads, qwen.n_kv, qwen.qkv_bias) == (40, 8, True)
+    with pytest.raises(ValueError, match="unknown arch"):
+        tget_config("qwen9-1t")
 
 
 def test_loss_and_grads_match_reference(granite):

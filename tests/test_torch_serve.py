@@ -212,6 +212,12 @@ def test_serve_main_runs_on_cpu(capsys):
 
 
 def test_other_families_raise():
-    cfg = dataclasses.replace(tget_config("granite-8b-reduced"), family="ssm")
-    with pytest.raises(ValueError, match="not ported yet"):
+    """Every family of the reference builds its decode state; a family the
+    reference does not have raises."""
+    for family, field in (("ssm", "rwkv"), ("hybrid", "hybrid")):
+        arch = "rwkv6-1.6b" if family == "ssm" else "zamba2-7b"
+        state = ttfm.init_decode_state(tget_config(arch + "-reduced"), 1, 4)
+        assert getattr(state, field) is not None and state.kv is None
+    cfg = dataclasses.replace(tget_config("granite-8b-reduced"), family="retrieval")
+    with pytest.raises(ValueError, match="unknown model family"):
         ttfm.init_decode_state(cfg, 1, 4)
