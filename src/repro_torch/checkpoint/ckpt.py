@@ -14,10 +14,11 @@ in the same file as the arrays it belongs to.
 The files are the reference's, member for member: a bfloat16 leaf is
 written as the reference writes it (its bits as 2-byte void records, descr
 ``<V2``), an int32 leaf as int32.  A file written by either package loads
-in the other.  ``dtypes`` names the members written in another dtype than
-their leaf's (a mixed-dtype model holds its bfloat16 leaves in a float32
-state, and writes them as bfloat16); a bfloat16 member restores into a
-float32 or float64 leaf exactly.
+in the other.  A leaf wrapped in ``AsDtype`` is written in that dtype (a
+mixed-dtype model holds its bfloat16 leaves in a float32 state and writes
+them as bfloat16); a member restores into a leaf of another dtype (a
+bfloat16 member into a float32 or float64 leaf exactly), cast chunk by
+chunk as it streams.
 
 Nothing of a leaf's size is staged anywhere: a member's payload streams
 between the zip member (zip64, stored) and the leaf's rows in chunks of
@@ -31,6 +32,7 @@ the previous checkpoint and the manifest as they were.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import zipfile
@@ -40,7 +42,7 @@ import numpy as np
 import torch
 
 __all__ = [
-    "save_checkpoint", "load_checkpoint", "restore_checkpoint", "load_checkpoint_extra",
+    "AsDtype", "save_checkpoint", "load_checkpoint", "restore_checkpoint", "load_checkpoint_extra",
     "latest_step", "validate_run_config", "flatten", "map_leaves", "checkpoint_path",
     "read_leaf", "leaf_shapes", "resolve_step",
 ]
@@ -51,6 +53,19 @@ _SEP = "/"
 _EXTRA_KEY = "__extra__"
 # bytes per chunk of a member's payload moved to or from the file
 _CHUNK = 64 << 20
+
+
+@dataclasses.dataclass(frozen=True)
+class AsDtype:
+    """A tree leaf written as ``dtype``, cast chunk by chunk as it streams
+    out; restored, it is ``leaf`` (the member cast to the leaf's dtype)."""
+    leaf: Any
+    dtype: torch.dtype
+
+
+def held(leaf: Any) -> Any:
+    """The tensor (or callable) a tree leaf holds, ``AsDtype`` unwrapped."""
+    return leaf.leaf if isinstance(leaf, AsDtype) else leaf
 
 
 def flatten(tree: Any, prefix: str = "") -> list[tuple[str, Any]]:
@@ -69,7 +84,10 @@ def flatten(tree: Any, prefix: str = "") -> list[tuple[str, Any]]:
 
 
 def map_leaves(fn: Callable, tree: Any) -> Any:
-    """The tree with every leaf replaced by ``fn(leaf)``."""
+    """The tree with every leaf replaced by ``fn(leaf)`` (an ``AsDtype``'s
+    held leaf, the wrapper kept)."""
+    if isinstance(tree, AsDtype):
+        return AsDtype(fn(tree.leaf), tree.dtype)
     if isinstance(tree, Mapping):
         return {k: map_leaves(fn, v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
@@ -89,14 +107,33 @@ def _descr(dtype: torch.dtype) -> str:
     return np.lib.format.dtype_to_descr(torch.empty((), dtype=dtype).numpy().dtype)
 
 
-def _byte_rows(t: torch.Tensor) -> list[torch.Tensor]:
-    """The leaf's bytes, in order, as flat uint8 views of contiguous pieces:
-    the whole leaf, or (a strided (G, ...) view of a flat buffer) its rows."""
+def _member_dtype(file_dtype: np.dtype) -> torch.dtype:
+    """The torch dtype of a member's payload: a 2-byte void member is
+    bfloat16 (as the reference writes it)."""
+    if file_dtype.kind == "V":
+        if file_dtype.itemsize != 2:
+            raise ValueError(f"a {file_dtype} checkpoint leaf cannot restore")
+        return torch.bfloat16
+    return torch.from_numpy(np.empty(0, file_dtype)).dtype
+
+
+def _pieces(t: torch.Tensor) -> list[torch.Tensor]:
+    """The leaf's elements, in order, as flat contiguous pieces: the whole
+    leaf, or (a strided (G, ...) view of a flat buffer) its rows."""
     pieces = [t] if t.dim() == 0 or t.is_contiguous() else list(t.unbind(0))
     for x in pieces:
         if not x.is_contiguous():
             raise ValueError(f"a leaf of shape {tuple(t.shape)} has non-contiguous rows")
-    return [x.reshape(-1).view(torch.uint8) for x in pieces]
+    return [x.reshape(-1) for x in pieces]
+
+
+def _chunks(t: torch.Tensor, dtype: torch.dtype):
+    """(piece, a, b): element ranges of ``t``'s pieces holding at most
+    ``_CHUNK`` bytes in ``dtype`` or in ``t``'s own dtype."""
+    step = _CHUNK // max(t.element_size(), torch.empty((), dtype=dtype).element_size())
+    for x in _pieces(t):
+        for a in range(0, x.numel(), step):
+            yield x, a, min(a + step, x.numel())
 
 
 class _Staging:
@@ -120,26 +157,24 @@ class _Staging:
         self.events[i].record()
 
 
-def _stream_out(f, leaf: torch.Tensor) -> None:
-    """Write ``leaf``'s bytes to ``f`` in chunks."""
-    rows = _byte_rows(leaf)
+def _stream_out(f, leaf: torch.Tensor, dtype: torch.dtype) -> None:
+    """Write ``leaf``'s elements as ``dtype`` to ``f`` in chunks (each
+    chunk cast on the leaf's device when the dtypes differ)."""
+    chunks = ((x[a:b] if x.dtype == dtype else x[a:b].to(dtype)).view(torch.uint8)
+              for x, a, b in _chunks(leaf, dtype))
     if leaf.device.type == "cpu":
-        for r in rows:
-            raw = r.numpy()
-            for a in range(0, raw.size, _CHUNK):
-                f.write(memoryview(raw[a:a + _CHUNK]))
+        for c in chunks:
+            f.write(memoryview(c.numpy()))
         return
     stage, pending = _Staging(), None
-    for r in rows:
-        for a in range(0, r.numel(), _CHUNK):
-            b = min(a + _CHUNK, r.numel())
-            buf, i = stage.next(b - a)
-            buf.copy_(r[a:b], non_blocking=True)
-            stage.mark(i)
-            if pending is not None:
-                stage.events[pending[1]].synchronize()
-                f.write(memoryview(pending[0].numpy()))
-            pending = (buf, i)
+    for c in chunks:
+        buf, i = stage.next(c.numel())
+        buf.copy_(c, non_blocking=True)
+        stage.mark(i)
+        if pending is not None:
+            stage.events[pending[1]].synchronize()
+            f.write(memoryview(pending[0].numpy()))
+        pending = (buf, i)
     if pending is not None:
         stage.events[pending[1]].synchronize()
         f.write(memoryview(pending[0].numpy()))
@@ -154,29 +189,33 @@ def _read_exact(f, out: memoryview) -> None:
         got += n
 
 
-def _stream_in(f, leaf: torch.Tensor) -> None:
-    """Fill ``leaf`` (in place) from ``f``'s bytes in chunks."""
-    rows = _byte_rows(leaf)
+def _stream_in(f, leaf: torch.Tensor, dtype: torch.dtype) -> None:
+    """Fill ``leaf`` (in place) from ``f``'s elements of ``dtype`` in
+    chunks, each cast to the leaf's dtype when they differ."""
+    size = torch.empty((), dtype=dtype).element_size()
     if leaf.device.type == "cpu":
-        for r in rows:
-            raw = memoryview(r.numpy())
-            for a in range(0, len(raw), _CHUNK):
-                _read_exact(f, raw[a:a + _CHUNK])
+        for x, a, b in _chunks(leaf, dtype):
+            if x.dtype == dtype:   # straight into the leaf's memory
+                _read_exact(f, memoryview(x[a:b].view(torch.uint8).numpy()))
+                continue
+            raw = torch.empty((b - a) * size, dtype=torch.uint8)
+            _read_exact(f, memoryview(raw.numpy()))
+            x[a:b].copy_(raw.view(dtype))
         return
     stage = _Staging()
-    for r in rows:
-        for a in range(0, r.numel(), _CHUNK):
-            b = min(a + _CHUNK, r.numel())
-            buf, i = stage.next(b - a)
-            _read_exact(f, memoryview(buf.numpy()))
-            r[a:b].copy_(buf, non_blocking=True)
-            stage.mark(i)
+    for x, a, b in _chunks(leaf, dtype):
+        buf, i = stage.next((b - a) * size)
+        _read_exact(f, memoryview(buf.numpy()))
+        x[a:b].copy_(buf.view(dtype), non_blocking=True)
+        stage.mark(i)
     torch.cuda.current_stream(leaf.device).synchronize()
 
 
-def _write_member(zf: zipfile.ZipFile, key: str, leaf, dtype=None) -> None:
+def _write_member(zf: zipfile.ZipFile, key: str, leaf) -> None:
     """One ``.npy`` member, as ``np.savez`` writes it (the same header and
-    payload bytes), in ``dtype`` when given."""
+    payload bytes), in an ``AsDtype``'s dtype or the leaf's own."""
+    dtype = leaf.dtype if isinstance(leaf, AsDtype) else None
+    leaf = held(leaf)
     if callable(leaf):
         leaf = leaf()
     if not isinstance(leaf, torch.Tensor):
@@ -184,24 +223,21 @@ def _write_member(zf: zipfile.ZipFile, key: str, leaf, dtype=None) -> None:
         leaf = (torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
                 if arr.dtype.name == "bfloat16" else torch.from_numpy(arr))
     leaf = leaf.detach()
-    if dtype is not None and leaf.dtype != dtype:
-        leaf = leaf.to(dtype)
-    header = {"descr": _descr(leaf.dtype), "fortran_order": False, "shape": tuple(leaf.shape)}
+    dtype = dtype or leaf.dtype
+    header = {"descr": _descr(dtype), "fortran_order": False, "shape": tuple(leaf.shape)}
     with zf.open(key + ".npy", "w", force_zip64=True) as f:
         np.lib.format.write_array_header_1_0(f, header)
-        _stream_out(f, leaf)
+        _stream_out(f, leaf, dtype)
 
 
 def save_checkpoint(directory: str, step: int, state: Any, *, keep: int = 3,
-                    extra: Optional[dict] = None,
-                    dtypes: Optional[Mapping[str, torch.dtype]] = None) -> str:
+                    extra: Optional[dict] = None) -> str:
     """Write ``<dir>/step_<n>.npz`` (and the manifest); prune to ``keep``
     newest.  ``state`` is a tree of tensors, arrays or callables returning
-    a host tensor; ``extra`` an optional JSON-serializable dict that rides
-    in the same file under a reserved key (crash-consistent resume needs
-    the engine run state saved with the arrays it belongs to); ``dtypes``
-    maps member keys to the dtype they are written in (one leaf cast at a
-    time)."""
+    a host tensor (any of them in an ``AsDtype``); ``extra`` an optional
+    JSON-serializable dict that rides in the same file under a reserved key
+    (crash-consistent resume needs the engine run state saved with the
+    arrays it belongs to)."""
     os.makedirs(directory, exist_ok=True)
     path = checkpoint_path(directory, step)
     leaves = flatten(state)
@@ -211,7 +247,7 @@ def save_checkpoint(directory: str, step: int, state: Any, *, keep: int = 3,
     with zipfile.ZipFile(tmp, mode="w", compression=zipfile.ZIP_STORED,
                          allowZip64=True) as zf:
         for key, leaf in leaves:
-            _write_member(zf, key, leaf, (dtypes or {}).get(key))
+            _write_member(zf, key, leaf)
         if extra is not None:
             with zf.open(_EXTRA_KEY + ".npy", "w", force_zip64=True) as f:
                 np.lib.format.write_array(f, np.asarray(json.dumps(extra)))
@@ -263,38 +299,21 @@ def leaf_shapes(zf: zipfile.ZipFile) -> dict[str, tuple]:
     return out
 
 
-def _same_bytes(file_dtype: np.dtype, dtype: torch.dtype) -> bool:
-    """Whether a member of ``file_dtype`` holds ``dtype``'s bytes as they
-    are: a 2-byte void member (bfloat16, as the reference writes it) for
-    bfloat16, the matching numpy dtype otherwise."""
-    if file_dtype.kind == "V":
-        if file_dtype.itemsize != 2 or dtype != torch.bfloat16:
-            raise ValueError(f"a {file_dtype} checkpoint leaf cannot restore as {dtype}")
-        return True
-    return dtype != torch.bfloat16 and file_dtype == torch.empty((), dtype=dtype).numpy().dtype
-
-
 def _read_member_into(zf: zipfile.ZipFile, key: str, target: torch.Tensor) -> None:
-    """Member ``key`` into ``target`` (same shape), in place: streamed when
-    the bytes are the target dtype's, else read whole and converted (a
-    bfloat16 member into a float32 or float64 target exactly)."""
+    """Member ``key`` into ``target`` (same shape), in place, streamed and
+    cast chunk by chunk where the member's dtype is not the target's; a
+    bfloat16 member restores only into a bfloat16, float32 or float64 leaf
+    (exactly)."""
     with zf.open(key + ".npy") as f:
         shape, file_dtype = _header(f)
         if shape != tuple(target.shape):
             raise ValueError(f"checkpoint leaf {key}: shape {shape} != template "
                              f"{tuple(target.shape)}")
-        if (file_dtype.kind == "V" and file_dtype.itemsize == 2
-                and target.dtype in (torch.float32, torch.float64)):
-            bits = torch.empty(shape, dtype=torch.bfloat16)
-            _read_exact(f, memoryview(bits.reshape(-1).view(torch.uint8).numpy()))
-            target.copy_(bits)
-            return
-        if _same_bytes(file_dtype, target.dtype):
-            _stream_in(f, target)
-            return
-        arr = np.empty(shape, file_dtype)
-        _read_exact(f, memoryview(arr.reshape(-1).view(np.uint8)))
-    target.copy_(torch.from_numpy(arr).to(target.dtype))
+        dtype = _member_dtype(file_dtype)
+        if dtype == torch.bfloat16 and target.dtype not in (
+                torch.bfloat16, torch.float32, torch.float64):
+            raise ValueError(f"a bfloat16 checkpoint leaf cannot restore as {target.dtype}")
+        _stream_in(f, target, dtype)
 
 
 def read_leaf(zf: zipfile.ZipFile, key: str, dtype: torch.dtype) -> torch.Tensor:
@@ -331,7 +350,7 @@ def restore_checkpoint(directory: str, target: Any, step: Optional[int] = None) 
     allocates no second state on the device.  Every shape is checked before
     the first leaf is written.  Returns the step."""
     step = resolve_step(directory, step)
-    leaves = flatten(target)
+    leaves = [(k, held(t)) for k, t in flatten(target)]
     with zipfile.ZipFile(checkpoint_path(directory, step)) as zf:
         _check_shapes(leaf_shapes(zf), leaves)
         for key, t in leaves:

@@ -71,10 +71,6 @@ class ArchConfig:
             return self.d_head
         return self.d_model // max(self.n_heads, 1)
 
-    @property
-    def is_attention_free(self) -> bool:
-        return self.family == "ssm"
-
     def reduced(self) -> "ArchConfig":
         """CPU smoke-test variant of the same family."""
         d_model = min(self.d_model, 256)

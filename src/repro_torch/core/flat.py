@@ -27,6 +27,7 @@ from typing import Callable, Mapping, Optional
 
 import torch
 
+from repro_torch.checkpoint.ckpt import AsDtype
 from repro_torch.models.common import unflatten_tree
 from repro_torch.optim.sgd import state_from, state_parts
 
@@ -264,7 +265,13 @@ def checkpoint_tree(optimizer, layout: FlatLayout, theta: torch.Tensor, opt: dic
     tree of (rows, ...) leaves: views into the buffers, no copy, nested by
     the leaves' dotted names (``checkpoint/ckpt.py`` keys them by their
     tree paths).  The optimizer state takes the reference's shape:
-    params-like (momentum, LARS), ``{"mu", "nu", "t"}`` (AdamW) or ``()``."""
+    params-like (momentum, LARS), ``{"mu", "nu", "t"}`` (AdamW) or ``()``.
+    A mixed layout's narrower leaves come in an ``AsDtype`` of their own
+    dtype: written as the reference writes them, restored into the view."""
     parts = {s: unflatten_tree(layout.stacked_views(opt[s])) for s in optimizer.slots}
-    return {"p": unflatten_tree(layout.stacked_views(theta)),
+    params = layout.stacked_views(theta)
+    if layout.mixed:
+        params = {k: v if dt == theta.dtype else AsDtype(v, dt)
+                  for (k, v), dt in zip(params.items(), layout.dtypes)}
+    return {"p": unflatten_tree(params),
             "o": state_from(optimizer, parts, opt.get("t"))}

@@ -116,7 +116,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.checkpoint.ckpt import (
-    checkpoint_path, flatten, leaf_shapes, load_checkpoint_extra, map_leaves, read_leaf,
+    checkpoint_path, flatten, held, leaf_shapes, load_checkpoint_extra, map_leaves, read_leaf,
     resolve_step, restore_checkpoint, save_checkpoint, validate_run_config,
 )
 from repro_torch.core import dbench
@@ -201,7 +201,8 @@ class SPMDTrainer:
         whenever that round is all-PPermute; requires plain momentum-SGD.
         bucket_mb: run the stacked engine's mixing steps bucket by bucket,
         ~bucket_mb MiB of float32 per bucket (SGD family, decentralized,
-        ``mix_order="post"``); the ranks engine keeps the monolithic step.
+        ``mix_order="post"``, one leaf dtype); the ranks engine keeps the
+        monolithic step.
         telemetry: the run's ``MetricsRecorder`` (an inert one by default,
         which costs nothing); on the ranks engine give rank 0 the sinks.
         ``device``: the current card by default; ``"cpu"`` runs every
@@ -257,6 +258,13 @@ class SPMDTrainer:
         self.layout = FlatLayout.of_defs(self.defs)
         if bucket_mb is not None:
             check_bucketable(optimizer, topology)
+            if self.layout.mixed:
+                # the bucketed step would run its later rounds and the Ξ fold
+                # on unrounded float32 columns of the narrower leaves
+                raise ValueError(
+                    "bucket_mb needs one leaf dtype; this model mixes "
+                    f"{sorted({str(d) for d in self.layout.dtypes})}: drop bucket_mb"
+                )
         self.bucket_mb = bucket_mb
         self._bucket_layout = (
             None if bucket_mb is None
@@ -466,7 +474,6 @@ class SPMDTrainer:
             split = self._fused_split(program)
             if self._bucketed and program is not None:
                 self._bucketed_update(state, grad, lr, program, split, fault)
-                self.layout.round_leaves_(state.theta)
                 bucket_grad = grad
             elif split is None:
                 update_leaves(
@@ -602,21 +609,17 @@ class SPMDTrainer:
         column chunk, and rank 0 alone writes.  Returns the file's path
         (None on the other ranks)."""
         tree = self.checkpoint_tree(state)
-        # a mixed layout's narrower leaves are written in their own dtype
-        dtypes = {"p/" + self.layout.names[j].replace(".", "/"): self.layout.dtypes[j]
-                  for j in range(len(self.layout.names))
-                  if self.layout.mixed and self.layout.dtypes[j] != state.theta.dtype}
         if self.comm is None:
             return save_checkpoint(directory, state.step, tree, keep=keep,
-                                   extra=self.snapshot_extra(), dtypes=dtypes)
+                                   extra=self.snapshot_extra())
         comm = self.comm
         gathered = map_leaves(
             lambda v: lambda: _gathered(comm.gather_host(v), v.shape[1:]), tree)
         if comm.rank == 0:
             return save_checkpoint(directory, state.step, gathered, keep=keep,
-                                   extra=self.snapshot_extra(), dtypes=dtypes)
+                                   extra=self.snapshot_extra())
         for _, gather in flatten(gathered):
-            gather()
+            held(gather)()
         return None
 
     def restore_checkpoint(self, directory: str, state: TrainState,
@@ -634,7 +637,7 @@ class SPMDTrainer:
             self.restore_extra(load_checkpoint_extra(directory, step) or {})
             return restore_checkpoint(directory, self.checkpoint_tree(state), step)
         comm = self.comm
-        leaves = flatten(self.checkpoint_tree(state))
+        leaves = [(k, held(v)) for k, v in flatten(self.checkpoint_tree(state))]
         head = [None, None, None]   # step, extra, a shape error
         if comm.rank == 0:
             head[0] = resolve_step(directory, step)

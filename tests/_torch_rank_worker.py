@@ -55,10 +55,11 @@ def run_cases(comm, cases, params, steps, seq, batch, lr):
     return out
 
 
-def zoo_rows(comm, arch, dtype_name, steps, seq, batch, lr):
+def zoo_rows(comm, arch, dtype_name, steps, seq, batch, lr, ckpt_dir=None):
     """``arch``'s reduced config in ``dtype_name`` on d_ring with fused
-    apply, ``steps`` steps from the seed-0 weights.  Returns this rank's
-    (θ row, m row, the trainer's engine)."""
+    apply, ``steps`` steps from the seed-0 weights; with ``ckpt_dir`` the
+    state is then checkpointed there and restored into a seed-1 state.
+    Returns this rank's (θ row, m row, the trainer's engine)."""
     import dataclasses
 
     cfg = dataclasses.replace(get_config(arch + "-reduced"), remat=False,
@@ -70,6 +71,10 @@ def zoo_rows(comm, arch, dtype_name, steps, seq, batch, lr):
     src = SyntheticLM(vocab=cfg.vocab, seq_len=seq, seed=0)
     for t in range(steps):
         state, _, _ = trainer.train_step(state, src.stacked(comm.world, t, batch), lr)
+    if ckpt_dir is not None:
+        trainer.save_checkpoint(ckpt_dir, state)
+        state = trainer.init_state(seed=1)
+        trainer.restore_checkpoint(ckpt_dir, state)
     return state.theta[0].numpy().copy(), state.mom[0].numpy().copy(), trainer.engine
 
 

@@ -120,6 +120,34 @@ def test_restore_in_place_into_views_of_flat_buffers(tmp_path):
     assert step == 3 and torch.equal(target.view(torch.int16), buf.view(torch.int16))
 
 
+def test_as_dtype_leaves_stream_cast_chunk_by_chunk(tmp_path, monkeypatch):
+    """An ``AsDtype`` leaf (float32 column views of a flat buffer, written
+    as bfloat16) streams in chunks of a few elements: the member is the
+    reference's bfloat16 file of the rounded values, and it restores into
+    float32 views exactly; chunks end inside rows and inside elements'
+    pieces."""
+    from repro_torch.checkpoint.ckpt import AsDtype
+
+    monkeypatch.setattr("repro_torch.checkpoint.ckpt._CHUNK", 12)
+    rng = np.random.default_rng(2)
+    buf = torch.from_numpy(rng.normal(size=(4, 23)).astype(np.float32))
+    narrow = buf[:, 5:18].view(4, 13)
+    tree = {"w": buf[:, :5], "n": AsDtype(narrow, torch.bfloat16)}
+    d = str(tmp_path)
+    tckpt.save_checkpoint(d, 2, tree)
+    back, _ = jckpt.load_checkpoint(d, {"w": jnp.zeros((4, 5), jnp.float32),
+                                        "n": jnp.zeros((4, 13), jnp.bfloat16)})
+    got = np.asarray(back["n"])
+    got = got.view(ml_dtypes.bfloat16) if got.dtype.kind == "V" else got
+    assert np.array_equal(got.astype(np.float32), narrow.bfloat16().float().numpy())
+    assert np.array_equal(np.asarray(back["w"]), buf[:, :5].numpy())
+    target = torch.full_like(buf, 7.0)
+    tckpt.restore_checkpoint(d, {"w": target[:, :5],
+                                 "n": AsDtype(target[:, 5:18].view(4, 13), torch.bfloat16)})
+    assert torch.equal(target[:, 5:18], narrow.bfloat16().float())
+    assert torch.equal(target[:, :5], buf[:, :5]) and bool((target[:, 18:] == 7.0).all())
+
+
 def test_leaves_restore_by_the_template_dtype(tmp_path):
     """A leaf whose file dtype differs from the template's is converted to
     the template's; a 2-byte void (bfloat16) leaf restores only as

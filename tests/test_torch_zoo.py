@@ -7,15 +7,17 @@ For every reduced architecture the reference's weights are carried across
 with ``params_from_jax`` and the same numpy batch (seeded; a VLM's with
 patch embeddings) goes through both packages in float32:
 
-* the loss within 5e-5, and every gradient leaf within 5e-5 plus the two
-  packages' own float32 rounding of that leaf, each measured against the
-  same package run in float64 (the reference under ``jax``'s x64 mode).
-  For the attention families that rounding is ~1e-6; the RWKV6 and Mamba2
-  families (ssm, hybrid) normalize heads whose variance can sit near the
-  norm's epsilon, where both packages' float32 gradients stray from their
-  float64 ones by up to ~1e-3 and from each other by as much;
+* the loss within 5e-5, and every gradient leaf within 5e-5; for the
+  RWKV6 and Mamba2 families (ssm, hybrid), plus twice the reference's own
+  float32 rounding of that leaf, measured against the reference run in
+  float64 (``jax``'s x64 mode).  Those families normalize heads whose
+  variance can sit near the norm's epsilon, where float32 gradients stray
+  from float64 ones by up to ~2e-2.  The bar comes from the reference
+  alone, so a precision fault in the port cannot widen it; the port's
+  float64 run is held to the reference's within the same bar (both keep
+  the recurrences and group norms in float32, as the reference does);
 * the prefill logits and a chain of decode steps within 1e-5 (plus, for
-  ssm and hybrid, the same float32 rounding terms);
+  ssm and hybrid, twice the reference's prefill rounding);
 * decode against forward at the reference's bar (atol 3e-3, rtol 1e-3,
   capacity factor 16 for MoE, as ``tests/test_decode_equivalence.py``);
 * greedy generation gives the reference's tokens; a VLM prompt with
@@ -179,14 +181,20 @@ def test_loss_and_grads_match_reference(arch):
     tloss, tg = _port_grads(tcfg, jparams, batch)
     assert abs(tloss - jloss) <= TOL, (tloss, jloss)
     assert list(tg) == list(jg)
+    rounding = {k: 0.0 for k in jg}
     if tcfg.family in ("ssm", "hybrid"):
+        # the reference's own float32 rounding, twice: the port's side
+        # may not widen its own bar
         with _x64():
-            _, jg64 = _ref_grads(jcfg, jparams, batch, jnp.float64)
-        _, tg64 = _port_grads(tcfg, jparams, batch, torch.float64)
-        rounding = {k: np.abs(jg[k] - jg64[k]).max() + np.abs(tg[k] - tg64[k]).max()
-                    for k in jg}
-    else:
-        rounding = {k: 0.0 for k in jg}
+            jloss64, jg64 = _ref_grads(jcfg, jparams, batch, jnp.float64)
+        tloss64, tg64 = _port_grads(tcfg, jparams, batch, torch.float64)
+        rounding = {k: 2 * np.abs(jg[k] - jg64[k]).max() for k in jg}
+        # both float64 runs keep the recurrences and group norms in float32
+        # (as the reference does), so they too agree only within that bar
+        assert abs(tloss64 - jloss64) <= TOL, (tloss64, jloss64)
+        for k in jg:
+            err64 = np.abs(tg64[k] - jg64[k]).max()
+            assert err64 <= TOL + rounding[k], (k, err64, rounding[k])
     for k in jg:
         err = np.abs(tg[k] - jg[k]).max()
         assert err <= TOL + rounding[k], (k, err, rounding[k])
@@ -237,21 +245,22 @@ def _port_serving(tcfg, jparams, batch, dtype=torch.float32):
 
 @pytest.mark.parametrize("arch", ARCH_NAMES)
 def test_prefill_and_decode_match_reference(arch):
-    """Within 1e-5, plus (ssm, hybrid) both packages' own float32 rounding
-    against their float64 runs, as for the gradients (for the decode
-    chain, the reference's prefill rounding stands for its own)."""
+    """Within 1e-5, plus (ssm, hybrid) twice the reference's own float32
+    rounding of its prefill logits against its float64 run, as for the
+    gradients; the port's float64 prefill is held to the reference's
+    float64 one within the same bar."""
     jcfg, tcfg, jparams, batch = _model(arch)
     jlast, jchain = _ref_serving(jcfg, jparams, batch)
     tlast, tchain, tstate = _port_serving(tcfg, jparams, batch)
-    round_last = round_chain = 0.0
+    rounding = 0.0
     if tcfg.family in ("ssm", "hybrid"):
         with _x64():
             jlast64, _ = _ref_serving(jcfg, jparams, batch, jnp.float64)
-        tlast64, tchain64, _ = _port_serving(tcfg, jparams, batch, torch.float64)
-        round_last = np.abs(jlast - jlast64).max() + np.abs(tlast - tlast64).max()
-        round_chain = np.abs(jlast - jlast64).max() + np.abs(tchain - tchain64).max()
-    np.testing.assert_allclose(tlast, jlast, atol=1e-5 + round_last, rtol=0)
-    np.testing.assert_allclose(tchain, jchain, atol=1e-5 + round_chain, rtol=0)
+        tlast64, _, _ = _port_serving(tcfg, jparams, batch, torch.float64)
+        rounding = 2 * np.abs(jlast - jlast64).max()
+        np.testing.assert_allclose(tlast64, jlast64, atol=1e-5 + rounding, rtol=0)
+    np.testing.assert_allclose(tlast, jlast, atol=1e-5 + rounding, rtol=0)
+    np.testing.assert_allclose(tchain, jchain, atol=1e-5 + rounding, rtol=0)
     n_prompt = S + (tcfg.n_patches if "patch_embeds" in batch else 0)
     if tcfg.family == "ssm":
         assert tstate.rwkv.wkv.shape[:2] == (tcfg.n_layers, B)

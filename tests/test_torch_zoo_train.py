@@ -19,13 +19,15 @@
   its interpreter step the reference's per-leaf update and mix the same
   way.  The same model over 4 gloo ranks equals its stacked rows bit for
   bit; its checkpoint is the reference's file with each leaf in its dtype,
-  read both ways.
+  read both ways.  ``bucket_mb`` on that model raises (the bucketed step
+  would not round between its rounds).
 * ``main --arch`` trains every architecture; a VLM without patch
   embeddings raises a ValueError naming them.
 """
 import dataclasses
 import functools
 import importlib
+import zipfile
 
 import numpy as np
 import pytest
@@ -44,6 +46,7 @@ from repro.core.simulator import DecentralizedSimulator  # noqa: E402
 from repro.data import SyntheticLM  # noqa: E402
 from repro.kernels.gossip_update import fused_apply_stacked as jfused_apply  # noqa: E402
 from repro.models import transformer as jtfm  # noqa: E402
+from repro_torch.checkpoint import ckpt as tckpt  # noqa: E402
 from repro_torch.configs import get_config as tget_config  # noqa: E402
 from repro_torch.core.dsgd import make_topology as tmake_topology  # noqa: E402
 from repro_torch.launch.comm import spawn_world  # noqa: E402
@@ -216,9 +219,21 @@ def test_mixed_dtype_step_matches_reference(fused):
     _check_against_reference(trainer, state, want_p, want_m, 1)
 
 
+@pytest.mark.parametrize("fused", [True, False])
+def test_mixed_dtype_rejects_buckets(fused):
+    """The bucketed step rounds no leaf between its rounds: bf16 zamba2
+    with ``bucket_mb`` raises instead of drifting from the monolithic step."""
+    _, tcfg, _ = _init(HYBRID, "bfloat16")
+    with pytest.raises(ValueError, match="bucket_mb needs one leaf dtype"):
+        SPMDTrainer(tcfg, tmake_topology("d_ring", G), topt.sgd(0.9),
+                    fused_apply=fused, bucket_mb=1, device="cpu")
+
+
 def test_mixed_dtype_ranks_equal_stacked_rows(tmp_path):
     """4 gloo ranks (K2's twin) from the seed-0 weights: each rank's float32
-    row (θ and m) bit for bit the stacked trainer's (K1's twin)."""
+    row (θ and m) bit for bit the stacked trainer's (K1's twin); the ranks'
+    checkpoint is the stacked trainer's file member for member, and
+    restored on the ranks gives the same rows."""
     _, tcfg, _ = _init(HYBRID, "bfloat16")
     trainer = SPMDTrainer(tcfg, tmake_topology("d_ring", G), topt.sgd(0.9),
                           fused_apply=True, device="cpu")
@@ -226,13 +241,22 @@ def test_mixed_dtype_ranks_equal_stacked_rows(tmp_path):
     src = SyntheticLM(vocab=tcfg.vocab, seq_len=SEQ, seed=0)
     for t in range(2):
         state, _, _ = trainer.train_step(state, src.stacked(G, t, BATCH), LR)
-    rows = spawn_world(_torch_rank_worker.zoo_rows, G, (HYBRID, "bfloat16", 2, SEQ, BATCH, LR),
+    stacked = trainer.save_checkpoint(str(tmp_path / "stacked"), state)
+    ranks_dir = str(tmp_path / "ranks")
+    rows = spawn_world(_torch_rank_worker.zoo_rows, G,
+                       (HYBRID, "bfloat16", 2, SEQ, BATCH, LR, ranks_dir),
                        timeout=300, device="cpu", workdir=tmp_path)
     for r, (theta, mom, engine) in enumerate(rows):
         assert engine == "ranks"
         assert theta.dtype == np.float32
         assert torch.equal(torch.from_numpy(theta), state.theta[r]), r
         assert torch.equal(torch.from_numpy(mom), state.mom[r]), r
+    with zipfile.ZipFile(stacked) as a, zipfile.ZipFile(
+            tckpt.checkpoint_path(ranks_dir, 2)) as b:
+        names = [n for n in a.namelist() if n != "__extra__.npy"]
+        assert sorted(names) == sorted(n for n in b.namelist() if n != "__extra__.npy")
+        for n in names:
+            assert a.read(n) == b.read(n), n
 
 
 def test_mixed_dtype_checkpoint_is_the_reference_file(tmp_path):
