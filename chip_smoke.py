@@ -209,6 +209,28 @@ Phases (any failure exits non-zero and prints no result line):
      Each of phases 27-30 prints its prediction first, and its step ms,
      peak GiB, prefill s and decode ms a token with the card's name and
      power limit.
+ 31. the mixed-dtype state bucketed and under faults: phase 29's zamba2 (7
+     layers, bf16 with float32 a_log/d_skip, G = 4, d_ring, fused apply)
+     for 2 steps from pushed-apart replicas monolithic and at bucket_mb 256
+     and 64, each bit for bit the monolithic run (θ, m, losses, norms; the
+     monolithic θ and m wait in host memory), K1 once per bucket, every
+     narrow leaf a bfloat16 value after each step; then a crash-and-rejoin
+     step (node 2 back at step 2) on the same replicas: the handoff timed
+     and its narrow rows rounded, the fused step within phase 19's bound
+     of the masked interpreter;
+ 32. the simulator on the mixed model: zamba2 at published width, 7
+     layers (what the simulator holds on one card beside the trainer's
+     depth), bf16, stacked mixing, one node's gradients at a time, 3 steps
+     bit for bit ``SPMDTrainer`` without fused apply; then zamba2-reduced
+     bf16 on a quadratic loss (the same gradients on both) card == CPU;
+ 33. the analysis pipeline on the card: ``python -m repro_torch.analysis
+     --all`` passes; the card's limits equal the budget's constants and
+     every built kernel's registers a thread and static and dynamic shared
+     memory a block (``cudaFuncGetAttributes`` through the bindings) are
+     printed and within budget; the rebuild guard over phase 4's trainer
+     and a closed-loop d_ada run (device tables built up front from
+     ``precompile_programs``): 0 nvcc builds and 0 new device tables after
+     the first step; ``python -m repro_torch.examples.serve_decode``.
 
 The last three lines of standard output are the card's name and power
 limit as nvidia-smi reports them, the per-kernel JSON (K1-K4, each with its
@@ -2145,7 +2167,8 @@ def after_handoffs(trainer, theta, fr, step):
     from repro_torch.core.faults import membership_events
 
     theta0 = theta.clone()
-    membership_events(fr, [theta0], trainer.topology, None, step=step, epoch=0)
+    membership_events(fr, [theta0], trainer.topology, None, step=step, epoch=0,
+                      narrow=trainer.layout.narrow_leaves())
     return theta0
 
 
@@ -3551,7 +3574,6 @@ def phase_hybrid_mixed_check(trainer, cfg, batch, dev):
     rounds = [(st.apply_stacked,
                torch.as_tensor(np.abs(st.matrix()), dtype=torch.float32, device=dev))
               for st in program_stages(trainer, 0)]
-    host = lambda x: torch.empty(x.shape, dtype=x.dtype, device="cpu").copy_(x)
     start = mixed_start(trainer)
     theta0 = host(start.theta)
     fused, loss_f, _ = trainer.train_step(start, batch, LR)
@@ -3769,6 +3791,376 @@ def phase_vlm(dev):
     torch.cuda.empty_cache()
     out["reduced_card_vs_cpu"] = reduced_parity(dev)
     return out
+
+
+MIXED_BUCKET_MBS = (256, 64)      # phase 31: bucket sizes on the mixed state
+MIXED_STEPS = 2                   # phase 31: steps of each run
+REJOIN_STEP = 2                   # FAULT_RANK_MODEL's rejoin: node 2 back at step 2
+SIM_MIXED_LAYERS = 7              # phase 32: the simulator holds zamba2 at the trainer's depth
+
+PREDICT_31 = (
+    "phase 31 prediction (PERF.md §6): zamba2 x7 bf16 mixed float32 state, G = 4, "
+    "fused: bucket_mb 256 and 64 bit for bit the monolithic step (theta, m, losses, norms), "
+    "K1 once per bucket (14 and 54 buckets a step); step 700-1200 ms monolithic, "
+    "+0-10 % at 256 MiB, +5-25 % at 64 MiB (host dispatch and the runs' rounding per "
+    "bucket); peak 54-58 GiB monolithic, 40-48 GiB bucketed (no whole-state wire); every "
+    "narrow leaf a bf16 value after each step; a crash-and-rejoin step within phase 19's "
+    "bound of the masked interpreter, its handoff (theta and m) 60-200 ms")
+PREDICT_32 = (
+    "phase 32 prediction (PERF.md §6): the simulator on zamba2 x7 bf16 (mixed float32 "
+    "state, stacked mixing, one node's gradients at a time), 3 steps bit for bit the "
+    "trainer's interpreter steps; step 1.0-2.0 s, peak 50-65 GiB; K3 once a step; the "
+    "reduced bf16 simulator on the card bit for bit the CPU's")
+PREDICT_33 = (
+    "phase 33 prediction (PERF.md §6): python -m repro_torch.analysis --all passes on "
+    "cuda (10-40 s, 8 ranks over gloo-host for the collectives); the card's limits are the "
+    "budget's (grid 2^31-1 x 65535 x 65535, 232448 B opt-in, 1024 threads); K1/K2 16-40 "
+    "registers a thread, no shared memory; K3 16-40 registers, 32 B static; K4 f32 "
+    "64-128 registers and 118784 B at D = 128, bf16 <= 168 registers and 164928 B; 0 nvcc "
+    "builds and 0 new device tables after warm-up over phase 4's trainer and a closed "
+    "loop; serve_decode runs")
+
+
+def narrow_exact(label, theta, layout):
+    """Fail unless every narrower leaf's columns of the (rows, P) ``theta``
+    hold values of the leaf's dtype, TWIN_CHUNK columns at a time."""
+    import torch
+
+    for a, b, dt in layout.narrow_leaves():
+        for c in range(a, b, TWIN_CHUNK):
+            d = min(c + TWIN_CHUNK, b)
+            x = theta[:, c:d].to(theta.device)
+            if not torch.equal(x, x.to(dt).float()):
+                fail(f"{label}: columns {c}:{d} ({dt} leaf) hold values that are not {dt}")
+
+
+def host(x):
+    """A copy of ``x`` in host memory."""
+    import torch
+
+    return torch.empty(x.shape, dtype=x.dtype, device="cpu").copy_(x)
+
+
+def mixed_run(cfg, batches, **kw):
+    """MIXED_STEPS fused steps of ``cfg`` on d_ring (G = 4) from
+    ``mixed_start``'s replicas with ``kw`` for the trainer, every narrow
+    leaf checked after each step; the launch counters zeroed just before
+    the steps and read just after.  Returns (trainer, state, losses, norms,
+    numbers)."""
+    import torch
+    from repro_torch.core.dsgd import make_topology
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import SPMDTrainer
+    from repro_torch.optim.sgd import sgd
+
+    trainer = SPMDTrainer(cfg, make_topology("d_ring", G), sgd(momentum=0.9),
+                          collect_norms=True, fused_apply=True, **kw)
+    state = mixed_start(trainer)
+    dev = state.theta.device
+    sync(dev)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    step_ms, losses, norms = [], [], []
+    for t in range(MIXED_STEPS):
+        t1 = time.perf_counter()
+        state, loss, nrm = trainer.train_step(state, batches[t], LR)
+        sync(dev)
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        losses.append(loss)
+        norms.append(nrm)
+        narrow_exact(f"phase 31 {kw} step {t}", state.theta, trainer.layout)
+    buckets = 1 if trainer._bucket_layout is None else trainer._bucket_layout.num_buckets
+    return trainer, state, torch.stack(losses), torch.stack(norms), {
+        "step_ms": step_ms, "peak_allocated_bytes": int(torch.cuda.max_memory_allocated()),
+        "launches": ops.launch_counts(), "buckets": buckets}
+
+
+def phase_mixed_buckets(dev):
+    """Phase 31: zamba2 at its published width (phase 29's 7 layers, bf16
+    with float32 a_log/d_skip: the mixed float32 state), G = 4, d_ring,
+    fused apply, seq 512, per-node batch 2.  MIXED_STEPS steps from
+    ``mixed_start``'s replicas monolithic and at each of MIXED_BUCKET_MBS:
+    θ, m, losses and norms bit for bit the monolithic run's (which waits
+    in host memory), K1 once per bucket and step, every narrow leaf a
+    value of its dtype after each step.  Then a crash-and-rejoin step
+    (FAULT_RANK_MODEL's rejoin at REJOIN_STEP) on the same replicas: the
+    handoff's rows rounded, the fused step within phase 19's bound of the
+    masked interpreter (both from host memory, as phase 29)."""
+    import torch
+
+    arch, layers = ZOO[29][:2]
+    cfg = zoo_cfg(arch, layers)
+    batches = zoo_batches(cfg, G, MIXED_STEPS, dev)
+    out, ref = {}, None
+    counts = {}
+    for mb in (None,) + MIXED_BUCKET_MBS:
+        trainer, state, losses, norms, numbers = mixed_run(cfg, batches, bucket_mb=mb)
+        want_k1 = MIXED_STEPS * numbers["buckets"]
+        if numbers["launches"] != {"gossip_program_update": want_k1, "gossip_update": 0,
+                                   "segment_l2_norms": MIXED_STEPS, "flash_attention": 0}:
+            fail(f"phase 31 bucket_mb={mb}: launches {numbers['launches']}, expected "
+                 f"{want_k1} of K1 and {MIXED_STEPS} of K3")
+        counts = {k: counts.get(k, 0) + v for k, v in numbers["launches"].items()}
+        if ref is None:
+            ref = {"theta": host(state.theta), "mom": host(state.mom), "losses": losses,
+                   "norms": norms}
+        else:
+            if not (torch.equal(losses, ref["losses"]) and torch.equal(norms, ref["norms"])):
+                fail(f"phase 31 bucket_mb={mb}: losses or norms differ from the monolithic run")
+            equal_in_chunks(f"phase 31 bucket_mb={mb}", "the monolithic run",
+                            {"theta": state.theta, "mom": state.mom}, ref)
+        out[f"bucket_mb={mb}"] = numbers
+        log(f"phase 31 bucket_mb={mb}: {numbers['buckets']} bucket(s), step ms "
+            f"{[round(x, 1) for x in numbers['step_ms']]}, peak "
+            f"{numbers['peak_allocated_bytes'] / 2**30:.2f} GiB, launches {numbers['launches']}"
+            + ("" if mb is None else ", bit for bit the monolithic run"))
+        del trainer, state
+        torch.cuda.empty_cache()
+    del ref
+    out["rejoin"] = mixed_rejoin_step(cfg, batches[0], dev)
+    out["launches"] = counts
+    return out
+
+
+def mixed_rejoin_step(cfg, batch, dev):
+    """Phase 31's crash-and-rejoin step (see ``phase_mixed_buckets``)."""
+    import torch
+    from repro_torch.core.faults import membership_events
+    from repro_torch.launch.train import TrainState
+
+    fused = fault_trainer(cfg, "rejoin", fused_apply=True)
+    layout = fused.layout
+    fr, rounds, update, moving = fault_rounds(fused, REJOIN_STEP)
+    if list(fr.rejoin) != [2]:
+        fail(f"phase 31: FAULT_RANK_MODEL rejoins {list(fr.rejoin)} at step {REJOIN_STEP}")
+    state = mixed_start(fused)
+    state.step = REJOIN_STEP
+    # the handoff alone, timed, on copies of θ and m: its rows rounded
+    theta0, mom0 = state.theta.clone(), state.mom.clone()
+    sync(dev)
+    t1 = time.perf_counter()
+    membership_events(fr, [theta0, mom0], fused.topology, None, step=REJOIN_STEP, epoch=0,
+                      narrow=layout.narrow_leaves())
+    sync(dev)
+    handoff_ms = (time.perf_counter() - t1) * 1e3
+    narrow_exact("phase 31 the rejoin's handoff", theta0, layout)
+    del mom0
+    theta0 = host(theta0)
+    torch.cuda.empty_cache()
+    sync(dev)
+    t1 = time.perf_counter()
+    state, loss_f, _ = fused.train_step(state, batch, LR)
+    sync(dev)
+    step_ms = (time.perf_counter() - t1) * 1e3
+    narrow_exact("phase 31 the rejoin step", state.theta, layout)
+    fused_host = TrainState(host(state.theta), {"mom": host(state.mom)}, REJOIN_STEP + 1)
+    del state, fused
+    torch.cuda.empty_cache()
+    plain = fault_trainer(cfg, "rejoin", fused_apply=False)
+    ref = mixed_start(plain)
+    ref.step = REJOIN_STEP
+    ref, loss_r, _ = plain.train_step(ref, batch, LR)
+    if not torch.allclose(loss_f, loss_r, rtol=1e-5, atol=0):
+        fail(f"phase 31 rejoin: losses {loss_f.tolist()} vs {loss_r.tolist()}")
+    ulps, tol, rel_m, moved = check_step_against_interpreter(
+        "phase 31 the rejoin step", theta0, fused_host, ref, rounds, update=update,
+        rows=moving, layout=layout)
+    log(f"phase 31: a crash-and-rejoin step (node 2 back at step {REJOIN_STEP}): handoff "
+        f"{handoff_ms:.1f} ms, step {step_ms:.1f} ms, within {tol:.3f} of its tolerance of "
+        f"the masked interpreter (m {rel_m:.3e}); the handoff's narrow rows rounded")
+    del ref, plain, theta0, fused_host
+    torch.cuda.empty_cache()
+    return {"handoff_ms": handoff_ms, "step_ms": step_ms, "share_of_tolerance": tol,
+            "ulps": ulps, "m_rel": rel_m, "moved_share": moved}
+
+
+def quad_loss(params, batch):
+    """A loss whose gradient is ``x - batch[leaf]`` in float32, rounded to
+    each leaf's dtype: the same gradients on the card and on the CPU."""
+    return 0.5 * sum(((x.float() - batch[k]) ** 2).sum() for k, x in params.items())
+
+
+def sim_steps(sim, state, batches, steps):
+    """``steps`` simulator steps; returns (state, losses, norms, step ms)."""
+    import torch
+
+    losses, norms, step_ms = [], [], []
+    for t in range(steps):
+        t1 = time.perf_counter()
+        state, loss, nrm = sim.train_step(state, batches[t], LR)
+        sync(sim.device)
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        losses.append(loss)
+        norms.append(nrm)
+    return state, torch.stack(losses), torch.stack(norms), step_ms
+
+
+def phase_mixed_simulator(dev):
+    """Phase 32: ``DecentralizedSimulator`` on zamba2 at its published
+    width in bf16 (mixed float32 state), depth SIM_MIXED_LAYERS, G = 4,
+    d_ring, stacked mixing, one node's gradients at a time: SIM_STEPS steps
+    (K3 once a step) bit for bit ``SPMDTrainer`` without fused apply on the
+    same inputs (θ and m wait in host memory); then zamba2-reduced bf16 on
+    ``quad_loss`` (the same gradients on both) bit for bit the CPU's."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.dsgd import make_topology
+    from repro_torch.core.simulator import DecentralizedSimulator
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import SPMDTrainer
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim.sgd import sgd
+
+    cfg = zoo_cfg(ZOO[29][0], SIM_MIXED_LAYERS)
+    batches = zoo_batches(cfg, G, SIM_STEPS, dev)
+    sim = DecentralizedSimulator(lambda p, b: tfm.loss_fn(p, cfg, b), sgd(momentum=0.9),
+                                 make_topology("d_ring", G), mixing="shift", collect_norms=True,
+                                 node_loop=True, device=dev)
+    state = sim.init(tfm.init_model(cfg, torch.Generator(device=dev).manual_seed(0), dev))
+    layout = state.layout
+    sync(dev)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    state, losses, norms, step_ms = sim_steps(sim, state, batches, SIM_STEPS)
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    if launches != {"gossip_program_update": 0, "gossip_update": 0,
+                    "segment_l2_norms": SIM_STEPS, "flash_attention": 0}:
+        fail(f"phase 32: simulator launches {launches}, expected {SIM_STEPS} of K3")
+    narrow_exact("phase 32 simulator", state.theta, layout)
+    rows = {"theta": host(state.theta), "mom": host(state.opt["mom"])}
+    del state, sim
+    torch.cuda.empty_cache()
+    trainer = SPMDTrainer(cfg, make_topology("d_ring", G), sgd(momentum=0.9),
+                          collect_norms=True, fused_apply=False)
+    tstate = trainer.init_state(seed=0)
+    if trainer.layout != layout:
+        fail("phase 32: the simulator's layout is not the trainer's")
+    t_losses, t_norms = [], []
+    for t in range(SIM_STEPS):
+        tstate, loss, nrm = trainer.train_step(tstate, batches[t], LR)
+        t_losses.append(loss)
+        t_norms.append(nrm)
+    if not (torch.equal(losses, torch.stack(t_losses))
+            and torch.equal(norms, torch.stack(t_norms))):
+        fail("phase 32: the simulator's losses or norms differ from the trainer's")
+    equal_in_chunks("phase 32 simulator", "the trainer's interpreter steps",
+                    {"theta": tstate.theta, "mom": tstate.mom}, rows)
+    del tstate, trainer, rows
+    torch.cuda.empty_cache()
+    log(f"phase 32: simulator on {cfg.name} x{cfg.n_layers} bf16 (mixed float32 state, "
+        f"{layout.size:,} params/node) {SIM_STEPS} steps == the trainer's interpreter bit for "
+        f"bit; step ms {[round(x, 1) for x in step_ms]}, peak {peak / 2**30:.2f} GiB")
+    # the reduced bf16 model on the quadratic loss: the card against the CPU
+    red = dataclasses.replace(get_config("zamba2-7b-reduced"), dtype=torch.bfloat16, remat=False)
+    params = tfm.init_model(red, torch.Generator().manual_seed(0), "cpu")
+    r = np.random.default_rng(5)
+    targets = [{k: (0.1 * r.standard_normal((G,) + tuple(v.shape))).astype(np.float32)
+                for k, v in params.items()} for _ in range(SIM_STEPS)]
+    runs = {}
+    for where in ("cpu", dev):
+        s = DecentralizedSimulator(quad_loss, sgd(momentum=0.9), make_topology("d_ring", G),
+                                   mixing="shift", device=where)
+        st, ls, _, _ = sim_steps(s, s.init(params), targets, SIM_STEPS)
+        runs[str(where)] = (st.theta.cpu(), st.opt["mom"].cpu(), ls.cpu())
+    (tc, mc, lc), (tg, mg, lg) = runs["cpu"], runs[str(dev)]
+    # the losses are sums taken in another order on the card
+    if not (torch.equal(tc, tg) and torch.equal(mc, mg)
+            and torch.allclose(lc, lg, rtol=1e-6, atol=0)):
+        fail("phase 32: the reduced bf16 simulator on the card differs from the CPU's")
+    log("phase 32: zamba2-reduced bf16 simulator (quadratic loss) on the card == the CPU's "
+        "bit for bit")
+    return {"model": f"{cfg.name} x{cfg.n_layers} layers bf16, mixed float32 state, G={G}, "
+                     "d_ring, stacked mixing, node_loop",
+            "params_per_node": layout.size, "step_ms": step_ms,
+            "peak_allocated_bytes": int(peak), "launches": launches,
+            "reduced_card_equals_cpu": True}
+
+
+def rebuild_guard(cfg, batches, dev):
+    """Phase 33's rebuild guard: phase 4's trainer with ``debug_no_retrace``
+    (a warm step that builds anything raises), then a closed-loop d_ada
+    run (phase 14's, offset replicas) whose programs' device tables are
+    built up front from ``precompile_programs``: after the first step, 0
+    nvcc builds and 0 new device tables.  Returns the counts."""
+    import torch
+    from repro_torch.analysis.recompile import watch_retrace
+    from repro_torch.core.dsgd import make_topology
+    from repro_torch.kernels import gossip_update as gu
+    from repro_torch.launch.train import SPMDTrainer
+    from repro_torch.optim.sgd import sgd
+
+    out = {}
+    for label, topo, steps in (
+            ("phase 4's trainer", make_topology("d_ring", G), STEPS),
+            ("closed-loop d_ada", make_topology("d_ada", G, k_floor="one_peer",
+                                                consensus_target=ADA_TARGET,
+                                                consensus_probe_every=1), ADA_STEPS)):
+        trainer = SPMDTrainer(cfg, topo, sgd(momentum=0.9), collect_norms=True,
+                              fused_apply=True, debug_no_retrace=True)
+        for p in trainer.precompile_programs():
+            split = trainer._fused_split(p)
+            if split is not None:
+                gu._device_tables(split[0], trainer.device)
+        state = trainer.init_state(seed=0)
+        offset_nodes(state.theta, ADA_NOISE)
+        state, _, _ = trainer.train_step(state, batches[0], LR)
+        with watch_retrace(label) as seen:
+            for t in range(1, steps):
+                state, _, _ = trainer.train_step(state, batches[t], LR)
+        if seen.builds or seen.tables:
+            fail(f"phase 33 {label}: {seen.builds} nvcc build(s) and {seen.tables} device "
+                 "table(s) after warm-up")
+        out[label] = {"steps": steps, "nvcc_builds": seen.builds, "device_tables": seen.tables,
+                      "new_program_keys": seen.programs,
+                      "transitions": None if topo.controller is None
+                      else topo.controller.transitions}
+        del state, trainer
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_analysis(dev, cfg, batches):
+    """Phase 33: ``python -m repro_torch.analysis --all`` on the card; the
+    card's limits against the budget's constants and each built kernel's
+    registers and shared memory, printed and held to the budget; the
+    rebuild guard; ``python -m repro_torch.examples.serve_decode``."""
+    import contextlib
+    import io
+
+    import torch
+    from repro_torch.analysis import budget
+    from repro_torch.analysis.__main__ import main as analysis_main
+
+    t1 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = analysis_main(["--all"], device=dev)
+    report = buf.getvalue()
+    log("phase 33: python -m repro_torch.analysis --all on the card:\n" + report.rstrip())
+    if rc != 0:
+        fail("phase 33: the analysis pipeline reported findings on the card")
+    analysis_s = time.perf_counter() - t1
+    props = torch.cuda.get_device_properties(dev)
+    limits = budget.device_limits()
+    attrs = budget.kernel_attributes()
+    budget.verify_kernel_attributes(attrs)
+    for name, a in attrs.items():
+        log(f"phase 33: {name}: {a['regs_per_thread']} registers a thread, "
+            f"{a['static_smem_bytes']} B static + {a['dynamic_smem_bytes']} B dynamic shared "
+            f"memory a block, {a['threads']} threads (takes {a['max_threads_per_block']}), "
+            f"{a['local_bytes_per_thread']} B local")
+    guard = rebuild_guard(cfg, batches, dev)
+    log(f"phase 33: rebuild guard {guard}")
+    stdout, serve_s = run_example(["repro_torch.examples.serve_decode", "--new", "16"])
+    if "greedy:" not in stdout:
+        fail(f"phase 33: serve_decode printed no timing: {stdout[-500:]}")
+    log(f"phase 33: serve_decode ran in {serve_s:.1f} s: {stdout.strip().splitlines()[-1]}")
+    return {"analysis_report": report.splitlines(), "analysis_s": analysis_s,
+            "smem_optin_bytes_props": getattr(props, "shared_memory_per_block_optin", None),
+            "device_limits": limits, "kernel_attributes": attrs, "rebuild_guard": guard,
+            "serve_decode_s": serve_s}
 
 
 def main():
@@ -4111,6 +4503,28 @@ def main():
         torch.cuda.empty_cache()
     train30 = zoo[30]["train"]
 
+    # 31-33. the mixed-dtype state bucketed, under faults and in the
+    # simulator; the analysis pipeline on the card
+    mixed = {}
+    for n, run in ((31, phase_mixed_buckets), (32, phase_mixed_simulator)):
+        log(globals()[f"PREDICT_{n}"])
+        t_n = time.perf_counter()
+        mixed[n] = run(dev)
+        mixed[n]["wall_s"] = time.perf_counter() - t_n
+        mixed[n]["card"] = smi
+        log(f"phase {n}: {mixed[n]['wall_s']:.1f} s on {smi}")
+        torch.cuda.empty_cache()
+    log(PREDICT_33)
+    t33 = time.perf_counter()
+    batches33 = [{k: torch.as_tensor(v, device=dev) for k, v in src.stacked(G, t, BATCH).items()}
+                 for t in range(ADA_STEPS)]
+    mixed[33] = phase_analysis(dev, cfg, batches33)
+    mixed[33]["wall_s"] = time.perf_counter() - t33
+    mixed[33]["card"] = smi
+    log(f"phase 33: {mixed[33]['wall_s']:.1f} s on {smi}")
+    del batches33
+    torch.cuda.empty_cache()
+
     summary = {
         "card": smi,
         "model": f"{cfg.name} x{cfg.n_layers} layers, bf16, G={G}, seq {SEQ}, "
@@ -4140,6 +4554,9 @@ def main():
         "ssm": zoo[28],
         "hybrid": zoo[29],
         "vlm": zoo[30],
+        "mixed_buckets": mixed[31],
+        "mixed_simulator": mixed[32],
+        "analysis": mixed[33],
     }
     log("summary " + json.dumps(summary))
     # each kernel's launches on every main path that runs it
@@ -4156,7 +4573,8 @@ def main():
                                   "phase 27": zoo[27]["launches"]["gossip_program_update"],
                                   "phase 28": zoo[28]["launches"]["gossip_program_update"],
                                   "phase 29": zoo[29]["launches"]["gossip_program_update"],
-                                  "phase 30": train30["launches"]["gossip_program_update"]},
+                                  "phase 30": train30["launches"]["gossip_program_update"],
+                                  "phase 31": mixed[31]["launches"]["gossip_program_update"]},
         "gossip_update": {"phase 9": ranks9["launches"]["gossip_update"],
                           "phase 22": ranks22["launches"]["gossip_update"],
                           "phase 24": ranks24["launches"]["gossip_update"]},
@@ -4179,7 +4597,9 @@ def main():
                              "phase 27": zoo[27]["launches"]["segment_l2_norms"],
                              "phase 28": zoo[28]["launches"]["segment_l2_norms"],
                              "phase 29": zoo[29]["launches"]["segment_l2_norms"],
-                             "phase 30": train30["launches"]["segment_l2_norms"]},
+                             "phase 30": train30["launches"]["segment_l2_norms"],
+                             "phase 31": mixed[31]["launches"]["segment_l2_norms"],
+                             "phase 32": mixed[32]["launches"]["segment_l2_norms"]},
         "flash_attention": {"phase 12": k4_launches},
     }
     kernels = [

@@ -35,6 +35,11 @@ as much as that probe until a fused fold kernel exists.
     fold (the controller probes at the next step) and the closed-loop
     probe that reads the fold, or the whole state when no fold is there.
 
+A mixed-dtype state (float32, bf16 leaves beside float32 ones) buckets
+too: a bucket's segments give its dtype runs (``BucketLayout.dtype_runs``),
+and the bucket step rounds or mixes each narrower run in its own dtype
+where the leaf-by-leaf step would.
+
 On one card every bucket's work goes to one CUDA stream, which orders the
 buckets by itself: the engines neither wait for a bucket nor hold a
 dispatch window.  Under faults the bucket step gates the update and mixes
@@ -50,6 +55,7 @@ from typing import Callable, Mapping, Optional
 import torch
 
 from repro_torch.core.consensus import consensus_sq_stacked
+from repro_torch.core.flat import round_columns_
 
 __all__ = [
     "BucketLayout",
@@ -175,6 +181,27 @@ class BucketLayout:
             object.__setattr__(self, "_segments", cached)
         return cached
 
+    def dtype_runs(self, dtypes) -> tuple[tuple[tuple[int, int, torch.dtype], ...], ...]:
+        """Per bucket: ``(start, stop, dtype)`` column ranges, local to the
+        bucket, that cover it in order, each of one leaf dtype (``dtypes``:
+        each leaf's, in leaf order); adjacent segments of one dtype merge.
+        A mixed state's bucket step mixes each run in its own dtype."""
+        starts, off = [], 0
+        for s in self.sizes:
+            starts.append(off)
+            off += s
+        out = []
+        for lo, segs in zip(self.bounds, self.segments):
+            runs: list[tuple[int, int, torch.dtype]] = []
+            for li, s, e in segs:
+                a, b, dt = starts[li] + s - lo, starts[li] + e - lo, dtypes[li]
+                if runs and runs[-1][2] == dt and runs[-1][1] == a:
+                    runs[-1] = (runs[-1][0], b, dt)
+                else:
+                    runs.append((a, b, dt))
+            out.append(tuple(runs))
+        return tuple(out)
+
     def describe(self) -> str:
         return (
             f"BucketLayout(P={self.total}, target={self.bucket_elems}, "
@@ -242,13 +269,21 @@ def build_bucket_step(
 ) -> Callable:
     """The per-bucket step for one program::
 
-        fn(theta_b, mom_b, grad_b, lr, tok) -> tok'
+        fn(theta_b, mom_b, grad_b, lr, tok, runs=None) -> tok'
 
     on one bucket's (n, w) column views (``mom_b`` None when
     ``has_momentum`` is False): the SGD-family update of ``hyper`` and the
     program's mixing rounds, written IN PLACE into ``theta_b`` and
-    ``mom_b``.  ``tok`` is the running (n,) float32 Ξ² accumulator, or
-    None when no probe reads the fold: ``tok' = tok + partial_b``, the
+    ``mom_b``.  ``runs`` (the bucket's ``BucketLayout.dtype_runs``) is
+    given for a mixed-dtype state: each run narrower than ``theta_b``
+    holds a narrower leaf's columns, which the interpreter path mixes in
+    that dtype (the update's result rounded to it first), as the
+    leaf-by-leaf step updates and mixes the leaf, and the kernel path
+    rounds after the kernel's round and after each later round, as the
+    monolithic fused step does; so the bucketed step is the monolithic
+    one bit for bit and the fold reads rounded columns.  ``tok`` is the
+    running (n,) float32 Ξ² accumulator, or None when no probe reads the
+    fold: ``tok' = tok + partial_b``, the
     bucket's per-node post-mix Σ_c (x_ic − x̄_c)², centred on node 0 first
     (``consensus_sq_stacked``), so identical replicas give exactly 0.
 
@@ -289,11 +324,19 @@ def build_bucket_step(
         if kernel_split is not None:
             rows = fault_rows(kernel_split[0], fault, ucol.device)
 
-    def bucket_step(theta_b, mom_b, grad_b, lr, tok: Optional[torch.Tensor]):
+    def bucket_step(theta_b, mom_b, grad_b, lr, tok: Optional[torch.Tensor], runs=None):
+        if runs is not None and all(dt == theta_b.dtype for _, _, dt in runs):
+            runs = None
         if kernel_split is not None:
             first, rest = kernel_split
             fused_bucket_update(first, theta_b, grad_b, mom_b, lr=lr, beta=beta, fault=rows)
-            mix_in_place(rest, theta_b, mix)
+            if runs is None:
+                mix_in_place(rest, theta_b, mix)
+            else:
+                round_columns_(theta_b, runs)
+                for stage in rest:
+                    mix_in_place((stage,), theta_b, mix)
+                    round_columns_(theta_b, runs)
         else:
             state = {"b": mom_b} if has_momentum else ()
             new_p, new_m = update({"b": grad_b}, state, {"b": theta_b}, lr)
@@ -303,7 +346,11 @@ def build_bucket_step(
                 new_t = torch.where(ucol, new_t, theta_b)
                 if has_momentum:
                     new_m = {"b": torch.where(ucol, new_m["b"], mom_b)}
-            theta_b.copy_(mix(program, new_t, engine))
+            if runs is None:
+                theta_b.copy_(mix(program, new_t, engine))
+            else:
+                for a, b, dt in runs:
+                    theta_b[:, a:b].copy_(mix(program, new_t[:, a:b].to(dt), engine))
             if has_momentum:
                 mom_b.copy_(new_m["b"])
         if tok is None:
@@ -332,18 +379,19 @@ class XiFold:
         self.step = -1                           # the probe it is valid for
 
     def run(self, fn, layout: BucketLayout, theta, mom, grad, lr, *, controller, telemetry,
-            step: int, fold: bool = True) -> None:
+            step: int, fold: bool = True, runs=None) -> None:
         """Run the bucket step ``fn`` (``build_bucket_step``) over every
         bucket of the flat (n, P) buffers ``theta``, ``mom`` (None without
         momentum) and ``grad``, in bucket order, with a ``bucket`` span per
         bucket (host dispatch time; nothing waits for the device).  A fault
-        run passes ``fold=False``: its probes are over the members only."""
+        run passes ``fold=False``: its probes are over the members only.
+        ``runs`` (``layout.dtype_runs``) is given for a mixed-dtype state."""
         fold = fold and controller is not None and controller.should_probe(step + 1)
         tok = torch.zeros(theta.shape[0], dtype=torch.float32, device=theta.device) if fold else None
         moms = layout.views(mom) if mom is not None else [None] * layout.num_buckets
         for b, (tb, mb, gb) in enumerate(zip(layout.views(theta), moms, layout.views(grad))):
             t0 = telemetry.span_start()
-            tok = fn(tb, mb, gb, lr, tok)
+            tok = fn(tb, mb, gb, lr, tok) if runs is None else fn(tb, mb, gb, lr, tok, runs[b])
             telemetry.bucket_span(t0, step=step, index=b)
         if fold:
             self.sq, self.step = tok, step + 1

@@ -50,6 +50,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.core.flat import round_columns_
 from repro_torch.core.schedule import degraded_matrix  # noqa: F401  (re-export)
 
 __all__ = [
@@ -957,16 +958,18 @@ def track_membership(last, fr: FaultRealization, controller, step: int):
 
 
 def membership_events(fr: FaultRealization, bufs, topology, last, *, step: int, epoch: int,
-                      mix_every: int = 1, telemetry=None, comm=None):
+                      mix_every: int = 1, telemetry=None, comm=None, narrow=()):
     """A step's membership events before the step, shared by both engines:
     each node of ``fr.rejoin`` adopts its alive neighbours' average and
     each of ``fr.depart`` hands its state off (``drain_handoff``), IN
-    PLACE on every flat buffer of ``bufs`` (θ and each optimizer slot;
-    this rank's rows with ``comm``, every rank joining); then the
-    membership is tracked (``track_membership``: the controller re-arms on
-    a change).  ``telemetry`` (a ``MetricsRecorder``, or None) gets the
-    rejoin, depart and membership events.  Returns the new membership
-    key."""
+    PLACE on every flat buffer of ``bufs`` (θ first, then each optimizer
+    slot; this rank's rows with ``comm``, every rank joining); ``narrow``
+    (``FlatLayout.narrow_leaves`` of a mixed layout) are θ's columns that
+    hold narrower leaves, rounded to their dtype after each handoff.  Then
+    the membership is tracked (``track_membership``: the controller
+    re-arms on a change).  ``telemetry`` (a ``MetricsRecorder``, or None)
+    gets the rejoin, depart and membership events.  Returns the new
+    membership key."""
     active = telemetry is not None and telemetry.active
     for kind, nodes in (("rejoin", fr.rejoin), ("depart", fr.depart)):
         for node in nodes:
@@ -974,11 +977,12 @@ def membership_events(fr: FaultRealization, bufs, topology, last, *, step: int, 
                                     mix_every=mix_every)
             if active:
                 telemetry.event(kind, step, data={"node": int(node)})
-            for buf in bufs:
+            for i, buf in enumerate(bufs):
+                cols = narrow if i == 0 else ()
                 if kind == "rejoin":
-                    adopt_neighbor_average(buf, node, nbrs, comm=comm)
+                    adopt_neighbor_average(buf, node, nbrs, comm=comm, narrow=cols)
                 else:
-                    drain_handoff(buf, node, nbrs, fr.alive, comm=comm)
+                    drain_handoff(buf, node, nbrs, fr.alive, comm=comm, narrow=cols)
     membership = track_membership(last, fr, topology.controller, step)
     if active and last is not None and membership != last:
         telemetry.event("membership", step, data={"alive": [bool(b) for b in membership]})
@@ -1011,27 +1015,35 @@ def _row_sum(rows: torch.Tensor) -> torch.Tensor:
     return acc
 
 
-def _set_row(x, node: int, a: int, b: int, value, comm, *, add: bool = False) -> None:
+def _set_row(x, node: int, a: int, b: int, value, comm, *, add: bool = False,
+             narrow=()) -> None:
     """Write (or add) ``value`` into columns a:b of ``node``'s row; on a
-    rank only the owner of ``node`` writes."""
+    rank only the owner of ``node`` writes.  Columns of a ``narrow`` leaf
+    take the reference's rounding: the value rounded to the leaf's dtype
+    and, for an add, the sum too."""
     if comm is None:
         row = x[node, a:b]
     elif comm.rank == node:
         row = x[0, a:b]
     else:
         return
+    value = round_columns_(value.to(x.dtype), narrow, a)
     if add:
-        row += value.to(x.dtype)
+        row += value
+        round_columns_(row, narrow, a)
     else:
-        row.copy_(value.to(x.dtype))
+        row.copy_(value)
 
 
-def adopt_neighbor_average(buf: torch.Tensor, node: int, neighbors, *, comm=None) -> None:
+def adopt_neighbor_average(buf: torch.Tensor, node: int, neighbors, *, comm=None,
+                           narrow=()) -> None:
     """Elastic re-entry, IN PLACE: ``node``'s row of the flat buffer
     ``buf`` (the stacked (n, P) state, or with ``comm`` this rank's (1, P)
     row) becomes the float32 mean of its ``neighbors``' rows, rounded to
-    the buffer's dtype; with no neighbour it keeps its own.  Call it on θ
-    and on every optimizer slot."""
+    the buffer's dtype, and the columns of each ``narrow`` range (start,
+    stop, dtype) to that dtype, as the reference casts each leaf back;
+    with no neighbour it keeps its own.  Call it on θ and on every
+    optimizer slot."""
     nbrs = [int(i) for i in neighbors]
     if not nbrs:
         return
@@ -1039,10 +1051,11 @@ def adopt_neighbor_average(buf: torch.Tensor, node: int, neighbors, *, comm=None
     for a in range(0, x.shape[1], HANDOFF_CHUNK):
         b = min(a + HANDOFF_CHUNK, x.shape[1])
         mean = _row_sum(_node_rows(x, nbrs, a, b, comm)) / len(nbrs)
-        _set_row(x, int(node), a, b, mean, comm)
+        _set_row(x, int(node), a, b, mean, comm, narrow=narrow)
 
 
-def drain_handoff(buf: torch.Tensor, node: int, neighbors, alive, *, comm=None) -> None:
+def drain_handoff(buf: torch.Tensor, node: int, neighbors, alive, *, comm=None,
+                  narrow=()) -> None:
     """The exact mean-preserving handoff at a drained node's departure,
     IN PLACE: with ``n_surv`` survivors (``alive != 0`` less ``node``) and
     ``m`` neighbours, each neighbour's row gains
@@ -1050,8 +1063,9 @@ def drain_handoff(buf: torch.Tensor, node: int, neighbors, alive, *, comm=None) 
         Δ = n_surv · (θ_d − x̄_surv) / (m · (n_surv + 1)),
 
     so the survivors' mean afterwards is the global mean before.  With no
-    surviving neighbour the buffer is left as it is.  ``comm`` as in
-    ``adopt_neighbor_average``."""
+    surviving neighbour the buffer is left as it is.  ``comm`` and
+    ``narrow`` as in ``adopt_neighbor_average``: a narrow leaf's Δ and its
+    sum are rounded to its dtype, as the reference adds in that dtype."""
     nbrs = [int(i) for i in neighbors]
     surv = np.asarray(alive) != 0
     surv = surv.copy()
@@ -1068,13 +1082,14 @@ def drain_handoff(buf: torch.Tensor, node: int, neighbors, alive, *, comm=None) 
         mean_surv = _row_sum(rows[:-1]) / n_surv
         delta = (n_surv * (rows[-1] - mean_surv)) / (m * (n_surv + 1))
         for j in nbrs:
-            _set_row(x, j, a, b, delta, comm, add=True)
+            _set_row(x, j, a, b, delta, comm, add=True, narrow=narrow)
 
 
-def admit_node(buf: torch.Tensor, neighbors) -> torch.Tensor:
+def admit_node(buf: torch.Tensor, neighbors, *, narrow=()) -> torch.Tensor:
     """Elastic growth: a new buffer one row taller (the stacked state),
     its last row the float32 mean of the ``neighbors``' rows (of every row
-    when the list is empty), rounded to the buffer's dtype."""
+    when the list is empty), rounded to the buffer's dtype and the columns
+    of each ``narrow`` range to its own (``adopt_neighbor_average``)."""
     nbrs = [int(i) for i in neighbors] or list(range(buf.shape[0]))
     out = torch.empty((buf.shape[0] + 1,) + tuple(buf.shape[1:]), dtype=buf.dtype,
                       device=buf.device)
@@ -1082,7 +1097,8 @@ def admit_node(buf: torch.Tensor, neighbors) -> torch.Tensor:
     x, y = _rows2d(buf), _rows2d(out)
     for a in range(0, x.shape[1], HANDOFF_CHUNK):
         b = min(a + HANDOFF_CHUNK, x.shape[1])
-        y[-1, a:b] = (_row_sum(_node_rows(x, nbrs, a, b, None)) / len(nbrs)).to(buf.dtype)
+        mean = _row_sum(_node_rows(x, nbrs, a, b, None)) / len(nbrs)
+        _set_row(y, y.shape[0] - 1, a, b, mean, None, narrow=narrow)
     return out
 
 

@@ -32,7 +32,7 @@ from repro_torch.models.common import unflatten_tree
 from repro_torch.optim.sgd import state_from, state_parts
 
 __all__ = ["FlatLayout", "checkpoint_tree", "node_grads_into", "opt_buffers",
-           "update_leaves"]
+           "round_columns_", "update_leaves"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -102,16 +102,21 @@ class FlatLayout:
     def round_leaves_(self, buf: torch.Tensor) -> torch.Tensor:
         """Round every narrower leaf's columns of a (rows, P) buffer to its
         own dtype, IN PLACE (a no-op unless the layout is mixed)."""
-        for a, b, dt in self.narrow_leaves():
-            cols = buf[:, a:b]
-            cols.copy_(cols.to(dt))
-        return buf
+        return round_columns_(buf, self.narrow_leaves())
 
     @property
     def row_bytes(self) -> int:
         """Bytes of one node's parameters, each leaf in its own dtype."""
         return sum(n * torch.empty((), dtype=dt).element_size()
                    for n, dt in zip(self.sizes, self.dtypes))
+
+    def stacked_leaf_views(self, buf: torch.Tensor) -> dict[str, torch.Tensor]:
+        """(rows, *shape) leaves of a (rows, P) buffer, each in its own
+        dtype: views, copies for the leaves narrower than the buffer."""
+        views = self.stacked_views(buf)
+        if not self.mixed:
+            return views
+        return {k: v.to(dt) for (k, v), dt in zip(views.items(), self.dtypes)}
 
     def leaf_views(self, row: torch.Tensor) -> dict[str, torch.Tensor]:
         """One node's leaves, each in its own dtype: views into the (P,) row,
@@ -143,6 +148,18 @@ class FlatLayout:
         leaves = [tree[name] for name in self.names]
         g = leaves[0].shape[0]
         return torch.cat([x.reshape(g, -1) for x in leaves], dim=1).contiguous()
+
+
+def round_columns_(x: torch.Tensor, ranges, offset: int = 0) -> torch.Tensor:
+    """Round IN PLACE the columns of ``x`` that ``ranges`` ((start, stop,
+    dtype) column ranges of a flat buffer whose columns ``offset`` on ``x``
+    holds) give a dtype other than ``x``'s, to that dtype."""
+    for a, b, dt in ranges:
+        lo, hi = max(a - offset, 0), min(b - offset, x.shape[-1])
+        if hi > lo and dt != x.dtype:
+            cols = x[..., lo:hi]
+            cols.copy_(cols.to(dt))
+    return x
 
 
 def opt_buffers(optimizer, layout: FlatLayout, theta: torch.Tensor) -> dict:

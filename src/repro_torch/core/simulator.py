@@ -6,9 +6,16 @@ state is flat: parameters as one (n, P) buffer in the model's dtype and
 each optimizer-state slot as one (n, P) float32 buffer (``core/flat.py``),
 with every node's leaves as views into them, in the reference's leaf
 order; the DBench probe (kernel K3) and the consensus probe read the
-buffers in place.  Mixing interprets the same compiled ``GossipProgram``
-as the trainers: the dense-matrix interpreter (the paper's equation,
-§2.2) by default, so this engine is the port's correctness oracle.
+buffers in place.  A model of mixed leaf dtypes (the bf16 hybrid's float32
+``a_log``/``d_skip``) is held in float32, as in the trainer: every update
+and gossip round leaves each narrower leaf holding values of its own dtype
+(the leaf-by-leaf path updates and mixes each leaf in its dtype, the
+bucketed path rounds the leaf's columns after the update and each round),
+so the probes, ``mean_params`` and checkpoints read the values the
+reference's per-leaf state holds.  Mixing interprets the same compiled
+``GossipProgram`` as the trainers: the dense-matrix interpreter (the
+paper's equation, §2.2) by default, so this engine is the port's
+correctness oracle.
 
 One step:
   0. closed-loop Ada: before a probe step, the consensus distance Ξ_t of
@@ -35,8 +42,9 @@ spreads a static multi-matching program's matchings over them).
 
 ``bucket_mb`` runs a mixing step's update and gossip bucket by bucket
 (``core/buckets.py``: column ranges of the flat state, the program's
-interpreter per bucket, as in the reference) instead of leaf by leaf, bit
-for bit the same numbers, and folds Ξ² into the buckets when the next
+interpreter per bucket, as in the reference; a mixed state's narrower
+leaves mixed in their own dtype) instead of leaf by leaf, bit for bit the
+same numbers, and folds Ξ² into the buckets when the next
 step probes (``XiFold``), so that probe reads the fold: an eager
 reduction over each bucket after its mix, about the standalone probe's
 cost until a fused fold kernel exists.  ``telemetry``
@@ -63,8 +71,12 @@ tracking, the controller's and the recorder's state and a pending Ξ fold;
 fault realizations are pure in ``(seed, step)``, so a resumed run replays
 the uninterrupted one bit for bit.
 
-Node sharding and the retrace guard are later slices (ROADMAP queue 1
-item 7); their arguments raise.
+``debug_no_retrace`` is the reference's rebuild guard
+(``repro_torch.analysis.recompile``): every step is keyed by its program
+(``_step_cache``), and a step whose key was seen before must build
+nothing (no nvcc build, no new device table, no new program key) or it
+raises ``RetraceError``.  Node sharding is a later slice (ROADMAP queue 1
+item 7); its argument raises.
 """
 from __future__ import annotations
 
@@ -74,6 +86,7 @@ from typing import Callable, Iterator, Mapping, Optional
 import numpy as np
 import torch
 
+from repro_torch.analysis import recompile
 from repro_torch.core import dbench
 from repro_torch.checkpoint.ckpt import validate_run_config
 from repro_torch.core.buckets import (
@@ -101,9 +114,10 @@ _ENGINES = {"dense": "dense", "shift": "stacked", "stacked": "stacked"}
 
 @dataclasses.dataclass
 class SimState:
-    """Flat simulator state: ``theta`` (n, P) in the model dtype, ``opt``
-    one (n, P) float32 buffer per optimizer slot (and ``"t"``, (n,) int32,
-    for a step-counted optimizer), laid out by ``layout``."""
+    """Flat simulator state: ``theta`` (n, P) in the layout's state dtype
+    (the model's, float32 for mixed leaf dtypes), ``opt`` one (n, P)
+    float32 buffer per optimizer slot (and ``"t"``, (n,) int32, for a
+    step-counted optimizer), laid out by ``layout``."""
 
     theta: torch.Tensor
     opt: dict
@@ -119,8 +133,10 @@ class SimState:
         return self.layout.views(self.theta[i])
 
     def mean_params(self) -> dict[str, torch.Tensor]:
-        """The final model θ = average over all θ_i (paper §2.2)."""
-        return {k: v.float().mean(dim=0).to(v.dtype) for k, v in self.params.items()}
+        """The final model θ = average over all θ_i (paper §2.2), each leaf
+        in its own dtype."""
+        return {k: v.float().mean(dim=0).to(v.dtype)
+                for k, v in self.layout.stacked_leaf_views(self.theta).items()}
 
 
 def _later_slice(arg: str, item: str) -> ValueError:
@@ -163,6 +179,8 @@ class DecentralizedSimulator:
           bucket_mb: run each mixing step bucket by bucket, ~bucket_mb MiB
             of float32 per bucket; SGD-family optimizers, decentralized
             topologies and ``mix_order="post"`` only.
+          debug_no_retrace: raise ``RetraceError`` when a warm step (one
+            whose program key ran before) builds anything.
           telemetry: the run's ``MetricsRecorder`` (an inert one by
             default, which costs nothing).
         """
@@ -172,11 +190,13 @@ class DecentralizedSimulator:
             )
         if shard_nodes:
             raise _later_slice("shard_nodes=True (virtual-node sharding)", "7 (tooling)")
-        if debug_no_retrace:
-            raise _later_slice("debug_no_retrace=True (the recompile guard)", "7 (tooling)")
         if bucket_mb is not None:
             check_bucketable(optimizer, topology)
         self.bucket_mb = bucket_mb
+        self.debug_no_retrace = bool(debug_no_retrace)
+        # every step's program key (``analysis.recompile``): a step whose
+        # key is here is warm and, under debug_no_retrace, builds nothing
+        self._step_cache: dict = {}
         self.fault_model = topology.fault_model
         self._last_membership = None
         self.telemetry = telemetry if telemetry is not None else MetricsRecorder()
@@ -201,14 +221,14 @@ class DecentralizedSimulator:
     # -- state ----------------------------------------------------------------
     def init(self, params: Mapping) -> SimState:
         """Broadcast one replica (a nested or flat dict of tensors or
-        arrays, one dtype) to all nodes (paper: identical replicas)."""
+        arrays) to all nodes (paper: identical replicas).  Leaves of mixed
+        dtypes make a float32 state (``FlatLayout.state_dtype``)."""
         flat = {k: v if torch.is_tensor(v) else torch.from_numpy(np.array(v))
                 for k, v in flatten_tree(params).items()}
-        dtypes = {v.dtype for v in flat.values()}
-        if len(dtypes) != 1:
-            raise ValueError(f"the flat state holds one dtype; got {sorted(map(str, dtypes))}")
-        layout = FlatLayout.from_shapes({k: tuple(v.shape) for k, v in flat.items()})
-        theta = torch.empty((self.n, layout.size), dtype=dtypes.pop(), device=self.device)
+        layout = FlatLayout.from_shapes({k: tuple(v.shape) for k, v in flat.items()},
+                                        {k: v.dtype for k, v in flat.items()})
+        theta = torch.empty((self.n, layout.size), dtype=layout.state_dtype,
+                            device=self.device)
         for name, view in layout.views(theta[0]).items():
             view.copy_(flat[name])
         theta[1:].copy_(theta[:1].expand(self.n - 1, -1))
@@ -221,7 +241,7 @@ class DecentralizedSimulator:
         gradient buffer the grads are views of, or None under vmap)."""
         if not self.node_loop:
             grads, losses = torch.func.vmap(torch.func.grad_and_value(self.loss_fn))(
-                state.params, batch)
+                state.layout.stacked_leaf_views(state.theta), batch)
             return losses.float(), grads, None
         grad = torch.empty_like(state.theta)
         extra = (rng,) if self.has_rng else ()
@@ -263,7 +283,7 @@ class DecentralizedSimulator:
         self._last_membership = membership_events(
             fr, [state.theta] + list(state.opt.values()), self.topology,
             self._last_membership, step=state.step, epoch=epoch, mix_every=self.mix_every,
-            telemetry=tel)
+            telemetry=tel, narrow=state.layout.narrow_leaves())
         return state, fr
 
     def _admit(self, state: SimState, fr, epoch: int) -> SimState:
@@ -286,7 +306,7 @@ class DecentralizedSimulator:
             # a later joiner of the same step is not a row yet
             nbrs = [i for i in rejoin_neighbors(topo, fr, node, step=state.step, epoch=epoch,
                                                 mix_every=self.mix_every) if i < rows]
-            theta = admit_node(theta, nbrs)
+            theta = admit_node(theta, nbrs, narrow=state.layout.narrow_leaves())
             opt = {k: admit_node(v, nbrs) for k, v in opt.items()}
             rows += 1
         return SimState(theta, opt, state.layout, state.step)
@@ -332,42 +352,68 @@ class DecentralizedSimulator:
         batch = {k: torch.as_tensor(v, device=self.device) for k, v in batch.items()}
         if self.has_rng and rng is None:
             rng = torch.Generator(device=self.device).manual_seed(0)
-        losses, grads, flat_grad = self._grads(state, batch, rng)
-        with torch.no_grad():
-            norms = (
-                dbench.param_l2_norms(state.theta, state.layout)
-                if self.collect_norms
-                else torch.zeros((self.n, 0), dtype=torch.float32, device=self.device)
-            )
-            if program is not None:
-                tel.comm(program, state.theta.shape[1] * state.theta.element_size(),
-                         step=state.step, alive=None if fr is None else fr.alive,
-                         link_up=None if fr is None else fr.link_up)
-            engine = _ENGINES[self.mixing]
-            bucket_grad = None   # the gradient buffer of a bucketed step
-            if self.bucket_mb is not None and program is not None:
-                bucket_grad = self._bucketed_update(state, grads, flat_grad, lr, program,
-                                                    engine, fault)
-            else:
-                if topo.centralized:
-                    # C_complete: average gradients globally; replicas stay identical
-                    grads = {k: g.float().mean(dim=0, keepdim=True).to(g.dtype).expand_as(g)
-                             for k, g in grads.items()}
-                if program is None:
-                    mix_fn = None
-                elif fault is None:
-                    mix_fn = lambda x: program.apply(x, engine=engine)
-                else:
-                    mix_fn = lambda x: program.apply_masked(
-                        x, fault["alive"], link_up=fault["link"], engine=engine)
-                update_leaves(
-                    self.optimizer, self._update, state.layout, state.theta, state.opt, grads,
-                    lr, mix_order=topo.mix_order, mix=mix_fn,
-                    gate=None if fault is None else fault["update"],
+        bucketed = self.bucket_mb is not None and program is not None
+        warm = self._note_step(program, faulty=fault is not None, bucketed=bucketed,
+                               has_m="mom" in state.opt)
+        with recompile.guard(self.debug_no_retrace and warm, f"sim step {state.step}"):
+            losses, grads, flat_grad = self._grads(state, batch, rng)
+            with torch.no_grad():
+                norms = (
+                    dbench.param_l2_norms(state.theta, state.layout)
+                    if self.collect_norms
+                    else torch.zeros((self.n, 0), dtype=torch.float32, device=self.device)
                 )
+                if program is not None:
+                    tel.comm(program, state.layout.row_bytes,
+                             step=state.step, alive=None if fr is None else fr.alive,
+                             link_up=None if fr is None else fr.link_up)
+                engine = _ENGINES[self.mixing]
+                bucket_grad = None   # the gradient buffer of a bucketed step
+                if bucketed:
+                    bucket_grad = self._bucketed_update(state, grads, flat_grad, lr, program,
+                                                        engine, fault)
+                else:
+                    if topo.centralized:
+                        # C_complete: average gradients globally, each leaf's mean in
+                        # its dtype; replicas stay identical
+                        dts = dict(zip(state.layout.names, state.layout.dtypes))
+                        grads = {k: g.float().mean(dim=0, keepdim=True).to(dts[k]).expand_as(g)
+                                 for k, g in grads.items()}
+                    if program is None:
+                        mix_fn = None
+                    elif fault is None:
+                        mix_fn = lambda x: program.apply(x, engine=engine)
+                    else:
+                        mix_fn = lambda x: program.apply_masked(
+                            x, fault["alive"], link_up=fault["link"], engine=engine)
+                    update_leaves(
+                        self.optimizer, self._update, state.layout, state.theta, state.opt, grads,
+                        lr, mix_order=topo.mix_order, mix=mix_fn,
+                        gate=None if fault is None else fault["update"],
+                    )
         self._finish_round(losses, norms, t_start, step=state.step, mix=mix, lr=lr,
                            grads=bucket_grad)
         return SimState(state.theta, state.opt, state.layout, state.step + 1), losses, norms
+
+    def _note_step(self, program, *, faulty: bool, bucketed: bool, has_m: bool) -> bool:
+        """Key this step as the reference keys its executables (the program,
+        ``("__local__", n)`` or ``("__centralized__", n)``; bucketed steps
+        ``("__bucket__", key, has_m, faulty)``, fault steps ``(key,
+        "faulty")``) in ``_step_cache``; returns whether the key was there
+        (a warm step).  A new key is a rebuild event."""
+        if self.topology.centralized:
+            key, faulty = ("__centralized__", self.n), False
+        else:
+            key = ("__local__", self.n) if program is None else program.cache_key
+        if bucketed:
+            key = ("__bucket__", key, has_m, faulty)
+        elif faulty:
+            key = (key, "faulty")
+        warm = key in self._step_cache
+        if not warm:
+            self._step_cache[key] = program
+            recompile.note("programs")
+        return warm
 
     def _bucketed_update(self, state: SimState, grads, flat_grad, lr, program, engine,
                          fault=None):
@@ -380,9 +426,11 @@ class DecentralizedSimulator:
         mom = state.opt.get("mom")
         fn = build_bucket_step(program, hyper=self.optimizer.hyper,
                                has_momentum=mom is not None, engine=engine, fault=fault)
-        self._fold.run(fn, BucketLayout.for_stacked(state.params, self.bucket_mb),
-                       state.theta, mom, grad, lr, controller=self.topology.controller,
-                       telemetry=self.telemetry, step=state.step, fold=fault is None)
+        layout = BucketLayout.for_stacked(state.params, self.bucket_mb)
+        runs = layout.dtype_runs(state.layout.dtypes) if state.layout.mixed else None
+        self._fold.run(fn, layout, state.theta, mom, grad, lr,
+                       controller=self.topology.controller, telemetry=self.telemetry,
+                       step=state.step, fold=fault is None, runs=runs)
         return grad
 
     def _finish_round(self, losses, norms, t_start, *, step: int, mix: bool, lr: float,

@@ -17,6 +17,8 @@ import subprocess
 import threading
 from pathlib import Path
 
+from repro_torch.analysis import recompile
+
 __all__ = ["load", "load_all", "SOURCES", "BUILD_DIR"]
 
 _HERE = Path(__file__).resolve().parent
@@ -45,14 +47,18 @@ _SIGNATURES = {
              _VP],
         "repro_gossip_update":
             [_INT, _INT, _VP, _VP, _VP, _VP, _VP, _VP, _LL, _INT, _F, _F, _VP],
+        "repro_gossip_update_attributes": [_INT, _INT, _VP],
+        "repro_device_limits": [_VP],
     },
     "l2_norms": {
         "repro_segment_l2_norms":
             [_INT, _VP, _LL, _LL, _VP, _VP, _INT, _VP, _INT, _VP, _VP, _INT, _VP],
+        "repro_l2_norms_attributes": [_INT, _INT, _VP],
     },
     "flash_attention": {
         "repro_flash_attention":
             [_INT, _VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT, _INT, _INT, _INT, _INT, _INT, _VP],
+        "repro_flash_attention_attributes": [_INT, _INT, _VP],
     },
 }
 
@@ -80,6 +86,7 @@ def _start(name: str):
     if out.exists():
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    recompile.note("builds")
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)

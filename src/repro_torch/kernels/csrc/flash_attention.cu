@@ -782,3 +782,44 @@ extern "C" int repro_flash_attention(int dtype, const void* q, const void* k, co
     return dispatch_bf16(D, q, k, v, out, B, H, KV, Sq, Sk, causal, has_window, window, st);
   return (int)cudaErrorInvalidValue;
 }
+
+namespace {
+
+// cudaFuncGetAttributes of one kernel into out[6], as in gossip_update.cu.
+template <typename K>
+int attributes_of(K kern, int threads, size_t dynamic_smem, int* out) {
+  cudaFuncAttributes a;
+  const cudaError_t e = cudaFuncGetAttributes(&a, kern);
+  if (e != cudaSuccess) return (int)e;
+  out[0] = a.numRegs;
+  out[1] = (int)a.sharedSizeBytes;
+  out[2] = (int)dynamic_smem;
+  out[3] = a.maxThreadsPerBlock;
+  out[4] = threads;
+  out[5] = (int)a.localSizeBytes;
+  return 0;
+}
+
+}  // namespace
+
+// The built route of dtype (0 = float32 on the CUDA cores, 1 = bfloat16 on
+// the tensor cores) at head dim D (32, 64, 128): registers a thread, static
+// shared bytes a block, the dynamic shared bytes its launch asks for
+// (smem_bytes / smem_bytes_tc), the most threads a block can take, the
+// threads it launches with, spill bytes a thread.  Returns a CUDA error.
+extern "C" int repro_flash_attention_attributes(int dtype, int D, int* out) {
+  if (dtype == 0) {
+    switch (D) {
+      case 32: return attributes_of(flash_fwd_kernel<float, 32>, kThreads, smem_bytes<32>(), out);
+      case 64: return attributes_of(flash_fwd_kernel<float, 64>, kThreads, smem_bytes<64>(), out);
+      case 128: return attributes_of(flash_fwd_kernel<float, 128>, kThreads, smem_bytes<128>(), out);
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
+  switch (D) {
+    case 32: return attributes_of(flash_fwd_bf16_kernel<32>, kThreadsTc, smem_bytes_tc<32>(), out);
+    case 64: return attributes_of(flash_fwd_bf16_kernel<64>, kThreadsTc, smem_bytes_tc<64>(), out);
+    case 128: return attributes_of(flash_fwd_bf16_kernel<128>, kThreadsTc, smem_bytes_tc<128>(), out);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}

@@ -301,3 +301,55 @@ extern "C" int repro_gossip_update(int dtype, int pre, void* theta, const void* 
             static_cast<const float*>(fault), P, deg, lr, beta);
   });
 }
+
+namespace {
+
+// cudaFuncGetAttributes of one kernel into out[6]: registers a thread,
+// static shared bytes a block, the dynamic shared bytes its launch asks
+// for, the most threads a block of it can take, the threads it launches
+// with, local (spill) bytes a thread.
+template <typename K>
+int attributes_of(K kern, int threads, int dynamic_smem, int* out) {
+  cudaFuncAttributes a;
+  const cudaError_t e = cudaFuncGetAttributes(&a, kern);
+  if (e != cudaSuccess) return (int)e;
+  out[0] = a.numRegs;
+  out[1] = (int)a.sharedSizeBytes;
+  out[2] = dynamic_smem;
+  out[3] = a.maxThreadsPerBlock;
+  out[4] = threads;
+  out[5] = (int)a.localSizeBytes;
+  return 0;
+}
+
+}  // namespace
+
+// The built K1 (which 0) or K2 (which 1), post order on the vector path,
+// dtype 0 = float32, 1 = bfloat16: attributes_of's six numbers.  Returns a
+// CUDA error code (0 = read).
+extern "C" int repro_gossip_update_attributes(int which, int dtype, int* out) {
+  if (which == 0) {
+    if (dtype == 0) return attributes_of(program_update_kernel<float, false, true>, kThreads, 0, out);
+    return attributes_of(program_update_kernel<__nv_bfloat16, false, true>, kThreads, 0, out);
+  }
+  if (dtype == 0) return attributes_of(node_update_kernel<float, false, true>, kThreads, 0, out);
+  return attributes_of(node_update_kernel<__nv_bfloat16, false, true>, kThreads, 0, out);
+}
+
+// The current card's launch limits: out[7] = {grid x, grid y, grid z,
+// shared bytes a block with the opt-in, shared bytes a block without it,
+// threads a block, registers a block}.  Returns a CUDA error code.
+extern "C" int repro_device_limits(int* out) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  const cudaDeviceAttr attrs[7] = {
+      cudaDevAttrMaxGridDimX, cudaDevAttrMaxGridDimY, cudaDevAttrMaxGridDimZ,
+      cudaDevAttrMaxSharedMemoryPerBlockOptin, cudaDevAttrMaxSharedMemoryPerBlock,
+      cudaDevAttrMaxThreadsPerBlock, cudaDevAttrMaxRegistersPerBlock};
+  for (int i = 0; i < 7; ++i) {
+    e = cudaDeviceGetAttribute(&out[i], attrs[i], dev);
+    if (e != cudaSuccess) return (int)e;
+  }
+  return 0;
+}

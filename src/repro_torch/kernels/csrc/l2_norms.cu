@@ -151,3 +151,32 @@ extern "C" int repro_segment_l2_norms(int dtype, const void* x, long long R, lon
       static_cast<const long long*>(seg_first_tile), n_seg, static_cast<float*>(out));
   return (int)cudaGetLastError();
 }
+
+namespace {
+
+// cudaFuncGetAttributes of one kernel into out[6], as in gossip_update.cu.
+template <typename K>
+int attributes_of(K kern, int threads, int* out) {
+  cudaFuncAttributes a;
+  const cudaError_t e = cudaFuncGetAttributes(&a, kern);
+  if (e != cudaSuccess) return (int)e;
+  out[0] = a.numRegs;
+  out[1] = (int)a.sharedSizeBytes;
+  out[2] = 0;
+  out[3] = a.maxThreadsPerBlock;
+  out[4] = threads;
+  out[5] = (int)a.localSizeBytes;
+  return 0;
+}
+
+}  // namespace
+
+// The built pass-1 kernel (which 0, vector path, dtype 0 = float32,
+// 1 = bfloat16) or pass-2 kernel (which 1): registers a thread, static and
+// dynamic shared bytes a block, the most threads a block can take, the
+// threads it launches with, spill bytes a thread.  Returns a CUDA error.
+extern "C" int repro_l2_norms_attributes(int which, int dtype, int* out) {
+  if (which == 1) return attributes_of(finish_kernel, kThreads, out);
+  if (dtype == 0) return attributes_of(partial_kernel<float, true>, kThreads, out);
+  return attributes_of(partial_kernel<__nv_bfloat16, true>, kThreads, out);
+}

@@ -24,6 +24,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.analysis.budget import check_kernel_budget
 from repro_torch.kernels import _build
 
 __all__ = ["flash_attention", "flash_attention_plain"]
@@ -107,6 +108,8 @@ def flash_attention(
             f"{k.dtype}, {v.dtype}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("q, k, v must be contiguous")
+    check_kernel_budget("flash_attention", dtype=str(q.dtype).split(".")[-1], b=b, h=h,
+                        sq=sq, d=d)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window)
     if q.device.type != "cuda":

@@ -42,10 +42,13 @@ takes its plain twin (``*_plain``).
 from __future__ import annotations
 
 import ctypes
+import math
 from functools import lru_cache
 
 import torch
 
+from repro_torch.analysis import recompile
+from repro_torch.analysis.budget import check_kernel_budget
 from repro_torch.kernels import _build
 
 __all__ = [
@@ -137,6 +140,12 @@ def _row_stride(t) -> int:
     return t.stride(0) if t.shape[0] > 1 else t.shape[1]
 
 
+def _aligned(n: int, *tensors) -> bool:
+    """Whether the kernel takes its vector path: ``n`` (the columns and row
+    strides) a multiple of 8 elements, every operand on a 16-byte boundary."""
+    return n % 8 == 0 and all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
 def _check(theta, wire, srcs, weights, grad, mom, fault):
     """K1's operands; returns the row strides (ld_state, ld_wire).  θ, g
     and m may be column slices of wider buffers (a bucket of the flat
@@ -186,6 +195,10 @@ def gossip_program_update(theta, wire, srcs, weights, grad, mom, *,
     if mix_order not in ("post", "pre"):
         raise ValueError(f"mix_order must be 'post'|'pre', got {mix_order!r}")
     ld_state, ld_wire = _check(theta, wire, srcs, weights, grad, mom, fault)
+    g, p = theta.shape
+    check_kernel_budget("gossip_program_update", rows=g, cols=p, deg=srcs.shape[1],
+                        aligned=_aligned(math.gcd(p, ld_state, ld_wire), theta, wire, grad,
+                                         mom))
     if theta.device.type == "cpu":
         new_t, new_m = gossip_program_update_plain(
             theta, wire, srcs, weights, grad, mom,
@@ -197,7 +210,6 @@ def gossip_program_update(theta, wire, srcs, weights, grad, mom, *,
     if theta.device.type != "cuda":
         raise ValueError(f"unsupported device {theta.device}")
     fn = _build.load("gossip_update").repro_gossip_program_update
-    g, p = theta.shape
     with torch.cuda.device(theta.device):
         stream = torch.cuda.current_stream(theta.device).cuda_stream
         err = fn(
@@ -253,6 +265,8 @@ def gossip_update(theta, nbrs, weights, grad, mom, *, lr, beta, fault,
         "fault": (fault, (deg + 1,), torch.float32),
     })
     _check_disjoint("nbrs", nbrs, theta, mom)
+    check_kernel_budget("gossip_update", cols=p, deg=deg,
+                        aligned=_aligned(p, theta, nbrs, grad, mom))
     if theta.device.type == "cpu":
         new_t, new_m = gossip_update_plain(
             theta, nbrs, weights, grad, mom,
@@ -289,7 +303,9 @@ gossip_update.launches = 0
 def _device_tables(program, device):
     """(srcs int32, weights float32, all-ones fault rows, host srcs) on
     ``device``, cached per program: a step uploads nothing (and so never
-    waits on a host-to-device copy) once its program is known."""
+    waits on a host-to-device copy) once its program is known.  A miss is
+    a rebuild event (``analysis.recompile``)."""
+    recompile.note("tables")
     tables = program.permute_tables()
     if tables is None:
         raise ValueError(

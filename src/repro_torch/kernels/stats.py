@@ -21,12 +21,14 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from repro_torch.analysis import recompile
+from repro_torch.analysis.budget import K3_TILE, check_kernel_budget
 from repro_torch.kernels import _build
 
 __all__ = ["l2_norms", "segment_l2_norms", "segment_l2_norms_plain"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-TILE = 1 << 15  # columns reduced by one block in pass 1
+TILE = K3_TILE  # columns reduced by one block in pass 1
 
 
 def segment_l2_norms_plain(x: torch.Tensor, offsets: Sequence[int]) -> torch.Tensor:
@@ -41,7 +43,9 @@ def segment_l2_norms_plain(x: torch.Tensor, offsets: Sequence[int]) -> torch.Ten
 @lru_cache(maxsize=64)
 def _tiles(offsets: tuple[int, ...], device):
     """Device tables (tile_start, tile_end, seg_first_tile) and the tile
-    count for these segments, cached per (offsets, device)."""
+    count for these segments, cached per (offsets, device): a miss is a
+    rebuild event (``analysis.recompile``)."""
+    recompile.note("tables")
     starts, ends, first = [], [], [0]
     for a, b in zip(offsets[:-1], offsets[1:]):
         for t in range(a, b, TILE):
@@ -68,6 +72,10 @@ def segment_l2_norms(x: torch.Tensor, offsets: Sequence[int]) -> torch.Tensor:
         raise ValueError(f"offsets must be nondecreasing within [0, {p}], got {offsets}")
     if x.dtype not in _DTYPES:
         raise TypeError(f"x dtype {x.dtype} not supported (float32, bfloat16)")
+    vec = 16 // x.element_size()
+    vec_ok = p % vec == 0 and all(o % vec == 0 for o in offsets)
+    check_kernel_budget("segment_l2_norms", rows=r, offsets=offsets,
+                        aligned=vec_ok and x.data_ptr() % 16 == 0)
     if x.device.type == "cpu":
         return segment_l2_norms_plain(x, offsets)
     if x.device.type != "cuda":
@@ -79,8 +87,6 @@ def segment_l2_norms(x: torch.Tensor, offsets: Sequence[int]) -> torch.Tensor:
     n_seg = len(offsets) - 1
     partial = torch.empty((r, max(n_tiles, 1)), dtype=torch.float32, device=x.device)
     out = torch.empty((r, n_seg), dtype=torch.float32, device=x.device)
-    vec = 16 // x.element_size()
-    vec_ok = p % vec == 0 and all(o % vec == 0 for o in offsets)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(

@@ -19,20 +19,27 @@ device the rank computes on:
 ``rank_device`` picks a rank's device and backend the same way for every
 launcher, and ``spawn_world`` runs a function on every rank of a fresh
 world on this machine (file-store rendezvous, hard timeout).
+
+``Comm.recording()`` records, in order, every collective the rank issues
+(``CollectiveOp``: kind, peer pairs, bytes): the record the collective
+linter (``repro_torch.analysis.collectives``) reads, as the reference's
+reads a module's HLO.  Off, it costs one attribute test a collective.
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import datetime
 import pickle
 import tempfile
 import time
 from pathlib import Path
-from typing import Callable, Sequence
+from typing import Callable, Optional, Sequence
 
 import torch
 import torch.distributed as dist
 
-__all__ = ["Comm", "rank_device", "spawn_world", "CHUNK_BYTES"]
+__all__ = ["Comm", "CollectiveOp", "rank_device", "spawn_world", "CHUNK_BYTES"]
 
 # bytes per staged gloo message: bounds the pinned host buffers and keeps
 # each message far below gloo's 2 GiB limit
@@ -56,6 +63,18 @@ def rank_device(local_rank: int, local_world: int, device=None) -> tuple[torch.d
     return torch.device("cuda", 0), "gloo"
 
 
+@dataclasses.dataclass(frozen=True)
+class CollectiveOp:
+    """One collective a rank issued: ``kind`` (``permute``, ``pmean``,
+    ``all_gather``, ``gather_host``, ``scatter_host``), ``pairs`` (a
+    permute's (src, dst) pairs, every rank's; () for the others, which
+    every rank joins) and ``nbytes`` (this rank's operand)."""
+
+    kind: str
+    pairs: tuple
+    nbytes: int
+
+
 class Comm:
     """This rank's view of the initialised default ``torch.distributed``
     group; ``device`` is the device the rank computes on."""
@@ -76,10 +95,26 @@ class Comm:
         else:
             raise ValueError(f"unsupported backend {backend!r} (nccl, gloo)")
         self._pinned: dict[torch.dtype, tuple[torch.Tensor, torch.Tensor]] = {}
+        self.ops: Optional[list] = None   # the op record, while ``recording``
         if self.transport == "nccl":
             # bring the communicator up with every rank taking part: a first
             # batched send/receive in which some ranks idle would not
             dist.all_reduce(torch.zeros(1, device=self.device))
+
+    @contextlib.contextmanager
+    def recording(self):
+        """Record every collective issued inside the block, in order, into
+        the yielded list of ``CollectiveOp``."""
+        prev, self.ops = self.ops, []
+        try:
+            yield self.ops
+        finally:
+            self.ops = prev
+
+    def _note(self, kind: str, x: torch.Tensor, pairs=()) -> None:
+        if self.ops is not None:
+            self.ops.append(CollectiveOp(kind, tuple(tuple(p) for p in pairs),
+                                         x.numel() * x.element_size()))
 
     def _check(self, x: torch.Tensor) -> None:
         if x.device != self.device:
@@ -114,6 +149,7 @@ class Comm:
         self._check(out)
         if out.shape != x.shape or out.dtype != x.dtype:
             raise ValueError("out must match x in shape and dtype")
+        self._note("permute", x, perm)
         dsts = [d for s, d in perm if s == self.rank]
         srcs = [s for s, d in perm if d == self.rank]
         if len(dsts) > 1 or len(srcs) > 1:
@@ -157,6 +193,7 @@ class Comm:
         """Mean over the ranks, IN PLACE (sum, then divide by ``world``);
         returns ``x``."""
         self._check(x)
+        self._note("pmean", x)
         if self.transport == "gloo-host":
             flat = x.view(-1)
             buf = self._host_buffers(x.dtype)[0]
@@ -172,6 +209,7 @@ class Comm:
     def all_gather(self, x: torch.Tensor) -> torch.Tensor:
         """(world, *x.shape): every rank's ``x``, in rank order."""
         self._check(x)
+        self._note("all_gather", x)
         out = torch.empty((self.world,) + tuple(x.shape), dtype=x.dtype, device=x.device)
         if self.transport == "nccl":
             dist.all_gather_into_tensor(out, x)
@@ -212,6 +250,7 @@ class Comm:
         elsewhere.  Every rank must call it.  Unlike ``all_gather`` no rank
         holds more than a chunk of the result on its device."""
         self._check(x)
+        self._note("gather_host", x)
         dtype = x.dtype
         x = x.view(-1).view(torch.uint8)   # bytes: every backend moves them
         mine = self.rank == dst
@@ -236,6 +275,7 @@ class Comm:
         into ``out``, IN PLACE, column chunk by column chunk.  Every rank
         must call it; returns ``out``."""
         self._check(out)
+        self._note("scatter_host", out)
         mine = self.rank == src
         if mine and (rows is None or tuple(rows.shape) != (self.world, out.numel())):
             raise ValueError(f"scatter_host needs ({self.world}, {out.numel()}) rows on "

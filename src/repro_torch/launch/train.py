@@ -19,9 +19,10 @@ and its (rows,) step count) — with rows = G stacked, 1 (the rank's own
 node) for ranks; every node's parameters are views into them.  A model of
 mixed leaf dtypes (the bf16 hybrid's float32 ``a_log``/``d_skip``) holds
 parameters and gradients in float32, its narrower leaves rounded to their
-dtype after every update and round, as the reference's fused step casts
-each leaf back after its float32 kernel; checkpoints write each leaf in
-its own dtype.  One
+dtype after every update and round (bucketed too) and after every
+membership handoff, as the reference's fused step casts each leaf back
+after its float32 kernel and its handoffs cast each leaf's float32 mean;
+checkpoints write each leaf in its own dtype.  One
 iteration (paper §2.1 order):
 
   0. closed-loop Ada: before a probe step the consensus distance Ξ_t
@@ -53,14 +54,17 @@ which keeps their float32 temporaries to one leaf at a time.
 ``fused_apply`` K1 launches once per bucket, in place on the bucket's
 column views, and the later rounds of a multi-round program follow on the
 same columns; without it the optimizer and the interpreter run per
-bucket.  Either way the numbers are the monolithic step's, bit for bit,
+bucket.  On a mixed-dtype state each bucket rounds (fused) or mixes in
+their own dtype (interpreter) the runs of its columns that hold narrower
+leaves (``BucketLayout.dtype_runs``), where the monolithic step does.
+Either way the numbers are the monolithic step's, bit for bit,
 and when the next step probes, Ξ² is folded into the buckets
 (``XiFold``) and that probe reads the fold: an eager reduction over each
 bucket after its mix, which reads the state as the standalone probe
 would and costs about as much until a fused fold kernel exists.  The
-ranks engine keeps the monolithic step under
-``bucket_mb``, as the reference's shard_map realization does (its
-per-bucket overlap is a later slice).
+ranks engine keeps the monolithic step under ``bucket_mb``, as the
+reference's shard_map realization does (a per-bucket overlap of its
+collectives is performance work, not a part of the reference to port).
 
 ``telemetry`` takes a ``repro_torch.telemetry.MetricsRecorder``: comm
 billed once per program application at dispatch, the loss, lr, Ξ (and,
@@ -84,6 +88,13 @@ nodes, once a step even when bucketed; K2 this rank's row), the
 interpreters the runtime masks.  Elastic ``Join`` models grow past the
 fixed set of nodes and are refused: ``SparePool`` takes joins as spare
 activations instead.
+
+``debug_no_retrace`` is the reference's rebuild guard
+(``repro_torch.analysis.recompile``): every step is keyed by its program
+(``_step_cache``, the reference's executable keys), and a step whose key
+ran before must build nothing (no nvcc build, no new device table, no new
+program key) or it raises ``RetraceError``; ``precompile_programs`` is the
+set those keys must come from.
 
 ``loss_fn`` replaces the transformer's loss (a function of one node's flat
 parameter dict and batch); ``accum_steps`` k splits every node's batch into
@@ -115,6 +126,7 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
+from repro_torch.analysis import recompile
 from repro_torch.checkpoint.ckpt import (
     checkpoint_path, flatten, held, leaf_shapes, load_checkpoint_extra, map_leaves, read_leaf,
     resolve_step, restore_checkpoint, save_checkpoint, validate_run_config,
@@ -187,6 +199,7 @@ class SPMDTrainer:
         fused_apply: bool = False,
         bucket_mb: Optional[float] = None,
         telemetry=None,
+        debug_no_retrace: bool = False,
         device=None,
     ):
         """loss_fn: ``loss_fn(params, batch)`` of one node's flat parameter
@@ -201,10 +214,12 @@ class SPMDTrainer:
         whenever that round is all-PPermute; requires plain momentum-SGD.
         bucket_mb: run the stacked engine's mixing steps bucket by bucket,
         ~bucket_mb MiB of float32 per bucket (SGD family, decentralized,
-        ``mix_order="post"``, one leaf dtype); the ranks engine keeps the
-        monolithic step.
+        ``mix_order="post"``); the ranks engine keeps the monolithic step.
         telemetry: the run's ``MetricsRecorder`` (an inert one by default,
         which costs nothing); on the ranks engine give rank 0 the sinks.
+        debug_no_retrace: raise ``RetraceError`` when a warm step (one whose
+        program key ran before) builds anything: an nvcc build, a device
+        table, a program key (``analysis.recompile``).
         ``device``: the current card by default; ``"cpu"`` runs every
         kernel's plain twin.  With an initialised process group of world
         size > 1 the trainer is one rank of the ranks engine, which raises
@@ -258,18 +273,20 @@ class SPMDTrainer:
         self.layout = FlatLayout.of_defs(self.defs)
         if bucket_mb is not None:
             check_bucketable(optimizer, topology)
-            if self.layout.mixed:
-                # the bucketed step would run its later rounds and the Ξ fold
-                # on unrounded float32 columns of the narrower leaves
-                raise ValueError(
-                    "bucket_mb needs one leaf dtype; this model mixes "
-                    f"{sorted({str(d) for d in self.layout.dtypes})}: drop bucket_mb"
-                )
         self.bucket_mb = bucket_mb
         self._bucket_layout = (
             None if bucket_mb is None
             else BucketLayout(self.layout.sizes, BucketLayout.elems_for_mb(bucket_mb))
         )
+        # a mixed state's buckets mix each narrower leaf's columns in its dtype
+        self._bucket_runs = (
+            self._bucket_layout.dtype_runs(self.layout.dtypes)
+            if self._bucket_layout is not None and self.layout.mixed else None
+        )
+        self.debug_no_retrace = bool(debug_no_retrace)
+        # every step's program key (``analysis.recompile``): a step whose
+        # key is here is warm and, under debug_no_retrace, builds nothing
+        self._step_cache: dict = {}
         self._fold = XiFold()
         self.telemetry = telemetry if telemetry is not None else MetricsRecorder()
         self.telemetry.configure(deadline_ms=getattr(self.fault_model, "deadline_ms", None))
@@ -430,7 +447,8 @@ class SPMDTrainer:
                 self._last_membership = membership_events(
                     fr, [state.theta] + list(state.opt.values()), topo,
                     self._last_membership, step=state.step, epoch=epoch,
-                    mix_every=self.mix_every, telemetry=tel, comm=self.comm)
+                    mix_every=self.mix_every, telemetry=tel, comm=self.comm,
+                    narrow=self.layout.narrow_leaves())
                 fault = realization_arrays(fr, self.device)
                 # the membership mask, not the raw alive mask: a float drain
                 # boost must not weight the draining node in the probe
@@ -449,58 +467,79 @@ class SPMDTrainer:
         sel = None if fr is None else fr.selection_mask()
         if program is not None and sel is not None and not sel.all():
             program = program.degrade(sel)
-        grad = torch.empty_like(state.theta)
-        losses = self._grads_into(state.theta, grad, batch)
-        bucket_grad = None   # the gradient buffer of a bucketed step
-        with torch.no_grad():
-            norms = (
-                dbench.param_l2_norms(state.theta, self.layout)
-                if self.collect_norms
-                else torch.zeros((self.rows, 0), dtype=torch.float32, device=self.device)
-            )
-            if program is not None and self.g > 1:
-                tel.comm(program, self.layout.row_bytes,
-                         step=state.step, alive=None if fr is None else fr.alive,
-                         link_up=None if fr is None else fr.link_up)
-            if topo.centralized:
-                # C_complete: average gradients globally (float32, leaf by
-                # leaf); replicas stay identical
-                for g in self.layout.stacked_views(grad).values():
-                    if self.comm is None:
-                        g.copy_(g.float().mean(dim=0, keepdim=True).to(g.dtype).expand_as(g))
-                    else:
-                        g.copy_(self.comm.pmean(g.float().contiguous()))
-                self.layout.round_leaves_(grad)
-            split = self._fused_split(program)
-            if self._bucketed and program is not None:
-                self._bucketed_update(state, grad, lr, program, split, fault)
-                bucket_grad = grad
-            elif split is None:
-                update_leaves(
-                    self.optimizer, self._update, self.layout, state.theta, state.opt,
-                    self.layout.stacked_views(grad), lr,
-                    mix=None if program is None else (lambda x: self._mix(program, x, fault)),
-                    mix_order=topo.mix_order,
-                    gate=None if fault is None else self._own(fault["update"]),
+        bucketed = self._bucketed and program is not None
+        warm = self._note_step(program, faulty=fault is not None, bucketed=bucketed,
+                               has_m=state.mom is not None)
+        with recompile.guard(self.debug_no_retrace and warm, f"train step {state.step}"):
+            grad = torch.empty_like(state.theta)
+            losses = self._grads_into(state.theta, grad, batch)
+            bucket_grad = None   # the gradient buffer of a bucketed step
+            with torch.no_grad():
+                norms = (
+                    dbench.param_l2_norms(state.theta, self.layout)
+                    if self.collect_norms
+                    else torch.zeros((self.rows, 0), dtype=torch.float32, device=self.device)
                 )
-            else:
-                first, rest = split
-                if self.comm is not None:
-                    fused_apply_shard(
-                        first, state.theta[0], grad[0],
-                        None if state.mom is None else state.mom[0], self.comm,
-                        lr=lr, beta=self.beta, fault=fault, mix_order=topo.mix_order,
+                if program is not None and self.g > 1:
+                    tel.comm(program, self.layout.row_bytes,
+                             step=state.step, alive=None if fr is None else fr.alive,
+                             link_up=None if fr is None else fr.link_up)
+                if topo.centralized:
+                    # C_complete: average gradients globally (float32, leaf by
+                    # leaf); replicas stay identical
+                    for g in self.layout.stacked_views(grad).values():
+                        if self.comm is None:
+                            g.copy_(g.float().mean(dim=0, keepdim=True).to(g.dtype).expand_as(g))
+                        else:
+                            g.copy_(self.comm.pmean(g.float().contiguous()))
+                    self.layout.round_leaves_(grad)
+                split = self._fused_split(program)
+                if bucketed:
+                    self._bucketed_update(state, grad, lr, program, split, fault)
+                    bucket_grad = grad
+                elif split is None:
+                    update_leaves(
+                        self.optimizer, self._update, self.layout, state.theta, state.opt,
+                        self.layout.stacked_views(grad), lr,
+                        mix=None if program is None else (lambda x: self._mix(program, x, fault)),
+                        mix_order=topo.mix_order,
+                        gate=None if fault is None else self._own(fault["update"]),
                     )
                 else:
-                    fused_apply_stacked(
-                        first, state.theta, grad, state.mom,
-                        lr=lr, beta=self.beta, fault=fault, mix_order=topo.mix_order,
-                    )
-                self._later_rounds(rest, state.theta, fault)
+                    first, rest = split
+                    if self.comm is not None:
+                        fused_apply_shard(
+                            first, state.theta[0], grad[0],
+                            None if state.mom is None else state.mom[0], self.comm,
+                            lr=lr, beta=self.beta, fault=fault, mix_order=topo.mix_order,
+                        )
+                    else:
+                        fused_apply_stacked(
+                            first, state.theta, grad, state.mom,
+                            lr=lr, beta=self.beta, fault=fault, mix_order=topo.mix_order,
+                        )
+                    self._later_rounds(rest, state.theta, fault)
             del grad
             self._finish_round(losses, norms, t_start, step=state.step, mix=mix, lr=lr,
                                grads=bucket_grad)
         return TrainState(state.theta, state.opt, state.step + 1), losses, norms
+
+    def _note_step(self, program, *, faulty: bool, bucketed: bool, has_m: bool) -> bool:
+        """Key this step as the reference keys its executables (the
+        program's ``cache_key``, None without a program; bucketed steps
+        ``("__bucket__", key, has_m, faulty)``, fault steps ``(key,
+        "faulty")``) in ``_step_cache``; returns whether the key was there
+        (a warm step).  A new key is a rebuild event."""
+        key = None if program is None else program.cache_key
+        if bucketed:
+            key = ("__bucket__", key, has_m, faulty)
+        elif faulty:
+            key = (key, "faulty")
+        warm = key in self._step_cache
+        if not warm:
+            self._step_cache[key] = program
+            recompile.note("programs")
+        return warm
 
     def _later_rounds(self, rest, theta, fault) -> None:
         """The rounds after the fused one, IN PLACE; a mixed layout rounds
@@ -533,7 +572,7 @@ class SPMDTrainer:
                                fault=fault)
         self._fold.run(fn, self._bucket_layout, state.theta, state.mom, grad, lr,
                        controller=self.topology.controller, telemetry=self.telemetry,
-                       step=state.step, fold=fault is None)
+                       step=state.step, fold=fault is None, runs=self._bucket_runs)
 
     def _finish_round(self, losses, norms, t_start, *, step: int, mix: bool, lr: float,
                       grads=None) -> None:

@@ -309,3 +309,60 @@ def fault_world(comm, cases, mask_cases, x, alive, params, steps, seq, batch, lr
     return (fault_cases(comm, cases, params, steps, seq, batch, lr),
             masked_shard_cases(comm, mask_cases),
             handoff_cases(comm, x, alive, 8))
+
+
+def quad_loss(params, batch):
+    """A loss whose gradient is ``x - batch[leaf]`` in float32, rounded to
+    each leaf's dtype: both packages take the same gradients from it."""
+    return 0.5 * sum(torch.sum((x.float() - batch[k]) ** 2) for k, x in params.items())
+
+
+def quad_batch(layout, n, step):
+    """Seeded (n, *shape) float32 targets of ``quad_loss`` for every leaf."""
+    r = np.random.default_rng(1000 + step)
+    return {k: (0.1 * r.standard_normal((n,) + tuple(s))).astype(np.float32)
+            for k, s in zip(layout.names, layout.shapes)}
+
+
+def mixed_cfg():
+    """zamba2-reduced in bfloat16: its Mamba2 ``a_log``/``d_skip`` stay float32."""
+    import dataclasses
+
+    return dataclasses.replace(get_config("zamba2-7b-reduced"), remat=False,
+                               dtype=torch.bfloat16)
+
+
+def mixed_fault_rows(comm, fault, steps, lr):
+    """bf16 zamba2-reduced under ``fault`` (``make_fault_model`` args and
+    kwargs) on d_ring with fused apply and ``quad_loss``, ``steps`` steps
+    from the seed-0 weights.  Returns this rank's (θ row, m row, whether
+    every narrow leaf held bfloat16 values after each step, engine)."""
+    from repro_torch.core.faults import make_fault_model
+
+    name, kw = fault
+    topo = make_topology("d_ring", comm.world,
+                         fault_model=make_fault_model(name, comm.world, **kw))
+    trainer = SPMDTrainer(mixed_cfg(), topo, get_optimizer("sgd", momentum=0.9),
+                          loss_fn=quad_loss, fused_apply=True, device=comm.device)
+    state = trainer.init_state(seed=0)
+    narrow, exact = trainer.layout.narrow_leaves(), []
+    for t in range(steps):
+        state, _, _ = trainer.train_step(state, quad_batch(trainer.layout, comm.world, t), lr)
+        exact.append(all(torch.equal(state.theta[:, a:b], state.theta[:, a:b].to(dt).float())
+                         for a, b, dt in narrow))
+    return state.theta[0].numpy().copy(), state.mom[0].numpy().copy(), exact, trainer.engine
+
+
+def comm_record(comm):
+    """Every collective of ``Comm`` once under ``Comm.recording``.  Returns
+    (the record before, the record after the block, what was recorded as
+    (kind, pairs, bytes))."""
+    x = torch.arange(6, dtype=torch.float32) + comm.rank
+    before = comm.ops
+    with comm.recording() as ops:
+        comm.permute(x, ((0, 1), (1, 0)))
+        comm.pmean(x.clone())
+        comm.all_gather(x)
+        comm.gather_host(x)
+        comm.scatter_host(x.clone(), torch.zeros(comm.world, 6) if comm.rank == 0 else None)
+    return before, comm.ops, [(op.kind, op.pairs, op.nbytes) for op in ops]

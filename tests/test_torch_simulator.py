@@ -283,9 +283,14 @@ def test_has_rng_runs_the_node_loop_with_the_generator():
 
 @pytest.mark.parametrize("kw,step", [
     ({"shard_nodes": True}, "item 7"),
-    ({"debug_no_retrace": True}, "item 7"),
+    ({"debug_no_retrace": True}, None),   # the rebuild guard is ported: accepted
     ({"mixing": "ring"}, "mixing must be"),
 ])
 def test_later_slices_raise(kw, step):
+    make = lambda: TSim(tpm.lstm_loss, toptim.sgd(0.9), tmake_topology("d_ring", 4),
+                        device="cpu", **kw)
+    if step is None:
+        assert make().debug_no_retrace
+        return
     with pytest.raises(ValueError, match=step):
-        TSim(tpm.lstm_loss, toptim.sgd(0.9), tmake_topology("d_ring", 4), device="cpu", **kw)
+        make()

@@ -19,8 +19,8 @@
   its interpreter step the reference's per-leaf update and mix the same
   way.  The same model over 4 gloo ranks equals its stacked rows bit for
   bit; its checkpoint is the reference's file with each leaf in its dtype,
-  read both ways.  ``bucket_mb`` on that model raises (the bucketed step
-  would not round between its rounds).
+  read both ways.  ``bucket_mb`` on that model is the monolithic step bit
+  for bit.
 * ``main --arch`` trains every architecture; a VLM without patch
   embeddings raises a ValueError naming them.
 """
@@ -221,12 +221,32 @@ def test_mixed_dtype_step_matches_reference(fused):
 
 @pytest.mark.parametrize("fused", [True, False])
 def test_mixed_dtype_rejects_buckets(fused):
-    """The bucketed step rounds no leaf between its rounds: bf16 zamba2
-    with ``bucket_mb`` raises instead of drifting from the monolithic step."""
-    _, tcfg, _ = _init(HYBRID, "bfloat16")
-    with pytest.raises(ValueError, match="bucket_mb needs one leaf dtype"):
-        SPMDTrainer(tcfg, tmake_topology("d_ring", G), topt.sgd(0.9),
-                    fused_apply=fused, bucket_mb=1, device="cpu")
+    """``bucket_mb`` on bf16 zamba2 (it raised before the bucket step
+    rounded the narrower leaves): at 1 MiB (13 buckets, several across a
+    leaf-dtype boundary) and in one bucket, 2 steps bit for bit the
+    monolithic trainer's (θ, m, losses), every bf16 leaf a bf16 value."""
+    _, tcfg, params = _init(HYBRID, "bfloat16")
+    src = SyntheticLM(vocab=tcfg.vocab, seq_len=SEQ, seed=0)
+    runs = {}
+    for mb in (None, 1, 1e6):
+        trainer = SPMDTrainer(tcfg, tmake_topology("d_ring", G), topt.sgd(0.9),
+                              fused_apply=fused, bucket_mb=mb, device="cpu")
+        state = trainer.init_state(params=params_from_jax(params))
+        losses = []
+        for t in range(2):
+            state, loss, _ = trainer.train_step(state, src.stacked(G, t, BATCH), LR)
+            losses.append(loss)
+        runs[mb] = (state, torch.stack(losses))
+    layout = trainer.layout
+    assert trainer._bucket_layout.num_buckets == 1
+    (mono, mono_l) = runs[None]
+    for mb in (1, 1e6):
+        state, losses = runs[mb]
+        assert torch.equal(state.theta, mono.theta), mb
+        assert torch.equal(state.mom, mono.mom), mb
+        assert torch.equal(losses, mono_l), mb
+    bf = torch.cat([mono.theta[:, a:b] for a, b, _ in layout.narrow_leaves()], dim=1)
+    assert torch.equal(bf, bf.bfloat16().float())
 
 
 def test_mixed_dtype_ranks_equal_stacked_rows(tmp_path):
