@@ -57,7 +57,7 @@ Phases (any failure exits non-zero and prints no result line):
      12's bar;
  11. serving granite-8b at full width and depth (36 layers, bfloat16,
      seed-0 weights): ``ServeEngine.prefill_fn()`` on 4 prompts of 4096
-     tokens (time, peak memory), ``generate`` on 4 prompts of 128 tokens
+     tokens (time, peak memory), ``generate`` on 4 prompts of 32 tokens
      with 32 new tokens, twice, with equal tokens (and ms per decode step
      timed apart), then the ``decode_step`` chain over 32 tokens against
      ``forward``'s logits at full width in float32 with depth cut to 2
@@ -172,7 +172,7 @@ Phases (any failure exits non-zero and prints no result line):
      and 2 (within the bar of ``accum_bar``) and with remat on (bit for bit
      remat off), ms a step and peak memory each; then ``python -m
      repro_torch.examples.quickstart`` (its loss must fall) and
-     ``dbench_whitebox --steps 20`` on the card.
+     ``dbench_whitebox --steps 10`` on the card (quickstart at 20 steps).
  27. the model zoo, MoE: ``SPMDTrainer`` on phi3.5-moe at its published
      width (d_model 4096, 32 heads, 8 KV heads, 16 experts top-2 of d_ff
      6400, vocab 32064), bfloat16, depth cut to 1 layer (1.563e9
@@ -231,6 +231,24 @@ Phases (any failure exits non-zero and prints no result line):
      and a closed-loop d_ada run (device tables built up front from
      ``precompile_programs``): 0 nvcc builds and 0 new device tables after
      the first step; ``python -m repro_torch.examples.serve_decode``.
+ 34. the dry run on the card's machine: ``launch/dryrun.run_one`` for
+     granite-8b, phi3.5-moe and kimi-k2 at full width over the four
+     ``SHAPES`` on the ``single`` mesh and for the five archs of
+     ``tests/spmd_dryrun_script.py`` at its mini shapes, all on ``meta``:
+     the card's allocated and peak bytes must not move, ``is_suspect``
+     may flag only MoE decodes whose experts compute at the capacity
+     floor; the dry-run and roofline tables are printed;
+ 35. phase 4's configuration against its roofline: the trainer's init
+     measured for its device bytes, the median of 5 warm steps timed with
+     no accounting, one step under ``launch/hlo_analysis.analyze_step`` on
+     the card and ``lower_step`` on meta: dot FLOPs equal, traffic within
+     0.1 %, K1's and K3's billed bytes at the memory rate phase 6's bounds,
+     ``argument_bytes`` within 2 MiB of the init's bytes; the measured step,
+     the compute, memory and wire terms, the dominant term, the useful FLOP
+     ratio, the share bound / measured, and ``temp_bytes`` beside the
+     step's measured peak above the state, with the card's name and limit;
+ 36. ``shard_nodes``: phase 15's mini-ResNet closed-loop Ada (N 16) for 3
+     steps with and without it, bit for bit (θ, losses, norms, Ξ trace).
 
 The last three lines of standard output are the card's name and power
 limit as nvidia-smi reports them, the per-kernel JSON (K1-K4, each with its
@@ -261,7 +279,7 @@ RANK_STEPS, SAMPLE, RANK_TIMEOUT = STEPS - 1, 1 << 20, 600
 TWIN_CHUNK = 1 << 26
 # phases 11-12: serving granite-8b at full width and depth
 SERVE_B, SERVE_S = 4, 4096          # prefill batch and prompt length
-GEN_PROMPT, GEN_NEW = 128, 32       # generate: prompt length and new tokens
+GEN_PROMPT, GEN_NEW = 32, 32        # generate: prompt length and new tokens
 DEC_B, DEC_S, DEC_LAYERS = 2, 32, 2  # decode-vs-forward check, float32
 ATTN_WINDOW, LONG_S = 1024, 32768    # K4's window case; prefill_32k's length
 
@@ -858,22 +876,21 @@ def phase_ranks(layout, ref, sample):
 
 def attention_pairs(sq, sk, *, causal, window):
     """Allowed (q, k) pairs of one head under the mask (positions are the
-    row indices): the least work of any tiling, 4·D FLOPs each."""
-    import numpy as np
+    row indices): the least work of any tiling (``kernels/cost.py``)."""
+    from repro_torch.kernels import cost
 
-    q = np.arange(sq, dtype=np.int64)
-    hi = np.minimum(q, sk - 1) if causal else np.full(sq, sk - 1, np.int64)
-    lo = np.maximum(q - window + 1, 0) if window is not None else np.zeros(sq, np.int64)
-    return int(np.maximum(hi - lo + 1, 0).sum())
+    return cost.attention_pairs(sq, sk, causal=causal, window=window)
 
 
 def attention_bound(b, h, kv, sq, sk, d, elem_bytes, *, causal, window):
     """K4's least time on the card: (ms, "bytes" or "operations", FLOPs,
     bytes).  FLOPs = 4·D·B·H × allowed pairs at the dense bf16 tensor-core
     rate (products of bf16 values are exact in float32); bytes = q, k, v
-    read and the output written once each, at the memory rate."""
-    flops = 4 * d * b * h * attention_pairs(sq, sk, causal=causal, window=window)
-    nbytes = (2 * b * h * sq * d + 2 * b * kv * sk * d) * elem_bytes
+    read and the output written once each, at the memory rate
+    (``kernels/cost.py::k4_cost``)."""
+    from repro_torch.kernels import cost
+
+    nbytes, flops = cost.k4_cost(b, h, kv, sq, sk, d, elem_bytes, causal=causal, window=window)
     t_ops, t_bytes = flops / BF16_TC_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), flops, nbytes
 
@@ -986,12 +1003,12 @@ def phase_serve(dev):
         f"{SERVE_B}x{SERVE_S}: {[round(x, 3) for x in prefill_s]} s, peak allocated "
         f"{peak / 2**30:.2f} GiB")
 
-    p128 = prompts[:, :GEN_PROMPT].contiguous()
+    gen_prompts = prompts[:, :GEN_PROMPT].contiguous()
     gen_s, toks = [], []
     for _ in range(2):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        toks.append(eng.generate(params, p128, n_new=GEN_NEW))
+        toks.append(eng.generate(params, gen_prompts, n_new=GEN_NEW))
         torch.cuda.synchronize()
         gen_s.append(time.perf_counter() - t0)
     if not torch.equal(toks[0], toks[1]):
@@ -1003,7 +1020,7 @@ def phase_serve(dev):
     # one decode_step each for all SERVE_B sequences
     step = eng.decode_fn(None)
     state = tfm.init_decode_state(cfg, SERVE_B, GEN_PROMPT + GEN_NEW, device=dev)
-    feed = torch.cat([p128, toks[0]], dim=1)
+    feed = torch.cat([gen_prompts, toks[0]], dim=1)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for t in range(feed.shape[1]):
@@ -2381,8 +2398,8 @@ def phase_fault_simulator(cfg, batches):
     dev = batches[0]["tokens"].device
     log("phase 21 prediction (PERF.md §6): the simulator == the unfused trainer bit for bit "
         "under each model; K3 once per step; step ms near phase 13's (204-221) plus the "
-        "masked tables; peak near phase 13's 41 GiB (the trainer's final state waits in host "
-        "memory)")
+        "masked tables; peak near phase 13's 41 GiB plus the trainer's final state "
+        "(18.75 GiB, kept on the card for the comparison)")
     total, numbers = {}, {}
     for name, (kind, fkw) in FAULT_RUNS.items():
         trainer = fault_trainer(cfg, name, fused_apply=False)
@@ -2393,9 +2410,9 @@ def phase_fault_simulator(cfg, batches):
             tstate, loss, nrm = trainer.train_step(tstate, batches[t], LR)
             t_losses.append(loss)
             t_norms.append(nrm)
-        # the trainer's final state waits in host memory: the card holds the
-        # simulator's run alone
-        want = {"theta": tstate.theta.cpu(), "mom": tstate.mom.cpu()}
+        # the trainer's final θ and m stay on the card beside the simulator's
+        # run (18.75 GiB beside its 43.4 GiB peak)
+        want = {"theta": tstate.theta, "mom": tstate.mom}
         del trainer, tstate
         torch.cuda.empty_cache()
         sim = DecentralizedSimulator(
@@ -2587,7 +2604,8 @@ RESUME_STEPS, RESUME_CUT = 4, 2          # phase 23: 4 steps, the checkpoint aft
 RANK_RESUME_STEPS, RANK_RESUME_CUT = 3, 1  # phase 24
 SIM_RESUME_STEPS, SIM_RESUME_CUT = 120, 60  # phase 25
 KNOB_STEPS = 3                           # phase 26
-EXAMPLE_STEPS = 20                       # phase 26: dbench_whitebox's short --steps
+EXAMPLE_STEPS = 10                       # phase 26: dbench_whitebox's short --steps
+QUICK_STEPS = 20                         # phase 26: the quickstart's short --steps
 # checkpoints are written here and removed by the phase that wrote them
 CKPT_DIR = ROOT / "build" / "repro_torch" / "ckpt"
 
@@ -3116,7 +3134,8 @@ def phase_knobs(cfg, layout, batches):
     }
     del base, remat
     torch.cuda.empty_cache()
-    quick, quick_s = run_example(["repro_torch.examples.quickstart"])
+    quick, quick_s = run_example(["repro_torch.examples.quickstart", "--steps",
+                                  str(QUICK_STEPS)])
     m = re.search(r"final mean-replica loss: ([0-9.]+) \(from ([0-9.]+)\)", quick)
     if m is None or not float(m.group(1)) < float(m.group(2)):
         fail(f"phase 26: the quickstart's loss did not fall: {quick[-500:]}")
@@ -3343,6 +3362,7 @@ def zoo_kernel_times(trainer, state, batch):
     one more step under torch.profiler: device time by kernel group and
     the idle share (the state takes the step)."""
     import torch
+    from repro_torch.kernels import cost
     from repro_torch.kernels.gossip_update import (
         gossip_program_update, gossip_program_update_plain, gossip_wire,
     )
@@ -3365,14 +3385,12 @@ def zoo_kernel_times(trainer, state, batch):
 
     k1_plain = cuda_ms(plain, 1)
     n_el, eb, deg = theta.numel(), theta.element_size(), srcs.shape[1]
-    k1_bytes = n_el * (eb + eb + 4 + eb) + n_el * (eb + 4)
-    k1_ops = n_el * (8 + 2 * deg)
+    k1_bytes, k1_ops = cost.k1_cost(theta.shape[0], theta.shape[1], eb, deg)
     del grad, wire
     offs = trainer.layout.offsets
     k3_ms = cuda_ms(lambda: segment_l2_norms(theta, offs), 5)
     k3_plain = cuda_ms(lambda: segment_l2_norms_plain(theta, offs), 1)
-    k3_bytes = n_el * eb + theta.shape[0] * (len(offs) - 1) * 4
-    k3_ops = 2 * n_el
+    k3_bytes, k3_ops = cost.k3_cost(theta.shape[0], offs, eb)
     bound = lambda by, op: 1e3 * max(by / HBM_BYTES_PER_S, op / F32_OPS_PER_S)
     prof = profile_breakdown(lambda: trainer.train_step(state, batch, LR))
     return {"step_profile": prof,
@@ -4163,6 +4181,281 @@ def phase_analysis(dev, cfg, batches):
             "serve_decode_s": serve_s}
 
 
+# phases 34-36: the dry run, one step against its roofline, shard_nodes
+DRY_FULL_ARCHS = ("granite-8b", "phi3.5-moe-42b-a6.6b", "kimi-k2-1t-a32b")
+DRY_MINI_ARCHS = ("granite-8b", "phi3.5-moe-42b-a6.6b", "rwkv6-1.6b", "zamba2-7b",
+                  "kimi-k2-1t-a32b")
+ROOF_STEPS, SHARD_STEPS = 5, 3
+# phase 34's full-width records build in worker processes (the dry run is
+# single-threaded host work; none of them initialises CUDA)
+DRY_WORKERS = 4
+PREDICT_34 = (
+    "phase 34 prediction (PERF.md §6): 12 full-width records (granite-8b, phi3.5-moe, "
+    "kimi-k2 x 4 SHAPES, mesh single) and 15 mini ones build on meta in 40-120 s with 0 "
+    "device bytes allocated; is_suspect flags only the MoE decodes whose experts compute "
+    "at the capacity floor (phi3.5-moe long_500k, kimi-k2 decode_32k and long_500k)")
+PREDICT_35 = (
+    "phase 35 prediction (PERF.md §6): phase 4's trainer (granite-8b x2, G = 4, d_ring, "
+    "fused, norms): median step 130-220 ms; roofline compute 14-18 ms, memory 50-110 ms, "
+    "wire 0 (stacked, no collective), dominant memory, useful FLOP ratio 0.6-0.75, bound / "
+    "measured 0.3-0.7; card dot_flops == meta, traffic within 0.1 %; temp_bytes within 30 % "
+    "of the measured peak above the state")
+PREDICT_36 = (
+    "phase 36 prediction (PERF.md §6): the mini-ResNet closed-loop Ada (N 16) for 3 steps "
+    "with shard_nodes bit for bit without; K3 once a step; 5-15 s")
+
+
+def moe_capacity_floor(rec):
+    """Why ``is_suspect`` may flag a MoE decode record: with the reference's
+    capacity rule (``models/moe.py::capacity_of``, at least 4 slots an
+    expert) a decode of T tokens computes E·C expert slots for k·T
+    assignments.  Returns that slot ratio when it alone passes
+    ``is_suspect``'s 8× bar, else None."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.roofline import record_shape
+    from repro_torch.models.moe import capacity_of
+
+    cfg = get_config(rec["arch"])
+    if rec.get("kind") != "decode" or not cfg.n_experts:
+        return None
+    t = record_shape(rec).global_batch // rec["replicas"]   # one token a sequence
+    ratio = cfg.n_experts * capacity_of(t, cfg.top_k, cfg.n_experts,
+                                        cfg.capacity_factor) / (cfg.top_k * t)
+    return ratio if ratio > 8.0 else None
+
+
+def dry_record(task):
+    """One of phase 34's records, in a worker process: (the record, its
+    build seconds, whether the worker initialised CUDA)."""
+    import torch
+    from repro_torch.launch import dryrun
+
+    t0 = time.perf_counter()
+    rec = dryrun.run_one(*task)
+    return rec, time.perf_counter() - t0, torch.cuda.is_initialized()
+
+
+def phase_dryrun(dev):
+    """Phase 34: ``launch/dryrun.run_one`` on the card's machine: granite-8b,
+    phi3.5-moe and kimi-k2 at full width over the four SHAPES on the
+    ``single`` mesh (in DRY_WORKERS worker processes, each of which must
+    end without having initialised CUDA), and the five archs of
+    ``tests/spmd_dryrun_script.py`` at its mini shapes in this process; the
+    card's allocated and peak bytes must not move; ``is_suspect`` flags
+    nothing but MoE decodes at the capacity floor (``moe_capacity_floor``);
+    the dry-run and roofline tables printed, the records written under
+    ``build/repro_torch/dryrun``."""
+    import multiprocessing
+
+    import torch
+    from repro_torch.configs.base import SHAPES, InputShape
+    from repro_torch.launch import dryrun, roofline
+    from repro_torch.launch.validate_dryrun import is_suspect
+
+    minis = (InputShape("mini_train", 64, 8, "train"),
+             InputShape("mini_prefill", 256, 4, "prefill"),
+             InputShape("mini_decode", 256, 8, "decode"))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = (torch.cuda.memory_allocated(), torch.cuda.max_memory_allocated())
+    records, build_s = [], {}
+    # the long prefills first, so that the workers finish together
+    full = [(a, n, "single") for n in ("prefill_32k", "train_4k", "decode_32k", "long_500k")
+            for a in DRY_FULL_ARCHS if n in SHAPES]
+    if full:
+        with multiprocessing.get_context("spawn").Pool(DRY_WORKERS) as pool:
+            done = pool.map(dry_record, full, chunksize=1)
+        for (arch, name, mesh), (rec, secs, touched) in zip(full, done):
+            if touched:
+                fail(f"phase 34: the worker building {arch} {name} initialised CUDA")
+            records.append(rec)
+            build_s[f"{arch} {name} {mesh}"] = round(secs, 2)
+    for arch, shape in [(a + "-reduced", m) for a in DRY_MINI_ARCHS for m in minis]:
+        t0 = time.perf_counter()
+        records.append(dryrun.run_one(arch, shape, "mini"))
+        build_s[f"{arch} {shape.name} mini"] = round(time.perf_counter() - t0, 2)
+    torch.cuda.synchronize()
+    after = (torch.cuda.memory_allocated(), torch.cuda.max_memory_allocated())
+    if after != before:
+        fail(f"phase 34: the dry run moved the card's allocated/peak bytes {before} -> {after}")
+    flagged = {}
+    for rec in records:
+        why = is_suspect(rec)
+        if why is None:
+            continue
+        floor = moe_capacity_floor(rec)
+        if floor is None:
+            fail(f"phase 34: is_suspect flags {rec['arch']} {rec['shape']} {rec['mesh']}: {why}")
+        flagged[f"{rec['arch']} {rec['shape']}"] = f"{why}; expert slots / assignments {floor:.1f}"
+    out = ROOT / "build" / "repro_torch" / "dryrun"
+    out.mkdir(parents=True, exist_ok=True)
+    path = out / "phase34.json"
+    path.write_text(json.dumps(records, indent=1))
+    rows = roofline.analyze(str(path))
+    for mesh in ("single", "mini"):
+        log(f"phase 34: dry-run table, mesh {mesh}\n" + roofline.dryrun_markdown(rows, mesh))
+    log("phase 34: roofline table\n" + roofline.to_markdown(rows))
+    summary = {
+        "records": len(records), "build_s": build_s, "device_bytes_before_after": [before, after],
+        "flagged_capacity_floor": flagged,
+        "node_state_bytes": {f"{r['arch']} {r['shape']}": r["memory"]["argument_bytes"]
+                             for r in records if r["mesh"] == "single"},
+    }
+    log(f"phase 34: {len(records)} records on meta, 0 device bytes; flagged (capacity floor "
+        f"only): {json.dumps(flagged)}")
+    return summary
+
+
+def phase_roofline_step(dev, k1_bound, k3_bound, smi):
+    """Phase 35: phase 4's configuration, one step against its roofline.
+    The trainer's init is measured for its device bytes; the median of
+    ROOF_STEPS warm steps is timed with no accounting (and the peak above
+    the state read); one step runs under ``analyze_step`` on the card, and
+    ``lower_step`` builds the same trainer's step on meta.  The card's
+    ``dot_flops`` must equal the meta record's, its traffic within 0.1 %
+    (any op that differs is named); K1's and K3's billed bytes over the
+    memory rate must give phase 6's bounds; ``argument_bytes`` within 2 MiB
+    of the init's device bytes.  Returns (launches, numbers)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import InputShape
+    from repro_torch.core.dsgd import make_topology
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels import ops
+    from repro_torch.launch import roofline
+    from repro_torch.launch.hlo_analysis import analyze_step
+    from repro_torch.launch.train import SPMDTrainer
+    from repro_torch.optim.sgd import sgd
+
+    cfg, _ = granite_layout()
+    torch.cuda.synchronize()
+    a0 = torch.cuda.memory_allocated()
+    trainer = SPMDTrainer(cfg, make_topology("d_ring", G), sgd(momentum=0.9),
+                          collect_norms=True, fused_apply=True)
+    state = trainer.init_state(seed=0)
+    torch.cuda.synchronize()
+    init_bytes = torch.cuda.memory_allocated() - a0
+    src = SyntheticLM(vocab=cfg.vocab, seq_len=SEQ, seed=0)
+    batches = [{k: torch.as_tensor(v, device=dev) for k, v in src.stacked(G, t, BATCH).items()}
+               for t in range(ROOF_STEPS + 2)]
+    ops.reset_launch_counts()
+    state, _, _ = trainer.train_step(state, batches[0], LR)   # warm-up
+    torch.cuda.synchronize()
+    live = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = []
+    for t in range(1, ROOF_STEPS + 1):
+        t1 = time.perf_counter()
+        state, loss, _ = trainer.train_step(state, batches[t], LR)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+    peak_above = torch.cuda.max_memory_allocated() - live
+    if not bool(torch.isfinite(loss).all()):
+        fail(f"phase 35: non-finite losses {loss.tolist()}")
+    card = analyze_step(trainer.train_step, state, batches[-1], LR)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    card.pop("result")
+    shape = InputShape("phase35", SEQ, G * BATCH, "train")
+    rec = trainer.lower_step(shape, step=state.step)
+    meta = rec["hlo"]
+    if card["dot_flops"] != meta["dot_flops"]:
+        fail(f"phase 35: dot_flops on the card {card['dot_flops']} != meta {meta['dot_flops']}")
+    rel = abs(card["traffic_bytes"] - meta["traffic_bytes"]) / meta["traffic_bytes"]
+    differ = {k: (card["op_traffic"].get(k, 0), meta["op_traffic"].get(k, 0))
+              for k in set(card["op_traffic"]) | set(meta["op_traffic"])
+              if card["op_traffic"].get(k, 0) != meta["op_traffic"].get(k, 0)}
+    if rel > 1e-3:
+        fail(f"phase 35: traffic on the card {card['traffic_bytes']} vs meta "
+             f"{meta['traffic_bytes']} ({rel:.2e} relative); ops that differ {differ}")
+    bounds = {}
+    for kernel, want in (("gossip_program_update", k1_bound), ("segment_l2_norms", k3_bound)):
+        billed = (card["kernels"][kernel]["bytes"], meta["kernels"][kernel]["bytes"])
+        got = 1e3 * (billed[0] / roofline.HBM_BW)
+        if billed[0] != billed[1] or got != want:
+            fail(f"phase 35: {kernel} billed {billed} B: {got} ms against phase 6's bound {want}")
+        bounds[kernel] = got
+    arg = rec["memory"]["argument_bytes"]
+    if abs(arg - init_bytes) > 2 << 20:
+        fail(f"phase 35: argument_bytes {arg} vs the init's device bytes {init_bytes}")
+    terms = roofline.roofline_terms(
+        {**rec, "arch": cfg.name, "shape": shape.name,
+         "input_shape": dataclasses.asdict(shape), "mesh_shape": {"data": 1, "model": 1}},
+        cfg=cfg)
+    measured = float(np.median(step_ms))
+    numbers = {
+        "card": smi, "step_ms": step_ms, "median_step_ms": measured,
+        "compute_ms": 1e3 * terms["compute_s"], "memory_ms": 1e3 * terms["memory_s"],
+        "wire_ms": 1e3 * terms["collective_s"], "transport": terms["transport"],
+        "dominant": terms["dominant"], "useful_flop_ratio": terms["useful_ratio"],
+        "bound_ms": 1e3 * terms["bound_s"], "share_bound_over_measured":
+            1e3 * terms["bound_s"] / measured,
+        "dot_flops": meta["dot_flops"], "traffic_bytes_card": card["traffic_bytes"],
+        "traffic_bytes_meta": meta["traffic_bytes"], "traffic_rel_diff": rel,
+        "ops_that_differ": differ, "kernel_bounds_ms": bounds,
+        "argument_bytes": arg, "init_device_bytes": init_bytes,
+        "temp_bytes": rec["memory"]["temp_bytes"], "measured_peak_above_state": peak_above,
+        "card_peak_temp_bytes": card["peak_temp_bytes"], "lower_s": rec["lower_s"],
+        "launches": launches,
+    }
+    log(f"phase 35: {smi}: median step {measured:.3f} ms over {ROOF_STEPS}; roofline compute "
+        f"{numbers['compute_ms']:.3f} ms, memory {numbers['memory_ms']:.3f} ms, wire "
+        f"{numbers['wire_ms']:.3f} ms ({terms['transport']}), dominant {terms['dominant']}, "
+        f"useful FLOP ratio {terms['useful_ratio']:.3f}, bound / measured "
+        f"{numbers['share_bound_over_measured']:.3f}; dot_flops {meta['dot_flops']:.6e} on "
+        f"both, traffic {card['traffic_bytes']:.6e} (card) vs {meta['traffic_bytes']:.6e} "
+        f"(meta); K1 and K3 billed bounds {bounds}; argument_bytes {arg} vs init {init_bytes}; "
+        f"temp_bytes {rec['memory']['temp_bytes']} vs measured peak above the state "
+        f"{peak_above}")
+    del trainer, state, batches
+    return launches, numbers
+
+
+def phase_shard_nodes(dev):
+    """Phase 36: phase 15's mini-ResNet closed-loop Ada (N 16) for
+    SHARD_STEPS steps with and without ``shard_nodes``: losses, norms, θ
+    and the controller's trace bit for bit; K3 once a step.  Returns
+    (launches of the sharded run, numbers)."""
+    import torch
+    from repro_torch.core.dsgd import make_topology
+    from repro_torch.core.simulator import DecentralizedSimulator
+    from repro_torch.kernels import ops
+    from repro_torch.models.paper_models import mini_resnet_loss
+    from repro_torch.optim.sgd import sgd
+
+    name = "resnet closed-loop Ada"
+    params, batches = paper_inputs(name, SHARD_STEPS)
+    runs = {}
+    for shard in (False, True):
+        topo = make_topology("d_ada", PAPER_N, k0=12, k_floor="one_peer",
+                             consensus_target=0.7, consensus_probe_every=5)
+        sim = DecentralizedSimulator(mini_resnet_loss, sgd(momentum=0.9), topo,
+                                     collect_norms=True, device=dev, shard_nodes=shard)
+        state = sim.init(params)
+        ops.reset_launch_counts()
+        losses, norms = [], []
+        for t, b in enumerate(batches):
+            state, loss, nrm = sim.train_step(state, b, PAPER_RUNS[name]["lr"], epoch=t // 5)
+            losses.append(loss)
+            norms.append(nrm)
+        torch.cuda.synchronize()
+        runs[shard] = {"theta": state.theta, "losses": torch.stack(losses),
+                       "norms": torch.stack(norms), "trace": list(topo.controller.trace),
+                       "launches": ops.launch_counts()}
+    for key in ("theta", "losses", "norms"):
+        if not torch.equal(runs[False][key], runs[True][key]):
+            fail(f"phase 36: {key} with shard_nodes differ from the run without")
+    if runs[False]["trace"] != runs[True]["trace"]:
+        fail(f"phase 36: controller traces {runs[False]['trace']} vs {runs[True]['trace']}")
+    launches = runs[True]["launches"]
+    if launches != {"gossip_program_update": 0, "gossip_update": 0,
+                    "segment_l2_norms": SHARD_STEPS, "flash_attention": 0}:
+        fail(f"phase 36: launch counts {launches}")
+    log(f"phase 36: shard_nodes == unsharded bit for bit over {SHARD_STEPS} steps (theta, "
+        f"losses, norms, Xi trace); launches {launches}")
+    return launches, {"steps": SHARD_STEPS, "bit_for_bit": True}
+
+
 def main():
     import numpy as np
     import torch
@@ -4177,7 +4470,7 @@ def main():
 
     from repro_torch.core.dsgd import make_topology
     from repro_torch.data import SyntheticLM
-    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels import _build, cost, ops
     from repro_torch.kernels.gossip_update import (
         gossip_program_update, gossip_program_update_plain, gossip_update,
         gossip_update_plain, gossip_wire,
@@ -4319,10 +4612,8 @@ def main():
                                         grad[:, a:b], mom[:, a:b], **k1)
 
     k1_plain_ms = cuda_ms(k1_plain, 2)
-    n_el = theta.numel()
     eb = theta.element_size()
-    k1_bytes = n_el * (eb + eb + 4 + eb) + n_el * (eb + 4)   # θ g m wire in; θ' m' out
-    k1_ops = n_el * (8 + 2 * deg)
+    k1_bytes, k1_ops = cost.k1_cost(G, p_cols, eb, deg)   # θ g m wire in; θ' m' out
     k1_bound = 1e3 * max(k1_bytes / HBM_BYTES_PER_S, k1_ops / F32_OPS_PER_S)
 
     offs = layout.offsets
@@ -4332,8 +4623,7 @@ def main():
         torch.linalg.vector_norm(theta[:, a:b], dim=1, dtype=torch.float32)
         for a, b in zip(offs[:-1], offs[1:])
     ], 3)
-    k3_bytes = n_el * eb + G * len(layout.names) * 4
-    k3_ops = 2 * n_el
+    k3_bytes, k3_ops = cost.k3_cost(G, offs, eb)
     k3_bound = 1e3 * max(k3_bytes / HBM_BYTES_PER_S, k3_ops / F32_OPS_PER_S)
     log(f"phase 6: K1 {k1_ms:.3f} ms (bound {k1_bound:.3f}, plain {k1_plain_ms:.3f}); "
         f"K3 {k3_ms:.3f} ms (bound {k3_bound:.3f}, plain {k3_plain_ms:.3f}, "
@@ -4370,8 +4660,7 @@ def main():
 
     k2_plain_ms = cuda_ms(k2_plain, 2)
     deg2 = nbrs.shape[0]
-    k2_bytes = p_cols * (eb + eb + 4 + deg2 * eb) + p_cols * (eb + 4)  # θ g m nbrs in; θ' m' out
-    k2_ops = p_cols * (8 + 2 * deg2)
+    k2_bytes, k2_ops = cost.k2_cost(p_cols, eb, deg2)   # θ g m nbrs in; θ' m' out
     k2_bound = 1e3 * max(k2_bytes / HBM_BYTES_PER_S, k2_ops / F32_OPS_PER_S)
     log(f"phase 8: K2 {k2_ms:.3f} ms (bound {k2_bound:.3f}, plain {k2_plain_ms:.3f})")
     del theta0, grad1, nbrs, mom0, theta1, mom1
@@ -4525,6 +4814,26 @@ def main():
     del batches33
     torch.cuda.empty_cache()
 
+    # 34-36. the dry run on meta; one step against its roofline; shard_nodes
+    tooling = {}
+    log(PREDICT_34)
+    t34 = time.perf_counter()
+    tooling[34] = phase_dryrun(dev)
+    tooling[34]["wall_s"] = time.perf_counter() - t34
+    log(f"phase 34: {tooling[34]['wall_s']:.1f} s on {smi}")
+    log(PREDICT_35)
+    t35 = time.perf_counter()
+    launches35, tooling[35] = phase_roofline_step(dev, k1_bound, k3_bound, smi)
+    tooling[35]["wall_s"] = time.perf_counter() - t35
+    log(f"phase 35: {tooling[35]['wall_s']:.1f} s on {smi}")
+    torch.cuda.empty_cache()
+    log(PREDICT_36)
+    t36 = time.perf_counter()
+    launches36, tooling[36] = phase_shard_nodes(dev)
+    tooling[36]["wall_s"] = time.perf_counter() - t36
+    log(f"phase 36: {tooling[36]['wall_s']:.1f} s on {smi}")
+    torch.cuda.empty_cache()
+
     summary = {
         "card": smi,
         "model": f"{cfg.name} x{cfg.n_layers} layers, bf16, G={G}, seq {SEQ}, "
@@ -4557,6 +4866,9 @@ def main():
         "mixed_buckets": mixed[31],
         "mixed_simulator": mixed[32],
         "analysis": mixed[33],
+        "dryrun": tooling[34],
+        "roofline_step": tooling[35],
+        "shard_nodes": tooling[36],
     }
     log("summary " + json.dumps(summary))
     # each kernel's launches on every main path that runs it
@@ -4574,7 +4886,8 @@ def main():
                                   "phase 28": zoo[28]["launches"]["gossip_program_update"],
                                   "phase 29": zoo[29]["launches"]["gossip_program_update"],
                                   "phase 30": train30["launches"]["gossip_program_update"],
-                                  "phase 31": mixed[31]["launches"]["gossip_program_update"]},
+                                  "phase 31": mixed[31]["launches"]["gossip_program_update"],
+                                  "phase 35": launches35["gossip_program_update"]},
         "gossip_update": {"phase 9": ranks9["launches"]["gossip_update"],
                           "phase 22": ranks22["launches"]["gossip_update"],
                           "phase 24": ranks24["launches"]["gossip_update"]},
@@ -4599,7 +4912,9 @@ def main():
                              "phase 29": zoo[29]["launches"]["segment_l2_norms"],
                              "phase 30": train30["launches"]["segment_l2_norms"],
                              "phase 31": mixed[31]["launches"]["segment_l2_norms"],
-                             "phase 32": mixed[32]["launches"]["segment_l2_norms"]},
+                             "phase 32": mixed[32]["launches"]["segment_l2_norms"],
+                             "phase 35": launches35["segment_l2_norms"],
+                             "phase 36": launches36["segment_l2_norms"]},
         "flash_attention": {"phase 12": k4_launches},
     }
     kernels = [

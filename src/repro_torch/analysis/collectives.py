@@ -28,8 +28,10 @@ Plus the hot-path ban: a colorable graph never all-gathers (the dense
   * ``record_programs`` — run on every rank of a world (``spawn_world``):
     each program's ``apply_shard`` and ``apply_shard_masked`` records.
 
-The HLO-bound half of the reference's module (``launch/hlo_analysis``:
-op accounting, f8 wire widths) is a later slice.
+The HLO-bound half of the reference's module is ``launch/hlo_analysis.py``:
+op accounting over the dispatched op stream, with the collectives of this
+record mapped to the reference's kinds, ``CollectiveReport``,
+``assert_no_all_gather`` and the f8 wire widths.
 """
 from __future__ import annotations
 

@@ -4,7 +4,7 @@ The reference registry's ten architectures, one module each, with the
 reference's numbers and sources; ``"<arch-id>-reduced"`` gives the CPU
 smoke-test variant of the same family.
 """
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import SHAPES, ArchConfig, InputShape, input_specs
 
 _MODULES = {
     "phi3.5-moe-42b-a6.6b": "phi35_moe_42b",

@@ -9,7 +9,9 @@ padding at a tensor-parallel size of 1 pads no head; ``scan_layers`` is
 the reference's ``lax.scan`` over layers, a Python loop here either way;
 ``moe_impl="manual_ep"`` (explicit expert-parallel collectives) raises.  ``InputShape`` and
 ``SHAPES`` are the reference's benchmark inputs (serving reads their
-context lengths).
+context lengths); ``input_specs`` gives a step's data inputs at a shape as
+``meta`` tensors, the stand-ins the dry run (``launch/dryrun.py``) builds
+its steps on.
 """
 from __future__ import annotations
 
@@ -18,7 +20,7 @@ from typing import Any, Optional
 
 import torch
 
-__all__ = ["ArchConfig", "InputShape", "SHAPES"]
+__all__ = ["ArchConfig", "InputShape", "SHAPES", "input_specs"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,6 +73,10 @@ class ArchConfig:
             return self.d_head
         return self.d_model // max(self.n_heads, 1)
 
+    @property
+    def is_attention_free(self) -> bool:
+        return self.family == "ssm"
+
     def reduced(self) -> "ArchConfig":
         """CPU smoke-test variant of the same family."""
         d_model = min(self.d_model, 256)
@@ -112,3 +118,37 @@ SHAPES: dict[str, InputShape] = {
     "decode_32k": InputShape("decode_32k", 32_768, 128, "decode"),
     "long_500k": InputShape("long_500k", 524_288, 1, "decode"),
 }
+
+
+def input_specs(cfg: ArchConfig, shape: InputShape, *, n_nodes: int = 1
+                ) -> dict[str, torch.Tensor]:
+    """``meta`` stand-ins for the step function's data inputs, with the
+    reference's shapes and dtypes (int32 tokens, as the port's forward
+    takes them).
+
+    Training batches carry the gossip-node axis (G, per_node_batch, S) when
+    ``n_nodes > 1``; serving batches are flat (B, ...).  A VLM's patch
+    embeddings arrive precomputed, in ``cfg.dtype``.
+    """
+    meta = lambda shp, dtype=torch.int32: torch.empty(shp, dtype=dtype, device="meta")
+    if shape.kind == "train":
+        if shape.global_batch % n_nodes:
+            raise ValueError(
+                f"{shape.name}: global_batch {shape.global_batch} not divisible "
+                f"by {n_nodes} gossip nodes"
+            )
+        b = shape.global_batch // n_nodes
+        lead = (n_nodes, b) if n_nodes > 1 else (b,)
+        specs = {"tokens": meta(lead + (shape.seq_len,)),
+                 "targets": meta(lead + (shape.seq_len,))}
+        if cfg.input_kind == "vlm":
+            specs["patch_embeds"] = meta(lead + (cfg.n_patches, cfg.d_model), cfg.dtype)
+        return specs
+    b = shape.global_batch
+    if shape.kind == "prefill":
+        specs = {"tokens": meta((b, shape.seq_len))}
+        if cfg.input_kind == "vlm":
+            specs["patch_embeds"] = meta((b, cfg.n_patches, cfg.d_model), cfg.dtype)
+        return specs
+    # decode: one new token against a seq_len-deep cache/state
+    return {"tokens": meta((b, 1)), "pos": meta(())}

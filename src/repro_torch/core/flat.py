@@ -107,8 +107,7 @@ class FlatLayout:
     @property
     def row_bytes(self) -> int:
         """Bytes of one node's parameters, each leaf in its own dtype."""
-        return sum(n * torch.empty((), dtype=dt).element_size()
-                   for n, dt in zip(self.sizes, self.dtypes))
+        return sum(n * dt.itemsize for n, dt in zip(self.sizes, self.dtypes))
 
     def stacked_leaf_views(self, buf: torch.Tensor) -> dict[str, torch.Tensor]:
         """(rows, *shape) leaves of a (rows, P) buffer, each in its own

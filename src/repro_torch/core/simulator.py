@@ -75,8 +75,14 @@ the uninterrupted one bit for bit.
 (``repro_torch.analysis.recompile``): every step is keyed by its program
 (``_step_cache``), and a step whose key was seen before must build
 nothing (no nvcc build, no new device table, no new program key) or it
-raises ``RetraceError``.  Node sharding is a later slice (ROADMAP queue 1
-item 7); its argument raises.
+raises ``RetraceError``.
+
+``shard_nodes`` is the reference's virtual-node sharding: the node axis
+split over the largest count of devices that divides n.  On one device,
+as on the CPU, that is the one device the rows already lie on: a numeric
+no-op, bit for bit the unsharded run.  A machine with more than one card
+that divides n raises: the split over several cards waits for a machine
+that has them (ROADMAP, "Not doable").
 """
 from __future__ import annotations
 
@@ -139,10 +145,6 @@ class SimState:
                 for k, v in self.layout.stacked_leaf_views(self.theta).items()}
 
 
-def _later_slice(arg: str, item: str) -> ValueError:
-    return ValueError(f"{arg} is not ported yet: ROADMAP queue 1 item {item}")
-
-
 class DecentralizedSimulator:
     """Engine for centralized/decentralized training of n nodes on one device."""
 
@@ -176,6 +178,9 @@ class DecentralizedSimulator:
           mix_every / mix_rounds / hub_balance: as in the reference.
           node_loop: gradients one node at a time instead of under vmap.
           device: the current CUDA card by default; ``"cpu"`` on request.
+          shard_nodes: virtual-node sharding, the node axis over the
+            largest device count dividing n: on one device a no-op with
+            identical numerics; raises where it would split over cards.
           bucket_mb: run each mixing step bucket by bucket, ~bucket_mb MiB
             of float32 per bucket; SGD-family optimizers, decentralized
             topologies and ``mix_order="post"`` only.
@@ -188,8 +193,6 @@ class DecentralizedSimulator:
             raise ValueError(
                 f"mixing must be one of {sorted(_ENGINES)}, got {mixing!r}"
             )
-        if shard_nodes:
-            raise _later_slice("shard_nodes=True (virtual-node sharding)", "7 (tooling)")
         if bucket_mb is not None:
             check_bucketable(optimizer, topology)
         self.bucket_mb = bucket_mb
@@ -216,7 +219,24 @@ class DecentralizedSimulator:
         self.has_rng = has_rng
         self.node_loop = bool(node_loop) or has_rng
         self.device = resolve_device(device)
+        self.shard_nodes = bool(shard_nodes)
+        self._check_node_split(self.n)
         self._update = torch.func.vmap(optimizer.update, in_dims=(0, 0, 0, None))
+
+    def _check_node_split(self, n: int) -> None:
+        """Under ``shard_nodes``, the devices the n rows split over: the
+        largest count of the simulator's device type that divides n (the
+        reference's rule).  One device keeps every row where it is; more
+        raise, since that split is not ported."""
+        if not self.shard_nodes:
+            return
+        count = torch.cuda.device_count() if self.device.type == "cuda" else 1
+        split = max(d for d in range(1, count + 1) if n % d == 0)
+        if split > 1:
+            raise ValueError(
+                f"shard_nodes=True would split n={n} nodes over {split} cards; the "
+                "split over several cards waits for a machine that has them "
+                "(ROADMAP, not doable on one card)")
 
     # -- state ----------------------------------------------------------------
     def init(self, params: Mapping) -> SimState:
@@ -298,6 +318,7 @@ class DecentralizedSimulator:
             if old_ctl is not None:
                 topo.controller.adopt(old_ctl)
             topo.controller.bind_recorder(self.telemetry)
+        self._check_node_split(m)
         self.topology = topo
         self.n = m
         theta, opt = state.theta, dict(state.opt)
@@ -485,6 +506,7 @@ class DecentralizedSimulator:
                             bucket_mb=self.bucket_mb)
         n = int(d.get("n", self.n))
         if n != self.n:
+            self._check_node_split(n)
             self.topology = self.topology.resized(n)
             self.n = n
             if self.topology.controller is not None:

@@ -14,8 +14,11 @@ tiling check (it raises on exactly the same inputs); the CUDA kernels
 (``csrc/flash_attention.cu``) tile by their own blocks and mask their
 ragged edges: bfloat16 runs on the tensor cores (``wgmma``, TMA, 128-row q
 tiles × 128-key tiles), float32 on the CUDA cores (64 × 64 tiles).  CUDA
-tensors launch the kernel of their dtype and count the launch in
-``flash_attention.launches``; CPU tensors take the plain twin.
+tensors launch the kernel of their dtype, count the launch in
+``flash_attention.launches`` and bill it to the active op accounting
+(``kernels/cost.py``); CPU tensors take the plain twin; ``meta`` tensors
+(the dry run) are checked and billed, and give an output of q's shape
+without a launch.
 """
 from __future__ import annotations
 
@@ -25,7 +28,7 @@ from typing import Optional
 import torch
 
 from repro_torch.analysis.budget import check_kernel_budget
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, cost
 
 __all__ = ["flash_attention", "flash_attention_plain"]
 
@@ -112,7 +115,7 @@ def flash_attention(
                         sq=sq, d=d)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"unsupported device {q.device}")
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("q, k, v must start on 16-byte boundaries")
@@ -120,6 +123,10 @@ def flash_attention(
         raise ValueError(f"head dim {d} not supported by the kernel (one of {_HEAD_DIMS})")
     out = torch.empty_like(q)
     if out.numel() == 0:
+        return out
+    billed = cost.k4_cost(b, h, kv, sq, sk, d, q.element_size(), causal=causal, window=window)
+    if q.device.type == "meta":
+        cost.bill("flash_attention", *billed)
         return out
     fn = _build.load("flash_attention").repro_flash_attention
     with torch.cuda.device(q.device):
@@ -133,6 +140,7 @@ def flash_attention(
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {err}")
     flash_attention.launches += 1
+    cost.bill("flash_attention", *billed)
     return out
 
 

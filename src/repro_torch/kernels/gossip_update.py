@@ -36,8 +36,12 @@ program's interpreter over the flat buffer in column chunks, so no
 whole-buffer float32 copy is made.
 
 Each wrapper launches its CUDA kernel (``csrc/gossip_update.cu``) on CUDA
-tensors and counts each launch in its ``launches``; for CPU tensors it
-takes its plain twin (``*_plain``).
+tensors, counts each launch in its ``launches`` and bills its bytes and
+operations to the active op accounting (``kernels/cost.py``); for CPU
+tensors it takes its plain twin (``*_plain``).  On ``meta`` tensors (the
+dry run, ``launch/dryrun.py``) it runs the same checks, bills the launch
+it stands for and leaves its buffers as they are: nothing is computed and
+nothing counts as a launch.
 """
 from __future__ import annotations
 
@@ -49,7 +53,7 @@ import torch
 
 from repro_torch.analysis import recompile
 from repro_torch.analysis.budget import check_kernel_budget
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, cost
 
 __all__ = [
     "gossip_program_update",
@@ -177,7 +181,8 @@ def _check(theta, wire, srcs, weights, grad, mom, fault):
             "theta, grad and mom must share one row stride; got "
             f"{theta.stride()}, {grad.stride()}, {mom.stride()}"
         )
-    _check_disjoint("wire", wire, theta, mom)
+    if theta.device.type != "meta":   # meta tensors have no addresses
+        _check_disjoint("wire", wire, theta, mom)
     return ld_state, _row_stride(wire)
 
 
@@ -207,6 +212,10 @@ def gossip_program_update(theta, wire, srcs, weights, grad, mom, *,
         theta.copy_(new_t)
         mom.copy_(new_m)
         return theta, mom
+    billed = cost.k1_cost(g, p, theta.element_size(), srcs.shape[1])
+    if theta.device.type == "meta":
+        cost.bill("gossip_program_update", *billed)
+        return theta, mom
     if theta.device.type != "cuda":
         raise ValueError(f"unsupported device {theta.device}")
     fn = _build.load("gossip_update").repro_gossip_program_update
@@ -221,6 +230,7 @@ def gossip_program_update(theta, wire, srcs, weights, grad, mom, *,
     if err != 0:
         raise RuntimeError(f"gossip_program_update kernel launch failed: CUDA error {err}")
     gossip_program_update.launches += 1
+    cost.bill("gossip_program_update", *billed)
     return theta, mom
 
 
@@ -264,7 +274,8 @@ def gossip_update(theta, nbrs, weights, grad, mom, *, lr, beta, fault,
         "weights": (weights, (deg + 1,), torch.float32),
         "fault": (fault, (deg + 1,), torch.float32),
     })
-    _check_disjoint("nbrs", nbrs, theta, mom)
+    if theta.device.type != "meta":   # meta tensors have no addresses
+        _check_disjoint("nbrs", nbrs, theta, mom)
     check_kernel_budget("gossip_update", cols=p, deg=deg,
                         aligned=_aligned(p, theta, nbrs, grad, mom))
     if theta.device.type == "cpu":
@@ -274,6 +285,10 @@ def gossip_update(theta, nbrs, weights, grad, mom, *, lr, beta, fault,
         )
         theta.copy_(new_t)
         mom.copy_(new_m)
+        return theta, mom
+    billed = cost.k2_cost(p, theta.element_size(), deg)
+    if theta.device.type == "meta":
+        cost.bill("gossip_update", *billed)
         return theta, mom
     if theta.device.type != "cuda":
         raise ValueError(f"unsupported device {theta.device}")
@@ -289,6 +304,7 @@ def gossip_update(theta, nbrs, weights, grad, mom, *, lr, beta, fault,
     if err != 0:
         raise RuntimeError(f"gossip_update kernel launch failed: CUDA error {err}")
     gossip_update.launches += 1
+    cost.bill("gossip_update", *billed)
     return theta, mom
 
 

@@ -10,8 +10,11 @@ of an (R, P) matrix given by an offsets table — over the port's flat
 
 The CUDA kernel (``csrc/l2_norms.cu``) reduces in two fixed-order passes
 (per-tile partial sums, then a fixed-tree sum per segment): deterministic,
-no float atomics.  CUDA tensors launch it and count the launch in
-``segment_l2_norms.launches``; CPU tensors take the plain twin.
+no float atomics.  CUDA tensors launch it, count the launch in
+``segment_l2_norms.launches`` and bill it to the active op accounting
+(``kernels/cost.py``); CPU tensors take the plain twin; ``meta`` tensors
+(the dry run) are checked and billed, and give norms of the right shape
+without a launch.
 """
 from __future__ import annotations
 
@@ -23,7 +26,7 @@ import torch
 
 from repro_torch.analysis import recompile
 from repro_torch.analysis.budget import K3_TILE, check_kernel_budget
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, cost
 
 __all__ = ["l2_norms", "segment_l2_norms", "segment_l2_norms_plain"]
 
@@ -78,6 +81,10 @@ def segment_l2_norms(x: torch.Tensor, offsets: Sequence[int]) -> torch.Tensor:
                         aligned=vec_ok and x.data_ptr() % 16 == 0)
     if x.device.type == "cpu":
         return segment_l2_norms_plain(x, offsets)
+    billed = cost.k3_cost(r, offsets, x.element_size())
+    if x.device.type == "meta":
+        cost.bill("segment_l2_norms", *billed)
+        return torch.empty((r, len(offsets) - 1), dtype=torch.float32, device=x.device)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     if not x.is_contiguous():
@@ -97,6 +104,7 @@ def segment_l2_norms(x: torch.Tensor, offsets: Sequence[int]) -> torch.Tensor:
     if err != 0:
         raise RuntimeError(f"segment_l2_norms kernel launch failed: CUDA error {err}")
     segment_l2_norms.launches += 1
+    cost.bill("segment_l2_norms", *billed)
     return out
 
 

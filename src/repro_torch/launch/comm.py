@@ -16,6 +16,10 @@ device the rank computes on:
   and keep every gloo message far below 2 GiB;
 * ``"gloo"``: CPU tensors over gloo, directly.
 
+``RecordingComm`` is one rank of a world that exists only on paper: the
+dry run's stand-in (``launch/dryrun.py``), which records and bills every
+collective and moves no data.
+
 ``rank_device`` picks a rank's device and backend the same way for every
 launcher, and ``spawn_world`` runs a function on every rank of a fresh
 world on this machine (file-store rendezvous, hard timeout).
@@ -23,7 +27,9 @@ world on this machine (file-store rendezvous, hard timeout).
 ``Comm.recording()`` records, in order, every collective the rank issues
 (``CollectiveOp``: kind, peer pairs, bytes): the record the collective
 linter (``repro_torch.analysis.collectives``) reads, as the reference's
-reads a module's HLO.  Off, it costs one attribute test a collective.
+reads a module's HLO; every collective is also billed to the active op
+accounting (``launch/hlo_analysis.py``).  Off, both cost a test a
+collective.
 """
 from __future__ import annotations
 
@@ -39,7 +45,10 @@ from typing import Callable, Optional, Sequence
 import torch
 import torch.distributed as dist
 
-__all__ = ["Comm", "CollectiveOp", "rank_device", "spawn_world", "CHUNK_BYTES"]
+from repro_torch.kernels import cost
+
+__all__ = ["Comm", "CollectiveOp", "RecordingComm", "rank_device", "spawn_world",
+           "CHUNK_BYTES"]
 
 # bytes per staged gloo message: bounds the pinned host buffers and keeps
 # each message far below gloo's 2 GiB limit
@@ -112,9 +121,12 @@ class Comm:
             self.ops = prev
 
     def _note(self, kind: str, x: torch.Tensor, pairs=()) -> None:
+        if self.ops is None and not cost._ACTIVE:
+            return
+        op = CollectiveOp(kind, tuple(tuple(p) for p in pairs), x.numel() * x.element_size())
         if self.ops is not None:
-            self.ops.append(CollectiveOp(kind, tuple(tuple(p) for p in pairs),
-                                         x.numel() * x.element_size()))
+            self.ops.append(op)
+        cost.bill_collective(op, self.world)
 
     def _check(self, x: torch.Tensor) -> None:
         if x.device != self.device:
@@ -228,6 +240,11 @@ class Comm:
                 rows[:, a:b].copy_(r)
         return out
 
+    def rank0_value(self, value: int) -> int:
+        """Rank 0's integer ``value`` on every rank (one ``all_gather``)."""
+        mine = torch.tensor([value], dtype=torch.float32, device=self.device)
+        return int(self.all_gather(mine)[0, 0])
+
     # -- gather to and scatter from one rank's host memory -------------------------
     def _rows_chunks(self, nbytes: int):
         """Byte ranges [a, b) of a row of which ``world`` rows fit one
@@ -299,6 +316,55 @@ class Comm:
             if self.transport == "gloo-host":
                 flat[a:b].copy_(recv)
         return out
+
+
+class RecordingComm(Comm):
+    """Rank ``rank`` of a ``world``-rank group with no process group behind
+    it: the dry run's stand-in for ``Comm`` (the reference lowers its step
+    over placeholder devices instead).  Every collective is checked,
+    recorded (``recording``) and billed to the active op accounting as
+    ``Comm``'s are, and moves no data: a permute leaves its landing buffer
+    as it is, ``pmean`` returns its input, ``all_gather`` an unfilled
+    (world, ...) buffer, and ``rank0_value`` answers with this rank's own
+    value.  On ``meta`` (the default) nothing is allocated either."""
+
+    def __init__(self, rank: int, world: int, device="meta"):
+        if not 0 <= rank < world:
+            raise ValueError(f"rank {rank} outside a world of {world}")
+        self.device = torch.device(device)
+        self.rank = rank
+        self.world = world
+        self.transport = "none"
+        self._pinned = {}
+        self.ops = None
+
+    def permute(self, x, perm, out=None):
+        self._check(x)
+        if out is None:
+            out = torch.empty_like(x)
+        self._check(out)
+        self._note("permute", x, perm)
+        return out
+
+    def pmean(self, x):
+        self._check(x)
+        self._note("pmean", x)
+        return x
+
+    def all_gather(self, x):
+        self._check(x)
+        self._note("all_gather", x)
+        return x.new_empty((self.world,) + tuple(x.shape))
+
+    def rank0_value(self, value: int) -> int:
+        self._note("all_gather", torch.empty(1, dtype=torch.float32, device="meta"))
+        return int(value)
+
+    def gather_host(self, x, dst: int = 0):
+        raise NotImplementedError("a RecordingComm holds no other rank's data")
+
+    def scatter_host(self, out, rows=None, src: int = 0):
+        raise NotImplementedError("a RecordingComm holds no other rank's data")
 
 
 # ---------------------------------------------------------------------------

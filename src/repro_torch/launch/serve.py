@@ -4,9 +4,12 @@ The counterpart of ``repro/launch/serve.py``.  ``ServeEngine`` builds the
 prefill and decode step functions of any family and runs batched greedy
 or sampled generation against its decode state (KV caches, RWKV states,
 or the hybrid's Mamba2 states and shared-attention caches).  A VLM's
-prompt takes its precomputed patch embeddings first.  The reference's
-``lower_prefill``/``lower_decode`` and its mesh shardings are XLA lowering
-and tensor/data-parallel layout; one card has no counterpart of them.
+prompt takes its precomputed patch embeddings first.  ``lower_prefill``
+and ``lower_decode`` are the dry run of the two steps (the reference's
+abstract lowering): the step run once on ``meta`` under the op accounting
+(``launch/hlo_analysis.py``), returning the dry run's record.  The
+reference's mesh shardings are tensor/data-parallel layout, which one card
+has no counterpart of.
 
   PYTHONPATH=src python -m repro_torch.launch.serve [--arch granite-8b] [--new 16]
 
@@ -21,10 +24,12 @@ import time
 from typing import Mapping, Optional
 
 import torch
+from torch.utils._pytree import tree_leaves
 
 from repro_torch.configs.base import ArchConfig, InputShape
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as tfm
+from repro_torch.models.common import abstract_params, flatten_tree
 
 __all__ = ["ServeEngine", "DEFAULT_WINDOW", "grow_caches", "main"]
 
@@ -76,6 +81,43 @@ class ServeEngine:
             return tfm.decode_step(params, cfg, tokens, pos, state, window=window)
 
         return fn
+
+    def abstract_decode_state(self, shape: InputShape):
+        """(the decode state of ``shape`` on ``meta``, its window)."""
+        window = self.decode_window(shape)
+        return (tfm.init_decode_state(self.cfg, shape.global_batch, shape.seq_len,
+                                      window=window, device="meta"), window)
+
+    # -- the dry run ---------------------------------------------------------------------
+    def lower_prefill(self, shape: InputShape) -> dict:
+        """The dry run of the prefill of ``shape`` (``configs.input_specs``)
+        on ``meta``: the record of ``launch/hlo_analysis.step_record``."""
+        from repro_torch.configs.base import input_specs
+        from repro_torch.launch.hlo_analysis import step_record
+
+        params = abstract_params(tfm.model_defs(self.cfg))
+        batch = input_specs(self.cfg, shape)
+        return step_record(self.prefill_fn(), params, batch["tokens"],
+                           patch_embeds=batch.get("patch_embeds"),
+                           arguments=list(flatten_tree(params).values()))
+
+    def lower_decode(self, shape: InputShape) -> dict:
+        """The dry run of one decode step against the ``shape.seq_len``-deep
+        decode state on ``meta``.  The position is a host integer in the
+        port, so the step decodes at the last position, ``seq_len - 1``
+        (the reference's traced ``pos``): on ``meta`` the work is the same
+        at every position.  The record's ``memory`` counts the parameters
+        and the decode state as arguments."""
+        from repro_torch.configs.base import input_specs
+        from repro_torch.launch.hlo_analysis import step_record
+
+        state, window = self.abstract_decode_state(shape)
+        params = abstract_params(tfm.model_defs(self.cfg))
+        batch = input_specs(self.cfg, shape)
+        state_leaves = [t for t in tree_leaves(state) if isinstance(t, torch.Tensor)]
+        return step_record(self.decode_fn(window), params, batch["tokens"],
+                           shape.seq_len - 1, state,
+                           arguments=list(flatten_tree(params).values()) + state_leaves)
 
     # -- concrete serving loop ----------------------------------------------------------
     @torch.no_grad()

@@ -103,6 +103,12 @@ k microbatches whose loss and gradients are averaged as the reference's
 buffer, on every path (fused or not, both engines).  The model's ``remat``
 checkpoints each layer (``models/transformer.py``).
 
+``lower_step`` is the dry run of one step (``launch/dryrun.py``): this
+trainer's configuration run once on ``meta`` under the op accounting
+(``launch/hlo_analysis.py``), a ranks engine's collectives recorded by a
+``RecordingComm`` of its rank; nothing is allocated or computed, and the
+live trainer's run state is left alone.
+
 Checkpoints are the reference's files (``checkpoint/ckpt.py``): the state
 as the ``{"p": params, "o": opt_state}`` tree of (G, ...) leaves, saved from
 and restored into the flat buffers in place, with ``snapshot_extra`` (the
@@ -116,6 +122,7 @@ a resumed run continues the uninterrupted one bit for bit.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 import os
@@ -153,7 +160,7 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels.gossip_update import (
     fused_apply_shard, fused_apply_stacked, mix_in_place,
 )
-from repro_torch.launch.comm import Comm, rank_device
+from repro_torch.launch.comm import Comm, RecordingComm, rank_device
 from repro_torch.models import transformer as tfm
 from repro_torch.optim.sgd import Optimizer
 from repro_torch.telemetry import MetricsRecorder
@@ -201,6 +208,7 @@ class SPMDTrainer:
         telemetry=None,
         debug_no_retrace: bool = False,
         device=None,
+        comm: Optional[Comm] = None,
     ):
         """loss_fn: ``loss_fn(params, batch)`` of one node's flat parameter
         dict and batch (the transformer's loss by default).  accum_steps:
@@ -223,7 +231,10 @@ class SPMDTrainer:
         ``device``: the current card by default; ``"cpu"`` runs every
         kernel's plain twin.  With an initialised process group of world
         size > 1 the trainer is one rank of the ranks engine, which raises
-        unless the world size equals the topology's node count."""
+        unless the world size equals the topology's node count.  ``comm``
+        (keyword only): the ``Comm`` of that rank, given in place of the
+        process group's; the dry run gives a ``RecordingComm``, rank 0 of a
+        world that exists only on paper."""
         if mixing not in ("ppermute", "dense"):
             raise ValueError(f"mixing must be 'ppermute'|'dense', got {mixing!r}")
         hyper = optimizer.hyper or {}
@@ -259,9 +270,11 @@ class SPMDTrainer:
         self._update = torch.func.vmap(optimizer.update, in_dims=(0, 0, 0, None))
         self.g = topology.n_nodes
         self.device = resolve_device(device)
-        self.comm = None
-        if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
+        self.comm = comm
+        if comm is None and dist.is_available() and dist.is_initialized() \
+                and dist.get_world_size() > 1:
             self.comm = Comm(self.device)
+        if self.comm is not None:
             if self.comm.world != self.g:
                 raise ValueError(
                     f"topology has {self.g} nodes but the process group has "
@@ -296,9 +309,7 @@ class SPMDTrainer:
         if self.comm is not None:
             # every rank joins the metrics steps' collectives: rank 0's
             # recorder (the one with sinks) sets the cadence for all
-            mine = torch.tensor([self._metrics_every], dtype=torch.float32,
-                                device=self.device)
-            self._metrics_every = int(self.comm.all_gather(mine)[0, 0])
+            self._metrics_every = self.comm.rank0_value(self._metrics_every)
 
     # -- mixing program -------------------------------------------------------
     def _one_program(self, step: int, epoch: int) -> Optional[GossipProgram]:
@@ -454,7 +465,10 @@ class SPMDTrainer:
                 # boost must not weight the draining node in the probe
                 members = torch.as_tensor(fr.alive != 0, dtype=torch.float32,
                                           device=self.device)
-            self._fold.probe(topo.controller if self.g > 1 else None, tel, state.step,
+            # the closed loop's probe reads Ξ on the host: the dry run
+            # (``lower_step``, on meta) builds the step without it
+            probing = self.g > 1 and self.device.type != "meta"
+            self._fold.probe(topo.controller if probing else None, tel, state.step,
                              lambda: self.consensus_distance(state, members))
         mix = (state.step + 1) % self.mix_every == 0
         # time-varying schedules advance per gossip round, not per raw step;
@@ -592,6 +606,60 @@ class SPMDTrainer:
             tel.step_metrics(step, loss=losses, lr=lr,
                              norms=norms if self.collect_norms else None, grads=grads)
 
+    # -- the dry run ----------------------------------------------------------------
+    def abstract_state(self, step: int = 0) -> TrainState:
+        """The state's flat buffers on ``meta``: θ and the optimizer slots
+        of this engine's rows, no device byte allocated."""
+        theta = torch.empty((self.rows, self.layout.size), dtype=self.layout.state_dtype,
+                            device="meta")
+        return TrainState(theta, opt_buffers(self.optimizer, self.layout, theta), step)
+
+    @contextlib.contextmanager
+    def _on_meta(self):
+        """This trainer's configuration on ``meta``: a ranks engine swaps
+        its ``Comm`` for a ``RecordingComm`` of the same rank and world, an
+        inert recorder takes the telemetry, and nothing of the run state
+        (program keys, membership, a pending Ξ fold) is touched."""
+        saved = (self.device, self.comm, self.telemetry, self._step_cache,
+                 self._last_membership, self._fold, self._metrics_every)
+        self.device = torch.device("meta")
+        if self.comm is not None and not (isinstance(self.comm, RecordingComm)
+                                          and self.comm.device.type == "meta"):
+            self.comm = RecordingComm(self.comm.rank, self.comm.world)
+        self.telemetry, self._step_cache, self._fold = MetricsRecorder(), {}, XiFold()
+        self._metrics_every = 0
+        try:
+            yield
+        finally:
+            (self.device, self.comm, self.telemetry, self._step_cache,
+             self._last_membership, self._fold, self._metrics_every) = saved
+
+    def lower_step(self, shape, *, epoch: int = 0, step: int = 0) -> dict:
+        """The dry run of one step (the reference's abstract lowering):
+        this trainer's step — fused or not, stacked or one rank, under its
+        fault model's realization of ``step`` — run once on ``meta`` under
+        the op accounting (``launch/hlo_analysis.py``), on the data of
+        ``shape`` (``configs.input_specs``: its global batch over the G
+        nodes).  No device byte is allocated and nothing is computed; the
+        closed loop's Ξ probe (a host read) is left out.  Returns the
+        record: ``memory`` (``argument_bytes``: θ and the optimizer slots
+        of this engine's rows, updated in place, so also ``alias_bytes``;
+        ``temp_bytes``: the step's peak of live intermediates), ``cost``,
+        ``hlo`` and ``collectives`` (this rank's, on a ranks engine) and
+        ``lower_s``."""
+        from repro_torch.configs.base import input_specs
+        from repro_torch.launch.hlo_analysis import step_record
+
+        with self._on_meta():
+            state = self.abstract_state(step)
+            batch = input_specs(self.cfg, shape, n_nodes=self.g)
+            if self.g == 1:   # the engine takes (G, B, S) batches
+                batch = {k: v[None] for k, v in batch.items()}
+            return step_record(
+                self.train_step, state, batch, 1e-2, epoch=epoch,
+                arguments=[state.theta, *state.opt.values()],
+                outputs=lambda out: [out[0].theta, *out[0].opt.values(), out[1], out[2]],
+            )
 
     # -- crash-consistent resume -------------------------------------------------
     def checkpoint_tree(self, state: TrainState) -> dict:

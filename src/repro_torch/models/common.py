@@ -21,6 +21,7 @@ import torch
 __all__ = [
     "ParamDef",
     "init_params",
+    "abstract_params",
     "param_count",
     "flatten_tree",
     "unflatten_tree",
@@ -122,6 +123,16 @@ def init_params(defs: Mapping, gen: torch.Generator, device, dtype=None) -> dict
     return {k: make(d) for k, d in defs.items()}
 
 
+def abstract_params(defs: Mapping, dtype=None) -> dict:
+    """``meta`` tensors of each ``ParamDef``'s shape and dtype (``dtype``
+    overrides every leaf's), in the structure of ``defs``: the dry run's
+    parameters, with no device byte allocated."""
+    return {k: (abstract_params(v, dtype) if isinstance(v, Mapping)
+                else torch.empty(v.shape, dtype=dtype if dtype is not None else v.dtype,
+                                 device="meta"))
+            for k, v in defs.items()}
+
+
 def param_count(tree: Mapping) -> int:
     """Elements over every leaf of a (nested) dict of ParamDefs or tensors."""
     return sum(math.prod(x.shape) for x in flatten_tree(tree).values())
@@ -163,7 +174,10 @@ def rope(positions: torch.Tensor, d_head: int, theta: float = 10000.0,
     in ``dtype`` (float32, as the reference's; float64 for a float64 run)."""
     half = d_head // 2
     exps = torch.arange(0, half, dtype=dtype, device=positions.device) / half
-    freqs = 1.0 / torch.pow(torch.tensor(theta, dtype=dtype), exps)
+    # the base is a host scalar, except in the dry run, which keeps every
+    # tensor on meta
+    base = torch.tensor(theta, dtype=dtype, device="meta" if positions.is_meta else None)
+    freqs = 1.0 / torch.pow(base, exps)
     angles = positions.to(dtype)[..., None] * freqs
     return torch.sin(angles), torch.cos(angles)
 

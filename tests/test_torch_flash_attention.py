@@ -117,8 +117,19 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         tops.flash_attention(q4.transpose(2, 3).contiguous().transpose(2, 3), k, v)
     with pytest.raises(ValueError, match="devices"):
         tops.flash_attention(q4, k.to("meta"), v)
+    # meta is the dry run's device: checked and billed, no launch
+    before = tops.flash_attention.launches
+    out = tops.flash_attention(q4.to("meta"), k.to("meta"), v.to("meta"))
+    assert out.device.type == "meta" and out.shape == q4.shape
+    assert tops.flash_attention.launches == before
+
+    class Elsewhere(torch.Tensor):   # a device with neither a kernel nor a twin
+        @property
+        def device(self):
+            return torch.device("xpu")
+
     with pytest.raises(ValueError, match="unsupported device"):
-        tops.flash_attention(q4.to("meta"), k.to("meta"), v.to("meta"))
+        tops.flash_attention(*(t.as_subclass(Elsewhere) for t in (q4, k, v)))
 
 
 @pytest.mark.parametrize("causal,window", [(True, None), (False, None), (True, 40), (False, 40)])

@@ -282,7 +282,7 @@ def test_has_rng_runs_the_node_loop_with_the_generator():
 
 
 @pytest.mark.parametrize("kw,step", [
-    ({"shard_nodes": True}, "item 7"),
+    ({"shard_nodes": True}, None),        # one device: ported, accepted
     ({"debug_no_retrace": True}, None),   # the rebuild guard is ported: accepted
     ({"mixing": "ring"}, "mixing must be"),
 ])
@@ -290,7 +290,72 @@ def test_later_slices_raise(kw, step):
     make = lambda: TSim(tpm.lstm_loss, toptim.sgd(0.9), tmake_topology("d_ring", 4),
                         device="cpu", **kw)
     if step is None:
-        assert make().debug_no_retrace
+        sim = make()
+        assert all(getattr(sim, k) == v for k, v in kw.items())
         return
     with pytest.raises(ValueError, match=step):
         make()
+
+
+# ---------------------------------------------------------------------------
+# Virtual-node sharding (``tests/test_elastic.py``'s cases, held against the
+# reference): on one device the rows stay where they are
+# ---------------------------------------------------------------------------
+
+def _shard_run(n, rate, seed, steps, batch_rows, shard, data_seed):
+    """The port's and the reference's simulator on a quadratic loss under
+    dropout: (port θ, port losses, reference θ, reference losses)."""
+    from repro.core.faults import make_fault_model as jfault
+    from repro_torch.core.faults import make_fault_model as tfault
+
+    jsim = JSim(lambda p, b: jnp.mean((b - p["w"]) ** 2), joptim.sgd(0.1),
+                jdsgd.make_topology("d_one_peer_exp", n,
+                                    fault_model=jfault("dropout", n, rate=rate, seed=seed)),
+                mixing="shift", shard_nodes=shard)
+    tsim = TSim(lambda p, b: torch.mean((b["b"] - p["w"]) ** 2), toptim.sgd(0.1),
+                tmake_topology("d_one_peer_exp", n,
+                               fault_model=tfault("dropout", n, rate=rate, seed=seed)),
+                mixing="shift", shard_nodes=shard, device="cpu")
+    jstate = jsim.init({"w": jnp.zeros((4,), jnp.float32)})
+    tstate = tsim.init({"w": np.zeros((4,), np.float32)})
+    rng = np.random.default_rng(data_seed)
+    for _ in range(steps):
+        b = rng.normal(size=(n, batch_rows, 4)).astype(np.float32)
+        jstate, jloss, _ = jsim.train_step(jstate, jnp.asarray(b), 0.05)
+        tstate, tloss, _ = tsim.train_step(tstate, {"b": torch.from_numpy(b)}, 0.05)
+    return (tstate.params["w"].numpy().copy(), tloss.numpy().copy(),
+            np.asarray(jstate.params["w"]), np.asarray(jloss))
+
+
+def test_shard_nodes_is_numeric_noop():
+    """n 8 under dropout: bit for bit the unsharded run, both within 5e-5
+    of the reference's (sharded and not)."""
+    plain = _shard_run(8, 0.3, 3, 6, 2, False, 2)
+    sharded = _shard_run(8, 0.3, 3, 6, 2, True, 2)
+    np.testing.assert_array_equal(plain[0], sharded[0])
+    np.testing.assert_array_equal(plain[1], sharded[1])
+    np.testing.assert_array_equal(plain[2], sharded[2])
+    np.testing.assert_allclose(sharded[0], sharded[2], rtol=0, atol=5e-5)
+    np.testing.assert_allclose(sharded[1], sharded[3], rtol=0, atol=5e-5)
+
+
+def test_shard_nodes_runs_large_n():
+    """n 512 one-peer steps under dropout run through the sharded path and
+    agree with the reference's."""
+    theta, loss, jtheta, jloss = _shard_run(512, 0.1, 0, 3, 1, True, 0)
+    assert loss.shape == (512,)
+    assert np.isfinite(theta).all()
+    np.testing.assert_allclose(theta, jtheta, rtol=0, atol=5e-5)
+    np.testing.assert_allclose(loss, jloss, rtol=0, atol=5e-5)
+
+
+def test_shard_nodes_refuses_a_split_over_cards(monkeypatch):
+    """Where more than one card divides n the split is not ported: it
+    raises, naming the card count, before anything is built."""
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    sim = TSim(tpm.lstm_loss, toptim.sgd(0.9), tmake_topology("d_ring", 4),
+               device="cpu", shard_nodes=True)
+    sim.device = torch.device("cuda", 0)   # the check reads the device type only
+    with pytest.raises(ValueError, match="over 4 cards"):
+        sim._check_node_split(8)
+    sim._check_node_split(7)   # only one card divides 7: no split
