@@ -159,12 +159,12 @@ Phases (any failure exits non-zero and prints no result line):
      extra payload (controller, telemetry) bit for bit the uninterrupted
      run's; the file's size, save and load seconds and GB/s, the device
      peak above the live state during each;
- 24. the same for 4 ranks (as phase 9): 3 steps, a checkpoint after step 1
-     (every leaf gathered to rank 0's host memory, column chunk by column
-     chunk), a fresh trainer per rank restores it (rank 0 reads, each rank
-     receives its row) and runs steps 1-2, bit for bit its uninterrupted
-     row; the file has phase 23's members and, on phase 9's sampled
-     columns, θ and m of phase 4's state after step 0 bit for bit;
+ 24. the same for 4 ranks (as phase 9): 2 steps, a checkpoint after
+     step 1 (every leaf gathered to rank 0's host memory, column chunk by
+     column chunk), a fresh trainer per rank restores it (rank 0 reads,
+     each rank receives its row) and runs step 1, bit for bit its
+     uninterrupted row; the file has phase 23's members and, on phase 9's
+     sampled columns, θ and m of phase 4's state after step 0 bit for bit;
  25. the simulator: phase 15's ResNet closed loop, 120 steps, checkpointed
      after step 60 and resumed in a fresh simulator (cuDNN deterministic):
      losses, norms, θ, m and the controller's log bit for bit;
@@ -233,11 +233,16 @@ Phases (any failure exits non-zero and prints no result line):
      the first step; ``python -m repro_torch.examples.serve_decode``.
  34. the dry run on the card's machine: ``launch/dryrun.run_one`` for
      granite-8b, phi3.5-moe and kimi-k2 at full width over the four
-     ``SHAPES`` on the ``single`` mesh and for the five archs of
-     ``tests/spmd_dryrun_script.py`` at its mini shapes, all on ``meta``:
-     the card's allocated and peak bytes must not move, ``is_suspect``
-     may flag only MoE decodes whose experts compute at the capacity
-     floor; the dry-run and roofline tables are printed;
+     ``SHAPES`` on the ``single`` mesh (16 data × 16 model), granite-8b's
+     and phi3.5-moe's training also on ``multi`` (2 × 16 × 16), and the
+     five archs of ``tests/spmd_dryrun_script.py`` at its mini shapes, all
+     on ``meta``: the card's allocated and peak bytes must not move,
+     ``is_suspect`` may flag only MoE decodes whose experts compute at the
+     capacity floor; a training record is rank (0, 0)'s step, so its
+     ``argument_bytes``/``temp_bytes`` are a card's (kimi-k2, G = 1, keeps
+     one unsharded node, waiting for ROADMAP queue 1 item 8d); the dry-run
+     and roofline tables and each training record's bytes a card are
+     printed;
  35. phase 4's configuration against its roofline: the trainer's init
      measured for its device bytes, the median of 5 warm steps timed with
      no accounting, one step under ``launch/hlo_analysis.analyze_step`` on
@@ -249,6 +254,34 @@ Phases (any failure exits non-zero and prints no result line):
      step's measured peak above the state, with the card's name and limit;
  36. ``shard_nodes``: phase 15's mini-ResNet closed-loop Ada (N 16) for 3
      steps with and without it, bit for bit (θ, losses, norms, Ξ trace).
+ 37. tensor parallelism at full width: phase 4's granite-8b (2 layers) on
+     a (2 data × 2 model) world of 4 ranks (NCCL with a card per rank,
+     else gloo through pinned host buffers on the one card), d_ring, fused
+     apply, norms, seq 512, per-node batch 2, seed-0 weights: rank (i, j)
+     holds shard j of node i.  First in float32 for 3 steps against the
+     stacked engine at G = 2 on the same weights and batches (losses, θ
+     and m on phase 9's sampled columns within 5e-5, norms within rtol
+     1e-5), the replicated leaves bit for bit across each node's model
+     ranks, K2 and K3 once a step on every rank; then bfloat16 for 3 steps,
+     timed (rank step ms, the model group's all-reduces a step, one
+     activation all-reduce's ms, peak a rank); K2 on one rank's shard row
+     against its twin;
+ 38. expert parallelism at phi3.5-moe's width, in phase 37's world: one
+     MoE layer (d_model 4096, 16 experts of d_ff 6400, top-2, 1024
+     tokens) on each node's 2 model ranks (8 experts each), forward and
+     backward in float32, against ``apply_moe`` on one rank (output atol
+     1e-5, aux 1e-6, the reference's manual-EP bars; every expert a
+     nonzero gradient); then phi3.5-moe ×1 trained 2 steps in bfloat16 on
+     the (2 × 2) world, timed, its replicated leaves bit for bit, K2 and
+     K3 once a step a rank;
+ 39. ``repro_torch.examples.train_100m`` at its 100m preset (float32) on
+     (4 data × 2 model) ranks (K2 fused apply): 20 steps uninterrupted and
+     10 steps that end in a checkpoint, then a fresh world resumed from
+     step 10 to 20, every rank's shard row bit for bit the uninterrupted
+     run's; step ms and the Gini line printed.
+
+``python3 chip_smoke.py --phases 34,37,38,39`` builds the kernels and runs
+only the chosen ones of those four (no kernels line, no result line).
 
 The last three lines of standard output are the card's name and power
 limit as nvidia-smi reports them, the per-kernel JSON (K1-K4, each with its
@@ -828,9 +861,10 @@ def compare_rows(label, rows, ref):
     return worst_ulps, worst_m, worst_loss, worst_norm
 
 
-def phase_ranks(layout, ref, sample):
-    """Spawn G ranks of the ranks engine (NCCL with a card per rank, else
-    gloo through pinned host chunks on the one card) and hold each rank's
+def phase_ranks(layout, ref, sample, done):
+    """Phase 9's check: ``done``, the results and seconds of G ranks of the
+    ranks engine (``rank_world``: NCCL with a card per rank, else gloo
+    through pinned host chunks on the one card).  Holds each rank's
     per-step losses (rtol 1e-5), norms (rtol 1e-5), θ (2 bfloat16 ulps plus
     2^-20 of the mixed terms Σ_k w_k |θ_k| over the node and its senders)
     and m (1e-6 relative) on the sampled columns against the stacked run's
@@ -838,11 +872,8 @@ def phase_ranks(layout, ref, sample):
     RANK_TIMEOUT, fails the phase.  Returns the phase's numbers."""
     import numpy as np
     import torch
-    from repro_torch.launch.comm import spawn_world
 
-    t0 = time.perf_counter()
-    res = spawn_world(rank_run, G, (sample, RANK_STEPS), timeout=RANK_TIMEOUT)
-    wall = time.perf_counter() - t0
+    res, wall = done
     want = {"gossip_program_update": 0, "gossip_update": RANK_STEPS,
             "segment_l2_norms": RANK_STEPS, "flash_attention": 0}
     for i, r in enumerate(res):
@@ -2454,6 +2485,12 @@ def phase_fault_simulator(cfg, batches):
     return total, numbers
 
 
+PREDICT_22 = (
+    "phase 22 prediction (PERF.md §6): each rank == its stacked row bit for bit; K2 3 per "
+    "rank; rank step near phase 9's (2.9-5.2 s over gloo-host), the rejoin step longer by "
+    "the gathers of theta and m (~4 full-row transfers per rank)")
+
+
 def fault_rank_run(comm, sample, steps):
     """Phase 22 on one rank: the fused trainer, engine ``ranks``, under
     FAULT_RANK_MODEL from the seed-0 weights and batches; the launch
@@ -2552,28 +2589,21 @@ def compare_rows_exact(label, rows, ref):
                      f"{np.abs(r[key] - ref[key][i]).max():.3e})")
 
 
-def phase_fault_ranks(sample, device=None):
+def phase_fault_ranks(sample, done, device=None):
     """Phase 22: G ranks of the ranks engine (as phase 9) under a crash at
     step 1 with a rejoin at step 2 (FAULT_RANK_MODEL), FAULT_RANK_STEPS
     steps: every rank computes the realization itself, the dead rank
     joins every permute, gather and mean, the rejoin gathers its
     neighbours' rows across ranks; each rank equal to its stacked row bit
     for bit, K2 once per step on every rank (on the dead rank its row of
-    the degraded program is the identity).  Returns the phase's numbers."""
+    the degraded program is the identity).  ``done``: the stacked
+    reference, the ranks' results and their seconds from ``rank_world``
+    (``device``: its ranks' device, None for the card).  Returns the
+    phase's numbers."""
     import torch
-    from repro_torch.launch.comm import spawn_world
 
     dev = torch.device("cuda", 0) if device is None else torch.device(device)
-    log("phase 22 prediction (PERF.md §6): each rank == its stacked row bit for bit; K2 "
-        "3 per rank; rank step near phase 9's (2.9-5.2 s over gloo-host), the rejoin step "
-        "longer by the gathers of theta and m (~4 full-row transfers per rank)")
-    ref = stacked_fault_reference(dev, sample, FAULT_RANK_STEPS)
-    if dev.type == "cuda":
-        torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    res = spawn_world(fault_rank_run, G, (sample, FAULT_RANK_STEPS), timeout=RANK_TIMEOUT,
-                      device=device)
-    wall = time.perf_counter() - t0
+    ref, res, wall = done
     # the wrappers count CUDA launches; on the CPU (the tests) they take the twins
     per_rank = FAULT_RANK_STEPS if dev.type == "cuda" else 0
     want = {"gossip_program_update": 0, "gossip_update": per_rank,
@@ -2601,7 +2631,7 @@ def phase_fault_ranks(sample, device=None):
 
 # phases 23-26: checkpoints and the trainer's knobs at phase 4's configuration
 RESUME_STEPS, RESUME_CUT = 4, 2          # phase 23: 4 steps, the checkpoint after step 2
-RANK_RESUME_STEPS, RANK_RESUME_CUT = 3, 1  # phase 24
+RANK_RESUME_STEPS, RANK_RESUME_CUT = 2, 1  # phase 24
 SIM_RESUME_STEPS, SIM_RESUME_CUT = 120, 60  # phase 25
 KNOB_STEPS = 3                           # phase 26
 EXAMPLE_STEPS = 10                       # phase 26: dbench_whitebox's short --steps
@@ -2615,9 +2645,9 @@ PREDICT_23 = (
     "bf16 theta and f32 m); save and load 10-40 s each (disk-bound); the peak during save "
     "and load gains at most one leaf's host-copy staging on the card over the live state")
 PREDICT_24 = (
-    "phase 24 prediction (PERF.md §6): each rank's resumed steps 1-2 == its uninterrupted "
+    "phase 24 prediction (PERF.md §6): each rank's resumed step 1 == its uninterrupted "
     "row bit for bit; the ranks engine's file == the stacked engine's (member names; theta "
-    "and m on the sampled columns == phase 4's state after step 0); K2 5 per rank; "
+    "and m on the sampled columns == phase 4's state after step 0); K2 3 per rank; "
     "gather-and-write and read-and-scatter 20-60 s each through gloo-host")
 PREDICT_25 = (
     "phase 25 prediction (PERF.md §6): the ResNet closed loop resumed at step 60 == the "
@@ -2858,56 +2888,52 @@ def file_rows(path, layout, sample):
     return {k: torch.cat(v, dim=1) for k, v in out.items()}
 
 
-def phase_ranks_resume(layout, sample, step0, members23, device=None):
+def ranks_resume_file(d, layout, sample):
+    """Phase 24's file in ``d``: (its member names, θ and m on the sampled
+    columns, its bytes, the seconds the sampled read took)."""
+    import zipfile
+
+    path = d / f"step_{RANK_RESUME_CUT:010d}.npz"
+    with zipfile.ZipFile(path) as zf:
+        names = zf.namelist()
+    t1 = time.perf_counter()
+    rows = file_rows(path, layout, sample)
+    return names, rows, path.stat().st_size, time.perf_counter() - t1
+
+
+def phase_ranks_resume(layout, sample, step0, members23, done, device=None):
     """Phase 24: G ranks (as phase 9) run RANK_RESUME_STEPS steps with a
     checkpoint after step RANK_RESUME_CUT, then restore it and resume
     (``resume_rank_run``): every rank bit for bit its uninterrupted row,
     K2 once per step on every rank.  The ranks engine's file holds the
     stacked engine's members (phase 23's names) and, on the sampled
     columns, θ and m of phase 4's state after step 0 (``step0``) bit for
-    bit.  Returns the phase's numbers."""
-    import shutil
-
-    import numpy as np
+    bit.  ``done``: the ranks' results, the file's (``ranks_resume_file``)
+    and the ranks' seconds from ``rank_world``, the file removed
+    (``device``: its ranks' device, None for the card).  Returns the
+    phase's numbers."""
     import torch
-    import zipfile
-    from repro_torch.launch.comm import spawn_world
 
     dev = torch.device("cuda", 0) if device is None else torch.device(device)
-    log(PREDICT_24)
-    d = checkpoint_dir(state_bytes(layout))
-    try:
-        t0 = time.perf_counter()
-        res = spawn_world(resume_rank_run, G, (str(d), RANK_RESUME_STEPS, RANK_RESUME_CUT),
-                          timeout=RANK_TIMEOUT, device=device)
-        wall = time.perf_counter() - t0
-        per_rank = RANK_RESUME_STEPS + RANK_RESUME_STEPS - RANK_RESUME_CUT
-        per_rank = per_rank if dev.type == "cuda" else 0
-        want = {"gossip_program_update": 0, "gossip_update": per_rank,
-                "segment_l2_norms": per_rank, "flash_attention": 0}
-        for i, r in enumerate(res):
-            if r["launches"] != want:
-                fail(f"phase 24 rank {i}: launch counts {r['launches']}, expected {want}")
-            if not r["equal"]:
-                fail(f"phase 24 rank {i}: the resumed run differs from the uninterrupted one")
-        path = d / f"step_{RANK_RESUME_CUT:010d}.npz"
-        with zipfile.ZipFile(path) as zf:
-            names = zf.namelist()
-        if names != members23:
-            fail(f"phase 24: the ranks engine's members {names[:4]}... differ from the stacked "
-                 f"engine's {members23[:4]}...")
-        t1 = time.perf_counter()
-        rows = file_rows(path, layout, sample)
-        read_s = time.perf_counter() - t1
-        for what in ("theta", "mom"):
-            ref = step0[what].cpu()
-            if not torch.equal(rows[what], ref):
-                diff = (rows[what].float() - ref.float()).abs().max()
-                fail(f"phase 24: the file's {what} differs from phase 4's state after step 0 "
-                     f"on the sampled columns (max abs {float(diff):.3e})")
-        size = path.stat().st_size
-    finally:
-        shutil.rmtree(d, ignore_errors=True)
+    res, (names, rows, size, read_s), wall = done
+    per_rank = RANK_RESUME_STEPS + RANK_RESUME_STEPS - RANK_RESUME_CUT
+    per_rank = per_rank if dev.type == "cuda" else 0
+    want = {"gossip_program_update": 0, "gossip_update": per_rank,
+            "segment_l2_norms": per_rank, "flash_attention": 0}
+    for i, r in enumerate(res):
+        if r["launches"] != want:
+            fail(f"phase 24 rank {i}: launch counts {r['launches']}, expected {want}")
+        if not r["equal"]:
+            fail(f"phase 24 rank {i}: the resumed run differs from the uninterrupted one")
+    if names != members23:
+        fail(f"phase 24: the ranks engine's members {names[:4]}... differ from the stacked "
+             f"engine's {members23[:4]}...")
+    for what in ("theta", "mom"):
+        ref = step0[what].cpu()
+        if not torch.equal(rows[what], ref):
+            diff = (rows[what].float() - ref.float()).abs().max()
+            fail(f"phase 24: the file's {what} differs from phase 4's state after step 0 "
+                 f"on the sampled columns (max abs {float(diff):.3e})")
     out = {
         "ranks": G, "transport": res[0]["transport"], "file_bytes": size,
         "gather_and_write_s": res[0]["save_s"], "read_and_scatter_s": res[0]["load_s"],
@@ -4183,6 +4209,7 @@ def phase_analysis(dev, cfg, batches):
 
 # phases 34-36: the dry run, one step against its roofline, shard_nodes
 DRY_FULL_ARCHS = ("granite-8b", "phi3.5-moe-42b-a6.6b", "kimi-k2-1t-a32b")
+DRY_TP_ARCHS = ("granite-8b", "phi3.5-moe-42b-a6.6b")   # also trained on the multi mesh
 DRY_MINI_ARCHS = ("granite-8b", "phi3.5-moe-42b-a6.6b", "rwkv6-1.6b", "zamba2-7b",
                   "kimi-k2-1t-a32b")
 ROOF_STEPS, SHARD_STEPS = 5, 3
@@ -4190,10 +4217,13 @@ ROOF_STEPS, SHARD_STEPS = 5, 3
 # single-threaded host work; none of them initialises CUDA)
 DRY_WORKERS = 4
 PREDICT_34 = (
-    "phase 34 prediction (PERF.md §6): 12 full-width records (granite-8b, phi3.5-moe, "
-    "kimi-k2 x 4 SHAPES, mesh single) and 15 mini ones build on meta in 40-120 s with 0 "
-    "device bytes allocated; is_suspect flags only the MoE decodes whose experts compute "
-    "at the capacity floor (phi3.5-moe long_500k, kimi-k2 decode_32k and long_500k)")
+    "phase 34 prediction (PERF.md §6): 14 full-width records (granite-8b, phi3.5-moe, "
+    "kimi-k2 x 4 SHAPES on single = 16 data x 16 model; granite-8b and phi3.5-moe train_4k "
+    "on multi) and 15 mini ones build on meta in 40-120 s with 0 device bytes allocated; "
+    "a training record is rank (0, 0)'s: granite-8b 2.9 GiB and phi3.5-moe 14.6 GiB of "
+    "state a card (46.13 and 233.98 / 16), kimi-k2 one unsharded node (item 8d); "
+    "is_suspect flags only the MoE decodes whose experts compute at the capacity floor "
+    "(phi3.5-moe long_500k, kimi-k2 decode_32k and long_500k)")
 PREDICT_35 = (
     "phase 35 prediction (PERF.md §6): phase 4's trainer (granite-8b x2, G = 4, d_ring, "
     "fused, norms): median step 130-220 ms; roofline compute 14-18 ms, memory 50-110 ms, "
@@ -4259,9 +4289,11 @@ def phase_dryrun(dev):
     torch.cuda.reset_peak_memory_stats()
     before = (torch.cuda.memory_allocated(), torch.cuda.max_memory_allocated())
     records, build_s = [], {}
-    # the long prefills first, so that the workers finish together
+    # the long prefills first, so that the workers finish together; the
+    # tensor-parallel archs' training also on the multi-pod mesh
     full = [(a, n, "single") for n in ("prefill_32k", "train_4k", "decode_32k", "long_500k")
             for a in DRY_FULL_ARCHS if n in SHAPES]
+    full += [(a, "train_4k", "multi") for a in DRY_FULL_ARCHS if a in DRY_TP_ARCHS]
     if full:
         with multiprocessing.get_context("spawn").Pool(DRY_WORKERS) as pool:
             done = pool.map(dry_record, full, chunksize=1)
@@ -4300,7 +4332,19 @@ def phase_dryrun(dev):
         "flagged_capacity_floor": flagged,
         "node_state_bytes": {f"{r['arch']} {r['shape']}": r["memory"]["argument_bytes"]
                              for r in records if r["mesh"] == "single"},
+        # a training record is rank (0, 0)'s step: bytes a card
+        "train_bytes_a_card": {
+            f"{r['arch']} {r['mesh']}": {"mesh_shape": r["mesh_shape"],
+                                         "argument_bytes": r["memory"]["argument_bytes"],
+                                         "temp_bytes": r["memory"]["temp_bytes"],
+                                         "waiting_for": r.get("waiting_for")}
+            for r in records if r["kind"] == "train" and r["mesh"] != "mini"},
     }
+    for key, b in summary["train_bytes_a_card"].items():
+        log(f"phase 34: {key} train_4k on {b['mesh_shape']}: argument "
+            f"{b['argument_bytes'] / 2**30:.3f} GiB, temp {b['temp_bytes'] / 2**30:.3f} GiB a "
+            f"card" + (f" (one unsharded node: waits for {b['waiting_for']})"
+                       if b["waiting_for"] else ""))
     log(f"phase 34: {len(records)} records on meta, 0 device bytes; flagged (capacity floor "
         f"only): {json.dumps(flagged)}")
     return summary
@@ -4456,10 +4500,642 @@ def phase_shard_nodes(dev):
     return launches, {"steps": SHARD_STEPS, "bit_for_bit": True}
 
 
+# ---------------------------------------------------------------------------
+# Phases 37-39: tensor and expert parallelism inside a node
+# ---------------------------------------------------------------------------
+
+TP_G, TP_M, TP_STEPS = 2, 2, 3    # phase 37: a (2 data x 2 model) world, 3 steps a run
+TP_TIMEOUT = 900
+TP_ALLREDUCE_ITERS = 5
+EP_ARCH = "phi3.5-moe-42b-a6.6b"
+EP_B, EP_S, EP_STEPS = 2, 512, 2  # phase 38: the MoE layer's tokens; phi3.5-moe x1 steps
+P39_STEPS, P39_CUT = 20, 10       # phase 39: train_100m's steps and its checkpoint
+PREDICT_37 = (
+    "phase 37 prediction (PERF.md §6): granite-8b x2 on a (2 data x 2 model) world of 4 "
+    "ranks on the card over gloo-host: float32 3 steps within 5e-5 of the stacked engine "
+    "at G = 2 (norms rtol 1e-5), the replicated leaves (the norms' gains) bit for bit "
+    "across each node's model ranks, K2 and K3 once a step a rank; bf16 rank step 2.9-5.2 "
+    "s (phase 9's: half the row crosses gloo-host, plus 4 activation all-reduces a layer "
+    "and a step, 10-40 ms each), peak per rank about half of phase 9's (7-9 GiB)")
+PREDICT_38 = (
+    "phase 38 prediction (PERF.md §6): one phi3.5-moe MoE layer (16 experts, 8 a rank) "
+    "forward and backward in float32 on 2 ranks within atol 1e-5 of apply_moe (aux 1e-6), "
+    "every expert with a gradient; phi3.5-moe x1 on (2 x 2) ranks, bf16, 2 steps of 3-6 s "
+    "a rank, replicated leaves (router, norms) bit for bit")
+PREDICT_39 = (
+    "phase 39 prediction (PERF.md §6): train_100m's 100m preset (134M parameters, float32) "
+    "on (4 x 2) ranks over gloo-host: 0.5-2 s a step, 20 steps and a run resumed from a "
+    "step-10 checkpoint in a fresh world bit for bit; the Gini of the norms printed; "
+    "phases 37-39 together 120-200 s")
+
+
+def tp_granite_cfg(dtype):
+    """Phase 4's granite-8b (published width, 2 layers, remat off) in ``dtype``."""
+    cfg, _ = granite_layout()
+    return dataclasses.replace(cfg, dtype=dtype)
+
+
+def tp_trainer(cfg, dev, **kw):
+    """The (TP_G x TP_M) trainer of phases 37-38: d_ring, fused apply, norms."""
+    from repro_torch.core.dsgd import make_topology
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.train import SPMDTrainer
+    from repro_torch.optim.sgd import sgd
+
+    return SPMDTrainer(cfg, make_topology("d_ring", TP_G), sgd(momentum=0.9),
+                       collect_norms=True, fused_apply=True, device=dev,
+                       mesh=make_mesh((TP_G, TP_M), ("data", "model")), **kw)
+
+
+def leaf_samples(layout, sample):
+    """name -> the sampled flat columns that fall in the leaf, as indices
+    into it (phase 9's sample, in leaf order)."""
+    return {name: sample[(sample >= off) & (sample < off + size)] - off
+            for name, off, size in zip(layout.names, layout.offsets[:-1], layout.sizes)}
+
+
+def tp_sampled(trainer, buf, per_leaf):
+    """This rank's node's ``buf`` (θ or m) on the sampled columns (float32,
+    leaf order): each rank puts the sampled elements its shard holds (a
+    replicated leaf's on model rank 0) into a zero vector, and one
+    all-reduce over the model group adds them (x + 0 is x)."""
+    import numpy as np
+    import torch
+
+    views = trainer.layout.stacked_views(buf)
+    j, tp = trainer.model_rank, trainer.tp_size
+    parts = []
+    for name, cols in per_leaf.items():
+        full = trainer.full_defs[name].shape
+        local = views[name][0]
+        vals = torch.zeros(len(cols), dtype=torch.float32, device=buf.device)
+        d = trainer.shardings[name].dim_of("model")
+        if d is None:
+            mine, idx = np.full(len(cols), j == 0), cols
+        else:
+            coords = list(np.unravel_index(cols, full))
+            k = full[d] // tp
+            mine = coords[d] // k == j
+            coords[d] = coords[d] - j * k
+            idx = np.ravel_multi_index([c[mine] for c in coords], tuple(local.shape))
+        if mine.any():
+            vals[torch.as_tensor(np.nonzero(mine)[0], device=buf.device)] = \
+                local.reshape(-1)[torch.as_tensor(idx, device=buf.device)].float()
+        parts.append(vals)
+    return trainer.model_comm.all_reduce(torch.cat(parts)).cpu().numpy()
+
+
+def replicated_leaves(trainer, state):
+    """The leaves the model axis leaves whole, as this rank holds them."""
+    views = trainer.stacked_params(state)
+    return {k: views[k].float().cpu().numpy()
+            for k, whole in zip(trainer.defs, trainer._replicated()) if whole}
+
+
+def tp_train(trainer, state, batches, lr, dev, *, record=False):
+    """Steps of a tensor-parallel rank, the launch counters zeroed just
+    before and read just after; with ``record`` the model group's
+    collectives are recorded.  Returns (state, losses, norms, step ms,
+    launches, the model group's op record or None)."""
+    import torch
+    from repro_torch.kernels import ops
+
+    torch.cuda.synchronize(dev)
+    ops.reset_launch_counts()
+    losses, norms, step_ms = [], [], []
+    with trainer.model_comm.recording() as mops:
+        for batch in batches:
+            t1 = time.perf_counter()
+            state, loss, nrm = trainer.train_step(state, batch, lr)
+            torch.cuda.synchronize(dev)
+            step_ms.append((time.perf_counter() - t1) * 1e3)
+            losses.append(float(loss[0]))
+            norms.append(nrm[0].cpu().numpy())
+    return state, losses, norms, step_ms, ops.launch_counts(), (list(mops) if record else None)
+
+
+def tp_rank_run(comm, per_leaf, steps):
+    """Phase 37 on one rank of the (TP_G x TP_M) world: granite-8b x2 from
+    the seed-0 weights in float32 (losses, norms, θ and m of its node on the
+    sampled columns, the replicated leaves, launches), then in bfloat16,
+    timed (step ms, the model group's collectives a step, one activation
+    all-reduce's ms, peak allocation)."""
+    import numpy as np
+    import torch
+    from repro_torch.data import SyntheticLM
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = comm.device
+    t0 = time.perf_counter()
+    out = {"transport": comm.transport}
+    for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        cfg = tp_granite_cfg(dtype)
+        trainer = tp_trainer(cfg, dev)
+        if trainer.engine != "ranks" or trainer.tp is None:
+            raise RuntimeError(f"rank {comm.rank} runs the {trainer.engine} engine without "
+                               "a model group")
+        state = trainer.init_state(seed=0)
+        src = SyntheticLM(vocab=cfg.vocab, seq_len=SEQ, seed=0)
+        batches = [src.stacked(TP_G, t, BATCH) for t in range(steps)]
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        state, losses, norms, step_ms, counts, mops = tp_train(
+            trainer, state, batches, LR, dev, record=name == "bf16")
+        run = {"losses": np.array(losses), "norms": np.stack(norms), "step_ms": step_ms,
+               "launches": counts, "replicated": replicated_leaves(trainer, state),
+               "peak_allocated_bytes": torch.cuda.max_memory_allocated(dev),
+               "row_elems": trainer.layout.size}
+        if name == "f32":
+            run["theta"] = tp_sampled(trainer, state.theta, per_leaf)
+            run["mom"] = tp_sampled(trainer, state.mom, per_leaf)
+        else:
+            ar = [op for op in mops if op.kind == "all_reduce"]
+            run["model_ops_a_step"] = len(mops) / steps
+            run["model_all_reduces_a_step"] = len(ar) / steps
+            run["model_bytes_a_step"] = sum(op.nbytes for op in mops) / steps
+            # one float32 activation all-reduce, as the row-parallel products issue it
+            x = torch.zeros(BATCH * SEQ * cfg.d_model, dtype=torch.float32, device=dev)
+            trainer.model_comm.all_reduce(x)
+            times = []
+            for _ in range(TP_ALLREDUCE_ITERS):
+                torch.cuda.synchronize(dev)
+                t1 = time.perf_counter()
+                trainer.model_comm.all_reduce(x)
+                torch.cuda.synchronize(dev)
+                times.append((time.perf_counter() - t1) * 1e3)
+            run["activation_all_reduce_ms"] = float(np.median(times))
+            del x
+        out[name] = run
+        del trainer, state
+        torch.cuda.empty_cache()
+    out["rank_s"] = time.perf_counter() - t0
+    return out
+
+
+def stacked_tp_reference(dev, sample, steps):
+    """Phase 37's reference: the stacked engine at G = TP_G with the same
+    mesh (one card: the model axis carries no device), granite-8b x2 in
+    float32 from the seed-0 weights: per-step losses and norms, θ and m on
+    the sampled columns."""
+    import numpy as np
+    import torch
+    from repro_torch.data import SyntheticLM
+
+    cfg = tp_granite_cfg(torch.float32)
+    trainer = tp_trainer(cfg, dev)
+    state = trainer.init_state(seed=0)
+    src = SyntheticLM(vocab=cfg.vocab, seq_len=SEQ, seed=0)
+    losses, norms = [], []
+    for t in range(steps):
+        state, loss, nrm = trainer.train_step(state, src.stacked(TP_G, t, BATCH), LR)
+        losses.append(loss.cpu().numpy())
+        norms.append(nrm.cpu().numpy())
+    idx = torch.as_tensor(sample, device=dev)
+    ref = {"losses": np.stack(losses), "norms": np.stack(norms),
+           "theta": state.theta[:, idx].cpu().numpy(), "mom": state.mom[:, idx].cpu().numpy()}
+    del trainer, state, idx
+    torch.cuda.empty_cache()
+    return ref
+
+
+def check_replicated(label, res):
+    """Every node's model ranks hold their replicated leaves bit for bit."""
+    import numpy as np
+
+    n = 0
+    for i in range(TP_G):
+        a = res[i * TP_M]
+        for j in range(1, TP_M):
+            b = res[i * TP_M + j]
+            if list(a) != list(b):
+                fail(f"{label}: node {i}'s ranks hold different replicated leaves")
+            for k in a:
+                if not np.array_equal(a[k], b[k]):
+                    fail(f"{label}: replicated leaf {k} differs between node {i}'s model "
+                         f"ranks 0 and {j}")
+                n += 1
+    return n
+
+
+def check_tp(res, ref, dev, layout):
+    """Phase 37's checks of the world's results (``res[r]``: rank r's
+    ``tp_rank_run``) against the stacked engine's ``ref``, and K2 on one
+    rank's shard row against its twin.  Returns (the phase's numbers, K2's
+    max abs error)."""
+    import numpy as np
+    import torch
+
+    want = {"gossip_program_update": 0, "gossip_update": TP_STEPS,
+            "segment_l2_norms": TP_STEPS, "flash_attention": 0}
+    worst = {"loss": 0.0, "theta": 0.0, "mom": 0.0, "norm_rel": 0.0}
+    for r, rank in enumerate(res):
+        i = r // TP_M
+        for name in ("f32", "bf16"):
+            if rank[name]["launches"] != want:
+                fail(f"phase 37 rank {r} ({name}): launches {rank[name]['launches']}, "
+                     f"expected {want}")
+            if not np.isfinite(rank[name]["losses"]).all():
+                fail(f"phase 37 rank {r} ({name}): non-finite losses")
+        f = rank["f32"]
+        d_loss = float(np.abs(f["losses"] - ref["losses"][:, i]).max())
+        d_theta = float(np.abs(f["theta"] - ref["theta"][i]).max())
+        d_mom = float(np.abs(f["mom"] - ref["mom"][i]).max())
+        rel = np.abs(f["norms"] - ref["norms"][:, i]) / np.abs(ref["norms"][:, i])
+        if max(d_loss, d_theta, d_mom) >= 5e-5 or not (rel <= 1e-5).all():
+            fail(f"phase 37 rank {r}: against the stacked engine losses {d_loss:.3e}, theta "
+                 f"{d_theta:.3e}, m {d_mom:.3e}, norms rel {float(rel.max()):.3e}")
+        worst = {"loss": max(worst["loss"], d_loss), "theta": max(worst["theta"], d_theta),
+                 "mom": max(worst["mom"], d_mom),
+                 "norm_rel": max(worst["norm_rel"], float(rel.max()))}
+    n_rep = check_replicated("phase 37 f32", [rk["f32"]["replicated"] for rk in res])
+    check_replicated("phase 37 bf16", [rk["bf16"]["replicated"] for rk in res])
+    # K2 on one rank's shard row (the bf16 run's row length) against its twin
+    p_row = res[0]["bf16"]["row_elems"]
+    theta0, grad1, nbrs, mom0, w_row = k2_inputs(dev, p_row)
+    err_k2 = k2_against_twin(theta0, grad1, nbrs, mom0, w_row)
+    del theta0, grad1, nbrs, mom0
+    torch.cuda.empty_cache()
+    b = [rk["bf16"] for rk in res]
+    out = {
+        "ranks": TP_G * TP_M, "mesh": {"data": TP_G, "model": TP_M},
+        "transport": res[0]["transport"], "cards": torch.cuda.device_count(),
+        "f32_vs_stacked": worst, "replicated_leaves_checked": n_rep,
+        "row_elems": p_row, "node_elems": layout.size,
+        "bf16_step_ms": [rk["step_ms"] for rk in b],
+        "f32_step_ms": [rk["f32"]["step_ms"] for rk in res],
+        "model_ops_a_step": b[0]["model_ops_a_step"],
+        "model_all_reduces_a_step": b[0]["model_all_reduces_a_step"],
+        "model_bytes_a_step": b[0]["model_bytes_a_step"],
+        "activation_all_reduce_ms": [rk["activation_all_reduce_ms"] for rk in b],
+        "peak_allocated_bytes": [int(rk["peak_allocated_bytes"]) for rk in b],
+        "launches": {k: sum(rk["f32"]["launches"][k] + rk["bf16"]["launches"][k] for rk in res)
+                     for k in want},
+        "k2_shard_row_max_abs_err": err_k2, "rank_s": max(rk["rank_s"] for rk in res),
+    }
+    log(f"phase 37: {TP_G} x {TP_M} ranks over {out['transport']}: float32 {TP_STEPS} "
+        f"steps against the stacked engine: losses {worst['loss']:.3e}, theta "
+        f"{worst['theta']:.3e}, m {worst['mom']:.3e}, norms rel {worst['norm_rel']:.3e}; "
+        f"{n_rep} replicated leaves bit for bit across model ranks; K2 {want['gossip_update']} "
+        f"and K3 {want['segment_l2_norms']} a rank a run; bf16 step ms per rank "
+        f"{[[round(x, 1) for x in ms] for ms in out['bf16_step_ms']]}; the model group's "
+        f"{out['model_all_reduces_a_step']:.0f} all-reduces a step "
+        f"({out['model_bytes_a_step'] / 2**20:.1f} MiB of operands), one activation "
+        f"all-reduce {[round(x, 2) for x in out['activation_all_reduce_ms']]} ms; peak "
+        f"{[round(x / 2**30, 2) for x in out['peak_allocated_bytes']]} GiB a rank; shard "
+        f"row {p_row:,} of {layout.size:,}; K2 on it within {err_k2:.3e} of its twin; "
+        f"{out['rank_s']:.1f} s on the ranks")
+    return out, err_k2
+
+
+def tp_ep_rank_run(comm, per_leaf, steps, ep_steps):
+    """Phases 37 and 38 on one rank of their shared (TP_G x TP_M) world."""
+    return {"tp": tp_rank_run(comm, per_leaf, steps), "ep": ep_rank_run(comm, ep_steps)}
+
+
+def phase_tp_ep(dev, done):
+    """The checks of phases 37 and 38, which ran in one world of TP_G x
+    TP_M ranks (NCCL with a card per rank, else gloo through pinned host
+    buffers on the one card).  ``done``: the stacked engine's float32
+    reference and ``apply_moe``'s, their seconds, the ranks' results and
+    seconds from ``rank_world``.  Returns (phase 37's numbers, phase 38's,
+    K2's max abs error on the shard row)."""
+    _, layout = granite_layout()
+    (ref37, want38, (t0, t1, t2)), res, world_s = done
+    t3 = t2 + world_s
+    t_check = time.perf_counter()
+    out37, err_k2 = check_tp([r["tp"] for r in res], ref37, dev, layout)
+    t4 = time.perf_counter()
+    out38 = check_ep([r["ep"] for r in res], want38)
+    out37["reference_s"], out38["reference_s"] = t1 - t0, t2 - t1
+    out37["world_s"] = out38["world_s"] = t3 - t2
+    out37["k2_check_s"] = t4 - t_check
+    log(f"phases 37-38: references {t1 - t0:.1f} + {t2 - t1:.1f} s, the world {t3 - t2:.1f} s "
+        f"(phase 37 {out37['rank_s']:.1f} s, phase 38 {out38['rank_s']:.1f} s on the ranks)")
+    return out37, out38, err_k2
+
+
+def run_rank_jobs(comm, jobs):
+    """Each ``(fn, args)`` of ``jobs`` in turn on this rank: [(fn(comm,
+    *args), seconds)]."""
+    out = []
+    for fn, args in jobs:
+        t0 = time.perf_counter()
+        out.append((fn(comm, *args), time.perf_counter() - t0))
+    return out
+
+
+RANK_PHASES = (9, 22, 24, "tp")
+
+
+def rank_world(dev, layout, sample, phases=RANK_PHASES):
+    """The rank halves of ``phases`` (of RANK_PHASES; "tp" is 37 and 38)
+    in one world of G ranks on ``dev``'s device (the card, or gloo ranks
+    on the CPU), so that its processes start once: the references of 22,
+    37 and 38 first (in this process), phase 24's file read on its sampled
+    columns and removed after.  Returns each phase's ``done`` argument."""
+    import shutil
+
+    import torch
+    from repro_torch.launch.comm import spawn_world
+
+    dev = torch.device(dev)
+    device = None if dev.type == "cuda" else dev.type
+    if "tp" in phases and TP_G * TP_M != G:
+        fail(f"phases 37-38 need a world of {TP_G * TP_M} ranks, the shared one has {G}")
+    for n, msg in ((22, PREDICT_22), (24, PREDICT_24), ("tp", PREDICT_37), ("tp", PREDICT_38)):
+        if n in phases:
+            log(msg)
+    refs, jobs = {}, {}
+    if 9 in phases:
+        jobs[9] = (rank_run, (sample, RANK_STEPS))
+    if 22 in phases:
+        refs[22] = stacked_fault_reference(dev, sample, FAULT_RANK_STEPS)
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        jobs[22] = (fault_rank_run, (sample, FAULT_RANK_STEPS))
+    if "tp" in phases:
+        t0 = time.perf_counter()
+        ref37 = stacked_tp_reference(dev, sample, TP_STEPS)
+        t1 = time.perf_counter()
+        want38 = ep_reference(dev)
+        refs["tp"] = (ref37, want38, (t0, t1, time.perf_counter()))
+        jobs["tp"] = (tp_ep_rank_run, (leaf_samples(layout, sample), TP_STEPS, EP_STEPS))
+    d = checkpoint_dir(state_bytes(layout)) if 24 in phases else None
+    try:
+        if d is not None:
+            jobs[24] = (resume_rank_run, (str(d), RANK_RESUME_STEPS, RANK_RESUME_CUT))
+        keys = [k for k in phases if k in jobs]
+        res = spawn_world(run_rank_jobs, G, ([jobs[k] for k in keys],),
+                          timeout=RANK_TIMEOUT + TP_TIMEOUT * ("tp" in phases), device=device)
+        if d is not None:
+            file24 = ranks_resume_file(d, layout, sample)
+    finally:
+        if d is not None:
+            shutil.rmtree(d, ignore_errors=True)
+    done = {k: ([r[i][0] for r in res], max(r[i][1] for r in res)) for i, k in enumerate(keys)}
+    log(f"phases {keys} ranks: {[round(done[k][1], 1) for k in keys]} s in one world of {G}")
+    for k, ref in refs.items():
+        done[k] = (ref,) + done[k]
+    if 24 in done:
+        done[24] = (done[24][0], file24, done[24][1])
+    return done
+
+
+def ep_layer(dev, experts):
+    """The phase 38 MoE layer at phi3.5-moe's width: the router and the
+    experts ``experts`` (each seeded by its index, float32), the input x
+    (EP_B, EP_S, d_model) and a seeded output weighting."""
+    import torch
+    from repro_torch.configs import get_config
+
+    cfg = get_config(EP_ARCH)
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts
+
+    def randn(shape, seed, std):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        return torch.randn(shape, generator=gen, device=dev) * std
+
+    params = {"router": randn((d, e), 380, 0.02)}
+    for n, (k, shape, std) in enumerate((("w_gate", (d, f), (2 / d) ** 0.5),
+                                         ("w_up", (d, f), (2 / d) ** 0.5),
+                                         ("w_down", (f, d), (2 / f) ** 0.5))):
+        params[k] = torch.stack([randn(shape, 1000 * (i + 1) + n, std) for i in experts])
+    x = randn((EP_B, EP_S, d), 381, 1.0)
+    w = randn((EP_B, EP_S, d), 382, 1.0)
+    return cfg, params, x, w
+
+
+def ep_rank_run(comm, steps):
+    """Phase 38 on one rank of the (TP_G x TP_M) world: the MoE layer with
+    this rank's experts over its node's model group (forward and backward,
+    float32), then phi3.5-moe x1 trained ``steps`` steps in bfloat16."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.comm import mesh_comms
+    from repro_torch.launch.tensor_parallel import ModelParallel
+    from repro_torch.models.moe import apply_moe_manual_ep
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = comm.device
+    t0 = time.perf_counter()
+    _, model = mesh_comms(comm, TP_G, TP_M)
+    cfg = zoo_cfg(EP_ARCH, 1)
+    e_local = cfg.n_experts // TP_M
+    experts = range(model.rank * e_local, (model.rank + 1) * e_local)
+    _, params, x, w = ep_layer(dev, experts)
+    params = {k: v.requires_grad_() for k, v in params.items()}
+    out, aux = apply_moe_manual_ep(params, x, top_k=cfg.top_k,
+                                   capacity_factor=cfg.capacity_factor, tp=ModelParallel(model))
+    ((out * w).sum() + cfg.aux_loss_weight * aux).backward()
+    layer = {"out": out.detach().cpu().numpy(), "aux": float(aux),
+             "expert_grad_max": {k: params[k].grad.abs().amax(dim=(1, 2)).cpu().numpy()
+                                 for k in ("w_gate", "w_up", "w_down")},
+             "experts": list(experts)}
+    del params, x, w, out, aux
+    torch.cuda.empty_cache()
+
+    from repro_torch.data import SyntheticLM
+
+    trainer = tp_trainer(cfg, dev)
+    state = trainer.init_state(seed=0)
+    src = SyntheticLM(vocab=cfg.vocab, seq_len=SEQ, seed=0)
+    batches = [src.stacked(TP_G, t, BATCH) for t in range(steps)]
+    torch.cuda.reset_peak_memory_stats(dev)
+    state, losses, _, step_ms, counts, _ = tp_train(trainer, state, batches, LR, dev)
+    train = {"losses": np.array(losses), "step_ms": step_ms, "launches": counts,
+             "replicated": replicated_leaves(trainer, state),
+             "peak_allocated_bytes": torch.cuda.max_memory_allocated(dev),
+             "row_elems": trainer.layout.size}
+    return {"layer": layer, "train": train, "transport": comm.transport,
+            "rank_s": time.perf_counter() - t0}
+
+
+def ep_reference(dev):
+    """Phase 38's reference: ``apply_moe`` on one rank holding every expert
+    of the layer (float32): (output, aux loss) on the host."""
+    import torch
+    from repro_torch.models.moe import apply_moe
+
+    cfg, params, x, _ = ep_layer(dev, range(zoo_cfg(EP_ARCH, 1).n_experts))
+    with torch.no_grad():
+        want, want_aux = apply_moe(params, x, top_k=cfg.top_k,
+                                   capacity_factor=cfg.capacity_factor)
+    out = (want.cpu().numpy(), float(want_aux))
+    del params, x, want
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_ep(res, want):
+    """Phase 38's checks: each rank's manual-EP layer against ``apply_moe``
+    (the reference's manual-EP bars: output atol 1e-5, aux 1e-6; every
+    expert a nonzero gradient), and phi3.5-moe x1's training (K2 and K3
+    once a step a rank, finite losses, replicated leaves bit for bit)."""
+    import numpy as np
+
+    cfg = zoo_cfg(EP_ARCH, 1)
+    want, want_aux = want
+    err_out = err_aux = 0.0
+    for r, rank in enumerate(res):
+        lay = rank["layer"]
+        err_out = max(err_out, float(np.abs(lay["out"] - want).max()))
+        err_aux = max(err_aux, abs(lay["aux"] - want_aux))
+        for k, g in lay["expert_grad_max"].items():
+            if not (g > 0).all():
+                fail(f"phase 38 rank {r}: experts {lay['experts']} {k} gradients {g.tolist()}")
+        tr = rank["train"]
+        if tr["launches"]["gossip_update"] != EP_STEPS or \
+                tr["launches"]["segment_l2_norms"] != EP_STEPS:
+            fail(f"phase 38 rank {r}: launches {tr['launches']}")
+        if not np.isfinite(tr["losses"]).all():
+            fail(f"phase 38 rank {r}: losses {tr['losses'].tolist()}")
+    if err_out >= 1e-5 or err_aux >= 1e-6:
+        fail(f"phase 38: manual EP against apply_moe: output {err_out:.3e} (bar 1e-5), aux "
+             f"{err_aux:.3e} (bar 1e-6)")
+    n_rep = check_replicated("phase 38", [rk["train"]["replicated"] for rk in res])
+    tr = [rk["train"] for rk in res]
+    out = {
+        "layer": {"tokens": EP_B * EP_S, "experts_a_rank": cfg.n_experts // TP_M,
+                  "max_abs_err": err_out, "aux_abs_err": err_aux},
+        "train_step_ms": [t["step_ms"] for t in tr],
+        "peak_allocated_bytes": [int(t["peak_allocated_bytes"]) for t in tr],
+        "row_elems": tr[0]["row_elems"], "replicated_leaves_checked": n_rep,
+        "launches": {k: sum(t["launches"][k] for t in tr) for k in tr[0]["launches"]},
+        "transport": res[0]["transport"], "rank_s": max(rk["rank_s"] for rk in res),
+    }
+    log(f"phase 38: the MoE layer ({EP_B * EP_S} tokens, {cfg.n_experts} experts, "
+        f"{cfg.n_experts // TP_M} a rank) against apply_moe: output {err_out:.3e}, aux "
+        f"{err_aux:.3e}, every expert a gradient; {cfg.name} x1 bf16 on {TP_G} x {TP_M} ranks "
+        f"over {out['transport']}: step ms per rank "
+        f"{[[round(x, 1) for x in t['step_ms']] for t in tr]}, peak "
+        f"{[round(t['peak_allocated_bytes'] / 2**30, 2) for t in tr]} GiB, {n_rep} replicated "
+        f"leaves bit for bit; {out['rank_s']:.1f} s on the ranks")
+    return out
+
+
+def train100m_runs(comm, argvs):
+    """Phase 39 on one rank: ``repro_torch.examples.train_100m.run`` for
+    each argument list in turn, in this world."""
+    from repro_torch.examples import train_100m
+
+    out = []
+    for argv in argvs:
+        r = train_100m.run(argv, comm=comm)
+        r.pop("trainer")
+        r.pop("state")
+        out.append(r)
+    return out
+
+
+def phase_train_100m(dev):
+    """Phase 39: the example's 100m preset on (4 data x 2 model) ranks: 20
+    steps uninterrupted and, in the same world, 10 steps that end in a
+    checkpoint; then a fresh world resumed from that checkpoint to step 20,
+    whose every rank's shard row must be the uninterrupted run's bit for
+    bit."""
+    import shutil
+
+    import numpy as np
+    from repro_torch.launch.comm import spawn_world
+
+    ckpt = CKPT_DIR / "p39"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    run = lambda steps, every, d: ["--preset", "100m", "--steps", str(steps), "--ckpt-every",
+                                   str(every), "--ckpt-dir", str(ckpt / d)]
+    t0 = time.perf_counter()
+    try:
+        world1 = spawn_world(train100m_runs, 8, ([run(P39_STEPS, 0, "full"),
+                                                  run(P39_CUT, P39_CUT, "cut")],),
+                             timeout=TP_TIMEOUT)
+        t1 = time.perf_counter()
+        world2 = spawn_world(train100m_runs, 8, ([run(P39_STEPS, 0, "cut")],),
+                             timeout=TP_TIMEOUT)
+        t2 = time.perf_counter()
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    want = {"gossip_update": P39_STEPS, "segment_l2_norms": P39_STEPS}
+    for r, (full, resumed) in enumerate(zip([w[0] for w in world1], [w[0] for w in world2])):
+        if full["start"] != 0 or resumed["start"] != P39_CUT:
+            fail(f"phase 39 rank {r}: started at steps {full['start']} and {resumed['start']}")
+        if not np.array_equal(full["theta"], resumed["theta"]):
+            fail(f"phase 39 rank {r}: the resumed shard row differs from the uninterrupted "
+                 f"run's by {float(np.abs(full['theta'] - resumed['theta']).max()):.3e}")
+        if full["losses"][P39_CUT:] != resumed["losses"]:
+            fail(f"phase 39 rank {r}: resumed losses differ")
+        if any(full["launches"][k] != v for k, v in want.items()):
+            fail(f"phase 39 rank {r}: launches {full['launches']}, expected {want}")
+        if not np.isfinite(full["losses"]).all():
+            fail(f"phase 39 rank {r}: losses {full['losses']}")
+    full = world1[0][0]
+    out = {
+        "preset": "100m", "n_params": full["n_params"], "mesh": {"data": 4, "model": 2},
+        "step_ms": [w[0]["step_ms"] for w in world1],
+        "median_step_ms": float(np.median([x for w in world1 for x in w[0]["step_ms"][1:]])),
+        "losses": full["losses"], "gini_first_last": full["gini"],
+        "launches": {k: sum(w[0]["launches"][k] for w in world1) for k in full["launches"]},
+        "world1_s": t1 - t0, "world2_s": t2 - t1,
+    }
+    log(f"phase 39: train_100m 100m preset ({full['n_params'] / 1e6:.1f}M) on 4 x 2 ranks: "
+        f"median step {out['median_step_ms']:.1f} ms, loss {full['losses'][0]:.4f} -> "
+        f"{full['losses'][-1]:.4f}; resumed at step {P39_CUT} in a fresh world == the "
+        f"uninterrupted run bit for bit on all 8 ranks; gini(param norms): first="
+        f"{full['gini'][0]:.5f} last={full['gini'][1]:.5f} (unrounded "
+        f"{full['gini'][0]!r}, {full['gini'][1]!r}); worlds {t1 - t0:.1f} + {t2 - t1:.1f} s")
+    return out
+
+
+# phases that run on their own with --phases (each needs only the kernels built)
+ALONE = (34, 37, 38, 39)
+
+
+def selected_phases(argv):
+    """``--phases 37,39``: run only these of ``ALONE`` after the build (a
+    debugging aid: the line of kernels and the result line are left out).
+    None (the default) runs every phase."""
+    if not argv:
+        return None
+    if len(argv) != 2 or argv[0] != "--phases":
+        fail(f"usage: chip_smoke.py [--phases N,N,...] (N in {ALONE}); got {argv}")
+    chosen = tuple(int(x) for x in argv[1].split(","))
+    if not set(chosen) <= set(ALONE):
+        fail(f"--phases takes {ALONE}, got {chosen}")
+    return chosen
+
+
+def run_alone(dev, chosen, smi):
+    """The chosen phases of ``ALONE``, each printing its prediction first."""
+    _, layout = granite_layout()
+    out = {}
+    for n in chosen:
+        if n == 38 and 37 in chosen:
+            continue   # run with 37, in its world
+        t0 = time.perf_counter()
+        if n == 34:
+            log(PREDICT_34)
+            out[n] = phase_dryrun(dev)
+        elif n in (37, 38):
+            sample = sample_columns(layout)
+            out[37], out[38], _ = phase_tp_ep(dev, rank_world(dev, layout, sample, ("tp",))["tp"])
+            if 38 not in chosen:
+                del out[38]
+            if 37 not in chosen:
+                del out[37]
+            n = 37 if 37 in chosen else 38
+        else:
+            log(PREDICT_39)
+            out[n] = phase_train_100m(dev)
+        out[n]["wall_s"] = time.perf_counter() - t0
+        log(f"phase {n}: {out[n]['wall_s']:.1f} s on {smi}")
+    log("phases " + json.dumps({str(k): v for k, v in out.items()}, default=str))
+
+
 def main():
     import numpy as np
     import torch
 
+    chosen = selected_phases(sys.argv[1:])
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a CUDA card")
     if not (ROOT / "src" / "repro_torch").is_dir():
@@ -4490,6 +5166,9 @@ def main():
     _build.load_all()
     log(f"phase 1: built {list(_build.SOURCES)} in {time.perf_counter() - t0:.1f}s "
         f"into {_build.BUILD_DIR}")
+    if chosen is not None:
+        run_alone(dev, chosen, smi)
+        return
 
     # 2-3. kernels against their twins
     err_k1 = phase_k1_twin(dev)
@@ -4667,7 +5346,10 @@ def main():
     torch.cuda.empty_cache()
 
     # 9. the ranks engine: G ranks on this machine, against phase 4's rows
-    ranks9 = phase_ranks(layout, ref9, sample)
+    # the rank halves of phases 9, 22, 24, 37 and 38 share one world
+    shared = rank_world(dev, layout, sample)
+    torch.cuda.empty_cache()
+    ranks9 = phase_ranks(layout, ref9, sample, shared[9])
     torch.cuda.empty_cache()
 
     # 10. K4 against its twin on the reference kernel's sweep
@@ -4753,7 +5435,7 @@ def main():
     torch.cuda.empty_cache()
 
     # 22. the ranks engine under a crash with rejoin, against the stacked rows
-    ranks22 = phase_fault_ranks(sample)
+    ranks22 = phase_fault_ranks(sample, shared[22])
     torch.cuda.empty_cache()
 
     # 23. the stacked trainer checkpointed and resumed
@@ -4763,7 +5445,7 @@ def main():
     torch.cuda.empty_cache()
 
     # 24. the ranks engine checkpointed and resumed; its file against phase 4
-    ranks24 = phase_ranks_resume(layout, sample, step0, members23)
+    ranks24 = phase_ranks_resume(layout, sample, step0, members23, shared[24])
     del step0
     torch.cuda.empty_cache()
 
@@ -4834,6 +5516,23 @@ def main():
     log(f"phase 36: {tooling[36]['wall_s']:.1f} s on {smi}")
     torch.cuda.empty_cache()
 
+    # 37-39. tensor and expert parallelism inside a node (37 and 38 share
+    # one world); train_100m
+    tp = {}
+    t37 = time.perf_counter()
+    tp[37], tp[38], err_k2_tp = phase_tp_ep(dev, shared["tp"])
+    err_k2 = max(err_k2, err_k2_tp)
+    log(f"phases 37-38: {time.perf_counter() - t37:.1f} s on {smi}")
+    torch.cuda.empty_cache()
+    log(PREDICT_39)
+    t39 = time.perf_counter()
+    tp[39] = phase_train_100m(dev)
+    tp[39]["wall_s"] = time.perf_counter() - t39
+    log(f"phase 39: {tp[39]['wall_s']:.1f} s on {smi}")
+    for n in (37, 38, 39):
+        tp[n]["card"] = smi
+    torch.cuda.empty_cache()
+
     summary = {
         "card": smi,
         "model": f"{cfg.name} x{cfg.n_layers} layers, bf16, G={G}, seq {SEQ}, "
@@ -4869,6 +5568,9 @@ def main():
         "dryrun": tooling[34],
         "roofline_step": tooling[35],
         "shard_nodes": tooling[36],
+        "tensor_parallel": tp[37],
+        "expert_parallel": tp[38],
+        "train_100m": tp[39],
     }
     log("summary " + json.dumps(summary))
     # each kernel's launches on every main path that runs it
@@ -4890,7 +5592,10 @@ def main():
                                   "phase 35": launches35["gossip_program_update"]},
         "gossip_update": {"phase 9": ranks9["launches"]["gossip_update"],
                           "phase 22": ranks22["launches"]["gossip_update"],
-                          "phase 24": ranks24["launches"]["gossip_update"]},
+                          "phase 24": ranks24["launches"]["gossip_update"],
+                          "phase 37": tp[37]["launches"]["gossip_update"],
+                          "phase 38": tp[38]["launches"]["gossip_update"],
+                          "phase 39": tp[39]["launches"]["gossip_update"]},
         "segment_l2_norms": {"phase 4": counts["segment_l2_norms"],
                              "phase 9": ranks9["launches"]["segment_l2_norms"],
                              "phase 13": launches13["segment_l2_norms"],
@@ -4914,7 +5619,10 @@ def main():
                              "phase 31": mixed[31]["launches"]["segment_l2_norms"],
                              "phase 32": mixed[32]["launches"]["segment_l2_norms"],
                              "phase 35": launches35["segment_l2_norms"],
-                             "phase 36": launches36["segment_l2_norms"]},
+                             "phase 36": launches36["segment_l2_norms"],
+                             "phase 37": tp[37]["launches"]["segment_l2_norms"],
+                             "phase 38": tp[38]["launches"]["segment_l2_norms"],
+                             "phase 39": tp[39]["launches"]["segment_l2_norms"]},
         "flash_attention": {"phase 12": k4_launches},
     }
     kernels = [

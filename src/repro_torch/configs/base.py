@@ -3,11 +3,13 @@
 ``ArchConfig`` keeps the reference's fields and ``reduced()`` rule (the
 CPU smoke-test variant of the same family: ≤2 layers, d_model ≤ 256,
 float32); only ``dtype`` is a torch dtype here.  The layout knobs of the
-reference's model axis (``pad_heads``/``pad_kv``, ``moe_shard_ff``,
-``moe_buf_constraint``) are kept and change nothing on one card: head
-padding at a tensor-parallel size of 1 pads no head; ``scan_layers`` is
-the reference's ``lax.scan`` over layers, a Python loop here either way;
-``moe_impl="manual_ep"`` (explicit expert-parallel collectives) raises.  ``InputShape`` and
+reference's model axis: ``pad_heads``/``pad_kv`` pad the heads at the
+mesh's tensor-parallel size (``models/transformer.attn_dims``; nothing at
+1); ``moe_impl="manual_ep"`` runs the explicit expert-parallel schedule
+(``models/moe.apply_moe_manual_ep``); ``moe_buf_constraint`` pins a GSPMD
+buffer and changes nothing here; ``moe_shard_ff`` (the G = 1 placement)
+raises, ROADMAP queue 1 item 8d.  ``scan_layers`` is the reference's
+``lax.scan`` over layers, a Python loop here either way.  ``InputShape`` and
 ``SHAPES`` are the reference's benchmark inputs (serving reads their
 context lengths); ``input_specs`` gives a step's data inputs at a shape as
 ``meta`` tensors, the stand-ins the dry run (``launch/dryrun.py``) builds
@@ -60,9 +62,9 @@ class ArchConfig:
     scan_layers: bool = True
     remat: bool = True           # checkpoint every layer (the reference's default)
     remat_policy: str = "full"   # full | dots (keep the matrix products' outputs)
-    moe_shard_ff: bool = False   # layout only: expert d_ff over the data axis
+    moe_shard_ff: bool = False   # expert d_ff over the data axis (raises: item 8d)
     moe_buf_constraint: bool = False  # layout only: pin the dispatch buffer
-    moe_impl: str = "gather"     # gather | manual_ep (raises: not ported)
+    moe_impl: str = "gather"     # gather | manual_ep
     dtype: Any = torch.bfloat16
     # citation for the config numbers
     source: str = ""

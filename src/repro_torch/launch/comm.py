@@ -20,6 +20,14 @@ device the rank computes on:
 dry run's stand-in (``launch/dryrun.py``), which records and bills every
 collective and moves no data.
 
+A ``Comm`` may be one of a sub-group (``mesh_comms``): a node's model
+group or a shard index's gossip group of a data × model world (the
+tensor-parallel ranks engine).  Its ``rank`` and ``world`` are then the
+group's, every collective runs on the group, and a permute's, gather's or
+scatter's group-local ranks are mapped to the global ones.  Sub-groups
+also ``all_reduce`` (sum or max) and ``all_gather`` along a dim, the
+tensor-parallel forward's collectives (``launch/tensor_parallel.py``).
+
 ``rank_device`` picks a rank's device and backend the same way for every
 launcher, and ``spawn_world`` runs a function on every rank of a fresh
 world on this machine (file-store rendezvous, hard timeout).
@@ -47,8 +55,8 @@ import torch.distributed as dist
 
 from repro_torch.kernels import cost
 
-__all__ = ["Comm", "CollectiveOp", "RecordingComm", "rank_device", "spawn_world",
-           "CHUNK_BYTES"]
+__all__ = ["Comm", "CollectiveOp", "RecordingComm", "mesh_comms", "rank_device",
+           "spawn_world", "CHUNK_BYTES"]
 
 # bytes per staged gloo message: bounds the pinned host buffers and keeps
 # each message far below gloo's 2 GiB limit
@@ -75,26 +83,35 @@ def rank_device(local_rank: int, local_world: int, device=None) -> tuple[torch.d
 @dataclasses.dataclass(frozen=True)
 class CollectiveOp:
     """One collective a rank issued: ``kind`` (``permute``, ``pmean``,
-    ``all_gather``, ``gather_host``, ``scatter_host``), ``pairs`` (a
-    permute's (src, dst) pairs, every rank's; () for the others, which
-    every rank joins) and ``nbytes`` (this rank's operand)."""
+    ``all_reduce``, ``all_gather``, ``gather_host``, ``scatter_host``),
+    ``pairs`` (a permute's (src, dst) pairs, every rank's, in the group's
+    ranks; () for the others, which every rank joins), ``nbytes`` (this
+    rank's operand) and ``world`` (the size of the group it ran on; 0
+    where the record does not say)."""
 
     kind: str
     pairs: tuple
     nbytes: int
+    world: int = 0
 
 
 class Comm:
-    """This rank's view of the initialised default ``torch.distributed``
-    group; ``device`` is the device the rank computes on."""
+    """This rank's view of an initialised ``torch.distributed`` group (the
+    default group, or ``group`` from ``dist.new_group``); ``device`` is the
+    device the rank computes on."""
 
-    def __init__(self, device):
+    def __init__(self, device, group=None):
         if not dist.is_initialized():
             raise RuntimeError("torch.distributed is not initialised")
         self.device = torch.device(device)
-        self.rank = dist.get_rank()
-        self.world = dist.get_world_size()
-        backend = dist.get_backend()
+        self.group = group
+        if group is None:
+            self.ranks = tuple(range(dist.get_world_size()))
+        else:
+            self.ranks = tuple(dist.get_process_group_ranks(group))
+        self.rank = self.ranks.index(dist.get_rank())
+        self.world = len(self.ranks)
+        backend = dist.get_backend(group)
         if backend == "nccl":
             if self.device.type != "cuda":
                 raise ValueError(f"NCCL needs a CUDA device, got {self.device}")
@@ -108,7 +125,7 @@ class Comm:
         if self.transport == "nccl":
             # bring the communicator up with every rank taking part: a first
             # batched send/receive in which some ranks idle would not
-            dist.all_reduce(torch.zeros(1, device=self.device))
+            dist.all_reduce(torch.zeros(1, device=self.device), group=group)
 
     @contextlib.contextmanager
     def recording(self):
@@ -123,7 +140,8 @@ class Comm:
     def _note(self, kind: str, x: torch.Tensor, pairs=()) -> None:
         if self.ops is None and not cost._ACTIVE:
             return
-        op = CollectiveOp(kind, tuple(tuple(p) for p in pairs), x.numel() * x.element_size())
+        op = CollectiveOp(kind, tuple(tuple(p) for p in pairs), x.numel() * x.element_size(),
+                          self.world)
         if self.ops is not None:
             self.ops.append(op)
         cost.bill_collective(op, self.world)
@@ -194,39 +212,53 @@ class Comm:
     def _exchange(self, send, dst, recv, src) -> None:
         ops = []
         if send is not None:
-            ops.append(dist.P2POp(dist.isend, send, dst))
+            ops.append(dist.P2POp(dist.isend, send, self.ranks[dst], self.group))
         if recv is not None:
-            ops.append(dist.P2POp(dist.irecv, recv, src))
+            ops.append(dist.P2POp(dist.irecv, recv, self.ranks[src], self.group))
         for req in dist.batch_isend_irecv(ops):
             req.wait()
 
     # -- all-reduce and all-gather ---------------------------------------------
-    def pmean(self, x: torch.Tensor) -> torch.Tensor:
-        """Mean over the ranks, IN PLACE (sum, then divide by ``world``);
-        returns ``x``."""
-        self._check(x)
-        self._note("pmean", x)
+    def _reduce(self, x: torch.Tensor, op) -> None:
         if self.transport == "gloo-host":
             flat = x.view(-1)
             buf = self._host_buffers(x.dtype)[0]
             for a, b in self._chunks(x.numel(), x.dtype):
                 h = buf[: b - a]
                 h.copy_(flat[a:b])
-                dist.all_reduce(h)
+                dist.all_reduce(h, op=op, group=self.group)
                 flat[a:b].copy_(h)
         else:
-            dist.all_reduce(x)
+            dist.all_reduce(x, op=op, group=self.group)
+
+    def pmean(self, x: torch.Tensor) -> torch.Tensor:
+        """Mean over the ranks, IN PLACE (sum, then divide by ``world``);
+        returns ``x``."""
+        self._check(x)
+        self._note("pmean", x)
+        self._reduce(x, dist.ReduceOp.SUM)
         return x.div_(self.world)
 
-    def all_gather(self, x: torch.Tensor) -> torch.Tensor:
-        """(world, *x.shape): every rank's ``x``, in rank order."""
+    def all_reduce(self, x: torch.Tensor, op: str = "sum") -> torch.Tensor:
+        """Sum (or ``op="max"``) over the ranks, IN PLACE; returns ``x``.
+        Every rank receives the same bits."""
+        if op not in ("sum", "max"):
+            raise ValueError(f"all_reduce op must be 'sum' or 'max', got {op!r}")
+        self._check(x)
+        self._note("all_reduce", x)
+        self._reduce(x, dist.ReduceOp.SUM if op == "sum" else dist.ReduceOp.MAX)
+        return x
+
+    def all_gather(self, x: torch.Tensor, dim: Optional[int] = None) -> torch.Tensor:
+        """(world, *x.shape): every rank's ``x``, in rank order; with ``dim``,
+        the ranks' tensors concatenated along that dim instead."""
         self._check(x)
         self._note("all_gather", x)
         out = torch.empty((self.world,) + tuple(x.shape), dtype=x.dtype, device=x.device)
         if self.transport == "nccl":
-            dist.all_gather_into_tensor(out, x)
+            dist.all_gather_into_tensor(out, x, group=self.group)
         elif self.transport == "gloo":
-            dist.all_gather(list(out.unbind(0)), x)
+            dist.all_gather(list(out.unbind(0)), x, group=self.group)
         else:
             flat, rows = x.view(-1), out.view(self.world, -1)
             send_buf, recv_buf = self._host_buffers(x.dtype)
@@ -236,9 +268,9 @@ class Comm:
                 s = send_buf[: b - a]
                 r = recv_buf[: self.world * (b - a)].view(self.world, b - a)
                 s.copy_(flat[a:b])
-                dist.all_gather(list(r.unbind(0)), s)
+                dist.all_gather(list(r.unbind(0)), s, group=self.group)
                 rows[:, a:b].copy_(r)
-        return out
+        return out if dim is None else _concat(out, dim)
 
     def rank0_value(self, value: int) -> int:
         """Rank 0's integer ``value`` on every rank (one ``all_gather``)."""
@@ -274,14 +306,16 @@ class Comm:
         out = torch.empty((self.world, x.numel()), dtype=x.dtype) if mine else None
         for a, b in self._rows_chunks(x.numel()):
             if self.transport == "gloo":
-                dist.gather(x[a:b], list(out[:, a:b].unbind(0)) if mine else None, dst=dst)
+                dist.gather(x[a:b], list(out[:, a:b].unbind(0)) if mine else None,
+                            dst=self.ranks[dst], group=self.group)
                 continue
             send = x[a:b]
             if self.transport == "gloo-host":
                 send = self._host_buffers(torch.uint8)[0][: b - a]
                 send.copy_(x[a:b])
             rows = self._staged_rows(b - a) if mine else None
-            dist.gather(send, list(rows.unbind(0)) if mine else None, dst=dst)
+            dist.gather(send, list(rows.unbind(0)) if mine else None, dst=self.ranks[dst],
+                        group=self.group)
             if mine:
                 out[:, a:b].copy_(rows)
         return None if out is None else out.view(dtype)
@@ -303,7 +337,7 @@ class Comm:
         for a, b in self._rows_chunks(flat.numel()):
             if self.transport == "gloo":
                 parts = [r.contiguous() for r in rows[:, a:b].unbind(0)] if mine else None
-                dist.scatter(flat[a:b], parts, src=src)
+                dist.scatter(flat[a:b], parts, src=self.ranks[src], group=self.group)
                 continue
             staged = None
             if mine:
@@ -312,7 +346,8 @@ class Comm:
             recv = flat[a:b]
             if self.transport == "gloo-host":
                 recv = self._host_buffers(torch.uint8)[0][: b - a]
-            dist.scatter(recv, list(staged.unbind(0)) if mine else None, src=src)
+            dist.scatter(recv, list(staged.unbind(0)) if mine else None,
+                         src=self.ranks[src], group=self.group)
             if self.transport == "gloo-host":
                 flat[a:b].copy_(recv)
         return out
@@ -332,6 +367,8 @@ class RecordingComm(Comm):
         if not 0 <= rank < world:
             raise ValueError(f"rank {rank} outside a world of {world}")
         self.device = torch.device(device)
+        self.group = None
+        self.ranks = tuple(range(world))
         self.rank = rank
         self.world = world
         self.transport = "none"
@@ -351,10 +388,16 @@ class RecordingComm(Comm):
         self._note("pmean", x)
         return x
 
-    def all_gather(self, x):
+    def all_reduce(self, x, op="sum"):
+        self._check(x)
+        self._note("all_reduce", x)
+        return x
+
+    def all_gather(self, x, dim=None):
         self._check(x)
         self._note("all_gather", x)
-        return x.new_empty((self.world,) + tuple(x.shape))
+        out = x.new_empty((self.world,) + tuple(x.shape))
+        return out if dim is None else _concat(out, dim)
 
     def rank0_value(self, value: int) -> int:
         self._note("all_gather", torch.empty(1, dtype=torch.float32, device="meta"))
@@ -365,6 +408,29 @@ class RecordingComm(Comm):
 
     def scatter_host(self, out, rows=None, src: int = 0):
         raise NotImplementedError("a RecordingComm holds no other rank's data")
+
+
+def _concat(stacked: torch.Tensor, dim: int) -> torch.Tensor:
+    """(world, *shape) -> the world's tensors concatenated along ``dim``."""
+    dim = dim % (stacked.dim() - 1)
+    return torch.cat(stacked.unbind(0), dim=dim)
+
+
+def mesh_comms(comm: Comm, data: int, model: int) -> tuple[Comm, Comm]:
+    """This rank's (gossip group, model group) of a data × model world laid
+    out row-major (global rank i·model + j is shard j of node i): the
+    gossip group of shard j holds ranks (·, j), the model group of node i
+    ranks (i, ·).  Every rank creates every group, in the same order (all
+    model groups, then all gossip groups), as ``dist.new_group`` needs."""
+    if comm.world != data * model or comm.group is not None:
+        raise ValueError(f"mesh_comms needs the whole world of {data} x {model} ranks; "
+                         f"got a group of {comm.world}")
+    model_groups = [dist.new_group([i * model + j for j in range(model)])
+                    for i in range(data)]
+    gossip_groups = [dist.new_group([i * model + j for i in range(data)])
+                     for j in range(model)]
+    i, j = divmod(comm.rank, model)
+    return Comm(comm.device, gossip_groups[j]), Comm(comm.device, model_groups[i])
 
 
 # ---------------------------------------------------------------------------

@@ -10,22 +10,25 @@ allocated, nothing computed — once, under the op accounting
 compile), so ``launch/roofline.py`` and ``launch/validate_dryrun.py`` read
 it unchanged.
 
-One node is one card.  A training record is one node's step: rank 0 of a
-G-rank world whose collectives a ``RecordingComm`` records and bills
-without moving data.  The meshes keep the reference's gossip-node counts:
-``single`` is G = 16 (``{"data": 16, "model": 1}``), ``multi`` G = 32
-(``{"pod": 2, "data": 16, "model": 1}``), and ``mini`` is the (2, 2)
-gossip grid of ``tests/spmd_dryrun_script.py`` (G = 4).  kimi-k2 gossips
-across pods only (the reference's ``launch/mesh.py`` rule, copied here
-until tensor parallelism is ported): G = 1 on ``single``, 2 on ``multi``.
-A serving record is one card's replica: the global batch split over the
-mesh's data axes when they divide it (the reference's ``_batch_axes``),
-else all of it on one card.  ``mesh_shape`` holds the node layout the
-record was built for, so per-device figures are per node.
+The meshes are the reference's production meshes (``launch/mesh.py``):
+``single`` is (16 data × 16 model), ``multi`` (2 pod × 16 data × 16
+model), and ``mini`` the (2, 2) gossip grid of
+``tests/spmd_dryrun_script.py`` (G = 4, no model axis).  Every non-model
+axis is a gossip axis (``gossip_axes_for``).  A training record is rank
+(0, 0)'s step of the tensor-parallel ranks engine: shard 0 of node 0,
+whose gossip and model-group collectives two ``RecordingComm``s record and
+bill without moving data, so ``argument_bytes`` and ``temp_bytes`` are
+per card and ``mesh_shape`` is the whole mesh.  Two kinds of record keep
+one unsharded node on one card, flagged with the ROADMAP queue 1 item
+they wait for (``waiting_for``): kimi-k2, whose replica needs a whole pod
+(G = 1 on ``single``, 2 on ``multi``: FSDP over the data axes, item 8d),
+and the ssm and hybrid families, whose tensor-parallel forward is item
+8b.  A serving record is one card's replica (serving on a model axis is
+item 8c): the global batch split over the mesh's data axes when they
+divide it (the reference's ``_batch_axes``), else all of it on one card.
 
-What one card cannot hold says so: the records show the bytes as they
-are (granite-8b's node state at full width is about 82 GB, kimi-k2's
-about 10 TB) until tensor parallelism splits a node.
+What one card cannot hold says so: the unsharded records show the bytes
+as they are (kimi-k2's node state is about 10 TB).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun \\
@@ -46,23 +49,19 @@ import time
 import traceback
 
 from repro_torch.launch.hlo_analysis import collective_stats
+from repro_torch.launch.mesh import gossip_axes_for, gossip_size
 
 __all__ = ["MESHES", "collective_stats", "gossip_axes_for", "run_one", "main"]
 
 MESHES = {
-    "single": {"data": 16, "model": 1},
-    "multi": {"pod": 2, "data": 16, "model": 1},
+    "single": {"data": 16, "model": 16},
+    "multi": {"pod": 2, "data": 16, "model": 16},
     "mini": {"pod": 2, "data": 2, "model": 1},
 }
 
-
-def gossip_axes_for(arch_name: str, mesh_shape: dict) -> tuple[str, ...]:
-    """Which mesh axes enumerate gossip nodes (``repro/launch/mesh.py``):
-    every non-"model" axis; kimi-k2, whose replica needs a whole pod,
-    gossips across pods only (() on a single pod: G = 1)."""
-    if arch_name.startswith("kimi-k2"):
-        return ("pod",) if "pod" in mesh_shape else ()
-    return tuple(a for a in mesh_shape if a != "model")
+# records that keep one unsharded node on one card, and what they wait for
+_WAIT_G1 = "ROADMAP queue 1 item 8d (G = 1: FSDP over the data axes)"
+_WAIT_FAMILY = "ROADMAP queue 1 item 8b (ssm and hybrid on a model axis)"
 
 
 def _apply_overrides(cfg, override: str):
@@ -94,9 +93,11 @@ def run_one(arch: str, shape, mesh_kind: str, topology: str = "d_ada",
     from repro_torch.configs.base import SHAPES, InputShape
     from repro_torch.core.dsgd import make_topology
     from repro_torch.launch.comm import RecordingComm
+    from repro_torch.launch.mesh import make_mesh
     from repro_torch.launch.roofline import TRANSPORT
     from repro_torch.launch.serve import ServeEngine
     from repro_torch.launch.train import SPMDTrainer
+    from repro_torch.models.transformer import TP_FAMILIES
     from repro_torch.optim.sgd import sgd
 
     cfg = _apply_overrides(get_config(arch), override)
@@ -113,12 +114,23 @@ def run_one(arch: str, shape, mesh_kind: str, topology: str = "d_ada",
         rec["tag"] = tag
     if shape.kind == "train":
         gx = gossip_axes_for(arch, mesh)
-        g = math.prod(mesh[a] for a in gx)
+        g = gossip_size(mesh, gx)
+        tp = mesh.get("model", 1)
+        if g == 1 and tp > 1:
+            rec["waiting_for"] = _WAIT_G1
+            tp = 1
+        elif cfg.family not in TP_FAMILIES and tp > 1:
+            rec["waiting_for"] = _WAIT_FAMILY
+            tp = 1
         topo = make_topology(topology if g > 2 else "d_ring", g)
         kw = {} if g == 1 else {"comm": RecordingComm(0, g)}
+        if tp > 1:
+            kw.update(model_comm=RecordingComm(0, tp),
+                      mesh=make_mesh((g, tp), ("data", "model")))
         trainer = SPMDTrainer(cfg, topo, sgd(momentum=0.9), mixing=mixing, device="meta",
                               **kw)
-        rec["mesh_shape"] = {a: (n if a in gx else 1) for a, n in mesh.items()}
+        rec["mesh_shape"] = {a: (n if a in gx or (a == "model" and tp > 1) else 1)
+                             for a, n in mesh.items()}
         rec["gossip_axes"] = list(gx)
         rec["gossip_nodes"] = g
         rec["topology"] = topo.name

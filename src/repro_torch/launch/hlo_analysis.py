@@ -18,9 +18,10 @@ keys of the reference's ``analyze_hlo``:
     bytes at each launch (``kernels/cost.py``);
   * ``wire_bytes``/``coll_counts``/``coll_ops``/``total_wire_bytes`` — from
     the collectives ``Comm`` issues (``launch/comm.py``), mapped to the
-    reference's kinds: ``permute`` → ``collective-permute``, ``pmean`` →
-    ``all-reduce`` (billed 2× on the wire, the ring schedule, as the
-    reference bills it), ``all_gather`` → ``all-gather`` (its result bytes);
+    reference's kinds: ``permute`` → ``collective-permute``, ``pmean`` and
+    a model group's ``all_reduce`` → ``all-reduce`` (billed 2× on the wire,
+    the ring schedule, as the reference bills it), ``all_gather`` →
+    ``all-gather`` (its result bytes);
 
 and, beyond the reference's keys, ``kernels`` (launches, bytes and
 operations of each of K1–K4), ``op_traffic`` (bytes by aten op, to name
@@ -66,7 +67,7 @@ COLLECTIVE_KINDS = (
 
 # Comm's collectives -> the reference's HLO kinds
 _COMM_KINDS = {"permute": "collective-permute", "pmean": "all-reduce",
-               "all_gather": "all-gather"}
+               "all_reduce": "all-reduce", "all_gather": "all-gather"}
 
 _DTYPE_BYTES = {
     "f64": 8, "s64": 8, "u64": 8, "f32": 4, "s32": 4, "u32": 4,
@@ -173,7 +174,8 @@ def collective_info(ops, world: int = 1) -> dict:
     """The reference's collective keys of a ``Comm`` op record of a world
     of ``world`` ranks: per kind the count, the op names (``"<comm
     kind>:<position>"``) and the wire bytes (a permute its operand, an
-    all-reduce twice it, an all-gather its result of ``world`` operands);
+    all-reduce twice it, an all-gather its result of the group's operands,
+    ``world`` where the op does not carry its group's size);
     host gathers and scatters (checkpoints) are not step collectives and
     are left out."""
     wire, counts, names = defaultdict(int), defaultdict(int), defaultdict(list)
@@ -182,7 +184,7 @@ def collective_info(ops, world: int = 1) -> dict:
         if kind is None:
             continue
         wire[kind] += {"all-reduce": 2 * op.nbytes,
-                       "all-gather": world * op.nbytes}.get(kind, op.nbytes)
+                       "all-gather": (op.world or world) * op.nbytes}.get(kind, op.nbytes)
         counts[kind] += 1
         names[kind].append(f"{op.kind}:{i}")
     return {

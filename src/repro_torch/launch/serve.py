@@ -39,7 +39,12 @@ DEFAULT_WINDOW = 8192  # sliding window for full-attention archs on long_500k
 class ServeEngine:
     """Prefill/decode steps and a generation loop for one architecture."""
 
-    def __init__(self, cfg: ArchConfig, device=None):
+    def __init__(self, cfg: ArchConfig, device=None, mesh=None):
+        """``mesh``: a ``launch/mesh.Mesh``; serving runs one replica on one
+        card, so a model axis > 1 raises (ROADMAP queue 1 item 8c)."""
+        if mesh is not None and mesh.shape.get("model", 1) > 1:
+            raise ValueError("serving on a mesh with a model axis > 1 (sharded weights "
+                             "and pad_kv caches) is not ported: ROADMAP queue 1 item 8c")
         self.cfg = cfg
         self.device = resolve_device(device)
 

@@ -103,6 +103,25 @@ k microbatches whose loss and gradients are averaged as the reference's
 buffer, on every path (fused or not, both engines).  The model's ``remat``
 checkpoints each layer (``models/transformer.py``).
 
+``mesh`` (a ``launch/mesh.Mesh``; None for ``{"data": G, "model": 1}``)
+places each node over a model axis of m ranks, the reference's tensor and
+expert parallelism inside a node.  On one card (stacked) the model axis
+carries no devices and only sets the model's padded heads (the reference's
+stacked GSPMD realization computes the padded model whole, masked).  On
+the ranks engine the world is G × m ranks (``launch/comm.mesh_comms``):
+rank (i, j) holds shard j of node i — each leaf sliced along the dim its
+validated spec puts on "model" (``launch/sharding.py``), the other leaves
+whole — and its flat state is that shard row.  Gossip (K2 included) runs
+on the shard rows between the ranks of one shard index, unchanged, since
+it is elementwise; the forward's collectives run over the node's model
+group (``launch/tensor_parallel.py``), which leaves every replicated leaf
+the same bits on every rank of a node.  Ξ and the DBench norms count a
+replicated leaf once and sum a sharded leaf's squares over the model
+group; checkpoints gather and scatter the shards (the file is the
+reference's: full padded leaves stacked over G).  On a model axis > 1 the
+ssm and hybrid families (item 8b), faults and elastic membership (item
+8e) raise, naming their ROADMAP queue 1 items.
+
 ``lower_step`` is the dry run of one step (``launch/dryrun.py``): this
 trainer's configuration run once on ``meta`` under the op accounting
 (``launch/hlo_analysis.py``), a ranks engine's collectives recorded by a
@@ -144,7 +163,7 @@ from repro_torch.core.buckets import (
 )
 from repro_torch.core.consensus import (
     consensus_distance_masked, consensus_distance_masked_shard,
-    consensus_distance_shard, consensus_distance_stacked,
+    consensus_distance_shard, consensus_distance_stacked, consensus_sq_shard,
 )
 from repro_torch.core.dsgd import Topology
 from repro_torch.core.faults import (
@@ -160,8 +179,12 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels.gossip_update import (
     fused_apply_shard, fused_apply_stacked, mix_in_place,
 )
-from repro_torch.launch.comm import Comm, RecordingComm, rank_device
+from repro_torch.launch.comm import Comm, RecordingComm, mesh_comms, rank_device
+from repro_torch.launch.mesh import Mesh, make_mesh
+from repro_torch.launch.sharding import leaf_sharding, shard_leaf, unshard
+from repro_torch.launch.tensor_parallel import ModelParallel
 from repro_torch.models import transformer as tfm
+from repro_torch.models.common import ParamDef
 from repro_torch.optim.sgd import Optimizer
 from repro_torch.telemetry import MetricsRecorder
 
@@ -208,7 +231,9 @@ class SPMDTrainer:
         telemetry=None,
         debug_no_retrace: bool = False,
         device=None,
+        mesh: Optional[Mesh] = None,
         comm: Optional[Comm] = None,
+        model_comm: Optional[Comm] = None,
     ):
         """loss_fn: ``loss_fn(params, batch)`` of one node's flat parameter
         dict and batch (the transformer's loss by default).  accum_steps:
@@ -234,7 +259,13 @@ class SPMDTrainer:
         unless the world size equals the topology's node count.  ``comm``
         (keyword only): the ``Comm`` of that rank, given in place of the
         process group's; the dry run gives a ``RecordingComm``, rank 0 of a
-        world that exists only on paper."""
+        world that exists only on paper.  ``mesh``: a ``launch/mesh.Mesh``
+        whose non-"model" axes hold the G gossip nodes and whose "model"
+        axis m splits each node (None: ``{"data": G, "model": 1}``); with
+        m > 1 a process group of G × m ranks runs the tensor-parallel ranks
+        engine, else the stacked engine pads the heads at m.
+        ``model_comm`` (keyword only, with ``comm``): the ``Comm`` of this
+        rank's model group (the dry run's ``RecordingComm``)."""
         if mixing not in ("ppermute", "dense"):
             raise ValueError(f"mixing must be 'ppermute'|'dense', got {mixing!r}")
         hyper = optimizer.hyper or {}
@@ -259,7 +290,8 @@ class SPMDTrainer:
         self.cfg = cfg
         self.topology = topology
         self.optimizer = optimizer
-        self.loss_fn = loss_fn or (lambda p, b: tfm.loss_fn(p, cfg, b))
+        # the model group is read at call time: the dry run swaps it
+        self.loss_fn = loss_fn or (lambda p, b: tfm.loss_fn(p, cfg, b, tp=self.tp))
         self.accum_steps = max(int(accum_steps), 1)
         self.beta = float(hyper.get("momentum", 0.0))
         self.collect_norms = collect_norms
@@ -270,19 +302,47 @@ class SPMDTrainer:
         self._update = torch.func.vmap(optimizer.update, in_dims=(0, 0, 0, None))
         self.g = topology.n_nodes
         self.device = resolve_device(device)
-        self.comm = comm
+        self.mesh = mesh if mesh is not None else make_mesh((self.g, 1), ("data", "model"))
+        self.tp_size = self.mesh.shape.get("model", 1)
+        if self.mesh.size // self.tp_size != self.g:
+            raise ValueError(f"topology has {self.g} nodes but the mesh {self.mesh.shape} "
+                             f"has {self.mesh.size // self.tp_size} gossip nodes")
+        self.comm, self.model_comm = comm, model_comm
+        self.world_comm = comm
         if comm is None and dist.is_available() and dist.is_initialized() \
                 and dist.get_world_size() > 1:
-            self.comm = Comm(self.device)
+            self.world_comm = Comm(self.device)
+            self.comm = self.world_comm
+            if self.tp_size > 1 and self.world_comm.world == self.mesh.size:
+                self.comm, self.model_comm = mesh_comms(self.world_comm, self.g,
+                                                        self.tp_size)
         if self.comm is not None:
             if self.comm.world != self.g:
                 raise ValueError(
                     f"topology has {self.g} nodes but the process group has "
                     f"{self.comm.world} ranks"
                 )
+            if self.tp_size > 1 and self.model_comm is None:
+                raise ValueError(
+                    f"a mesh with a model axis of {self.tp_size} needs a world of "
+                    f"{self.mesh.size} ranks (G × m), or a model_comm with comm"
+                )
         self.engine = "stacked" if self.comm is None else "ranks"
         self.rows = self.g if self.comm is None else 1
-        self.defs = tfm.model_defs(cfg)
+        self.full_defs = tfm.model_defs(cfg, self.tp_size)
+        # the tensor-parallel rank's view of its node's model group
+        self.tp = None
+        self.defs = self.full_defs
+        self.shardings = None
+        if self.model_comm is not None:
+            self._check_tp(cfg, topology)
+            self.tp = ModelParallel(self.model_comm)
+            node = make_mesh((self.tp_size,), ("model",))
+            self.shardings = {k: leaf_sharding(d.shape, d.spec, node, (), stacked=False)
+                              for k, d in self.full_defs.items()}
+            self.defs = {k: ParamDef(self.shardings[k].shard_shape(d.shape), d.init, d.dtype,
+                                     d.spec)
+                         for k, d in self.full_defs.items()}
         self.layout = FlatLayout.of_defs(self.defs)
         if bucket_mb is not None:
             check_bucketable(optimizer, topology)
@@ -310,6 +370,27 @@ class SPMDTrainer:
             # every rank joins the metrics steps' collectives: rank 0's
             # recorder (the one with sinks) sets the cadence for all
             self._metrics_every = self.comm.rank0_value(self._metrics_every)
+
+    @staticmethod
+    def _check_tp(cfg, topology) -> None:
+        """What a model axis > 1 on the ranks engine does not take yet."""
+        if cfg.family not in tfm.TP_FAMILIES:
+            raise ValueError(f"the ranks engine on a model axis > 1 for the {cfg.family} "
+                             "family is not ported: ROADMAP queue 1 item 8b")
+        if topology.fault_model is not None:
+            raise ValueError("faults and elastic membership on a model axis > 1 are not "
+                             "ported: ROADMAP queue 1 item 8e")
+
+    @property
+    def model_rank(self) -> int:
+        """This rank's index on its node's model axis (0 off a model axis)."""
+        return 0 if self.tp is None else self.tp.rank
+
+    def _replicated(self) -> list[bool]:
+        """Per leaf, whether the model axis leaves it whole."""
+        if self.shardings is None:
+            return [True] * len(self.layout.sizes)
+        return [self.shardings[k].dim_of("model") is None for k in self.defs]
 
     # -- mixing program -------------------------------------------------------
     def _one_program(self, step: int, epoch: int) -> Optional[GossipProgram]:
@@ -378,26 +459,52 @@ class SPMDTrainer:
     # -- state ----------------------------------------------------------------
     def init_state(self, seed: int = 0, params: Optional[dict] = None) -> TrainState:
         """Identical replicas on every node (paper §2.2): random weights from
-        ``seed``, or one replica's ``params`` (e.g. ``tfm.params_from_jax``)."""
+        ``seed``, or one replica's ``params`` (e.g. ``tfm.params_from_jax``:
+        the full tree, heads padded at the mesh's model size; numpy arrays
+        or tensors).  A tensor-parallel rank keeps its shard of each leaf."""
         if params is None:
             gen = torch.Generator(device=self.device)
             gen.manual_seed(seed)
-            params = tfm.init_model(self.cfg, gen, self.device)
+            params = tfm.init_model(self.cfg, gen, self.device, self.tp_size)
         theta = torch.empty((self.rows, self.layout.size),
                             dtype=self.layout.state_dtype, device=self.device)
         for name, view in self.layout.views(theta[0]).items():
-            if tuple(params[name].shape) != tuple(view.shape):
-                raise ValueError(
-                    f"{name}: shape {tuple(params[name].shape)} != {tuple(view.shape)}"
-                )
-            view.copy_(params[name])
+            leaf = torch.as_tensor(params[name])
+            want = self.full_defs[name].shape
+            if tuple(leaf.shape) != tuple(want):
+                raise ValueError(f"{name}: shape {tuple(leaf.shape)} != {tuple(want)}")
+            if self.shardings is not None:
+                leaf = shard_leaf(leaf, self.shardings[name], {"model": self.model_rank})
+            view.copy_(leaf)
         theta[1:].copy_(theta[:1].expand(self.rows - 1, -1))
         opt = opt_buffers(self.optimizer, self.layout, theta)
         return TrainState(theta, opt, 0)
 
     def stacked_params(self, state: TrainState) -> dict[str, torch.Tensor]:
-        """(rows, ...) views of every leaf of the state's parameters."""
+        """(rows, ...) views of every leaf of the state's parameters (a
+        tensor-parallel rank's: its shards)."""
         return self.layout.stacked_views(state.theta)
+
+    def full_params(self, state: TrainState) -> dict[str, torch.Tensor]:
+        """(rows, ...) full leaves of the state's parameters: on a
+        tensor-parallel rank its node's, the shards all-gathered over the
+        model group (every rank of the group must call it); else the views
+        of ``stacked_params``."""
+        return self.full_leaves(state.theta)
+
+    def full_leaves(self, buf: torch.Tensor) -> dict[str, torch.Tensor]:
+        """``full_params`` of any (rows, P) buffer of the layout (θ, the
+        momentum, a gradient)."""
+        views = self.layout.stacked_views(buf)
+        if self.tp is None:
+            return views
+        return {k: self._unshard_rows(k, self.model_comm.all_gather(v.contiguous()))
+                for k, v in views.items()}
+
+    def _unshard_rows(self, name: str, parts: torch.Tensor) -> torch.Tensor:
+        """(m, rows, ...) shards of a leaf, model rank order -> (rows, ...)."""
+        return torch.stack([unshard(list(parts[:, r]), self.shardings[name])
+                            for r in range(parts.shape[1])])
 
     # -- the step ------------------------------------------------------------------
     def _grads_into(self, theta, grad, batch) -> torch.Tensor:
@@ -419,7 +526,16 @@ class SPMDTrainer:
 
     def consensus_distance(self, state: TrainState, members=None) -> torch.Tensor:
         """Ξ of the state: over the stacked rows, or across the ranks; over
-        the ``members`` ((G,) 0/1 mask) only when given."""
+        the ``members`` ((G,) 0/1 mask) only when given.  On a
+        tensor-parallel rank each rank's ‖x_i − x̄‖² over its shard row
+        (replicated leaves on model rank 0 only) is summed over the model
+        group before the gossip group's mean."""
+        if self.tp is not None:
+            keep = [not whole or self.model_rank == 0 for whole in self._replicated()]
+            local = {k: v for (k, v), mine in zip(self.layout.views(state.theta[0]).items(),
+                                                  keep) if mine}
+            sq = self.model_comm.all_reduce(consensus_sq_shard(local, self.comm).reshape(1))
+            return self.comm.pmean(sq)[0].sqrt()
         if members is not None:
             if self.comm is None:
                 return consensus_distance_masked(state.theta, members)
@@ -490,7 +606,7 @@ class SPMDTrainer:
             bucket_grad = None   # the gradient buffer of a bucketed step
             with torch.no_grad():
                 norms = (
-                    dbench.param_l2_norms(state.theta, self.layout)
+                    self._norms(state.theta)
                     if self.collect_norms
                     else torch.zeros((self.rows, 0), dtype=torch.float32, device=self.device)
                 )
@@ -537,6 +653,17 @@ class SPMDTrainer:
             self._finish_round(losses, norms, t_start, step=state.step, mix=mix, lr=lr,
                                grads=bucket_grad)
         return TrainState(state.theta, state.opt, state.step + 1), losses, norms
+
+    def _norms(self, theta: torch.Tensor) -> torch.Tensor:
+        """The DBench probe (K3): per-leaf L2 norms of every row; on a
+        tensor-parallel rank a sharded leaf's squares summed over the model
+        group (one all-reduce), a replicated leaf's norm as it is."""
+        norms = dbench.param_l2_norms(theta, self.layout)
+        if self.tp is None:
+            return norms
+        sharded = torch.tensor([not r for r in self._replicated()], device=norms.device)
+        sq = self.model_comm.all_reduce(torch.where(sharded, norms.square(), 0.0))
+        return torch.where(sharded, sq.sqrt(), norms)
 
     def _note_step(self, program, *, faulty: bool, bucketed: bool, has_m: bool) -> bool:
         """Key this step as the reference keys its executables (the
@@ -620,19 +747,22 @@ class SPMDTrainer:
         its ``Comm`` for a ``RecordingComm`` of the same rank and world, an
         inert recorder takes the telemetry, and nothing of the run state
         (program keys, membership, a pending Ξ fold) is touched."""
-        saved = (self.device, self.comm, self.telemetry, self._step_cache,
-                 self._last_membership, self._fold, self._metrics_every)
+        saved = (self.device, self.comm, self.model_comm, self.tp, self.telemetry,
+                 self._step_cache, self._last_membership, self._fold, self._metrics_every)
         self.device = torch.device("meta")
         if self.comm is not None and not (isinstance(self.comm, RecordingComm)
                                           and self.comm.device.type == "meta"):
             self.comm = RecordingComm(self.comm.rank, self.comm.world)
+        if self.tp is not None and self.model_comm.device.type != "meta":
+            self.model_comm = RecordingComm(self.model_comm.rank, self.model_comm.world)
+            self.tp = ModelParallel(self.model_comm)
         self.telemetry, self._step_cache, self._fold = MetricsRecorder(), {}, XiFold()
         self._metrics_every = 0
         try:
             yield
         finally:
-            (self.device, self.comm, self.telemetry, self._step_cache,
-             self._last_membership, self._fold, self._metrics_every) = saved
+            (self.device, self.comm, self.model_comm, self.tp, self.telemetry,
+             self._step_cache, self._last_membership, self._fold, self._metrics_every) = saved
 
     def lower_step(self, shape, *, epoch: int = 0, step: int = 0) -> dict:
         """The dry run of one step (the reference's abstract lowering):
@@ -684,6 +814,8 @@ class SPMDTrainer:
             "last_membership": (None if self._last_membership is None
                                 else [bool(b) for b in self._last_membership]),
         }
+        if self.tp_size > 1:
+            d["run_config"]["model"] = int(self.tp_size)
         ctl = self.topology.controller
         if ctl is not None:
             d["controller"] = ctl.state_dict()
@@ -696,9 +828,14 @@ class SPMDTrainer:
     def restore_extra(self, d: dict) -> None:
         """Inverse of ``snapshot_extra`` on a freshly built trainer; the
         recorded ``run_config`` is validated first."""
-        validate_run_config(d.get("run_config") or {}, topology=self.topology.name,
+        run_config = d.get("run_config") or {}
+        validate_run_config(run_config, topology=self.topology.name,
                             n=int(self.g), bucket_mb=self.bucket_mb,
                             n_label="mesh gossip size")
+        if int(run_config.get("model", 1)) != self.tp_size:
+            raise ValueError(
+                f"resume config mismatch: model axis {run_config.get('model')} in the "
+                f"checkpoint, {self.tp_size} now")
         lm = d.get("last_membership")
         self._last_membership = None if lm is None else tuple(bool(b) for b in lm)
         ctl = self.topology.controller
@@ -719,6 +856,8 @@ class SPMDTrainer:
         if self.comm is None:
             return save_checkpoint(directory, state.step, tree, keep=keep,
                                    extra=self.snapshot_extra())
+        if self.tp is not None:
+            return self._save_sharded(directory, state, tree, keep)
         comm = self.comm
         gathered = map_leaves(
             lambda v: lambda: _gathered(comm.gather_host(v), v.shape[1:]), tree)
@@ -743,17 +882,19 @@ class SPMDTrainer:
             step = resolve_step(directory, step)
             self.restore_extra(load_checkpoint_extra(directory, step) or {})
             return restore_checkpoint(directory, self.checkpoint_tree(state), step)
-        comm = self.comm
+        comm = self.world_comm
         leaves = [(k, held(v)) for k, v in flatten(self.checkpoint_tree(state))]
+        names = self._leaf_names(state)
         head = [None, None, None]   # step, extra, a shape error
         if comm.rank == 0:
             head[0] = resolve_step(directory, step)
             head[1] = load_checkpoint_extra(directory, head[0]) or {}
             with zipfile.ZipFile(checkpoint_path(directory, head[0])) as zf:
                 shapes = leaf_shapes(zf)
-            bad = [f"checkpoint leaf {k}: shape {shapes.get(k)} != template "
-                   f"{(self.g,) + tuple(v.shape[1:])}" for k, v in leaves
-                   if shapes.get(k) != (self.g,) + tuple(v.shape[1:])]
+            want = {k: (self.g,) + self._full_shape(names.get(v.data_ptr()), v)
+                    for k, v in leaves}
+            bad = [f"checkpoint leaf {k}: shape {shapes.get(k)} != template {want[k]}"
+                   for k, v in leaves if shapes.get(k) != want[k]]
             head[2] = bad[0] if bad else None
         dist.broadcast_object_list(head, src=0)
         step, extra, bad = head
@@ -765,12 +906,69 @@ class SPMDTrainer:
             for key, v in leaves:
                 rows = None
                 if zf is not None:
-                    rows = read_leaf(zf, key, v.dtype).reshape(comm.world, -1)
+                    rows = self._shard_rows(read_leaf(zf, key, v.dtype),
+                                            names.get(v.data_ptr()))
                 comm.scatter_host(v, rows)
         finally:
             if zf is not None:
                 zf.close()
         return step
+
+    # -- the tensor-parallel ranks' checkpoint -------------------------------------
+    def _leaf_names(self, state: TrainState) -> dict:
+        """data_ptr -> parameter name of every per-leaf view of θ and the
+        optimizer's parameter-like slots (a (rows,) counter has none)."""
+        names = {}
+        for buf in [state.theta, *state.opt.values()]:
+            if buf.dim() == 2:
+                for name, view in self.layout.stacked_views(buf).items():
+                    names[view.data_ptr()] = name
+        return names
+
+    def _full_shape(self, name: Optional[str], v: torch.Tensor) -> tuple:
+        """A checkpoint leaf's per-node shape in the file: the full leaf."""
+        if name is None or self.shardings is None:
+            return tuple(v.shape[1:])
+        return tuple(self.full_defs[name].shape)
+
+    def _shard_rows(self, full: torch.Tensor, name: Optional[str]) -> torch.Tensor:
+        """A file leaf (G, *full) -> (world, local numel): the row of global
+        rank i·m + j is shard j of node i."""
+        rows = self.world_comm.world
+        if self.tp is None:
+            return full.reshape(rows, -1)
+        if name is None:   # a per-node leaf (AdamW's step count): every rank of the node
+            return full.repeat_interleave(self.tp_size, dim=0).reshape(rows, -1)
+        sh = self.shardings[name]
+        return torch.stack([shard_leaf(full[i], sh, {"model": j}).reshape(-1)
+                            for i in range(self.g) for j in range(self.tp_size)])
+
+    def _save_sharded(self, directory: str, state: TrainState, tree, keep: int):
+        """``save_checkpoint`` of a tensor-parallel world: every leaf gathered
+        to global rank 0's host memory and its shards put together into the
+        reference's full (G, ...) leaf; rank 0 alone writes."""
+        comm, names = self.world_comm, self._leaf_names(state)
+
+        def assemble(v):
+            def run():
+                rows = comm.gather_host(v)
+                if rows is None:
+                    return None
+                name = names.get(v.data_ptr())
+                parts = rows.view((self.g, self.tp_size) + tuple(v.shape[1:]))
+                if name is None or self.shardings is None:
+                    return parts[:, 0].contiguous()
+                return torch.stack([unshard(list(parts[i]), self.shardings[name])
+                                    for i in range(self.g)])
+            return run
+
+        gathered = map_leaves(assemble, tree)
+        if comm.rank == 0:
+            return save_checkpoint(directory, state.step, gathered, keep=keep,
+                                   extra=self.snapshot_extra())
+        for _, gather in flatten(gathered):
+            held(gather)()
+        return None
 
 
 def _gathered(rows: Optional[torch.Tensor], shape) -> Optional[torch.Tensor]:
@@ -787,8 +985,7 @@ def _parser():
     import argparse
 
     ap = argparse.ArgumentParser(
-        description="decentralized training launcher (PyTorch port; a model "
-                    "axis in --mesh is rejected until tensor parallelism is ported)"
+        description="decentralized training launcher (PyTorch port)"
     )
     ap.add_argument("--arch", default="granite-8b")
     ap.add_argument("--reduced", action="store_true",
@@ -860,8 +1057,10 @@ def _parser():
     ap.add_argument("--lr-scaling", default="sqrt", choices=["none", "linear", "sqrt"])
     ap.add_argument("--optimizer", default="sgd", choices=["sgd", "adamw", "lars"])
     ap.add_argument("--mesh", default="4,1",
-                    help="data,model: G gossip nodes (on one card, or one per "
-                         "rank under torch.distributed.run); model must be 1")
+                    help="data,model: G gossip nodes, each split over a model axis "
+                         "of m ranks (tensor and expert parallelism) under "
+                         "torch.distributed.run with G x m processes; on one "
+                         "card the G nodes are stacked and m pads the heads")
     ap.add_argument("--ckpt-dir", default="",
                     help="write checkpoints here (the reference's step_<n>.npz files)")
     ap.add_argument("--ckpt-every", type=int, default=0,
@@ -915,11 +1114,6 @@ def main(argv=None, *, device=None) -> dict:
     if len(shape) != 2:
         raise SystemExit(f"--mesh must be 'data,model', got {args.mesh!r}")
     g, tp = shape
-    if tp != 1:
-        raise SystemExit(
-            f"not ported yet:\n  --mesh {args.mesh}: a model axis > 1 (tensor "
-            "parallelism inside a node) comes after the queue, ROADMAP queue 1 item 8"
-        )
     if args.k_floor == "one_peer":
         k_floor = "one_peer"
     else:
@@ -977,10 +1171,11 @@ def _train(args, g, tp, k_floor, dev) -> dict:
         mixing=args.mixing, mix_every=args.mix_every,
         mix_rounds=args.mix_rounds, hub_balance=args.hub_balance,
         fused_apply=args.fused_apply, bucket_mb=args.bucket_mb, telemetry=recorder,
-        device=dev,
+        device=dev, mesh=make_mesh((g, tp), ("data", "model")),
     )
     comm = trainer.comm
-    say = print if comm is None or comm.rank == 0 else (lambda *a, **k: None)
+    rank0 = comm is None or trainer.world_comm.rank == 0
+    say = print if rank0 else (lambda *a, **k: None)
     trainer.telemetry.manifest({
         "engine": trainer.engine,
         "config": {k: v for k, v in sorted(vars(args).items())},
@@ -999,6 +1194,8 @@ def _train(args, g, tp, k_floor, dev) -> dict:
     if trainer._bucketed:
         apply_mode += f" | bucketed {args.bucket_mb}MiB"
     engine = "stacked" if comm is None else f"ranks | transport {comm.transport}"
+    if trainer.tp is not None:
+        engine += f" | tensor parallel x{tp}"
     say(topo.describe(), "| mesh", {"data": g, "model": tp}, "| mixing",
         args.mixing, "| engine", engine, "| rounds", args.mix_rounds, "| apply",
         apply_mode, "| optimizer", trainer.optimizer.name, "| device", dev)

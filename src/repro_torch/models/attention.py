@@ -27,6 +27,7 @@ from repro_torch.models.common import at_least_f32
 
 __all__ = [
     "head_padding",
+    "active_head_mask",
     "multihead_attention",
     "decode_attention",
     "cache_update",
@@ -39,8 +40,17 @@ _NEG_INF = -1e30
 def head_padding(n_heads: int, n_kv: int, tp: int, *, pad_kv: bool = False
                  ) -> tuple[int, int, int]:
     """The reference's grouped head padding for a ``tp``-way model axis:
-    (h_pad, kv_pad, group_pad) with h_pad = kv_pad · group_pad.  At tp = 1
-    nothing is padded: (n_heads, n_kv, n_heads // n_kv)."""
+    (h_pad, kv_pad, group_pad) with h_pad = kv_pad · group_pad.
+
+    Semantics stay exact: query head ``h`` maps to kv head ``h //
+    group_pad``; a head is *active* iff its kv index is an original kv head
+    and its within-group index is below the original group size — padded
+    heads are masked out of the output (``active_head_mask``), so the
+    original parameters' values and gradients are untouched.  The default
+    grows the group until kv · g_pad divides by tp (query heads shard, kv
+    stays); ``pad_kv`` also pads kv to a multiple of tp (the KV caches
+    shard on the kv-head dim).  At tp = 1 nothing is padded: (n_heads,
+    n_kv, n_heads // n_kv)."""
     group = n_heads // max(n_kv, 1)
     kv_pad = n_kv
     if pad_kv and n_kv % tp:
@@ -49,6 +59,14 @@ def head_padding(n_heads: int, n_kv: int, tp: int, *, pad_kv: bool = False
     while (kv_pad * g_pad) % tp:
         g_pad += 1
     return kv_pad * g_pad, kv_pad, g_pad
+
+
+def active_head_mask(n_heads: int, n_kv: int, h_pad: int, kv_pad: int, g_pad: int,
+                     device=None) -> torch.Tensor:
+    """(h_pad,) bool — True for the original heads under the padded grouping."""
+    group = n_heads // max(n_kv, 1)
+    idx = torch.arange(h_pad, device=device)
+    return ((idx // g_pad) < n_kv) & ((idx % g_pad) < group)
 
 
 def _mask(

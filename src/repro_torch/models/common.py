@@ -7,8 +7,9 @@ explicit ``torch.Generator`` (their bits differ from ``jax.random``'s —
 parity tests carry the reference's weights across instead).
 ``flatten_tree`` names a nested tree's leaves by their dotted paths in
 ``jax.tree.leaves``' order (keys sorted at each level, depth first), the
-order of the engines' flat state.  Mesh partition specs are not ported:
-the port holds all gossip nodes on one card.
+order of the engines' flat state.  Each ``ParamDef`` carries its logical
+partition spec (entries None or "model", as the reference's), which
+``launch/sharding.py`` validates for a mesh and ``spec_tree`` collects.
 """
 from __future__ import annotations
 
@@ -22,6 +23,7 @@ __all__ = [
     "ParamDef",
     "init_params",
     "abstract_params",
+    "spec_tree",
     "param_count",
     "flatten_tree",
     "unflatten_tree",
@@ -74,11 +76,22 @@ def ones_init() -> Initializer:
 
 @dataclasses.dataclass(frozen=True)
 class ParamDef:
-    """Declaration of one weight tensor."""
+    """Declaration of one weight tensor.
+
+    spec: logical partition per dim — entries None or mesh-axis names (only
+      "model" at the module level); len(spec) == len(shape), all None when
+      not given."""
 
     shape: tuple[int, ...]
     init: Initializer = normal_init()
     dtype: Any = torch.float32
+    spec: tuple = ()
+
+    def __post_init__(self):
+        if not self.spec:
+            object.__setattr__(self, "spec", (None,) * len(self.shape))
+        if len(self.spec) != len(self.shape):
+            raise ValueError(f"spec {self.spec} rank != shape {self.shape}")
 
 
 def flatten_tree(tree: Mapping, prefix: str = "") -> dict[str, Any]:
@@ -131,6 +144,12 @@ def abstract_params(defs: Mapping, dtype=None) -> dict:
                 else torch.empty(v.shape, dtype=dtype if dtype is not None else v.dtype,
                                  device="meta"))
             for k, v in defs.items()}
+
+
+def spec_tree(defs: Mapping) -> dict:
+    """The logical partition-spec tree (a tuple per leaf), in the structure
+    of ``defs``."""
+    return {k: (spec_tree(v) if isinstance(v, Mapping) else v.spec) for k, v in defs.items()}
 
 
 def param_count(tree: Mapping) -> int:

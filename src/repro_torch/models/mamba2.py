@@ -65,18 +65,18 @@ def mamba_block_defs(d_model: int, d_state: int, *, expand: int = 2,
     h = d_inner // _HEAD_P
     return {
         "norm_g": ParamDef((d_model,), ones_init(), dtype),
-        "w_z": ParamDef((d_model, d_inner), he_normal((-2,)), dtype),
-        "w_x": ParamDef((d_model, d_inner), he_normal((-2,)), dtype),
+        "w_z": ParamDef((d_model, d_inner), he_normal((-2,)), dtype, (None, "model")),
+        "w_x": ParamDef((d_model, d_inner), he_normal((-2,)), dtype, (None, "model")),
         "w_b": ParamDef((d_model, d_state), he_normal((-2,)), dtype),
         "w_c": ParamDef((d_model, d_state), he_normal((-2,)), dtype),
         "w_dt": ParamDef((d_model, h), he_normal((-2,)), dtype),
         "dt_bias": ParamDef((h,), zeros_init(), dtype),
-        "conv_w": ParamDef((_CONV_K, d_inner), normal_init(0.2), dtype),
-        "conv_b": ParamDef((d_inner,), zeros_init(), dtype),
+        "conv_w": ParamDef((_CONV_K, d_inner), normal_init(0.2), dtype, (None, "model")),
+        "conv_b": ParamDef((d_inner,), zeros_init(), dtype, ("model",)),
         "a_log": ParamDef((h,), _a_init, torch.float32),
         "d_skip": ParamDef((h,), ones_init(), torch.float32),
-        "gn_g": ParamDef((d_inner,), ones_init(), dtype),
-        "w_out": ParamDef((d_inner, d_model), he_normal((-2,)), dtype),
+        "gn_g": ParamDef((d_inner,), ones_init(), dtype, ("model",)),
+        "w_out": ParamDef((d_inner, d_model), he_normal((-2,)), dtype, ("model", None)),
     }
 
 

@@ -11,15 +11,22 @@ __all__ = ["mlp_defs", "apply_mlp"]
 
 
 def mlp_defs(d_model: int, d_ff: int, *, gated: bool = True, dtype=torch.float32):
-    """Up-projections and down-projection, keyed in reference leaf order."""
-    defs = {"w_down": ParamDef((d_ff, d_model), he_normal((-2,)), dtype)}
+    """Column-parallel up-projections, row-parallel down-projection, keyed
+    in reference leaf order."""
+    defs = {"w_down": ParamDef((d_ff, d_model), he_normal((-2,)), dtype, ("model", None))}
     if gated:
-        defs["w_gate"] = ParamDef((d_model, d_ff), he_normal((-2,)), dtype)
-    defs["w_up"] = ParamDef((d_model, d_ff), he_normal((-2,)), dtype)
+        defs["w_gate"] = ParamDef((d_model, d_ff), he_normal((-2,)), dtype, (None, "model"))
+    defs["w_up"] = ParamDef((d_model, d_ff), he_normal((-2,)), dtype, (None, "model"))
     return defs
 
 
-def apply_mlp(params, x: torch.Tensor, *, act: str = "silu") -> torch.Tensor:
+def apply_mlp(params, x: torch.Tensor, *, act: str = "silu", tp=None) -> torch.Tensor:
+    """``tp``: the node's model group (``launch/tensor_parallel.py``) when
+    the params are its rank's shards (d_ff split): the replicated ``x``
+    enters the column-parallel up-projections and the row-parallel
+    down-projection's partial sums are all-reduced."""
+    if tp is not None:
+        x = tp.enter(x)
     up = torch.einsum("bsd,df->bsf", x, params["w_up"])
     fn = F.silu if act == "silu" else (lambda t: F.gelu(t, approximate="tanh"))
     if "w_gate" in params:
@@ -27,4 +34,5 @@ def apply_mlp(params, x: torch.Tensor, *, act: str = "silu") -> torch.Tensor:
         h = fn(gate) * up
     else:
         h = fn(up)
-    return torch.einsum("bsf,fd->bsd", h, params["w_down"])
+    out = torch.einsum("bsf,fd->bsd", h, params["w_down"])
+    return out if tp is None else tp.reduce(out)

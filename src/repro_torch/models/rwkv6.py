@@ -51,7 +51,8 @@ class RWKVState(NamedTuple):
 def rwkv_block_defs(d_model: int, n_heads: int, d_ff: int, dtype=torch.float32) -> dict:
     d, h = d_model, n_heads
     n = d // h
-    lin = lambda i, o: ParamDef((i, o), he_normal((-2,)), dtype)
+    lin = lambda i, o: ParamDef((i, o), he_normal((-2,)), dtype, (None, "model"))
+    row = lambda i, o, spec: ParamDef((i, o), he_normal((-2,)), dtype, spec)
     vec1 = lambda init: ParamDef((d,), init, dtype)
     return {
         "ln1_g": vec1(ones_init()),
@@ -64,7 +65,7 @@ def rwkv_block_defs(d_model: int, n_heads: int, d_ff: int, dtype=torch.float32) 
             "w_k": lin(d, d),
             "w_v": lin(d, d),
             "w_g": lin(d, d),
-            "w_o": lin(d, d),
+            "w_o": row(d, d, ("model", None)),
             "decay_w0": vec1(zeros_init()),
             "decay_a": ParamDef((d, _LORA_RANK), normal_init(0.02), dtype),
             "decay_b": ParamDef((_LORA_RANK, d), zeros_init(), dtype),
@@ -75,8 +76,8 @@ def rwkv_block_defs(d_model: int, n_heads: int, d_ff: int, dtype=torch.float32) 
         "channel_mix": {
             "mu": ParamDef((2, d), normal_init(0.1), dtype),
             "w_k": lin(d, d_ff),
-            "w_v": lin(d_ff, d),
-            "w_r": lin(d, d),
+            "w_v": row(d_ff, d, ("model", None)),
+            "w_r": row(d, d, (None, None)),
         },
     }
 

@@ -36,6 +36,25 @@ run the saved-tensor hooks it needs; there the blocks run as they are.
 Serving: ``prefill`` runs the prompt and returns the family's
 ``DecodeState`` (KV caches, RWKV states or the hybrid's both);
 ``decode_step`` advances it by one token, IN PLACE.
+
+Tensor parallelism (the reference's model axis): ``model_defs(cfg,
+tp_size)`` declares every leaf with its logical spec and pads the heads at
+``tp_size`` when ``cfg.pad_heads``/``pad_kv`` ask (padded heads are masked
+out of the attention's output, ``_pad_mask``).  Head-dim sharding when the
+head count divides ``tp_size``, otherwise the contraction (d_model) dim is
+sharded (``_head_spec``).  One card runs the padded model whole.  On a
+tensor-parallel rank (``tp``: the node's model group,
+``launch/tensor_parallel.py``; the attention families only) the forward
+takes the rank's shards of every leaf and realizes the placement with
+explicit collectives: heads-sharded q/k/v are column parallel and ``wo``
+row parallel; the contraction fallback is a row-parallel q/k/v and a
+``wo`` split on its output dim; the MLP's up/gate are column and its down
+row parallel; ``embed`` is split on d_model (an all-gather rebuilds the
+activation) and ``head`` on the vocabulary (a vocab-parallel
+log-softmax); the experts are split on E (``moe.apply_moe_manual_ep``).
+Which dim a leaf is split on follows from ``cfg`` and the group's size as
+the reference's ``_validated_spec`` decides it: a dim that does not
+divide stays whole.
 """
 from __future__ import annotations
 
@@ -47,6 +66,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn_lib
+from repro_torch.models.attention import active_head_mask
 from repro_torch.models.common import (
     ParamDef,
     apply_rope,
@@ -88,6 +108,7 @@ __all__ = [
     "cross_entropy",
     "params_from_jax",
     "attn_dims",
+    "TP_FAMILIES",
     "DecodeState",
     "init_decode_state",
     "prefill",
@@ -95,21 +116,26 @@ __all__ = [
 ]
 
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "audio", "vlm")
+# the families whose forward runs on a tensor-parallel rank
+TP_FAMILIES = ("dense", "moe", "audio", "vlm")
 
 
-def _check_family(cfg: ArchConfig) -> None:
+def _check_family(cfg: ArchConfig, tp=None) -> None:
     if cfg.family not in FAMILIES:
         raise ValueError(f"unknown model family {cfg.family!r}; one of {FAMILIES}")
-    if cfg.n_experts and cfg.moe_impl == "manual_ep":
-        apply_moe_manual_ep()   # raises: not ported
+    if tp is not None and cfg.family not in TP_FAMILIES:
+        raise ValueError(
+            f"{cfg.family} on a tensor-parallel rank is not ported: ROADMAP queue 1 "
+            "item 8b"
+        )
 
 
 def stack_defs(defs: Mapping, n: int) -> dict:
-    """Prepend a layer axis (n, ...) to every ParamDef of a (nested) dict.
-    The initializers' fan-in axes are negative, so they read the per-layer
-    shape unchanged."""
+    """Prepend a layer axis (n, ...) to every ParamDef of a (nested) dict
+    (its spec gains a leading None).  The initializers' fan-in axes are
+    negative, so they read the per-layer shape unchanged."""
     return {k: (stack_defs(d, n) if isinstance(d, Mapping)
-                else ParamDef((n,) + d.shape, d.init, d.dtype))
+                else ParamDef((n,) + d.shape, d.init, d.dtype, (None,) + d.spec))
             for k, d in defs.items()}
 
 
@@ -128,31 +154,42 @@ def _apply_norm(cfg: ArchConfig, p: Mapping, prefix: str, x):
     return rms_norm(x, p[prefix + ".g"])
 
 
+def _head_spec(n: int, tp: int, tail: tuple = (None,)) -> tuple:
+    """("model" on the head dim) if ``n`` divides by ``tp``, else the
+    contraction-dim fallback."""
+    if n % tp == 0:
+        return (None, "model") + tail
+    return ("model", None) + tail
+
+
 def attn_dims(cfg: ArchConfig, tp_size: int = 1) -> tuple[int, int]:
-    """(query heads, KV heads) as materialized.  The reference pads GQA
-    groups (``cfg.pad_heads``/``pad_kv``) so heads shard on its model
-    axis; at the port's tensor-parallel size of 1 that pads nothing."""
+    """(h, kv) as materialized — padded when ``cfg.pad_heads``/``pad_kv``
+    ask, at tensor-parallel size ``tp_size`` (exact semantics through the
+    active-head mask; see ``attention.head_padding``)."""
     if not (cfg.pad_heads or cfg.pad_kv):
         return cfg.n_heads, cfg.n_kv
     h_pad, kv_pad, _ = attn_lib.head_padding(cfg.n_heads, cfg.n_kv, tp_size,
                                              pad_kv=cfg.pad_kv)
-    if (h_pad, kv_pad) != (cfg.n_heads, cfg.n_kv):
-        raise ValueError(
-            f"head padding to ({h_pad}, {kv_pad}) at tensor-parallel size {tp_size} "
-            "is not ported: tensor parallelism is ROADMAP queue 1 item 8"
-        )
     return h_pad, kv_pad
 
 
-def attn_block_defs(cfg: ArchConfig, *, with_ffn: bool = True) -> dict:
+def _pad_mask(cfg: ArchConfig, h_pad: int, kv_pad: int, device) -> Optional[torch.Tensor]:
+    """Active-head mask (h_pad,) or None when no head is padded."""
+    if h_pad == cfg.n_heads and kv_pad == cfg.n_kv:
+        return None
+    return active_head_mask(cfg.n_heads, cfg.n_kv, h_pad, kv_pad, h_pad // kv_pad, device)
+
+
+def attn_block_defs(cfg: ArchConfig, tp_size: int = 1, *, with_ffn: bool = True) -> dict:
     d, dh, dt = cfg.d_model, cfg.head_dim, cfg.dtype
-    h, kv = attn_dims(cfg)
+    h, kv = attn_dims(cfg, tp_size)
     defs = {
         "ln1": _norm_defs(cfg, d),
-        "wq": ParamDef((d, h, dh), he_normal((-3,)), dt),
-        "wk": ParamDef((d, kv, dh), he_normal((-3,)), dt),
-        "wv": ParamDef((d, kv, dh), he_normal((-3,)), dt),
-        "wo": ParamDef((h, dh, d), he_normal((-3, -2)), dt),
+        "wq": ParamDef((d, h, dh), he_normal((-3,)), dt, _head_spec(h, tp_size)),
+        "wk": ParamDef((d, kv, dh), he_normal((-3,)), dt, _head_spec(kv, tp_size)),
+        "wv": ParamDef((d, kv, dh), he_normal((-3,)), dt, _head_spec(kv, tp_size)),
+        "wo": ParamDef((h, dh, d), he_normal((-3, -2)), dt,
+                       ("model", None, None) if h % tp_size == 0 else (None, None, "model")),
     }
     if cfg.qkv_bias:
         defs["bq"] = ParamDef((h, dh), zeros_init(), dt)
@@ -162,7 +199,7 @@ def attn_block_defs(cfg: ArchConfig, *, with_ffn: bool = True) -> dict:
         defs["ln2"] = _norm_defs(cfg, d)
         if cfg.n_experts:
             defs["ffn"] = moe_defs(d, cfg.d_ff, cfg.n_experts, n_shared=cfg.n_shared_experts,
-                                   dtype=dt)
+                                   shard_ff=cfg.moe_shard_ff, dtype=dt)
         else:
             defs["ffn"] = mlp_defs(d, cfg.d_ff, dtype=dt)
     return defs
@@ -172,14 +209,16 @@ def _rwkv_heads(cfg: ArchConfig) -> int:
     return cfg.n_heads or cfg.d_model // 64
 
 
-def model_defs(cfg: ArchConfig) -> dict[str, ParamDef]:
-    """Flat ParamDef dict of the model, in reference leaf order."""
+def model_defs(cfg: ArchConfig, tp_size: int = 1) -> dict[str, ParamDef]:
+    """Flat ParamDef dict of the model, in reference leaf order, the heads
+    padded for a model axis of ``tp_size`` (the reference's default is 16;
+    every caller of it passes the mesh's size, as the port's do)."""
     _check_family(cfg)
     dt = cfg.dtype
     nested = {
-        "embed": ParamDef((cfg.vocab, cfg.d_model), normal_init(0.02), dt),
+        "embed": ParamDef((cfg.vocab, cfg.d_model), normal_init(0.02), dt, (None, "model")),
         "final_norm": _norm_defs(cfg, cfg.d_model),
-        "head": ParamDef((cfg.d_model, cfg.vocab), normal_init(0.02), dt),
+        "head": ParamDef((cfg.d_model, cfg.vocab), normal_init(0.02), dt, (None, "model")),
     }
     if cfg.family == "ssm":
         nested["blocks"] = stack_defs(
@@ -189,16 +228,17 @@ def model_defs(cfg: ArchConfig) -> dict[str, ParamDef]:
         n_groups, tail = divmod(cfg.n_layers, group)
         mdefs = mamba_block_defs(cfg.d_model, cfg.ssm_state, dtype=dt)
         nested["mamba_groups"] = stack_defs(stack_defs(mdefs, group - 1), n_groups)
-        nested["shared_attn"] = attn_block_defs(cfg, with_ffn=True)
+        nested["shared_attn"] = attn_block_defs(cfg, tp_size, with_ffn=True)
         if tail:
             nested["tail_mamba"] = stack_defs(mdefs, tail)
     else:  # dense | moe | audio | vlm
-        nested["blocks"] = stack_defs(attn_block_defs(cfg), cfg.n_layers)
+        nested["blocks"] = stack_defs(attn_block_defs(cfg, tp_size), cfg.n_layers)
     return flatten_tree(nested)
 
 
-def init_model(cfg: ArchConfig, gen: torch.Generator, device) -> dict[str, torch.Tensor]:
-    return init_params(model_defs(cfg), gen, device)
+def init_model(cfg: ArchConfig, gen: torch.Generator, device,
+               tp_size: int = 1) -> dict[str, torch.Tensor]:
+    return init_params(model_defs(cfg, tp_size), gen, device)
 
 
 def params_from_jax(tree: Mapping) -> dict[str, torch.Tensor]:
@@ -255,25 +295,101 @@ def _qkv(p: Mapping, cfg: ArchConfig, hn: torch.Tensor):
     return q, k, v
 
 
-def _ffn(p: Mapping, cfg: ArchConfig, h: torch.Tensor):
-    """The block's feed-forward half with its residual: (h', aux loss)."""
+def _ffn(p: Mapping, cfg: ArchConfig, h: torch.Tensor, tp=None):
+    """The block's feed-forward half with its residual: (h', aux loss).  On
+    a tensor-parallel rank the experts run the manual expert-parallel
+    schedule (either ``moe_impl``) and the MLP is column/row parallel."""
     hn2 = _apply_norm(cfg, p, "ln2", h)
     ffn = unflatten_tree(_sub(p, "ffn"))
     if cfg.n_experts:
-        ff, aux = apply_moe(ffn, hn2, top_k=cfg.top_k, capacity_factor=cfg.capacity_factor)
+        kw = dict(top_k=cfg.top_k, capacity_factor=cfg.capacity_factor)
+        if tp is not None:
+            ff, aux = apply_moe_manual_ep(
+                ffn, hn2, tp=tp.split(cfg.n_experts),
+                shared_tp=tp.split(cfg.n_shared_experts * cfg.d_ff), **kw)
+        elif cfg.moe_impl == "manual_ep":
+            ff, aux = apply_moe_manual_ep(ffn, hn2, **kw)
+        else:
+            ff, aux = apply_moe(ffn, hn2, **kw)
     else:
-        ff = apply_mlp(ffn, hn2, act=cfg.act)
+        ff = apply_mlp(ffn, hn2, act=cfg.act, tp=None if tp is None else tp.split(cfg.d_ff))
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
     return h + ff, aux
 
 
+def _masked(cfg: ArchConfig, out: torch.Tensor, h_pad: int, kv_pad: int,
+            heads: slice = slice(None)) -> torch.Tensor:
+    """The attention output (B, S, H, Dh) with padded heads zeroed (``heads``:
+    which of the h_pad heads ``out`` holds)."""
+    mask = _pad_mask(cfg, h_pad, kv_pad, out.device)
+    if mask is None:
+        return out
+    return out * mask[heads][None, None, :, None].to(out.dtype)
+
+
+def _tp_proj(tp, cfg: ArchConfig, hn, hin, w, bias, n: int):
+    """One of q/k/v on a tensor-parallel rank: (B, S, n', Dh) and which of
+    the n heads it holds.  Heads on "model": column parallel on the local
+    heads (a replicated bias enters for its local heads); the contraction
+    fallback: row parallel over d_model, all-reduced; else whole."""
+    if w.shape[1] < n:
+        heads = tp.local(n)
+        y = torch.einsum("bsd,dhk->bshk", hin, w)
+        return (y if bias is None else y + tp.enter(bias)[heads]), heads
+    if w.shape[0] < cfg.d_model:
+        y = tp.reduce(torch.einsum("bsd,dhk->bshk", hin[..., tp.local(cfg.d_model)], w))
+    else:
+        y = torch.einsum("bsd,dhk->bshk", hn, w)
+    return (y if bias is None else y + bias), slice(0, n)
+
+
+def _tp_attention(p: Mapping, cfg: ArchConfig, hn, *, positions, window, tp):
+    """The attention half's output (B, S, D), whole on every rank of the
+    node's model group ``tp``, from the rank's shards."""
+    h_pad, kv_pad = attn_dims(cfg, tp.size)
+    g_pad = h_pad // kv_pad
+    hin = tp.enter(hn)
+    bias = (lambda name: p[name]) if cfg.qkv_bias else (lambda name: None)
+    q, qh = _tp_proj(tp, cfg, hn, hin, p["wq"], bias("bq"), h_pad)
+    k, kh = _tp_proj(tp, cfg, hn, hin, p["wk"], bias("bk"), kv_pad)
+    v, _ = _tp_proj(tp, cfg, hn, hin, p["wv"], bias("bv"), kv_pad)
+    sin, cos = rope(positions, cfg.head_dim, cfg.rope_theta, at_least_f32(hn).dtype)
+    q = apply_rope(q, sin, cos)
+    k = apply_rope(k, sin, cos)
+    if (qh.start, qh.stop) != (kh.start * g_pad, kh.stop * g_pad):
+        # the local query heads' KV heads are not the local KV block: pick
+        # them from the whole k and v, which enter the local heads' attention
+        idx = torch.arange(qh.start, qh.stop, device=hn.device) // g_pad - kh.start
+        k, v = tp.enter(k).index_select(2, idx), tp.enter(v).index_select(2, idx)
+    out = attn_lib.multihead_attention(
+        q, k, v, q_positions=positions, k_positions=positions,
+        causal=True, window=window, impl=cfg.attn_impl, chunk_size=cfg.attn_chunk,
+    )
+    out = _masked(cfg, out, h_pad, kv_pad, qh)
+    wo = p["wo"]
+    if wo.shape[0] < h_pad:            # heads on "model": row parallel
+        return tp.reduce(torch.einsum("bshk,hkd->bsd", out, wo))
+    if wo.shape[2] < cfg.d_model:      # its output dim on "model"
+        return tp.gather(torch.einsum("bshk,hkd->bsd", tp.enter(out), wo), -1)
+    return torch.einsum("bshk,hkd->bsd", out, wo)
+
+
 def apply_attn_block(p: Mapping, cfg: ArchConfig, h: torch.Tensor, *,
                      positions: torch.Tensor, window: Optional[int],
-                     collect_cache: bool = False):
+                     collect_cache: bool = False, tp=None):
     """One pre-norm attention + feed-forward block. h: (B, S, D);
     positions: (B, S).  Returns (h', (k, v, positions) after RoPE when
-    ``collect_cache`` else None, the MoE aux loss (0 without experts))."""
+    ``collect_cache`` else None, the MoE aux loss (0 without experts)).
+    ``tp``: the node's model group when ``p`` holds a rank's shards
+    (training only: no cache)."""
     hn = _apply_norm(cfg, p, "ln1", h)
+    if tp is not None:
+        if collect_cache:
+            raise ValueError("serving on a model axis is not ported: ROADMAP queue 1 "
+                             "item 8c")
+        attn = _tp_attention(p, cfg, hn, positions=positions, window=window, tp=tp)
+        h, aux = _ffn(p, cfg, h + attn, tp)
+        return h, None, aux
     q, k, v = _qkv(p, cfg, hn)
     sin, cos = rope(positions, cfg.head_dim, cfg.rope_theta, at_least_f32(h).dtype)
     q = apply_rope(q, sin, cos)
@@ -282,6 +398,7 @@ def apply_attn_block(p: Mapping, cfg: ArchConfig, h: torch.Tensor, *,
         q, k, v, q_positions=positions, k_positions=positions,
         causal=True, window=window, impl=cfg.attn_impl, chunk_size=cfg.attn_chunk,
     )
+    out = _masked(cfg, out, p["wq"].shape[1], p["wk"].shape[1])
     h, aux = _ffn(p, cfg, h + torch.einsum("bshk,hkd->bsd", out, p["wo"]))
     return h, ((k, v, positions) if collect_cache else None), aux
 
@@ -307,16 +424,23 @@ def decode_attn_block(p: Mapping, cfg: ArchConfig, h: torch.Tensor,
 # Embedding / head / loss
 # ---------------------------------------------------------------------------
 
-def _embed(params: Mapping, cfg: ArchConfig, tokens: torch.Tensor, patch_embeds=None):
+def _embed(params: Mapping, cfg: ArchConfig, tokens: torch.Tensor, patch_embeds=None,
+           tp=None):
     h = params["embed"][tokens.long()]
+    if tp is not None and params["embed"].shape[1] < cfg.d_model:
+        h = tp.gather(h, -1)       # the embedding's d_model columns over "model"
     if cfg.input_kind == "vlm" and patch_embeds is not None:
         # decode steps carry no new patches; prefill/train prepend them
         h = torch.cat([patch_embeds.to(h.dtype), h], dim=1)
     return h
 
 
-def _logits(params, cfg: ArchConfig, h: torch.Tensor) -> torch.Tensor:
+def _logits(params, cfg: ArchConfig, h: torch.Tensor, tp=None) -> torch.Tensor:
+    """Logits (B, S, V); on a tensor-parallel rank whose ``head`` is split on
+    the vocabulary, this rank's (B, S, V/m) columns."""
     h = _apply_norm(cfg, params, "final_norm", h)
+    if tp is not None and params["head"].shape[1] < cfg.vocab:
+        h = tp.enter(h)
     return torch.einsum("bsd,dv->bsv", h, params["head"])
 
 
@@ -325,6 +449,22 @@ def cross_entropy(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     lf = at_least_f32(logits)
     lse = torch.logsumexp(lf, dim=-1)
     tgt = torch.gather(lf, -1, targets.clamp_min(0).long()[..., None])[..., 0]
+    valid = (targets >= 0).to(lf.dtype)
+    return torch.sum((lse - tgt) * valid) / torch.clamp(valid.sum(), min=1.0)
+
+
+def _cross_entropy_tp(logits: torch.Tensor, targets: torch.Tensor, tp) -> torch.Tensor:
+    """``cross_entropy`` of vocab-parallel logits (this rank's (B, S, V/m)
+    columns): the log-sum-exp from all-reduces of the max and of the sum of
+    exponentials, the target's logit from the rank that holds it."""
+    lf = at_least_f32(logits)
+    vl = lf.shape[-1]
+    m = tp.max(lf.amax(dim=-1))
+    lse = m + torch.log(tp.reduce(torch.exp(lf - m[..., None]).sum(dim=-1)))
+    t = targets.long() - tp.rank * vl
+    here = (t >= 0) & (t < vl)
+    tl = torch.gather(lf, -1, t.clamp(0, vl - 1)[..., None])[..., 0]
+    tgt = tp.reduce(torch.where(here, tl, torch.zeros((), dtype=lf.dtype, device=lf.device)))
     valid = (targets >= 0).to(lf.dtype)
     return torch.sum((lse - tgt) * valid) / torch.clamp(valid.sum(), min=1.0)
 
@@ -363,15 +503,17 @@ def _remat(cfg: ArchConfig, block):
 
 def forward_full(params: Mapping, cfg: ArchConfig, tokens: torch.Tensor, *,
                  patch_embeds=None, window: Optional[int] = None,
-                 collect_cache: bool = False):
+                 collect_cache: bool = False, tp=None):
     """Full-sequence forward, the reference's ``forward``: returns (logits
     (B, S_total, V), cache or states or None, aux loss).  The attention
     families return their (k, v, positions) cache stacked to (L, B, S, KV,
     Dh) with ``collect_cache``; ssm returns its RWKVState (leaves (L, B,
     ...)) and hybrid its {"mamba", "attn_cache", "tail"} states always,
-    from zero states at entry."""
-    _check_family(cfg)
-    h = _embed(params, cfg, tokens, patch_embeds)
+    from zero states at entry.  ``tp``: the node's model group when
+    ``params`` are a rank's shards (the attention families; the logits are
+    then the rank's vocabulary columns where ``head`` is split)."""
+    _check_family(cfg, tp)
+    h = _embed(params, cfg, tokens, patch_embeds, tp)
     b, s, _ = h.shape
     positions = torch.arange(s, dtype=torch.int32, device=h.device)[None].expand(b, s)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
@@ -392,13 +534,14 @@ def forward_full(params: Mapping, cfg: ArchConfig, tokens: torch.Tensor, *,
 
     block = _remat(cfg, apply_attn_block)
     entries = []
+    kw = {} if tp is None else {"tp": tp}
     for lp in _layers(params, cfg.n_layers):
         h, entry, a = block(lp, cfg, h, positions=positions, window=window,
-                            collect_cache=collect_cache)
+                            collect_cache=collect_cache, **kw)
         aux = aux + a
         entries.append(entry)
     cache = tuple(torch.stack(xs) for xs in zip(*entries)) if collect_cache else None
-    return _logits(params, cfg, h), cache, aux
+    return _logits(params, cfg, h, tp), cache, aux
 
 
 def _hybrid_forward(params, cfg, h, positions, window, collect_cache):
@@ -458,12 +601,14 @@ def forward(params: Mapping, cfg: ArchConfig, tokens: torch.Tensor, *,
     return (logits, st) if collect_cache else logits
 
 
-def loss_fn(params: Mapping, cfg: ArchConfig, batch: Mapping) -> torch.Tensor:
+def loss_fn(params: Mapping, cfg: ArchConfig, batch: Mapping, tp=None) -> torch.Tensor:
     """Next-token CE (+ the MoE aux loss, weighted by ``aux_loss_weight``).
     batch: tokens/targets (B, S), and for a VLM patch_embeds (B, n_patches,
     D), whose positions the loss skips.  A VLM batch without patch_embeds
     raises: the reference's loss slices off n_patches logits that were
-    never prepended and fails on the shapes."""
+    never prepended and fails on the shapes.  ``tp``: the node's model
+    group when ``params`` are a rank's shards (the same loss on every rank
+    of the group)."""
     patches = batch.get("patch_embeds")
     if cfg.input_kind == "vlm" and patches is None:
         raise ValueError(
@@ -471,10 +616,13 @@ def loss_fn(params: Mapping, cfg: ArchConfig, batch: Mapping) -> torch.Tensor:
             f"(B, {cfg.n_patches}, {cfg.d_model}); the loss skips the patches' "
             "positions, which a batch without them does not have"
         )
-    logits, _, aux = forward_full(params, cfg, batch["tokens"], patch_embeds=patches)
+    logits, _, aux = forward_full(params, cfg, batch["tokens"], patch_embeds=patches, tp=tp)
     if cfg.input_kind == "vlm":
         logits = logits[:, cfg.n_patches:]
-    loss = cross_entropy(logits, batch["targets"])
+    if tp is not None and params["head"].shape[1] < cfg.vocab:
+        loss = _cross_entropy_tp(logits, batch["targets"], tp)
+    else:
+        loss = cross_entropy(logits, batch["targets"])
     return loss + cfg.aux_loss_weight * aux if cfg.n_experts else loss
 
 

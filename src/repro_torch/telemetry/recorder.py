@@ -35,8 +35,8 @@ the masks.
 A checkpoint carries the recorder's run totals (``state_dict``: counter
 totals, rounds, overruns, events), and ``load_state_dict`` continues them
 on a resumed run: ``rounds_total``/``overruns_total`` count both segments.
-The reference's bench ``provenance`` stamp comes with the analysis item of
-ROADMAP queue 1 (7).
+The reference's bench ``provenance`` stamp comes with the benchmarks,
+ROADMAP queue 1 item 5.
 """
 from __future__ import annotations
 

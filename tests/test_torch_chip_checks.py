@@ -481,7 +481,9 @@ def test_phase22_ranks_equal_stacked_rows_on_cpu(monkeypatch):
     from repro_torch.models import transformer as tfm
 
     layout = FlatLayout.from_shapes({k: d.shape for k, d in tfm.model_defs(cfg).items()})
-    out = chip_smoke.phase_fault_ranks(chip_smoke.sample_columns(layout), device="cpu")
+    sample = chip_smoke.sample_columns(layout)
+    done = chip_smoke.rank_world("cpu", layout, sample, (22,))
+    out = chip_smoke.phase_fault_ranks(sample, done[22], device="cpu")
     assert out["transport"] == "gloo" and out["ranks"] == chip_smoke.G
 
 
@@ -563,11 +565,13 @@ def test_phase24_ranks_resume_on_cpu(ckpt_on_cpu, monkeypatch):
     idx = torch.as_tensor(sample)
     step0 = {"theta": state.theta[:, idx].clone(), "mom": state.mom[:, idx].clone()}
     members = [k + ".npy" for k, _ in flatten(trainer.checkpoint_tree(state))] + ["__extra__.npy"]
-    out = chip_smoke.phase_ranks_resume(layout, sample, step0, members, device="cpu")
+    done = chip_smoke.rank_world("cpu", layout, sample, (24,))
+    assert not list((ckpt_on_cpu / "ckpt").iterdir())   # the world removed its file
+    out = chip_smoke.phase_ranks_resume(layout, sample, step0, members, done[24], device="cpu")
     assert out["transport"] == "gloo" and out["file_bytes"] > 0
     bad = dict(step0, mom=step0["mom"] * np.float32(2))
     with pytest.raises(SystemExit):
-        chip_smoke.phase_ranks_resume(layout, sample, bad, members, device="cpu")
+        chip_smoke.phase_ranks_resume(layout, sample, bad, members, done[24], device="cpu")
 
 
 @pytest.mark.parametrize("mutant", [None, "controller"])

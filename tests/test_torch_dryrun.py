@@ -110,7 +110,7 @@ def test_argument_bytes_are_the_state_rows_and_slots(engine, opt):
     assert rec["memory"]["argument_bytes"] == layout.row_bytes * rows + slots + counter
 
 
-def test_dryrun_cli_json_is_read_by_both_rooflines(tmp_path):
+def test_dryrun_cli_json_is_read_by_both_rooflines(tmp_path, monkeypatch):
     out = str(tmp_path / "dry.json")
     for arch, shapes in (("granite-8b", "train_4k,decode_32k"),
                          ("rwkv6-1.6b,zamba2-7b", "decode_32k,long_500k")):
@@ -121,9 +121,16 @@ def test_dryrun_cli_json_is_read_by_both_rooflines(tmp_path):
     records = json.loads(open(out).read())
     assert len(records) == 6 and all("error" not in r for r in records)
     train = next(r for r in records if r["kind"] == "train")
-    assert train["gossip_nodes"] == 16 and train["mesh_shape"] == {"data": 16, "model": 1}
+    # rank (0, 0) of the production (16 data x 16 model) mesh: per-card bytes
+    assert train["gossip_nodes"] == 16 and train["mesh_shape"] == {"data": 16, "model": 16}
     for rows in (troof.analyze(out), jroof.analyze(out)):
         assert all(r["roofline"]["compute_s"] > 0 for r in rows)
+    # the same dominant term once the reference's roofline takes the port's
+    # constants (the training record's model-axis collectives weigh by the
+    # link's rate)
+    monkeypatch.setattr(jroof, "PEAK_FLOPS", troof.PEAK_FLOPS)
+    monkeypatch.setattr(jroof, "HBM_BW", troof.HBM_BW)
+    monkeypatch.setattr(jroof, "ICI_BW", troof.NVLINK_BW)
     assert [troof.roofline_terms(r)["dominant"] for r in records] == \
         [jroof.roofline_terms(r)["dominant"] for r in records]
     for r in records:

@@ -96,8 +96,20 @@ def test_gradients_match_reference():
 
 
 def test_manual_ep_raises():
-    with pytest.raises(ValueError, match="manual_ep"):
-        tmoe.apply_moe_manual_ep()
+    """``moe_impl="manual_ep"`` no longer raises: on one rank (no model
+    group) its schedule holds every expert, and equals the reference's
+    ``apply_moe`` at the manual-EP script's bars (output 1e-5, aux 1e-6),
+    shared experts included; a rank holding the wrong number of experts
+    still raises.  Two ranks: ``tests/test_torch_tp_ranks.py``."""
+    jp, tp, x = _setup(seed=5, e=4, b=2, s=16, n_shared=1)
+    jo, jaux = jmoe.apply_moe(jp, jnp.asarray(x), top_k=2, capacity_factor=1.25)
+    to, taux = tmoe.apply_moe_manual_ep(tp, torch.from_numpy(x), top_k=2,
+                                        capacity_factor=1.25)
+    np.testing.assert_allclose(to.numpy(), np.asarray(jo), atol=1e-5)
+    assert abs(float(taux) - float(jaux)) < 1e-6
+    half = dict(tp, w_gate=tp["w_gate"][:2])
+    with pytest.raises(ValueError, match="4 experts over 1 ranks"):
+        tmoe.apply_moe_manual_ep(half, torch.from_numpy(x), top_k=2)
 
 
 # --- the reference's properties (tests/test_moe.py) on the port ------------------

@@ -1,6 +1,7 @@
 """chip_smoke.py's checks of the dry run and shard_nodes run on the CPU
 with the card's bookkeeping stubbed: phase 34 builds its records on meta
-(granite-8b at full width over the four shapes, the five mini archs), and
+(granite-8b at full width over the four shapes on the single mesh, its
+training on the multi one, the five mini archs), and
 fails a run that moves the card's bytes or a record ``is_suspect`` flags
 for any reason but the MoE capacity floor; phase 36 holds the sharded
 simulator to the unsharded one and fails a sharded run that differs."""
@@ -34,12 +35,24 @@ def no_card(monkeypatch, tmp_path):
 
 
 def test_phase34_builds_the_records_on_meta(no_card, tmp_path):
+    from repro_torch.configs import get_config
+    from repro_torch.core.flat import FlatLayout
+    from repro_torch.models.transformer import model_defs
+
     out = chip_smoke.phase_dryrun(torch.device("cpu"))
-    assert out["records"] == 4 + 15 and out["flagged_capacity_floor"] == {}
+    assert out["records"] == 4 + 1 + 15 and out["flagged_capacity_floor"] == {}
     assert out["device_bytes_before_after"] == [(0, 0), (0, 0)]
     records = json.loads((tmp_path / "build/repro_torch/dryrun/phase34.json").read_text())
-    granite = next(r for r in records if r["shape"] == "train_4k")
-    assert granite["gossip_nodes"] == 16 and granite["memory"]["argument_bytes"] > 8e10 / 16
+    granite = next(r for r in records if r["shape"] == "train_4k" and r["mesh"] == "single")
+    assert granite["gossip_nodes"] == 16
+    assert granite["mesh_shape"] == {"data": 16, "model": 16}
+    # rank (0, 0)'s state: a sixteenth of a node's θ (bf16) and m (f32), the
+    # replicated norm gains whole
+    layout = FlatLayout.of_defs(model_defs(get_config("granite-8b")))
+    node = layout.row_bytes + 4 * layout.size
+    assert node / 16 <= granite["memory"]["argument_bytes"] <= node / 16 * 1.001
+    assert out["train_bytes_a_card"]["granite-8b multi"]["mesh_shape"] == {
+        "pod": 2, "data": 16, "model": 16}
 
 
 def test_phase34_fails_a_dry_run_that_allocates_on_the_card(no_card, monkeypatch):

@@ -33,6 +33,7 @@ from repro.optim.sgd import sgd as jsgd  # noqa: E402
 from repro_torch.configs import get_config as tget_config  # noqa: E402
 from repro_torch.core.dsgd import make_topology as tmake_topology  # noqa: E402
 from repro_torch.launch.train import SPMDTrainer, main  # noqa: E402
+from repro_torch.models.transformer import model_defs as tmodel_defs  # noqa: E402
 from repro_torch.models.transformer import params_from_jax  # noqa: E402
 from repro_torch.optim.sgd import sgd as tsgd  # noqa: E402
 
@@ -205,12 +206,24 @@ def test_main_fused_apply_launches_through_the_wrapper(capsys):
 
 @pytest.mark.parametrize("argv,step", [
     # the checkpoint flags (item 4) run since they were ported: see
-    # tests/test_torch_resume.py
+    # tests/test_torch_resume.py; so does a model axis (item 8): on one
+    # device --mesh 2,2 runs the stacked engine at the reference's padded
+    # shapes, under 4 ranks the tensor-parallel ranks engine
+    # (tests/test_torch_tp_ranks.py); what item 8 left raises there
     pytest.param(["--mesh", "2,2"], "item 8", id="argv3-item 8"),
 ])
 def test_main_rejects_later_slices(argv, step):
-    with pytest.raises(SystemExit, match=step):
-        main(["--reduced", "--steps", "1"] + argv, device="cpu")
+    out = main(["--reduced", "--steps", "2", "--arch", "qwen2.5-14b",
+                "--seq", "16"] + argv, device="cpu")
+    trainer = out["trainer"]
+    assert trainer.engine == "stacked" and trainer.tp_size == 2 and trainer.tp is None
+    assert {k: (d.shape, d.spec) for k, d in trainer.defs.items()} == {
+        k: (d.shape, d.spec) for k, d in tmodel_defs(trainer.cfg, 2).items()}
+    cfg = tget_config("qwen2.5-14b-reduced")
+    h_pad, kv_pad = jtfm.attn_dims(jget_config("qwen2.5-14b-reduced"), 2)
+    assert trainer.defs["blocks.wq"].shape == (cfg.n_layers, cfg.d_model, h_pad, cfg.head_dim)
+    assert trainer.defs["blocks.wk"].shape[2] == kv_pad
+    assert all(np.isfinite(out["losses"]))
 
 
 def test_entry_points_refuse_cpu_fallback(monkeypatch):

@@ -151,23 +151,33 @@ def test_config_and_leaves_match_reference(arch, reduced):
 
 
 def test_head_padding_is_a_no_op_at_one_card():
+    """No padding at a tensor-parallel size of 1; at 16 the padded configs
+    pad as the reference's ``attn_dims`` does (it raised before tensor
+    parallelism was ported)."""
     assert tattn.head_padding(40, 8, 1) == (40, 8, 5)
     assert tattn.head_padding(36, 4, 1) == (36, 4, 9)
     assert tattn.head_padding(24, 24, 1) == (24, 24, 1)
     for arch in ("qwen2.5-14b", "starcoder2-7b", "musicgen-medium"):
         cfg = tget_config(arch)
         assert cfg.pad_heads and ttfm.attn_dims(cfg) == (cfg.n_heads, cfg.n_kv)
-    with pytest.raises(ValueError, match="tensor-parallel size 16"):
-        ttfm.attn_dims(tget_config("qwen2.5-14b"), 16)
+        assert ttfm.attn_dims(cfg, 16) == jtfm.attn_dims(jget_config(arch), 16)
+    assert ttfm.attn_dims(tget_config("qwen2.5-14b"), 16) == (48, 8)
 
 
 def test_unknown_family_and_manual_ep_raise():
+    """An unknown family raises; ``moe_impl="manual_ep"`` builds (it raised
+    before expert parallelism was ported) and its loss and gradients on one
+    card are the gather path's within the zoo's bar."""
     cfg = tget_config("granite-8b-reduced")
     with pytest.raises(ValueError, match="unknown model family"):
         ttfm.model_defs(dataclasses.replace(cfg, family="diffusion"))
-    moe = dataclasses.replace(tget_config("phi3.5-moe-42b-a6.6b-reduced"), moe_impl="manual_ep")
-    with pytest.raises(ValueError, match="manual_ep"):
-        ttfm.model_defs(moe)
+    jcfg, tcfg, jparams, batch = _model("phi3.5-moe-42b-a6.6b")
+    loss, grads = _port_grads(tcfg, jparams, batch)
+    ep_loss, ep_grads = _port_grads(dataclasses.replace(tcfg, moe_impl="manual_ep"),
+                                    jparams, batch)
+    assert abs(ep_loss - loss) < TOL
+    for k in grads:
+        np.testing.assert_allclose(ep_grads[k], grads[k], rtol=0, atol=TOL, err_msg=k)
 
 
 # ---------------------------------------------------------------------------
