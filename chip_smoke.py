@@ -172,22 +172,24 @@ Phases (any failure exits non-zero and prints no result line):
      and 2 (within the bar of ``accum_bar``) and with remat on (bit for bit
      remat off), ms a step and peak memory each; then ``python -m
      repro_torch.examples.quickstart`` (its loss must fall) and
-     ``dbench_whitebox --steps 10`` on the card (quickstart at 20 steps).
+     ``dbench_whitebox --steps 5`` on the card (quickstart at 10 steps),
+     each run as ``-m`` runs it, in this process (``run_example``).
  27. the model zoo, MoE: ``SPMDTrainer`` on phi3.5-moe at its published
      width (d_model 4096, 32 heads, 8 KV heads, 16 experts top-2 of d_ff
      6400, vocab 32064), bfloat16, depth cut to 1 layer (1.563e9
      parameters a node), G = 4 when its θ, gradient, wire and m fit in
      75 GiB, d_ring, fused apply, seq 512, per-node batch 2, 3 steps
      (K1 and K3 once a step, the counters zeroed just before and read just
-     after); K1 against its twin on three column slices of the run's own
-     state (post and pre order, all-ones, masked and boost+ghost rows) and
-     K3 over the whole state; both timed beside their twins and bounds;
+     after); K1 against its twin on a misaligned strided column slice of
+     the run's own state (post and pre order, all-ones and masked rows;
+     the whole-state launch is phase 6's) and K3 over the whole state;
+     both timed beside their twins and bounds;
      serving 2 prompts of 512 tokens (prefill twice) and 16 decode tokens;
      the assignments dropped at capacity factor 1.25; the decode chain
      against ``forward`` in float32 at the reference test's bar (atol 3e-3,
      rtol 1e-3; capacity factor 16);
  28. the same for rwkv6 (d_model 2048, 32 heads, d_ff 7168, vocab 65536):
-     training at 4 layers (0.487e9 a node), serving the full 24 layers
+     training at 4 layers (0.487e9 a node), serving 8 of the 24 layers
      (prefill 4 × 2048, 32 decode tokens), decode against forward at 2;
  29. the same for zamba2 (d_model 3584, 32 heads, d_ff 14336, state 64,
      vocab 32000) at 7 layers (one group of 5 Mamba2 blocks and the shared
@@ -211,8 +213,8 @@ Phases (any failure exits non-zero and prints no result line):
      power limit.
  31. the mixed-dtype state bucketed and under faults: phase 29's zamba2 (7
      layers, bf16 with float32 a_log/d_skip, G = 4, d_ring, fused apply)
-     for 2 steps from pushed-apart replicas monolithic and at bucket_mb 256
-     and 64, each bit for bit the monolithic run (θ, m, losses, norms; the
+     for 2 steps from pushed-apart replicas monolithic and at bucket_mb 64,
+     bit for bit the monolithic run (θ, m, losses, norms; the
      monolithic θ and m wait in host memory), K1 once per bucket, every
      narrow leaf a bfloat16 value after each step; then a crash-and-rejoin
      step (node 2 back at step 2) on the same replicas: the handoff timed
@@ -230,7 +232,8 @@ Phases (any failure exits non-zero and prints no result line):
      printed and within budget; the rebuild guard over phase 4's trainer
      and a closed-loop d_ada run (device tables built up front from
      ``precompile_programs``): 0 nvcc builds and 0 new device tables after
-     the first step; ``python -m repro_torch.examples.serve_decode``.
+     the first step; ``python -m repro_torch.examples.serve_decode`` (in
+     this process, as phase 26's examples).
  34. the dry run on the card's machine: ``launch/dryrun.run_one`` for
      granite-8b, phi3.5-moe and kimi-k2 at full width over the four
      ``SHAPES`` on the ``single`` mesh (16 data × 16 model), granite-8b's
@@ -275,13 +278,40 @@ Phases (any failure exits non-zero and prints no result line):
      the (2 × 2) world, timed, its replicated leaves bit for bit, K2 and
      K3 once a step a rank;
  39. ``repro_torch.examples.train_100m`` at its 100m preset (float32) on
-     (4 data × 2 model) ranks (K2 fused apply): 20 steps uninterrupted and
-     10 steps that end in a checkpoint, then a fresh world resumed from
-     step 10 to 20, every rank's shard row bit for bit the uninterrupted
+     (4 data × 2 model) ranks (K2 fused apply): 4 steps uninterrupted and
+     2 steps that end in a checkpoint, then a fresh world resumed from
+     step 2 to 4, every rank's shard row bit for bit the uninterrupted
      run's; step ms and the Gini line printed.
+ 40. the ssm and hybrid families on the tensor-parallel ranks engine, in
+     phase 37's world: rwkv6-1.6b ×2 and zamba2-7b ×7 (its mixed state in
+     bf16) at published width, phase 4's d_ring, fused apply and norms,
+     seq 512, per-node batch 2, seed-0 weights.  Float32 for 3 steps
+     against the stacked engine at G = 2 on the same weights and batches:
+     the first step's loss and norms, and θ and m on the sampled columns
+     after it, within 5e-5 (norms rtol 1e-5) plus twice the stacked
+     engine's own float32 rounding of them (its run with a float64 forward
+     and backward); after 3 steps, where free-running float32 runs of
+     these families part (their group norms), the distance is printed
+     beside the stacked engine's own float32-float64 spread; the
+     replicated leaves bit for bit across each node's model ranks (zamba2's
+     float32 a_log and d_skip included) after every run; K2 and K3 once a
+     step a rank; then bfloat16 for 2 steps,
+     timed (rank step ms, the model group's all-reduces a step, one
+     activation all-reduce's ms, peak a rank);
+ 41. serving on the mesh, in the same world: granite-8b ×2, rwkv6-1.6b ×2
+     and zamba2-7b ×7 in float32 through ``ServeEngine(cfg, mesh=...)`` on
+     (2 data × 2 model), prompts 4 × 64 (2 a data rank), 16 new greedy
+     tokens: the prefill's logits and every decode step's within 5e-5 of
+     the largest logit's magnitude of the single-card engine's (rwkv6 and
+     zamba2 plus twice the single card's own float32 rounding against its
+     float64 chain), the tokens (its chain's and ``generate``'s) equal,
+     every rank the same bits, no kernel launch; then granite-8b ×36 in
+     bf16 on (1 × 2) (the first model group): prefill 2 × 512 timed
+     twice, 32 decode tokens from its state, ms a token, peak a rank.
 
-``python3 chip_smoke.py --phases 34,37,38,39`` builds the kernels and runs
-only the chosen ones of those four (no kernels line, no result line).
+``python3 chip_smoke.py --phases 34,37,38,39,40,41`` builds the kernels and
+runs only the chosen ones of those (40 and 41 together; no kernels line,
+no result line).
 
 The last three lines of standard output are the card's name and power
 limit as nvidia-smi reports them, the per-kernel JSON (K1-K4, each with its
@@ -2634,8 +2664,8 @@ RESUME_STEPS, RESUME_CUT = 4, 2          # phase 23: 4 steps, the checkpoint aft
 RANK_RESUME_STEPS, RANK_RESUME_CUT = 2, 1  # phase 24
 SIM_RESUME_STEPS, SIM_RESUME_CUT = 120, 60  # phase 25
 KNOB_STEPS = 3                           # phase 26
-EXAMPLE_STEPS = 10                       # phase 26: dbench_whitebox's short --steps
-QUICK_STEPS = 20                         # phase 26: the quickstart's short --steps
+EXAMPLE_STEPS = 5                        # phase 26: dbench_whitebox's short --steps
+QUICK_STEPS = 10                         # phase 26: the quickstart's short --steps
 # checkpoints are written here and removed by the phase that wrote them
 CKPT_DIR = ROOT / "build" / "repro_torch" / "ckpt"
 
@@ -3109,17 +3139,26 @@ def accum_bar(layout, base, other):
 
 
 def run_example(args):
-    """``python -m repro_torch.examples.<args>`` on the card: (stdout,
+    """``python -m <args>`` on the card, run as ``-m`` runs it (``runpy``
+    with the module as ``__main__`` and ``args`` as its command line) in
+    this process, whose interpreter and card context it shares: (stdout,
     seconds)."""
-    import os
+    import contextlib
+    import io
+    import runpy
 
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     t0 = time.perf_counter()
-    out = subprocess.run([sys.executable, "-m"] + args, capture_output=True, text=True,
-                         env=env, cwd=ROOT, timeout=600)
-    if out.returncode != 0:
-        fail(f"python -m {' '.join(args)} exited {out.returncode}: {out.stderr[-2000:]}")
-    return out.stdout, time.perf_counter() - t0
+    out, argv = io.StringIO(), sys.argv
+    try:
+        sys.argv = [args[0]] + list(args[1:])
+        with contextlib.redirect_stdout(out):
+            runpy.run_module(args[0], run_name="__main__", alter_sys=True)
+    except SystemExit as e:
+        if e.code not in (None, 0):
+            fail(f"python -m {' '.join(args)} exited {e.code}: {out.getvalue()[-2000:]}")
+    finally:
+        sys.argv = argv
+    return out.getvalue(), time.perf_counter() - t0
 
 
 def phase_knobs(cfg, layout, batches):
@@ -3200,7 +3239,7 @@ MOE_CAPACITY_DEC = 16.0           # the reference test's capacity factor there
 #  new tokens); the VLM's prompts carry its n_patches patch embeddings first
 ZOO = {
     27: ("phi3.5-moe-42b-a6.6b", 1, 1, 2, 512, 16),
-    28: ("rwkv6-1.6b", 4, 24, 4, 2048, 32),
+    28: ("rwkv6-1.6b", 4, 8, 4, 2048, 32),
     29: ("zamba2-7b", 7, 7, 2, 2048, 32),
     30: ("internvl2-2b", 2, 24, 2, 512, 16),
 }
@@ -3318,42 +3357,14 @@ def zoo_train(label, cfg, g, dev, steps=None):
     }
 
 
-def k1_state_against_twin(label, theta, mom, grad, wire, srcs, w):
-    """K1 launched once in place on the run's whole (G, P) state, with the
-    main path's order and fault row (post, all-ones), against its plain
-    twin chunk by chunk (TWIN_CHUNK columns) at ``against_twin``'s bar.
-    θ0 and m0 wait in host memory while the kernel runs, so the comparison
-    needs no second state on the card.  The state is left one K1 update
-    on.  Returns the max abs error."""
-    import torch
-    from repro_torch.kernels.gossip_update import (
-        gossip_program_update, gossip_program_update_plain,
-    )
-
-    dev = theta.device
-    host = lambda x: torch.empty(x.shape, dtype=x.dtype, device="cpu").copy_(x)
-    theta0, mom0 = host(theta), host(mom)
-    kw = dict(lr=LR, beta=0.9, fault=torch.ones_like(w), mix_order="post")
-    return against_twin(
-        f"K1 {label} whole {tuple(theta.shape)} state",
-        lambda t, m, kw: gossip_program_update(t, wire, srcs, w, grad, m, **kw),
-        lambda a, b, kw: gossip_program_update_plain(
-            theta0[:, a:b].to(dev), wire[:, a:b], srcs, w, grad[:, a:b],
-            mom0[:, a:b].to(dev), **kw),
-        theta.shape[1], lambda: theta, lambda: mom, [("post", "all-ones", kw)],
-    )
-
-
 def zoo_kernel_twins(label, trainer, state, batch):
-    """K1 against its twin at the main path's shape: launched once on the
-    run's whole (G, P) state with the run's gradients and wire
-    (``k1_state_against_twin``), and on a column slice off the 16-byte
-    alignment in the middle of it (a strided view, row stride P:
+    """K1 against its twin on the run's state: on a column slice off the
+    16-byte alignment in the middle of it (a strided view, row stride P:
     ``k1_slice_against_twin``, bit for bit, post and pre, all-ones and
-    masked); K3 over the whole state against its twin (1e-5 relative).
-    Returns {k1_err, k3_err (max abs), the checks' peak allocated bytes}."""
+    masked; the whole-state launch, row offsets past 2^31, is phase 6's);
+    K3 over the whole state against its twin (1e-5 relative).  Returns
+    {k1_err, k3_err (max abs), the checks' peak allocated bytes}."""
     import torch
-    from repro_torch.kernels.gossip_update import gossip_wire
     from repro_torch.kernels.stats import segment_l2_norms, segment_l2_norms_plain
 
     theta, mom = state.theta, state.mom
@@ -3365,9 +3376,7 @@ def zoo_kernel_twins(label, trainer, state, batch):
     a = p // 2 + 3
     err1 = k1_slice_against_twin(f"{label} misaligned", theta, mom, grad, srcs, w,
                                  a, a + min(TWIN_CHUNK, p // 4))
-    wire = gossip_wire(theta, grad, mom, lr=LR, beta=0.9)
-    err1 = max(err1, k1_state_against_twin(label, theta, mom, grad, wire, srcs, w))
-    del grad, wire
+    del grad
     offs = trainer.layout.offsets
     want = segment_l2_norms_plain(theta, offs)
     got = segment_l2_norms(theta, offs)
@@ -3375,8 +3384,8 @@ def zoo_kernel_twins(label, trainer, state, batch):
     if not bool((err <= 1e-5 * want.abs()).all()):
         fail(f"{label}: K3 differs from its twin by {float((err / want.abs()).max()):.3e}")
     peak = torch.cuda.max_memory_allocated()
-    log(f"{label}: K1 == twin on the whole {tuple(theta.shape)} state and on a misaligned "
-        f"strided slice (max abs {err1:.3e}); K3 == twin over {len(offs) - 1} leaves "
+    log(f"{label}: K1 == twin on a misaligned strided slice of the {tuple(theta.shape)} "
+        f"state (max abs {err1:.3e}); K3 == twin over {len(offs) - 1} leaves "
         f"(max rel {float((err / want.abs().clamp_min(1e-30)).max()):.3e}); peak "
         f"{peak / 2**30:.2f} GiB")
     return {"k1_err": err1, "k3_err": float(err.max()), "twin_check_peak_allocated_bytes": peak}
@@ -3837,7 +3846,7 @@ def phase_vlm(dev):
     return out
 
 
-MIXED_BUCKET_MBS = (256, 64)      # phase 31: bucket sizes on the mixed state
+MIXED_BUCKET_MBS = (64,)          # phase 31: bucket sizes on the mixed state
 MIXED_STEPS = 2                   # phase 31: steps of each run
 REJOIN_STEP = 2                   # FAULT_RANK_MODEL's rejoin: node 2 back at step 2
 SIM_MIXED_LAYERS = 7              # phase 32: the simulator holds zamba2 at the trainer's depth
@@ -4215,7 +4224,7 @@ DRY_MINI_ARCHS = ("granite-8b", "phi3.5-moe-42b-a6.6b", "rwkv6-1.6b", "zamba2-7b
 ROOF_STEPS, SHARD_STEPS = 5, 3
 # phase 34's full-width records build in worker processes (the dry run is
 # single-threaded host work; none of them initialises CUDA)
-DRY_WORKERS = 4
+DRY_WORKERS = 6
 PREDICT_34 = (
     "phase 34 prediction (PERF.md §6): 14 full-width records (granite-8b, phi3.5-moe, "
     "kimi-k2 x 4 SHAPES on single = 16 data x 16 model; granite-8b and phi3.5-moe train_4k "
@@ -4509,7 +4518,7 @@ TP_TIMEOUT = 900
 TP_ALLREDUCE_ITERS = 5
 EP_ARCH = "phi3.5-moe-42b-a6.6b"
 EP_B, EP_S, EP_STEPS = 2, 512, 2  # phase 38: the MoE layer's tokens; phi3.5-moe x1 steps
-P39_STEPS, P39_CUT = 20, 10       # phase 39: train_100m's steps and its checkpoint
+P39_STEPS, P39_CUT = 4, 2         # phase 39: train_100m's steps and its checkpoint
 PREDICT_37 = (
     "phase 37 prediction (PERF.md §6): granite-8b x2 on a (2 data x 2 model) world of 4 "
     "ranks on the card over gloo-host: float32 3 steps within 5e-5 of the stacked engine "
@@ -4597,17 +4606,16 @@ def tp_train(trainer, state, batches, lr, dev, *, record=False):
     before and read just after; with ``record`` the model group's
     collectives are recorded.  Returns (state, losses, norms, step ms,
     launches, the model group's op record or None)."""
-    import torch
     from repro_torch.kernels import ops
 
-    torch.cuda.synchronize(dev)
+    sync(dev)
     ops.reset_launch_counts()
     losses, norms, step_ms = [], [], []
     with trainer.model_comm.recording() as mops:
         for batch in batches:
             t1 = time.perf_counter()
             state, loss, nrm = trainer.train_step(state, batch, lr)
-            torch.cuda.synchronize(dev)
+            sync(dev)
             step_ms.append((time.perf_counter() - t1) * 1e3)
             losses.append(float(loss[0]))
             norms.append(nrm[0].cpu().numpy())
@@ -4825,15 +4833,16 @@ def run_rank_jobs(comm, jobs):
     return out
 
 
-RANK_PHASES = (9, 22, 24, "tp")
+RANK_PHASES = (9, 22, 24, "tp", 40, 41)
 
 
 def rank_world(dev, layout, sample, phases=RANK_PHASES):
     """The rank halves of ``phases`` (of RANK_PHASES; "tp" is 37 and 38)
     in one world of G ranks on ``dev``'s device (the card, or gloo ranks
     on the CPU), so that its processes start once: the references of 22,
-    37 and 38 first (in this process), phase 24's file read on its sampled
-    columns and removed after.  Returns each phase's ``done`` argument."""
+    37, 38, 40 and 41 first (in this process), phase 24's file read on its
+    sampled columns and removed after.  Returns each phase's ``done``
+    argument."""
     import shutil
 
     import torch
@@ -4841,9 +4850,10 @@ def rank_world(dev, layout, sample, phases=RANK_PHASES):
 
     dev = torch.device(dev)
     device = None if dev.type == "cuda" else dev.type
-    if "tp" in phases and TP_G * TP_M != G:
-        fail(f"phases 37-38 need a world of {TP_G * TP_M} ranks, the shared one has {G}")
-    for n, msg in ((22, PREDICT_22), (24, PREDICT_24), ("tp", PREDICT_37), ("tp", PREDICT_38)):
+    if {"tp", 40, 41} & set(phases) and TP_G * TP_M != G:
+        fail(f"phases 37-41 need a world of {TP_G * TP_M} ranks, the shared one has {G}")
+    for n, msg in ((22, PREDICT_22), (24, PREDICT_24), ("tp", PREDICT_37), ("tp", PREDICT_38),
+                   (40, PREDICT_40), (41, PREDICT_41)):
         if n in phases:
             log(msg)
     refs, jobs = {}, {}
@@ -4861,13 +4871,36 @@ def rank_world(dev, layout, sample, phases=RANK_PHASES):
         want38 = ep_reference(dev)
         refs["tp"] = (ref37, want38, (t0, t1, time.perf_counter()))
         jobs["tp"] = (tp_ep_rank_run, (leaf_samples(layout, sample), TP_STEPS, EP_STEPS))
+    if 40 in phases:
+        from repro_torch.core.flat import FlatLayout
+        from repro_torch.models import transformer as tfm
+
+        t0 = time.perf_counter()
+        refs40, layouts, runs = {}, {}, []
+        for label, cfg32, cfg16 in p40_runs():
+            layouts[label] = FlatLayout.of_defs(tfm.model_defs(cfg32, TP_M))
+            cols = sample_columns(layouts[label])
+            refs40[label] = stacked_ssm_reference(cfg32, dev, cols, P40_F32_STEPS, SEQ, BATCH)
+            runs.append((label, cfg32, cfg16, leaf_samples(layouts[label], cols)))
+        refs[40] = (refs40, layouts)
+        jobs[40] = (ssm_tp_rank_run, (runs, SEQ, BATCH))
+        log(f"phase 40: the stacked engine's references in {time.perf_counter() - t0:.1f} s")
+    if 41 in phases:
+        t0 = time.perf_counter()
+        cases, cfg16, tb, ts, tnew = p41_cases()
+        refs[41] = (single_card_serving(dev, cases, P41_B, P41_S, P41_NEW), cfg16)
+        jobs[41] = (serve_rank_run, (cases, P41_B, P41_S, P41_NEW, (cfg16, tb, ts, tnew)))
+        log(f"phase 41: the single card's references in {time.perf_counter() - t0:.1f} s")
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
     d = checkpoint_dir(state_bytes(layout)) if 24 in phases else None
     try:
         if d is not None:
             jobs[24] = (resume_rank_run, (str(d), RANK_RESUME_STEPS, RANK_RESUME_CUT))
         keys = [k for k in phases if k in jobs]
         res = spawn_world(run_rank_jobs, G, ([jobs[k] for k in keys],),
-                          timeout=RANK_TIMEOUT + TP_TIMEOUT * ("tp" in phases), device=device)
+                          timeout=RANK_TIMEOUT + TP_TIMEOUT * len({"tp", 40, 41} & set(keys)),
+                          device=device)
         if d is not None:
             file24 = ranks_resume_file(d, layout, sample)
     finally:
@@ -5086,8 +5119,477 @@ def phase_train_100m(dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phases 40-41: the ssm and hybrid families on the tensor-parallel ranks
+# engine; serving on a mesh (both in the shared world, TP_G x TP_M ranks)
+# ---------------------------------------------------------------------------
+
+P40_ARCHS = (("rwkv6-1.6b", 2), ("zamba2-7b", 7))   # (arch, layers) at published width
+P40_F32_STEPS, P40_BF16_STEPS = 3, 2
+P40_TOL = 5e-5
+P41_ARCHS = (("granite-8b", 2), ("rwkv6-1.6b", 2), ("zamba2-7b", 7))
+P41_B, P41_S, P41_NEW = 4, 64, 16               # float32 check: prompts, new tokens
+P41_TIME = ("granite-8b", 36, 2, 512, 32)         # bf16 on (1 x 2): arch, layers, B, S, new
+P41_TOL = 5e-5                                    # of the largest logit's magnitude
+PREDICT_40 = (
+    "phase 40 prediction (PERF.md §6): rwkv6-1.6b x2 and zamba2-7b x7 on (2 data x 2 model) "
+    "ranks over gloo-host: float32 against the stacked engine at G = 2, the first step's "
+    "loss, norms, theta and m within 5e-5 (norms rtol 1e-5) plus twice the stacked engine's "
+    "own float32 rounding (its run with a float64 forward and backward); after 3 steps the "
+    "runs part about as far as that rounding (run B: rwkv6 theta 1.4e-3, zamba2 losses "
+    "3.1e-2), printed, not gated; replicated "
+    "leaves bit for bit (zamba2's float32 a_log and d_skip included), K2 and K3 once a step a "
+    "rank; bf16 rank step near phase 37's (1-2 s) for rwkv6 and 2-5 s for zamba2 x7 (a half "
+    "row of 451M crosses gloo-host), peak about half a stacked node's (rwkv6 3-6 GiB, zamba2 "
+    "8-14 GiB a rank); 40-90 s")
+PREDICT_41 = (
+    "phase 41 prediction (PERF.md §6): granite-8b x2, rwkv6-1.6b x2 and zamba2-7b x7 in "
+    "float32 on (2 x 2) ranks: prefill and every decode step's logits within 5e-5 of the "
+    "largest logit's magnitude of the single-card engine's (expected <= 1e-6), the greedy "
+    "tokens equal; granite-8b x36 bf16 on (1 x 2): prefill 2 x 512 0.3-1.5 s, decode "
+    "80-200 ms a token (phase 11's 74 ms plus ~72 small all-reduces over gloo-host), peak "
+    "9-11 GiB a rank; no kernel launch; 20-60 s")
+
+
+def p40_runs():
+    """Phase 40's configurations: (label, float32 cfg, bf16 cfg) of each of
+    P40_ARCHS at published width (``zoo_cfg``), depth cut."""
+    import torch
+
+    return [(arch, zoo_cfg(arch, layers, torch.float32), zoo_cfg(arch, layers))
+            for arch, layers in P40_ARCHS]
+
+
+def p41_cases():
+    """Phase 41's float32 configurations and its bf16 timing's."""
+    import torch
+
+    arch, layers, b, s, n_new = P41_TIME
+    return ([(arch_, zoo_cfg(arch_, layers_, torch.float32)) for arch_, layers_ in P41_ARCHS],
+            zoo_cfg(arch, layers), b, s, n_new)
+
+
+def _digest(x):
+    import hashlib
+
+    import numpy as np
+
+    return hashlib.sha1(np.ascontiguousarray(x).tobytes()).hexdigest()
+
+
+def wide_loss(cfg):
+    """``cfg``'s loss with the forward and backward in float64 (the
+    parameters and the loss cast at the boundary): the stacked engine's
+    run that measures its own float32 rounding."""
+    import torch
+    from repro_torch.models import transformer as tfm
+
+    cfg64 = dataclasses.replace(cfg, dtype=torch.float64)
+    return lambda p, b: tfm.loss_fn({k: v.double() for k, v in p.items()}, cfg64, b).float()
+
+
+def stacked_ssm_reference(cfg, dev, sample, steps, seq, batch):
+    """Phase 40's reference for one configuration: the stacked engine at G =
+    TP_G with the (TP_G x TP_M) mesh, float32 from the seed-0 weights, and
+    the same run with a float64 forward and backward: per-step losses and
+    norms, θ and m on the sampled columns of each after the first step
+    (``theta1``, ``mom1``) and after the last."""
+    import numpy as np
+    import torch
+    from repro_torch.data import SyntheticLM
+
+    out = {}
+    idx = torch.as_tensor(sample, device=dev)
+    for name, kw in (("f32", {}), ("wide", {"loss_fn": wide_loss(cfg)})):
+        trainer = tp_trainer(cfg, dev, **kw)
+        state = trainer.init_state(seed=0)
+        src = SyntheticLM(vocab=cfg.vocab, seq_len=seq, seed=0)
+        run, losses, norms = {}, [], []
+        for t in range(steps):
+            state, loss, nrm = trainer.train_step(state, src.stacked(TP_G, t, batch), LR)
+            losses.append(loss.cpu().numpy())
+            norms.append(nrm.cpu().numpy())
+            if t == 0 or t == steps - 1:
+                tag = "1" if t == 0 else ""
+                run["theta" + tag] = state.theta[:, idx].float().cpu().numpy()
+                run["mom" + tag] = state.mom[:, idx].cpu().numpy()
+        out[name] = dict(run, losses=np.stack(losses), norms=np.stack(norms))
+        del trainer, state
+        if torch.device(dev).type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def ssm_tp_rank_run(comm, runs, seq, batch):
+    """Phase 40 on one rank of the (TP_G x TP_M) world: each configuration
+    of ``runs`` ((label, float32 cfg, bf16 cfg, the sampled columns of each
+    leaf)) from the seed-0 weights, P40_F32_STEPS steps in float32 (losses,
+    norms, θ and m of its node on the sampled columns, digests of the
+    replicated leaves, launches), then P40_BF16_STEPS steps in bfloat16
+    timed (step ms, the model group's collectives a step, one activation
+    all-reduce's ms, peak)."""
+    import numpy as np
+    import torch
+    from repro_torch.data import SyntheticLM
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = comm.device
+    cuda = dev.type == "cuda"
+    out = {"transport": comm.transport}
+    for label, cfg32, cfg16, per_leaf in runs:
+        t0 = time.perf_counter()
+        res = {}
+        for name, cfg, steps in (("f32", cfg32, P40_F32_STEPS), ("bf16", cfg16, P40_BF16_STEPS)):
+            trainer = tp_trainer(cfg, dev)
+            if trainer.engine != "ranks" or trainer.tp is None:
+                raise RuntimeError(f"rank {comm.rank} runs the {trainer.engine} engine "
+                                   "without a model group")
+            state = trainer.init_state(seed=0)
+            src = SyntheticLM(vocab=cfg.vocab, seq_len=seq, seed=0)
+            batches = [src.stacked(TP_G, t, batch) for t in range(steps)]
+            sync(dev)
+            if cuda:
+                torch.cuda.reset_peak_memory_stats(dev)
+            first = {}
+            if name == "f32":     # θ and m after the first step, then the rest
+                state, l1, n1, ms1, c1, _ = tp_train(trainer, state, batches[:1], LR, dev)
+                first = {"theta1": tp_sampled(trainer, state.theta, per_leaf),
+                         "mom1": tp_sampled(trainer, state.mom, per_leaf)}
+                batches = batches[1:]
+            state, losses, norms, step_ms, counts, mops = tp_train(
+                trainer, state, batches, LR, dev, record=name == "bf16")
+            if name == "f32":
+                losses, norms, step_ms = l1 + losses, n1 + norms, ms1 + step_ms
+                counts = {k: counts[k] + c1[k] for k in counts}
+            views = trainer.stacked_params(state)
+            run = {"losses": np.array(losses), "norms": np.stack(norms), "step_ms": step_ms,
+                   "launches": counts, "row_elems": trainer.layout.size,
+                   "replicated": {k: _digest(views[k].float().cpu().numpy())
+                                  for k, whole in zip(trainer.defs, trainer._replicated())
+                                  if whole},
+                   "peak_allocated_bytes": torch.cuda.max_memory_allocated(dev) if cuda
+                   else 0, **first}
+            if name == "f32":
+                run["theta"] = tp_sampled(trainer, state.theta, per_leaf)
+                run["mom"] = tp_sampled(trainer, state.mom, per_leaf)
+            else:
+                run["model_all_reduces_a_step"] = sum(
+                    op.kind == "all_reduce" for op in mops) / steps
+                run["model_bytes_a_step"] = sum(op.nbytes for op in mops) / steps
+                x = torch.zeros(batch * seq * cfg.d_model, dtype=torch.float32, device=dev)
+                trainer.model_comm.all_reduce(x)
+                times = []
+                for _ in range(TP_ALLREDUCE_ITERS):
+                    sync(dev)
+                    t1 = time.perf_counter()
+                    trainer.model_comm.all_reduce(x)
+                    sync(dev)
+                    times.append((time.perf_counter() - t1) * 1e3)
+                run["activation_all_reduce_ms"] = float(np.median(times))
+                del x
+            res[name] = run
+            del trainer, state, views
+            if cuda:
+                torch.cuda.empty_cache()
+        res["rank_s"] = time.perf_counter() - t0
+        out[label] = res
+    return out
+
+
+def check_ssm_tp(res, refs, layouts):
+    """Phase 40's checks: every rank's float32 run against the stacked
+    engine's (``refs[label]``: its float32 run and its float64-forward
+    run) from the same seed-0 weights: the first step's loss and norms, and
+    θ and m after it, within P40_TOL (norms rtol 1e-5) plus twice the
+    stacked engine's own rounding of them; the later steps part as
+    free-running float32 runs of these families do (ill-conditioned group
+    norms), so their distance is reported beside the stacked engine's own
+    float32-float64 spread and gated by finiteness; the replicated leaves
+    bit for bit across each node's model ranks (their digests) after every
+    run; K2 and K3 once a step a rank.  Returns the phase's numbers."""
+    import numpy as np
+
+    out = {"ranks": TP_G * TP_M, "mesh": {"data": TP_G, "model": TP_M},
+           "transport": res[0]["transport"]}
+    launches = {"gossip_program_update": 0, "gossip_update": 0, "segment_l2_norms": 0,
+                "flash_attention": 0}
+    # the CPU's ranks (gloo) run the kernels' twins, which count no launch
+    on_card = out["transport"] != "gloo"
+    for label, ref in refs.items():
+        r32, wide = ref["f32"], ref["wide"]
+        term = {"loss": 2 * float(np.abs(wide["losses"][0] - r32["losses"][0]).max()),
+                "theta1": 2 * float(np.abs(wide["theta1"] - r32["theta1"]).max()),
+                "mom1": 2 * float(np.abs(wide["mom1"] - r32["mom1"]).max())}
+        spread = {k: float(np.abs(wide[k] - r32[k]).max()) for k in ("losses", "theta", "mom")}
+        norm_term = 2 * np.abs(wide["norms"][0] - r32["norms"][0])
+        worst = {"loss": 0.0, "theta1": 0.0, "mom1": 0.0, "norm_rel": 0.0}
+        later = {"losses": 0.0, "theta": 0.0, "mom": 0.0}
+        for r, rank in enumerate(res):
+            i = r // TP_M
+            mine = rank[label]
+            for name, steps in (("f32", P40_F32_STEPS), ("bf16", P40_BF16_STEPS)):
+                want = {"gossip_program_update": 0, "gossip_update": steps * on_card,
+                        "segment_l2_norms": steps * on_card, "flash_attention": 0}
+                if mine[name]["launches"] != want:
+                    fail(f"phase 40 {label} rank {r} ({name}): launches "
+                         f"{mine[name]['launches']}, expected {want}")
+                if not np.isfinite(mine[name]["losses"]).all():
+                    fail(f"phase 40 {label} rank {r} ({name}): non-finite losses")
+                for k in launches:
+                    launches[k] += mine[name]["launches"][k]
+            f = mine["f32"]
+            got = {"loss": f["losses"][0], "theta1": f["theta1"], "mom1": f["mom1"]}
+            want = {"loss": r32["losses"][0, i], "theta1": r32["theta1"][i],
+                    "mom1": r32["mom1"][i]}
+            for k in got:
+                d = float(np.abs(got[k] - want[k]).max())
+                if d > P40_TOL + term[k]:
+                    fail(f"phase 40 {label} rank {r}: {k} {d:.3e} from the stacked engine, "
+                         f"bar {P40_TOL:.0e} + {term[k]:.3e}")
+                worst[k] = max(worst[k], d)
+            for k, w in (("losses", r32["losses"][:, i]), ("theta", r32["theta"][i]),
+                         ("mom", r32["mom"][i])):
+                later[k] = max(later[k], float(np.abs(f[k] - w).max()))
+                if not np.isfinite(f[k]).all():
+                    fail(f"phase 40 {label} rank {r}: non-finite {k}")
+            n_ref = r32["norms"][0, i]
+            dn = np.abs(f["norms"][0] - n_ref)
+            if not (dn <= 1e-5 * np.abs(n_ref) + norm_term[i]).all():
+                fail(f"phase 40 {label} rank {r}: norms {float((dn / np.abs(n_ref)).max()):.3e} "
+                     "relative from the stacked engine")
+            worst["norm_rel"] = max(worst["norm_rel"],
+                                    float((dn / np.maximum(np.abs(n_ref), 1e-30)).max()))
+        n_rep = 0
+        for name in ("f32", "bf16"):
+            for i in range(TP_G):
+                a = res[i * TP_M][label][name]["replicated"]
+                for j in range(1, TP_M):
+                    if res[i * TP_M + j][label][name]["replicated"] != a:
+                        fail(f"phase 40 {label} {name}: node {i}'s model ranks hold different "
+                             "replicated leaves")
+                n_rep += len(a)
+        b = [rk[label]["bf16"] for rk in res]
+        out[label] = {
+            "node_elems": layouts[label].size, "row_elems": res[0][label]["f32"]["row_elems"],
+            "f32_vs_stacked_first_step": worst, "rounding_term": term,
+            "f32_vs_stacked_last_step": later, "stacked_f32_vs_f64_last_step": spread,
+            "replicated_leaves_checked": n_rep,
+            "f32_step_ms": [rk[label]["f32"]["step_ms"] for rk in res],
+            "bf16_step_ms": [x["step_ms"] for x in b],
+            "model_all_reduces_a_step": b[0]["model_all_reduces_a_step"],
+            "model_bytes_a_step": b[0]["model_bytes_a_step"],
+            "activation_all_reduce_ms": [x["activation_all_reduce_ms"] for x in b],
+            "peak_allocated_bytes": [int(x["peak_allocated_bytes"]) for x in b],
+            "rank_s": max(rk[label]["rank_s"] for rk in res),
+        }
+        log(f"phase 40: {label} on {TP_G} x {TP_M} ranks over {out['transport']}: float32 "
+            f"against the stacked engine, the first step: loss {worst['loss']:.3e}, theta "
+            f"{worst['theta1']:.3e}, m {worst['mom1']:.3e} (rounding terms "
+            f"{ {k: float(f'{v:.3e}') for k, v in term.items()} }), norms rel "
+            f"{worst['norm_rel']:.3e}; after {P40_F32_STEPS} steps losses {later['losses']:.3e}, "
+            f"theta {later['theta']:.3e}, m {later['mom']:.3e} (the stacked engine's own float32 "
+            f"against float64: {spread['losses']:.3e}, {spread['theta']:.3e}, "
+            f"{spread['mom']:.3e}); {n_rep} replicated leaves bit for bit; bf16 step ms "
+            f"per rank {[[round(x, 1) for x in ms] for ms in out[label]['bf16_step_ms']]}; "
+            f"{out[label]['model_all_reduces_a_step']:.0f} model-group all-reduces a step "
+            f"({out[label]['model_bytes_a_step'] / 2**20:.1f} MiB), one activation all-reduce "
+            f"{[round(x, 2) for x in out[label]['activation_all_reduce_ms']]} ms; peak "
+            f"{[round(x / 2**30, 2) for x in out[label]['peak_allocated_bytes']]} GiB a rank; "
+            f"shard row {out[label]['row_elems']:,} of {layouts[label].size:,}")
+    out["launches"] = launches
+    return out
+
+
+def serve_prompts(cfg, b, s, dev, seed=41):
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randint(0, cfg.vocab, (b, s), generator=gen, device=dev)
+
+
+def serve_chain(eng, params, prompts, n_new):
+    """Through ``eng`` (whole batch in, whole logits out on every rank):
+    the prefill's last logits, then every decode step's logits (the prompt
+    replayed from an empty state, then ``n_new`` greedy steps on the whole
+    rows' argmax), and ``generate``'s greedy tokens: (logits (steps + 1, B,
+    V) float32 numpy, the chain's tokens, generate's tokens)."""
+    import numpy as np
+    import torch
+
+    b, s = prompts.shape
+    last, _ = eng.prefill(params, prompts)
+    logits = [last.float().cpu().numpy()]
+    state = eng.init_decode_state(b, s + n_new)
+    for t in range(s):
+        last, state = eng.decode_step(params, prompts[:, t:t + 1], t, state)
+        logits.append(last.float().cpu().numpy())
+    chain = []
+    for i in range(n_new):
+        tok = torch.argmax(last, dim=-1)[:, None]
+        chain.append(tok)
+        last, state = eng.decode_step(params, tok, s + i, state)
+        logits.append(last.float().cpu().numpy())
+    gen = eng.generate(params, prompts, n_new)
+    return (np.stack(logits), torch.cat(chain, dim=1).cpu().numpy(), gen.cpu().numpy())
+
+
+def single_card_serving(dev, cases, b, s, n_new):
+    """Phase 41's reference: each float32 case on one card through
+    ``ServeEngine(cfg)``, seed-0 weights: ``serve_chain``'s logits and
+    tokens, and the family's rounding term: 0, or for the ssm and hybrid
+    families twice the largest difference of those logits from the same
+    chain run in float64 (the same weights, widened)."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.serve import ServeEngine
+
+    out = {}
+    for label, cfg in cases:
+        eng = ServeEngine(cfg, dev)
+        params = eng.init_params(seed=0)
+        prompts = serve_prompts(cfg, b, s, dev)
+        logits, chain, gen = serve_chain(eng, params, prompts, n_new)
+        term = 0.0
+        if cfg.family in ("ssm", "hybrid"):
+            wide = ServeEngine(dataclasses.replace(cfg, dtype=torch.float64), dev)
+            w_logits = serve_chain(wide, {k: v.double() for k, v in params.items()}, prompts,
+                                   n_new)[0]
+            term = 2 * float(np.abs(w_logits - logits).max())
+        out[label] = (logits, chain, gen, term)
+        del eng, params
+        if torch.device(dev).type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def serve_rank_run(comm, cases, b, s, n_new, timing):
+    """Phase 41 on one rank of the (TP_G x TP_M) world: each float32 case
+    through ``ServeEngine(cfg, mesh=...)`` on the (TP_G data x TP_M model)
+    mesh, seed-0 weights, ``serve_chain`` (rank 0 returns its logits and
+    tokens, the others the digests of theirs); then, on the first model
+    group alone as a (1 x TP_M) world, ``timing`` = (bf16 cfg, B, S, new
+    tokens): prefill timed twice, then that many decode steps from the
+    prefill's state (its caches grown), timed a token, and the peak."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.comm import mesh_comms
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.serve import ServeEngine, grow_caches
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = comm.device
+    cuda = dev.type == "cuda"
+    data_comm, model_comm = mesh_comms(comm, TP_G, TP_M)
+    t0 = time.perf_counter()
+    ops.reset_launch_counts()
+    out = {"transport": comm.transport}
+    for label, cfg in cases:
+        eng = ServeEngine(cfg, dev, mesh=make_mesh((TP_G, TP_M), ("data", "model")),
+                          model_comm=model_comm, data_comm=data_comm)
+        params = eng.init_params(seed=0)
+        logits, chain, gen = serve_chain(eng, params, serve_prompts(cfg, b, s, dev), n_new)
+        out[label] = ({"logits": logits, "chain": chain, "tokens": gen} if comm.rank == 0
+                      else {"digest": (_digest(logits), _digest(chain), _digest(gen))})
+        del eng, params
+        if cuda:
+            torch.cuda.empty_cache()
+    cfg16, tb, ts, tnew = timing
+    if data_comm.rank == 0:
+        eng = ServeEngine(cfg16, dev, mesh=make_mesh((1, TP_M), ("data", "model")),
+                          model_comm=model_comm)
+        params = eng.init_params(seed=0)
+        prompts = serve_prompts(cfg16, tb, ts, dev)
+        sync(dev)
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(dev)
+        prefill_s = []
+        for _ in range(2):
+            t1 = time.perf_counter()
+            last, state = eng.prefill(params, prompts)
+            sync(dev)
+            prefill_s.append(time.perf_counter() - t1)
+        state = grow_caches(state, ts + tnew)
+        step = eng.decode_fn(None)
+        sync(dev)
+        t1 = time.perf_counter()
+        for i in range(tnew):
+            tok = eng._next_token(last, 0.0, None)
+            last, state = step(params, tok, ts + i, state)
+        sync(dev)
+        out["timing"] = {"prefill_s": prefill_s,
+                         "decode_ms_a_token": (time.perf_counter() - t1) * 1e3 / tnew,
+                         "peak_allocated_bytes": torch.cuda.max_memory_allocated(dev) if cuda
+                         else 0,
+                         "weights_bytes_a_rank": sum(p.numel() * p.element_size()
+                                                     for p in params.values())}
+        del eng, params, state, last
+        if cuda:
+            torch.cuda.empty_cache()
+    out["launches"] = ops.launch_counts()
+    out["rank_s"] = time.perf_counter() - t0
+    return out
+
+
+def check_mesh_serving(res, ref, timing_cfg):
+    """Phase 41's checks: rank 0's logits (the prefill's and every decode
+    step's) within P41_TOL of the largest logit's magnitude of the single
+    card's (plus, for the ssm and hybrid families, the single card's own
+    float32 rounding term), its chain's and ``generate``'s tokens equal;
+    every other rank the same bits (digests); no kernel launched.  Returns
+    the numbers."""
+    import numpy as np
+
+    out = {"ranks": TP_G * TP_M, "mesh": {"data": TP_G, "model": TP_M},
+           "transport": res[0]["transport"]}
+    for label, (logits, chain, gen, term) in ref.items():
+        mine = res[0][label]
+        scale = float(np.abs(logits).max())
+        err = float(np.abs(mine["logits"] - logits).max())
+        if not err <= P41_TOL * scale + term:
+            fail(f"phase 41 {label}: logits {err:.3e} from the single card's "
+                 f"(bar {P41_TOL:.0e} x {scale:.3f} + {term:.3e})")
+        if not (np.array_equal(mine["chain"], chain) and np.array_equal(mine["tokens"], gen)):
+            fail(f"phase 41 {label}: greedy tokens differ from the single card's")
+        want = (_digest(mine["logits"]), _digest(mine["chain"]), _digest(mine["tokens"]))
+        for r in range(1, len(res)):
+            if res[r][label]["digest"] != want:
+                fail(f"phase 41 {label}: rank {r}'s logits or tokens differ from rank 0's")
+        out[label] = {"max_abs_err": err, "largest_logit": scale, "rounding_term": term,
+                      "steps_checked": int(logits.shape[0])}
+        log(f"phase 41: {label} on {TP_G} x {TP_M} ranks: prefill and {logits.shape[0] - 1} "
+            f"decode steps within {err:.3e} of the single card's (largest logit "
+            f"{scale:.3f}, rounding term {term:.3e}); greedy tokens equal")
+    for r, rank in enumerate(res):
+        if any(rank["launches"].values()):
+            fail(f"phase 41 rank {r}: kernel launches {rank['launches']} while serving")
+    t = [rk["timing"] for rk in res if "timing" in rk]
+    arch, layers, b, s, n_new = P41_TIME
+    out["timing"] = {"model": f"{arch} x{layers} bf16 on (1 x {TP_M}), prefill {b} x {s}, "
+                              f"{n_new} new tokens", "ranks": t}
+    out["rank_s"] = max(rk["rank_s"] for rk in res)
+    log(f"phase 41: {arch} x{layers} bf16 on 1 x {TP_M} ranks: prefill {b}x{s} "
+        f"{[[round(x, 3) for x in r['prefill_s']] for r in t]} s, decode "
+        f"{[round(r['decode_ms_a_token'], 2) for r in t]} ms a token, peak "
+        f"{[round(r['peak_allocated_bytes'] / 2**30, 2) for r in t]} GiB a rank "
+        f"(weights {[round(r['weights_bytes_a_rank'] / 2**30, 2) for r in t]} GiB)")
+    return out
+
+
+def phase_ssm_serve(done):
+    """Phases 40 and 41's checks from ``rank_world``'s ``done``."""
+    (refs40, layouts), res40, s40 = done[40]
+    (ref41, timing_cfg), res41, s41 = done[41]
+    out40 = check_ssm_tp(res40, refs40, layouts)
+    out40["world_s"] = s40
+    out41 = check_mesh_serving(res41, ref41, timing_cfg)
+    out41["world_s"] = s41
+    return out40, out41
+
+
 # phases that run on their own with --phases (each needs only the kernels built)
-ALONE = (34, 37, 38, 39)
+ALONE = (34, 37, 38, 39, 40, 41)
 
 
 def selected_phases(argv):
@@ -5108,9 +5610,10 @@ def run_alone(dev, chosen, smi):
     """The chosen phases of ``ALONE``, each printing its prediction first."""
     _, layout = granite_layout()
     out = {}
+    pair = tuple(n for n in (40, 41) if n in chosen)
     for n in chosen:
-        if n == 38 and 37 in chosen:
-            continue   # run with 37, in its world
+        if n == 38 and 37 in chosen or n == 41 and 40 in chosen:
+            continue   # run with 37 or 40, in its world
         t0 = time.perf_counter()
         if n == 34:
             log(PREDICT_34)
@@ -5123,6 +5626,12 @@ def run_alone(dev, chosen, smi):
             if 37 not in chosen:
                 del out[37]
             n = 37 if 37 in chosen else 38
+        elif n in (40, 41):
+            if pair != (40, 41):
+                fail("--phases runs 40 and 41 together, in one world")
+            out[40], out[41] = phase_ssm_serve(rank_world(dev, layout, sample_columns(layout),
+                                                          pair))
+            n = 40
         else:
             log(PREDICT_39)
             out[n] = phase_train_100m(dev)
@@ -5533,6 +6042,15 @@ def main():
         tp[n]["card"] = smi
     torch.cuda.empty_cache()
 
+    # 40-41. the ssm and hybrid families on the tensor-parallel ranks
+    # engine; serving on a mesh (their ranks ran in the shared world)
+    t40 = time.perf_counter()
+    tp[40], tp[41] = phase_ssm_serve(shared)
+    for n in (40, 41):
+        tp[n]["card"] = smi
+    log(f"phases 40-41: {time.perf_counter() - t40:.1f} s of checks on {smi}; the world's "
+        f"jobs {tp[40]['world_s']:.1f} + {tp[41]['world_s']:.1f} s")
+
     summary = {
         "card": smi,
         "model": f"{cfg.name} x{cfg.n_layers} layers, bf16, G={G}, seq {SEQ}, "
@@ -5571,6 +6089,8 @@ def main():
         "tensor_parallel": tp[37],
         "expert_parallel": tp[38],
         "train_100m": tp[39],
+        "ssm_tensor_parallel": tp[40],
+        "mesh_serving": tp[41],
     }
     log("summary " + json.dumps(summary))
     # each kernel's launches on every main path that runs it
@@ -5595,7 +6115,8 @@ def main():
                           "phase 24": ranks24["launches"]["gossip_update"],
                           "phase 37": tp[37]["launches"]["gossip_update"],
                           "phase 38": tp[38]["launches"]["gossip_update"],
-                          "phase 39": tp[39]["launches"]["gossip_update"]},
+                          "phase 39": tp[39]["launches"]["gossip_update"],
+                          "phase 40": tp[40]["launches"]["gossip_update"]},
         "segment_l2_norms": {"phase 4": counts["segment_l2_norms"],
                              "phase 9": ranks9["launches"]["segment_l2_norms"],
                              "phase 13": launches13["segment_l2_norms"],
@@ -5622,7 +6143,8 @@ def main():
                              "phase 36": launches36["segment_l2_norms"],
                              "phase 37": tp[37]["launches"]["segment_l2_norms"],
                              "phase 38": tp[38]["launches"]["segment_l2_norms"],
-                             "phase 39": tp[39]["launches"]["segment_l2_norms"]},
+                             "phase 39": tp[39]["launches"]["segment_l2_norms"],
+                             "phase 40": tp[40]["launches"]["segment_l2_norms"]},
         "flash_attention": {"phase 12": k4_launches},
     }
     kernels = [

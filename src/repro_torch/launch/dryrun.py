@@ -18,14 +18,24 @@ axis is a gossip axis (``gossip_axes_for``).  A training record is rank
 (0, 0)'s step of the tensor-parallel ranks engine: shard 0 of node 0,
 whose gossip and model-group collectives two ``RecordingComm``s record and
 bill without moving data, so ``argument_bytes`` and ``temp_bytes`` are
-per card and ``mesh_shape`` is the whole mesh.  Two kinds of record keep
-one unsharded node on one card, flagged with the ROADMAP queue 1 item
-they wait for (``waiting_for``): kimi-k2, whose replica needs a whole pod
-(G = 1 on ``single``, 2 on ``multi``: FSDP over the data axes, item 8d),
-and the ssm and hybrid families, whose tensor-parallel forward is item
-8b.  A serving record is one card's replica (serving on a model axis is
-item 8c): the global batch split over the mesh's data axes when they
-divide it (the reference's ``_batch_axes``), else all of it on one card.
+per card and ``mesh_shape`` is the whole mesh; every family trains so,
+the ssm and hybrid ones included.  One kind of record keeps one unsharded
+node on one card, flagged with the ROADMAP queue 1 item it waits for
+(``waiting_for``): kimi-k2's training, whose replica needs a whole pod
+(G = 1 on ``single``, 2 on ``multi``: FSDP over the data axes, item 8d).
+A serving record is rank (0, 0)'s card of ``ServeEngine(cfg, mesh=...)``
+(its model and data groups two ``RecordingComm``s): the weights divided
+over "model", the global batch split over the mesh's data axes when they
+divide it (the reference's ``_batch_axes``; a MoE model serves all of it,
+``ServeEngine.batch_rows``), and the rank's decode state (its KV heads
+by ``transformer.cache_kv_heads``, its RWKV and Mamba2 heads); its
+``mesh_shape`` counts the model axis and the data axes that split the
+batch.  A decode record's ``decode_state_bytes`` gives that state's bytes
+a card beside those of the reference's placement of the same whole
+state (``repro/launch/serve.py::_state_shardings``, whose rule
+``reference_placement_bytes`` repeats: one dim over "model", the later and
+smaller first; the combined axes on the slots at B = 1), which the port
+does not realize: a placement, not a different number.
 
 What one card cannot hold says so: the unsharded records show the bytes
 as they are (kimi-k2's node state is about 10 TB).
@@ -59,9 +69,8 @@ MESHES = {
     "mini": {"pod": 2, "data": 2, "model": 1},
 }
 
-# records that keep one unsharded node on one card, and what they wait for
+# the records that keep one unsharded node on one card, and what they wait for
 _WAIT_G1 = "ROADMAP queue 1 item 8d (G = 1: FSDP over the data axes)"
-_WAIT_FAMILY = "ROADMAP queue 1 item 8b (ssm and hybrid on a model axis)"
 
 
 def _apply_overrides(cfg, override: str):
@@ -97,7 +106,6 @@ def run_one(arch: str, shape, mesh_kind: str, topology: str = "d_ada",
     from repro_torch.launch.roofline import TRANSPORT
     from repro_torch.launch.serve import ServeEngine
     from repro_torch.launch.train import SPMDTrainer
-    from repro_torch.models.transformer import TP_FAMILIES
     from repro_torch.optim.sgd import sgd
 
     cfg = _apply_overrides(get_config(arch), override)
@@ -119,9 +127,6 @@ def run_one(arch: str, shape, mesh_kind: str, topology: str = "d_ada",
         if g == 1 and tp > 1:
             rec["waiting_for"] = _WAIT_G1
             tp = 1
-        elif cfg.family not in TP_FAMILIES and tp > 1:
-            rec["waiting_for"] = _WAIT_FAMILY
-            tp = 1
         topo = make_topology(topology if g > 2 else "d_ring", g)
         kw = {} if g == 1 else {"comm": RecordingComm(0, g)}
         if tp > 1:
@@ -139,19 +144,77 @@ def run_one(arch: str, shape, mesh_kind: str, topology: str = "d_ada",
         rec.update(trainer.lower_step(shape))
     else:
         data = [a for a in mesh if a != "model"]
-        replicas = math.prod(mesh[a] for a in data)
-        if shape.global_batch % replicas:
-            replicas = 1
-        rec["mesh_shape"] = {a: (mesh[a] if replicas > 1 and a in data else 1) for a in mesh}
+        d, tp = math.prod(mesh[a] for a in data), mesh.get("model", 1)
+        engine = ServeEngine(cfg, device="meta", mesh=make_mesh((d, tp), ("data", "model")),
+                             model_comm=RecordingComm(0, tp) if tp > 1 else None,
+                             data_comm=RecordingComm(0, d) if d > 1 else None)
+        rows = engine.batch_rows(shape.global_batch)
+        replicas = shape.global_batch // (rows.stop - rows.start)
+        rec["mesh_shape"] = {a: (mesh[a] if (replicas > 1 and a in data) or a == "model"
+                                 else 1) for a in mesh}
         rec["replicas"] = replicas
-        node_shape = dataclasses.replace(shape, global_batch=shape.global_batch // replicas)
-        engine = ServeEngine(cfg, device="meta")
         if shape.kind == "prefill":
-            rec.update(engine.lower_prefill(node_shape))
+            rec.update(engine.lower_prefill(shape))
         else:
-            rec.update(engine.lower_decode(node_shape))
+            rec.update(engine.lower_decode(shape))
             rec["window"] = engine.decode_window(shape)
+            rec["decode_state_bytes"] = decode_state_bytes(engine, shape, mesh)
     return rec
+
+
+def _leaf_bytes(state) -> list:
+    import torch
+    from torch.utils._pytree import tree_leaves
+
+    return [(tuple(t.shape), t.element_size()) for t in tree_leaves(state)
+            if isinstance(t, torch.Tensor)]
+
+
+def reference_placement_bytes(leaves, b: int, mesh: dict) -> int:
+    """Bytes a card of a whole decode state (``leaves``: (shape, item
+    bytes)) under the reference's ``ServeEngine._state_shardings`` rule on
+    ``mesh``: the batch dim (the first dim of ``b`` among the first three)
+    over the data axes where they divide ``b``; one more dim over "model",
+    the later and smaller (≤ 1024) dims first; at a batch the data axes do
+    not divide, the combined axes on the first dim they divide that is at
+    least their size, in place of "model"."""
+    dsize = math.prod(n for a, n in mesh.items() if a != "model")
+    msize, csize = mesh.get("model", 1), math.prod(mesh.values())
+    split = b % dsize == 0
+    total = 0
+    for shape, item in leaves:
+        parts = [1] * len(shape)
+        bdim = next((i for i, n in enumerate(shape) if n == b and i <= 2), None)
+        if bdim is not None and split:
+            parts[bdim] = dsize
+        cands = [i for i in range((bdim + 1) if bdim is not None else 0, len(shape))
+                 if parts[i] == 1]
+        on_model = next((i for i in sorted(cands, key=lambda i: (shape[i] > 1024, -i))
+                         if shape[i] % msize == 0), None)
+        if on_model is not None:
+            parts[on_model] = msize
+        if not split:
+            for i in cands:
+                if parts[i] == 1 and shape[i] >= csize and shape[i] % csize == 0:
+                    if on_model is not None:
+                        parts[on_model] = 1
+                    parts[i] = csize
+                    break
+        total += math.prod(n // p for n, p in zip(shape, parts)) * item
+    return total
+
+
+def decode_state_bytes(engine, shape, mesh: dict) -> dict:
+    """A decode record's state bytes a card: the port's (this rank's share)
+    and the reference placement's of the whole state."""
+    from repro_torch.models import transformer as tfm
+
+    local, window = engine.abstract_decode_state(shape)
+    whole = tfm.init_decode_state(engine.cfg, shape.global_batch, shape.seq_len, window=window,
+                                  device="meta", tp_size=engine.tp_size, tp_rank=None)
+    return {"port": sum(math.prod(s) * i for s, i in _leaf_bytes(local)),
+            "reference_placement": reference_placement_bytes(
+                _leaf_bytes(whole), shape.global_batch, mesh)}
 
 
 def _isolated(args, archs, shapes, meshes) -> None:

@@ -37,6 +37,7 @@ __all__ = [
     "tree_size_bytes",
     "shard_leaf",
     "unshard",
+    "model_axis_shards",
 ]
 
 _FSDP_ITEM = ("fsdp=True (the G = 1 placement: FSDP over the data axes) is not "
@@ -153,6 +154,17 @@ def tree_size_bytes(tree) -> int:
     if isinstance(tree, Mapping):
         return sum(tree_size_bytes(v) for v in tree.values())
     return math.prod(tree.shape) * tree.dtype.itemsize
+
+
+def model_axis_shards(defs: Mapping, m: int) -> tuple[dict, dict]:
+    """A node's leaves split over a model axis of ``m`` ranks, each along
+    the dim its validated spec puts on "model": (name -> ``Sharding``, name
+    -> the ``ParamDef`` of one rank's shard)."""
+    node = Mesh((m,), ("model",))
+    shardings = {k: leaf_sharding(d.shape, d.spec, node, (), stacked=False)
+                 for k, d in defs.items()}
+    return shardings, {k: dataclasses.replace(d, shape=shardings[k].shard_shape(d.shape))
+                       for k, d in defs.items()}
 
 
 def shard_leaf(x: torch.Tensor, sharding: Sharding, coords: Mapping[str, int]) -> torch.Tensor:

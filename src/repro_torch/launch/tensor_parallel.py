@@ -23,7 +23,12 @@ computation turns sharded or back:
   gradient backward (the embedding's d_model columns, a ``wo`` split on
   its output dim);
 * ``max`` — all-reduce max, no gradient (the vocab-parallel log-softmax's
-  shift).
+  shift);
+* ``sum`` — all-reduce in float32 (or wider), NOT rounded to the input's
+  dtype, with the backward of a sum: the gradient all-reduced too, since
+  the replicated total feeds each rank's share of a sharded computation
+  (a norm over sharded channels: Mamba2's gated RMSNorm over d_inner sums
+  each rank's squares with it, so its mean is the reference's).
 
 Every collective goes through ``launch/comm.py``'s ``Comm`` of the model
 group, so its op record, the linter and the roofline's wire term see it;
@@ -69,12 +74,25 @@ class _Gather(torch.autograd.Function):
         return g.narrow(ctx.dim, a, ctx.n), None, None
 
 
-def _all_reduce_f32(comm, x: torch.Tensor) -> torch.Tensor:
-    """Sum over the group in float32 (or wider), rounded once to x's dtype."""
+class _Sum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, comm):
+        ctx.comm = comm
+        return _all_reduce_f32(comm, x, rounded=False)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce_f32(ctx.comm, g), None
+
+
+def _all_reduce_f32(comm, x: torch.Tensor, rounded: bool = True) -> torch.Tensor:
+    """Sum over the group in float32 (or wider), rounded once to x's dtype
+    (``rounded``) or kept wide."""
     xf = x.to(torch.promote_types(x.dtype, torch.float32)).contiguous()
     if xf is x:
         xf = xf.clone()
-    return comm.all_reduce(xf).to(x.dtype)
+    out = comm.all_reduce(xf)
+    return out.to(x.dtype) if rounded else out
 
 
 class ModelParallel:
@@ -104,6 +122,9 @@ class ModelParallel:
 
     def gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
         return _Gather.apply(x, self.comm, dim % x.dim())
+
+    def sum(self, x: torch.Tensor) -> torch.Tensor:
+        return _Sum.apply(x, self.comm)
 
     def max(self, x: torch.Tensor) -> torch.Tensor:
         return self.comm.all_reduce(x.detach().contiguous().clone(), op="max")

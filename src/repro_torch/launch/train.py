@@ -118,9 +118,13 @@ group (``launch/tensor_parallel.py``), which leaves every replicated leaf
 the same bits on every rank of a node.  Ξ and the DBench norms count a
 replicated leaf once and sum a sharded leaf's squares over the model
 group; checkpoints gather and scatter the shards (the file is the
-reference's: full padded leaves stacked over G).  On a model axis > 1 the
-ssm and hybrid families (item 8b), faults and elastic membership (item
-8e) raise, naming their ROADMAP queue 1 items.
+reference's: full padded leaves stacked over G).  Every family trains
+there: RWKV6 and Mamba2 blocks own their heads' shards
+(``models/rwkv6.py``, ``models/mamba2.py``), and a mixed-dtype state
+(zamba2's float32 ``a_log``/``d_skip`` beside bf16 leaves) is a float32
+shard row whose replicated float32 leaves Ξ and the norms count once.  On
+a model axis > 1 faults and elastic membership (item 8e) raise, naming
+their ROADMAP queue 1 item.
 
 ``lower_step`` is the dry run of one step (``launch/dryrun.py``): this
 trainer's configuration run once on ``meta`` under the op accounting
@@ -181,10 +185,9 @@ from repro_torch.kernels.gossip_update import (
 )
 from repro_torch.launch.comm import Comm, RecordingComm, mesh_comms, rank_device
 from repro_torch.launch.mesh import Mesh, make_mesh
-from repro_torch.launch.sharding import leaf_sharding, shard_leaf, unshard
+from repro_torch.launch.sharding import model_axis_shards, shard_leaf, unshard
 from repro_torch.launch.tensor_parallel import ModelParallel
 from repro_torch.models import transformer as tfm
-from repro_torch.models.common import ParamDef
 from repro_torch.optim.sgd import Optimizer
 from repro_torch.telemetry import MetricsRecorder
 
@@ -335,14 +338,9 @@ class SPMDTrainer:
         self.defs = self.full_defs
         self.shardings = None
         if self.model_comm is not None:
-            self._check_tp(cfg, topology)
+            self._check_tp(topology)
             self.tp = ModelParallel(self.model_comm)
-            node = make_mesh((self.tp_size,), ("model",))
-            self.shardings = {k: leaf_sharding(d.shape, d.spec, node, (), stacked=False)
-                              for k, d in self.full_defs.items()}
-            self.defs = {k: ParamDef(self.shardings[k].shard_shape(d.shape), d.init, d.dtype,
-                                     d.spec)
-                         for k, d in self.full_defs.items()}
+            self.shardings, self.defs = model_axis_shards(self.full_defs, self.tp_size)
         self.layout = FlatLayout.of_defs(self.defs)
         if bucket_mb is not None:
             check_bucketable(optimizer, topology)
@@ -372,11 +370,8 @@ class SPMDTrainer:
             self._metrics_every = self.comm.rank0_value(self._metrics_every)
 
     @staticmethod
-    def _check_tp(cfg, topology) -> None:
+    def _check_tp(topology) -> None:
         """What a model axis > 1 on the ranks engine does not take yet."""
-        if cfg.family not in tfm.TP_FAMILIES:
-            raise ValueError(f"the ranks engine on a model axis > 1 for the {cfg.family} "
-                             "family is not ported: ROADMAP queue 1 item 8b")
         if topology.fault_model is not None:
             raise ValueError("faults and elastic membership on a model axis > 1 are not "
                              "ported: ROADMAP queue 1 item 8e")

@@ -11,6 +11,20 @@ returns its input above 20 where the reference takes log1p(exp(x)): they
 differ there by less than exp(-20) relative.
 
 Decode state: (h (B, H, P, N) float32, the conv tail (B, K-1, d_inner)).
+
+On a tensor-parallel rank (``tp``: the node's model group,
+``launch/tensor_parallel.py``) the block takes the rank's shards:
+``w_z``, ``w_x``, ``conv_w``, ``conv_b`` and ``gn_g`` split on d_inner, so
+the rank owns (d_inner/tp)/64 SSD heads, and ``w_out`` row parallel
+(then ``reduce``).  The replicated leaves its heads read (``w_b``,
+``w_c``, shared by every head; ``w_dt``, ``dt_bias`` and the float32
+``a_log``/``d_skip``, sliced to the local heads) enter the sharded
+computation through ``enter``, as does the normed input.  The gated
+RMSNorm normalises over the WHOLE d_inner: each rank sums its squares in
+float32 and ``tp.sum`` adds them over the group unrounded, so the mean is
+the reference's (a local norm would pass a shape check and be wrong).
+The decode state on a rank is h (B, H/tp, P, N) and the conv tail (B,
+K-1, d_inner/tp).
 """
 from __future__ import annotations
 
@@ -21,6 +35,7 @@ import torch.nn.functional as F
 
 from repro_torch.models.common import (
     ParamDef,
+    at_least_f32,
     he_normal,
     normal_init,
     ones_init,
@@ -93,6 +108,25 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, tail: torch.
     return y, (ext[:, -(k - 1):] if k > 1 else tail)
 
 
+def _local(params: Mapping, tp):
+    """(the block's leaves as this rank computes with them, the model group
+    where d_inner is split over it else None).  The replicated leaves that
+    the rank's heads read enter, the per-head ones sliced to its heads."""
+    d_inner = params["conv_b"].shape[0]
+    n_heads = params["a_log"].shape[0]
+    if tp is None or d_inner == n_heads * _HEAD_P:
+        return params, None
+    if n_heads % tp.size:
+        raise ValueError(f"{n_heads} SSD heads do not split over a model group of {tp.size}")
+    hd = tp.local(n_heads)
+    local = dict(params)
+    local["w_b"], local["w_c"] = tp.enter(params["w_b"]), tp.enter(params["w_c"])
+    local["w_dt"] = tp.enter(params["w_dt"])[:, hd]
+    for name in ("dt_bias", "a_log", "d_skip"):
+        local[name] = tp.enter(params[name])[hd]
+    return local, tp
+
+
 def _projections(params: Mapping, xn: torch.Tensor):
     z = xn @ params["w_z"]
     xi = xn @ params["w_x"]
@@ -102,12 +136,30 @@ def _projections(params: Mapping, xn: torch.Tensor):
     return z, xi, b_in, c_in, dt
 
 
+def _gated_norm(y, z, gamma, tp, eps: float = 1e-6):
+    """``rms_norm(y · silu(z), gamma)`` over the whole d_inner; on a rank
+    holding a slice of it, the squares summed over the group in float32."""
+    x = y * F.silu(z)
+    if tp is None:
+        return rms_norm(x, gamma)
+    xf = at_least_f32(x)
+    var = tp.sum(xf.square().sum(dim=-1, keepdim=True)) / (x.shape[-1] * tp.size)
+    return (xf * torch.rsqrt(var + eps) * at_least_f32(gamma)).to(x.dtype)
+
+
+def _out(params: Mapping, y, tp):
+    out = y @ params["w_out"]
+    return out if tp is None else tp.reduce(out)
+
+
 def apply_mamba_block(params: Mapping, x: torch.Tensor, state: MambaState, *,
-                      d_state: int, chunk: int = 64):
-    """x: (B, S, D) residual stream.  Returns (out, MambaState)."""
+                      d_state: int, chunk: int = 64, tp=None):
+    """x: (B, S, D) residual stream (on a tensor-parallel rank ``tp``,
+    ``params`` are its shards).  Returns (out, MambaState)."""
     bsz, s, d = x.shape
+    params, tp = _local(params, tp)
     xn = rms_norm(x, params["norm_g"])
-    z, xi, b_in, c_in, dt = _projections(params, xn)
+    z, xi, b_in, c_in, dt = _projections(params, xn if tp is None else tp.enter(xn))
 
     xi, conv_tail = _causal_conv(xi, params["conv_w"], params["conv_b"], state.conv)
     xi = F.silu(xi)
@@ -117,15 +169,16 @@ def apply_mamba_block(params: Mapping, x: torch.Tensor, state: MambaState, *,
     y, h_new = ssd_chunked(xh, dt, params["a_log"], b_in, c_in, params["d_skip"], state.h,
                            chunk=chunk)
     y = y.reshape(bsz, s, -1)
-    y = rms_norm(y * F.silu(z), params["gn_g"])
-    out = x + y @ params["w_out"]
+    y = _gated_norm(y, z, params["gn_g"], tp)
+    out = x + _out(params, y, tp)
     return out, MambaState(h=h_new, conv=conv_tail)
 
 
 def mamba_block_decode(params: Mapping, x: torch.Tensor, state: MambaState, *,
-                       d_state: int):
+                       d_state: int, tp=None):
     """Single-token step. x: (B, D).  Returns (out (B, D), MambaState)."""
     bsz, d = x.shape
+    params, tp = _local(params, tp)
     xn = rms_norm(x[:, None], params["norm_g"])[:, 0]
     z, xi, b_in, c_in, dt = _projections(params, xn)
 
@@ -137,6 +190,6 @@ def mamba_block_decode(params: Mapping, x: torch.Tensor, state: MambaState, *,
     xh = xi1.reshape(bsz, h_heads, _HEAD_P)
     y, h_new = ssd_step(xh, dt, params["a_log"], b_in, c_in, params["d_skip"], state.h)
     y = y.reshape(bsz, -1)
-    y = rms_norm((y * F.silu(z))[:, None], params["gn_g"])[:, 0]
-    out = x + y @ params["w_out"]
+    y = _gated_norm(y[:, None], z[:, None], params["gn_g"], tp)[:, 0]
+    out = x + _out(params, y, tp)
     return out, MambaState(h=h_new, conv=new_tail)

@@ -9,6 +9,22 @@ lerp coefficients are static; the decay is fully dynamic.
 
 State per layer: the WKV state (B, H, N, N) in float32 and the previous
 normed token of each of the two token-shifted sublayers.
+
+On a tensor-parallel rank (``tp``: the node's model group,
+``launch/tensor_parallel.py``) the block takes the rank's shards: ``w_r``,
+``w_k``, ``w_v``, ``w_g`` and the channel mix's ``w_k`` split on their
+output dim (column parallel), ``time_mix.w_o`` and ``channel_mix.w_v`` on
+their input dim (row parallel, then ``reduce``).  The rank owns H/tp heads
+of N channels: the WKV recurrence and the per-head group norm are local.
+The replicated leaves its heads read (``mu``, the decay LoRA and ``w0``,
+``bonus_u``, ``gn_g``/``gn_b``) enter the sharded computation through
+``enter``, sliced to the local channels where they are per channel, so
+their gradients are whole and the same bits on every rank; the normed
+input enters once before the token shift.  ``channel_mix.w_r`` runs
+whole on every rank: it gates the reduced value, so nothing it feeds is
+sharded and its gradient is whole with no collective.  The decode state
+on a rank holds its heads' WKV state (B, H/tp, N, N) and the replicated
+shifts (B, D).
 """
 from __future__ import annotations
 
@@ -108,8 +124,8 @@ def _group_norm(x: torch.Tensor, n_heads: int, g, b, eps=1e-5) -> torch.Tensor:
 
 
 def _time_mix_inputs(tm: Mapping, x, shifted, n_heads):
-    b, s, d = x.shape
-    n = d // n_heads
+    b, s, _ = x.shape
+    n = tm["bonus_u"].shape[-1]
     mu = tm["mu"]
     xr, xk, xv, xg, xw = (_lerp(x, shifted, mu[i]) for i in range(5))
     r = (xr @ tm["w_r"]).reshape(b, s, n_heads, n)
@@ -120,46 +136,89 @@ def _time_mix_inputs(tm: Mapping, x, shifted, n_heads):
     return r, k, v, g, logw
 
 
-def _channel_mix(cm: Mapping, xn, shifted):
+def _local_time_mix(tm: Mapping, n_heads: int, tp):
+    """(the time mix's leaves as this rank computes with them, its head
+    count, the model group where the heads are sharded else None).  The
+    replicated leaves enter, sliced to the rank's channels and heads."""
+    d = tm["mu"].shape[-1]
+    tp = None if tp is None else tp.split(d)
+    if tp is None:
+        return tm, n_heads, None
+    if n_heads % tp.size:
+        raise ValueError(f"{n_heads} RWKV heads do not split over a model group of {tp.size}")
+    ch, hd = tp.local(d), tp.local(n_heads)
+    local = dict(tm)
+    local["mu"] = tp.enter(tm["mu"])
+    local["decay_a"] = tp.enter(tm["decay_a"])
+    local["decay_b"] = tp.enter(tm["decay_b"])[:, ch]
+    for name in ("decay_w0", "gn_g", "gn_b"):
+        local[name] = tp.enter(tm[name])[ch]
+    local["bonus_u"] = tp.enter(tm["bonus_u"])[hd]
+    return local, n_heads // tp.size, tp
+
+
+def _channel_mix(cm: Mapping, xn, shifted, tp=None):
+    """``tp``: the model group where d_ff is split over it, else None."""
     mu = cm["mu"]
     xk = _lerp(xn, shifted, mu[0])
     xr = _lerp(xn, shifted, mu[1])
-    kk = torch.square(F.relu(xk @ cm["w_k"]))
-    return torch.sigmoid(xr @ cm["w_r"]) * (kk @ cm["w_v"])
+    if tp is not None:
+        # d_ff on "model": w_k column, w_v row parallel; xk enters them
+        kv = tp.reduce(torch.square(F.relu(tp.enter(xk) @ cm["w_k"])) @ cm["w_v"])
+    else:
+        kv = torch.square(F.relu(xk @ cm["w_k"])) @ cm["w_v"]
+    return torch.sigmoid(xr @ cm["w_r"]) * kv
+
+
+def _time_mix_out(tm: Mapping, o, g, tp):
+    """The time mix's output product: row parallel, reduced, on a rank
+    that holds its heads' channels."""
+    y = (o * g) @ tm["w_o"]
+    return y if tp is None else tp.reduce(y)
+
+
+def _ff_group(tp, d_ff):
+    return None if tp is None else tp.split(d_ff)
 
 
 def apply_rwkv_block(params: Mapping, x: torch.Tensor, state: RWKVState, *,
-                     n_heads: int, chunk: int = 32):
+                     n_heads: int, chunk: int = 32, tp=None, d_ff: int = 0):
     """Full block (time mix + channel mix, own norms and residuals).
-    params: the block's nested dict; x: (B, S, D).  Returns (out, RWKVState)."""
-    b, s, d = x.shape
-    tm, cm = params["time_mix"], params["channel_mix"]
+    params: the block's nested dict (on a tensor-parallel rank ``tp``, its
+    shards; ``d_ff``, the channel mix's whole width, tells whether it is
+    split); x: (B, S, D).  Returns (out, RWKVState)."""
+    b, s, _ = x.shape
+    cm = params["channel_mix"]
+    tm, heads, ttp = _local_time_mix(params["time_mix"], n_heads, tp)
 
     xn = layer_norm(x, params["ln1_g"], params["ln1_b"])
-    shifted = _shift(xn, state.shift_tm)
-    r, k, v, g, logw = _time_mix_inputs(tm, xn, shifted, n_heads)
+    xin = xn if ttp is None else ttp.enter(xn)
+    shifted = _shift(xin, state.shift_tm)
+    r, k, v, g, logw = _time_mix_inputs(tm, xin, shifted, heads)
     o, wkv = rwkv_chunked(r, k, v, logw, tm["bonus_u"], state.wkv, chunk=chunk)
-    o = _group_norm(o.reshape(b, s, d), n_heads, tm["gn_g"], tm["gn_b"])
-    h = x + (o * g) @ tm["w_o"]
+    o = _group_norm(o.reshape(b, s, -1), heads, tm["gn_g"], tm["gn_b"])
+    h = x + _time_mix_out(tm, o, g, ttp)
 
     hn = layer_norm(h, params["ln2_g"], params["ln2_b"])
     shifted_c = _shift(hn, state.shift_cm)
-    out = h + _channel_mix(cm, hn, shifted_c)
+    out = h + _channel_mix(cm, hn, shifted_c, _ff_group(tp, d_ff))
     return out, RWKVState(wkv=wkv, shift_tm=xn[:, -1], shift_cm=hn[:, -1])
 
 
 def rwkv_block_decode(params: Mapping, x: torch.Tensor, state: RWKVState, *,
-                      n_heads: int):
+                      n_heads: int, tp=None, d_ff: int = 0):
     """Single-token step. x: (B, D).  Returns (out (B, D), RWKVState)."""
-    b, d = x.shape
-    tm, cm = params["time_mix"], params["channel_mix"]
+    b, _ = x.shape
+    cm = params["channel_mix"]
+    tm, heads, ttp = _local_time_mix(params["time_mix"], n_heads, tp)
 
     xn = layer_norm(x[:, None], params["ln1_g"], params["ln1_b"])[:, 0]
-    r, k, v, g, logw = _time_mix_inputs(tm, xn[:, None], state.shift_tm[:, None], n_heads)
+    r, k, v, g, logw = _time_mix_inputs(tm, xn[:, None], state.shift_tm[:, None], heads)
     o, wkv = rwkv_step(r[:, 0], k[:, 0], v[:, 0], logw[:, 0], tm["bonus_u"], state.wkv)
-    o = _group_norm(o.reshape(b, 1, d), n_heads, tm["gn_g"], tm["gn_b"])[:, 0]
-    h = x + (o * g[:, 0]) @ tm["w_o"]
+    o = _group_norm(o.reshape(b, 1, -1), heads, tm["gn_g"], tm["gn_b"])[:, 0]
+    h = x + _time_mix_out(tm, o, g[:, 0], ttp)
 
     hn = layer_norm(h[:, None], params["ln2_g"], params["ln2_b"])[:, 0]
-    out = h + _channel_mix(cm, hn[:, None], state.shift_cm[:, None])[:, 0]
+    out = h + _channel_mix(cm, hn[:, None], state.shift_cm[:, None],
+                           _ff_group(tp, d_ff))[:, 0]
     return out, RWKVState(wkv=wkv, shift_tm=xn, shift_cm=hn)

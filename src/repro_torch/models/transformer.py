@@ -51,10 +51,27 @@ row parallel; the contraction fallback is a row-parallel q/k/v and a
 ``wo`` split on its output dim; the MLP's up/gate are column and its down
 row parallel; ``embed`` is split on d_model (an all-gather rebuilds the
 activation) and ``head`` on the vocabulary (a vocab-parallel
-log-softmax); the experts are split on E (``moe.apply_moe_manual_ep``).
-Which dim a leaf is split on follows from ``cfg`` and the group's size as
-the reference's ``_validated_spec`` decides it: a dim that does not
-divide stays whole.
+log-softmax); the experts are split on E (``moe.apply_moe_manual_ep``);
+RWKV6 and Mamba2 blocks own H/tp heads (``models/rwkv6.py``,
+``models/mamba2.py``), and zamba2's shared block is the attention block
+above, its gradient summed over the groups that share it.  Which dim a
+leaf is split on follows from ``cfg`` and the group's size as the
+reference's ``_validated_spec`` decides it: a dim that does not divide
+stays whole.  Every family runs on a rank, in training and in serving.
+
+Serving on a rank: ``prefill``/``decode_step`` with ``tp`` return the
+rank's vocabulary columns of the logits and a decode state of the rank's
+heads (``init_decode_state(..., tp_size=, tp_rank=)``): RWKV and Mamba2
+states of its heads, and a KV cache sized at the padded KV count
+(``attn_dims``) holding ``cache_kv_heads``: the rank's KV heads where the
+KV count divides tp; else (the contraction fallback: k and v whole after
+the all-reduce) the KV heads that the rank's own query heads read, all
+of them where q is not head-sharded either.  The reference places such
+caches differently (one dim over "model" by its rule, the head dim at
+granite-8b's shapes, or the combined (data, model) axes on the slots at
+B = 1: ``repro/launch/serve.py::_state_shardings``); that is a placement,
+not a different number.  The decode path masks padded heads
+as the reference's ``decode_attn_block`` does.
 """
 from __future__ import annotations
 
@@ -108,7 +125,7 @@ __all__ = [
     "cross_entropy",
     "params_from_jax",
     "attn_dims",
-    "TP_FAMILIES",
+    "cache_kv_heads",
     "DecodeState",
     "init_decode_state",
     "prefill",
@@ -116,18 +133,11 @@ __all__ = [
 ]
 
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "audio", "vlm")
-# the families whose forward runs on a tensor-parallel rank
-TP_FAMILIES = ("dense", "moe", "audio", "vlm")
 
 
-def _check_family(cfg: ArchConfig, tp=None) -> None:
+def _check_family(cfg: ArchConfig) -> None:
     if cfg.family not in FAMILIES:
         raise ValueError(f"unknown model family {cfg.family!r}; one of {FAMILIES}")
-    if tp is not None and cfg.family not in TP_FAMILIES:
-        raise ValueError(
-            f"{cfg.family} on a tensor-parallel rank is not ported: ROADMAP queue 1 "
-            "item 8b"
-        )
 
 
 def stack_defs(defs: Mapping, n: int) -> dict:
@@ -343,28 +353,23 @@ def _tp_proj(tp, cfg: ArchConfig, hn, hin, w, bias, n: int):
     return (y if bias is None else y + bias), slice(0, n)
 
 
-def _tp_attention(p: Mapping, cfg: ArchConfig, hn, *, positions, window, tp):
-    """The attention half's output (B, S, D), whole on every rank of the
-    node's model group ``tp``, from the rank's shards."""
+def _tp_qkv(p: Mapping, cfg: ArchConfig, hn, positions, tp):
+    """q, k, v after RoPE on a tensor-parallel rank, and which of the
+    padded heads q and k hold."""
     h_pad, kv_pad = attn_dims(cfg, tp.size)
-    g_pad = h_pad // kv_pad
     hin = tp.enter(hn)
     bias = (lambda name: p[name]) if cfg.qkv_bias else (lambda name: None)
     q, qh = _tp_proj(tp, cfg, hn, hin, p["wq"], bias("bq"), h_pad)
     k, kh = _tp_proj(tp, cfg, hn, hin, p["wk"], bias("bk"), kv_pad)
     v, _ = _tp_proj(tp, cfg, hn, hin, p["wv"], bias("bv"), kv_pad)
     sin, cos = rope(positions, cfg.head_dim, cfg.rope_theta, at_least_f32(hn).dtype)
-    q = apply_rope(q, sin, cos)
-    k = apply_rope(k, sin, cos)
-    if (qh.start, qh.stop) != (kh.start * g_pad, kh.stop * g_pad):
-        # the local query heads' KV heads are not the local KV block: pick
-        # them from the whole k and v, which enter the local heads' attention
-        idx = torch.arange(qh.start, qh.stop, device=hn.device) // g_pad - kh.start
-        k, v = tp.enter(k).index_select(2, idx), tp.enter(v).index_select(2, idx)
-    out = attn_lib.multihead_attention(
-        q, k, v, q_positions=positions, k_positions=positions,
-        causal=True, window=window, impl=cfg.attn_impl, chunk_size=cfg.attn_chunk,
-    )
+    return apply_rope(q, sin, cos), apply_rope(k, sin, cos), v, qh, kh
+
+
+def _tp_out(p: Mapping, cfg: ArchConfig, out, qh: slice, tp):
+    """The attention output's product with ``wo`` from the rank's heads
+    ``qh`` (padded heads masked), whole on every rank."""
+    h_pad, kv_pad = attn_dims(cfg, tp.size)
     out = _masked(cfg, out, h_pad, kv_pad, qh)
     wo = p["wo"]
     if wo.shape[0] < h_pad:            # heads on "model": row parallel
@@ -374,22 +379,74 @@ def _tp_attention(p: Mapping, cfg: ArchConfig, hn, *, positions, window, tp):
     return torch.einsum("bshk,hkd->bsd", out, wo)
 
 
+def cache_kv_heads(cfg: ArchConfig, tp_size: int = 1, tp_rank: int = 0) -> list[int]:
+    """The padded KV heads (of ``attn_dims(cfg, tp_size)``) that rank
+    ``tp_rank`` of a model group of ``tp_size`` keeps in its decode cache:
+    its own where the KV count divides ``tp_size``; else those its query
+    heads read (once each where its query heads cover whole groups or sit
+    in one, else one per query head, the pick of ``_tp_attention``); all
+    of them where q is not head-sharded either.  Its query head j reads
+    cache head j // (its query heads / the cache's heads)."""
+    h_pad, kv_pad = attn_dims(cfg, tp_size)
+    if tp_size == 1:
+        return list(range(kv_pad))
+    if kv_pad % tp_size == 0:
+        n = kv_pad // tp_size
+        return list(range(tp_rank * n, (tp_rank + 1) * n))
+    if h_pad % tp_size:
+        return list(range(kv_pad))
+    g, hq = h_pad // kv_pad, h_pad // tp_size
+    q0 = tp_rank * hq
+    if hq % g == 0 or g % hq == 0:
+        return list(range(q0 // g, (q0 + hq - 1) // g + 1))
+    return [(q0 + j) // g for j in range(hq)]
+
+
+def _cache_pick(cfg: ArchConfig, tp, x, kh: slice):
+    """k or v (B, S, n, Dh; heads ``kh`` of the padded KV heads) cut to the
+    heads this rank's cache holds (``cache_kv_heads``)."""
+    idx = cache_kv_heads(cfg, tp.size, tp.rank)
+    if idx == list(range(kh.start, kh.stop)):
+        return x
+    return x.index_select(2, torch.as_tensor(idx, device=x.device) - kh.start)
+
+
+def _tp_attention(p: Mapping, cfg: ArchConfig, hn, *, positions, window, tp,
+                  collect_cache: bool = False):
+    """(the attention half's output (B, S, D), whole on every rank of the
+    node's model group ``tp``, from the rank's shards; with
+    ``collect_cache`` the (k, v) its decode cache holds, else None)."""
+    h_pad, kv_pad = attn_dims(cfg, tp.size)
+    g_pad = h_pad // kv_pad
+    q, k, v, qh, kh = _tp_qkv(p, cfg, hn, positions, tp)
+    cache = (_cache_pick(cfg, tp, k, kh), _cache_pick(cfg, tp, v, kh)) if collect_cache \
+        else None
+    if (qh.start, qh.stop) != (kh.start * g_pad, kh.stop * g_pad):
+        # the local query heads' KV heads are not the local KV block: pick
+        # them from the whole k and v, which enter the local heads' attention
+        idx = torch.arange(qh.start, qh.stop, device=hn.device) // g_pad - kh.start
+        k, v = tp.enter(k).index_select(2, idx), tp.enter(v).index_select(2, idx)
+    out = attn_lib.multihead_attention(
+        q, k, v, q_positions=positions, k_positions=positions,
+        causal=True, window=window, impl=cfg.attn_impl, chunk_size=cfg.attn_chunk,
+    )
+    return _tp_out(p, cfg, out, qh, tp), cache
+
+
 def apply_attn_block(p: Mapping, cfg: ArchConfig, h: torch.Tensor, *,
                      positions: torch.Tensor, window: Optional[int],
                      collect_cache: bool = False, tp=None):
     """One pre-norm attention + feed-forward block. h: (B, S, D);
     positions: (B, S).  Returns (h', (k, v, positions) after RoPE when
     ``collect_cache`` else None, the MoE aux loss (0 without experts)).
-    ``tp``: the node's model group when ``p`` holds a rank's shards
-    (training only: no cache)."""
+    ``tp``: the node's model group when ``p`` holds a rank's shards; the
+    cache then holds the KV heads of ``cache_kv_heads``."""
     hn = _apply_norm(cfg, p, "ln1", h)
     if tp is not None:
-        if collect_cache:
-            raise ValueError("serving on a model axis is not ported: ROADMAP queue 1 "
-                             "item 8c")
-        attn = _tp_attention(p, cfg, hn, positions=positions, window=window, tp=tp)
+        attn, kv = _tp_attention(p, cfg, hn, positions=positions, window=window, tp=tp,
+                                 collect_cache=collect_cache)
         h, aux = _ffn(p, cfg, h + attn, tp)
-        return h, None, aux
+        return h, (kv + (positions,) if collect_cache else None), aux
     q, k, v = _qkv(p, cfg, hn)
     sin, cos = rope(positions, cfg.head_dim, cfg.rope_theta, at_least_f32(h).dtype)
     q = apply_rope(q, sin, cos)
@@ -405,18 +462,30 @@ def apply_attn_block(p: Mapping, cfg: ArchConfig, h: torch.Tensor, *,
 
 def decode_attn_block(p: Mapping, cfg: ArchConfig, h: torch.Tensor,
                       cache_k: torch.Tensor, cache_v: torch.Tensor,
-                      cache_pos: torch.Tensor, *, pos: int, window: Optional[int]):
+                      cache_pos: torch.Tensor, *, pos: int, window: Optional[int],
+                      tp=None):
     """Single-token attention + feed-forward block against a cache (updated
     in place).  h: (B, 1, D); cache_k/v: (B, slots, KV, Dh); cache_pos:
-    (B, slots)."""
+    (B, slots).  Padded heads are masked out of the output, as the
+    reference's decode path does.  ``tp``: the node's model group when
+    ``p`` holds a rank's shards and the cache the rank's KV heads
+    (``cache_kv_heads``)."""
     hn = _apply_norm(cfg, p, "ln1", h)
-    q, k, v = _qkv(p, cfg, hn)
     posb = torch.full((h.shape[0], 1), pos, dtype=torch.int32, device=h.device)
+    if tp is not None:
+        q, k, v, qh, kh = _tp_qkv(p, cfg, hn, posb, tp)
+        attn_lib.cache_update(cache_k, cache_v, cache_pos, _cache_pick(cfg, tp, k, kh),
+                              _cache_pick(cfg, tp, v, kh), pos, ring=window is not None)
+        out = attn_lib.decode_attention(q, cache_k, cache_v, cache_pos, pos=pos,
+                                        window=window)
+        return _ffn(p, cfg, h + _tp_out(p, cfg, out, qh, tp), tp)[0]
+    q, k, v = _qkv(p, cfg, hn)
     sin, cos = rope(posb, cfg.head_dim, cfg.rope_theta, at_least_f32(h).dtype)
     q = apply_rope(q, sin, cos)
     k = apply_rope(k, sin, cos)
     attn_lib.cache_update(cache_k, cache_v, cache_pos, k, v, pos, ring=window is not None)
     out = attn_lib.decode_attention(q, cache_k, cache_v, cache_pos, pos=pos, window=window)
+    out = _masked(cfg, out, p["wq"].shape[1], p["wk"].shape[1])
     return _ffn(p, cfg, h + torch.einsum("bshk,hkd->bsd", out, p["wo"]))[0]
 
 
@@ -501,6 +570,29 @@ def _remat(cfg: ArchConfig, block):
                                                    **kw, **kwargs)
 
 
+def _rwkv_local_heads(cfg: ArchConfig, tp_size: int = 1) -> int:
+    """RWKV heads a rank of a model group of ``tp_size`` owns (all of them
+    where d_model does not divide, as the validated specs leave it whole)."""
+    n = _rwkv_heads(cfg)
+    return n // tp_size if cfg.d_model % tp_size == 0 else n
+
+
+def _mamba_local(cfg: ArchConfig, tp_size: int = 1) -> tuple[int, int]:
+    """(SSD heads, d_inner) a rank of a model group of ``tp_size`` owns."""
+    d_inner = cfg.d_model * 2
+    if d_inner % tp_size:
+        return mamba_n_heads(cfg.d_model), d_inner
+    return mamba_n_heads(cfg.d_model) // tp_size, d_inner // tp_size
+
+
+def _tp_size(tp) -> int:
+    return 1 if tp is None else tp.size
+
+
+def _tp_kw(tp) -> dict:
+    return {} if tp is None else {"tp": tp}
+
+
 def forward_full(params: Mapping, cfg: ArchConfig, tokens: torch.Tensor, *,
                  patch_embeds=None, window: Optional[int] = None,
                  collect_cache: bool = False, tp=None):
@@ -510,31 +602,34 @@ def forward_full(params: Mapping, cfg: ArchConfig, tokens: torch.Tensor, *,
     Dh) with ``collect_cache``; ssm returns its RWKVState (leaves (L, B,
     ...)) and hybrid its {"mamba", "attn_cache", "tail"} states always,
     from zero states at entry.  ``tp``: the node's model group when
-    ``params`` are a rank's shards (the attention families; the logits are
-    then the rank's vocabulary columns where ``head`` is split)."""
-    _check_family(cfg, tp)
+    ``params`` are a rank's shards (every family; the logits are then the
+    rank's vocabulary columns where ``head`` is split, the states and
+    caches the rank's heads)."""
+    _check_family(cfg)
     h = _embed(params, cfg, tokens, patch_embeds, tp)
     b, s, _ = h.shape
     positions = torch.arange(s, dtype=torch.int32, device=h.device)[None].expand(b, s)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    kw = _tp_kw(tp)
 
     if cfg.family == "ssm":
         n_heads = _rwkv_heads(cfg)
+        local = _rwkv_local_heads(cfg, _tp_size(tp))
         block = _remat(cfg, apply_rwkv_block)
         states = []
         for lp in _layers(params, cfg.n_layers):
-            st0 = RWKVState.empty(b, n_heads, cfg.d_model // n_heads, cfg.d_model, h.dtype,
+            st0 = RWKVState.empty(b, local, cfg.d_model // n_heads, cfg.d_model, h.dtype,
                                   h.device)
-            h, st = block(unflatten_tree(lp), h, st0, n_heads=n_heads, chunk=cfg.rec_chunk)
+            h, st = block(unflatten_tree(lp), h, st0, n_heads=n_heads, chunk=cfg.rec_chunk,
+                          d_ff=cfg.d_ff, **kw)
             states.append(st)
-        return _logits(params, cfg, h), _stack_states(states), aux
+        return _logits(params, cfg, h, tp), _stack_states(states), aux
 
     if cfg.family == "hybrid":
-        return _hybrid_forward(params, cfg, h, positions, window, collect_cache)
+        return _hybrid_forward(params, cfg, h, positions, window, collect_cache, tp)
 
     block = _remat(cfg, apply_attn_block)
     entries = []
-    kw = {} if tp is None else {"tp": tp}
     for lp in _layers(params, cfg.n_layers):
         h, entry, a = block(lp, cfg, h, positions=positions, window=window,
                             collect_cache=collect_cache, **kw)
@@ -544,14 +639,15 @@ def forward_full(params: Mapping, cfg: ArchConfig, tokens: torch.Tensor, *,
     return _logits(params, cfg, h, tp), cache, aux
 
 
-def _hybrid_forward(params, cfg, h, positions, window, collect_cache):
+def _hybrid_forward(params, cfg, h, positions, window, collect_cache, tp=None):
     b = h.shape[0]
     group = cfg.attn_every
     n_groups = cfg.n_layers // group
+    heads, d_inner = _mamba_local(cfg, _tp_size(tp))
+    kw = _tp_kw(tp)
 
     def mk_state():
-        return MambaState.empty(b, mamba_n_heads(cfg.d_model), cfg.ssm_state,
-                                cfg.d_model * 2, h.dtype, h.device)
+        return MambaState.empty(b, heads, cfg.ssm_state, d_inner, h.dtype, h.device)
 
     shared = _sub(params, "shared_attn")
     mblock = _remat(cfg, apply_mamba_block)
@@ -562,10 +658,10 @@ def _hybrid_forward(params, cfg, h, positions, window, collect_cache):
         sts = []
         for lp in _unstack(gp, group - 1):
             h, st = mblock(unflatten_tree(lp), h, mk_state(), d_state=cfg.ssm_state,
-                           chunk=cfg.rec_chunk)
+                           chunk=cfg.rec_chunk, **kw)
             sts.append(st)
         h, entry, a = ablock(shared, cfg, h, positions=positions, window=window,
-                             collect_cache=collect_cache)
+                             collect_cache=collect_cache, **kw)
         aux = aux + a
         m_states.append(_stack_states(sts))
         caches.append(entry)
@@ -576,7 +672,7 @@ def _hybrid_forward(params, cfg, h, positions, window, collect_cache):
         sts = []
         for lp in _unstack(tail, next(iter(tail.values())).shape[0]):
             h, st = mblock(unflatten_tree(lp), h, mk_state(), d_state=cfg.ssm_state,
-                           chunk=cfg.rec_chunk)
+                           chunk=cfg.rec_chunk, **kw)
             sts.append(st)
         tail_states = _stack_states(sts)
 
@@ -586,7 +682,7 @@ def _hybrid_forward(params, cfg, h, positions, window, collect_cache):
                        if collect_cache else None),
         "tail": tail_states,
     }
-    return _logits(params, cfg, h), states, aux
+    return _logits(params, cfg, h, tp), states, aux
 
 
 def forward(params: Mapping, cfg: ArchConfig, tokens: torch.Tensor, *,
@@ -646,12 +742,19 @@ class DecodeState(NamedTuple):
 
 
 def init_decode_state(cfg: ArchConfig, batch: int, seq_len: int, *,
-                      window: Optional[int] = None, device=None) -> DecodeState:
+                      window: Optional[int] = None, device=None, tp_size: int = 1,
+                      tp_rank: Optional[int] = 0) -> DecodeState:
     """Empty decode state sized for a ``seq_len`` context (``window`` slots
-    in a ring when a window is given)."""
+    in a ring when a window is given), at the model axis ``tp_size``: the
+    caches at the padded KV count, and rank ``tp_rank``'s share of every
+    leaf (its KV heads, ``cache_kv_heads``; its RWKV and Mamba2 heads), or
+    with ``tp_rank=None`` the whole state (the reference's
+    ``init_decode_state(..., tp_size=)``)."""
     _check_family(cfg)
     slots = min(window, seq_len) if window else seq_len
-    _, kv = attn_dims(cfg)
+    whole = tp_rank is None
+    kv = attn_dims(cfg, tp_size)[1] if whole else len(cache_kv_heads(cfg, tp_size, tp_rank))
+    tp_size = 1 if whole else tp_size
 
     def mk_kv(n):
         shape = (n, batch, slots, kv, cfg.head_dim)
@@ -664,14 +767,14 @@ def init_decode_state(cfg: ArchConfig, batch: int, seq_len: int, *,
 
     if cfg.family == "ssm":
         n_heads = _rwkv_heads(cfg)
-        st = RWKVState.empty(batch, n_heads, cfg.d_model // n_heads, cfg.d_model, cfg.dtype,
-                             device)
+        st = RWKVState.empty(batch, _rwkv_local_heads(cfg, tp_size), cfg.d_model // n_heads,
+                             cfg.d_model, cfg.dtype, device)
         return DecodeState(rwkv=lead(st, (cfg.n_layers,)))
     if cfg.family == "hybrid":
         group = cfg.attn_every
         n_groups, tail = divmod(cfg.n_layers, group)
-        mst = MambaState.empty(batch, mamba_n_heads(cfg.d_model), cfg.ssm_state,
-                               cfg.d_model * 2, cfg.dtype, device)
+        heads, d_inner = _mamba_local(cfg, tp_size)
+        mst = MambaState.empty(batch, heads, cfg.ssm_state, d_inner, cfg.dtype, device)
         return DecodeState(hybrid={
             "mamba": lead(mst, (n_groups, group - 1)),
             "attn_cache": mk_kv(n_groups),
@@ -680,11 +783,15 @@ def init_decode_state(cfg: ArchConfig, batch: int, seq_len: int, *,
     return DecodeState(kv=mk_kv(cfg.n_layers))
 
 
-def prefill(params: Mapping, cfg: ArchConfig, tokens: torch.Tensor, *, patch_embeds=None):
+def prefill(params: Mapping, cfg: ArchConfig, tokens: torch.Tensor, *, patch_embeds=None,
+            tp=None):
     """Process a prompt (a VLM's patches first); returns (last-token logits
-    (B, V), DecodeState over the prompt's positions)."""
+    (B, V), DecodeState over the prompt's positions).  ``tp``: the node's
+    model group when ``params`` are a rank's shards; the logits are then
+    the rank's vocabulary columns where ``head`` is split, the state its
+    share (``init_decode_state(..., tp_size=, tp_rank=)``)."""
     logits, st, _ = forward_full(params, cfg, tokens, patch_embeds=patch_embeds,
-                                 collect_cache=True)
+                                 collect_cache=True, tp=tp)
     last = logits[:, -1]
     if cfg.family == "ssm":
         return last, DecodeState(rwkv=st)
@@ -699,53 +806,60 @@ def _copy_state_(dst, src) -> None:
 
 
 def decode_step(params: Mapping, cfg: ArchConfig, tokens: torch.Tensor, pos: int,
-                state: DecodeState, *, window: Optional[int] = None):
+                state: DecodeState, *, window: Optional[int] = None, tp=None):
     """One token for every sequence in the batch.
 
     tokens: (B, 1); pos: the current absolute position.  The state is
     updated IN PLACE (the reference returns a new one).
-    Returns (logits (B, V), the DecodeState).
+    Returns (logits (B, V), the DecodeState); with ``tp`` (a rank's shards
+    and state) the logits are the rank's vocabulary columns where ``head``
+    is split.
     """
     _check_family(cfg)
     pos = int(pos)
-    h = _embed(params, cfg, tokens)  # (B, 1, D)
+    h = _embed(params, cfg, tokens, tp=tp)  # (B, 1, D)
+    kw = _tp_kw(tp)
 
     if cfg.family == "ssm":
         n_heads = _rwkv_heads(cfg)
         h1 = h[:, 0]
         for li, lp in enumerate(_layers(params, cfg.n_layers)):
             st = RWKVState(*(x[li] for x in state.rwkv))
-            h1, st2 = rwkv_block_decode(unflatten_tree(lp), h1, st, n_heads=n_heads)
+            h1, st2 = rwkv_block_decode(unflatten_tree(lp), h1, st, n_heads=n_heads,
+                                        d_ff=cfg.d_ff, **kw)
             _copy_state_(st, st2)
-        return _logits(params, cfg, h1[:, None])[:, 0], state
+        return _logits(params, cfg, h1[:, None], tp)[:, 0], state
 
     if cfg.family == "hybrid":
-        return _hybrid_decode(params, cfg, h, pos, state, window)
+        return _hybrid_decode(params, cfg, h, pos, state, window, tp)
 
     k, v, p = state.kv
     for li, lp in enumerate(_layers(params, cfg.n_layers)):
-        h = decode_attn_block(lp, cfg, h, k[li], v[li], p[li], pos=pos, window=window)
-    return _logits(params, cfg, h)[:, 0], state
+        h = decode_attn_block(lp, cfg, h, k[li], v[li], p[li], pos=pos, window=window, **kw)
+    return _logits(params, cfg, h, tp)[:, 0], state
 
 
-def _hybrid_decode(params, cfg, h, pos, state, window):
+def _hybrid_decode(params, cfg, h, pos, state, window, tp=None):
     group = cfg.attn_every
     shared = _sub(params, "shared_attn")
     hst = state.hybrid
     k, v, p = hst["attn_cache"]
     n_groups = k.shape[0]
+    kw = _tp_kw(tp)
     h1 = h[:, 0]
     for g, gp in enumerate(_unstack(_sub(params, "mamba_groups"), n_groups)):
         for i, lp in enumerate(_unstack(gp, group - 1)):
             st = MambaState(*(x[g, i] for x in hst["mamba"]))
-            h1, st2 = mamba_block_decode(unflatten_tree(lp), h1, st, d_state=cfg.ssm_state)
+            h1, st2 = mamba_block_decode(unflatten_tree(lp), h1, st, d_state=cfg.ssm_state,
+                                         **kw)
             _copy_state_(st, st2)
         h1 = decode_attn_block(shared, cfg, h1[:, None], k[g], v[g], p[g], pos=pos,
-                               window=window)[:, 0]
+                               window=window, **kw)[:, 0]
     if hst.get("tail") is not None:
         tail = _sub(params, "tail_mamba")
         for i, lp in enumerate(_unstack(tail, hst["tail"].h.shape[0])):
             st = MambaState(*(x[i] for x in hst["tail"]))
-            h1, st2 = mamba_block_decode(unflatten_tree(lp), h1, st, d_state=cfg.ssm_state)
+            h1, st2 = mamba_block_decode(unflatten_tree(lp), h1, st, d_state=cfg.ssm_state,
+                                         **kw)
             _copy_state_(st, st2)
-    return _logits(params, cfg, h1[:, None])[:, 0], state
+    return _logits(params, cfg, h1[:, None], tp)[:, 0], state

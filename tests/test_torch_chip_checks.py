@@ -632,3 +632,87 @@ def test_accum_bar_fails_a_step_off_by_more_than_its_bar():
         chip_smoke.accum_bar(layout, (state, loss), (other, loss.clone()))
     with pytest.raises(SystemExit):
         chip_smoke.accum_bar(layout, (state, loss), (state.clone(), loss * 1.1))
+
+
+# ---------------------------------------------------------------------------
+# Phases 40-41 on the CPU: the (2 x 2) world at the reduced sizes
+# ---------------------------------------------------------------------------
+
+def _reduced_cfg(arch, layers=None, dtype=torch.float32):
+    cfg = get_config(arch + "-reduced")
+    return dataclasses.replace(cfg, n_layers=layers or cfg.n_layers, dtype=dtype, remat=False)
+
+
+@pytest.fixture(scope="module")
+def world_40_41():
+    """Phases 40 and 41's rank halves and references through
+    ``rank_world("cpu", ...)`` at the reduced sizes: rwkv6 (2 layers) and
+    zamba2 (7) trained, granite-8b, rwkv6 and zamba2 served, granite-8b
+    (4 layers, bf16) timed on (1 x 2)."""
+    mp = pytest.MonkeyPatch()
+    mp.setattr(chip_smoke, "SAMPLE", 64)
+    mp.setattr(chip_smoke, "SEQ", 16)
+    mp.setattr(chip_smoke, "P41_S", 8)
+    mp.setattr(chip_smoke, "P41_NEW", 4)
+    mp.setattr(chip_smoke, "p40_runs", lambda: [
+        (arch, _reduced_cfg(arch, layers), _reduced_cfg(arch, layers, torch.bfloat16))
+        for arch, layers in chip_smoke.P40_ARCHS])
+    mp.setattr(chip_smoke, "p41_cases", lambda: (
+        [(arch, _reduced_cfg(arch, layers)) for arch, layers in chip_smoke.P41_ARCHS],
+        _reduced_cfg("granite-8b", 4, torch.bfloat16), 2, 8, 4))
+    try:
+        cfg = chip_smoke.fault_rank_cfg("cpu")
+        from repro_torch.core.flat import FlatLayout
+        from repro_torch.models import transformer as tfm
+
+        layout = FlatLayout.from_shapes({k: d.shape for k, d in tfm.model_defs(cfg).items()})
+        yield chip_smoke.rank_world("cpu", layout, chip_smoke.sample_columns(layout), (40, 41))
+    finally:
+        mp.undo()
+
+
+def test_phases_40_41_hold_the_world_on_cpu(world_40_41):
+    out40, out41 = chip_smoke.phase_ssm_serve(world_40_41)
+    assert out40["transport"] == "gloo" and set(out40) >= {"rwkv6-1.6b", "zamba2-7b"}
+    steps = chip_smoke.P40_F32_STEPS + chip_smoke.P40_BF16_STEPS
+    assert out40["launches"]["gossip_update"] == 0        # the twins count no launch
+    for label in ("rwkv6-1.6b", "zamba2-7b"):
+        assert out40[label]["replicated_leaves_checked"] > 0
+        assert out40[label]["model_all_reduces_a_step"] > 0
+        assert len(out40[label]["bf16_step_ms"]) == chip_smoke.G and steps == 5
+    assert set(out41) >= {"granite-8b", "rwkv6-1.6b", "zamba2-7b", "timing"}
+    assert out41["granite-8b"]["rounding_term"] == 0.0
+    assert all(out41[a]["max_abs_err"] <= chip_smoke.P41_TOL * out41[a]["largest_logit"]
+               + out41[a]["rounding_term"] for a in ("granite-8b", "rwkv6-1.6b", "zamba2-7b"))
+    assert len(out41["timing"]["ranks"]) == chip_smoke.TP_M
+
+
+def _shifted(x):
+    import numpy as np
+
+    return x + np.float32(1e-3) * np.abs(x).max()
+
+
+@pytest.mark.parametrize("mutant", ["theta", "replicated", "logits", "tokens"])
+def test_phases_40_41_fail_a_wrong_world(world_40_41, mutant):
+    """A rank's θ after the first step off by 1e-3 of its scale, a model
+    rank's replicated leaf
+    that differs, a logit off by 1e-3 of the largest, a token that
+    differs: each fails its phase."""
+    import copy
+
+    done = copy.deepcopy(world_40_41)
+    (_, _), res40, _ = done[40]
+    (_, _), res41, _ = done[41]
+    if mutant == "theta":
+        f32 = res40[1]["rwkv6-1.6b"]["f32"]
+        f32["theta1"] = _shifted(f32["theta1"])
+    elif mutant == "replicated":
+        rep = res40[3]["rwkv6-1.6b"]["bf16"]["replicated"]
+        rep[next(iter(rep))] = "0" * 40
+    elif mutant == "logits":
+        res41[0]["granite-8b"]["logits"] = _shifted(res41[0]["granite-8b"]["logits"])
+    else:
+        res41[0]["granite-8b"]["tokens"] = res41[0]["granite-8b"]["tokens"] + 1
+    with pytest.raises(SystemExit):
+        chip_smoke.phase_ssm_serve(done)

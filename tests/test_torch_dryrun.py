@@ -16,6 +16,7 @@ branches of the K1–K4 wrappers and the config repair.
 * ``is_attention_free`` and ``input_specs`` equal the reference's.
 """
 import json
+import math
 
 import numpy as np
 import pytest
@@ -264,3 +265,98 @@ def test_abstract_params_are_meta_leaves_of_the_defs():
         == {torch.float32}
     np.testing.assert_equal(sum(v.numel() for v in flatten_tree(params).values()),
                             FlatLayout.of_defs(defs).size)
+
+
+# ---------------------------------------------------------------------------
+# The ssm and hybrid families and serving on the production meshes
+# ---------------------------------------------------------------------------
+
+# depth cut by ``--override`` (zamba2 at 7 keeps a group and a tail block)
+SHORT = {"rwkv6-1.6b": "n_layers=2", "zamba2-7b": "n_layers=7", "granite-8b": "n_layers=2",
+         "qwen2.5-14b": "n_layers=2", "kimi-k2-1t-a32b": "n_layers=2",
+         "phi3.5-moe-42b-a6.6b": "n_layers=1"}
+
+
+@pytest.mark.parametrize("arch,mesh", [("rwkv6-1.6b", "multi"), ("zamba2-7b", "single")])
+def test_ssm_and_hybrid_train_records_are_rank_0_0s(arch, mesh):
+    """rwkv6's and zamba2's training records are rank (0, 0)'s step of the
+    tensor-parallel ranks engine: no ``waiting_for``, the model axis in
+    ``mesh_shape``, the model group's all-reduces, and the shard row and
+    its float32 momentum as the arguments (zamba2's mixed state a float32
+    row)."""
+    from repro_torch.launch.sharding import model_axis_shards
+
+    cfg = dryrun._apply_overrides(tget(arch), SHORT[arch])
+    local = FlatLayout.of_defs(model_axis_shards(ttfm.model_defs(cfg, 16), 16)[1])
+    rec = dryrun.run_one(arch, "train_4k", mesh, override=SHORT[arch])
+    assert "waiting_for" not in rec
+    assert rec["mesh_shape"]["model"] == 16
+    assert rec["gossip_nodes"] == (16 if mesh == "single" else 32)
+    assert rec["collectives"]["all-reduce"]["count"] > 0      # the model group's
+    row = local.size * local.state_dtype.itemsize      # a mixed state's row is float32
+    assert rec["memory"]["argument_bytes"] == row + local.size * 4
+
+
+def test_kimi_training_still_waits_for_item_8d():
+    rec = dryrun.run_one("kimi-k2-1t-a32b", "train_4k", "single",
+                         override=SHORT["kimi-k2-1t-a32b"])
+    assert rec["waiting_for"].startswith("ROADMAP queue 1 item 8d")
+    assert rec["mesh_shape"] == {"data": 1, "model": 1}
+
+
+@pytest.mark.parametrize("arch,shape", [("granite-8b", "decode_32k"),
+                                        ("qwen2.5-14b", "decode_32k"),
+                                        ("zamba2-7b", "decode_32k"),
+                                        ("zamba2-7b", "long_500k"),
+                                        ("rwkv6-1.6b", "long_500k"),
+                                        ("granite-8b", "prefill_32k"),
+                                        ("phi3.5-moe-42b-a6.6b", "decode_32k")])
+def test_serving_record_is_one_cards_share(arch, shape):
+    """A serving record on ``single`` is rank (0, 0)'s card: its
+    ``argument_bytes`` are the weights' bytes a card (``tree_size_bytes``
+    of the shards ``param_shardings`` gives on the (16 data × 16 model)
+    mesh) plus, for a decode, the bytes of the rank's decode state (its
+    rows of the batch: 128 / 16, all of them for a MoE model and at B = 1;
+    its KV heads, RWKV and Mamba2 heads)."""
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.launch.sharding import param_shardings, tree_size_bytes
+
+    cfg = dryrun._apply_overrides(tget(arch), SHORT[arch])
+    rec = dryrun.run_one(arch, shape, "single", override=SHORT[arch])
+    defs = ttfm.model_defs(cfg, 16)
+    shards = param_shardings({k: torch.empty(d.shape, dtype=d.dtype, device="meta")
+                              for k, d in defs.items()}, {k: d.spec for k, d in defs.items()},
+                             make_production_mesh(), (), stacked=False)
+    local = {k: torch.empty(shards[k].shard_shape(d.shape), dtype=d.dtype, device="meta")
+             for k, d in defs.items()}
+    want = tree_size_bytes(local)
+    assert want < sum(math.prod(d.shape) * d.dtype.itemsize for d in defs.values()) / 8
+    full = SHAPES[shape]
+    b = full.global_batch
+    rows = b if (b % 16 or cfg.n_experts) else b // 16
+    assert rec["replicas"] == b // rows
+    assert rec["mesh_shape"] == {"data": b // rows, "model": 16}
+    if full.kind == "decode":
+        window = 8192 if full.seq_len > 100_000 and cfg.family != "ssm" else None
+        state = ttfm.init_decode_state(cfg, rows, full.seq_len, window=window, device="meta",
+                                       tp_size=16, tp_rank=0)
+        state_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(state)
+                          if isinstance(t, torch.Tensor))
+        want += state_bytes
+        assert rec["decode_state_bytes"]["port"] == state_bytes
+        assert 0 < rec["decode_state_bytes"]["reference_placement"] <= state_bytes
+    assert rec["memory"]["argument_bytes"] == want
+
+
+def test_reference_placement_bytes_follow_the_references_rule():
+    """The reference's ``_state_shardings`` rule by hand: a (L, B, slots,
+    KV, Dh) cache on (16 data x 16 model) splits B over data and Dh (the
+    later and smaller dim that divides) over model; at B = 1 the combined
+    256 go on the slots instead; an RWKV (L, B, D) shift splits D."""
+    mesh = {"data": 16, "model": 16}
+    assert dryrun.reference_placement_bytes([((2, 128, 4096, 8, 128), 2)], 128, mesh) == \
+        2 * 8 * 4096 * 8 * 8 * 2
+    assert dryrun.reference_placement_bytes([((2, 1, 8192, 8, 128), 2)], 1, mesh) == \
+        2 * 1 * 32 * 8 * 128 * 2
+    assert dryrun.reference_placement_bytes([((24, 128, 2048), 4)], 128, mesh) == \
+        24 * 8 * 128 * 4

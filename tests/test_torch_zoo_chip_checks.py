@@ -99,37 +99,6 @@ def test_reduced_parity_harness_on_cpu(on_cpu):   # noqa: F811
                 assert 0.0 < v["grad_bar"] < 1e-6 and 0.0 < v["decode_bar"] < 1e-6, arch
 
 
-def _stops_short(orig):
-    """K1 that leaves the state's last column as it was."""
-    def run(theta, wire, srcs, w, grad, mom, **kw):
-        return orig(theta[:, :-1], wire[:, :-1], srcs, w, grad[:, :-1], mom[:, :-1], **kw)
-    return run
-
-
-@pytest.mark.parametrize("mutant", [None, "stops-short"])
-def test_k1_state_check_holds_the_twin_and_fails_a_short_kernel(on_cpu, monkeypatch,  # noqa: F811
-                                                                mutant):
-    """``k1_state_against_twin`` over a whole (G, P) state in several
-    chunks: the true wrapper passes with error 0, one that stops a column
-    short fails."""
-    g, p = chip_smoke.G, 1000
-    gen = torch.Generator().manual_seed(0)
-    theta = (torch.randn((g, p), generator=gen) * 0.02).bfloat16()
-    grad = torch.randn((g, p), generator=gen).bfloat16()
-    mom = torch.randn((g, p), generator=gen)
-    wire = gu.gossip_wire(theta, grad, mom, lr=chip_smoke.LR, beta=0.9)
-    srcs, w = chip_smoke.ring_tables("cpu")
-    monkeypatch.setattr(chip_smoke, "TWIN_CHUNK", 64)
-    if mutant is not None:
-        monkeypatch.setattr(gu, "gossip_program_update", _stops_short(gu.gossip_program_update))
-        with pytest.raises(SystemExit):
-            chip_smoke.k1_state_against_twin("mutant", theta, mom, grad, wire, srcs, w)
-        return
-    theta0 = theta.clone()
-    assert chip_smoke.k1_state_against_twin("state", theta, mom, grad, wire, srcs, w) == 0.0
-    assert not torch.equal(theta, theta0)   # the state took the update
-
-
 def chip_smoke_archs():
     from repro_torch.configs import ARCH_NAMES
 
