@@ -196,8 +196,8 @@ Phases (any failure exits non-zero and prints no result line):
      attention block, one tail block; 0.903e9 a node), bfloat16 with
      float32 ``a_log``/``d_skip``: the mixed-dtype flat state (float32,
      the bfloat16 leaves rounded after every update); K1 and K3 on it
-     against their twins; one fused step from pushed-apart replicas
-     against the interpreter (phase 5's bound in each leaf's dtype); the
+     against their twins (its fused step against the interpreter is phase
+     31's rejoin step, on the same pushed-apart replicas); the
      reduced bf16 model's fused step on the card against the CPU's on the
      same gradients (float32 leaves within 1e-6, bfloat16 within one
      ulp); serving prefill 2 × 2048 and 32 decode tokens;
@@ -241,11 +241,11 @@ Phases (any failure exits non-zero and prints no result line):
      five archs of ``tests/spmd_dryrun_script.py`` at its mini shapes, all
      on ``meta``: the card's allocated and peak bytes must not move,
      ``is_suspect`` may flag only MoE decodes whose experts compute at the
-     capacity floor; a training record is rank (0, 0)'s step, so its
-     ``argument_bytes``/``temp_bytes`` are a card's (kimi-k2, G = 1, keeps
-     one unsharded node, waiting for ROADMAP queue 1 item 8d); the dry-run
-     and roofline tables and each training record's bytes a card are
-     printed;
+     capacity floor; a training record is rank (0, 0, 0)'s step, so its
+     ``argument_bytes``/``temp_bytes`` are a card's (kimi-k2 on ``single``
+     the G = 1 placement: FSDP over 16 data ranks × EP over 16 model
+     ranks); the dry-run and roofline tables and each training record's
+     bytes a card are printed;
  35. phase 4's configuration against its roofline: the trainer's init
      measured for its device bytes, the median of 5 warm steps timed with
      no accounting, one step under ``launch/hlo_analysis.analyze_step`` on
@@ -274,14 +274,13 @@ Phases (any failure exits non-zero and prints no result line):
      tokens) on each node's 2 model ranks (8 experts each), forward and
      backward in float32, against ``apply_moe`` on one rank (output atol
      1e-5, aux 1e-6, the reference's manual-EP bars; every expert a
-     nonzero gradient); then phi3.5-moe ×1 trained 2 steps in bfloat16 on
-     the (2 × 2) world, timed, its replicated leaves bit for bit, K2 and
-     K3 once a step a rank;
+     nonzero gradient) (phi3.5-moe ×1 trains on this world in phase 42);
  39. ``repro_torch.examples.train_100m`` at its 100m preset (float32) on
      (4 data × 2 model) ranks (K2 fused apply): 4 steps uninterrupted and
-     2 steps that end in a checkpoint, then a fresh world resumed from
-     step 2 to 4, every rank's shard row bit for bit the uninterrupted
-     run's; step ms and the Gini line printed.
+     2 steps that end in a checkpoint, then, in the same world, a fresh
+     run of the example resumed from step 2 to 4, every rank's shard row
+     bit for bit the uninterrupted run's; step ms and the Gini line
+     printed.
  40. the ssm and hybrid families on the tensor-parallel ranks engine, in
      phase 37's world: rwkv6-1.6b ×2 and zamba2-7b ×7 (its mixed state in
      bf16) at published width, phase 4's d_ring, fused apply and norms,
@@ -307,11 +306,34 @@ Phases (any failure exits non-zero and prints no result line):
      float64 chain), the tokens (its chain's and ``generate``'s) equal,
      every rank the same bits, no kernel launch; then granite-8b ×36 in
      bf16 on (1 × 2) (the first model group): prefill 2 × 512 timed
-     twice, 32 decode tokens from its state, ms a token, peak a rank.
+     twice, 32 decode tokens from its state, ms a token, peak a rank;
+ 42. kimi-k2's G = 1 placement, in the same world: phi3.5-moe's published
+     widths at 1 layer (1,562,980,352 parameters a node) named
+     kimi-k2-1t-a32b, so that ``gossip_axes_for`` gives () and the (2 data
+     × 2 model) world is one gossip node; ``moe_shard_ff`` on: every leaf
+     FSDP-sharded over "data" and gathered at use (one layer at a time),
+     its gradient reduce-scattered back, the experts over "model", the
+     global batch 4 × 512 split over the data ranks and each MoE layer
+     routing the tokens of the whole batch.  The first float32 step against
+     the stacked engine at G = 1 on the whole batch on one card: loss, θ
+     and m on the sampled columns within 5e-5, norms rtol 1e-5, the
+     dropped assignments equal, leaves whole on a group (the model axis,
+     the data axis) bit for bit across its ranks; K3 once a step a rank,
+     no K1 or K2 (no gossip at G = 1); then bfloat16 for 2 steps, timed
+     (rank step ms, the data group's all-gather and reduce-scatter bytes
+     and ms a step, peak a rank);
+ 43. faults on a model axis, in the same world: granite-8b ×1 at
+     published width on (2 × 2) ranks, G = 2, d_ring, fused (K2 on shard
+     rows with the node's fault row), a crash of node 1 at step 1 that
+     rejoins at step 2 (each of its model ranks rebuilding its own shard
+     row from its neighbour's), float32 for 3 steps within 5e-5 of the
+     stacked engine (K1 with fault rows) under the same model, norms rtol
+     1e-5, replicated leaves bit for bit; the fault step and the rejoin
+     step timed on the ranks.
 
-``python3 chip_smoke.py --phases 34,37,38,39,40,41`` builds the kernels and
-runs only the chosen ones of those (40 and 41 together; no kernels line,
-no result line).
+``python3 chip_smoke.py --phases 34,37,38,39,40,41,42,43`` builds the
+kernels and runs only the chosen ones of those (40 and 41 together; no
+kernels line, no result line).
 
 The last three lines of standard output are the card's name and power
 limit as nvidia-smi reports them, the per-kernel JSON (K1-K4, each with its
@@ -2897,23 +2919,54 @@ def resume_rank_run(comm, ckpt_dir, steps, cut):
             "load_s": load_s, "launches": counts}
 
 
+def stored_member(path, zf, key):
+    """A read-only memory map of the payload of the stored (uncompressed)
+    ``.npy`` member ``key`` of the zip ``zf`` at ``path`` (a bfloat16
+    member's 2-byte voids as uint16): the pages a reader touches are read,
+    without the zip reader's CRC pass over the whole member."""
+    import struct
+    import zipfile
+
+    import numpy as np
+
+    info = zf.getinfo(key + ".npy")
+    if info.compress_type != zipfile.ZIP_STORED:
+        fail(f"checkpoint member {key} is compressed")
+    with open(path, "rb") as f:
+        f.seek(info.header_offset + 26)
+        name_len, extra_len = struct.unpack("<HH", f.read(4))
+        f.seek(info.header_offset + 30 + name_len + extra_len)
+        fmt = np.lib.format
+        read = (fmt.read_array_header_1_0 if fmt.read_magic(f) == (1, 0)
+                else fmt.read_array_header_2_0)
+        shape, fortran, dtype = read(f)
+        offset = f.tell()
+    if fortran:
+        fail(f"checkpoint member {key} is not C-ordered")
+    if dtype.kind == "V":
+        dtype = np.dtype(np.uint16)
+    return np.memmap(path, dtype=dtype, mode="r", offset=offset, shape=tuple(shape))
+
+
 def file_rows(path, layout, sample):
     """θ and m of a trainer checkpoint on the sampled columns (G, n)."""
     import zipfile
 
     import numpy as np
     import torch
-    from repro_torch.checkpoint.ckpt import read_leaf
 
     out = {"theta": [], "mom": []}
     with zipfile.ZipFile(path) as zf:
         for name, off, size in zip(layout.names, layout.offsets[:-1], layout.sizes):
-            local = torch.as_tensor(sample[(sample >= off) & (sample < off + size)] - off)
+            local = sample[(sample >= off) & (sample < off + size)] - off
             key = name.replace(".", "/")
             for what, prefix, dtype in (("theta", "p/", torch.bfloat16),
                                         ("mom", "o/", torch.float32)):
-                leaf = read_leaf(zf, prefix + key, dtype)
-                out[what].append(leaf.reshape(leaf.shape[0], -1)[:, local].clone())
+                leaf = stored_member(path, zf, prefix + key)
+                rows = np.ascontiguousarray(leaf.reshape(leaf.shape[0], -1)[:, local])
+                if rows.dtype == np.uint16:
+                    rows = rows.view(np.int16)
+                out[what].append(torch.from_numpy(rows).view(dtype))
                 del leaf
     return {k: torch.cat(v, dim=1) for k, v in out.items()}
 
@@ -3243,7 +3296,7 @@ ZOO = {
     29: ("zamba2-7b", 7, 7, 2, 2048, 32),
     30: ("internvl2-2b", 2, 24, 2, 512, 16),
 }
-ZOO_NOISE = 0.03                  # phase 29: replicas pushed apart for the mix check
+ZOO_NOISE = 0.03                  # phase 31: replicas pushed apart for the mix check
 
 PREDICT_27 = (
     "phase 27 prediction (PERF.md §6): phi3.5-moe x1 layer bf16, 1.563e9 params/node: "
@@ -3259,8 +3312,8 @@ PREDICT_29 = (
     "phase 29 prediction (PERF.md §6): zamba2 x7 layers bf16, 0.903e9 params/node, mixed "
     "dtypes: float32 state (16 B a parameter a node: 57.8 GB = 53.8 GiB), peak 55-62 GiB, "
     "step 300-600 ms (K1 on f32 theta ~34 ms of a 26 ms bound, the bf16 leaves' rounding "
-    "20-30 ms); the fused step within phase 5's bound of the interpreter; the reduced "
-    "card step == the CPU's; prefill 2x2048 0.3-1.5 s, decode 5-15 ms a token")
+    "20-30 ms); the reduced card step == the CPU's; prefill 2x2048 0.3-1.5 s, decode "
+    "5-15 ms a token")
 PREDICT_30 = (
     "phase 30 prediction (PERF.md §6): internvl2 x24 bf16 serving with 1024 patches: "
     "prefill 2x(1024+512) 0.1-0.4 s, decode 6-15 ms a token; x2 training G = 4 with "
@@ -3612,40 +3665,6 @@ def mixed_start(trainer, seed=0):
     return state
 
 
-def phase_hybrid_mixed_check(trainer, cfg, batch, dev):
-    """Phase 29's fused step against the interpreter on the mixed state:
-    one step from the same pushed-apart replicas through K1 and through a
-    trainer with fused_apply=False, held by ``check_step_against_interpreter``
-    with the layout (each leaf's own dtype).  The replicas and the fused
-    result wait in host memory while the interpreter runs."""
-    import numpy as np
-    import torch
-    from repro_torch.core.dsgd import make_topology
-    from repro_torch.launch.train import SPMDTrainer, TrainState
-    from repro_torch.optim.sgd import sgd
-
-    rounds = [(st.apply_stacked,
-               torch.as_tensor(np.abs(st.matrix()), dtype=torch.float32, device=dev))
-              for st in program_stages(trainer, 0)]
-    start = mixed_start(trainer)
-    theta0 = host(start.theta)
-    fused, loss_f, _ = trainer.train_step(start, batch, LR)
-    fused_host = TrainState(host(fused.theta), {"mom": host(fused.mom)}, 1)
-    del fused, start
-    torch.cuda.empty_cache()
-    plain = SPMDTrainer(cfg, make_topology("d_ring", G), sgd(momentum=0.9),
-                        collect_norms=True, fused_apply=False)
-    ref, loss_r, _ = plain.train_step(mixed_start(plain), batch, LR)
-    if not torch.allclose(loss_f, loss_r, rtol=1e-5, atol=0):
-        fail(f"phase 29: fused and interpreter losses differ: {loss_f.tolist()} vs "
-             f"{loss_r.tolist()}")
-    out = check_step_against_interpreter("phase 29 fused vs interpreter step", theta0,
-                                         fused_host, ref, rounds, layout=trainer.layout)
-    del ref, plain, theta0, fused_host
-    torch.cuda.empty_cache()
-    return out
-
-
 def phase_hybrid_cpu(dev):
     """zamba2-reduced in bfloat16 (mixed leaf dtypes): one fused trainer step
     on the card (K1) and on the CPU (its twin) from the same seed-0 weights
@@ -3726,15 +3745,9 @@ def phase_hybrid(dev):
     out["f32_leaves"] = f32
     out.update(zoo_kernel_twins("phase 29", trainer, state, batches[0]))
     out.update(zoo_kernel_times(trainer, state, batches[0]))
-    del state
-    torch.cuda.empty_cache()
-    _, tol, rel_m, moved = phase_hybrid_mixed_check(trainer, cfg, batches[0], dev)
-    out["fused_vs_interpreter"] = {"share_of_tolerance": tol, "m_rel": rel_m,
-                                   "moved_share": moved}
-    log(f"phase 29: fused step == interpreter step on the mixed state: theta' within "
-        f"{tol:.3f} of its tolerance (each leaf in its dtype), m' within {rel_m:.3e} "
-        f"relative; the mix moved {moved:.4f} of the elements")
-    del trainer, batches
+    # the fused step against the interpreter on this mixed state: phase 31's
+    # crash-and-rejoin step (K1 with fault rows, the same replicas)
+    del state, trainer, batches
     torch.cuda.empty_cache()
     out["reduced_card_vs_cpu"] = phase_hybrid_cpu(dev)
     out["serve"] = zoo_serve("phase 29", zoo_cfg(arch, serve_layers), pb, ps, n_new, dev)
@@ -3938,7 +3951,8 @@ def phase_mixed_buckets(dev):
     value of its dtype after each step.  Then a crash-and-rejoin step
     (FAULT_RANK_MODEL's rejoin at REJOIN_STEP) on the same replicas: the
     handoff's rows rounded, the fused step within phase 19's bound of the
-    masked interpreter (both from host memory, as phase 29)."""
+    masked interpreter (both from host memory): the fused step against the
+    interpreter on the mixed state."""
     import torch
 
     arch, layers = ZOO[29][:2]
@@ -4223,14 +4237,15 @@ DRY_MINI_ARCHS = ("granite-8b", "phi3.5-moe-42b-a6.6b", "rwkv6-1.6b", "zamba2-7b
                   "kimi-k2-1t-a32b")
 ROOF_STEPS, SHARD_STEPS = 5, 3
 # phase 34's full-width records build in worker processes (the dry run is
-# single-threaded host work; none of them initialises CUDA)
-DRY_WORKERS = 6
+# single-threaded host work; none of them initialises CUDA), started in the
+# background while phases 10-33 run on the card
+DRY_WORKERS = 4
 PREDICT_34 = (
     "phase 34 prediction (PERF.md §6): 14 full-width records (granite-8b, phi3.5-moe, "
     "kimi-k2 x 4 SHAPES on single = 16 data x 16 model; granite-8b and phi3.5-moe train_4k "
     "on multi) and 15 mini ones build on meta in 40-120 s with 0 device bytes allocated; "
     "a training record is rank (0, 0)'s: granite-8b 2.9 GiB and phi3.5-moe 14.6 GiB of "
-    "state a card (46.13 and 233.98 / 16), kimi-k2 one unsharded node (item 8d); "
+    "state a card (46.13 and 233.98 / 16), kimi-k2 about 24 GB (G = 1: FSDP x EP); "
     "is_suspect flags only the MoE decodes whose experts compute at the capacity floor "
     "(phi3.5-moe long_500k, kimi-k2 decode_32k and long_500k)")
 PREDICT_35 = (
@@ -4274,20 +4289,38 @@ def dry_record(task):
     return rec, time.perf_counter() - t0, torch.cuda.is_initialized()
 
 
-def phase_dryrun(dev):
+def start_dryrun():
+    """Phase 34's full-width records started in DRY_WORKERS worker
+    processes: (the pool, the tasks, their pending results), or None
+    without any."""
+    import multiprocessing
+
+    from repro_torch.configs.base import SHAPES
+
+    # the long prefills first, so that the workers finish together; the
+    # tensor-parallel archs' training also on the multi-pod mesh
+    full = [(a, n, "single") for n in ("prefill_32k", "train_4k", "decode_32k", "long_500k")
+            for a in DRY_FULL_ARCHS if n in SHAPES]
+    full += [(a, "train_4k", "multi") for a in DRY_FULL_ARCHS if a in DRY_TP_ARCHS]
+    if not full:
+        return None
+    pool = multiprocessing.get_context("spawn").Pool(DRY_WORKERS)
+    return pool, full, pool.map_async(dry_record, full, chunksize=1)
+
+
+def phase_dryrun(dev, started=None):
     """Phase 34: ``launch/dryrun.run_one`` on the card's machine: granite-8b,
     phi3.5-moe and kimi-k2 at full width over the four SHAPES on the
     ``single`` mesh (in DRY_WORKERS worker processes, each of which must
-    end without having initialised CUDA), and the five archs of
+    end without having initialised CUDA; ``started``: ``start_dryrun``'s
+    pool, started earlier, else started here), and the five archs of
     ``tests/spmd_dryrun_script.py`` at its mini shapes in this process; the
     card's allocated and peak bytes must not move; ``is_suspect`` flags
     nothing but MoE decodes at the capacity floor (``moe_capacity_floor``);
     the dry-run and roofline tables printed, the records written under
     ``build/repro_torch/dryrun``."""
-    import multiprocessing
-
     import torch
-    from repro_torch.configs.base import SHAPES, InputShape
+    from repro_torch.configs.base import InputShape
     from repro_torch.launch import dryrun, roofline
     from repro_torch.launch.validate_dryrun import is_suspect
 
@@ -4298,14 +4331,14 @@ def phase_dryrun(dev):
     torch.cuda.reset_peak_memory_stats()
     before = (torch.cuda.memory_allocated(), torch.cuda.max_memory_allocated())
     records, build_s = [], {}
-    # the long prefills first, so that the workers finish together; the
-    # tensor-parallel archs' training also on the multi-pod mesh
-    full = [(a, n, "single") for n in ("prefill_32k", "train_4k", "decode_32k", "long_500k")
-            for a in DRY_FULL_ARCHS if n in SHAPES]
-    full += [(a, "train_4k", "multi") for a in DRY_FULL_ARCHS if a in DRY_TP_ARCHS]
-    if full:
-        with multiprocessing.get_context("spawn").Pool(DRY_WORKERS) as pool:
-            done = pool.map(dry_record, full, chunksize=1)
+    started = started or start_dryrun()
+    if started is not None:
+        pool, full, pending = started
+        try:
+            done = pending.get()
+        finally:
+            pool.terminate()
+            pool.join()
         for (arch, name, mesh), (rec, secs, touched) in zip(full, done):
             if touched:
                 fail(f"phase 34: the worker building {arch} {name} initialised CUDA")
@@ -4345,15 +4378,13 @@ def phase_dryrun(dev):
         "train_bytes_a_card": {
             f"{r['arch']} {r['mesh']}": {"mesh_shape": r["mesh_shape"],
                                          "argument_bytes": r["memory"]["argument_bytes"],
-                                         "temp_bytes": r["memory"]["temp_bytes"],
-                                         "waiting_for": r.get("waiting_for")}
+                                         "temp_bytes": r["memory"]["temp_bytes"]}
             for r in records if r["kind"] == "train" and r["mesh"] != "mini"},
     }
     for key, b in summary["train_bytes_a_card"].items():
         log(f"phase 34: {key} train_4k on {b['mesh_shape']}: argument "
             f"{b['argument_bytes'] / 2**30:.3f} GiB, temp {b['temp_bytes'] / 2**30:.3f} GiB a "
-            f"card" + (f" (one unsharded node: waits for {b['waiting_for']})"
-                       if b["waiting_for"] else ""))
+            f"card")
     log(f"phase 34: {len(records)} records on meta, 0 device bytes; flagged (capacity floor "
         f"only): {json.dumps(flagged)}")
     return summary
@@ -4517,7 +4548,7 @@ TP_G, TP_M, TP_STEPS = 2, 2, 3    # phase 37: a (2 data x 2 model) world, 3 step
 TP_TIMEOUT = 900
 TP_ALLREDUCE_ITERS = 5
 EP_ARCH = "phi3.5-moe-42b-a6.6b"
-EP_B, EP_S, EP_STEPS = 2, 512, 2  # phase 38: the MoE layer's tokens; phi3.5-moe x1 steps
+EP_B, EP_S = 2, 512               # phase 38: the MoE layer's tokens
 P39_STEPS, P39_CUT = 4, 2         # phase 39: train_100m's steps and its checkpoint
 PREDICT_37 = (
     "phase 37 prediction (PERF.md §6): granite-8b x2 on a (2 data x 2 model) world of 4 "
@@ -4529,13 +4560,13 @@ PREDICT_37 = (
 PREDICT_38 = (
     "phase 38 prediction (PERF.md §6): one phi3.5-moe MoE layer (16 experts, 8 a rank) "
     "forward and backward in float32 on 2 ranks within atol 1e-5 of apply_moe (aux 1e-6), "
-    "every expert with a gradient; phi3.5-moe x1 on (2 x 2) ranks, bf16, 2 steps of 3-6 s "
-    "a rank, replicated leaves (router, norms) bit for bit")
+    "every expert with a gradient (phi3.5-moe x1 trains on these ranks in phase 42)")
 PREDICT_39 = (
-    "phase 39 prediction (PERF.md §6): train_100m's 100m preset (134M parameters, float32) "
-    "on (4 x 2) ranks over gloo-host: 0.5-2 s a step, 20 steps and a run resumed from a "
-    "step-10 checkpoint in a fresh world bit for bit; the Gini of the norms printed; "
-    "phases 37-39 together 120-200 s")
+    "phase 39 prediction (PERF.md §6): train_100m's 100m preset (153.0M parameters, "
+    "float32) on (4 x 2) ranks over gloo-host: 1-2.5 s a step, 4 steps and a run resumed "
+    "from a step-2 checkpoint in a fresh world bit for bit (theta and m, by their SHA-1); "
+    "the Gini of the norms printed; 75-100 s in two worlds (88.3-118.9 s when the ranks "
+    "sent back their rows)")
 
 
 def tp_granite_cfg(dtype):
@@ -4796,9 +4827,9 @@ def check_tp(res, ref, dev, layout):
     return out, err_k2
 
 
-def tp_ep_rank_run(comm, per_leaf, steps, ep_steps):
+def tp_ep_rank_run(comm, per_leaf, steps):
     """Phases 37 and 38 on one rank of their shared (TP_G x TP_M) world."""
-    return {"tp": tp_rank_run(comm, per_leaf, steps), "ep": ep_rank_run(comm, ep_steps)}
+    return {"tp": tp_rank_run(comm, per_leaf, steps), "ep": ep_rank_run(comm)}
 
 
 def phase_tp_ep(dev, done):
@@ -4833,7 +4864,7 @@ def run_rank_jobs(comm, jobs):
     return out
 
 
-RANK_PHASES = (9, 22, 24, "tp", 40, 41)
+RANK_PHASES = (9, 22, 24, "tp", 40, 41, 42, 43)
 
 
 def rank_world(dev, layout, sample, phases=RANK_PHASES):
@@ -4850,10 +4881,10 @@ def rank_world(dev, layout, sample, phases=RANK_PHASES):
 
     dev = torch.device(dev)
     device = None if dev.type == "cuda" else dev.type
-    if {"tp", 40, 41} & set(phases) and TP_G * TP_M != G:
-        fail(f"phases 37-41 need a world of {TP_G * TP_M} ranks, the shared one has {G}")
+    if {"tp", 40, 41, 42, 43} & set(phases) and TP_G * TP_M != G:
+        fail(f"phases 37-43 need a world of {TP_G * TP_M} ranks, the shared one has {G}")
     for n, msg in ((22, PREDICT_22), (24, PREDICT_24), ("tp", PREDICT_37), ("tp", PREDICT_38),
-                   (40, PREDICT_40), (41, PREDICT_41)):
+                   (40, PREDICT_40), (41, PREDICT_41), (42, PREDICT_42), (43, PREDICT_43)):
         if n in phases:
             log(msg)
     refs, jobs = {}, {}
@@ -4870,7 +4901,7 @@ def rank_world(dev, layout, sample, phases=RANK_PHASES):
         t1 = time.perf_counter()
         want38 = ep_reference(dev)
         refs["tp"] = (ref37, want38, (t0, t1, time.perf_counter()))
-        jobs["tp"] = (tp_ep_rank_run, (leaf_samples(layout, sample), TP_STEPS, EP_STEPS))
+        jobs["tp"] = (tp_ep_rank_run, (leaf_samples(layout, sample), TP_STEPS))
     if 40 in phases:
         from repro_torch.core.flat import FlatLayout
         from repro_torch.models import transformer as tfm
@@ -4891,6 +4922,21 @@ def rank_world(dev, layout, sample, phases=RANK_PHASES):
         refs[41] = (single_card_serving(dev, cases, P41_B, P41_S, P41_NEW), cfg16)
         jobs[41] = (serve_rank_run, (cases, P41_B, P41_S, P41_NEW, (cfg16, tb, ts, tnew)))
         log(f"phase 41: the single card's references in {time.perf_counter() - t0:.1f} s")
+    for n, cfg_of, reference, job in ((42, p42_cfg, g1_reference, g1_rank_run),
+                                      (43, p43_cfg, fault_tp_reference, fault_tp_rank_run)):
+        if n in phases:
+            from repro_torch.core.flat import FlatLayout
+            from repro_torch.models import transformer as tfm
+
+            t0 = time.perf_counter()
+            node = FlatLayout.of_defs(tfm.model_defs(cfg_of(torch.float32), TP_M))
+            cols = sample_columns(node)
+            refs[n] = reference(dev, cols)
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+            jobs[n] = (job, (leaf_samples(node, cols),))
+            log(f"phase {n}: the stacked engine's reference in "
+                f"{time.perf_counter() - t0:.1f} s")
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     d = checkpoint_dir(state_bytes(layout)) if 24 in phases else None
@@ -4899,7 +4945,8 @@ def rank_world(dev, layout, sample, phases=RANK_PHASES):
             jobs[24] = (resume_rank_run, (str(d), RANK_RESUME_STEPS, RANK_RESUME_CUT))
         keys = [k for k in phases if k in jobs]
         res = spawn_world(run_rank_jobs, G, ([jobs[k] for k in keys],),
-                          timeout=RANK_TIMEOUT + TP_TIMEOUT * len({"tp", 40, 41} & set(keys)),
+                          timeout=RANK_TIMEOUT + TP_TIMEOUT * len({"tp", 40, 41, 42, 43}
+                                                                  & set(keys)),
                           device=device)
         if d is not None:
             file24 = ranks_resume_file(d, layout, sample)
@@ -4939,10 +4986,11 @@ def ep_layer(dev, experts):
     return cfg, params, x, w
 
 
-def ep_rank_run(comm, steps):
+def ep_rank_run(comm):
     """Phase 38 on one rank of the (TP_G x TP_M) world: the MoE layer with
     this rank's experts over its node's model group (forward and backward,
-    float32), then phi3.5-moe x1 trained ``steps`` steps in bfloat16."""
+    float32).  (phi3.5-moe x1 trains on the same world in phase 42, under
+    kimi-k2's placement.)"""
     import numpy as np
     import torch
     from repro_torch.launch.comm import mesh_comms
@@ -4968,21 +5016,7 @@ def ep_rank_run(comm, steps):
              "experts": list(experts)}
     del params, x, w, out, aux
     torch.cuda.empty_cache()
-
-    from repro_torch.data import SyntheticLM
-
-    trainer = tp_trainer(cfg, dev)
-    state = trainer.init_state(seed=0)
-    src = SyntheticLM(vocab=cfg.vocab, seq_len=SEQ, seed=0)
-    batches = [src.stacked(TP_G, t, BATCH) for t in range(steps)]
-    torch.cuda.reset_peak_memory_stats(dev)
-    state, losses, _, step_ms, counts, _ = tp_train(trainer, state, batches, LR, dev)
-    train = {"losses": np.array(losses), "step_ms": step_ms, "launches": counts,
-             "replicated": replicated_leaves(trainer, state),
-             "peak_allocated_bytes": torch.cuda.max_memory_allocated(dev),
-             "row_elems": trainer.layout.size}
-    return {"layer": layer, "train": train, "transport": comm.transport,
-            "rank_s": time.perf_counter() - t0}
+    return {"layer": layer, "transport": comm.transport, "rank_s": time.perf_counter() - t0}
 
 
 def ep_reference(dev):
@@ -5004,8 +5038,7 @@ def ep_reference(dev):
 def check_ep(res, want):
     """Phase 38's checks: each rank's manual-EP layer against ``apply_moe``
     (the reference's manual-EP bars: output atol 1e-5, aux 1e-6; every
-    expert a nonzero gradient), and phi3.5-moe x1's training (K2 and K3
-    once a step a rank, finite losses, replicated leaves bit for bit)."""
+    expert a nonzero gradient)."""
     import numpy as np
 
     cfg = zoo_cfg(EP_ARCH, 1)
@@ -5018,56 +5051,43 @@ def check_ep(res, want):
         for k, g in lay["expert_grad_max"].items():
             if not (g > 0).all():
                 fail(f"phase 38 rank {r}: experts {lay['experts']} {k} gradients {g.tolist()}")
-        tr = rank["train"]
-        if tr["launches"]["gossip_update"] != EP_STEPS or \
-                tr["launches"]["segment_l2_norms"] != EP_STEPS:
-            fail(f"phase 38 rank {r}: launches {tr['launches']}")
-        if not np.isfinite(tr["losses"]).all():
-            fail(f"phase 38 rank {r}: losses {tr['losses'].tolist()}")
     if err_out >= 1e-5 or err_aux >= 1e-6:
         fail(f"phase 38: manual EP against apply_moe: output {err_out:.3e} (bar 1e-5), aux "
              f"{err_aux:.3e} (bar 1e-6)")
-    n_rep = check_replicated("phase 38", [rk["train"]["replicated"] for rk in res])
-    tr = [rk["train"] for rk in res]
     out = {
         "layer": {"tokens": EP_B * EP_S, "experts_a_rank": cfg.n_experts // TP_M,
                   "max_abs_err": err_out, "aux_abs_err": err_aux},
-        "train_step_ms": [t["step_ms"] for t in tr],
-        "peak_allocated_bytes": [int(t["peak_allocated_bytes"]) for t in tr],
-        "row_elems": tr[0]["row_elems"], "replicated_leaves_checked": n_rep,
-        "launches": {k: sum(t["launches"][k] for t in tr) for k in tr[0]["launches"]},
         "transport": res[0]["transport"], "rank_s": max(rk["rank_s"] for rk in res),
     }
     log(f"phase 38: the MoE layer ({EP_B * EP_S} tokens, {cfg.n_experts} experts, "
         f"{cfg.n_experts // TP_M} a rank) against apply_moe: output {err_out:.3e}, aux "
-        f"{err_aux:.3e}, every expert a gradient; {cfg.name} x1 bf16 on {TP_G} x {TP_M} ranks "
-        f"over {out['transport']}: step ms per rank "
-        f"{[[round(x, 1) for x in t['step_ms']] for t in tr]}, peak "
-        f"{[round(t['peak_allocated_bytes'] / 2**30, 2) for t in tr]} GiB, {n_rep} replicated "
-        f"leaves bit for bit; {out['rank_s']:.1f} s on the ranks")
+        f"{err_aux:.3e}, every expert a gradient; {out['rank_s']:.1f} s on the ranks")
     return out
 
 
 def train100m_runs(comm, argvs):
     """Phase 39 on one rank: ``repro_torch.examples.train_100m.run`` for
-    each argument list in turn, in this world."""
+    each argument list in turn, in this world; the rank's shard rows of θ
+    and m come back as the SHA-1 of their bytes."""
     from repro_torch.examples import train_100m
 
     out = []
     for argv in argvs:
         r = train_100m.run(argv, comm=comm)
         r.pop("trainer")
-        r.pop("state")
+        state = r.pop("state")
+        r["theta"] = _digest(r["theta"])
+        r["mom"] = _digest(state.mom[0].cpu().numpy())
         out.append(r)
     return out
 
 
 def phase_train_100m(dev):
-    """Phase 39: the example's 100m preset on (4 data x 2 model) ranks: 20
-    steps uninterrupted and, in the same world, 10 steps that end in a
-    checkpoint; then a fresh world resumed from that checkpoint to step 20,
-    whose every rank's shard row must be the uninterrupted run's bit for
-    bit."""
+    """Phase 39: the example's 100m preset on (4 data x 2 model) ranks:
+    P39_STEPS steps uninterrupted and, in the same world, P39_CUT steps that
+    end in a checkpoint; then a fresh world resumed from that checkpoint to
+    step P39_STEPS, whose every rank's shard rows of θ and m must be the
+    uninterrupted run's bit for bit (their SHA-1 digests equal)."""
     import shutil
 
     import numpy as np
@@ -5092,9 +5112,10 @@ def phase_train_100m(dev):
     for r, (full, resumed) in enumerate(zip([w[0] for w in world1], [w[0] for w in world2])):
         if full["start"] != 0 or resumed["start"] != P39_CUT:
             fail(f"phase 39 rank {r}: started at steps {full['start']} and {resumed['start']}")
-        if not np.array_equal(full["theta"], resumed["theta"]):
-            fail(f"phase 39 rank {r}: the resumed shard row differs from the uninterrupted "
-                 f"run's by {float(np.abs(full['theta'] - resumed['theta']).max()):.3e}")
+        for what in ("theta", "mom"):
+            if full[what] != resumed[what]:
+                fail(f"phase 39 rank {r}: the resumed shard row of {what} differs from the "
+                     f"uninterrupted run's (SHA-1 {resumed[what]} against {full[what]})")
         if full["losses"][P39_CUT:] != resumed["losses"]:
             fail(f"phase 39 rank {r}: resumed losses differ")
         if any(full["launches"][k] != v for k, v in want.items()):
@@ -5113,9 +5134,10 @@ def phase_train_100m(dev):
     log(f"phase 39: train_100m 100m preset ({full['n_params'] / 1e6:.1f}M) on 4 x 2 ranks: "
         f"median step {out['median_step_ms']:.1f} ms, loss {full['losses'][0]:.4f} -> "
         f"{full['losses'][-1]:.4f}; resumed at step {P39_CUT} in a fresh world == the "
-        f"uninterrupted run bit for bit on all 8 ranks; gini(param norms): first="
-        f"{full['gini'][0]:.5f} last={full['gini'][1]:.5f} (unrounded "
-        f"{full['gini'][0]!r}, {full['gini'][1]!r}); worlds {t1 - t0:.1f} + {t2 - t1:.1f} s")
+        f"uninterrupted run bit for bit on all 8 ranks (theta and m); gini(param norms): "
+        f"first={full['gini'][0]:.5f} last={full['gini'][1]:.5f} (unrounded "
+        f"{full['gini'][0]!r}, {full['gini'][1]!r}); the worlds {t1 - t0:.1f} + "
+        f"{t2 - t1:.1f} s")
     return out
 
 
@@ -5588,8 +5610,445 @@ def phase_ssm_serve(done):
     return out40, out41
 
 
+# ---------------------------------------------------------------------------
+# Phases 42-43: kimi-k2's G = 1 placement (FSDP over the data axes,
+# moe_shard_ff) and faults on a model axis, both in the shared world
+# ---------------------------------------------------------------------------
+
+P42_ARCH = "phi3.5-moe-42b-a6.6b"   # phase 42 runs its widths under kimi-k2's name
+P42_NAME = "kimi-k2-1t-a32b"        # gossip_axes_for gives () on a (data, model) mesh: G = 1
+P42_BATCH = 4                       # the global batch, 2 rows a data rank
+P42_BF16_STEPS = 2
+P43_FAULT = ("crash", dict(rate=0.5, seed=2, down_steps=1))   # node 1 down at 1, back at 2
+P43_STEPS = 3
+PREDICT_42 = (
+    "phase 42 prediction (PERF.md §6): kimi-k2's G = 1 placement at phi3.5-moe x1's width "
+    "(1,562,980,352 parameters a node) on (2 data x 2 model) ranks over gloo-host, "
+    "moe_shard_ff: the first float32 step within 5e-5 of the stacked engine at G = 1 on the "
+    "whole batch (norms rtol 1e-5), the dropped assignments equal, leaves whole on a group "
+    "bit for bit; about 390.7M parameters a rank, 3.1 GB of bf16 state a rank plus a "
+    "gathered layer; the data group moves about 0.8 GB each way a rank a step, a bf16 rank "
+    "step 2-6 s; K3 once a step a rank, no K1 or K2 (no gossip at G = 1)")
+PREDICT_43 = (
+    "phase 43 prediction (PERF.md §6): granite-8b x1 at full width on (2 x 2) ranks, G = 2, "
+    "d_ring, fused, a crash of node 1 at step 1 rejoining at step 2: float32 within 5e-5 of "
+    "the stacked engine (K1 with fault rows) under the same model, replicated leaves bit for "
+    "bit; K3 3 a rank, K2 on each fused step; the fault step about a fault-free rank step "
+    "(0.5-2 s), the "
+    "rejoin step 5-20 s (the handoff's gathers of a shard row's chunks over gloo-host)")
+
+
+def p42_cfg(dtype):
+    """Phase 42's model: phi3.5-moe's published widths, 1 layer, remat off,
+    ``moe_shard_ff``, named kimi-k2 (its gossip placement)."""
+    return dataclasses.replace(zoo_cfg(P42_ARCH, 1, dtype, moe_shard_ff=True), name=P42_NAME)
+
+
+def p43_cfg(dtype):
+    """Phase 43's model: phase 4's granite-8b at 1 layer."""
+    return dataclasses.replace(tp_granite_cfg(dtype), n_layers=1)
+
+
+def p42_trainer(cfg, dev):
+    """The G = 1 trainer of phase 42 on a (TP_G data x TP_M model) mesh:
+    plain momentum-SGD (no fused step at G = 1), norms."""
+    from repro_torch.core.dsgd import make_topology
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.train import SPMDTrainer
+    from repro_torch.optim.sgd import sgd
+
+    return SPMDTrainer(cfg, make_topology("d_ring", 1), sgd(momentum=0.9),
+                       collect_norms=True, device=dev,
+                       mesh=make_mesh((TP_G, TP_M), ("data", "model")))
+
+
+def p43_trainer(cfg, dev):
+    """Phase 43's trainer: phase 37's under the crash model."""
+    from repro_torch.core.dsgd import make_topology
+    from repro_torch.core.faults import make_fault_model
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.train import SPMDTrainer
+    from repro_torch.optim.sgd import sgd
+
+    fm = make_fault_model(P43_FAULT[0], TP_G, **P43_FAULT[1])
+    return SPMDTrainer(cfg, make_topology("d_ring", TP_G, fault_model=fm), sgd(momentum=0.9),
+                       collect_norms=True, fused_apply=True, device=dev,
+                       mesh=make_mesh((TP_G, TP_M), ("data", "model")))
+
+
+def p42_batch(cfg, t):
+    """Phase 42's step-t batch: the reference's flat (B, S) at G = 1."""
+    from repro_torch.data import SyntheticLM
+
+    b = SyntheticLM(vocab=cfg.vocab, seq_len=SEQ, seed=0).stacked(1, t, P42_BATCH)
+    return {k: v[0] for k, v in b.items()}
+
+
+def node_sampled(trainer, buf, per_leaf):
+    """This rank's node's ``buf`` (θ or m) on the sampled columns (float32,
+    leaf order): each rank puts the sampled elements its shard holds into a
+    zero vector (a leaf whole on an axis: that axis's rank 0), and one
+    all-reduce over each of the node's groups adds them (x + 0 is x)."""
+    import numpy as np
+    import torch
+
+    views = trainer.layout.stacked_views(buf)
+    coords = trainer._node_coords()
+    parts = []
+    for (name, cols), counted in zip(per_leaf.items(), trainer._counted()):
+        full = trainer.full_defs[name].shape
+        local = views[name][0]
+        vals = torch.zeros(len(cols), dtype=torch.float32, device=buf.device)
+        sl = trainer.shardings[name].slices(full, coords)
+        at = list(np.unravel_index(cols, full))
+        mine = np.full(len(cols), counted)
+        for d, s in enumerate(sl):
+            mine &= (at[d] >= s.start) & (at[d] < s.stop)
+        if mine.any():
+            idx = np.ravel_multi_index([at[d][mine] - sl[d].start for d in range(len(full))],
+                                       tuple(local.shape))
+            vals[torch.as_tensor(np.nonzero(mine)[0], device=buf.device)] = \
+                local.reshape(-1)[torch.as_tensor(idx, device=buf.device)].float()
+        parts.append(vals)
+    return trainer._node_sum(torch.cat(parts)).cpu().numpy()
+
+
+def whole_digests(trainer, state):
+    """(leaves the model axis leaves whole, those the data axes leave
+    whole): name -> SHA-1 of this rank's copy."""
+    views = trainer.stacked_params(state)
+    model = {k: _digest(views[k].float().cpu().numpy())
+             for k, w in zip(trainer.defs, trainer._replicated()) if w}
+    data = {k: _digest(views[k].float().cpu().numpy())
+            for k, w in zip(trainer.defs, trainer._data_whole()) if w}
+    return model, data
+
+
+class _TimedComm:
+    """Time (ms, after a device synchronize) and bytes of a ``Comm``'s
+    all-gathers and reduce-scatters while installed on it."""
+
+    def __init__(self, comm):
+        self.comm, self.ms, self.nbytes = comm, {}, {}
+        self.orig = {k: getattr(comm, k) for k in ("all_gather", "reduce_scatter")}
+        for k, fn in self.orig.items():
+            setattr(comm, k, self._timed(k, fn))
+
+    def _timed(self, kind, fn):
+        def run(x, *a, **kw):
+            sync(x.device)
+            t0 = time.perf_counter()
+            out = fn(x, *a, **kw)
+            sync(x.device)
+            self.ms[kind] = self.ms.get(kind, 0.0) + (time.perf_counter() - t0) * 1e3
+            self.nbytes[kind] = self.nbytes.get(kind, 0) + x.numel() * x.element_size()
+            return out
+        return run
+
+    def remove(self):
+        for k in self.orig:
+            delattr(self.comm, k)
+
+
+def g1_rank_run(comm, per_leaf):
+    """Phase 42 on one rank of the shared (TP_G x TP_M) world: kimi-k2's
+    G = 1 placement at phi3.5-moe x1's width.  One float32 step from the
+    seed-0 weights (loss, norms, dropped assignments, θ and m of the node on
+    the sampled columns, the digests of the leaves whole on an axis), then
+    bf16 steps timed (step ms, the data group's all-gathers and
+    reduce-scatters a step: bytes and ms, peak allocation)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models.moe import counting_drops
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = comm.device
+    t0 = time.perf_counter()
+    out = {"transport": comm.transport}
+    cfg = p42_cfg(torch.float32)
+    trainer = p42_trainer(cfg, dev)
+    if (trainer.engine, trainer.g, trainer.dp_size, trainer.tp_size) != ("ranks", 1, TP_G, TP_M):
+        raise RuntimeError(f"rank {comm.rank}: {trainer.engine} engine, G {trainer.g}, "
+                           f"{trainer.dp_size} x {trainer.tp_size} a node")
+    state = trainer.init_state(seed=0)
+    sync(dev)
+    ops.reset_launch_counts()
+    with counting_drops() as drops:
+        state, loss, norms = trainer.train_step(state, p42_batch(cfg, 0), LR)
+    sync(dev)
+    out["f32"] = {"loss": float(loss), "norms": norms.cpu().numpy(),
+                  "drops": [int(x) for x in drops], "launches": ops.launch_counts(),
+                  "theta": node_sampled(trainer, state.theta, per_leaf),
+                  "mom": node_sampled(trainer, state.mom, per_leaf),
+                  "whole": whole_digests(trainer, state), "row_elems": trainer.layout.size}
+    del trainer, state
+    torch.cuda.empty_cache()
+    cfg = p42_cfg(torch.bfloat16)
+    trainer = p42_trainer(cfg, dev)
+    state = trainer.init_state(seed=0)
+    sync(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    step_ms, losses, per_step = [], [], []
+    for t in range(P42_BF16_STEPS):
+        timed = _TimedComm(trainer.data_comm)
+        t1 = time.perf_counter()
+        state, loss, _ = trainer.train_step(state, p42_batch(cfg, t), LR)
+        sync(dev)
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        timed.remove()
+        losses.append(float(loss))
+        per_step.append({"ms": timed.ms, "bytes": timed.nbytes})
+    out["bf16"] = {"step_ms": step_ms, "losses": losses, "data_group": per_step,
+                   "launches": ops.launch_counts(), "whole": whole_digests(trainer, state),
+                   "peak_allocated_bytes": torch.cuda.max_memory_allocated(dev),
+                   "row_elems": trainer.layout.size}
+    del trainer, state
+    torch.cuda.empty_cache()
+    out["rank_s"] = time.perf_counter() - t0
+    return out
+
+
+def g1_reference(dev, sample):
+    """Phase 42's reference: the stacked engine at G = 1 on one card (the
+    same mesh, no world: whole leaves, the whole batch), one float32 step
+    from the seed-0 weights."""
+    import torch
+    from repro_torch.models.moe import counting_drops
+
+    cfg = p42_cfg(torch.float32)
+    trainer = p42_trainer(cfg, dev)
+    if (trainer.engine, trainer.g) != ("stacked", 1):
+        fail(f"phase 42's reference runs the {trainer.engine} engine at G = {trainer.g}")
+    state = trainer.init_state(seed=0)
+    with counting_drops() as drops:
+        state, loss, norms = trainer.train_step(state, p42_batch(cfg, 0), LR)
+    idx = torch.as_tensor(sample, device=dev)
+    ref = {"loss": float(loss), "norms": norms.cpu().numpy(), "drops": [int(x) for x in drops],
+           "theta": state.theta[0, idx].float().cpu().numpy(),
+           "mom": state.mom[0, idx].cpu().numpy(), "node_elems": trainer.layout.size}
+    del trainer, state, idx
+    torch.cuda.empty_cache()
+    return ref
+
+
+def check_groups(label, whole, d, m):
+    """Leaves whole on the model axis bit for bit across the ranks of a
+    data index, leaves whole on the data axes across those of a model
+    index (``whole[r]``: rank r's (model, data) digests; rank i·m + j)."""
+    n = 0
+    for r, (model, data) in enumerate(whole):
+        i, j = divmod(r, m)
+        for k, h in model.items():
+            if h != whole[i * m][0][k]:
+                fail(f"{label}: {k} (whole on the model axis) differs between ranks "
+                     f"{i * m} and {r}")
+            n += 1
+        for k, h in data.items():
+            if h != whole[j][1][k]:
+                fail(f"{label}: {k} (whole on the data axes) differs between ranks {j} and {r}")
+            n += 1
+    return n
+
+
+def check_g1(res, ref):
+    """Phase 42's checks of the world's results against the stacked engine's
+    ``ref``."""
+    import numpy as np
+
+    want32 = {"gossip_program_update": 0, "gossip_update": 0, "segment_l2_norms": 1,
+              "flash_attention": 0}
+    worst = {"loss": 0.0, "theta": 0.0, "mom": 0.0, "norm_rel": 0.0}
+    for r, rank in enumerate(res):
+        f = rank["f32"]
+        if f["launches"] != want32 or rank["bf16"]["launches"] != {
+                **want32, "segment_l2_norms": P42_BF16_STEPS}:
+            fail(f"phase 42 rank {r}: launches {f['launches']}, {rank['bf16']['launches']}")
+        if f["drops"] != ref["drops"]:
+            fail(f"phase 42 rank {r}: dropped assignments {f['drops']}, the stacked "
+                 f"engine's {ref['drops']}")
+        d_loss = abs(f["loss"] - ref["loss"])
+        d_theta = float(np.abs(f["theta"] - ref["theta"]).max())
+        d_mom = float(np.abs(f["mom"] - ref["mom"]).max())
+        rel = float((np.abs(f["norms"] - ref["norms"]) / np.abs(ref["norms"])).max())
+        if max(d_loss, d_theta, d_mom) >= 5e-5 or rel > 1e-5:
+            fail(f"phase 42 rank {r}: against the stacked engine loss {d_loss:.3e}, theta "
+                 f"{d_theta:.3e}, m {d_mom:.3e}, norms rel {rel:.3e}")
+        worst = {k: max(worst[k], v) for k, v in
+                 (("loss", d_loss), ("theta", d_theta), ("mom", d_mom), ("norm_rel", rel))}
+        if not np.isfinite(rank["bf16"]["losses"]).all():
+            fail(f"phase 42 rank {r}: bf16 losses {rank['bf16']['losses']}")
+    n_whole = check_groups("phase 42 f32", [rk["f32"]["whole"] for rk in res], TP_G, TP_M)
+    check_groups("phase 42 bf16", [rk["bf16"]["whole"] for rk in res], TP_G, TP_M)
+    b = [rk["bf16"] for rk in res]
+    warm = [s for rk in b for s in rk["data_group"][1:]]
+    out = {
+        "ranks": TP_G * TP_M, "mesh": {"data": TP_G, "model": TP_M}, "gossip_nodes": 1,
+        "model": f"{P42_ARCH} widths x1, named {P42_NAME}, moe_shard_ff",
+        "node_elems": ref["node_elems"], "row_elems": b[0]["row_elems"],
+        "transport": res[0]["transport"], "f32_vs_stacked": worst,
+        "dropped_assignments": ref["drops"], "whole_leaves_checked": n_whole,
+        "bf16_step_ms": [rk["step_ms"] for rk in b],
+        "data_group_all_gather_bytes_a_step": b[0]["data_group"][-1]["bytes"].get("all_gather"),
+        "data_group_reduce_scatter_bytes_a_step":
+            b[0]["data_group"][-1]["bytes"].get("reduce_scatter"),
+        "data_group_all_gather_ms_a_step": [s["ms"].get("all_gather") for s in warm],
+        "data_group_reduce_scatter_ms_a_step": [s["ms"].get("reduce_scatter") for s in warm],
+        "peak_allocated_bytes": [int(rk["peak_allocated_bytes"]) for rk in b],
+        "launches": {k: sum(rk["f32"]["launches"][k] + rk["bf16"]["launches"][k] for rk in res)
+                     for k in want32},
+        "rank_s": max(rk["rank_s"] for rk in res),
+    }
+    log(f"phase 42: {P42_NAME} G = 1 at {P42_ARCH} x1 width ({ref['node_elems']:,} a node, "
+        f"{out['row_elems']:,} a rank) on {TP_G} data x {TP_M} model ranks over "
+        f"{out['transport']}: the first float32 step against the stacked engine: loss "
+        f"{worst['loss']:.3e}, theta {worst['theta']:.3e}, m {worst['mom']:.3e}, norms rel "
+        f"{worst['norm_rel']:.3e}; dropped assignments {ref['drops']} on every rank; "
+        f"{n_whole} whole leaves bit for bit; bf16 step ms per rank "
+        f"{[[round(x, 1) for x in rk['step_ms']] for rk in b]}; the data group a step: "
+        f"all-gather {out['data_group_all_gather_bytes_a_step'] / 2**30:.3f} GiB of operands "
+        f"in {[round(x, 1) for x in out['data_group_all_gather_ms_a_step']]} ms, "
+        f"reduce-scatter {out['data_group_reduce_scatter_bytes_a_step'] / 2**30:.3f} GiB in "
+        f"{[round(x, 1) for x in out['data_group_reduce_scatter_ms_a_step']]} ms; peak "
+        f"{[round(x / 2**30, 2) for x in out['peak_allocated_bytes']]} GiB a rank; "
+        f"{out['rank_s']:.1f} s on the ranks")
+    return out
+
+
+def fault_tp_rank_run(comm, per_leaf):
+    """Phase 43 on one rank of the shared world: granite-8b x1 in float32
+    on (TP_G x TP_M) ranks under the crash model: losses, norms, θ and m of
+    the node on the sampled columns, step ms (step 1 the crash, step 2 the
+    rejoin), launches and the digests of the replicated leaves."""
+    import numpy as np
+    import torch
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels import ops
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = comm.device
+    t0 = time.perf_counter()
+    cfg = p43_cfg(torch.float32)
+    trainer = p43_trainer(cfg, dev)
+    state = trainer.init_state(seed=0)
+    src = SyntheticLM(vocab=cfg.vocab, seq_len=SEQ, seed=0)
+    sync(dev)
+    ops.reset_launch_counts()
+    losses, norms, step_ms = [], [], []
+    for t in range(P43_STEPS):
+        t1 = time.perf_counter()
+        state, loss, nrm = trainer.train_step(state, src.stacked(TP_G, t, BATCH), LR)
+        sync(dev)
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        losses.append(float(loss[0]))
+        norms.append(nrm[0].cpu().numpy())
+    out = {"losses": np.array(losses), "norms": np.stack(norms), "step_ms": step_ms,
+           "launches": ops.launch_counts(), "whole": whole_digests(trainer, state),
+           "theta": node_sampled(trainer, state.theta, per_leaf),
+           "mom": node_sampled(trainer, state.mom, per_leaf),
+           "peak_allocated_bytes": torch.cuda.max_memory_allocated(dev),
+           "transport": comm.transport}
+    del trainer, state
+    torch.cuda.empty_cache()
+    out["rank_s"] = time.perf_counter() - t0
+    return out
+
+
+def fault_tp_reference(dev, sample):
+    """Phase 43's reference: the stacked engine at G = TP_G on the same mesh
+    under the same crash (K1 with fault rows), float32."""
+    import numpy as np
+    import torch
+    from repro_torch.data import SyntheticLM
+
+    from repro_torch.kernels import ops
+
+    cfg = p43_cfg(torch.float32)
+    trainer = p43_trainer(cfg, dev)
+    state = trainer.init_state(seed=0)
+    src = SyntheticLM(vocab=cfg.vocab, seq_len=SEQ, seed=0)
+    losses, norms = [], []
+    ops.reset_launch_counts()
+    for t in range(P43_STEPS):
+        state, loss, nrm = trainer.train_step(state, src.stacked(TP_G, t, BATCH), LR)
+        losses.append(loss.cpu().numpy())
+        norms.append(nrm.cpu().numpy())
+    idx = torch.as_tensor(sample, device=dev)
+    # the fused steps: a node left without neighbours mixes through the interpreter
+    ref = {"k1_launches": ops.launch_counts()["gossip_program_update"],
+           "losses": np.stack(losses), "norms": np.stack(norms),
+           "theta": state.theta[:, idx].float().cpu().numpy(),
+           "mom": state.mom[:, idx].cpu().numpy()}
+    del trainer, state, idx
+    torch.cuda.empty_cache()
+    return ref
+
+
+def check_fault_tp(res, ref):
+    """Phase 43's checks against the stacked engine under the same crash."""
+    import numpy as np
+
+    # every step but the crash's is fused (at the crash node 0 has no live
+    # neighbour at G = 2 and mixes through the interpreter): K1 on the
+    # stacked engine, K2 on every rank
+    if ref["k1_launches"] != P43_STEPS - 1:
+        fail(f"phase 43: the stacked engine launched K1 {ref['k1_launches']} times, "
+             f"expected {P43_STEPS - 1}")
+    want = {"gossip_program_update": 0, "gossip_update": P43_STEPS - 1,
+            "segment_l2_norms": P43_STEPS, "flash_attention": 0}
+    worst = {"loss": 0.0, "theta": 0.0, "mom": 0.0, "norm_rel": 0.0}
+    for r, rank in enumerate(res):
+        i = r // TP_M
+        if rank["launches"] != want:
+            fail(f"phase 43 rank {r}: launches {rank['launches']}, expected {want}")
+        d_loss = float(np.abs(rank["losses"] - ref["losses"][:, i]).max())
+        d_theta = float(np.abs(rank["theta"] - ref["theta"][i]).max())
+        d_mom = float(np.abs(rank["mom"] - ref["mom"][i]).max())
+        rel = float((np.abs(rank["norms"] - ref["norms"][:, i])
+                     / np.abs(ref["norms"][:, i])).max())
+        if max(d_loss, d_theta, d_mom) >= 5e-5 or rel > 1e-5:
+            fail(f"phase 43 rank {r}: against the stacked engine losses {d_loss:.3e}, theta "
+                 f"{d_theta:.3e}, m {d_mom:.3e}, norms rel {rel:.3e}")
+        worst = {k: max(worst[k], v) for k, v in
+                 (("loss", d_loss), ("theta", d_theta), ("mom", d_mom), ("norm_rel", rel))}
+    n_rep = check_groups("phase 43", [rk["whole"] for rk in res], TP_G, TP_M)
+    out = {
+        "ranks": TP_G * TP_M, "mesh": {"data": TP_G, "model": TP_M},
+        "fault": [P43_FAULT[0], P43_FAULT[1]], "transport": res[0]["transport"],
+        "f32_vs_stacked": worst, "replicated_leaves_checked": n_rep,
+        "step_ms": [rk["step_ms"] for rk in res],
+        "fault_step_ms": [rk["step_ms"][1] for rk in res],
+        "rejoin_step_ms": [rk["step_ms"][2] for rk in res],
+        "peak_allocated_bytes": [int(rk["peak_allocated_bytes"]) for rk in res],
+        "launches": {k: sum(rk["launches"][k] for rk in res) for k in want},
+        "rank_s": max(rk["rank_s"] for rk in res),
+    }
+    log(f"phase 43: granite-8b x1 float32 on {TP_G} x {TP_M} ranks over {out['transport']} "
+        f"under {P43_FAULT}: against the stacked engine losses {worst['loss']:.3e}, theta "
+        f"{worst['theta']:.3e}, m {worst['mom']:.3e}, norms rel {worst['norm_rel']:.3e}; "
+        f"{n_rep} replicated leaves bit for bit; step ms per rank "
+        f"{[[round(x, 1) for x in rk['step_ms']] for rk in res]} (step 1 the crash, 2 the "
+        f"rejoin); peak {[round(x / 2**30, 2) for x in out['peak_allocated_bytes']]} GiB a "
+        f"rank; {out['rank_s']:.1f} s on the ranks")
+    return out
+
+
+def phase_g1_faults(done):
+    """Phases 42 and 43's checks from ``rank_world``'s ``done``."""
+    ref42, res42, s42 = done[42]
+    ref43, res43, s43 = done[43]
+    out42 = check_g1(res42, ref42)
+    out42["world_s"] = s42
+    out43 = check_fault_tp(res43, ref43)
+    out43["world_s"] = s43
+    return out42, out43
+
+
 # phases that run on their own with --phases (each needs only the kernels built)
-ALONE = (34, 37, 38, 39, 40, 41)
+ALONE = (34, 37, 38, 39, 40, 41, 42, 43)
 
 
 def selected_phases(argv):
@@ -5612,8 +6071,8 @@ def run_alone(dev, chosen, smi):
     out = {}
     pair = tuple(n for n in (40, 41) if n in chosen)
     for n in chosen:
-        if n == 38 and 37 in chosen or n == 41 and 40 in chosen:
-            continue   # run with 37 or 40, in its world
+        if n == 38 and 37 in chosen or n == 41 and 40 in chosen or n == 43 and 42 in chosen:
+            continue   # run with 37, 40 or 42, in its world
         t0 = time.perf_counter()
         if n == 34:
             log(PREDICT_34)
@@ -5632,6 +6091,18 @@ def run_alone(dev, chosen, smi):
             out[40], out[41] = phase_ssm_serve(rank_world(dev, layout, sample_columns(layout),
                                                           pair))
             n = 40
+        elif n in (42, 43):
+            which = tuple(k for k in (42, 43) if k in chosen)
+            done = rank_world(dev, layout, sample_columns(layout), which)
+            if 42 in done:
+                ref, res, s = done[42]
+                out[42] = check_g1(res, ref)
+                out[42]["world_s"] = s
+            if 43 in done:
+                ref, res, s = done[43]
+                out[43] = check_fault_tp(res, ref)
+                out[43]["world_s"] = s
+            n = which[0]
         else:
             log(PREDICT_39)
             out[n] = phase_train_100m(dev)
@@ -5860,6 +6331,8 @@ def main():
     torch.cuda.empty_cache()
     ranks9 = phase_ranks(layout, ref9, sample, shared[9])
     torch.cuda.empty_cache()
+    # phase 34's full-width dry-run records build on the host from here on
+    dry34 = start_dryrun()
 
     # 10. K4 against its twin on the reference kernel's sweep
     errs10 = phase_k4_sweep(dev)
@@ -6009,7 +6482,7 @@ def main():
     tooling = {}
     log(PREDICT_34)
     t34 = time.perf_counter()
-    tooling[34] = phase_dryrun(dev)
+    tooling[34] = phase_dryrun(dev, dry34)
     tooling[34]["wall_s"] = time.perf_counter() - t34
     log(f"phase 34: {tooling[34]['wall_s']:.1f} s on {smi}")
     log(PREDICT_35)
@@ -6051,6 +6524,15 @@ def main():
     log(f"phases 40-41: {time.perf_counter() - t40:.1f} s of checks on {smi}; the world's "
         f"jobs {tp[40]['world_s']:.1f} + {tp[41]['world_s']:.1f} s")
 
+    # 42-43. kimi-k2's G = 1 placement; faults on a model axis (their ranks
+    # ran in the shared world)
+    t42 = time.perf_counter()
+    tp[42], tp[43] = phase_g1_faults(shared)
+    for n in (42, 43):
+        tp[n]["card"] = smi
+    log(f"phases 42-43: {time.perf_counter() - t42:.1f} s of checks on {smi}; the world's "
+        f"jobs {tp[42]['world_s']:.1f} + {tp[43]['world_s']:.1f} s")
+
     summary = {
         "card": smi,
         "model": f"{cfg.name} x{cfg.n_layers} layers, bf16, G={G}, seq {SEQ}, "
@@ -6091,6 +6573,8 @@ def main():
         "train_100m": tp[39],
         "ssm_tensor_parallel": tp[40],
         "mesh_serving": tp[41],
+        "g1_placement": tp[42],
+        "tp_faults": tp[43],
     }
     log("summary " + json.dumps(summary))
     # each kernel's launches on every main path that runs it
@@ -6114,9 +6598,9 @@ def main():
                           "phase 22": ranks22["launches"]["gossip_update"],
                           "phase 24": ranks24["launches"]["gossip_update"],
                           "phase 37": tp[37]["launches"]["gossip_update"],
-                          "phase 38": tp[38]["launches"]["gossip_update"],
                           "phase 39": tp[39]["launches"]["gossip_update"],
-                          "phase 40": tp[40]["launches"]["gossip_update"]},
+                          "phase 40": tp[40]["launches"]["gossip_update"],
+                          "phase 43": tp[43]["launches"]["gossip_update"]},
         "segment_l2_norms": {"phase 4": counts["segment_l2_norms"],
                              "phase 9": ranks9["launches"]["segment_l2_norms"],
                              "phase 13": launches13["segment_l2_norms"],
@@ -6142,9 +6626,10 @@ def main():
                              "phase 35": launches35["segment_l2_norms"],
                              "phase 36": launches36["segment_l2_norms"],
                              "phase 37": tp[37]["launches"]["segment_l2_norms"],
-                             "phase 38": tp[38]["launches"]["segment_l2_norms"],
                              "phase 39": tp[39]["launches"]["segment_l2_norms"],
-                             "phase 40": tp[40]["launches"]["segment_l2_norms"]},
+                             "phase 40": tp[40]["launches"]["segment_l2_norms"],
+                             "phase 42": tp[42]["launches"]["segment_l2_norms"],
+                             "phase 43": tp[43]["launches"]["segment_l2_norms"]},
         "flash_attention": {"phase 12": k4_launches},
     }
     kernels = [

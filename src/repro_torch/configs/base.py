@@ -7,8 +7,9 @@ reference's model axis: ``pad_heads``/``pad_kv`` pad the heads at the
 mesh's tensor-parallel size (``models/transformer.attn_dims``; nothing at
 1); ``moe_impl="manual_ep"`` runs the explicit expert-parallel schedule
 (``models/moe.apply_moe_manual_ep``); ``moe_buf_constraint`` pins a GSPMD
-buffer and changes nothing here; ``moe_shard_ff`` (the G = 1 placement)
-raises, ROADMAP queue 1 item 8d.  ``scan_layers`` is the reference's
+buffer and changes nothing here; ``moe_shard_ff`` puts the experts' d_ff
+over the "data" axis too (``models/moe.moe_defs``; the ranks engine gathers
+it at use over a node's data ranks).  ``scan_layers`` is the reference's
 ``lax.scan`` over layers, a Python loop here either way.  ``InputShape`` and
 ``SHAPES`` are the reference's benchmark inputs (serving reads their
 context lengths); ``input_specs`` gives a step's data inputs at a shape as
@@ -62,7 +63,7 @@ class ArchConfig:
     scan_layers: bool = True
     remat: bool = True           # checkpoint every layer (the reference's default)
     remat_policy: str = "full"   # full | dots (keep the matrix products' outputs)
-    moe_shard_ff: bool = False   # expert d_ff over the data axis (raises: item 8d)
+    moe_shard_ff: bool = False   # expert d_ff over the data axis too
     moe_buf_constraint: bool = False  # layout only: pin the dispatch buffer
     moe_impl: str = "gather"     # gather | manual_ep
     dtype: Any = torch.bfloat16

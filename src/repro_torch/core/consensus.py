@@ -125,11 +125,14 @@ def consensus_distance_masked(stacked, alive) -> torch.Tensor:
     return (total.sum() / count).sqrt()
 
 
-def consensus_distance_masked_shard(local, alive, comm) -> torch.Tensor:
+def consensus_distance_masked_shard(local, alive, comm, reduce=None) -> torch.Tensor:
     """``consensus_distance_masked`` on a rank: the member mean from one
     ``pmean`` per chunk of the masked values, this rank's ‖x_i − x̄_A‖² if
     it is a member, and a second ``pmean`` over the ranks; the same scalar
-    on every rank, every rank joining."""
+    on every rank, every rank joining.  ``reduce`` (a function of the
+    rank's (1,) partial sum) runs before that second ``pmean``: a node split
+    over model (and data) ranks sums its shard rows' partial sums there,
+    each rank passing the leaves it counts."""
     flat = ({k: v[None] for k, v in local.items()} if isinstance(local, dict)
             else local[None])
     total = None
@@ -142,7 +145,10 @@ def consensus_distance_masked_shard(local, alive, comm) -> torch.Tensor:
             total = torch.zeros((), dtype=torch.float32, device=xf.device)
         mean = comm.pmean(xf * mine) * scale
         total = total + mine * (xf - mean).square().sum()
-    return (comm.pmean(total.reshape(1).contiguous())[0] * scale).sqrt()
+    total = total.reshape(1).contiguous()
+    if reduce is not None:
+        total = reduce(total)
+    return (comm.pmean(total)[0] * scale).sqrt()
 
 
 def consensus_sq_shard(local, comm) -> torch.Tensor:

@@ -20,13 +20,16 @@ device the rank computes on:
 dry run's stand-in (``launch/dryrun.py``), which records and bills every
 collective and moves no data.
 
-A ``Comm`` may be one of a sub-group (``mesh_comms``): a node's model
-group or a shard index's gossip group of a data × model world (the
+A ``Comm`` may be one of a sub-group (``mesh_comms``, ``node_comms``): a
+node's model group, a shard index's gossip group, or a node's data group
+(its ranks that hold the same model index, where a node spans data axes:
+kimi-k2's G = 1 placement) of a gossip × data × model world (the
 tensor-parallel ranks engine).  Its ``rank`` and ``world`` are then the
 group's, every collective runs on the group, and a permute's, gather's or
 scatter's group-local ranks are mapped to the global ones.  Sub-groups
-also ``all_reduce`` (sum or max) and ``all_gather`` along a dim, the
-tensor-parallel forward's collectives (``launch/tensor_parallel.py``).
+also ``all_reduce`` (sum or max), ``all_gather`` along a dim and
+``reduce_scatter`` along a dim, the tensor-parallel forward's and the
+data group's gather-at-use collectives (``launch/tensor_parallel.py``).
 
 ``rank_device`` picks a rank's device and backend the same way for every
 launcher, and ``spawn_world`` runs a function on every rank of a fresh
@@ -48,15 +51,15 @@ import pickle
 import tempfile
 import time
 from pathlib import Path
-from typing import Callable, Optional, Sequence
+from typing import Callable, NamedTuple, Optional, Sequence
 
 import torch
 import torch.distributed as dist
 
 from repro_torch.kernels import cost
 
-__all__ = ["Comm", "CollectiveOp", "RecordingComm", "mesh_comms", "rank_device",
-           "spawn_world", "CHUNK_BYTES"]
+__all__ = ["Comm", "CollectiveOp", "RecordingComm", "NodeComms", "mesh_comms", "node_comms",
+           "rank_device", "spawn_world", "CHUNK_BYTES"]
 
 # bytes per staged gloo message: bounds the pinned host buffers and keeps
 # each message far below gloo's 2 GiB limit
@@ -83,7 +86,8 @@ def rank_device(local_rank: int, local_world: int, device=None) -> tuple[torch.d
 @dataclasses.dataclass(frozen=True)
 class CollectiveOp:
     """One collective a rank issued: ``kind`` (``permute``, ``pmean``,
-    ``all_reduce``, ``all_gather``, ``gather_host``, ``scatter_host``),
+    ``all_reduce``, ``all_gather``, ``reduce_scatter``, ``gather_host``,
+    ``scatter_host``),
     ``pairs`` (a permute's (src, dst) pairs, every rank's, in the group's
     ranks; () for the others, which every rank joins), ``nbytes`` (this
     rank's operand) and ``world`` (the size of the group it ran on; 0
@@ -272,6 +276,24 @@ class Comm:
                 rows[:, a:b].copy_(r)
         return out if dim is None else _concat(out, dim)
 
+    def reduce_scatter(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """The sum of every rank's ``x`` (the same shape everywhere), of which
+        this rank keeps its slice along ``dim`` (``x.shape[dim]`` divided by
+        ``world``, slices in rank order): a new tensor, ``x`` untouched."""
+        self._check(x)
+        self._note("reduce_scatter", x)
+        dim = dim % x.dim()
+        k = x.shape[dim] // self.world
+        if self.transport == "nccl":
+            xs = x.movedim(dim, 0).contiguous()
+            out = torch.empty((k,) + tuple(xs.shape[1:]), dtype=x.dtype, device=x.device)
+            dist.reduce_scatter_tensor(out, xs, group=self.group)
+            return out.movedim(0, dim).contiguous()
+        # gloo has no reduce-scatter: the sum on every rank, this rank's slice kept
+        total = x.clone()
+        self._reduce(total, dist.ReduceOp.SUM)
+        return total.narrow(dim, self.rank * k, k).contiguous()
+
     def rank0_value(self, value: int) -> int:
         """Rank 0's integer ``value`` on every rank (one ``all_gather``)."""
         mine = torch.tensor([value], dtype=torch.float32, device=self.device)
@@ -399,6 +421,12 @@ class RecordingComm(Comm):
         out = x.new_empty((self.world,) + tuple(x.shape))
         return out if dim is None else _concat(out, dim)
 
+    def reduce_scatter(self, x, dim):
+        self._check(x)
+        self._note("reduce_scatter", x)
+        dim = dim % x.dim()
+        return x.narrow(dim, 0, x.shape[dim] // self.world).clone()
+
     def rank0_value(self, value: int) -> int:
         self._note("all_gather", torch.empty(1, dtype=torch.float32, device="meta"))
         return int(value)
@@ -420,17 +448,44 @@ def mesh_comms(comm: Comm, data: int, model: int) -> tuple[Comm, Comm]:
     """This rank's (gossip group, model group) of a data × model world laid
     out row-major (global rank i·model + j is shard j of node i): the
     gossip group of shard j holds ranks (·, j), the model group of node i
-    ranks (i, ·).  Every rank creates every group, in the same order (all
-    model groups, then all gossip groups), as ``dist.new_group`` needs."""
-    if comm.world != data * model or comm.group is not None:
-        raise ValueError(f"mesh_comms needs the whole world of {data} x {model} ranks; "
-                         f"got a group of {comm.world}")
-    model_groups = [dist.new_group([i * model + j for j in range(model)])
-                    for i in range(data)]
-    gossip_groups = [dist.new_group([i * model + j for i in range(data)])
-                     for j in range(model)]
-    i, j = divmod(comm.rank, model)
-    return Comm(comm.device, gossip_groups[j]), Comm(comm.device, model_groups[i])
+    ranks (i, ·).  ``node_comms`` with one data rank a node."""
+    groups = node_comms(comm, data, 1, model)
+    return groups.gossip, groups.model
+
+
+class NodeComms(NamedTuple):
+    """A rank's groups of a gossip × data × model world: ``gossip`` (one
+    shard index across the G nodes), ``model`` (the node's ranks of its data
+    index) and ``data`` (the node's ranks of its model index; None when a
+    node holds one data rank)."""
+
+    gossip: Comm
+    model: Comm
+    data: Optional[Comm]
+
+
+def node_comms(comm: Comm, gossip: int, data: int, model: int) -> NodeComms:
+    """This rank's groups of a world of ``gossip`` nodes × ``data`` × ``model``
+    ranks a node, laid out row-major as the ``Mesh`` is (global rank (n·data
+    + i)·model + j is model shard j of data index i of node n).  Every rank
+    creates every group, in the same order (all model groups, then all
+    gossip groups, then all data groups), as ``dist.new_group`` needs; with
+    one data rank a node the groups are ``mesh_comms``'s."""
+    if comm.world != gossip * data * model or comm.group is not None:
+        raise ValueError(f"node_comms needs the whole world of {gossip} x {data} x {model} "
+                         f"ranks; got a group of {comm.world}")
+    rank = lambda n, i, j: (n * data + i) * model + j  # noqa: E731
+    model_groups = {(n, i): dist.new_group([rank(n, i, j) for j in range(model)])
+                    for n in range(gossip) for i in range(data)}
+    gossip_groups = {(i, j): dist.new_group([rank(n, i, j) for n in range(gossip)])
+                     for i in range(data) for j in range(model)}
+    data_groups = {(n, j): dist.new_group([rank(n, i, j) for i in range(data)])
+                   for n in range(gossip) for j in range(model)} if data > 1 else None
+    n, rest = divmod(comm.rank, data * model)
+    i, j = divmod(rest, model)
+    return NodeComms(Comm(comm.device, gossip_groups[i, j]),
+                     Comm(comm.device, model_groups[n, i]),
+                     None if data_groups is None else Comm(comm.device, data_groups[n, j]))
 
 
 # ---------------------------------------------------------------------------

@@ -13,16 +13,22 @@ it unchanged.
 The meshes are the reference's production meshes (``launch/mesh.py``):
 ``single`` is (16 data × 16 model), ``multi`` (2 pod × 16 data × 16
 model), and ``mini`` the (2, 2) gossip grid of
-``tests/spmd_dryrun_script.py`` (G = 4, no model axis).  Every non-model
-axis is a gossip axis (``gossip_axes_for``).  A training record is rank
-(0, 0)'s step of the tensor-parallel ranks engine: shard 0 of node 0,
-whose gossip and model-group collectives two ``RecordingComm``s record and
-bill without moving data, so ``argument_bytes`` and ``temp_bytes`` are
-per card and ``mesh_shape`` is the whole mesh; every family trains so,
-the ssm and hybrid ones included.  One kind of record keeps one unsharded
-node on one card, flagged with the ROADMAP queue 1 item it waits for
-(``waiting_for``): kimi-k2's training, whose replica needs a whole pod
-(G = 1 on ``single``, 2 on ``multi``: FSDP over the data axes, item 8d).
+``tests/spmd_dryrun_script.py`` (G = 4, no model axis).  The gossip axes
+are ``gossip_axes_for``'s: every non-model axis, except for kimi-k2, whose
+replica needs a whole pod (G = 1 on ``single``, 2 on ``multi``).  A
+training record is rank (0, 0, 0)'s step of the tensor-parallel ranks
+engine: shard 0 of node 0, whose gossip, model-group and (for kimi-k2)
+data-group collectives ``RecordingComm``s record and bill without moving
+data, so ``argument_bytes`` and ``temp_bytes`` are per card and
+``mesh_shape`` counts the axes that split the work (the gossip axes, the
+model axis, and at G = 1 the data axes the batch is split over); every family
+trains so, the ssm and hybrid ones included.  kimi-k2's node on
+``single`` is the reference trainer's G = 1 placement: every leaf
+FSDP-sharded over the 16 data ranks and its experts over the 16 model
+ranks (the data group's all-gathers at use and reduce-scatters of the
+gradients in its record), the batch split over the data ranks; on
+``multi`` its data ranks hold the leaves whole, except the experts' d_ff
+under ``moe_shard_ff``.
 A serving record is rank (0, 0)'s card of ``ServeEngine(cfg, mesh=...)``
 (its model and data groups two ``RecordingComm``s): the weights divided
 over "model", the global batch split over the mesh's data axes when they
@@ -37,8 +43,9 @@ state (``repro/launch/serve.py::_state_shardings``, whose rule
 smaller first; the combined axes on the slots at B = 1), which the port
 does not realize: a placement, not a different number.
 
-What one card cannot hold says so: the unsharded records show the bytes
-as they are (kimi-k2's node state is about 10 TB).
+What one card cannot hold says so: the records show the bytes as they
+are (kimi-k2 on ``multi`` keeps a node's dense leaves whole on each of
+its 16 data ranks).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun \\
@@ -59,7 +66,7 @@ import time
 import traceback
 
 from repro_torch.launch.hlo_analysis import collective_stats
-from repro_torch.launch.mesh import gossip_axes_for, gossip_size
+from repro_torch.launch.mesh import data_axes_for, gossip_axes_for, gossip_size
 
 __all__ = ["MESHES", "collective_stats", "gossip_axes_for", "run_one", "main"]
 
@@ -69,8 +76,6 @@ MESHES = {
     "mini": {"pod": 2, "data": 2, "model": 1},
 }
 
-# the records that keep one unsharded node on one card, and what they wait for
-_WAIT_G1 = "ROADMAP queue 1 item 8d (G = 1: FSDP over the data axes)"
 
 
 def _apply_overrides(cfg, override: str):
@@ -124,17 +129,21 @@ def run_one(arch: str, shape, mesh_kind: str, topology: str = "d_ada",
         gx = gossip_axes_for(arch, mesh)
         g = gossip_size(mesh, gx)
         tp = mesh.get("model", 1)
-        if g == 1 and tp > 1:
-            rec["waiting_for"] = _WAIT_G1
-            tp = 1
+        data = data_axes_for(mesh, gx)
+        d = math.prod(mesh[a] for a in data)
         topo = make_topology(topology if g > 2 else "d_ring", g)
-        kw = {} if g == 1 else {"comm": RecordingComm(0, g)}
-        if tp > 1:
+        kw = {} if g == 1 and tp * d == 1 else {"comm": RecordingComm(0, g)}
+        if tp * d > 1:
             kw.update(model_comm=RecordingComm(0, tp),
-                      mesh=make_mesh((g, tp), ("data", "model")))
+                      mesh=make_mesh(tuple(mesh.values()), tuple(mesh)))
+        if d > 1:
+            kw["data_comm"] = RecordingComm(0, d)
         trainer = SPMDTrainer(cfg, topo, sgd(momentum=0.9), mixing=mixing, device="meta",
                               **kw)
-        rec["mesh_shape"] = {a: (n if a in gx or (a == "model" and tp > 1) else 1)
+        # the data axes split the work at G = 1 (the batch over them); at
+        # G > 1 the node's data ranks each hold its whole batch
+        rec["mesh_shape"] = {a: (n if a in gx or (a in data and g == 1)
+                                 or (a == "model" and tp > 1) else 1)
                              for a, n in mesh.items()}
         rec["gossip_axes"] = list(gx)
         rec["gossip_nodes"] = g

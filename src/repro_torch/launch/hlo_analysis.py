@@ -67,7 +67,8 @@ COLLECTIVE_KINDS = (
 
 # Comm's collectives -> the reference's HLO kinds
 _COMM_KINDS = {"permute": "collective-permute", "pmean": "all-reduce",
-               "all_reduce": "all-reduce", "all_gather": "all-gather"}
+               "all_reduce": "all-reduce", "all_gather": "all-gather",
+               "reduce_scatter": "reduce-scatter"}
 
 _DTYPE_BYTES = {
     "f64": 8, "s64": 8, "u64": 8, "f32": 4, "s32": 4, "u32": 4,

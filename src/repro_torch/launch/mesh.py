@@ -23,6 +23,7 @@ __all__ = [
     "make_production_mesh",
     "gossip_axes_for",
     "gossip_size",
+    "data_axes_for",
 ]
 
 
@@ -101,6 +102,12 @@ def gossip_axes_for(arch_name: str, mesh) -> tuple[str, ...]:
     if arch_name.startswith("kimi-k2"):
         return ("pod",) if "pod" in names else ()
     return tuple(a for a in names if a != "model")
+
+
+def data_axes_for(mesh, gossip_axes: tuple[str, ...]) -> tuple[str, ...]:
+    """A node's data axes: the mesh's axes that are neither gossip axes nor
+    "model" (kimi-k2's on one pod; none where every non-model axis gossips)."""
+    return tuple(a for a in _names(mesh) if a not in gossip_axes and a != "model")
 
 
 def gossip_size(mesh, gossip_axes: tuple[str, ...]) -> int:

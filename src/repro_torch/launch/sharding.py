@@ -7,16 +7,21 @@ concrete mesh and gossip placement:
 
   * gossip placement (G > 1): every leaf gains a leading stacked-replica
     dim over the gossip axes: (gossip_axes, *logical);
-  * the degenerate placement (G = 1, kimi-k2 on one pod) shards the
-    remaining axes FSDP-style in the reference; here ``fsdp=True`` raises
-    (ROADMAP queue 1 item 8d).
+  * the degenerate placement (G = 1, kimi-k2 on one pod, ``fsdp=True``):
+    no stacking; the non-model axes shard each leaf FSDP-style, on its
+    largest still-unsharded dim that divides by their product, else on the
+    largest that divides by the last of them alone (a leaf that already
+    names a data or pod axis keeps its spec; one that nothing divides stays
+    whole).
 
 A spec entry whose dim does not divide by its axes' size falls back to
 replication on that dim (the reference's ``_validated_spec``: never an
 error).  A ``Sharding`` is the port's own record of the result — the mesh
 and one entry per dim — and ``shard_leaf``/``unshard`` cut a full leaf
 into one rank's slice and put the ranks' slices back together: the ranks
-engine (``launch/train.py``) holds each leaf's model-axis slice.
+engine (``launch/train.py``) holds each leaf's slice of its node
+(``node_shards``: the model axis and, where the node spans them, the data
+axes).
 """
 from __future__ import annotations
 
@@ -26,7 +31,7 @@ from typing import Mapping, Optional, Sequence
 
 import torch
 
-from repro_torch.launch.mesh import Mesh
+from repro_torch.launch.mesh import Mesh, data_axes_for
 
 __all__ = [
     "Sharding",
@@ -38,10 +43,8 @@ __all__ = [
     "shard_leaf",
     "unshard",
     "model_axis_shards",
+    "node_shards",
 ]
-
-_FSDP_ITEM = ("fsdp=True (the G = 1 placement: FSDP over the data axes) is not "
-              "ported: ROADMAP queue 1 item 8d")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,6 +55,13 @@ class Sharding:
 
     mesh: Mesh
     spec: tuple
+
+    def __post_init__(self):
+        used = [a for e in self.spec for a in self._axes(e)]
+        dup = sorted({a for a in used if used.count(a) > 1})
+        if dup:
+            # the reference's NamedSharding raises DuplicateSpecError here
+            raise ValueError(f"spec {self.spec} maps mesh axis {dup[0]!r} to more than one dim")
 
     def _axes(self, entry) -> tuple:
         if entry is None:
@@ -66,6 +76,13 @@ class Sharding:
         """The dim sharded over ``axis`` (None when no dim is)."""
         for d, e in enumerate(self.spec):
             if axis in self._axes(e):
+                return d
+        return None
+
+    def dim_of_any(self, axes) -> Optional[int]:
+        """The dim sharded over any of ``axes`` (None when no dim is)."""
+        for d, e in enumerate(self.spec):
+            if set(self._axes(e)) & set(axes):
                 return d
         return None
 
@@ -109,12 +126,26 @@ def leaf_sharding(shape: tuple[int, ...], logical: tuple[Optional[str], ...], me
                   gossip_axes: tuple[str, ...], *, stacked: bool,
                   fsdp: bool = False) -> Sharding:
     """Sharding for one (possibly gossip-stacked) weight leaf."""
-    if fsdp:
-        raise ValueError(_FSDP_ITEM)
     if stacked:
         entries = _validated_spec(shape[1:], logical, mesh)
         return Sharding(mesh, (_entry(gossip_axes), *entries))
-    return Sharding(mesh, tuple(_validated_spec(shape, logical, mesh)))
+    entries = _validated_spec(shape, logical, mesh)
+    if fsdp and any(e not in (None, "model") for e in entries):
+        fsdp = False   # the leaf already names a data or pod axis
+    if fsdp:
+        fsdp_axes = tuple(a for a in mesh.axis_names if a != "model")
+        for cand in (fsdp_axes, fsdp_axes[-1:]):
+            if not cand:
+                continue
+            size = mesh.axis_size(cand)
+            # the largest still-unsharded dim that divides
+            dims = sorted((d for d in range(len(shape)) if entries[d] is None),
+                          key=lambda d: -shape[d])
+            d = next((d for d in dims if shape[d] % size == 0), None)
+            if d is not None:
+                entries[d] = _entry(cand)
+                break
+    return Sharding(mesh, tuple(entries))
 
 
 def _map(fn, *trees):
@@ -160,11 +191,33 @@ def model_axis_shards(defs: Mapping, m: int) -> tuple[dict, dict]:
     """A node's leaves split over a model axis of ``m`` ranks, each along
     the dim its validated spec puts on "model": (name -> ``Sharding``, name
     -> the ``ParamDef`` of one rank's shard)."""
-    node = Mesh((m,), ("model",))
-    shardings = {k: leaf_sharding(d.shape, d.spec, node, (), stacked=False)
-                 for k, d in defs.items()}
-    return shardings, {k: dataclasses.replace(d, shape=shardings[k].shard_shape(d.shape))
-                       for k, d in defs.items()}
+    _, shardings, local = node_shards(defs, Mesh((m,), ("model",)), ())
+    return shardings, local
+
+
+def node_shards(defs: Mapping, mesh: Mesh, gossip_axes: tuple[str, ...]) -> tuple[Mesh, dict, dict]:
+    """A node's leaves split over its own ranks: the mesh's axes that are not
+    gossip axes (its data axes and "model").  The specs are the reference
+    trainer's (``fsdp=not stacked``): at G = 1 FSDP over the data axes, at
+    G > 1 the stacked spec without its gossip entry (a leaf names a data
+    axis only where its logical spec does: ``moe_shard_ff``).  Returns (the
+    node's mesh, name -> ``Sharding`` on it, name -> the ``ParamDef`` of one
+    rank's shard)."""
+    g = math.prod(mesh.shape[a] for a in gossip_axes)
+    data = data_axes_for(mesh, gossip_axes)
+    inner = tuple(a for a in mesh.axis_names if a in data or a == "model")
+    node = Mesh(tuple(mesh.shape[a] for a in inner), inner)
+    shardings = {}
+    for k, d in defs.items():
+        if g > 1:
+            spec = leaf_sharding((g,) + tuple(d.shape), d.spec, mesh, gossip_axes,
+                                 stacked=True).spec[1:]
+        else:
+            spec = leaf_sharding(tuple(d.shape), d.spec, mesh, (), stacked=False,
+                                 fsdp=True).spec
+        shardings[k] = Sharding(node, tuple(spec))
+    return node, shardings, {k: dataclasses.replace(d, shape=shardings[k].shard_shape(d.shape))
+                             for k, d in defs.items()}
 
 
 def shard_leaf(x: torch.Tensor, sharding: Sharding, coords: Mapping[str, int]) -> torch.Tensor:

@@ -30,15 +30,31 @@ computation turns sharded or back:
   (a norm over sharded channels: Mamba2's gated RMSNorm over d_inner sums
   each rank's squares with it, so its mean is the reference's).
 
+A node that spans data axes too (kimi-k2's G = 1 placement: FSDP over
+the data axes, ``moe_shard_ff``'s expert d_ff over "data") has a **data
+group** as well: the node's ranks that hold the same model index
+(``DataParallel``).  A leaf whose spec names a data axis is stored as the
+rank's slice; ``DataParallel.gather`` all-gathers it over the data group
+to the rank's model shard just before the forward reads it (one layer's
+leaves at a time, inside the layer's remat region) and reduce-scatters its
+gradient back (the sum over the data ranks; the trainer divides by their
+count: the mean over their shares of the batch).  The same collective pair
+gathers a MoE layer's tokens over the data group when the batch is split
+over it (``gather(x, 0)``): the experts route the whole batch once,
+identically on every data rank, as the reference's capacity rule counts
+the tokens of the whole batch; each data rank computes its share of the
+experts' capacity slots, and ``scatter_rows`` (reduce-scatter forward,
+all-gather backward) sums the shares into each rank's own rows.
+
 Every collective goes through ``launch/comm.py``'s ``Comm`` of the model
-group, so its op record, the linter and the roofline's wire term see it;
+group (or the data group), so its op record, the linter and the roofline's wire term see it;
 a ``RecordingComm`` makes them shape-only on ``meta`` (the dry run).
 """
 from __future__ import annotations
 
 import torch
 
-__all__ = ["ModelParallel"]
+__all__ = ["ModelParallel", "DataParallel"]
 
 
 class _Enter(torch.autograd.Function):
@@ -74,6 +90,28 @@ class _Gather(torch.autograd.Function):
         return g.narrow(ctx.dim, a, ctx.n), None, None
 
 
+class _GatherAtUse(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, comm, dim):
+        ctx.comm, ctx.dim = comm, dim
+        return comm.all_gather(x.contiguous(), dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.comm.reduce_scatter(g.contiguous(), ctx.dim), None, None
+
+
+class _ScatterRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, comm):
+        ctx.comm = comm
+        return comm.reduce_scatter(x.contiguous(), 0)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.comm.all_gather(g.contiguous(), dim=0), None
+
+
 class _Sum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, comm):
@@ -99,10 +137,12 @@ class ModelParallel:
     """A node's model group as the forward sees it: ``size`` ranks, this
     one ``rank``, the collectives over ``comm`` (a ``Comm`` of the group)."""
 
-    def __init__(self, comm):
+    def __init__(self, comm, data=None):
         self.comm = comm
         self.size = comm.world
         self.rank = comm.rank
+        # the node's data group (a ``DataParallel``), None without one
+        self.data = data
 
     def split(self, n: int):
         """This group when a dim of ``n`` is sharded over it (the reference's
@@ -128,3 +168,41 @@ class ModelParallel:
 
     def max(self, x: torch.Tensor) -> torch.Tensor:
         return self.comm.all_reduce(x.detach().contiguous().clone(), op="max")
+
+
+class DataParallel:
+    """A node's data group as the forward sees it: ``size`` ranks, this one
+    ``rank``; ``dims`` maps each leaf the group shards to the dim it is
+    split on (its full name, the stacked layer dim included), and
+    ``split_batch`` says whether the node's batch is split over the group
+    (G = 1) or every data rank holds all of it (G > 1)."""
+
+    def __init__(self, comm, dims: dict, *, split_batch: bool):
+        self.comm = comm
+        self.size = comm.world
+        self.rank = comm.rank
+        self.dims = dict(dims)
+        self.split_batch = bool(split_batch)
+
+    def gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """All-gather along ``dim`` forward, reduce-scatter (sum) backward."""
+        return _GatherAtUse.apply(x, self.comm, dim % x.dim())
+
+    def layer_leaves(self, lp: dict, prefix: str) -> dict:
+        """One layer's views ``lp`` (names under ``prefix``, their stacked
+        layer dim dropped) with every leaf the group splits gathered; a
+        leaf split on its layer dim comes whole from the forward's entry."""
+        out = {}
+        for k, v in lp.items():
+            d = self.dims.get(prefix + k)
+            out[k] = v if not d else self.gather(v, d - 1)
+        return out
+
+    def own_rows(self, y: torch.Tensor, b: int) -> torch.Tensor:
+        """This rank's ``b`` rows of a gathered (size·b, ...) tensor."""
+        return y.narrow(0, self.rank * b, b)
+
+    def scatter_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum of every rank's (size·b, ...) ``x``, this rank's b rows
+        kept: reduce-scatter forward, all-gather backward."""
+        return _ScatterRows.apply(x, self.comm)

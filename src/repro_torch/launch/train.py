@@ -122,9 +122,31 @@ reference's: full padded leaves stacked over G).  Every family trains
 there: RWKV6 and Mamba2 blocks own their heads' shards
 (``models/rwkv6.py``, ``models/mamba2.py``), and a mixed-dtype state
 (zamba2's float32 ``a_log``/``d_skip`` beside bf16 leaves) is a float32
-shard row whose replicated float32 leaves Ξ and the norms count once.  On
-a model axis > 1 faults and elastic membership (item 8e) raise, naming
-their ROADMAP queue 1 item.
+shard row whose replicated float32 leaves Ξ and the norms count once.
+Faults and elastic membership run there as on one rank a node: every rank
+of node i reads node i's realization (pure in ``(seed, step)``), K2 takes
+the node's weight and fault row on each shard row, and the handoffs
+(rejoin, drain, spare activation) run per shard index over its gossip
+group, each of a node's m ranks rebuilding its own shard row; masked Ξ
+sums its shard rows' partial sums over the node's ranks.
+
+The gossip axes are the reference's ``gossip_axes_for`` the config's name
+when a mesh is given: kimi-k2's replica needs a whole pod, so on
+``single`` it is one gossip node (G = 1) of 16 data × 16 model ranks and on
+``multi`` two.  A node that spans data axes has a third group, its data
+group (``launch/comm.node_comms``), and the reference trainer's placement
+(``fsdp=not stacked``, ``launch/sharding.node_shards``): at G = 1 every
+leaf FSDP-sharded over the data axes, at G > 1 the leaves whole on them
+except the experts' d_ff under ``moe_shard_ff``.  A rank stores its slice
+and gathers it at use (``launch/tensor_parallel.DataParallel``), one
+layer's leaves at a time, the gradient reduce-scattered back.  At G = 1
+the batch is split over the data ranks (the reference's ``batch_sharding(...,
+stacked=False)``), a MoE layer routes the tokens of the whole batch
+gathered over the data group, and the node's gradient is the mean of its
+data ranks' shares; there is no gossip, no Ξ and no fault (the
+reference's G = 1 step), and the optimizer's plain update runs on the
+shard row (the reference builds no fused step at G = 1).  At G > 1 the
+node's data ranks all hold the node's batch.
 
 ``lower_step`` is the dry run of one step (``launch/dryrun.py``): this
 trainer's configuration run once on ``meta`` under the op accounting
@@ -133,7 +155,8 @@ trainer's configuration run once on ``meta`` under the op accounting
 live trainer's run state is left alone.
 
 Checkpoints are the reference's files (``checkpoint/ckpt.py``): the state
-as the ``{"p": params, "o": opt_state}`` tree of (G, ...) leaves, saved from
+as the ``{"p": params, "o": opt_state}`` tree of (G, ...) leaves (at G = 1
+the reference's unstacked leaves), saved from
 and restored into the flat buffers in place, with ``snapshot_extra`` (the
 run configuration, G included, the membership tracking, the controller's
 and the recorder's state, a pending Ξ fold) in the same file.  The ranks
@@ -183,10 +206,11 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels.gossip_update import (
     fused_apply_shard, fused_apply_stacked, mix_in_place,
 )
-from repro_torch.launch.comm import Comm, RecordingComm, mesh_comms, rank_device
-from repro_torch.launch.mesh import Mesh, make_mesh
-from repro_torch.launch.sharding import model_axis_shards, shard_leaf, unshard
-from repro_torch.launch.tensor_parallel import ModelParallel
+from repro_torch.launch.comm import Comm, RecordingComm, node_comms, rank_device
+from repro_torch.launch.mesh import (Mesh, data_axes_for, gossip_axes_for, gossip_size,
+                                     make_mesh)
+from repro_torch.launch.sharding import node_shards, shard_leaf, unshard
+from repro_torch.launch.tensor_parallel import DataParallel, ModelParallel
 from repro_torch.models import transformer as tfm
 from repro_torch.optim.sgd import Optimizer
 from repro_torch.telemetry import MetricsRecorder
@@ -237,6 +261,7 @@ class SPMDTrainer:
         mesh: Optional[Mesh] = None,
         comm: Optional[Comm] = None,
         model_comm: Optional[Comm] = None,
+        data_comm: Optional[Comm] = None,
     ):
         """loss_fn: ``loss_fn(params, batch)`` of one node's flat parameter
         dict and batch (the transformer's loss by default).  accum_steps:
@@ -268,7 +293,10 @@ class SPMDTrainer:
         m > 1 a process group of G × m ranks runs the tensor-parallel ranks
         engine, else the stacked engine pads the heads at m.
         ``model_comm`` (keyword only, with ``comm``): the ``Comm`` of this
-        rank's model group (the dry run's ``RecordingComm``)."""
+        rank's model group (the dry run's ``RecordingComm``); ``data_comm``
+        that of its node's data group, where the mesh has data axes that
+        are not gossip axes (kimi-k2: the gossip axes are ``gossip_axes_for``
+        the config's name; G = 1 on one pod)."""
         if mixing not in ("ppermute", "dense"):
             raise ValueError(f"mixing must be 'ppermute'|'dense', got {mixing!r}")
         hyper = optimizer.hyper or {}
@@ -303,44 +331,62 @@ class SPMDTrainer:
         self.mix_rounds = max(int(mix_rounds), 1)
         self.hub_balance = bool(hub_balance)
         self._update = torch.func.vmap(optimizer.update, in_dims=(0, 0, 0, None))
-        self.g = topology.n_nodes
         self.device = resolve_device(device)
-        self.mesh = mesh if mesh is not None else make_mesh((self.g, 1), ("data", "model"))
+        if mesh is None:
+            self.mesh = make_mesh((topology.n_nodes, 1), ("data", "model"))
+            self.gossip_axes = ("data",)
+        else:
+            self.mesh = mesh
+            self.gossip_axes = gossip_axes_for(cfg.name, mesh)
+        self.g = gossip_size(self.mesh, self.gossip_axes)
+        if topology.n_nodes != self.g:
+            raise ValueError(f"topology has {topology.n_nodes} nodes but the mesh "
+                             f"{self.mesh.shape} has {self.g} gossip nodes (gossip axes "
+                             f"{self.gossip_axes})")
         self.tp_size = self.mesh.shape.get("model", 1)
-        if self.mesh.size // self.tp_size != self.g:
-            raise ValueError(f"topology has {self.g} nodes but the mesh {self.mesh.shape} "
-                             f"has {self.mesh.size // self.tp_size} gossip nodes")
-        self.comm, self.model_comm = comm, model_comm
+        self.data_axes = data_axes_for(self.mesh, self.gossip_axes)
+        self.dp_size = self.mesh.axis_size(self.data_axes) if self.data_axes else 1
+        self.comm, self.model_comm, self.data_comm = comm, model_comm, data_comm
         self.world_comm = comm
+        node = self.tp_size * self.dp_size
         if comm is None and dist.is_available() and dist.is_initialized() \
                 and dist.get_world_size() > 1:
             self.world_comm = Comm(self.device)
             self.comm = self.world_comm
-            if self.tp_size > 1 and self.world_comm.world == self.mesh.size:
-                self.comm, self.model_comm = mesh_comms(self.world_comm, self.g,
-                                                        self.tp_size)
+            if node > 1 and self.world_comm.world == self.mesh.size:
+                self.comm, self.model_comm, self.data_comm = node_comms(
+                    self.world_comm, self.g, self.dp_size, self.tp_size)
         if self.comm is not None:
             if self.comm.world != self.g:
                 raise ValueError(
                     f"topology has {self.g} nodes but the process group has "
                     f"{self.comm.world} ranks"
                 )
-            if self.tp_size > 1 and self.model_comm is None:
+            if node > 1 and (self.model_comm is None
+                             or (self.dp_size > 1) != (self.data_comm is not None)):
                 raise ValueError(
-                    f"a mesh with a model axis of {self.tp_size} needs a world of "
-                    f"{self.mesh.size} ranks (G × m), or a model_comm with comm"
+                    f"a node of {self.dp_size} data x {self.tp_size} model ranks needs a "
+                    f"world of {self.mesh.size} ranks (G × d × m), or a model_comm (and a "
+                    "data_comm) with comm"
                 )
         self.engine = "stacked" if self.comm is None else "ranks"
         self.rows = self.g if self.comm is None else 1
         self.full_defs = tfm.model_defs(cfg, self.tp_size)
-        # the tensor-parallel rank's view of its node's model group
+        # the rank's view of its node's model (and data) group
         self.tp = None
         self.defs = self.full_defs
         self.shardings = None
+        self.node_mesh = None
         if self.model_comm is not None:
-            self._check_tp(topology)
-            self.tp = ModelParallel(self.model_comm)
-            self.shardings, self.defs = model_axis_shards(self.full_defs, self.tp_size)
+            self.node_mesh, self.shardings, self.defs = node_shards(
+                self.full_defs, self.mesh, self.gossip_axes)
+            dp = None
+            if self.data_comm is not None:
+                dims = {k: sh.dim_of_any(self.data_axes) for k, sh in self.shardings.items()}
+                dp = DataParallel(self.data_comm, {k: d for k, d in dims.items()
+                                                   if d is not None},
+                                  split_batch=self.g == 1)
+            self.tp = ModelParallel(self.model_comm, data=dp)
         self.layout = FlatLayout.of_defs(self.defs)
         if bucket_mb is not None:
             check_bucketable(optimizer, topology)
@@ -369,23 +415,44 @@ class SPMDTrainer:
             # recorder (the one with sinks) sets the cadence for all
             self._metrics_every = self.comm.rank0_value(self._metrics_every)
 
-    @staticmethod
-    def _check_tp(topology) -> None:
-        """What a model axis > 1 on the ranks engine does not take yet."""
-        if topology.fault_model is not None:
-            raise ValueError("faults and elastic membership on a model axis > 1 are not "
-                             "ported: ROADMAP queue 1 item 8e")
-
     @property
     def model_rank(self) -> int:
         """This rank's index on its node's model axis (0 off a model axis)."""
         return 0 if self.tp is None else self.tp.rank
+
+    @property
+    def data_rank(self) -> int:
+        """This rank's index in its node's data group (0 without one)."""
+        return 0 if self.data_comm is None else self.data_comm.rank
+
+    def _node_coords(self) -> dict:
+        """This rank's coordinates on its node's mesh (data axes, "model")."""
+        return self.node_mesh.coords(self.data_rank * self.tp_size + self.model_rank)
 
     def _replicated(self) -> list[bool]:
         """Per leaf, whether the model axis leaves it whole."""
         if self.shardings is None:
             return [True] * len(self.layout.sizes)
         return [self.shardings[k].dim_of("model") is None for k in self.defs]
+
+    def _data_whole(self) -> list[bool]:
+        """Per leaf, whether the node's data axes leave it whole."""
+        if self.shardings is None:
+            return [True] * len(self.layout.sizes)
+        return [self.shardings[k].dim_of_any(self.data_axes) is None for k in self.defs]
+
+    def _counted(self) -> list[bool]:
+        """Per leaf, whether this rank counts it in a sum over its node's
+        ranks: a leaf whole on an axis counts on that axis's rank 0 only."""
+        return [(not rm or self.model_rank == 0) and (not rd or self.data_rank == 0)
+                for rm, rd in zip(self._replicated(), self._data_whole())]
+
+    def _node_sum(self, x: torch.Tensor) -> torch.Tensor:
+        """Sum over the node's model and data groups (IN PLACE)."""
+        for c in (self.model_comm, self.data_comm):
+            if c is not None:
+                c.all_reduce(x)
+        return x
 
     # -- mixing program -------------------------------------------------------
     def _one_program(self, step: int, epoch: int) -> Optional[GossipProgram]:
@@ -436,7 +503,8 @@ class SPMDTrainer:
         this program's first round, else None: not for non-PPermute first
         rounds, non-mixing steps, or multi-round ``mix_order="pre"`` (the
         descent must follow ALL rounds there)."""
-        if not self.fused_apply or program is None or self.topology.centralized:
+        if (not self.fused_apply or program is None or self.topology.centralized
+                or self.g == 1):   # the reference builds no fused step at G = 1
             return None
         if isinstance(program, FusedProgram):
             if self.topology.mix_order != "post":
@@ -469,7 +537,7 @@ class SPMDTrainer:
             if tuple(leaf.shape) != tuple(want):
                 raise ValueError(f"{name}: shape {tuple(leaf.shape)} != {tuple(want)}")
             if self.shardings is not None:
-                leaf = shard_leaf(leaf, self.shardings[name], {"model": self.model_rank})
+                leaf = shard_leaf(leaf, self.shardings[name], self._node_coords())
             view.copy_(leaf)
         theta[1:].copy_(theta[:1].expand(self.rows - 1, -1))
         opt = opt_buffers(self.optimizer, self.layout, theta)
@@ -483,8 +551,8 @@ class SPMDTrainer:
     def full_params(self, state: TrainState) -> dict[str, torch.Tensor]:
         """(rows, ...) full leaves of the state's parameters: on a
         tensor-parallel rank its node's, the shards all-gathered over the
-        model group (every rank of the group must call it); else the views
-        of ``stacked_params``."""
+        node's model and data groups (every rank of the node must call it);
+        else the views of ``stacked_params``."""
         return self.full_leaves(state.theta)
 
     def full_leaves(self, buf: torch.Tensor) -> dict[str, torch.Tensor]:
@@ -493,11 +561,19 @@ class SPMDTrainer:
         views = self.layout.stacked_views(buf)
         if self.tp is None:
             return views
-        return {k: self._unshard_rows(k, self.model_comm.all_gather(v.contiguous()))
-                for k, v in views.items()}
+        out = {}
+        for k, v in views.items():
+            parts = v.contiguous()
+            if self.data_comm is not None:
+                parts = self.data_comm.all_gather(parts)        # (d, rows, ...)
+            parts = self.model_comm.all_gather(parts.contiguous())  # (m, [d,] rows, ...)
+            parts = parts.transpose(0, 1) if self.data_comm is not None else parts[:, None]
+            out[k] = self._unshard_rows(k, parts.reshape((-1,) + tuple(v.shape)))
+        return out
 
     def _unshard_rows(self, name: str, parts: torch.Tensor) -> torch.Tensor:
-        """(m, rows, ...) shards of a leaf, model rank order -> (rows, ...)."""
+        """(node ranks, rows, ...) shards of a leaf in the node's rank order
+        (data index, then model index) -> (rows, ...)."""
         return torch.stack([unshard(list(parts[:, r]), self.shardings[name])
                             for r in range(parts.shape[1])])
 
@@ -522,14 +598,17 @@ class SPMDTrainer:
     def consensus_distance(self, state: TrainState, members=None) -> torch.Tensor:
         """Ξ of the state: over the stacked rows, or across the ranks; over
         the ``members`` ((G,) 0/1 mask) only when given.  On a
-        tensor-parallel rank each rank's ‖x_i − x̄‖² over its shard row
-        (replicated leaves on model rank 0 only) is summed over the model
-        group before the gossip group's mean."""
+        tensor-parallel rank each rank's ‖x_i − x̄‖² over its shard row (a
+        leaf whole on an axis counted on that axis's rank 0 only) is summed
+        over the node's model and data groups before the gossip group's
+        mean, masked or not."""
         if self.tp is not None:
-            keep = [not whole or self.model_rank == 0 for whole in self._replicated()]
             local = {k: v for (k, v), mine in zip(self.layout.views(state.theta[0]).items(),
-                                                  keep) if mine}
-            sq = self.model_comm.all_reduce(consensus_sq_shard(local, self.comm).reshape(1))
+                                                  self._counted()) if mine}
+            if members is not None:
+                return consensus_distance_masked_shard(local, members, self.comm,
+                                                       reduce=self._node_sum)
+            sq = self._node_sum(consensus_sq_shard(local, self.comm).reshape(1))
             return self.comm.pmean(sq)[0].sqrt()
         if members is not None:
             if self.comm is None:
@@ -556,11 +635,19 @@ class SPMDTrainer:
         """One iteration; updates the state's buffers in place and returns
         ``(state, losses (rows,), norms (rows, n_leaves))``: every node's
         stacked, this rank's own on a rank.  ``batch`` holds (G, B, S)
-        token arrays (numpy or tensors); a rank moves only its own row."""
+        token arrays (numpy or tensors); a rank moves only its own row.  At
+        G = 1 it is the reference's: the batch is (B, S) and the loss a
+        scalar, the norms (n_leaves,); a node split over data ranks splits
+        B over them (each rank moves its own rows) and its loss, gradients
+        and norms are the whole batch's."""
         tel = self.telemetry
         t_start = tel.round_start()
-        own = slice(None) if self.comm is None else slice(self.comm.rank, self.comm.rank + 1)
-        batch = {k: torch.as_tensor(v[own], device=self.device) for k, v in batch.items()}
+        if self.g == 1:
+            batch = {k: self._data_rows(v)[None] for k, v in batch.items()}
+        else:
+            own = (slice(None) if self.comm is None
+                   else slice(self.comm.rank, self.comm.rank + 1))
+            batch = {k: torch.as_tensor(v[own], device=self.device) for k, v in batch.items()}
         topo = self.topology
         fr = fault = members = None
         with torch.no_grad():
@@ -587,7 +674,7 @@ class SPMDTrainer:
         # mask of a composed concurrent crash or a spare pool stays all-ones)
         program = (
             self._program_at(state.step // self.mix_every, epoch)
-            if mix and not topo.centralized else None
+            if mix and not topo.centralized and self.g > 1 else None
         )
         sel = None if fr is None else fr.selection_mask()
         if program is not None and sel is not None and not sel.all():
@@ -598,6 +685,8 @@ class SPMDTrainer:
         with recompile.guard(self.debug_no_retrace and warm, f"train step {state.step}"):
             grad = torch.empty_like(state.theta)
             losses = self._grads_into(state.theta, grad, batch)
+            if self.data_comm is not None:
+                losses = self._data_mean(losses, grad)
             bucket_grad = None   # the gradient buffer of a bucketed step
             with torch.no_grad():
                 norms = (
@@ -609,7 +698,7 @@ class SPMDTrainer:
                     tel.comm(program, self.layout.row_bytes,
                              step=state.step, alive=None if fr is None else fr.alive,
                              link_up=None if fr is None else fr.link_up)
-                if topo.centralized:
+                if topo.centralized and self.g > 1:
                     # C_complete: average gradients globally (float32, leaf by
                     # leaf); replicas stay identical
                     for g in self.layout.stacked_views(grad).values():
@@ -647,18 +736,56 @@ class SPMDTrainer:
             del grad
             self._finish_round(losses, norms, t_start, step=state.step, mix=mix, lr=lr,
                                grads=bucket_grad)
+        if self.g == 1:   # the reference's G = 1 step: a scalar loss
+            losses, norms = losses[0], norms[0]
         return TrainState(state.theta, state.opt, state.step + 1), losses, norms
+
+    def _data_rows(self, x) -> torch.Tensor:
+        """This rank's rows of a G = 1 batch leaf (B, ...): B over the node's
+        data ranks, all of it without a data group."""
+        x = torch.as_tensor(x)
+        if x.dim() < 2:
+            raise ValueError(f"a G = 1 batch is (B, S); got a leaf of shape {tuple(x.shape)}")
+        if self.data_comm is not None:
+            b = x.shape[0] // self.dp_size
+            if b * self.dp_size != x.shape[0]:
+                raise ValueError(f"batch of {x.shape[0]} rows over {self.dp_size} data ranks")
+            x = x[self.data_rank * b:(self.data_rank + 1) * b]
+        return x.to(self.device)
+
+    def _data_mean(self, losses: torch.Tensor, grad: torch.Tensor) -> torch.Tensor:
+        """The node's loss and gradients from its data ranks' shares, IN
+        PLACE on ``grad``: a leaf the data group shards arrives summed by its
+        gather's reduce-scatter, a whole leaf's gradient is summed over the
+        group here; both then divided by the group's size (the mean over the
+        ranks' equal shares).  Returns the mean loss (the same on every data
+        rank)."""
+        comm, d = self.data_comm, float(self.dp_size)
+        for view, whole in zip(self.layout.views(grad[0]).values(), self._data_whole()):
+            if whole:
+                comm.all_reduce(view)
+        grad.div_(d)
+        return comm.all_reduce(losses.float().contiguous().clone()).div_(d)
 
     def _norms(self, theta: torch.Tensor) -> torch.Tensor:
         """The DBench probe (K3): per-leaf L2 norms of every row; on a
         tensor-parallel rank a sharded leaf's squares summed over the model
-        group (one all-reduce), a replicated leaf's norm as it is."""
+        group (one all-reduce), a replicated leaf's norm as it is; where the
+        node spans data ranks, a leaf the data group shards has its squares
+        summed over that group first."""
         norms = dbench.param_l2_norms(theta, self.layout)
         if self.tp is None:
             return norms
+        sq = norms.square()
         sharded = torch.tensor([not r for r in self._replicated()], device=norms.device)
-        sq = self.model_comm.all_reduce(torch.where(sharded, norms.square(), 0.0))
-        return torch.where(sharded, sq.sqrt(), norms)
+        split = sharded
+        if self.data_comm is not None:
+            on_data = torch.tensor([not w for w in self._data_whole()], device=norms.device)
+            sq = torch.where(on_data,
+                             self.data_comm.all_reduce(torch.where(on_data, sq, 0.0)), sq)
+            split = sharded | on_data
+        sq = torch.where(sharded, self.model_comm.all_reduce(torch.where(sharded, sq, 0.0)), sq)
+        return torch.where(split, sq.sqrt(), norms)
 
     def _note_step(self, program, *, faulty: bool, bucketed: bool, has_m: bool) -> bool:
         """Key this step as the reference keys its executables (the
@@ -742,22 +869,34 @@ class SPMDTrainer:
         its ``Comm`` for a ``RecordingComm`` of the same rank and world, an
         inert recorder takes the telemetry, and nothing of the run state
         (program keys, membership, a pending Ξ fold) is touched."""
-        saved = (self.device, self.comm, self.model_comm, self.tp, self.telemetry,
-                 self._step_cache, self._last_membership, self._fold, self._metrics_every)
+        saved = (self.device, self.comm, self.model_comm, self.data_comm, self.tp,
+                 self.telemetry, self._step_cache, self._last_membership, self._fold,
+                 self._metrics_every)
+
+        def recording(c):
+            if c is None or (isinstance(c, RecordingComm) and c.device.type == "meta"):
+                return c
+            return RecordingComm(c.rank, c.world)
+
         self.device = torch.device("meta")
-        if self.comm is not None and not (isinstance(self.comm, RecordingComm)
-                                          and self.comm.device.type == "meta"):
-            self.comm = RecordingComm(self.comm.rank, self.comm.world)
-        if self.tp is not None and self.model_comm.device.type != "meta":
-            self.model_comm = RecordingComm(self.model_comm.rank, self.model_comm.world)
-            self.tp = ModelParallel(self.model_comm)
+        self.comm = recording(self.comm)
+        if self.tp is not None and (self.model_comm.device.type != "meta"
+                                    or self.data_comm is not None
+                                    and self.data_comm.device.type != "meta"):
+            self.model_comm, self.data_comm = (recording(self.model_comm),
+                                               recording(self.data_comm))
+            dp = self.tp.data
+            if dp is not None:
+                dp = DataParallel(self.data_comm, dp.dims, split_batch=dp.split_batch)
+            self.tp = ModelParallel(self.model_comm, data=dp)
         self.telemetry, self._step_cache, self._fold = MetricsRecorder(), {}, XiFold()
         self._metrics_every = 0
         try:
             yield
         finally:
-            (self.device, self.comm, self.model_comm, self.tp, self.telemetry,
-             self._step_cache, self._last_membership, self._fold, self._metrics_every) = saved
+            (self.device, self.comm, self.model_comm, self.data_comm, self.tp,
+             self.telemetry, self._step_cache, self._last_membership, self._fold,
+             self._metrics_every) = saved
 
     def lower_step(self, shape, *, epoch: int = 0, step: int = 0) -> dict:
         """The dry run of one step (the reference's abstract lowering):
@@ -777,9 +916,8 @@ class SPMDTrainer:
 
         with self._on_meta():
             state = self.abstract_state(step)
+            # (G, B, S) batches; at G = 1 the reference's flat (B, S) one
             batch = input_specs(self.cfg, shape, n_nodes=self.g)
-            if self.g == 1:   # the engine takes (G, B, S) batches
-                batch = {k: v[None] for k, v in batch.items()}
             return step_record(
                 self.train_step, state, batch, 1e-2, epoch=epoch,
                 arguments=[state.theta, *state.opt.values()],
@@ -789,8 +927,10 @@ class SPMDTrainer:
     # -- crash-consistent resume -------------------------------------------------
     def checkpoint_tree(self, state: TrainState) -> dict:
         """The state as the reference's ``{"p", "o"}`` tree of (rows, ...)
-        views into its flat buffers."""
-        return checkpoint_tree(self.optimizer, self.layout, state.theta, state.opt)
+        views into its flat buffers; at G = 1 the reference's unstacked
+        leaves (its trainer holds no node axis there), row 0's views."""
+        tree = checkpoint_tree(self.optimizer, self.layout, state.theta, state.opt)
+        return map_leaves(lambda v: v[0], tree) if self.g == 1 else tree
 
     def snapshot_extra(self) -> dict:
         """Engine run state a crash-consistent checkpoint must carry beyond
@@ -827,7 +967,8 @@ class SPMDTrainer:
         validate_run_config(run_config, topology=self.topology.name,
                             n=int(self.g), bucket_mb=self.bucket_mb,
                             n_label="mesh gossip size")
-        if int(run_config.get("model", 1)) != self.tp_size:
+        # the reference records no model axis: a file without one is any size's
+        if "model" in run_config and int(run_config["model"]) != self.tp_size:
             raise ValueError(
                 f"resume config mismatch: model axis {run_config.get('model')} in the "
                 f"checkpoint, {self.tp_size} now")
@@ -855,7 +996,7 @@ class SPMDTrainer:
             return self._save_sharded(directory, state, tree, keep)
         comm = self.comm
         gathered = map_leaves(
-            lambda v: lambda: _gathered(comm.gather_host(v), v.shape[1:]), tree)
+            lambda v: lambda: _gathered(comm.gather_host(v.contiguous()), v.shape[1:]), tree)
         if comm.rank == 0:
             return save_checkpoint(directory, state.step, gathered, keep=keep,
                                    extra=self.snapshot_extra())
@@ -886,8 +1027,7 @@ class SPMDTrainer:
             head[1] = load_checkpoint_extra(directory, head[0]) or {}
             with zipfile.ZipFile(checkpoint_path(directory, head[0])) as zf:
                 shapes = leaf_shapes(zf)
-            want = {k: (self.g,) + self._full_shape(names.get(v.data_ptr()), v)
-                    for k, v in leaves}
+            want = {k: self._file_shape(names.get(v.data_ptr()), v) for k, v in leaves}
             bad = [f"checkpoint leaf {k}: shape {shapes.get(k)} != template {want[k]}"
                    for k, v in leaves if shapes.get(k) != want[k]]
             head[2] = bad[0] if bad else None
@@ -920,41 +1060,56 @@ class SPMDTrainer:
                     names[view.data_ptr()] = name
         return names
 
-    def _full_shape(self, name: Optional[str], v: torch.Tensor) -> tuple:
+    def _node_shape(self, name: Optional[str], v: torch.Tensor) -> tuple:
         """A checkpoint leaf's per-node shape in the file: the full leaf."""
         if name is None or self.shardings is None:
-            return tuple(v.shape[1:])
+            return tuple(v.shape[1:]) if self.g > 1 else tuple(v.shape)
         return tuple(self.full_defs[name].shape)
 
+    def _file_shape(self, name: Optional[str], v: torch.Tensor) -> tuple:
+        """A checkpoint leaf's shape in the file: (G, *node) stacked, the
+        node's leaf itself at G = 1 (the reference's unstacked leaves)."""
+        node = self._node_shape(name, v)
+        return node if self.g == 1 else (self.g,) + node
+
     def _shard_rows(self, full: torch.Tensor, name: Optional[str]) -> torch.Tensor:
-        """A file leaf (G, *full) -> (world, local numel): the row of global
-        rank i·m + j is shard j of node i."""
+        """A file leaf (G, *full), or (*full) at G = 1 -> (world, local numel):
+        the row of global rank n·r + k is node-rank k (data index, then model
+        index) of node n, r ranks a node."""
         rows = self.world_comm.world
+        if self.g == 1:
+            full = full[None]
         if self.tp is None:
             return full.reshape(rows, -1)
+        r = self.node_mesh.size
         if name is None:   # a per-node leaf (AdamW's step count): every rank of the node
-            return full.repeat_interleave(self.tp_size, dim=0).reshape(rows, -1)
+            return full.repeat_interleave(r, dim=0).reshape(rows, -1)
         sh = self.shardings[name]
-        return torch.stack([shard_leaf(full[i], sh, {"model": j}).reshape(-1)
-                            for i in range(self.g) for j in range(self.tp_size)])
+        return torch.stack([shard_leaf(full[n], sh, self.node_mesh.coords(k)).reshape(-1)
+                            for n in range(self.g) for k in range(r)])
 
     def _save_sharded(self, directory: str, state: TrainState, tree, keep: int):
         """``save_checkpoint`` of a tensor-parallel world: every leaf gathered
         to global rank 0's host memory and its shards put together into the
-        reference's full (G, ...) leaf; rank 0 alone writes."""
+        reference's full (G, ...) leaf (the full leaf at G = 1); rank 0
+        alone writes."""
         comm, names = self.world_comm, self._leaf_names(state)
+        r = self.node_mesh.size
 
         def assemble(v):
             def run():
-                rows = comm.gather_host(v)
+                rows = comm.gather_host(v.contiguous())
                 if rows is None:
                     return None
                 name = names.get(v.data_ptr())
-                parts = rows.view((self.g, self.tp_size) + tuple(v.shape[1:]))
+                local = tuple(v.shape[1:]) if self.g > 1 else tuple(v.shape)
+                parts = rows.view((self.g, r) + local)
                 if name is None or self.shardings is None:
-                    return parts[:, 0].contiguous()
-                return torch.stack([unshard(list(parts[i]), self.shardings[name])
-                                    for i in range(self.g)])
+                    out = parts[:, 0].contiguous()
+                else:
+                    out = torch.stack([unshard(list(parts[i]), self.shardings[name])
+                                       for i in range(self.g)])
+                return out[0] if self.g == 1 else out
             return run
 
         gathered = map_leaves(assemble, tree)
@@ -1055,7 +1210,9 @@ def _parser():
                     help="data,model: G gossip nodes, each split over a model axis "
                          "of m ranks (tensor and expert parallelism) under "
                          "torch.distributed.run with G x m processes; on one "
-                         "card the G nodes are stacked and m pads the heads")
+                         "card the G nodes are stacked and m pads the heads.  As "
+                         "in the reference, G is the first entry, and kimi-k2 "
+                         "(which gossips over pods only) runs at 1,m")
     ap.add_argument("--ckpt-dir", default="",
                     help="write checkpoints here (the reference's step_<n>.npz files)")
     ap.add_argument("--ckpt-every", type=int, default=0,
@@ -1191,6 +1348,8 @@ def _train(args, g, tp, k_floor, dev) -> dict:
     engine = "stacked" if comm is None else f"ranks | transport {comm.transport}"
     if trainer.tp is not None:
         engine += f" | tensor parallel x{tp}"
+    if trainer.data_comm is not None:
+        engine += f" | data group x{trainer.dp_size} (G = {trainer.g})"
     say(topo.describe(), "| mesh", {"data": g, "model": tp}, "| mixing",
         args.mixing, "| engine", engine, "| rounds", args.mix_rounds, "| apply",
         apply_mode, "| optimizer", trainer.optimizer.name, "| device", dev)
@@ -1214,10 +1373,12 @@ def _train(args, g, tp, k_floor, dev) -> dict:
     t0 = time.time()
     for t in range(start_step, args.steps):
         batch = src.stacked(g, t, args.per_node_batch)
+        if trainer.g == 1:   # the reference's G = 1 step takes the flat (B, S) batch
+            batch = {k: v[0] for k, v in batch.items()}
         epoch = t // args.steps_per_epoch
         state, loss, norms = trainer.train_step(state, batch, args.lr * scale, epoch=epoch)
         if comm is not None:   # every node's loss, for the printout
-            loss = comm.all_gather(loss).reshape(-1)
+            loss = comm.all_gather(loss.reshape(-1)).reshape(-1)
         losses.append(float(loss.mean()))
         if not math.isfinite(losses[-1]):
             raise SystemExit(f"step {t}: loss is not finite ({losses[-1]})")

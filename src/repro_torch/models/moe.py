@@ -31,6 +31,7 @@ same function of the same weights.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Mapping, Optional
 
 import torch
@@ -38,26 +39,47 @@ import torch.nn.functional as F
 
 from repro_torch.models.common import ParamDef, at_least_f32, he_normal, normal_init
 
-__all__ = ["moe_defs", "apply_moe", "apply_moe_manual_ep", "dispatch_slots"]
+__all__ = ["moe_defs", "apply_moe", "apply_moe_manual_ep", "dispatch_slots",
+           "counting_drops"]
 
-_SHARD_FF_ITEM = ("moe_shard_ff (the experts' d_ff over the data axis, the G = 1 "
-                  "placement) is not ported: ROADMAP queue 1 item 8d")
+# the dropped-assignment counts of the forwards run inside ``counting_drops``
+_DROPS: Optional[list] = None
 
+
+@contextlib.contextmanager
+def counting_drops():
+    """Record, per MoE layer call of a forward inside the block, the number
+    of (token, choice) assignments past their expert's capacity: a list of
+    0-d tensors on the layer's device (a remat recompute in the backward is
+    not counted again)."""
+    global _DROPS
+    prev, _DROPS = _DROPS, []
+    try:
+        yield _DROPS
+    finally:
+        _DROPS = prev
+
+
+def _note_drops(keep: torch.Tensor) -> None:
+    if _DROPS is not None and torch._C._current_graph_task_id() == -1:
+        _DROPS.append((~keep).sum().detach())
 
 def moe_defs(d_model: int, d_ff: int, n_experts: int, *, n_shared: int = 0,
              shard_ff: bool = False, dtype=torch.float32) -> dict:
     """The router (replicated), the experts' (E, ...) projections (sharded
     on E over "model": expert parallelism) and the optional shared experts
-    (column/row parallel, as an MLP).  The reference's ``shard_ff`` (d_ff
-    also over "data", for a G = 1 replica) raises (ROADMAP queue 1 item 8d)."""
-    if shard_ff:
-        raise ValueError(_SHARD_FF_ITEM)
-    ep = ("model", None, None)
+    (column/row parallel, as an MLP).  ``shard_ff`` also puts the experts'
+    d_ff over the "data" axis (the reference's 2-level expert placement for
+    a G = 1 replica): up/gate ("model", None, "data"), down ("model",
+    "data", None); a rank holds its d_ff slice and the ranks engine gathers
+    it at use over the node's data group (``launch/tensor_parallel.py``)."""
+    up = ("model", None, "data") if shard_ff else ("model", None, None)
+    down = ("model", "data", None) if shard_ff else ("model", None, None)
     defs = {
         "router": ParamDef((d_model, n_experts), normal_init(0.02), dtype, (None, None)),
-        "w_down": ParamDef((n_experts, d_ff, d_model), he_normal((-2,)), dtype, ep),
-        "w_gate": ParamDef((n_experts, d_model, d_ff), he_normal((-2,)), dtype, ep),
-        "w_up": ParamDef((n_experts, d_model, d_ff), he_normal((-2,)), dtype, ep),
+        "w_down": ParamDef((n_experts, d_ff, d_model), he_normal((-2,)), dtype, down),
+        "w_gate": ParamDef((n_experts, d_model, d_ff), he_normal((-2,)), dtype, up),
+        "w_up": ParamDef((n_experts, d_model, d_ff), he_normal((-2,)), dtype, up),
     }
     if n_shared:
         f = n_shared * d_ff
@@ -130,6 +152,7 @@ def apply_moe(params: Mapping, x: torch.Tensor, *, top_k: int,
     if capacity is None:
         capacity = capacity_of(t, top_k, e, capacity_factor)
     order, sorted_e, pos, keep = dispatch_slots(ids, e, capacity)
+    _note_drops(keep)
     token_idx = order // top_k
     gathered = torch.where(keep[:, None], xt[token_idx], torch.zeros((), dtype=x.dtype,
                                                                       device=x.device))
@@ -162,7 +185,7 @@ def _shared_experts(sh: Mapping, x: torch.Tensor, tp=None) -> torch.Tensor:
 
 def apply_moe_manual_ep(params: Mapping, x: torch.Tensor, *, top_k: int,
                         capacity_factor: float = 1.25, capacity: Optional[int] = None,
-                        tp=None, shared_tp=None):
+                        tp=None, shared_tp=None, dp=None):
     """Expert-parallel MoE with explicit collectives: the reference's
     ``apply_moe_manual_ep``.
 
@@ -172,12 +195,25 @@ def apply_moe_manual_ep(params: Mapping, x: torch.Tensor, *, top_k: int,
     whole).  Every rank routes every token (same router, same capacity rule
     over all E experts as ``apply_moe``), dispatches to its own experts
     only, and the float32 partial outputs are combined by ONE all-reduce;
+    the dispatch goes through a static (E, C) table of the assignment each
+    slot holds, so a rank gathers token rows for its own (E/m, C) slots
+    alone, never a (T·k, D) row for every assignment;
     the replicated tokens and routing weights enter the local dispatch
     through ``tp.enter``, so their gradients are summed over the group.
     Without ``tp`` the schedule runs as one shard holding every expert:
     ``apply_moe``'s function.  The shared experts run after, column/row
     parallel over ``shared_tp`` (the group, when their d_ff divides by its
-    size; None keeps them whole)."""
+    size; None keeps them whole).
+
+    ``dp`` (a ``launch/tensor_parallel.DataParallel`` whose batch is split)
+    makes ``x`` the tokens of every data rank, gathered (``dp.gather(x, 0)``):
+    they are routed as one batch (the whole batch's capacity and aux loss,
+    the same on every data rank), data rank r computes the capacity slots
+    ``[r·C/d, (r+1)·C/d)`` of its experts only, and one float32
+    reduce-scatter over the data group (after the model group's
+    all-reduce) sums the partial outputs into each rank's own rows: the
+    returned output is this rank's (B/d, S, D) rows, the shared experts run
+    on them alone."""
     b, s, d = x.shape
     e = params["router"].shape[1]
     n_shards, shard = (1, 0) if tp is None else (tp.size, tp.rank)
@@ -191,29 +227,40 @@ def apply_moe_manual_ep(params: Mapping, x: torch.Tensor, *, top_k: int,
     if capacity is None:
         capacity = capacity_of(t, top_k, e, capacity_factor)
     order, sorted_e, pos, keep = dispatch_slots(ids, e, capacity)
-    token_idx = order // top_k
-    # ownership: only this rank's experts land in its local buffer
-    local_e = sorted_e - shard * e_local
-    mine = keep & (local_e >= 0) & (local_e < e_local)
-    local_e = local_e.clamp(0, e_local - 1)
+    _note_drops(keep)
+    # the slot table: the sorted assignment each (expert, slot) holds, n
+    # where it is empty (the dropped ones go to a spare column, cut off)
+    n = t * top_k
+    table = torch.full((e, capacity + 1), n, dtype=torch.long, device=x.device)
+    table[sorted_e, torch.where(keep, pos, capacity)] = torch.arange(n, device=x.device)
+    # this rank's experts and, with ``dp``, this data rank's slots [lo, hi):
+    # only the assignments they hold are gathered
+    lo, hi = (0, capacity) if dp is None else (dp.rank * capacity // dp.size,
+                                               (dp.rank + 1) * capacity // dp.size)
+    slot = table[shard * e_local:(shard + 1) * e_local, lo:hi]       # (E/m, slots)
+    filled = slot < n
+    slot = torch.where(filled, slot, 0)
+    token = torch.where(filled, (order // top_k)[slot], 0)
     if tp is not None:
         xt, weights = tp.enter(xt), tp.enter(weights)
     zero = torch.zeros((), dtype=x.dtype, device=x.device)
-    gathered = torch.where(mine[:, None], xt[token_idx], zero)
-    buf = torch.zeros((e_local, capacity, d), dtype=x.dtype, device=x.device)
-    buf = buf.index_put((local_e, pos), gathered, accumulate=True)
+    buf = torch.where(filled[..., None], xt[token], zero)
 
     g = torch.bmm(buf, params["w_gate"])
     u = torch.bmm(buf, params["w_up"])
     out_buf = torch.bmm(F.silu(g) * u, params["w_down"])
 
-    picked = at_least_f32(out_buf[local_e, pos])
-    w_sorted = weights.reshape(-1)[order]
-    picked = picked * torch.where(mine, w_sorted, torch.zeros((), device=x.device))[:, None]
+    w_slot = torch.where(filled, weights.reshape(-1)[order][slot],
+                         torch.zeros((), device=x.device))
+    picked = at_least_f32(out_buf) * w_slot[..., None]
     partial = torch.zeros((t, d), dtype=picked.dtype, device=x.device).index_add(
-        0, token_idx, picked)
+        0, token.reshape(-1), picked.reshape(-1, d))
     if tp is not None:
         partial = tp.reduce(partial)      # ONE float32 collective per layer
+    if dp is not None:   # the data ranks' slots summed into this rank's rows
+        b //= dp.size
+        partial = dp.scatter_rows(partial)
+        x = dp.own_rows(x, b)
     out = partial.to(x.dtype).reshape(b, s, d)
 
     if "shared" in params:

@@ -314,9 +314,14 @@ def _ffn(p: Mapping, cfg: ArchConfig, h: torch.Tensor, tp=None):
     if cfg.n_experts:
         kw = dict(top_k=cfg.top_k, capacity_factor=cfg.capacity_factor)
         if tp is not None:
+            # a batch split over the node's data ranks: the tokens of the
+            # whole batch are routed once, identically on every data rank
+            # (the reference's capacity counts them all), each rank
+            # computing its share of the capacity slots and keeping its rows
+            dp = tp.data if tp.data is not None and tp.data.split_batch else None
             ff, aux = apply_moe_manual_ep(
-                ffn, hn2, tp=tp.split(cfg.n_experts),
-                shared_tp=tp.split(cfg.n_shared_experts * cfg.d_ff), **kw)
+                ffn, hn2 if dp is None else dp.gather(hn2, 0), tp=tp.split(cfg.n_experts),
+                shared_tp=tp.split(cfg.n_shared_experts * cfg.d_ff), dp=dp, **kw)
         elif cfg.moe_impl == "manual_ep":
             ff, aux = apply_moe_manual_ep(ffn, hn2, **kw)
         else:
@@ -593,6 +598,34 @@ def _tp_kw(tp) -> dict:
     return {} if tp is None else {"tp": tp}
 
 
+def _gathered_at_entry(params: Mapping, cfg: ArchConfig, tp) -> Mapping:
+    """On a rank whose node spans a data group that shards leaves (FSDP,
+    ``moe_shard_ff``): the leaves no layer loop gathers, gathered at entry
+    (the embedding, the final norm and the head; a stacked layer leaf split
+    on its layer dim; every leaf of the ssm and hybrid families, whose
+    loops run whole).  The attention family's layer leaves are gathered one
+    layer at a time by ``_at_use``."""
+    dp = None if tp is None else tp.data
+    if dp is None or not dp.dims:
+        return params
+    per_layer = cfg.family not in ("ssm", "hybrid")
+    out = dict(params)
+    for k, d in dp.dims.items():
+        if not (per_layer and k.startswith("blocks.") and d > 0):
+            out[k] = dp.gather(params[k], d)
+    return out
+
+
+def _at_use(block, tp):
+    """``block`` of a layer's views with the leaves the node's data group
+    shards gathered as it starts (inside its remat region: recomputed, not
+    kept, for the backward)."""
+    dp = None if tp is None else tp.data
+    if dp is None or not dp.dims:
+        return block
+    return lambda lp, *a, **k: block(dp.layer_leaves(lp, "blocks."), *a, **k)
+
+
 def forward_full(params: Mapping, cfg: ArchConfig, tokens: torch.Tensor, *,
                  patch_embeds=None, window: Optional[int] = None,
                  collect_cache: bool = False, tp=None):
@@ -606,6 +639,7 @@ def forward_full(params: Mapping, cfg: ArchConfig, tokens: torch.Tensor, *,
     rank's vocabulary columns where ``head`` is split, the states and
     caches the rank's heads)."""
     _check_family(cfg)
+    params = _gathered_at_entry(params, cfg, tp)
     h = _embed(params, cfg, tokens, patch_embeds, tp)
     b, s, _ = h.shape
     positions = torch.arange(s, dtype=torch.int32, device=h.device)[None].expand(b, s)
@@ -628,7 +662,7 @@ def forward_full(params: Mapping, cfg: ArchConfig, tokens: torch.Tensor, *,
     if cfg.family == "hybrid":
         return _hybrid_forward(params, cfg, h, positions, window, collect_cache, tp)
 
-    block = _remat(cfg, apply_attn_block)
+    block = _remat(cfg, _at_use(apply_attn_block, tp))
     entries = []
     for lp in _layers(params, cfg.n_layers):
         h, entry, a = block(lp, cfg, h, positions=positions, window=window,

@@ -2,8 +2,9 @@
 state bucketed (bit for bit the monolithic run) and through a
 crash-and-rejoin step, the simulator on the mixed model against the
 trainer, and the rebuild guard, each with a mutant that must fail (a bucket
-step that does not round, a handoff that does not round, a simulator that
-mixes with the dense interpreter, a device table rebuilt mid-run); and
+step that does not round, a handoff that does not round, a rejoin step that
+mixes with the wrong neighbours, a simulator that mixes with the dense
+interpreter, a device table rebuilt mid-run); and
 ``python -m repro_torch.examples.serve_decode``'s ``main`` on the CPU."""
 import dataclasses
 import sys
@@ -23,7 +24,7 @@ from repro_torch.core import faults  # noqa: E402
 from repro_torch.core import simulator as sim_mod  # noqa: E402
 from repro_torch.data import SyntheticLM  # noqa: E402
 from repro_torch.kernels import gossip_update as gu  # noqa: E402
-from test_torch_chip_checks import on_cpu  # noqa: E402,F401
+from test_torch_chip_checks import _rolled_neighbours, on_cpu  # noqa: E402,F401
 
 torch.set_num_threads(1)
 
@@ -65,6 +66,17 @@ def test_phase31_fails_when_a_bucket_does_not_round(reduced_mixed, monkeypatch):
 
 def test_phase31_fails_when_the_handoff_does_not_round(reduced_mixed, monkeypatch):
     monkeypatch.setattr(faults, "round_columns_", lambda x, ranges, offset=0: x)
+    with pytest.raises(SystemExit):
+        chip_smoke.mixed_rejoin_step(*_rejoin_inputs(), "cpu")
+
+
+def test_phase31_rejoin_check_fails_a_wrong_mix(reduced_mixed, monkeypatch):
+    """The fused step against the interpreter on the mixed state (phase 31's
+    rejoin step, which holds phase 29's replicas): a rolled neighbour table
+    fails it."""
+    out = chip_smoke.mixed_rejoin_step(*_rejoin_inputs(), "cpu")
+    assert out["share_of_tolerance"] <= 1.0 and out["moved_share"] > 0.9
+    monkeypatch.setattr(gu, "gossip_program_update", _rolled_neighbours(gu.gossip_program_update))
     with pytest.raises(SystemExit):
         chip_smoke.mixed_rejoin_step(*_rejoin_inputs(), "cpu")
 

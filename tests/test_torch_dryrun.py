@@ -13,7 +13,9 @@ branches of the K1–K4 wrappers and the config repair.
   ``roofline.analyze``;
 * ``lower_step`` of fused stacked and ranks trainers bills K1 and K2 (and
   K3), under a fault model too, and leaves the live trainer's run alone;
-* ``is_attention_free`` and ``input_specs`` equal the reference's.
+* ``is_attention_free`` and ``input_specs`` equal the reference's;
+* kimi-k2's training records are a card's under the reference trainer's
+  placement (G = 1 on ``single``: FSDP over the data axes).
 """
 import json
 import math
@@ -297,11 +299,101 @@ def test_ssm_and_hybrid_train_records_are_rank_0_0s(arch, mesh):
     assert rec["memory"]["argument_bytes"] == row + local.size * 4
 
 
-def test_kimi_training_still_waits_for_item_8d():
-    rec = dryrun.run_one("kimi-k2-1t-a32b", "train_4k", "single",
-                         override=SHORT["kimi-k2-1t-a32b"])
-    assert rec["waiting_for"].startswith("ROADMAP queue 1 item 8d")
-    assert rec["mesh_shape"] == {"data": 1, "model": 1}
+def _reference_card_bytes(override, mesh_kind):
+    """θ and the momentum a card under the reference trainer's placement
+    (``leaf_sharding(..., fsdp=not stacked)`` on an ``AbstractMesh``, the
+    momentum slots by ``sgd(0.9).state_specs``): Σ over leaves of the shard
+    shape's elements × the item size."""
+    import dataclasses
+
+    import jax
+    from jax.sharding import AbstractMesh
+
+    from repro.launch import sharding as jsharding
+    from repro.launch.mesh import gossip_axes_for as jgossip_axes_for
+    from repro.launch.mesh import gossip_size as jgossip_size
+    from repro.models import transformer as jtfm
+    from repro.models.common import abstract_params as jabstract
+    from repro.models.common import spec_tree as jspec_tree
+    from repro.optim.sgd import sgd as jsgd
+
+    sizes = dryrun.MESHES[mesh_kind]
+    mesh = AbstractMesh(tuple(sizes.values()), tuple(sizes))
+    fields = dict(item.split("=") for item in override.split(","))
+    cfg = dataclasses.replace(jget("kimi-k2-1t-a32b"), n_layers=int(fields["n_layers"]),
+                              moe_shard_ff=fields.get("moe_shard_ff") == "True")
+    gx = jgossip_axes_for(cfg.name, mesh)
+    g = jgossip_size(mesh, gx)
+    defs = jtfm.model_defs(cfg, tp_size=sizes["model"])
+    p_abs, p_specs = jabstract(defs), jspec_tree(defs)
+    o_abs = jax.eval_shape(jsgd(0.9).init, p_abs)
+    o_specs = jsgd(0.9).state_specs(p_specs)
+    total = 0
+    for tree, specs in ((p_abs, p_specs), (o_abs, o_specs)):
+        for leaf, spec in zip(jax.tree.leaves(tree), jax.tree.leaves(
+                specs, is_leaf=lambda x: isinstance(x, tuple))):
+            shape = ((g,) if g > 1 else ()) + tuple(leaf.shape)
+            sh = jsharding.leaf_sharding(shape, spec, mesh, gx, stacked=g > 1, fsdp=g == 1)
+            total += math.prod(sh.shard_shape(shape)) * np.dtype(leaf.dtype).itemsize
+    return total
+
+
+@pytest.mark.parametrize("shard_ff", [False, True])
+@pytest.mark.parametrize("mesh", ["single", "multi"])
+def test_kimi_train_records_are_a_cards_under_the_reference_placement(mesh, shard_ff):
+    """kimi-k2's training records are rank (0, 0, 0)'s card: on ``single``
+    the G = 1 placement (FSDP over 16 data ranks × EP over 16 model ranks,
+    ``mesh_shape`` counting "data"), on ``multi`` G = 2 with the data ranks
+    holding the leaves whole (the experts' d_ff split under
+    ``moe_shard_ff``); ``argument_bytes`` equal the reference placement's
+    shard arithmetic; the data group's all-gathers at use and
+    reduce-scatters of the gradients in the record wherever a leaf is
+    split over it."""
+    override = SHORT["kimi-k2-1t-a32b"] + (",moe_shard_ff=True" if shard_ff else "")
+    rec = dryrun.run_one("kimi-k2-1t-a32b", "train_4k", mesh, override=override)
+    assert "waiting_for" not in rec
+    # the data axes split the work at G = 1; on multi each data rank holds the node's batch
+    want = dict(dryrun.MESHES[mesh], **({} if mesh == "single" else {"data": 1}))
+    assert rec["mesh_shape"] == want
+    assert rec["gossip_nodes"] == (1 if mesh == "single" else 2)
+    assert rec["memory"]["argument_bytes"] == _reference_card_bytes(override, mesh)
+    split = mesh == "single" or shard_ff
+    coll = rec["collectives"]
+    assert ("reduce-scatter" in coll) == split
+    if split:
+        assert coll["reduce-scatter"]["count"] > 0 and coll["all-gather"]["count"] > 0
+    assert coll["all-reduce"]["count"] > 0      # the model group's
+
+
+def test_kimi_g1_record_at_full_depth_is_within_the_analytic_flops():
+    """kimi-k2's ``single`` training record at its full 61 layers passes
+    ``is_suspect``: its dot FLOPs a card are within [0.3, 8]× the analytic
+    model's over the 256 cards (the experts' capacity slots split over the
+    data ranks; every data rank computing every slot would be ≈ 21×)."""
+    rec = dryrun.run_one("kimi-k2-1t-a32b", "train_4k", "single")
+    assert rec["mesh_shape"] == {"data": 16, "model": 16}
+    assert is_suspect(rec) is None
+
+
+def test_reduced_kimi_record_holds_the_data_groups_collectives():
+    """A reduced kimi-k2 on a (2 data × 2 model) mesh at G = 1 on ``meta``:
+    the record's op stream has the data group's all-gathers (every leaf at
+    use, and each MoE layer's tokens) and reduce-scatters (their
+    gradients) beside the model group's all-reduces."""
+    from repro_torch.launch.mesh import make_mesh
+
+    cfg = tget("kimi-k2-1t-a32b-reduced")
+    tr = SPMDTrainer(cfg, make_topology("d_ring", 1), sgd(momentum=0.9), device="meta",
+                     mesh=make_mesh((2, 2), ("data", "model")), comm=RecordingComm(0, 1),
+                     model_comm=RecordingComm(0, 2), data_comm=RecordingComm(0, 2))
+    rec = tr.lower_step(InputShape("t", 16, 8, "train"))
+    coll = rec["collectives"]
+    n_leaves = len(tr.defs)
+    # remat recomputes each layer's gathers in the backward
+    assert coll["all-gather"]["count"] >= n_leaves + cfg.n_layers
+    assert coll["reduce-scatter"]["count"] >= n_leaves + cfg.n_layers
+    assert coll["all-reduce"]["count"] > 0
+    assert rec["memory"]["argument_bytes"] == tr.layout.row_bytes + tr.layout.size * 4
 
 
 @pytest.mark.parametrize("arch,shape", [("granite-8b", "decode_32k"),

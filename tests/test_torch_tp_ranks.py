@@ -469,17 +469,15 @@ def test_cli_runs_the_tp_ranks_engine_under_torch_distributed_run(tmp_path):
     assert out.stdout.count("2 steps in") == 1
 
 
-@pytest.mark.parametrize("item", ["8d", "8e"])
-def test_later_slice_arguments_raise_naming_their_item(item):
-    """What a model axis > 1 does not take yet raises and names its ROADMAP
-    queue 1 item: the G = 1 placements (8d), faults and elastic membership
-    on the tensor-parallel ranks engine (8e)."""
+def test_every_family_and_a_fault_model_take_the_tp_ranks_engine():
+    """The ssm and hybrid families and a fault model on a model axis > 1
+    build the tensor-parallel ranks engine (rank (0, 0) of a (2 × 2) world
+    on paper); ``tests/test_torch_tp_faults.py`` runs faults there."""
     from repro_torch.configs import get_config as tget_config
     from repro_torch.core.dsgd import make_topology as tmake_topology
     from repro_torch.core.faults import make_fault_model
     from repro_torch.launch.comm import RecordingComm
     from repro_torch.launch.mesh import make_mesh
-    from repro_torch.launch.sharding import leaf_sharding
     from repro_torch.launch.train import SPMDTrainer
     from repro_torch.optim.sgd import sgd as tsgd
 
@@ -487,17 +485,9 @@ def test_later_slice_arguments_raise_naming_their_item(item):
     ranks = {"comm": RecordingComm(0, 2), "model_comm": RecordingComm(0, 2),
              "device": "meta", "mesh": mesh}
     granite = tget_config("granite-8b-reduced")
-    calls = {
-        "8d": [lambda: leaf_sharding((4, 4), (None, "model"), mesh, (), stacked=False,
-                                     fsdp=True)],
-        "8e": [lambda: SPMDTrainer(granite, tmake_topology(
-            "d_ring", 2, fault_model=make_fault_model("crash", 2, rate=0.5)), tsgd(0.9),
-            **ranks)],
-    }
-    for call in calls[item]:
-        with pytest.raises(ValueError, match=f"item {item}"):
-            call()
-    # the ssm and hybrid families take the tensor-parallel ranks engine
+    faulty = SPMDTrainer(granite, tmake_topology(
+        "d_ring", 2, fault_model=make_fault_model("crash", 2, rate=0.5)), tsgd(0.9), **ranks)
+    assert faulty.tp is not None and faulty.fault_model is not None
     for arch in ("rwkv6-1.6b-reduced", "zamba2-7b-reduced"):
         assert SPMDTrainer(tget_config(arch), tmake_topology("d_ring", 2), tsgd(0.9),
                            **ranks).tp is not None

@@ -209,7 +209,9 @@ def test_main_fused_apply_launches_through_the_wrapper(capsys):
     # tests/test_torch_resume.py; so does a model axis (item 8): on one
     # device --mesh 2,2 runs the stacked engine at the reference's padded
     # shapes, under 4 ranks the tensor-parallel ranks engine
-    # (tests/test_torch_tp_ranks.py); what item 8 left raises there
+    # (tests/test_torch_tp_ranks.py); what item 8 left (the G = 1
+    # placement, faults on a model axis) runs too: tests/test_torch_g1.py,
+    # tests/test_torch_tp_faults.py
     pytest.param(["--mesh", "2,2"], "item 8", id="argv3-item 8"),
 ])
 def test_main_rejects_later_slices(argv, step):

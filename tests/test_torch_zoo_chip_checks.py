@@ -2,9 +2,9 @@
 each architecture in bfloat16: training through K1's and K3's twins with
 their launches counted, the twin checks on the run's state, serving, the
 decode chain against forward, the dropped-assignment count, phase 29's
-mixed-dtype checks (a fused step that mixes with the wrong neighbours
-fails the check against the interpreter), and phase 30's reduced-parity
-harness (here the CPU against itself)."""
+mixed-dtype checks (its fused step against the interpreter is phase 31's,
+``tests/test_torch_analysis_chip_checks.py``), and phase 30's
+reduced-parity harness (here the CPU against itself)."""
 import dataclasses
 import sys
 from pathlib import Path
@@ -17,8 +17,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 import chip_smoke  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.kernels import gossip_update as gu  # noqa: E402
-from test_torch_chip_checks import _rolled_neighbours, on_cpu  # noqa: E402,F401
+from test_torch_chip_checks import on_cpu  # noqa: E402,F401
 
 torch.set_num_threads(1)
 
@@ -60,28 +59,10 @@ def test_zoo_phase_runs_on_cpu(reduced_zoo, monkeypatch, phase):
         assert drop["assignments"] == 2 * 8 * 2 and 0 <= drop["dropped"] < drop["assignments"]
     if phase == 29:
         assert train["mixed_leaf_dtypes"] and train["state_dtype"] == "torch.float32"
-        assert out["fused_vs_interpreter"]["share_of_tolerance"] <= 1.0
-        assert out["fused_vs_interpreter"]["moved_share"] > 0.9
         assert out["reduced_card_vs_cpu"]["max_abs_err_by_dtype"] == {
             "torch.bfloat16": 0.0, "torch.float32": 0.0}
     if phase == 30:
         assert out["serve"]["prefill_len"] == 8 + get_config("internvl2-2b-reduced").n_patches
-
-
-def test_phase29_mixed_check_fails_a_wrong_mix(reduced_zoo, monkeypatch):
-    from repro_torch.core.dsgd import make_topology
-    from repro_torch.launch.train import SPMDTrainer
-    from repro_torch.optim.sgd import sgd
-
-    cfg = chip_smoke.zoo_cfg("zamba2-7b", 7)
-    trainer = SPMDTrainer(cfg, make_topology("d_ring", chip_smoke.G), sgd(momentum=0.9),
-                          collect_norms=True, fused_apply=True)
-    batch = chip_smoke.zoo_batches(cfg, chip_smoke.G, 1, "cpu")[0]
-    ulps, tol, rel_m, moved = chip_smoke.phase_hybrid_mixed_check(trainer, cfg, batch, "cpu")
-    assert tol <= 1.0 and moved > 0.9
-    monkeypatch.setattr(gu, "gossip_program_update", _rolled_neighbours(gu.gossip_program_update))
-    with pytest.raises(SystemExit):
-        chip_smoke.phase_hybrid_mixed_check(trainer, cfg, batch, "cpu")
 
 
 def test_reduced_parity_harness_on_cpu(on_cpu):   # noqa: F811

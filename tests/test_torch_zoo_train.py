@@ -322,6 +322,16 @@ def test_cli_trains_every_arch(arch, capsys):
         with pytest.raises(ValueError, match="patch_embeds"):
             main(argv, device="cpu")
         return
+    if arch.startswith("kimi"):
+        # the reference's CLI takes G from --mesh's first entry while kimi-k2
+        # gossips over pods only (G = 1 on a data x model mesh): it runs at
+        # --mesh 1,m, the reference's G = 1 step (no gossip, no fused kernel)
+        with pytest.raises(ValueError, match="gossip nodes"):
+            main(argv, device="cpu")
+        out = main([("1,1" if a == "2,1" else a) for a in argv], device="cpu")
+        assert len(out["losses"]) == 1 and np.isfinite(out["losses"][0])
+        assert out["trainer"].g == 1 and "fused kernel" not in capsys.readouterr().out
+        return
     out = main(argv, device="cpu")
     assert len(out["losses"]) == 1 and np.isfinite(out["losses"][0])
     assert "fused kernel K1" in capsys.readouterr().out
