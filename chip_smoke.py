@@ -255,8 +255,23 @@ Phases (any failure exits non-zero and prints no result line):
      the compute, memory and wire terms, the dominant term, the useful FLOP
      ratio, the share bound / measured, and ``temp_bytes`` beside the
      step's measured peak above the state, with the card's name and limit;
- 36. ``shard_nodes``: phase 15's mini-ResNet closed-loop Ada (N 16) for 3
-     steps with and without it, bit for bit (θ, losses, norms, Ξ trace).
+ 36. ``shard_nodes``, the simulator's node split into row blocks: 4
+     blocks on the one card (the reference's rule over the real cards
+     where there are two or more) against the unsplit run.  Phase 15's
+     mini-ResNet closed-loop Ada (N 16) for 3 steps with dense mixing
+     (within 1e-6 relative, bit for bit where the card gives it), with
+     shift mixing one node's gradients at a time (bit for bit: θ, m,
+     losses, norms, Ξ trace) and under vmap (within 1e-6); phase 13's
+     granite-8b (G 4, 2 layers, bf16, shift mixing, one node's gradients
+     at a time) for 2 steps, θ exactly and by the SHA-1 of its sampled
+     columns, m on them, losses and norms exactly; K3 once per block a
+     step; both runs' step times and peak allocation per card (every card
+     of the split synchronized around a timed step).  Then the ops that
+     reduce over every node on a 16-node leaf of 2·SPLIT_CHUNK + 99
+     columns, by column chunks gathered to the first card: AllReduce and
+     the centralized mean bit for bit the unsplit ops, GatherRow and a
+     masked program that is not all-PPermute (matrix products) within
+     1e-6 relative.
  37. tensor parallelism at full width: phase 4's granite-8b (2 layers) on
      a (2 data × 2 model) world of 4 ranks (NCCL with a card per rank,
      else gloo through pinned host buffers on the one card), d_ring, fused
@@ -341,6 +356,7 @@ launches on its paths, in all and by phase, error against its twin, ms,
 plain ms, bound and library ms) and the result ``{"ok": true, "device": {...}}``.  TF32 is off
 throughout.
 """
+import contextlib
 import dataclasses
 import json
 import math
@@ -4255,8 +4271,14 @@ PREDICT_35 = (
     "measured 0.3-0.7; card dot_flops == meta, traffic within 0.1 %; temp_bytes within 30 % "
     "of the measured peak above the state")
 PREDICT_36 = (
-    "phase 36 prediction (PERF.md §6): the mini-ResNet closed-loop Ada (N 16) for 3 steps "
-    "with shard_nodes bit for bit without; K3 once a step; 5-15 s")
+    "phase 36 prediction (PERF.md §6): split into 4 row blocks on the card, the mini-ResNet "
+    "closed-loop Ada (N 16, 3 steps, a node's gradients at a time) bit for bit the unsplit "
+    "run with shift mixing and within 1e-6 relative with dense mixing (bit for bit if cuBLAS "
+    "keeps one reduction order for 4 rows and for 16), under vmap with shift mixing within "
+    "1e-6 (cuDNN's grouped convolution of 4 groups against 16 may round apart), granite-8b x2 bf16 G 4 with shift mixing bit for bit over 2 "
+    "steps; K3 once per block a step (4 x 3 x 3 + 4 x 2 = 44 launches); the granite split "
+    "step within 10 % of the unsplit one (row copies of a few GB at HBM rate, ~10 ms); peak "
+    "allocated within 10 % of the unsplit run's on one card; 30-70 s in all")
 
 
 def moe_capacity_floor(rec):
@@ -4495,11 +4517,55 @@ def phase_roofline_step(dev, k1_bound, k3_bound, smi):
     return launches, numbers
 
 
-def phase_shard_nodes(dev):
-    """Phase 36: phase 15's mini-ResNet closed-loop Ada (N 16) for
-    SHARD_STEPS steps with and without ``shard_nodes``: losses, norms, θ
-    and the controller's trace bit for bit; K3 once a step.  Returns
-    (launches of the sharded run, numbers)."""
+SHARD_BLOCKS, SHARD_GRANITE_STEPS = 4, 2
+# phase 36's mini-ResNet runs: (mixing, one node's gradients at a time)
+SHARD_RESNET_RUNS = (("shift", True), ("dense", True), ("shift", False))
+
+
+@contextlib.contextmanager
+def node_split_as(dev, blocks=SHARD_BLOCKS):
+    """The split phase 36 runs: the reference's rule over the real cards
+    where there are two or more, else ``blocks`` row blocks on ``dev``
+    (``split_devices`` replaced for the duration)."""
+    import torch
+    from repro_torch.core import node_split
+
+    real = node_split.split_devices
+    if torch.device(dev).type == "cuda" and torch.cuda.device_count() >= 2:
+        yield "cards"
+        return
+    node_split.split_devices = lambda n, device: [torch.device(dev)] * blocks
+    try:
+        yield f"{blocks} blocks on one {torch.device(dev).type} device"
+    finally:
+        node_split.split_devices = real
+
+
+def _full(x):
+    from repro_torch.core.node_split import as_blocks
+
+    return as_blocks(x).to_full()
+
+
+def _sync_cards(sim):
+    """Wait for every card the simulator's state lies on."""
+    import torch
+
+    for d in dict.fromkeys(sim.devices):
+        torch.cuda.synchronize(d)
+
+
+def _rel_err(a, b):
+    """max |a - b| / max |b| in float64 (0 for equal tensors)."""
+    a, b = a.double(), b.double()
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
+def shard_resnet(dev, mixing, node_loop):
+    """Phase 15's mini-ResNet closed-loop Ada (N 16) for SHARD_STEPS steps
+    unsplit and split (``node_split_as``) with ``mixing``, the gradients
+    one node at a time (``node_loop``) or under vmap over each block's
+    nodes: (the split run's launches, its numbers, the split)."""
     import torch
     from repro_torch.core.dsgd import make_topology
     from repro_torch.core.simulator import DecentralizedSimulator
@@ -4509,35 +4575,244 @@ def phase_shard_nodes(dev):
 
     name = "resnet closed-loop Ada"
     params, batches = paper_inputs(name, SHARD_STEPS)
-    runs = {}
-    for shard in (False, True):
+    runs, where = {}, None
+    for split in (False, True):
         topo = make_topology("d_ada", PAPER_N, k0=12, k_floor="one_peer",
                              consensus_target=0.7, consensus_probe_every=5)
-        sim = DecentralizedSimulator(mini_resnet_loss, sgd(momentum=0.9), topo,
-                                     collect_norms=True, device=dev, shard_nodes=shard)
-        state = sim.init(params)
-        ops.reset_launch_counts()
-        losses, norms = [], []
-        for t, b in enumerate(batches):
-            state, loss, nrm = sim.train_step(state, b, PAPER_RUNS[name]["lr"], epoch=t // 5)
-            losses.append(loss)
-            norms.append(nrm)
-        torch.cuda.synchronize()
-        runs[shard] = {"theta": state.theta, "losses": torch.stack(losses),
-                       "norms": torch.stack(norms), "trace": list(topo.controller.trace),
-                       "launches": ops.launch_counts()}
-    for key in ("theta", "losses", "norms"):
-        if not torch.equal(runs[False][key], runs[True][key]):
-            fail(f"phase 36: {key} with shard_nodes differ from the run without")
+        with node_split_as(dev) as where_:
+            sim = DecentralizedSimulator(mini_resnet_loss, sgd(momentum=0.9), topo,
+                                         mixing=mixing, collect_norms=True, device=dev,
+                                         node_loop=node_loop, shard_nodes=split)
+            state = sim.init(params)
+            if split:
+                where = where_
+            ops.reset_launch_counts()
+            losses, norms = [], []
+            for t, b in enumerate(batches):
+                state, loss, nrm = sim.train_step(state, b, PAPER_RUNS[name]["lr"],
+                                                  epoch=t // 5)
+                losses.append(loss)
+                norms.append(nrm)
+            _sync_cards(sim)
+            runs[split] = {"theta": _full(state.theta), "mom": _full(state.opt["mom"]),
+                           "losses": torch.stack(losses), "norms": torch.stack(norms),
+                           "trace": list(topo.controller.trace),
+                           "blocks": len(getattr(state.theta, "blocks", [state.theta])),
+                           "launches": ops.launch_counts()}
+    errs = {key: _rel_err(runs[True][key], runs[False][key])
+            for key in ("theta", "mom", "losses", "norms")}
+    exact = all(torch.equal(runs[False][k], runs[True][k])
+                for k in ("theta", "mom", "losses", "norms"))
+    # shift mixing with one node's gradients at a time is held bit for bit;
+    # dense mixing's per-block product (node_split.split_matmul) and vmap's
+    # batched convolutions over a block's n/d nodes (a grouped convolution
+    # of another group count) within 1e-6 relative where they are not
+    label = f"{mixing}, {'node loop' if node_loop else 'vmap'}"
+    bar = 0.0 if mixing == "shift" and node_loop else 1e-6
+    for key, err in errs.items():
+        if err > bar:
+            fail(f"phase 36 ({label}): {key} split differ from unsplit by {err:.3e} relative "
+                 f"(bar {bar:g})")
     if runs[False]["trace"] != runs[True]["trace"]:
-        fail(f"phase 36: controller traces {runs[False]['trace']} vs {runs[True]['trace']}")
+        fail(f"phase 36 ({label}): controller traces {runs[False]['trace']} vs "
+             f"{runs[True]['trace']}")
     launches = runs[True]["launches"]
-    if launches != {"gossip_program_update": 0, "gossip_update": 0,
-                    "segment_l2_norms": SHARD_STEPS, "flash_attention": 0}:
-        fail(f"phase 36: launch counts {launches}")
-    log(f"phase 36: shard_nodes == unsharded bit for bit over {SHARD_STEPS} steps (theta, "
-        f"losses, norms, Xi trace); launches {launches}")
-    return launches, {"steps": SHARD_STEPS, "bit_for_bit": True}
+    blocks = runs[True]["blocks"]
+    if blocks < 2 or launches != {"gossip_program_update": 0, "gossip_update": 0,
+                                  "segment_l2_norms": blocks * SHARD_STEPS,
+                                  "flash_attention": 0}:
+        fail(f"phase 36 ({label}): {blocks} blocks, launch counts {launches}")
+    return launches, {"mixing": mixing, "node_loop": node_loop, "blocks": blocks,
+                      "bit_for_bit": exact, "max_rel_err": errs}, where
+
+
+def shard_granite(dev, cfg, steps=SHARD_GRANITE_STEPS):
+    """Phase 13's granite-8b simulator (G nodes, shift mixing, momentum-SGD,
+    norms on K3, one node's gradients at a time) for ``steps`` steps
+    unsplit, then split: θ compared exactly against the unsplit θ kept on
+    the card (and by SHA-1 of its sampled columns), m on the sampled
+    columns, losses and norms exactly; K3 once per block a step.  Returns
+    (the split run's launches, numbers)."""
+    import torch
+    from repro_torch.core.dsgd import make_topology
+    from repro_torch.core.flat import FlatLayout
+    from repro_torch.core.simulator import DecentralizedSimulator
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim.sgd import sgd
+
+    cuda = torch.device(dev).type == "cuda"
+    src = SyntheticLM(vocab=cfg.vocab, seq_len=SEQ, seed=0)
+    batches = [{k: torch.as_tensor(v, device=dev) for k, v in src.stacked(G, t, BATCH).items()}
+               for t in range(steps)]
+    layout = FlatLayout.of_defs(tfm.model_defs(cfg))
+    idx = torch.as_tensor(sample_columns(layout), device=dev)
+    out, keep = {}, None
+    for split in (False, True):
+        with node_split_as(dev) as where:
+            sim = DecentralizedSimulator(lambda p, b: tfm.loss_fn(p, cfg, b), sgd(momentum=0.9),
+                                         make_topology("d_ring", G), mixing="shift",
+                                         collect_norms=True, node_loop=True, device=dev,
+                                         shard_nodes=split)
+            params = tfm.init_model(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+            state = sim.init(params)
+            del params
+            if cuda:
+                _sync_cards(sim)
+                for d in sim.devices:
+                    torch.cuda.reset_peak_memory_stats(d)
+            ops.reset_launch_counts()
+            step_ms, losses, norms = [], [], []
+            for t in range(steps):
+                t1 = time.perf_counter()
+                state, loss, nrm = sim.train_step(state, batches[t], LR)
+                if cuda:
+                    _sync_cards(sim)
+                step_ms.append((time.perf_counter() - t1) * 1e3)
+                if not bool(torch.isfinite(loss).all()):
+                    fail(f"phase 36 granite step {t}: non-finite losses {loss.tolist()}")
+                losses.append(loss)
+                norms.append(nrm)
+            launches = ops.launch_counts()
+            devs = list(dict.fromkeys(sim.devices))
+            peaks = ({str(d): int(torch.cuda.max_memory_allocated(d)) for d in devs} if cuda
+                     else {})
+            theta = state.theta
+            blocks = len(getattr(theta, "blocks", [theta]))
+            rows = (torch.cat([b[:, idx.to(b.device)].to(dev) for b in theta.blocks])
+                    if split else theta[:, idx])
+            mom = state.opt["mom"]
+            mrows = (torch.cat([b[:, idx.to(b.device)].to(dev) for b in mom.blocks])
+                     if split else mom[:, idx])
+            out[split] = {"losses": torch.stack(losses), "norms": torch.stack(norms),
+                          "theta_cols": rows.clone(), "mom_cols": mrows.clone(),
+                          "sha1": _digest(rows.float().cpu().numpy()), "step_ms": step_ms,
+                          "peaks": peaks, "blocks": blocks, "launches": launches,
+                          "where": where}
+            if split:
+                exact_theta = all(torch.equal(b, keep[a:c].to(b.device))
+                                  for (a, c), b in zip(theta.ranges, theta.blocks))
+            else:
+                keep = theta   # the unsplit θ stays on the card; m and the grads go
+            del state, sim, theta, mom
+            if cuda:
+                torch.cuda.empty_cache()
+    del keep
+    plain, split = out[False], out[True]
+    if not exact_theta or plain["sha1"] != split["sha1"]:
+        fail("phase 36 granite: split theta differs from the unsplit run")
+    for key in ("mom_cols", "losses", "norms"):
+        if not torch.equal(plain[key], split[key]):
+            fail(f"phase 36 granite: split {key} differ from the unsplit run by "
+                 f"{_rel_err(split[key], plain[key]):.3e} relative")
+    launches = split["launches"]
+    if split["blocks"] < 2 or launches != {"gossip_program_update": 0, "gossip_update": 0,
+                                           "segment_l2_norms": split["blocks"] * steps,
+                                           "flash_attention": 0}:
+        fail(f"phase 36 granite: {split['blocks']} blocks, launch counts {launches}")
+    numbers = {
+        "config": f"{cfg.name} x{cfg.n_layers} layers, {cfg.dtype}, G={G}, d_ring, shift "
+                  f"mixing, sgd(0.9), lr {LR}, seq {SEQ}, per-node batch {BATCH}, node_loop",
+        "split": split["where"], "blocks": split["blocks"], "steps": steps,
+        "bit_for_bit": True, "theta_sha1_sampled": split["sha1"],
+        "step_ms_unsplit": plain["step_ms"], "step_ms_split": split["step_ms"],
+        "peak_allocated_unsplit": plain["peaks"], "peak_allocated_split": split["peaks"],
+        "losses": plain["losses"].tolist(),
+    }
+    return launches, numbers
+
+
+def shard_reductions(dev):
+    """The ops that reduce over every node, on a float32 leaf of PAPER_N
+    nodes and 2·SPLIT_CHUNK + 99 columns: AllReduce, GatherRow (the dense
+    ring), a masked program that is not all-PPermute (AllReduce with a
+    dead node) and the centralized mean (bf16).  Split (column chunks of
+    SPLIT_CHUNK gathered to the first card, the last taking the rest)
+    against unsplit (one chunk of every column), each block's rows: the
+    mean and AllReduce (sums down each column) bit for bit; GatherRow and
+    the masked program (matrix products, whose kernel the card picks by
+    the chunk's shape) within 1e-6 relative, as the dense interpreter.
+    Returns the numbers."""
+    import numpy as np
+    import torch
+    from repro_torch.core import node_split
+    from repro_torch.core.graphs import Ring
+    from repro_torch.core.node_split import NodeBlocks
+    from repro_torch.core.schedule import AllReduce, GossipProgram, dense_program
+    from repro_torch.core.simulator import _centralized_mean
+
+    n, width = PAPER_N, 2 * node_split.SPLIT_CHUNK + 99
+    x = torch.randn((n, width), generator=torch.Generator(device=dev).manual_seed(36),
+                    device=dev)
+    alive = np.ones(n, np.float32)
+    alive[3] = 0.0
+    allreduce = GossipProgram("allreduce", n, (AllReduce(),), 0.0)
+    gather = dense_program(Ring(n))
+    # name -> (op, bar on the relative difference)
+    checks = {"allreduce": (allreduce.apply_stacked, 0.0),
+              "centralized mean": (lambda v: _centralized_mean(v, torch.bfloat16), 0.0),
+              "gatherrow": (gather.apply_stacked, 1e-6),
+              "masked allreduce": (lambda v: allreduce.apply_masked(v, alive), 1e-6)}
+    with node_split_as(dev) as where:
+        devices = node_split.split_devices(n, dev)
+    t0 = time.perf_counter()
+    exact, errs = [], {}
+    for name, (op, bar) in checks.items():
+        want, got = op(x), op(NodeBlocks.split(x, devices))
+        pairs = [(b, want[a:c].to(b.device)) for (a, c), b in zip(got.ranges, got.blocks)]
+        errs[name] = max(_rel_err(b, w) for b, w in pairs)
+        if all(torch.equal(b, w) for b, w in pairs):
+            exact.append(name)
+        elif errs[name] > bar or bar == 0.0:
+            fail(f"phase 36 reductions: {name} split over {len(devices)} blocks differs from "
+                 f"the unsplit op by {errs[name]:.3e} relative (bar {bar:g})")
+        del want, got, pairs
+    return {"nodes": n, "columns": width, "chunk": node_split.SPLIT_CHUNK, "split": where,
+            "blocks": len(devices), "bit_for_bit": exact, "max_rel_err": errs,
+            "s": time.perf_counter() - t0}
+
+
+def phase_shard_nodes(dev, granite_cfg=None):
+    """Phase 36: the simulator split into row blocks (``shard_nodes``; 4
+    blocks on the one card, or the reference's rule over real cards where
+    there are two or more) against the unsplit run: phase 15's mini-ResNet
+    closed-loop Ada (N 16) for SHARD_STEPS steps, one node's gradients at a
+    time, with shift mixing (bit for bit: θ, m, losses, norms, the
+    controller's trace) and dense mixing (phase 15's; bit for bit where the
+    card gives it, else within 1e-6 relative), and with shift mixing under
+    vmap (phase 15's gradients; within 1e-6); then phase 13's granite-8b
+    simulator (G 4, 2 layers, bf16, shift mixing) for SHARD_GRANITE_STEPS
+    steps bit for bit.  K3 once per block a step.  Then the reductions over
+    every node by column chunks (``shard_reductions``).  Returns (the split
+    runs' launches summed, numbers)."""
+    from repro_torch.kernels import ops
+
+    cfg = granite_cfg if granite_cfg is not None else granite_layout()[0]
+    launches = {k: 0 for k in ops.launch_counts()}
+    numbers = {"resnet": {}}
+    for mixing, node_loop in SHARD_RESNET_RUNS:
+        key = f"{mixing}, {'node loop' if node_loop else 'vmap'}"
+        got, numbers["resnet"][key], where = shard_resnet(dev, mixing, node_loop)
+        launches = {k: launches[k] + got[k] for k in launches}
+        r = numbers["resnet"][key]
+        log(f"phase 36: resnet closed loop ({key}), split as {where}: "
+            f"{'bit for bit' if r['bit_for_bit'] else 'within 1e-6 of'} the unsplit run over "
+            f"{SHARD_STEPS} steps (max relative {r['max_rel_err']}); launches {got}")
+    got, numbers["granite"] = shard_granite(dev, cfg)
+    launches = {k: launches[k] + got[k] for k in launches}
+    g = numbers["granite"]
+    log(f"phase 36: {g['config']}, split as {g['split']}: bit for bit the unsplit run over "
+        f"{g['steps']} steps (theta sampled SHA-1 {g['theta_sha1_sampled'][:12]}); step ms "
+        f"unsplit {[round(x, 1) for x in g['step_ms_unsplit']]}, split "
+        f"{[round(x, 1) for x in g['step_ms_split']]}; peak allocated unsplit "
+        f"{g['peak_allocated_unsplit']}, split {g['peak_allocated_split']}; launches {got}")
+    numbers["reductions"] = r = shard_reductions(dev)
+    log(f"phase 36: reductions over {r['nodes']} nodes of {r['columns']} columns, split as "
+        f"{r['split']} in chunks of {r['chunk']}: bit for bit the unsplit ops: "
+        f"{r['bit_for_bit']}; max relative {r['max_rel_err']} ({r['s']:.1f} s)")
+    numbers.update({"steps": SHARD_STEPS, "launches": launches})
+    return launches, numbers
 
 
 # ---------------------------------------------------------------------------

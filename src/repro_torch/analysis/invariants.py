@@ -26,13 +26,19 @@ statically, on the IR, before any step runs:
   * ``verify_topology``  — drives the above over everything a
     ``Topology`` can emit: ``distinct_programs`` (controller rungs ×
     degraded folds × elastic sizes) × sampled fault realizations.
+  * ``verify_bench_payload`` — the structural gate of a bench section
+    before it is merged into a committed artifact: keyable names, dict
+    entries, JSON values and, where an entry carries one, the shape of its
+    ``MetricsRecorder.provenance`` stamp.
 
-The reference's ``verify_bench_payload`` gates its benchmark artifact,
-which is not ported (ROADMAP queue 1 item 5).  All checks raise
+All checks raise
 ``InvariantViolation`` (an ``AssertionError``) with the offending entry
 spelled out.
 """
 from __future__ import annotations
+
+import json
+import re
 
 import numpy as np
 
@@ -43,6 +49,7 @@ __all__ = [
     "verify_degraded",
     "verify_bucket_layout",
     "verify_topology",
+    "verify_bench_payload",
 ]
 
 _TOL = 1e-8
@@ -386,3 +393,50 @@ def verify_topology(topology, *, n_epochs: int = 1, fault_steps: int = 0,
                     continue  # elastic fold of a different membership size
                 verify_degraded(p, alive, link, tol=tol)
     return len(programs)
+
+
+_BENCH_KEY_RE = re.compile(r"^[\w.+\-/]+$")
+
+
+def verify_bench_payload(section: str, payload) -> None:
+    """Structural gate for a bench section before it is merged per key into
+    a committed artifact: a malformed payload (non-dict entries, unkeyable
+    names, non-JSON values) would corrupt the perf trajectory silently."""
+    subject = f"bench section {section!r}"
+    if not isinstance(section, str) or not _BENCH_KEY_RE.match(section or ""):
+        _fail(subject, "section name must be a non-empty [\\w.+-/] string")
+    if not isinstance(payload, dict) or not payload:
+        _fail(subject, f"payload must be a non-empty dict, got {type(payload).__name__}")
+    for key, entry in payload.items():
+        if not isinstance(key, str) or not _BENCH_KEY_RE.match(key):
+            _fail(subject, f"entry key {key!r} is not a [\\w.+-/] string")
+        if not isinstance(entry, dict):
+            _fail(subject, f"entry {key!r} is {type(entry).__name__}, not a dict — "
+                           "the per-key merge would clobber structure")
+        try:
+            json.dumps(entry, allow_nan=False)
+        except (TypeError, ValueError) as e:
+            _fail(subject, f"entry {key!r} is not JSON-serializable: {e}")
+        prov = entry.get("provenance")
+        if prov is not None:
+            _verify_bench_provenance(subject, key, prov)
+
+
+def _verify_bench_provenance(subject: str, key: str, prov) -> None:
+    """A ``provenance`` entry is ``MetricsRecorder.provenance()``: pin its
+    shape, so a half-initialized recorder cannot stamp garbage."""
+    if not isinstance(prov, dict):
+        _fail(subject, f"entry {key!r} provenance must be a dict")
+    if prov.get("source") != "telemetry":
+        _fail(subject, f"entry {key!r} provenance source must be 'telemetry'")
+    if not isinstance(prov.get("schema"), int):
+        _fail(subject, f"entry {key!r} provenance schema must be an int")
+    counters = prov.get("counters")
+    if not isinstance(counters, dict) or not all(
+        isinstance(k, str) and isinstance(v, (int, float)) and not isinstance(v, bool)
+        for k, v in counters.items()
+    ):
+        _fail(subject, f"entry {key!r} provenance counters must map str -> number")
+    for field in ("rounds", "events"):
+        if not isinstance(prov.get(field), int):
+            _fail(subject, f"entry {key!r} provenance {field} must be an int")

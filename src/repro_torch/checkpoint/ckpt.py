@@ -26,7 +26,10 @@ between the zip member (zip64, stored) and the leaf's rows in chunks of
 copy of one chunk overlaps the file transfer of the other), straight into
 or out of a host leaf's memory.  A leaf may also be a zero-argument
 callable that returns the leaf in host memory, called when the leaf is
-written (the ranks engine gathers each leaf to rank 0 that way).  The file is written
+written (the ranks engine gathers each leaf to rank 0 that way).  A leaf may be
+a ``RowBlocks``, consecutive row blocks that may lie on different cards:
+the blocks stream one after the other, each from or into its own card, so
+the file is byte for byte the one array they make.  The file is written
 under a temporary name and renamed into place, so a crash mid-save leaves
 the previous checkpoint and the manifest as they were.
 """
@@ -42,7 +45,7 @@ import numpy as np
 import torch
 
 __all__ = [
-    "AsDtype", "save_checkpoint", "load_checkpoint", "restore_checkpoint", "load_checkpoint_extra",
+    "AsDtype", "RowBlocks", "save_checkpoint", "load_checkpoint", "restore_checkpoint", "load_checkpoint_extra",
     "latest_step", "validate_run_config", "flatten", "map_leaves", "checkpoint_path",
     "read_leaf", "leaf_shapes", "resolve_step",
 ]
@@ -61,6 +64,26 @@ class AsDtype:
     out; restored, it is ``leaf`` (the member cast to the leaf's dtype)."""
     leaf: Any
     dtype: torch.dtype
+
+
+@dataclasses.dataclass(frozen=True)
+class RowBlocks:
+    """A leaf held as consecutive row blocks (tensors that agree past the
+    first axis, each on its own device): one array in the file, the
+    blocks' rows in order; restored, each block in place."""
+    blocks: tuple
+
+    @property
+    def shape(self) -> tuple:
+        return (sum(b.shape[0] for b in self.blocks),) + tuple(self.blocks[0].shape[1:])
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.blocks[0].dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self.blocks[0].device
 
 
 def held(leaf: Any) -> Any:
@@ -157,9 +180,22 @@ class _Staging:
         self.events[i].record()
 
 
+def _each_block(fn, f, leaf: RowBlocks, dtype: torch.dtype) -> None:
+    """``fn(f, block, dtype)`` for the blocks in row order, each with its
+    card current (the staging events record on its stream)."""
+    for blk in leaf.blocks:
+        if blk.device.type == "cuda":
+            with torch.cuda.device(blk.device):
+                fn(f, blk, dtype)
+        else:
+            fn(f, blk, dtype)
+
+
 def _stream_out(f, leaf: torch.Tensor, dtype: torch.dtype) -> None:
     """Write ``leaf``'s elements as ``dtype`` to ``f`` in chunks (each
     chunk cast on the leaf's device when the dtypes differ)."""
+    if isinstance(leaf, RowBlocks):
+        return _each_block(_stream_out, f, leaf, dtype)
     chunks = ((x[a:b] if x.dtype == dtype else x[a:b].to(dtype)).view(torch.uint8)
               for x, a, b in _chunks(leaf, dtype))
     if leaf.device.type == "cpu":
@@ -192,6 +228,8 @@ def _read_exact(f, out: memoryview) -> None:
 def _stream_in(f, leaf: torch.Tensor, dtype: torch.dtype) -> None:
     """Fill ``leaf`` (in place) from ``f``'s elements of ``dtype`` in
     chunks, each cast to the leaf's dtype when they differ."""
+    if isinstance(leaf, RowBlocks):
+        return _each_block(_stream_in, f, leaf, dtype)
     size = torch.empty((), dtype=dtype).element_size()
     if leaf.device.type == "cpu":
         for x, a, b in _chunks(leaf, dtype):
@@ -218,11 +256,12 @@ def _write_member(zf: zipfile.ZipFile, key: str, leaf) -> None:
     leaf = held(leaf)
     if callable(leaf):
         leaf = leaf()
-    if not isinstance(leaf, torch.Tensor):
+    if isinstance(leaf, torch.Tensor):
+        leaf = leaf.detach()
+    elif not isinstance(leaf, RowBlocks):
         arr = np.require(np.asarray(leaf), requirements="C")   # (ascontiguousarray makes 0-d 1-d)
         leaf = (torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
                 if arr.dtype.name == "bfloat16" else torch.from_numpy(arr))
-    leaf = leaf.detach()
     dtype = dtype or leaf.dtype
     header = {"descr": _descr(dtype), "fortran_order": False, "shape": tuple(leaf.shape)}
     with zf.open(key + ".npy", "w", force_zip64=True) as f:

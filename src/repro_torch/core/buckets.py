@@ -40,6 +40,12 @@ too: a bucket's segments give its dtype runs (``BucketLayout.dtype_runs``),
 and the bucket step rounds or mixes each narrower run in its own dtype
 where the leaf-by-leaf step would.
 
+The simulator's split state (``core/node_split.NodeBlocks``) buckets too:
+a bucket is the same column range of every row block, the update runs on
+each block's card, the mix through the program's split interpreter, and
+the fold's per-bucket Ξ² partial sum over the bucket's rows gathered to
+the first card, as unsplit.
+
 On one card every bucket's work goes to one CUDA stream, which orders the
 buckets by itself: the engines neither wait for a bucket nor hold a
 dispatch window.  Under faults the bucket step gates the update and mixes
@@ -56,6 +62,7 @@ import torch
 
 from repro_torch.core.consensus import consensus_sq_stacked
 from repro_torch.core.flat import round_columns_
+from repro_torch.core.node_split import as_blocks, blocks_of, cols, like
 
 __all__ = [
     "BucketLayout",
@@ -210,13 +217,14 @@ class BucketLayout:
 
     def views(self, flat: torch.Tensor) -> list[torch.Tensor]:
         """Bucket views of a flat buffer whose last axis is [0, P): (..., w_b)
-        column slices that share its storage."""
+        column slices that share its storage (of a split buffer, each a
+        NodeBlocks of its blocks' slices)."""
         if flat.shape[-1] != self.total:
             raise ValueError(
                 f"buffer of {flat.shape[-1]} columns does not match layout of {self.total}"
             )
         b = self.bounds
-        return [flat[..., b[i]:b[i + 1]] for i in range(len(b) - 1)]
+        return [cols(flat, b[i], b[i + 1]) for i in range(len(b) - 1)]
 
 
 # ---------------------------------------------------------------------------
@@ -338,21 +346,30 @@ def build_bucket_step(
                     mix_in_place((stage,), theta_b, mix)
                     round_columns_(theta_b, runs)
         else:
-            state = {"b": mom_b} if has_momentum else ()
-            new_p, new_m = update({"b": grad_b}, state, {"b": theta_b}, lr)
-            new_t = new_p["b"]
-            if fault is not None:
-                # stragglers and dead nodes skip their local update
-                new_t = torch.where(ucol, new_t, theta_b)
-                if has_momentum:
-                    new_m = {"b": torch.where(ucol, new_m["b"], mom_b)}
+            # the update on each row block (the whole bucket when unsplit)
+            ts, ms = blocks_of(theta_b), blocks_of(mom_b) if has_momentum else None
+            ucols = None if fault is None else as_blocks(theta_b).per_node(ucol)
+            new_ts, new_ms = [], []
+            for j, (tb, gb) in enumerate(zip(ts, blocks_of(grad_b))):
+                state = {"b": ms[j]} if has_momentum else ()
+                new_p, new_m = update({"b": gb}, state, {"b": tb}, lr)
+                new_t = new_p["b"]
+                if fault is not None:
+                    # stragglers and dead nodes skip their local update
+                    new_t = torch.where(ucols[j], new_t, tb)
+                    if has_momentum:
+                        new_m = {"b": torch.where(ucols[j], new_m["b"], ms[j])}
+                new_ts.append(new_t)
+                new_ms.append(new_m)
+            new_t = like(theta_b, new_ts)
             if runs is None:
                 theta_b.copy_(mix(program, new_t, engine))
             else:
                 for a, b, dt in runs:
-                    theta_b[:, a:b].copy_(mix(program, new_t[:, a:b].to(dt), engine))
+                    cols(theta_b, a, b).copy_(mix(program, cols(new_t, a, b).to(dt), engine))
             if has_momentum:
-                mom_b.copy_(new_m["b"])
+                for mb, new_m in zip(ms, new_ms):
+                    mb.copy_(new_m["b"])
         if tok is None:
             return None
         return tok + consensus_sq_stacked(theta_b)

@@ -18,7 +18,10 @@ the device:
 Both accumulate in float32 and never turn the whole state into float32:
 they work through it in column chunks of ``CHUNK`` elements, so at
 granite-8b width (a (4, 838,881,280) bfloat16 state) the float32
-temporaries stay a few hundred MB.
+temporaries stay a few hundred MB.  The stacked probes also take the
+simulator's split state (a ``core/node_split.NodeBlocks``): each column
+chunk's rows are gathered to the first card and reduced there as unsplit,
+so Ξ is the unsplit Ξ bit for bit.
 
 ``ConsensusController`` replaces Ada's open-loop law
 ``k(epoch) = k0 - int(γ·epoch)`` with a measured trigger: whenever the
@@ -49,6 +52,7 @@ from repro_torch.core.ada import AdaSchedule
 from repro_torch.core.graphs import (
     CommGraph, RingLattice, one_peer_exponential, one_peer_period,
 )
+from repro_torch.core.node_split import as_blocks
 from repro_torch.telemetry import coalesce_into
 
 __all__ = [
@@ -69,14 +73,14 @@ CHUNK = 1 << 24
 
 def _columns(stacked):
     """(n, k) column blocks of a stacked state: a flat (n, P) buffer, a
-    dict of (n, ...) tensors, or one (n, ...) tensor."""
+    dict of (n, ...) tensors, or one (n, ...) tensor; of a split one (a
+    ``NodeBlocks``) each block's rows gathered to the first card."""
     leaves = list(stacked.values()) if isinstance(stacked, dict) else [stacked]
     if not leaves:
         raise ValueError("consensus distance of an empty state")
-    for x in leaves:
-        x2 = x.reshape(x.shape[0], -1)
-        for a in range(0, x2.shape[1], CHUNK):
-            yield x2[:, a:a + CHUNK]
+    for x in map(as_blocks, leaves):
+        for a in range(0, math.prod(x.shape[1:]), CHUNK):
+            yield x.columns(a, a + CHUNK)
 
 
 def consensus_sq_stacked(stacked) -> torch.Tensor:

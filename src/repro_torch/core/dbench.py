@@ -14,7 +14,8 @@ summarizing the cross-replica dispersion of those norms with four metrics
 and integrating across parameters via rank analysis (paper Figure 5).
 
 The in-step probe ``param_l2_norms`` runs kernel K3 over the port's flat
-(G, P) parameter buffer, one segment per leaf; the metric math below is
+(G, P) parameter buffer, one segment per leaf (over the simulator's split
+state, once per row block on the block's card); the metric math below is
 a numpy copy of the reference and runs host-side on (n_nodes,)-vectors.
 """
 from __future__ import annotations
@@ -26,6 +27,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.flat import FlatLayout
+from repro_torch.core.node_split import blocks_of, cat_nodes
 from repro_torch.kernels.stats import segment_l2_norms
 
 __all__ = [
@@ -44,10 +46,14 @@ __all__ = [
 # In-step collection
 # ---------------------------------------------------------------------------
 
-def param_l2_norms(flat: torch.Tensor, layout: FlatLayout) -> torch.Tensor:
+def param_l2_norms(flat, layout: FlatLayout) -> torch.Tensor:
     """L2 norm per leaf of every node: a flat (G, P) parameter buffer laid
-    out by ``layout`` -> (G, n_leaves) float32, in reference leaf order."""
-    return segment_l2_norms(flat, layout.offsets)
+    out by ``layout`` -> (G, n_leaves) float32, in reference leaf order.
+    A split buffer (``NodeBlocks``) takes one K3 launch per block on its
+    card, each checked and billed for its own rows; the norms come back
+    in node order on the first block's device."""
+    return cat_nodes([segment_l2_norms(b, layout.offsets) for b in blocks_of(flat)],
+                     flat.device)
 
 
 # ---------------------------------------------------------------------------

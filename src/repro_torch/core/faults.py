@@ -40,7 +40,12 @@ and optimizer slot), so the membership handoffs work on buffer rows:
 a rank's (1, P) buffer they gather the column chunks they need from
 every rank, every rank joining), and ``admit_node`` returns a buffer one
 row taller.  Every row sum they take runs in node order in float32, so
-the stacked engine and the ranks engine compute the same bits.
+the stacked engine and the ranks engine compute the same bits.  On the
+simulator's split state (``core/node_split.NodeBlocks``) the rows a
+handoff reads are copied to the first card, and each result row goes to
+the card that holds it: a rejoiner's neighbours may sit on other cards.
+The runtime masks (``realization_arrays``) are built once on the
+simulator's device; a split step sends each block its rows of them.
 """
 from __future__ import annotations
 
@@ -51,6 +56,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.flat import round_columns_
+from repro_torch.core.node_split import as_blocks, blocks_of, like
 from repro_torch.core.schedule import degraded_matrix  # noqa: F401  (re-export)
 
 __all__ = [
@@ -992,16 +998,17 @@ def membership_events(fr: FaultRealization, bufs, topology, last, *, step: int, 
 def _rows2d(buf: torch.Tensor) -> torch.Tensor:
     """A state buffer as (rows, columns): a per-node counter (rows,) (AdamW's
     step count) as one column."""
-    return buf if buf.dim() == 2 else buf.reshape(buf.shape[0], -1)
+    return buf if buf.dim() == 2 else like(buf, [b.reshape(b.shape[0], -1)
+                                                 for b in blocks_of(buf)])
 
 
 def _node_rows(x: torch.Tensor, nodes, a: int, b: int, comm) -> torch.Tensor:
     """float32 (len(nodes), b - a): columns a:b of the given nodes' rows of a
-    flat buffer; stacked (``comm`` None) a read of the rows, on a rank an
+    flat buffer; stacked (``comm`` None) a read of the rows (of a split
+    buffer, the rows copied to its first card), on a rank an
     ``all_gather`` of this rank's chunk (every rank must call it)."""
     if comm is None:
-        idx = torch.as_tensor(list(nodes), dtype=torch.long, device=x.device)
-        return x[:, a:b].index_select(0, idx).float()
+        return as_blocks(x).rows(list(nodes), cols=(a, b)).float()
     gathered = comm.all_gather(x[0, a:b].contiguous())
     return gathered[list(nodes)].float()
 
@@ -1020,14 +1027,15 @@ def _set_row(x, node: int, a: int, b: int, value, comm, *, add: bool = False,
     """Write (or add) ``value`` into columns a:b of ``node``'s row; on a
     rank only the owner of ``node`` writes.  Columns of a ``narrow`` leaf
     take the reference's rounding: the value rounded to the leaf's dtype
-    and, for an add, the sum too."""
+    and, for an add, the sum too.  In a split buffer the value goes to
+    the card that holds ``node``'s row."""
     if comm is None:
-        row = x[node, a:b]
+        row = as_blocks(x).row(node)[a:b]
     elif comm.rank == node:
         row = x[0, a:b]
     else:
         return
-    value = round_columns_(value.to(x.dtype), narrow, a)
+    value = round_columns_(value.to(row.device, x.dtype), narrow, a)
     if add:
         row += value
         round_columns_(row, narrow, a)
@@ -1089,11 +1097,12 @@ def admit_node(buf: torch.Tensor, neighbors, *, narrow=()) -> torch.Tensor:
     """Elastic growth: a new buffer one row taller (the stacked state),
     its last row the float32 mean of the ``neighbors``' rows (of every row
     when the list is empty), rounded to the buffer's dtype and the columns
-    of each ``narrow`` range to its own (``adopt_neighbor_average``)."""
+    of each ``narrow`` range to its own (``adopt_neighbor_average``).  A
+    split buffer grows its last block by the row."""
     nbrs = [int(i) for i in neighbors] or list(range(buf.shape[0]))
-    out = torch.empty((buf.shape[0] + 1,) + tuple(buf.shape[1:]), dtype=buf.dtype,
-                      device=buf.device)
-    out[:-1].copy_(buf)
+    last = blocks_of(buf)[-1]
+    out = like(buf, as_blocks(buf).grow(torch.empty((1,) + tuple(buf.shape[1:]),
+                                                    dtype=buf.dtype, device=last.device)).blocks)
     x, y = _rows2d(buf), _rows2d(out)
     for a in range(0, x.shape[1], HANDOFF_CHUNK):
         b = min(a + HANDOFF_CHUNK, x.shape[1])

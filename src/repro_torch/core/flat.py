@@ -17,6 +17,13 @@ narrower leaves' columns are rounded back to their own dtype
 while the f32 leaves stay float32 and the gossip wire carries float32.  The
 forward takes each leaf in its own dtype (``leaf_views``); the gradients,
 each leaf's in its dtype, land in the float32 gradient buffer exactly.
+
+The simulator's split state (``shard_nodes`` over several cards) holds
+each buffer as a ``core/node_split.NodeBlocks`` of row blocks: the views,
+the optimizer buffers, the update, the gradients and the rounding below
+work block by block, each on its block's card, and a split leaf is a
+NodeBlocks of its blocks' views.  Only the ``mix`` of ``update_leaves``
+reads across blocks (the program's split interpreter).
 """
 from __future__ import annotations
 
@@ -27,7 +34,8 @@ from typing import Callable, Mapping, Optional
 
 import torch
 
-from repro_torch.checkpoint.ckpt import AsDtype
+from repro_torch.checkpoint.ckpt import AsDtype, RowBlocks, map_leaves
+from repro_torch.core.node_split import as_blocks, blocks_of, like
 from repro_torch.models.common import unflatten_tree
 from repro_torch.optim.sgd import state_from, state_parts
 
@@ -134,37 +142,47 @@ class FlatLayout:
         }
 
     def stacked_views(self, buf: torch.Tensor) -> dict[str, torch.Tensor]:
-        """Leaf views (G, *shape) into a (G, P) buffer."""
-        g = buf.shape[0]
+        """Leaf views (G, *shape) into a (G, P) buffer (of a split buffer,
+        each leaf a NodeBlocks of its blocks' views)."""
         off = self.offsets
-        return {
-            name: buf[:, off[j]:off[j + 1]].view((g,) + shape)
-            for j, (name, shape) in enumerate(zip(self.names, self.shapes))
-        }
+        per = [{name: b[:, off[j]:off[j + 1]].view((b.shape[0],) + shape)
+                for j, (name, shape) in enumerate(zip(self.names, self.shapes))}
+               for b in blocks_of(buf)]
+        return {name: like(buf, [v[name] for v in per]) for name in self.names}
 
     def flatten(self, tree: Mapping[str, torch.Tensor]) -> torch.Tensor:
-        """A dict of (G, *shape) leaves -> a new contiguous (G, P) buffer."""
-        leaves = [tree[name] for name in self.names]
-        g = leaves[0].shape[0]
-        return torch.cat([x.reshape(g, -1) for x in leaves], dim=1).contiguous()
+        """A dict of (G, *shape) leaves -> a new contiguous (G, P) buffer
+        (split leaves, block by block, -> a NodeBlocks)."""
+        first = tree[self.names[0]]
+        per = zip(*(blocks_of(tree[name]) for name in self.names))
+        return like(first, [torch.cat([x.reshape(x.shape[0], -1) for x in leaves],
+                                      dim=1).contiguous() for leaves in per])
 
 
 def round_columns_(x: torch.Tensor, ranges, offset: int = 0) -> torch.Tensor:
     """Round IN PLACE the columns of ``x`` that ``ranges`` ((start, stop,
     dtype) column ranges of a flat buffer whose columns ``offset`` on ``x``
-    holds) give a dtype other than ``x``'s, to that dtype."""
+    holds) give a dtype other than ``x``'s, to that dtype (a split ``x``
+    block by block)."""
     for a, b, dt in ranges:
         lo, hi = max(a - offset, 0), min(b - offset, x.shape[-1])
         if hi > lo and dt != x.dtype:
-            cols = x[..., lo:hi]
-            cols.copy_(cols.to(dt))
+            for blk in blocks_of(x):
+                cols = blk[..., lo:hi]
+                cols.copy_(cols.to(dt))
     return x
 
 
 def opt_buffers(optimizer, layout: FlatLayout, theta: torch.Tensor) -> dict:
     """The optimizer's initial state for every row of ``theta`` as flat
     buffers: one (rows, P) float32 buffer per slot, and ``"t"`` (rows,)
-    int32 for a step-counted optimizer; every row starts as row 0's."""
+    int32 for a step-counted optimizer; every row starts as row 0's.  A
+    split ``theta`` gets split buffers, each block's on its card."""
+    per = [_opt_buffers(optimizer, layout, b) for b in blocks_of(theta)]
+    return {k: like(theta, [o[k] for o in per]) for k in per[0]}
+
+
+def _opt_buffers(optimizer, layout: FlatLayout, theta: torch.Tensor) -> dict:
     rows = theta.shape[0]
     parts, t = state_parts(optimizer, optimizer.init(layout.views(theta[0])))
     opt = {}
@@ -196,33 +214,53 @@ def update_leaves(optimizer, update: Callable, layout: FlatLayout, theta: torch.
     (mixed first for ``"pre"``) and optimizer state: stragglers and dead
     nodes skip their local update.  A mixed layout's leaves are updated
     and mixed in their own dtypes, as the reference's per-leaf interpreter
-    runs them.
+    runs them.  A split state (NodeBlocks buffers, the gradients NodeBlocks
+    leaves) is updated block by block on each block's card; ``mix`` then
+    takes and returns a NodeBlocks leaf.
     """
-    p_views = layout.stacked_views(theta)
-    slot_views = {s: layout.stacked_views(opt[s]) for s in optimizer.slots}
-    t, new_t = opt.get("t"), None
-    keep = None if gate is None else torch.as_tensor(gate, device=theta.device) > 0
+    thetas = blocks_of(theta)
+    p_views = [layout.stacked_views(b) for b in thetas]
+    slot_views = [{} for _ in thetas]
+    for s in optimizer.slots:
+        for views, buf in zip(slot_views, blocks_of(opt[s])):
+            views[s] = layout.stacked_views(buf)
+    ts = blocks_of(opt["t"]) if "t" in opt else [None] * len(thetas)
+    if gate is None:
+        keeps = [None] * len(thetas)
+    else:
+        keep = torch.as_tensor(gate, device=thetas[0].device) > 0
+        keeps = as_blocks(theta).per_node(keep)
     dtypes = dict(zip(layout.names, layout.dtypes)) if layout.mixed else {}
+    new_ts = [None] * len(thetas)
     for name in layout.names:
-        p = p_views[name]
+        p = like(theta, [v[name] for v in p_views])
         if name in dtypes:   # a mixed layout: the leaf in its own dtype
             p = p.to(dtypes[name])
         p_in = mix(p) if mix is not None and mix_order == "pre" else p
-        st = state_from(optimizer, {s: {name: v[name]} for s, v in slot_views.items()}, t)
-        new_p, new_st = update({name: grads[name]}, st, {name: p_in}, lr)
-        out = new_p[name]
-        col = None if keep is None else keep.reshape((-1,) + (1,) * (out.dim() - 1))
-        if col is not None:
-            out = torch.where(col, out, p_in)
+        g = blocks_of(grads[name])
+        outs, cols, states = [], [], []
+        for j, pj in enumerate(blocks_of(p_in)):
+            st = state_from(optimizer, {s: {name: v[name]} for s, v in slot_views[j].items()},
+                            ts[j])
+            new_p, new_st = update({name: g[j]}, st, {name: pj}, lr)
+            out = new_p[name]
+            col = None if keeps[j] is None else keeps[j].reshape((-1,) + (1,) * (out.dim() - 1))
+            outs.append(out if col is None else torch.where(col, out, pj))
+            cols.append(col)
+            states.append(new_st)
+        out = like(theta, outs)
         if mix is not None and mix_order == "post":
             out = mix(out)
-        p_views[name].copy_(out)
-        parts, new_t = state_parts(optimizer, new_st)
-        for s, leaves in parts.items():
-            view = slot_views[s][name]
-            view.copy_(leaves[name] if col is None else torch.where(col, leaves[name], view))
-    if new_t is not None:
-        opt["t"].copy_(new_t if keep is None else torch.where(keep, new_t, opt["t"]))
+        for j, oj in enumerate(blocks_of(out)):
+            p_views[j][name].copy_(oj)
+            parts, new_ts[j] = state_parts(optimizer, states[j])
+            for s, leaves in parts.items():
+                view = slot_views[j][s][name]
+                view.copy_(leaves[name] if cols[j] is None
+                           else torch.where(cols[j], leaves[name], view))
+    for t, new_t, keep in zip(ts, new_ts, keeps):
+        if new_t is not None:
+            t.copy_(new_t if keep is None else torch.where(keep, new_t, t))
 
 
 def node_grads_into(loss_fn: Callable, layout: FlatLayout, theta: torch.Tensor,
@@ -238,7 +276,9 @@ def node_grads_into(loss_fn: Callable, layout: FlatLayout, theta: torch.Tensor,
     loss and the gradients are their means, summed from zero in microbatch
     order as the reference's scan sums them, the gradients IN PLACE in the
     node's row of ``grad`` (in its dtype: a bfloat16 row rounds each
-    partial sum, where the reference carries a float32 tree)."""
+    partial sum, where the reference carries a float32 tree).
+
+    The simulator's split state calls it once a row block."""
     losses = torch.empty(theta.shape[0], dtype=torch.float32, device=theta.device)
     for i in range(theta.shape[0]):
         node_batch = {k: v[i] for k, v in batch.items()}
@@ -283,11 +323,15 @@ def checkpoint_tree(optimizer, layout: FlatLayout, theta: torch.Tensor, opt: dic
     tree paths).  The optimizer state takes the reference's shape:
     params-like (momentum, LARS), ``{"mu", "nu", "t"}`` (AdamW) or ``()``.
     A mixed layout's narrower leaves come in an ``AsDtype`` of their own
-    dtype: written as the reference writes them, restored into the view."""
+    dtype: written as the reference writes them, restored into the view.
+    A split state's leaves are ``RowBlocks`` of their blocks' views, so
+    the file is the unsplit one byte for byte."""
     parts = {s: unflatten_tree(layout.stacked_views(opt[s])) for s in optimizer.slots}
     params = layout.stacked_views(theta)
     if layout.mixed:
         params = {k: v if dt == theta.dtype else AsDtype(v, dt)
                   for (k, v), dt in zip(params.items(), layout.dtypes)}
-    return {"p": unflatten_tree(params),
-            "o": state_from(optimizer, parts, opt.get("t"))}
+    tree = {"p": unflatten_tree(params), "o": state_from(optimizer, parts, opt.get("t"))}
+    if len(blocks_of(theta)) == 1:
+        return tree
+    return map_leaves(lambda v: RowBlocks(tuple(v.blocks)), tree)

@@ -13,7 +13,9 @@ runs one of its interpreters:
                        PPermute op, the all-reduce for the complete graph.
 
 Stacked values are a tensor whose leading axis is the node axis, or a dict
-of such tensors.
+of such tensors, or the simulator's split node axis (a
+``core/node_split.NodeBlocks`` of row blocks, each on its card), which the
+dense and stacked interpreters run block by block.
 """
 from __future__ import annotations
 
@@ -22,7 +24,7 @@ import torch
 
 from repro_torch.core.graphs import CommGraph
 from repro_torch.core.schedule import (
-    GossipProgram, PPermute, compile_graph, permutation_for_offset,
+    GossipProgram, _dense, PPermute, compile_graph, permutation_for_offset,
     program_comm_bytes,
 )
 
@@ -50,16 +52,13 @@ def mixing_comm_bytes(graph: CommGraph, params) -> int:
 
 def mix_dense(stacked, w):
     """θ ← W θ with a dense (n, n) mixing matrix over leading axis 0
-    (float32 accumulation; the result keeps each input's dtype)."""
-    w_np = np.asarray(w)
-
-    def _mix(x):
-        wt = torch.as_tensor(w_np, device=x.device).float()
-        return torch.einsum("ij,j...->i...", wt, x.float()).to(x.dtype)
-
+    (float32 accumulation; the result keeps each input's dtype; split rows
+    block by block, ``split_matmul``)."""
+    x = next(iter(stacked.values())) if isinstance(stacked, dict) else stacked
+    wt = torch.as_tensor(np.asarray(w), device=x.device).float()
     if isinstance(stacked, dict):
-        return {k: _mix(v) for k, v in stacked.items()}
-    return _mix(stacked)
+        return {k: _dense(wt, v) for k, v in stacked.items()}
+    return _dense(wt, stacked)
 
 
 def mix_shift(stacked, graph: CommGraph):

@@ -22,10 +22,22 @@ Two interpreters run the compiled program on tensors whose leading axis is
 the node axis (a tensor, or a dict of such tensors):
 
   * ``apply_dense``   — dense mixing-matrix einsum (the oracle).
-  * ``apply_stacked`` — rolls / index gathers over the stacked axis.
+  * ``apply_stacked`` — index gathers of the sender rows over the stacked
+    axis.
 
 A third, ``apply_shard``, runs it on one rank's own values with one
-collective per op (the one-rank-per-node engine).  ``apply_stacked_bucketed``
+collective per op (the one-rank-per-node engine).  The stacked and masked
+interpreters are one loop over row blocks (``_apply_rows``): an unsplit
+leaf is one block, and the simulator's node axis split over cards
+(``core/node_split.NodeBlocks``) is several.  A block receives only the
+sender rows its nodes read in each op (n/d rows an op for a permutation)
+and computes its rows in the program's order, so the split result is the
+unsplit one bit for bit; an AllReduce or GatherRow op reduces column
+chunks gathered to the first card (``node_split.over_nodes``): the
+mean's bits hold, a GatherRow product's within 1e-6 relative where the
+card's GEMM treats a chunk apart.  The dense
+engine multiplies a split leaf's blocks of W's rows by column chunks
+gathered to each block's card (``split_matmul``).  ``apply_stacked_bucketed``
 and ``apply_shard_bucketed`` run the stacked and shard interpreters one
 bucket (a column range of the flat state, ``core/buckets.py``) at a time.
 
@@ -63,6 +75,8 @@ from typing import Optional, Sequence, Union
 import numpy as np
 import torch
 
+from repro_torch.core.node_split import NodeBlocks, as_blocks, like, over_nodes, split_matmul
+
 __all__ = [
     "PPermute",
     "AllReduce",
@@ -98,7 +112,7 @@ class PPermute:
     perm: (src, dst) pairs; a dst absent from the list receives zeros.
     weight: scalar, or per-dst-node tuple of length n (applied at receiver).
     offset: when the perm is the circulant shift ``dst ← dst + offset``,
-      the stacked interpreter uses one ``torch.roll`` instead of a gather.
+      the stacked interpreter takes its sources as ``(i + offset) % n``.
     """
 
     perm: tuple[tuple[int, int], ...]
@@ -143,6 +157,23 @@ def _col(v: torch.Tensor, ndim: int) -> torch.Tensor:
 
 def _f32(v, device) -> torch.Tensor:
     return torch.as_tensor(v, dtype=torch.float32, device=device)
+
+
+def _dense(w: torch.Tensor, x):
+    """θ ← W θ for one leaf in float32, the result in the leaf's dtype: one
+    einsum, or block by block over a split leaf (``split_matmul``)."""
+    if isinstance(x, NodeBlocks):
+        return split_matmul(w, x)
+    return torch.einsum("ij,j...->i...", w.to(x.device), x.float()).to(x.dtype)
+
+
+def _reduction(op, device):
+    """The (n, c) → (1, c) or (n, c) float32 term of an op that reads every
+    node (``over_nodes``): AllReduce's mean, GatherRow's rows of W."""
+    if isinstance(op, AllReduce):
+        return lambda c: c.float().mean(dim=0, keepdim=True)
+    wm = _f32(np.asarray(op.w), device)
+    return lambda c: torch.einsum("ij,jk->ik", wm, c.float())
 
 
 def degraded_matrix(w, alive, link_up=None) -> np.ndarray:
@@ -290,22 +321,12 @@ class GossipProgram:
         a program that is not all-PPermute)."""
         if engine not in ("dense", "stacked"):
             raise ValueError(f"unknown engine {engine!r}")
-
-        def _mix(x):
-            dev = x.device
-            masked = None if engine == "dense" else self._masked_tables(alive, link_up, dev)
-            if masked is None:
-                wm = self._masked_matrix(alive, link_up, dev)
-                return torch.einsum("ij,j...->i...", wm, x.float()).to(x.dtype)
-            srcs_np, weights = masked
-            xf = x.float()
-            acc = _col(weights[:, 0], x.ndim) * xf
-            for k in range(srcs_np.shape[1]):
-                idx = torch.as_tensor(srcs_np[:, k].astype(np.int64), device=dev)
-                acc = acc + _col(weights[:, k + 1], x.ndim) * xf.index_select(0, idx)
-            return acc.to(x.dtype)
-
-        return _tree_map(_mix, tree)
+        dev = self._first_device(tree)
+        if engine == "dense":
+            wm = self._masked_matrix(alive, link_up, dev)
+            return _tree_map(lambda x: _dense(wm, x), tree)
+        w0, terms = self._terms(dev, (alive, link_up))
+        return _tree_map(lambda x: self._apply_rows(x, w0, terms), tree)
 
     def apply_shard_masked(self, local, comm, alive, *, link_up=None):
         """``apply_masked`` on this rank's own values over ``comm``: every
@@ -371,53 +392,88 @@ class GossipProgram:
         """θ ← W θ via the dense matrix (leading axis 0 = node axis)."""
         if self.is_identity and self.self_weight == 1.0:
             return stacked
-        w64 = self.matrix()
-
-        def _mix(x):
-            w = torch.as_tensor(w64, dtype=torch.float32, device=x.device)
-            return torch.einsum("ij,j...->i...", w, x.float()).to(x.dtype)
-
-        return _tree_map(_mix, stacked)
+        w = _f32(self.matrix(), self._first_device(stacked))
+        return _tree_map(lambda x: _dense(w, x), stacked)
 
     def apply_stacked(self, stacked):
-        """Mixing over the stacked node axis via rolls / index gathers."""
+        """Mixing over the stacked node axis via index gathers of the sender
+        rows (``_apply_rows``)."""
         if self.is_identity and self.self_weight == 1.0:
             return stacked
+        w0, terms = self._terms(self._first_device(stacked))
+        return _tree_map(lambda x: self._apply_rows(x, w0, terms), stacked)
+
+    @staticmethod
+    def _first_device(tree) -> torch.device:
+        x = next(iter(tree.values())) if isinstance(tree, dict) else tree
+        return x.device
+
+    def _terms(self, device, masks=None):
+        """The stacked interpreter's float32 terms on ``device``, built once
+        a call: (self weights (n,), or None for a product alone, and in
+        program order (weights (n,), source) pairs whose source is an
+        offset (node i reads node (i + d) % n), an (n,) array of source
+        rows, or, with weights None, a reduction over every node for
+        ``over_nodes``).  ``masks``: the runtime ``(alive, link_up)`` of
+        ``apply_masked``."""
         n = self.n
+        if masks is not None:
+            tables = self._masked_tables(*masks, device)
+            if tables is None:   # W' θ with the runtime degraded matrix
+                wm = self._masked_matrix(*masks, device)
+                return None, [(None, lambda c: torch.einsum("ij,jk->ik", wm, c.float()))]
+            srcs_np, weights = tables
+            return weights[:, 0], [(weights[:, k + 1], srcs_np[:, k].astype(np.int64))
+                                   for k in range(srcs_np.shape[1])]
+        terms = []
+        for op in self.ops:
+            if not isinstance(op, PPermute):
+                terms.append((None, _reduction(op, device)))
+                continue
+            wv = _f32(_weight_column(op.weight, n), device)
+            if op.offset is not None:
+                terms.append((wv, int(op.offset)))
+                continue
+            src = np.zeros(n, dtype=np.int64)
+            mask = np.zeros(n, dtype=np.float32)
+            for s, d in op.perm:
+                src[d] = s
+                mask[d] = 1.0
+            terms.append((wv * _f32(mask, device), src))
+        return _f32(_weight_column(self.self_weight, n), device), terms
 
-        def _f32(v, device):
-            return torch.as_tensor(v, dtype=torch.float32, device=device)
-
-        def _mix(x):
-            dev = x.device
-            xf = x.float()
-            acc = _col(_f32(_weight_column(self.self_weight, n), dev), x.ndim) * xf
-            for op in self.ops:
-                if isinstance(op, PPermute):
-                    wv = _f32(_weight_column(op.weight, n), dev)
-                    if op.offset is not None:
-                        # node i receives from (i + d) % n: roll by -d
-                        acc = acc + _col(wv, x.ndim) * torch.roll(
-                            xf, -op.offset, dims=0
-                        )
-                    else:
-                        src = np.zeros(n, dtype=np.int64)
-                        mask = np.zeros(n, dtype=np.float32)
-                        for s, d in op.perm:
-                            src[d] = s
-                            mask[d] = 1.0
-                        gathered = xf.index_select(
-                            0, torch.as_tensor(src, device=dev)
-                        )
-                        acc = acc + _col(wv * _f32(mask, dev), x.ndim) * gathered
-                elif isinstance(op, AllReduce):
-                    acc = acc + xf.mean(dim=0, keepdim=True)
-                else:  # GatherRow
-                    wm = _f32(np.asarray(op.w), dev)
-                    acc = acc + torch.einsum("ij,j...->i...", wm, xf)
-            return acc.to(x.dtype)
-
-        return _tree_map(_mix, stacked)
+    def _apply_rows(self, x, w0, terms):
+        """The stacked and masked interpreters on one leaf ``x``, an (n, ...)
+        tensor or a ``NodeBlocks`` of row blocks, given ``_terms``: node
+        i's row is the program's weighted sum of rows in float32, its terms
+        added in the program's order.  Each block gathers the sender rows
+        its nodes read in each op from the float32 blocks on its own device
+        (unsplit, a roll or an ``index_select`` of the leaf); a reduction
+        over every node (AllReduce, GatherRow, a masked program that is not
+        all-PPermute) is taken over column chunks gathered to the first
+        device (``over_nodes``), each block receiving its rows of it."""
+        xb = as_blocks(x)
+        xf = xb.map(lambda b: b.float())
+        whole = len(xb.blocks) == 1
+        accs = [None if w0 is None else _col(w0 if whole else w0[a:b].to(blk.device),
+                                             blk.ndim) * blk
+                for (a, b), blk in zip(xf.ranges, xf.blocks)]
+        for w, src in terms:
+            parts = None if w is not None else over_nodes(xf, src)
+            for j, ((a, b), blk) in enumerate(zip(xf.ranges, xf.blocks)):
+                if w is None:
+                    t = parts[j].reshape((parts[j].shape[0],) + tuple(blk.shape[1:]))
+                else:
+                    dev = blk.device
+                    t = _col(w if whole else w[a:b].to(dev), blk.ndim) * (
+                        xf.shifted(src, a, b, dev) if isinstance(src, int)
+                        else xf.rows(src[a:b], dev))
+                accs[j] = t if accs[j] is None else accs[j] + t
+                # a term and its gathered rows go before the next term is made,
+                # so the peak holds one leaf-sized temporary fewer
+                del t
+            del parts
+        return like(x, [acc.to(blk.dtype) for acc, blk in zip(accs, xb.blocks)])
 
     def apply_shard(self, local, comm):
         """Mixing on this rank's own values (a tensor, or a dict of them),
@@ -536,13 +592,8 @@ class FusedProgram(GossipProgram):
         """One einsum with the *product* matrix: the fused dense oracle."""
         if self.is_identity:
             return stacked
-        w64 = self.matrix()
-
-        def _mix(x):
-            w = torch.as_tensor(w64, dtype=torch.float32, device=x.device)
-            return torch.einsum("ij,j...->i...", w, x.float()).to(x.dtype)
-
-        return _tree_map(_mix, stacked)
+        w = _f32(self.matrix(), self._first_device(stacked))
+        return _tree_map(lambda x: _dense(w, x), stacked)
 
     def apply_stacked(self, stacked):
         for p in self.stages:

@@ -78,11 +78,24 @@ nothing (no nvcc build, no new device table, no new program key) or it
 raises ``RetraceError``.
 
 ``shard_nodes`` is the reference's virtual-node sharding: the node axis
-split over the largest count of devices that divides n.  On one device,
-as on the CPU, that is the one device the rows already lie on: a numeric
-no-op, bit for bit the unsharded run.  A machine with more than one card
-that divides n raises: the split over several cards waits for a machine
-that has them (ROADMAP, "Not doable").
+split over the largest count ``d`` of cards that divides n
+(``core/node_split.split_devices``), the simulator's route past one card's
+memory.  With ``d > 1`` θ, every optimizer slot and the gradient buffer
+are ``NodeBlocks``: block j holds nodes [j·n/d, (j+1)·n/d) as an (n/d, P)
+buffer on card j.  The gradients, the update and the DBench probe (one K3
+launch a block) run on each block's card; the mix reads the sender rows
+each block needs (the program's row-block interpreter); the centralized
+mean, the consensus probe and the membership handoffs reduce column
+chunks gathered to the first card; losses and norms come back in node
+order on the simulator's device.  A join or an elastic resume re-derives
+the split at the new n and moves the rows to their new blocks (n 8 → 10
+on 4 cards becomes 2 blocks).  With one node's gradients at a time
+(``node_loop``, and always with ``has_rng``) the numbers are the unsplit
+run's bit for bit, matrix products aside; these round apart, within
+1e-6 relative: the dense interpreter's per-block product
+(``split_matmul``), a GatherRow op's or a masked fallback's product on
+column chunks, and the gradients under vmap, batched over a block's n/d
+nodes.  With one device (always on the CPU) nothing changes.
 """
 from __future__ import annotations
 
@@ -93,7 +106,7 @@ import numpy as np
 import torch
 
 from repro_torch.analysis import recompile
-from repro_torch.core import dbench
+from repro_torch.core import dbench, node_split
 from repro_torch.checkpoint.ckpt import validate_run_config
 from repro_torch.core.buckets import (
     BucketLayout, XiFold, build_bucket_step, check_bucketable,
@@ -108,6 +121,7 @@ from repro_torch.core.faults import (
 from repro_torch.core.flat import (
     FlatLayout, checkpoint_tree, node_grads_into, opt_buffers, update_leaves,
 )
+from repro_torch.core.node_split import as_blocks, blocks_of, cat_nodes, like, place
 from repro_torch.device import resolve_device
 from repro_torch.models.common import flatten_tree
 from repro_torch.optim.sgd import Optimizer
@@ -123,7 +137,9 @@ class SimState:
     """Flat simulator state: ``theta`` (n, P) in the layout's state dtype
     (the model's, float32 for mixed leaf dtypes), ``opt`` one (n, P)
     float32 buffer per optimizer slot (and ``"t"``, (n,) int32, for a
-    step-counted optimizer), laid out by ``layout``."""
+    step-counted optimizer), laid out by ``layout``; under a split over
+    several cards each of them a ``NodeBlocks`` (``to_full()`` reads it
+    whole)."""
 
     theta: torch.Tensor
     opt: dict
@@ -132,21 +148,38 @@ class SimState:
 
     @property
     def params(self) -> dict[str, torch.Tensor]:
-        """(n, ...) views of every leaf, in leaf order."""
+        """(n, ...) views of every leaf, in leaf order (split: NodeBlocks of
+        the blocks' views)."""
         return self.layout.stacked_views(self.theta)
 
     def node_params(self, i: int) -> dict[str, torch.Tensor]:
-        return self.layout.views(self.theta[i])
+        return self.layout.views(as_blocks(self.theta).row(i))
 
     def mean_params(self) -> dict[str, torch.Tensor]:
         """The final model θ = average over all θ_i (paper §2.2), each leaf
-        in its own dtype."""
-        return {k: v.float().mean(dim=0).to(v.dtype)
+        in its own dtype (of a split leaf, on its first card)."""
+        return {k: _node_mean(v, v.dtype)[0][0]
                 for k, v in self.layout.stacked_leaf_views(self.theta).items()}
 
 
+def _node_mean(x, dtype) -> list[torch.Tensor]:
+    """The float32 mean over every node of a leaf's rows, cast to
+    ``dtype``: per block, a (1, ...) tensor on its device (column chunks
+    gathered to the first card, ``node_split.over_nodes``)."""
+    parts = node_split.over_nodes(
+        x, lambda c: c.float().mean(dim=0, keepdim=True).to(dtype))
+    return [p.reshape((1,) + tuple(x.shape[1:])) for p in parts]
+
+
+def _centralized_mean(g, dtype):
+    """A leaf's gradients replaced by their mean over every node, taken in
+    float32 and cast to ``dtype``; every block receives the mean."""
+    return like(g, [m.expand_as(blk) for m, blk in zip(_node_mean(g, dtype), blocks_of(g))])
+
+
 class DecentralizedSimulator:
-    """Engine for centralized/decentralized training of n nodes on one device."""
+    """Engine for centralized/decentralized training of n nodes, on one
+    device or (``shard_nodes``) split over several cards."""
 
     def __init__(
         self,
@@ -173,14 +206,17 @@ class DecentralizedSimulator:
             node's flat dotted-path parameter dict, returning a scalar.
           optimizer: per-node optimizer (``optim/sgd.py``).
           topology: which SGD implementation to simulate.
-          mixing: "dense" (the matrix product) or "shift" (rolls and
-            gathers over the node axis).
+          mixing: "dense" (the matrix product) or "shift" (gathers of
+            the sender rows over the node axis).
           mix_every / mix_rounds / hub_balance: as in the reference.
           node_loop: gradients one node at a time instead of under vmap.
           device: the current CUDA card by default; ``"cpu"`` on request.
-          shard_nodes: virtual-node sharding, the node axis over the
-            largest device count dividing n: on one device a no-op with
-            identical numerics; raises where it would split over cards.
+          shard_nodes: virtual-node sharding, the node axis split into
+            row blocks over the largest count of cards dividing n
+            (``node_split.split_devices``), each block on its card; bit
+            for bit the unsplit run one node at a time (within 1e-6 under
+            vmap or with a matrix product over every node), and on one
+            device nothing changes.
           bucket_mb: run each mixing step bucket by bucket, ~bucket_mb MiB
             of float32 per bucket; SGD-family optimizers, decentralized
             topologies and ``mix_order="post"`` only.
@@ -220,23 +256,16 @@ class DecentralizedSimulator:
         self.node_loop = bool(node_loop) or has_rng
         self.device = resolve_device(device)
         self.shard_nodes = bool(shard_nodes)
-        self._check_node_split(self.n)
+        self.devices = self._split(self.n)
         self._update = torch.func.vmap(optimizer.update, in_dims=(0, 0, 0, None))
 
-    def _check_node_split(self, n: int) -> None:
-        """Under ``shard_nodes``, the devices the n rows split over: the
-        largest count of the simulator's device type that divides n (the
-        reference's rule).  One device keeps every row where it is; more
-        raise, since that split is not ported."""
+    def _split(self, n: int) -> list[torch.device]:
+        """The devices the n rows lie on: under ``shard_nodes`` the
+        reference's rule (``node_split.split_devices``), else the
+        simulator's device."""
         if not self.shard_nodes:
-            return
-        count = torch.cuda.device_count() if self.device.type == "cuda" else 1
-        split = max(d for d in range(1, count + 1) if n % d == 0)
-        if split > 1:
-            raise ValueError(
-                f"shard_nodes=True would split n={n} nodes over {split} cards; the "
-                "split over several cards waits for a machine that has them "
-                "(ROADMAP, not doable on one card)")
+            return [self.device]
+        return node_split.split_devices(n, self.device)
 
     # -- state ----------------------------------------------------------------
     def init(self, params: Mapping) -> SimState:
@@ -247,25 +276,48 @@ class DecentralizedSimulator:
                 for k, v in flatten_tree(params).items()}
         layout = FlatLayout.from_shapes({k: tuple(v.shape) for k, v in flat.items()},
                                         {k: v.dtype for k, v in flat.items()})
-        theta = torch.empty((self.n, layout.size), dtype=layout.state_dtype,
-                            device=self.device)
-        for name, view in layout.views(theta[0]).items():
+        theta = node_split.empty(self.n, (layout.size,), layout.state_dtype, self.devices)
+        first, *rest = blocks_of(theta)
+        for name, view in layout.views(first[0]).items():
             view.copy_(flat[name])
-        theta[1:].copy_(theta[:1].expand(self.n - 1, -1))
+        first[1:].copy_(first[:1].expand(first.shape[0] - 1, -1))
+        for blk in rest:
+            blk.copy_(first[:1].to(blk.device).expand_as(blk))
         opt = opt_buffers(self.optimizer, layout, theta)
         return SimState(theta, opt, layout, 0)
 
     # -- one training step ------------------------------------------------------
     def _grads(self, state: SimState, batch, rng):
-        """(losses (n,) float32, grads {leaf: (n, ...)}, the flat (n, P)
-        gradient buffer the grads are views of, or None under vmap)."""
+        """(losses (n,) float32 on the simulator's device, grads {leaf: (n,
+        ...)}, the flat (n, P) gradient buffer the grads are views of, or
+        None under vmap); a split state's block by block, each on its card
+        with its nodes' batch rows.  A split run's node loop hands ``rng``'s
+        state to a generator on each block's card and takes it back after
+        the block, so the nodes draw the unsplit run's numbers in node
+        order."""
+        theta = as_blocks(state.theta)
+        fn = torch.func.vmap(torch.func.grad_and_value(self.loss_fn))
+        per, grad = [], []
+        for (a, b), blk in zip(theta.ranges, theta.blocks):
+            rows = {k: v[a:b].to(blk.device) for k, v in batch.items()}
+            if not self.node_loop:
+                per.append(fn(state.layout.stacked_leaf_views(blk), rows))
+                continue
+            grad.append(torch.empty_like(blk))
+            gen = rng
+            if self.has_rng and len(theta.blocks) > 1:
+                gen = torch.Generator(device=blk.device)
+                gen.set_state(rng.get_state())
+            extra = (gen,) if self.has_rng else ()
+            per.append((None, node_grads_into(self.loss_fn, state.layout, blk, grad[-1],
+                                              rows, *extra)))
+            if gen is not rng:
+                rng.set_state(gen.get_state())
+        losses = cat_nodes([loss.float() for _, loss in per], self.device)
         if not self.node_loop:
-            grads, losses = torch.func.vmap(torch.func.grad_and_value(self.loss_fn))(
-                state.layout.stacked_leaf_views(state.theta), batch)
-            return losses.float(), grads, None
-        grad = torch.empty_like(state.theta)
-        extra = (rng,) if self.has_rng else ()
-        losses = node_grads_into(self.loss_fn, state.layout, state.theta, grad, batch, *extra)
+            return losses, {k: like(state.theta, [g[k] for g, _ in per])
+                            for k in state.layout.names}, None
+        grad = like(state.theta, grad)
         return losses, state.layout.stacked_views(grad), grad
 
     def _resolve_program(self, step: int, epoch: int, program_alive=None):
@@ -318,7 +370,6 @@ class DecentralizedSimulator:
             if old_ctl is not None:
                 topo.controller.adopt(old_ctl)
             topo.controller.bind_recorder(self.telemetry)
-        self._check_node_split(m)
         self.topology = topo
         self.n = m
         theta, opt = state.theta, dict(state.opt)
@@ -330,6 +381,10 @@ class DecentralizedSimulator:
             theta = admit_node(theta, nbrs, narrow=state.layout.narrow_leaves())
             opt = {k: admit_node(v, nbrs) for k, v in opt.items()}
             rows += 1
+        # the split re-derived at the new n, the rows moved to their blocks
+        self.devices = self._split(m)
+        theta = place(theta, self.devices)
+        opt = {k: place(v, self.devices) for k, v in opt.items()}
         return SimState(theta, opt, state.layout, state.step)
 
     def train_step(
@@ -380,7 +435,7 @@ class DecentralizedSimulator:
             losses, grads, flat_grad = self._grads(state, batch, rng)
             with torch.no_grad():
                 norms = (
-                    dbench.param_l2_norms(state.theta, state.layout)
+                    dbench.param_l2_norms(state.theta, state.layout).to(self.device)
                     if self.collect_norms
                     else torch.zeros((self.n, 0), dtype=torch.float32, device=self.device)
                 )
@@ -396,10 +451,10 @@ class DecentralizedSimulator:
                 else:
                     if topo.centralized:
                         # C_complete: average gradients globally, each leaf's mean in
-                        # its dtype; replicas stay identical
+                        # its dtype (a split leaf's rows gathered to the first card);
+                        # replicas stay identical
                         dts = dict(zip(state.layout.names, state.layout.dtypes))
-                        grads = {k: g.float().mean(dim=0, keepdim=True).to(dts[k]).expand_as(g)
-                                 for k, g in grads.items()}
+                        grads = {k: _centralized_mean(g, dts[k]) for k, g in grads.items()}
                     if program is None:
                         mix_fn = None
                     elif fault is None:
@@ -461,7 +516,7 @@ class DecentralizedSimulator:
         metrics cadence, emits the loss/lr/variance (and gradient-norm)
         sample, reading each device value once."""
         tel = self.telemetry
-        tel.round_end(t_start, step=step, mix=mix, device=self.device)
+        tel.round_end(t_start, step=step, mix=mix, device=list(dict.fromkeys(self.devices)))
         if tel.due(step):
             tel.step_metrics(step, loss=losses, lr=lr,
                              norms=norms if self.collect_norms else None, grads=grads)
@@ -506,7 +561,7 @@ class DecentralizedSimulator:
                             bucket_mb=self.bucket_mb)
         n = int(d.get("n", self.n))
         if n != self.n:
-            self._check_node_split(n)
+            self.devices = self._split(n)
             self.topology = self.topology.resized(n)
             self.n = n
             if self.topology.controller is not None:

@@ -35,8 +35,8 @@ the masks.
 A checkpoint carries the recorder's run totals (``state_dict``: counter
 totals, rounds, overruns, events), and ``load_state_dict`` continues them
 on a resumed run: ``rounds_total``/``overruns_total`` count both segments.
-The reference's bench ``provenance`` stamp comes with the benchmarks,
-ROADMAP queue 1 item 5.
+``provenance`` is the stamp a bench section derived from a recorder
+carries; ``repro_torch.analysis.invariants.verify_bench_payload`` gates it.
 """
 from __future__ import annotations
 
@@ -76,13 +76,16 @@ def coalesce_into(events: list, step: int, reason: str) -> Optional[str]:
     return reason
 
 
-def host_grad_norm(grads: torch.Tensor) -> float:
+def host_grad_norm(grads) -> float:
     """Global L2 norm of a flat (rows, P) gradient buffer: one float32 sum
     of squares per column chunk of ``GRAD_NORM_CHUNK``, the chunks summed
-    on the device in float64, and a single host read at the end."""
+    on the device in float64, and a single host read at the end.  A buffer
+    that gathers its own column chunks (``columns(a, b)``: the simulator's
+    split state, whose chunks come to its first card) gives them so."""
+    take = getattr(grads, "columns", None) or (lambda a, b: grads[..., a:b])
     total = torch.zeros((), dtype=torch.float64, device=grads.device)
     for a in range(0, grads.shape[-1], GRAD_NORM_CHUNK):
-        total += grads[..., a:a + GRAD_NORM_CHUNK].float().square().sum()
+        total += take(a, a + GRAD_NORM_CHUNK).float().square().sum()
     return float(total.sqrt())
 
 
@@ -197,13 +200,15 @@ class MetricsRecorder:
 
     def round_end(self, t_start: Optional[float], *, step: int,
                   mix: bool = False, device=None) -> None:
-        """Close a ``round`` span.  On a CUDA ``device`` it synchronizes
-        the device first, so the duration covers the whole dispatched
-        round; with ``t_start`` None (timing off) it does nothing."""
+        """Close a ``round`` span.  On a CUDA ``device`` (or each of a list
+        of them: a split simulator's cards) it synchronizes the device
+        first, so the duration covers the whole dispatched round; with
+        ``t_start`` None (timing off) it does nothing."""
         if t_start is None:
             return
-        if device is not None and torch.device(device).type == "cuda":
-            torch.cuda.synchronize(device)
+        for d in device if isinstance(device, (list, tuple)) else [device]:
+            if d is not None and torch.device(d).type == "cuda":
+                torch.cuda.synchronize(d)
         ms = (time.perf_counter() - t_start) * 1e3
         self.round_ms.append(ms)
         rec = {"kind": "span", "step": int(step), "name": "round", "ms": ms,
@@ -313,3 +318,16 @@ class MetricsRecorder:
         self._rounds_prior = int(d.get("rounds", 0))
         self._overruns_prior = int(d.get("overruns", 0))
         self.event_count += int(d.get("events", 0))
+
+    # -- bench provenance --------------------------------------------------------
+    def provenance(self) -> dict:
+        """The ``provenance`` stamp a bench section carries when derived
+        from a recorder; validated by
+        ``repro_torch.analysis.invariants.verify_bench_payload``."""
+        return {
+            "source": "telemetry",
+            "schema": SCHEMA_VERSION,
+            "counters": {k: float(v) for k, v in sorted(self.totals.items())},
+            "rounds": self.rounds_total,
+            "events": int(self.event_count),
+        }

@@ -349,13 +349,25 @@ def test_shard_nodes_runs_large_n():
     np.testing.assert_allclose(loss, jloss, rtol=0, atol=5e-5)
 
 
-def test_shard_nodes_refuses_a_split_over_cards(monkeypatch):
-    """Where more than one card divides n the split is not ported: it
-    raises, naming the card count, before anything is built."""
+def test_shard_nodes_resolves_a_split_over_four_cards(monkeypatch):
+    """With 4 cards the split resolves to 4 blocks, where it used to raise;
+    the state builds as 4 row blocks (``tests/test_torch_node_split.py``
+    runs the split)."""
+    from repro_torch.core import node_split
+    from repro_torch.core.node_split import NodeBlocks
+
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
-    sim = TSim(tpm.lstm_loss, toptim.sgd(0.9), tmake_topology("d_ring", 4),
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    sim = TSim(tpm.lstm_loss, toptim.sgd(0.9), tmake_topology("d_ring", 8),
+               device=torch.device("cuda", 0), shard_nodes=True)
+    assert sim.devices == [torch.device("cuda", i) for i in range(4)]
+    assert len(sim._split(10)) == 2 and sim._split(7) == [torch.device("cuda", 0)]
+    # the blocks build, each of the resolved devices' count on the CPU
+    real = node_split.split_devices
+    monkeypatch.setattr(node_split, "split_devices", lambda n, dev: [torch.device("cpu")] * len(
+        real(n, torch.device("cuda", 0))))
+    cpu = TSim(tpm.lstm_loss, toptim.sgd(0.9), tmake_topology("d_ring", 8),
                device="cpu", shard_nodes=True)
-    sim.device = torch.device("cuda", 0)   # the check reads the device type only
-    with pytest.raises(ValueError, match="over 4 cards"):
-        sim._check_node_split(8)
-    sim._check_node_split(7)   # only one card divides 7: no split
+    state = cpu.init({"w": np.zeros(3, np.float32)})
+    assert isinstance(state.theta, NodeBlocks) and state.theta.starts == (0, 2, 4, 6, 8)
+    assert torch.equal(state.theta.to_full(), torch.zeros(8, 3))

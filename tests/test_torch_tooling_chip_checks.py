@@ -3,8 +3,10 @@ with the card's bookkeeping stubbed: phase 34 builds its records on meta
 (granite-8b at full width over the four shapes on the single mesh, its
 training on the multi one, the five mini archs), and
 fails a run that moves the card's bytes or a record ``is_suspect`` flags
-for any reason but the MoE capacity floor; phase 36 holds the sharded
-simulator to the unsharded one and fails a sharded run that differs."""
+for any reason but the MoE capacity floor; phase 36 holds the simulator
+split into 4 row blocks to the unsplit one (the mini ResNet, and granite
+at the reduced width in bf16) and fails a split run that differs or a
+probe that is not launched once a block."""
 import json
 import sys
 from pathlib import Path
@@ -90,31 +92,95 @@ def test_moe_capacity_floor_explains_only_moe_decodes():
                                           "kind": "train"}) is None
 
 
-def test_phase36_holds_the_sharded_simulator(no_card, monkeypatch):
+@pytest.fixture
+def k3_counts(monkeypatch):
+    """The CPU's K3 twin counts no launches: count the probe's calls as the
+    card counts its launches, once per call on a block.  One CPU thread:
+    with more, torch splits a long row's sum over threads when a call has
+    fewer rows than threads, so the twin's rounding would hang on the rows
+    a block holds (K3 on the card sums each row in one fixed order)."""
+    from repro_torch.core import dbench
     from repro_torch.kernels import ops
 
-    # the CPU's K3 twin does not count launches: count them as the card would
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    count = {"n": 0}
+    real = dbench.segment_l2_norms
+
+    def counting(x, offsets):
+        count["n"] += 1
+        return real(x, offsets)
+
+    monkeypatch.setattr(dbench, "segment_l2_norms", counting)
+    monkeypatch.setattr(ops, "reset_launch_counts", lambda: count.update(n=0))
     monkeypatch.setattr(ops, "launch_counts", lambda: {
-        "gossip_program_update": 0, "gossip_update": 0,
-        "segment_l2_norms": chip_smoke.SHARD_STEPS, "flash_attention": 0})
-    launches, out = chip_smoke.phase_shard_nodes("cpu")
-    assert out["bit_for_bit"] and launches["segment_l2_norms"] == chip_smoke.SHARD_STEPS
+        "gossip_program_update": 0, "gossip_update": 0, "segment_l2_norms": count["n"],
+        "flash_attention": 0})
+    yield count
+    torch.set_num_threads(threads)
 
 
-def test_phase36_fails_a_sharded_run_that_differs(no_card, monkeypatch):
-    from repro_torch.kernels import ops
+def _granite_small():
+    import dataclasses
 
-    monkeypatch.setattr(ops, "launch_counts", lambda: {
-        "gossip_program_update": 0, "gossip_update": 0,
-        "segment_l2_norms": chip_smoke.SHARD_STEPS, "flash_attention": 0})
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config("granite-8b-reduced"), dtype=torch.bfloat16,
+                               remat=False)
+
+
+def test_phase36_holds_the_split_simulator(no_card, k3_counts, monkeypatch):
+    from repro_torch.core import node_split
+
+    monkeypatch.setattr(node_split, "SPLIT_CHUNK", 64)   # the reductions' leaf: 227 columns
+    launches, out = chip_smoke.phase_shard_nodes("cpu", granite_cfg=_granite_small())
+    assert out["reductions"]["columns"] == 227 and out["reductions"]["blocks"] == 4
+    # on the CPU every chunk's product keeps the whole width's bits too
+    assert len(out["reductions"]["bit_for_bit"]) == 4
+    blocks = chip_smoke.SHARD_BLOCKS
+    resnet = out["resnet"]
+    assert resnet["shift, node loop"]["bit_for_bit"] and out["granite"]["bit_for_bit"]
+    assert resnet["shift, node loop"]["blocks"] == out["granite"]["blocks"] == blocks
+    assert resnet["dense, node loop"]["max_rel_err"]["theta"] <= 1e-6
+    assert resnet["shift, vmap"]["max_rel_err"]["theta"] <= 1e-6
+    assert launches["segment_l2_norms"] == blocks * (
+        len(chip_smoke.SHARD_RESNET_RUNS) * chip_smoke.SHARD_STEPS
+        + chip_smoke.SHARD_GRANITE_STEPS)
+
+
+def test_phase36_fails_a_split_run_that_differs(no_card, k3_counts, monkeypatch):
+    from repro_torch.core.node_split import NodeBlocks
+
     real = tsim.DecentralizedSimulator.init
 
     def nudged(self, params):
         state = real(self, params)
-        if self.shard_nodes:
-            state.theta[3, 0] += 1e-3
+        if isinstance(state.theta, NodeBlocks):
+            state.theta.row(3)[0] += 1e-3
         return state
 
     monkeypatch.setattr(tsim.DecentralizedSimulator, "init", nudged)
     with pytest.raises(SystemExit):
-        chip_smoke.phase_shard_nodes("cpu")
+        chip_smoke.phase_shard_nodes("cpu", granite_cfg=_granite_small())
+
+
+def test_phase36_fails_reductions_that_differ(no_card, k3_counts, monkeypatch):
+    """Chunks of 7 columns start off the CPU's vector blocks: a column's
+    float32 mean rounds apart from the unsplit one, and the phase fails."""
+    from repro_torch.core import node_split
+
+    monkeypatch.setattr(node_split, "SPLIT_CHUNK", 7)
+    with pytest.raises(SystemExit):
+        chip_smoke.shard_reductions("cpu")
+
+
+def test_phase36_fails_a_probe_that_is_not_split(no_card, k3_counts, monkeypatch):
+    """K3 launched once over the gathered rows instead of once a block."""
+    from repro_torch.core import dbench
+    from repro_torch.core.node_split import NodeBlocks
+
+    real = dbench.param_l2_norms
+    monkeypatch.setattr(dbench, "param_l2_norms", lambda flat, layout: real(
+        flat.to_full() if isinstance(flat, NodeBlocks) else flat, layout))
+    with pytest.raises(SystemExit):
+        chip_smoke.phase_shard_nodes("cpu", granite_cfg=_granite_small())
