@@ -47,6 +47,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from contextlib import nullcontext
 from functools import lru_cache
 
 import torch
@@ -380,7 +381,7 @@ def gossip_wire(theta, grad, mom, *, lr, beta, mix_order="post", update=None):
 
 
 def fused_apply_stacked(program, theta, grad, mom, *, lr, beta, fault=None,
-                        mix_order: str = "post"):
+                        mix_order: str = "post", span=nullcontext):
     """One fused momentum-SGD + gossip round for a compiled PPermute program.
 
     ``theta``/``grad`` (G, P) and ``mom`` (G, P) float32 — or None when the
@@ -388,7 +389,9 @@ def fused_apply_stacked(program, theta, grad, mom, *, lr, beta, fault=None,
     ``theta`` and ``mom`` are updated IN PLACE and returned.  ``fault``
     carries runtime masks (``{"update", "alive", "link"}``): straggling or
     dead nodes skip the update and send their un-updated rows, dropped
-    edges renormalize onto self inside the kernel.  Raises ``ValueError``
+    edges renormalize onto self inside the kernel.  ``span(name)`` marks
+    the ``wire`` and ``update_mix`` (K1) layers (the recorder's
+    ``MetricsRecorder.span``; a no-op by default).  Raises ``ValueError``
     for programs with non-permute ops.
     """
     srcs_t, weights_t, ones_t, _ = _device_tables(program, theta.device)
@@ -398,12 +401,14 @@ def fused_apply_stacked(program, theta, grad, mom, *, lr, beta, fault=None,
         mom = torch.zeros((n, p), dtype=torch.float32, device=theta.device)
     rows = ones_t if fault is None else fault_rows(program, fault, theta.device)
     lr, beta = float(lr), float(beta)
-    wire = gossip_wire(theta, grad, mom, lr=lr, beta=beta, mix_order=mix_order,
-                       update=None if fault is None else rows[:, :1])
-    gossip_program_update(
-        theta, wire, srcs_t, weights_t, grad, mom,
-        lr=lr, beta=beta, fault=rows, mix_order=mix_order,
-    )
+    with span("wire"):
+        wire = gossip_wire(theta, grad, mom, lr=lr, beta=beta, mix_order=mix_order,
+                           update=None if fault is None else rows[:, :1])
+    with span("update_mix"):
+        gossip_program_update(
+            theta, wire, srcs_t, weights_t, grad, mom,
+            lr=lr, beta=beta, fault=rows, mix_order=mix_order,
+        )
     return theta, (mom if had_m else None)
 
 

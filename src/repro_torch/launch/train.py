@@ -72,7 +72,12 @@ bucketed, gradient-norm) gauges, round and bucket spans, the streamed
 DBench variance and the controller's events.  On the ranks engine rank 0
 alone writes records; on a metrics step every rank joins one ``pmean`` of
 the loss and one ``all_gather`` of the norms, so a run of G ranks writes
-the stacked run's record stream, spans aside.
+the stacked run's record stream, spans aside.  Inside the recorder's
+``device_trace`` a step marks its layers as spans: ``train_step`` (the
+whole call) holding ``fwd_bwd`` (the per-node gradients, their copies
+included), ``probe`` (K3) and, on the stacked fused step, ``wire`` (the
+senders' rows), ``update_mix`` (K1) and ``later_rounds`` (a program's
+further rounds); the interpreter's update is one ``update_mix`` span.
 
 A topology with a ``fault_model`` (``core/faults.py``) runs the
 reference's fault-aware step in both engines.  Every engine (every rank)
@@ -213,7 +218,7 @@ from repro_torch.launch.sharding import node_shards, shard_leaf, unshard
 from repro_torch.launch.tensor_parallel import DataParallel, ModelParallel
 from repro_torch.models import transformer as tfm
 from repro_torch.optim.sgd import Optimizer
-from repro_torch.telemetry import MetricsRecorder
+from repro_torch.telemetry import NO_SPAN, MetricsRecorder
 
 __all__ = ["SPMDTrainer", "TrainState", "main"]
 
@@ -406,7 +411,8 @@ class SPMDTrainer:
         self._step_cache: dict = {}
         self._fold = XiFold()
         self.telemetry = telemetry if telemetry is not None else MetricsRecorder()
-        self.telemetry.configure(deadline_ms=getattr(self.fault_model, "deadline_ms", None))
+        self.telemetry.configure(deadline_ms=getattr(self.fault_model, "deadline_ms", None),
+                                 device=self.device)
         if topology.controller is not None:
             topology.controller.bind_recorder(self.telemetry)
         self._metrics_every = self.telemetry.metrics_every if self.telemetry.active else 0
@@ -640,6 +646,10 @@ class SPMDTrainer:
         scalar, the norms (n_leaves,); a node split over data ranks splits
         B over them (each rank moves its own rows) and its loss, gradients
         and norms are the whole batch's."""
+        with self.telemetry.span("train_step", step=state.step):
+            return self._step(state, batch, lr, epoch)
+
+    def _step(self, state: TrainState, batch, lr: float, epoch: int):
         tel = self.telemetry
         t_start = tel.round_start()
         if self.g == 1:
@@ -684,16 +694,17 @@ class SPMDTrainer:
                                has_m=state.mom is not None)
         with recompile.guard(self.debug_no_retrace and warm, f"train step {state.step}"):
             grad = torch.empty_like(state.theta)
-            losses = self._grads_into(state.theta, grad, batch)
+            with tel.span("fwd_bwd"):
+                losses = self._grads_into(state.theta, grad, batch)
             if self.data_comm is not None:
                 losses = self._data_mean(losses, grad)
             bucket_grad = None   # the gradient buffer of a bucketed step
             with torch.no_grad():
-                norms = (
-                    self._norms(state.theta)
-                    if self.collect_norms
-                    else torch.zeros((self.rows, 0), dtype=torch.float32, device=self.device)
-                )
+                if self.collect_norms:
+                    with tel.span("probe"):
+                        norms = self._norms(state.theta)
+                else:
+                    norms = torch.zeros((self.rows, 0), dtype=torch.float32, device=self.device)
                 if program is not None and self.g > 1:
                     tel.comm(program, self.layout.row_bytes,
                              step=state.step, alive=None if fr is None else fr.alive,
@@ -712,13 +723,14 @@ class SPMDTrainer:
                     self._bucketed_update(state, grad, lr, program, split, fault)
                     bucket_grad = grad
                 elif split is None:
-                    update_leaves(
-                        self.optimizer, self._update, self.layout, state.theta, state.opt,
-                        self.layout.stacked_views(grad), lr,
-                        mix=None if program is None else (lambda x: self._mix(program, x, fault)),
-                        mix_order=topo.mix_order,
-                        gate=None if fault is None else self._own(fault["update"]),
-                    )
+                    mix_fn = None if program is None else (lambda x: self._mix(program, x, fault))
+                    with tel.span("update_mix"):
+                        update_leaves(
+                            self.optimizer, self._update, self.layout, state.theta, state.opt,
+                            self.layout.stacked_views(grad), lr, mix=mix_fn,
+                            mix_order=topo.mix_order,
+                            gate=None if fault is None else self._own(fault["update"]),
+                        )
                 else:
                     first, rest = split
                     if self.comm is not None:
@@ -731,6 +743,7 @@ class SPMDTrainer:
                         fused_apply_stacked(
                             first, state.theta, grad, state.mom,
                             lr=lr, beta=self.beta, fault=fault, mix_order=topo.mix_order,
+                            span=tel.span,
                         )
                     self._later_rounds(rest, state.theta, fault)
             del grad
@@ -809,13 +822,14 @@ class SPMDTrainer:
         its narrower leaves after the kernel's round and after each later
         one, as the reference mixes those leaves in their own dtype."""
         mix = lambda st, x: self._mix(st, x, fault)
-        if not self.layout.mixed:
-            mix_in_place(rest, theta, mix)
-            return
-        self.layout.round_leaves_(theta)
-        for stage in rest:
-            mix_in_place((stage,), theta, mix)
+        with self.telemetry.span("later_rounds") if rest else NO_SPAN:
+            if not self.layout.mixed:
+                mix_in_place(rest, theta, mix)
+                return
             self.layout.round_leaves_(theta)
+            for stage in rest:
+                mix_in_place((stage,), theta, mix)
+                self.layout.round_leaves_(theta)
 
     def _own(self, mask: torch.Tensor) -> torch.Tensor:
         """The rows of a (G,) per-node mask that this engine holds."""

@@ -15,7 +15,7 @@ Typical wiring::
 Then ``python -m repro_torch.telemetry summarize run.jsonl``.
 """
 from repro_torch.telemetry.recorder import (
-    MetricsRecorder, coalesce_into, host_grad_norm,
+    NO_SPAN, MetricsRecorder, coalesce_into, host_grad_norm,
 )
 from repro_torch.telemetry.schema import (
     KINDS, SCHEMA_VERSION, SchemaError, validate_record,
@@ -27,6 +27,7 @@ from repro_torch.telemetry.summarize import (
 
 __all__ = [
     "MetricsRecorder",
+    "NO_SPAN",
     "JsonlSink",
     "MemorySink",
     "read_jsonl",

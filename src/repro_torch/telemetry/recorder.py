@@ -16,9 +16,21 @@ Cost model, so callers know exactly what they pay:
     dict update and a JSONL line; on a metrics step (``metrics_every``)
     the engine copies the losses and the (n, n_leaves) norm matrix to the
     host once; span timing additionally requires ``record_spans=True``
-    (the CLI sets it), because the engine then synchronizes the device at
-    the end of every step, a real synchronization benchmarks must not
-    inherit silently.
+    (the CLI sets it).  On a CUDA device the trainer's ``round`` is then
+    timed by CUDA events at ``train_step``'s boundaries, read without a
+    synchronize once a later step finds them done (or at ``close`` and
+    ``state_dict``), so its records may trail the step's other records;
+    the simulator, and any engine on the CPU, synchronizes the device at
+    the end of every step and reads the host clock.
+
+Spans inside a step (``span``) are off unless a ``device_trace`` context
+is open: off, ``span`` returns one shared no-op context after a single
+attribute check.  Inside the context each span records its name, step
+and parent, the host clock and a CUDA timing event (the host clock on the
+CPU) at entry and exit, and a ``repro.<name>`` profiler range, so an
+active ``torch.profiler`` shows it on the kernels' clock; nothing
+synchronizes until the context closes, once.  Span records stay in
+memory (the context's list): the JSONL stream does not carry them.
 
 Same-step event coalescing (``coalesce_into``) lives here, ONE
 implementation, and the consensus controller routes its transition /
@@ -28,19 +40,19 @@ produce identical event streams for identical runs.
 A gossip deadline (``GossipDeadline``'s ``deadline_ms``, set by the
 engines through ``configure``) turns round timing on even without sinks:
 every ``round`` span is measured (the engine synchronizes the device once
-a step), kept in ``round_ms`` and marked as an overrun when it is longer
-than the deadline.  The trace is observational: the seeded model drives
-the masks.
+a step, since overruns are counted as the run goes), kept in ``round_ms``
+and marked as an overrun when it is longer than the deadline.  The trace
+is observational: the seeded model drives the masks.
 
 A checkpoint carries the recorder's run totals (``state_dict``: counter
 totals, rounds, overruns, events), and ``load_state_dict`` continues them
 on a resumed run: ``rounds_total``/``overruns_total`` count both segments.
-``provenance`` is the stamp a bench section derived from a recorder
-carries; ``repro_torch.analysis.invariants.verify_bench_payload`` gates it.
 """
 from __future__ import annotations
 
 import time
+from collections import deque
+from contextlib import contextmanager, nullcontext
 from typing import Optional
 
 import numpy as np
@@ -48,10 +60,15 @@ import torch
 
 from repro_torch.telemetry.schema import SCHEMA_VERSION, validate_record
 
-__all__ = ["MetricsRecorder", "coalesce_into", "host_grad_norm"]
+__all__ = ["MetricsRecorder", "coalesce_into", "host_grad_norm", "NO_SPAN"]
 
 # columns per chunk of ``host_grad_norm``: bounds its float32 temporaries
 GRAD_NORM_CHUNK = 1 << 24
+# rounds timed by CUDA events that may wait unread; past this many the
+# oldest is waited for (a step's launch queue holds less than one step)
+ROUND_LAG = 16
+# what ``span`` returns with tracing off: one shared no-op context
+NO_SPAN = nullcontext()
 
 
 def coalesce_into(events: list, step: int, reason: str) -> Optional[str]:
@@ -89,6 +106,90 @@ def host_grad_norm(grads) -> float:
     return float(total.sqrt())
 
 
+class _EventPool:
+    """CUDA timing events, reused across steps and traces."""
+
+    def __init__(self):
+        self.free: list = []
+
+    def mark(self):
+        """An event recorded now on the current stream."""
+        ev = self.free.pop() if self.free else torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+
+    def give(self, *events) -> None:
+        self.free.extend(events)
+
+
+class _Span:
+    """One span of an open device trace: a context manager that marks its
+    entry and exit on the host clock and the device's (an event, or the
+    host clock again on the CPU) inside a ``repro.<name>`` profiler range."""
+
+    __slots__ = ("trace", "name", "step", "parent", "range", "h0", "h1", "d0", "d1")
+
+    def __init__(self, trace: "_SpanTrace", name: str, step: Optional[int]):
+        self.trace, self.name, self.step = trace, name, step
+        self.d1 = None
+
+    def __enter__(self):
+        tr = self.trace
+        self.parent = tr.stack[-1] if tr.stack else None
+        if self.step is None and self.parent is not None:
+            self.step = self.parent.step
+        tr.stack.append(self)
+        tr.spans.append(self)
+        self.range = torch.profiler.record_function("repro." + self.name)
+        self.range.__enter__()
+        self.h0 = time.perf_counter()
+        self.d0 = tr.mark()
+        return self
+
+    def __exit__(self, *exc):
+        tr = self.trace
+        self.d1 = tr.mark()
+        self.h1 = time.perf_counter()
+        self.range.__exit__(*exc)
+        tr.stack.pop()
+        return False
+
+
+class _SpanTrace:
+    """The spans of one ``device_trace`` context, resolved when it closes."""
+
+    def __init__(self, pool: Optional[_EventPool], device):
+        self.pool, self.device = pool, device    # pool None: the host clock
+        self.stack: list = []
+        self.spans: list = []
+
+    def mark(self):
+        return time.perf_counter() if self.pool is None else self.pool.mark()
+
+    def resolve(self) -> list:
+        """One synchronize, then a record per closed span: name, step,
+        parent's name, device ms (entry mark to exit mark: the stream's
+        time in the span, idle included), host ms and self device ms (the
+        span less its children's device ms)."""
+        spans = [sp for sp in self.spans if sp.d1 is not None]
+        if self.pool is not None:
+            torch.cuda.synchronize(self.device)
+            device_ms = [sp.d0.elapsed_time(sp.d1) for sp in spans]
+            for sp in self.spans:
+                self.pool.give(*(e for e in (sp.d0, sp.d1) if e is not None))
+        else:
+            device_ms = [(sp.d1 - sp.d0) * 1e3 for sp in spans]
+        children = {}
+        for sp, ms in zip(spans, device_ms):
+            if sp.parent is not None:
+                children[id(sp.parent)] = children.get(id(sp.parent), 0.0) + ms
+        return [{"name": sp.name, "step": sp.step,
+                 "parent": None if sp.parent is None else sp.parent.name,
+                 "device_ms": ms, "host_ms": (sp.h1 - sp.h0) * 1e3,
+                 "self_ms": ms - children.get(id(sp), 0.0)}
+                for sp, ms in zip(spans, device_ms)]
+
+
 class MetricsRecorder:
     """Typed per-run metrics: counters, gauges, spans, events, variance.
 
@@ -96,7 +197,8 @@ class MetricsRecorder:
     ``program_applications``) billed at dispatch time; gauges are
     point-in-time scalars; ``round`` and ``bucket`` spans time a step and
     a bucket's dispatch; events record discrete occurrences; variance
-    records stream the DBench Fig-5 signal.
+    records stream the DBench Fig-5 signal.  ``span`` marks a layer of a
+    step for ``device_trace``, in memory only.
     """
 
     def __init__(self, *, sinks=(), metrics_every: int = 0, record_spans: bool = False):
@@ -104,6 +206,10 @@ class MetricsRecorder:
         self.metrics_every = max(int(metrics_every), 0)
         self.record_spans = bool(record_spans)
         self.deadline_ms: Optional[float] = None   # set by the engine (configure)
+        self.device: Optional[torch.device] = None  # the trainer's (configure)
+        self._trace: Optional[_SpanTrace] = None    # the open device trace
+        self._events = _EventPool()
+        self._rounds: deque = deque()   # event-timed rounds not read yet
         # this run's measured round durations (ms) and deadline overruns
         self.round_ms: list = []
         self.deadline_overruns = 0
@@ -116,11 +222,14 @@ class MetricsRecorder:
         self.event_count = 0
 
     # -- wiring ----------------------------------------------------------------
-    def configure(self, *, deadline_ms: Optional[float] = None) -> None:
+    def configure(self, *, deadline_ms: Optional[float] = None, device=None) -> None:
         """Late configuration by the engine: the deadline rides on the fault
-        model, which the recorder's creator does not see."""
+        model, which the recorder's creator does not see; the trainer's
+        device decides what clock spans and rounds read."""
         if deadline_ms is not None:
             self.deadline_ms = float(deadline_ms)
+        if device is not None:
+            self.device = torch.device(device)
 
     @property
     def active(self) -> bool:
@@ -129,10 +238,13 @@ class MetricsRecorder:
 
     @property
     def timing(self) -> bool:
-        """True when ``round`` spans are measured, for which the engine
-        synchronizes the device at the end of every step: with a deadline,
-        or with sinks and ``record_spans``."""
+        """True when ``round`` spans are measured: with a deadline, or with
+        sinks and ``record_spans``."""
         return self.deadline_ms is not None or (self.active and self.record_spans)
+
+    @property
+    def _cuda(self) -> bool:
+        return self.device is not None and self.device.type == "cuda"
 
     @property
     def rounds_total(self) -> int:
@@ -150,6 +262,7 @@ class MetricsRecorder:
             s.emit(rec)
 
     def close(self) -> None:
+        self._read_rounds(keep=0)
         for s in self.sinks:
             close = getattr(s, "close", None)
             if close is not None:
@@ -193,23 +306,75 @@ class MetricsRecorder:
                     "value": value})
 
     # -- spans ----------------------------------------------------------------
-    def round_start(self) -> Optional[float]:
-        """Host timestamp opening a ``round`` span, or None when timing is
-        off — the engines' former ``t_start = perf_counter() if ...``."""
-        return time.perf_counter() if self.timing else None
+    def span(self, name: str, *, step: Optional[int] = None):
+        """A context marking one layer of a step.  Off (no ``device_trace``
+        open) it is ``NO_SPAN``, whatever the name; on, a span of the trace
+        whose step is ``step``, or its parent's."""
+        trace = self._trace
+        return NO_SPAN if trace is None else _Span(trace, name, step)
 
-    def round_end(self, t_start: Optional[float], *, step: int,
-                  mix: bool = False, device=None) -> None:
-        """Close a ``round`` span.  On a CUDA ``device`` (or each of a list
-        of them: a split simulator's cards) it synchronizes the device
-        first, so the duration covers the whole dispatched round; with
-        ``t_start`` None (timing off) it does nothing."""
+    @contextmanager
+    def device_trace(self):
+        """Record every ``span`` opened inside the context.  Yields a list
+        that holds the span records once the context has closed (after one
+        synchronize; see ``_SpanTrace.resolve``), in the order the spans
+        opened."""
+        if self._trace is not None:
+            raise RuntimeError("a device trace is already open")
+        trace = _SpanTrace(self._events if self._cuda else None, self.device)
+        records: list = []
+        self._trace = trace
+        try:
+            yield records
+        finally:
+            self._trace = None
+            records.extend(trace.resolve())
+
+    def round_start(self):
+        """What opens a ``round`` span: None when timing is off, a CUDA
+        event recorded now where the trainer's rounds are event-timed
+        (``record_spans`` on a CUDA device, no deadline; the rounds earlier
+        steps left are read first, as far as they have run), else the host
+        clock."""
+        if not self.timing:
+            return None
+        if self.deadline_ms is None and self._cuda:
+            self._read_rounds(keep=ROUND_LAG)
+            return self._events.mark()
+        return time.perf_counter()
+
+    def round_end(self, t_start, *, step: int, mix: bool = False, device=None) -> None:
+        """Close a ``round`` span.  An event-timed round records its end
+        event and is read by a later ``round_start`` (or ``close``); else,
+        on a CUDA ``device`` (or each of a list of them: a split
+        simulator's cards) it synchronizes the device first, so the
+        duration covers the whole dispatched round.  With ``t_start`` None
+        (timing off) it does nothing."""
         if t_start is None:
+            return
+        if not isinstance(t_start, float):
+            self._rounds.append((t_start, self._events.mark(), int(step), bool(mix)))
             return
         for d in device if isinstance(device, (list, tuple)) else [device]:
             if d is not None and torch.device(d).type == "cuda":
                 torch.cuda.synchronize(d)
-        ms = (time.perf_counter() - t_start) * 1e3
+        self._round_done((time.perf_counter() - t_start) * 1e3, step, mix)
+
+    def _read_rounds(self, *, keep: int) -> None:
+        """Read the event-timed rounds, oldest first: each whose end event
+        has run, and while more than ``keep`` are left, the oldest waited
+        for."""
+        while self._rounds:
+            start, end, step, mix = self._rounds[0]
+            if not end.query():
+                if len(self._rounds) <= keep:
+                    return
+                end.synchronize()
+            self._rounds.popleft()
+            self._round_done(start.elapsed_time(end), step, mix)
+            self._events.give(start, end)
+
+    def _round_done(self, ms: float, step: int, mix: bool) -> None:
         self.round_ms.append(ms)
         rec = {"kind": "span", "step": int(step), "name": "round", "ms": ms,
                "mix": bool(mix)}
@@ -305,6 +470,7 @@ class MetricsRecorder:
         """JSON-serializable run totals for the checkpoint's ``extra``
         payload: a resumed run continues its counters and span/overrun
         totals instead of restarting them at zero."""
+        self._read_rounds(keep=0)
         return {
             "schema": SCHEMA_VERSION,
             "counters": dict(self.totals),
@@ -318,16 +484,3 @@ class MetricsRecorder:
         self._rounds_prior = int(d.get("rounds", 0))
         self._overruns_prior = int(d.get("overruns", 0))
         self.event_count += int(d.get("events", 0))
-
-    # -- bench provenance --------------------------------------------------------
-    def provenance(self) -> dict:
-        """The ``provenance`` stamp a bench section carries when derived
-        from a recorder; validated by
-        ``repro_torch.analysis.invariants.verify_bench_payload``."""
-        return {
-            "source": "telemetry",
-            "schema": SCHEMA_VERSION,
-            "counters": {k: float(v) for k, v in sorted(self.totals.items())},
-            "rounds": self.rounds_total,
-            "events": int(self.event_count),
-        }

@@ -12,8 +12,8 @@ reference's verifier runs on the same programs where both have them.
 The reference's f8 wire-width and ``CollectiveReport`` cases run against
 the port's op accounting (``launch/hlo_analysis.py``), with its FLOP
 counts of every ``-reduced`` gradient step held to the reference's
-``analyze_hlo``; the bench-payload gate waits with the benchmarks (not
-ported this round).
+``analyze_hlo``.  The reference's bench-payload gate has no counterpart:
+the port writes no bench payload.
 """
 import dataclasses
 import importlib
@@ -683,75 +683,3 @@ def test_assert_no_all_gather_names_the_op():
         "all-gather": ("all_gather:0",)}
     pmean = [CollectiveOp("pmean", (), 16)]
     assert collective_counts(pmean).wire_bytes == {"all-reduce": 32}   # 2× on the wire
-
-
-# ---------------------------------------------------------------------------
-# The bench payload gate and the recorder's provenance stamp
-# (``tests/test_analysis.py`` and ``tests/test_telemetry.py``'s cases)
-# ---------------------------------------------------------------------------
-
-def test_bench_payload_gate():
-    from repro_torch.analysis.invariants import verify_bench_payload
-
-    verify_bench_payload("step_time", {"ring/n8": {"mean_ms": 1.0}})
-    with pytest.raises(InvariantViolation, match="non-empty dict"):
-        verify_bench_payload("step_time", [])
-    with pytest.raises(InvariantViolation, match="not a dict"):
-        verify_bench_payload("step_time", {"ring/n8": 3.0})
-    with pytest.raises(InvariantViolation, match="key"):
-        verify_bench_payload("step_time", {"ring n8!": {"mean_ms": 1.0}})
-    with pytest.raises(InvariantViolation, match="JSON"):
-        verify_bench_payload("step_time", {"ring/n8": {"x": float("nan")}})
-    with pytest.raises(InvariantViolation, match="section name"):
-        verify_bench_payload("", {"ring/n8": {"mean_ms": 1.0}})
-
-
-def test_bench_payload_provenance_validation():
-    from repro_torch.analysis.invariants import verify_bench_payload
-    from repro_torch.telemetry import MemorySink, MetricsRecorder
-
-    rec = MetricsRecorder(sinks=[MemorySink()])
-    rec.counter("comm_bytes", 42, step=0)
-    prov = rec.provenance()
-    assert prov["counters"] == {"comm_bytes": 42.0} and prov["source"] == "telemetry"
-    verify_bench_payload("ada", {"d_ring/n8": {"acc": 1.0, "provenance": prov}})
-    for broken in (
-        {**prov, "source": "handwritten"},
-        {**prov, "schema": "one"},
-        {**prov, "counters": {"comm_bytes": "lots"}},
-        {**prov, "counters": {"comm_bytes": True}},
-        {**prov, "rounds": None},
-        {**prov, "events": 1.5},
-        "not-a-dict",
-    ):
-        with pytest.raises(InvariantViolation, match="provenance"):
-            verify_bench_payload("ada", {"d_ring/n8": {"acc": 1.0, "provenance": broken}})
-
-
-def test_provenance_stamps_pass_each_others_gate():
-    """The port's stamp passes the reference's gate and the reference's
-    stamp the port's, from recorders fed the same counters, spans and
-    events; the two stamps are equal."""
-    from repro.analysis.invariants import InvariantViolation as JViolation
-    from repro.analysis.invariants import verify_bench_payload as jverify
-    from repro.telemetry import MemorySink as JSink
-    from repro.telemetry import MetricsRecorder as JRecorder
-    from repro_torch.analysis.invariants import verify_bench_payload as tverify
-    from repro_torch.telemetry import MemorySink, MetricsRecorder
-
-    stamps = []
-    for rec in (JRecorder(sinks=[JSink()]), MetricsRecorder(sinks=[MemorySink()])):
-        rec.counter("comm_bytes", 4096, step=0)
-        rec.counter("permutes", 2, step=0)
-        rec.event("join", 1, data={"nodes": [3]})
-        rec.round_end(rec.round_start(), step=0, mix=True)
-        stamps.append(rec.provenance())
-    jstamp, tstamp = stamps
-    assert jstamp == tstamp
-    tverify("ada", {"d_ring/n8": {"acc": 1.0, "provenance": jstamp}})
-    jverify("ada", {"d_ring/n8": {"acc": 1.0, "provenance": tstamp}})
-    broken = {**tstamp, "rounds": "three"}
-    with pytest.raises(JViolation, match="provenance"):
-        jverify("ada", {"d_ring/n8": {"provenance": broken}})
-    with pytest.raises(InvariantViolation, match="provenance"):
-        tverify("ada", {"d_ring/n8": {"provenance": broken}})

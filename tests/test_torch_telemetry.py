@@ -5,10 +5,15 @@ Mirrors ``tests/test_telemetry.py`` (all but the analysis-backed bench
 provenance check):
 
 * the recorder's units: coalescing, counters, the inert recorder (and a
-  step under it that reads nothing from the device), span gating, the
-  schema, the resume totals (``state_dict``/``load_state_dict`` against
-  the reference's); the reference's provenance case goes with the analysis
-  item that brings its code;
+  step under it that reads nothing from the device and opens no span),
+  span gating, the schema, the resume totals (``state_dict``/
+  ``load_state_dict`` against the reference's); the reference's
+  provenance case has no counterpart (the port writes no bench payload);
+* spans inside a step (``span``/``device_trace``): the trainer's layers
+  once a step under their parents, the numbers bit for bit with spans on
+  and off, self time, the profiler's ``repro.*`` ranges, one synchronize a
+  trace and event-timed rounds read without one (CUDA events stood in
+  for on the CPU);
 * the engines: telemetry leaves the numbers alone; comm counters equal the
   offline ``program_comm_bytes`` accounting; the streamed variance equals
   the offline ``DBenchRecorder``; round spans per step;
@@ -54,7 +59,8 @@ from repro_torch.launch.comm import spawn_world  # noqa: E402
 from repro_torch.launch.train import SPMDTrainer  # noqa: E402
 from repro_torch.models.transformer import params_from_jax  # noqa: E402
 from repro_torch.telemetry import (  # noqa: E402
-    JsonlSink, MemorySink, MetricsRecorder, coalesce_into, host_grad_norm, read_jsonl,
+    NO_SPAN, JsonlSink, MemorySink, MetricsRecorder, coalesce_into, host_grad_norm,
+    read_jsonl,
 )
 from repro_torch.telemetry.schema import (  # noqa: E402
     KINDS, SCHEMA_VERSION, SchemaError, validate_record,
@@ -193,13 +199,17 @@ def test_inert_recorder_is_free():
     assert not rec.due(0)
 
 
-@pytest.mark.parametrize("engine", ["simulator", "trainer"])
+@pytest.mark.parametrize("engine", ["simulator", "trainer", "trainer-unbucketed"])
 def test_a_step_under_the_inert_recorder_reads_nothing_back(engine, monkeypatch):
-    """The CPU's stand-in for chip_smoke.py's sync check: a bucketed step
-    of a static topology with the default recorder calls none of the
-    tensor methods that copy a value to the host."""
+    """The CPU's stand-in for chip_smoke.py's sync check: a step of a
+    static topology with the default recorder (bucketed, and the trainer's
+    fused step without buckets, which marks its layers as spans) calls
+    none of the tensor methods that copy a value to the host, and with
+    tracing off opens no span: no span object, no profiler range, no
+    CUDA event."""
     from repro_torch.configs import get_config
     from repro_torch.data import SyntheticLM
+    from repro_torch.telemetry import recorder
 
     if engine == "simulator":
         sim = DecentralizedSimulator(_quad_loss, tsgd(0.9), make_topology("d_ring", N),
@@ -207,19 +217,23 @@ def test_a_step_under_the_inert_recorder_reads_nothing_back(engine, monkeypatch)
         state = sim.init({"w": np.zeros(3, np.float32)})
         step = lambda: sim.train_step(state, _batches(N, 1)[0], 0.05)
     else:
+        bucket_mb = 0.5 if engine == "trainer" else None
         trainer = SPMDTrainer(get_config("granite-8b-reduced"), make_topology("d_ring", 4),
-                              tsgd(0.9), collect_norms=True, fused_apply=True, bucket_mb=0.5,
-                              device="cpu")
+                              tsgd(0.9), collect_norms=True, fused_apply=True,
+                              bucket_mb=bucket_mb, device="cpu")
         state = trainer.init_state(seed=0)
         batch = {k: torch.as_tensor(v)
                  for k, v in SyntheticLM(vocab=256, seq_len=8, seed=0).stacked(4, 0, 1).items()}
         step = lambda: trainer.train_step(state, batch, 0.05)
 
     def refuse(*a, **k):
-        raise AssertionError("a host read under the inert recorder")
+        raise AssertionError("a host read or a span under the inert recorder")
 
     for name in ("item", "tolist", "cpu", "numpy", "__float__", "__bool__"):
         monkeypatch.setattr(torch.Tensor, name, refuse)
+    monkeypatch.setattr(recorder._Span, "__init__", refuse)
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    monkeypatch.setattr(torch.cuda, "Event", refuse)
     step()
 
 
@@ -329,6 +343,212 @@ def test_round_spans_one_per_step():
     # P = 3 elements in 2-element buckets: two per step
     assert [(r["step"], r["index"]) for r in buckets] == [(s, i) for s in range(5)
                                                           for i in range(2)]
+
+
+# ---------------------------------------------------------------------------
+# spans inside a step
+# ---------------------------------------------------------------------------
+
+def test_span_off_is_one_shared_no_op():
+    rec = MetricsRecorder(sinks=[MemorySink()], record_spans=True)
+    assert rec.span("train_step", step=0) is NO_SPAN and rec.span("wire") is NO_SPAN
+    with rec.span("wire"):
+        pass
+    with rec.device_trace() as spans:
+        assert rec.span("wire") is not NO_SPAN
+        with pytest.raises(RuntimeError, match="already open"):
+            with rec.device_trace():
+                pass
+    assert spans == [] and rec.span("wire") is NO_SPAN
+
+
+def test_self_time_is_the_span_less_its_children():
+    """Nested spans on the CPU's host clock: parents, the step inherited,
+    self ms the span less its children's device ms."""
+    rec = MetricsRecorder()
+    with rec.device_trace() as spans:
+        with rec.span("train_step", step=7):
+            time.sleep(0.002)
+            with rec.span("fwd_bwd"):
+                time.sleep(0.003)
+            with rec.span("update_mix"):
+                with rec.span("inner"):
+                    time.sleep(0.001)
+    step, fb, um, inner = spans
+    assert [r["name"] for r in spans] == ["train_step", "fwd_bwd", "update_mix", "inner"]
+    assert [r["parent"] for r in spans] == [None, "train_step", "train_step", "update_mix"]
+    assert {r["step"] for r in spans} == {7}
+    assert step["self_ms"] == pytest.approx(
+        step["device_ms"] - fb["device_ms"] - um["device_ms"], abs=1e-9)
+    assert um["self_ms"] == pytest.approx(um["device_ms"] - inner["device_ms"], abs=1e-9)
+    assert fb["self_ms"] == fb["device_ms"] >= 3.0 and step["self_ms"] >= 2.0
+    assert all(r["host_ms"] >= r["device_ms"] * 0.99 for r in spans)
+
+
+def test_spans_are_profiler_ranges():
+    rec = MetricsRecorder()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        with rec.device_trace():
+            with rec.span("train_step", step=0):
+                with rec.span("wire"):
+                    torch.ones(4).sum()
+    names = {e.name for e in prof.events()}
+    assert {"repro.train_step", "repro.wire"} <= names
+
+
+def _span_trainer(**kw):
+    from repro_torch.configs import get_config
+
+    topo = kw.pop("topology", "d_ring")
+    trainer = SPMDTrainer(get_config("granite-8b-reduced"), make_topology(topo, 4), tsgd(0.9),
+                          collect_norms=True, device="cpu", **kw)
+    return trainer, trainer.init_state(seed=0)
+
+
+def _span_batches(steps):
+    from repro_torch.data import SyntheticLM
+
+    src = SyntheticLM(vocab=256, seq_len=8, seed=0)
+    return [{k: torch.as_tensor(v) for k, v in src.stacked(4, t, 1).items()}
+            for t in range(steps)]
+
+
+SPAN_CASES = {
+    # the benchmarked path: stacked, fused, no buckets
+    "fused": ({"fused_apply": True}, ["fwd_bwd", "probe", "wire", "update_mix"]),
+    "interpreter": ({"fused_apply": False}, ["fwd_bwd", "probe", "update_mix"]),
+    "later-rounds": ({"fused_apply": True, "topology": "d_one_peer_exp", "mix_rounds": 2},
+                     ["fwd_bwd", "probe", "wire", "update_mix", "later_rounds"]),
+}
+
+
+@pytest.mark.parametrize("case", list(SPAN_CASES))
+def test_a_traced_step_records_its_layers_once(case):
+    kw, children = SPAN_CASES[case]
+    trainer, state = _span_trainer(**kw)
+    with trainer.telemetry.device_trace() as spans:
+        for b in _span_batches(2):
+            state, _, _ = trainer.train_step(state, b, 0.05)
+    want = []
+    for step in range(2):
+        want += [("train_step", step, None)] + [(c, step, "train_step") for c in children]
+    assert [(r["name"], r["step"], r["parent"]) for r in spans] == want
+    for r in spans:
+        assert r["device_ms"] > 0 and r["host_ms"] > 0 and r["self_ms"] >= 0
+    again = trainer.train_step(state, _span_batches(1)[0], 0.05)   # off again
+    assert again is not None and trainer.telemetry._trace is None
+
+
+def test_spans_leave_the_numbers_alone():
+    """θ, the momentum, the losses and the norms bit for bit with spans on
+    and off."""
+    out = []
+    for traced in (False, True):
+        trainer, state = _span_trainer(fused_apply=True)
+        got = []
+        with trainer.telemetry.device_trace() if traced else NO_SPAN:
+            for b in _span_batches(3):
+                state, loss, norms = trainer.train_step(state, b, 0.05)
+                got += [loss.clone(), norms.clone()]
+        out.append([state.theta.clone(), state.mom.clone()] + got)
+    for a, b in zip(*out, strict=True):
+        assert torch.equal(a, b)
+
+
+class _FakeEvent:
+    """``torch.cuda.Event`` stood in for on the CPU: the host clock, and
+    ``query`` false while ``running`` (the device still busy)."""
+    made = 0
+    running = False
+    waited = 0
+
+    def __init__(self, enable_timing=False):
+        type(self).made += 1
+        self.t = None
+
+    def record(self, stream=None):
+        self.t = time.perf_counter()
+
+    def query(self):
+        return not type(self).running
+
+    def synchronize(self):
+        type(self).waited += 1
+
+    def elapsed_time(self, end):
+        return (end.t - self.t) * 1e3
+
+
+@pytest.fixture
+def fake_cuda(monkeypatch):
+    """A recorder's CUDA path on the CPU: fake events, and a count of
+    device synchronizes."""
+    syncs = []
+    monkeypatch.setattr(_FakeEvent, "made", 0)
+    monkeypatch.setattr(_FakeEvent, "running", False)
+    monkeypatch.setattr(_FakeEvent, "waited", 0)
+    monkeypatch.setattr(torch.cuda, "Event", _FakeEvent)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda device=None: syncs.append(device))
+    return syncs
+
+
+def test_a_cuda_trace_synchronizes_once_and_reuses_its_events(fake_cuda):
+    rec = MetricsRecorder()
+    rec.configure(device="cuda")
+    made = []
+    for _ in range(2):
+        with rec.device_trace() as spans:
+            for step in range(3):
+                with rec.span("train_step", step=step):
+                    with rec.span("wire"):
+                        pass
+        made.append(_FakeEvent.made)
+        assert [r["step"] for r in spans] == [0, 0, 1, 1, 2, 2]
+    assert len(fake_cuda) == 2            # one synchronize a trace, none a step
+    assert made == [12, 12]               # the second trace takes the first's events
+
+
+def test_rounds_on_cuda_are_read_from_events_without_a_synchronize(fake_cuda):
+    """``record_spans`` on a CUDA device: each round's events are read by
+    a later step's ``round_start`` once they have run (more than
+    ``ROUND_LAG`` unread: the oldest waited for), the rest at ``close``;
+    no device synchronize."""
+    from repro_torch.telemetry.recorder import ROUND_LAG
+
+    sink = MemorySink()
+    rec = MetricsRecorder(sinks=[sink], record_spans=True)
+    rec.configure(device="cuda")
+    rec.round_end(rec.round_start(), step=0, mix=True)
+    _FakeEvent.running = True
+    t = rec.round_start()                  # step 0 has not run: left unread
+    assert rec.round_ms == [] and sink.records == []
+    rec.round_end(t, step=1, mix=True)
+    _FakeEvent.running = False
+    t = rec.round_start()                  # both have run now
+    assert [r["step"] for r in sink.records] == [0, 1] and len(rec.round_ms) == 2
+    rec.round_end(t, step=2, mix=False)
+    _FakeEvent.running = True
+    for step in range(3, 3 + ROUND_LAG + 2):
+        rec.round_end(rec.round_start(), step=step, mix=True)
+    assert _FakeEvent.waited == 2 and len(rec._rounds) == ROUND_LAG + 1
+    assert rec.state_dict()["rounds"] == 3 + ROUND_LAG + 2
+    rec.close()
+    assert [r["step"] for r in sink.records] == list(range(3 + ROUND_LAG + 2))
+    for r in sink.records:
+        validate_record(r)
+    assert fake_cuda == []
+    assert _FakeEvent.made <= 2 * (ROUND_LAG + 3)   # read events go back to the pool
+
+
+def test_a_deadline_keeps_the_synchronize_on_cuda(fake_cuda):
+    rec = MetricsRecorder()
+    rec.configure(deadline_ms=1e3, device="cuda")
+    for step in range(2):
+        t = rec.round_start()
+        assert isinstance(t, float)
+        rec.round_end(t, step=step, device="cuda")
+    assert len(fake_cuda) == 2 and len(rec.round_ms) == 2 and rec.deadline_overruns == 0
+    assert _FakeEvent.made == 0
 
 
 # ---------------------------------------------------------------------------
