@@ -11,7 +11,9 @@ Phases (any failure exits non-zero and prints no result line):
      granite-8b leaf (G = 4 × the 58,720,256-element ``w_up``, bfloat16):
      post and pre order, all-ones rows, a masked row and the rows of a
      real realization (a drain boost of 1.5 and a ghost's all-zero row),
-     these bit for bit;
+     these bit for bit; then K1's one-pass route (no wire: the kernel
+     computes the senders' rows) against the plain wire and the
+     two-operand K1 on the same variants, bit for bit;
   3. K3 (segmented L2 norms) against its twin over a (4, 838,881,280)
      bfloat16 buffer cut into granite-8b's leaf segments;
   4. the main path: ``SPMDTrainer`` at granite-8b width (d_model 4096,
@@ -28,9 +30,10 @@ Phases (any failure exits non-zero and prints no result line):
      forward/backward and the wire; device time by kernel group from one
      step under torch.profiler); K1 against its twin on the main path's
      full (4, 838,881,280) state, gradients and wire, as phase 2 checks it
-     on one leaf; then each kernel timed with CUDA events at the main
-     path's shapes, beside its plain twin, its bound and (where one exists)
-     a PyTorch library call;
+     on one leaf, and the one-pass route (the step's) bit for bit the wire
+     and the two-operand K1 there; then each kernel timed with CUDA events
+     at the main path's shapes, beside its plain twin, its bound and (where
+     one exists) a PyTorch library call, K1 by both routes;
   7. the CLI, ``main(["--reduced", "--steps", "3", "--fused-apply"])``;
   8. K2 (the one-node fused gossip update of the ranks engine) against its
      plain twin on one full-width row (P = 838,881,280, bfloat16 θ, g and
@@ -250,8 +253,9 @@ Phases (any failure exits non-zero and prints no result line):
      measured for its device bytes, the median of 5 warm steps timed with
      no accounting, one step under ``launch/hlo_analysis.analyze_step`` on
      the card and ``lower_step`` on meta: dot FLOPs equal, traffic within
-     0.1 %, K1's and K3's billed bytes at the memory rate phase 6's bounds,
-     ``argument_bytes`` within 2 MiB of the init's bytes; the measured step,
+     0.1 %, K1's and K3's billed bytes at the memory rate phase 6's bounds
+     (K1's of its one-pass route, the step's), ``argument_bytes`` within
+     2 MiB of the init's bytes; the measured step,
      the compute, memory and wire terms, the dominant term, the useful FLOP
      ratio, the share bound / measured, and ``temp_bytes`` beside the
      step's measured peak above the state, with the card's name and limit;
@@ -562,8 +566,38 @@ def k2_against_twin(theta0, grad, nbrs, mom0, w):
     )
 
 
+def k1_one_pass_against_wire(label, theta0, grad, mom0, srcs, w):
+    """K1's one-pass route (no wire operand) against the plain wire
+    followed by the two-operand K1 on the same inputs, bit for bit: post
+    and pre order, all-ones (the wire as the fault-free step built it),
+    masked and boost+ghost fault rows."""
+    import torch
+    from repro_torch.kernels.gossip_update import gossip_program_update, gossip_wire
+
+    ones = torch.ones_like(w)
+    masked = ones.clone()
+    masked[1, 0] = 0.0   # node 1 skips its update
+    masked[2, 1] = 0.0   # node 2 drops its first edge
+    for fname, fault in (("all-ones", ones), ("masked", masked),
+                         ("boost+ghost", boost_ghost_rows(w.device))):
+        for order in ("post", "pre"):
+            kw = dict(lr=LR, beta=0.9, fault=fault, mix_order=order)
+            wire = gossip_wire(theta0, grad, mom0, lr=LR, beta=0.9, mix_order=order,
+                               update=None if fname == "all-ones" else fault[:, :1])
+            want_t, want_m = theta0.clone(), mom0.clone()
+            gossip_program_update(want_t, wire, srcs, w, grad, want_m, **kw)
+            del wire
+            got_t, got_m = theta0.clone(), mom0.clone()
+            gossip_program_update(got_t, None, srcs, w, grad, got_m, **kw)
+            if not (torch.equal(got_t, want_t) and torch.equal(got_m, want_m)):
+                fail(f"K1 one pass {label} {order} {fname}: not bit for bit the wire + K1")
+            del want_t, want_m, got_t, got_m
+            log(f"K1 one pass {label} {order} {fname}: bit for bit the wire + K1 ok")
+
+
 def phase_k1_twin(dev):
-    """K1 against its twin on G × one w_up leaf; returns the max abs error."""
+    """K1 against its twin on G × one w_up leaf, then its one-pass route
+    against the wire and the two-operand route; returns the max abs error."""
     import torch
 
     p = 4096 * 14336
@@ -573,7 +607,10 @@ def phase_k1_twin(dev):
     grad = torch.randn((G, p), generator=gen, device=dev).bfloat16()
     wire = (torch.randn((G, p), generator=gen, device=dev) * 0.02).bfloat16()
     mom0 = torch.randn((G, p), generator=gen, device=dev)
-    return k1_against_twin("w_up leaf", theta0, wire, srcs, w, grad, mom0)
+    err = k1_against_twin("w_up leaf", theta0, wire, srcs, w, grad, mom0)
+    del wire
+    k1_one_pass_against_wire("w_up leaf", theta0, grad, mom0, srcs, w)
+    return err
 
 
 def program_stages(trainer, step):
@@ -4420,8 +4457,9 @@ def phase_roofline_step(dev, k1_bound, k3_bound, smi):
     ``lower_step`` builds the same trainer's step on meta.  The card's
     ``dot_flops`` must equal the meta record's, its traffic within 0.1 %
     (any op that differs is named); K1's and K3's billed bytes over the
-    memory rate must give phase 6's bounds; ``argument_bytes`` within 2 MiB
-    of the init's device bytes.  Returns (launches, numbers)."""
+    memory rate must give phase 6's bounds (K1's one-pass bound: the step
+    passes no wire); ``argument_bytes`` within 2 MiB of the init's device
+    bytes.  Returns (launches, numbers)."""
     import numpy as np
     import torch
     from repro_torch.configs.base import InputShape
@@ -6449,6 +6487,7 @@ def main():
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
+    one_pass4 = gossip_program_update.one_pass
     step_ms, losses, norm_hist, snap, peak = [], [], [], None, 0
     for t in range(STEPS):
         if t == STEPS - 1:
@@ -6473,8 +6512,11 @@ def main():
     if counts != {"gossip_program_update": STEPS, "gossip_update": 0,
                   "segment_l2_norms": STEPS, "flash_attention": 0}:
         fail(f"main path launch counts {counts}, expected {STEPS} of K1 and K3")
-    log(f"phase 4: launches {counts}; peak allocated {peak / 2**30:.2f} GiB over "
-        f"{STEPS - 1} steps")
+    one_pass4 = gossip_program_update.one_pass - one_pass4
+    if one_pass4 != STEPS:
+        fail(f"main path: {one_pass4} of its {STEPS} K1 launches took the one-pass route")
+    log(f"phase 4: launches {counts}, K1 by the one-pass route {one_pass4}; peak allocated "
+        f"{peak / 2**30:.2f} GiB over {STEPS - 1} steps")
 
     # what phase 9's ranks must reproduce: the first RANK_STEPS steps
     ref9 = {"losses": np.array(losses[:RANK_STEPS]), "norms": np.stack(norm_hist[:RANK_STEPS]),
@@ -6537,7 +6579,19 @@ def main():
                                          grad, mom))
     deg = srcs.shape[1]
     k1 = dict(lr=LR, beta=0.9, fault=ones, mix_order="post")
+    # the step's one-pass route on copies, the parent's wire + K1 in place
+    # (the state is only timed from here on)
+    got_t, got_m = theta.clone(), mom.clone()
+    gossip_program_update(got_t, None, srcs, w, grad, got_m, **k1)
+    gossip_program_update(theta, wire, srcs, w, grad, mom, **k1)
+    if not (torch.equal(got_t, theta) and torch.equal(got_m, mom)):
+        fail("phase 6: K1's one-pass route on the main-path state is not bit for bit the "
+             "wire + K1")
+    del got_t, got_m
+    log("phase 6: K1 one pass on the main-path state: bit for bit the wire + K1")
     k1_ms = cuda_ms(lambda: gossip_program_update(theta, wire, srcs, w, grad, mom, **k1), 5)
+    k1_one_pass_ms = cuda_ms(
+        lambda: gossip_program_update(theta, None, srcs, w, grad, mom, **k1), 5)
 
     def k1_plain():
         for a in range(0, p_cols, TWIN_CHUNK):
@@ -6549,6 +6603,8 @@ def main():
     eb = theta.element_size()
     k1_bytes, k1_ops = cost.k1_cost(G, p_cols, eb, deg)   # θ g m wire in; θ' m' out
     k1_bound = 1e3 * max(k1_bytes / HBM_BYTES_PER_S, k1_ops / F32_OPS_PER_S)
+    op_bytes, op_ops = cost.k1_one_pass_cost(G, p_cols, eb, deg)   # θ g m in; θ' m' out
+    k1_one_pass_bound = 1e3 * max(op_bytes / HBM_BYTES_PER_S, op_ops / F32_OPS_PER_S)
 
     offs = layout.offsets
     k3_ms = cuda_ms(lambda: segment_l2_norms(theta, offs), 10)
@@ -6559,9 +6615,10 @@ def main():
     ], 3)
     k3_bytes, k3_ops = cost.k3_cost(G, offs, eb)
     k3_bound = 1e3 * max(k3_bytes / HBM_BYTES_PER_S, k3_ops / F32_OPS_PER_S)
-    log(f"phase 6: K1 {k1_ms:.3f} ms (bound {k1_bound:.3f}, plain {k1_plain_ms:.3f}); "
-        f"K3 {k3_ms:.3f} ms (bound {k3_bound:.3f}, plain {k3_plain_ms:.3f}, "
-        f"library {k3_lib_ms:.3f})")
+    log(f"phase 6: K1 {k1_ms:.3f} ms (bound {k1_bound:.3f}, plain {k1_plain_ms:.3f}) after "
+        f"the wire's {wire_ms:.3f}; K1 one pass {k1_one_pass_ms:.3f} ms (bound "
+        f"{k1_one_pass_bound:.3f}); K3 {k3_ms:.3f} ms (bound {k3_bound:.3f}, plain "
+        f"{k3_plain_ms:.3f}, library {k3_lib_ms:.3f})")
     del theta, mom, grad, wire, state, trainer
     torch.cuda.empty_cache()
 
@@ -6762,7 +6819,7 @@ def main():
     log(f"phase 34: {tooling[34]['wall_s']:.1f} s on {smi}")
     log(PREDICT_35)
     t35 = time.perf_counter()
-    launches35, tooling[35] = phase_roofline_step(dev, k1_bound, k3_bound, smi)
+    launches35, tooling[35] = phase_roofline_step(dev, k1_one_pass_bound, k3_bound, smi)
     tooling[35]["wall_s"] = time.perf_counter() - t35
     log(f"phase 35: {tooling[35]['wall_s']:.1f} s on {smi}")
     torch.cuda.empty_cache()
@@ -6920,6 +6977,11 @@ def main():
             "bound_by": "bytes" if k1_bytes / HBM_BYTES_PER_S >= k1_ops / F32_OPS_PER_S
             else "operations",
             "library_ms": None,
+            "one_pass": {"launches": gossip_program_update.one_pass, "phase 4": one_pass4,
+                         "ms": k1_one_pass_ms, "bound_ms": k1_one_pass_bound,
+                         "bound_by": "bytes" if op_bytes / HBM_BYTES_PER_S
+                         >= op_ops / F32_OPS_PER_S else "operations",
+                         "wire_ms": wire_ms},
         },
         {
             "name": "gossip_update", "route": "cuda",

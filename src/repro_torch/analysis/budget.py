@@ -12,7 +12,12 @@ kernels' own launch arithmetic mirrored here:
 
   * K1 (``gossip_program_update``): grid (blocks a row, G): G ≤ 65535,
     blocks a row ``min(⌈⌈P/8⌉/256⌉, 4096)`` (``kMaxBlocksPerRow``;
-    the kernel strides over the rest);
+    the kernel strides over the rest); its one-pass route (no wire) grid
+    (⌈⌈P/8⌉/128⌉,) of 128 threads, each staging 8 columns of all G rows in
+    its slot of shared memory, ``k1_one_pass_smem_bytes`` a block within
+    the 48 KiB a block takes without the opt-in: G ≤ ``k1_one_pass_rows``
+    (8 in bfloat16, 6 in float32; the wrapper takes the two-operand route
+    above that);
   * K2 (``gossip_update``): grid (blocks a row, 1);
   * K3 (``segment_l2_norms``): grids (tiles, R) and (segments, R);
   * K4 (``flash_attention``): the float32 route's grid (⌈Sq/64⌉, H, B) and
@@ -43,6 +48,8 @@ __all__ = [
     "MAX_REGS_PER_THREAD",
     "REGS_PER_BLOCK",
     "K3_TILE",
+    "k1_one_pass_smem_bytes",
+    "k1_one_pass_rows",
     "k4_smem_bytes",
     "check_kernel_budget",
     "verify_program_budget",
@@ -63,6 +70,7 @@ REGS_PER_BLOCK = 65536
 
 # Launch constants of the kernels (src/repro_torch/kernels/csrc)
 K12_THREADS, K12_ELEMS, K12_MAX_BLOCKS_PER_ROW = 256, 8, 4096   # gossip_update.cu
+K1_ONE_PASS_THREADS = 128
 K3_THREADS, K3_TILE = 256, 1 << 15                              # l2_norms.cu
 K4_HEAD_DIMS = (32, 64, 128)                                    # flash_attention.cu
 K4_F32_BQ, K4_F32_BK, K4_F32_THREADS = 64, 64, 256
@@ -79,6 +87,20 @@ def k4_smem_bytes(dtype: str, d: int) -> int:
     if dtype == "float32":
         return 4 * ((K4_F32_BQ + 2 * K4_F32_BK) * (d + 4) + K4_F32_BQ * (K4_F32_BK + 4))
     return (1 + 2 * K4_BF16_STAGES) * K4_BF16_ROWS * d * 2 + 64 + 1024
+
+
+def k1_one_pass_smem_bytes(elem_bytes: int, rows: int) -> int:
+    """Dynamic shared memory a block of K1's one-pass route asks for over
+    ``rows`` rows: a thread's slot of each row holds the sender's 8 elements
+    (16-byte words) and 8 float32 (``one_pass_smem_bytes``)."""
+    words = K12_ELEMS * elem_bytes // 16 + 2
+    return rows * words * K1_ONE_PASS_THREADS * 16
+
+
+def k1_one_pass_rows(elem_bytes: int) -> int:
+    """The most rows K1's one-pass route stages (``one_pass_max_rows``):
+    a block's shared memory without the opt-in over one row's slots."""
+    return SMEM_STATIC_BYTES // k1_one_pass_smem_bytes(elem_bytes, 1)
 
 
 def _blocks_per_row(p: int) -> int:
@@ -106,13 +128,25 @@ def check_kernel_budget(kernel: str, **dims) -> dict:
     the card would refuse, else return its launch (``grid``, ``threads``,
     ``smem_bytes``) and whether it takes the vector path (``aligned``).
 
-    ``dims`` per kernel: K1 ``rows``, ``cols``, ``deg``, ``aligned``; K2
+    ``dims`` per kernel: K1 ``rows``, ``cols``, ``deg``, ``aligned`` and, for
+    its one-pass route, ``one_pass_bytes`` (θ's element bytes); K2
     ``cols``, ``deg``, ``aligned``; K3 ``rows``, ``offsets``, ``aligned``;
     K4 ``dtype`` ("float32" | "bfloat16"), ``b``, ``h``, ``sq``, ``d``."""
     if kernel in ("gossip_program_update", "gossip_update"):
         rows = dims.get("rows", 1)
         if dims["deg"] < 0:
             raise BudgetViolation(f"{kernel}: negative program degree {dims['deg']}")
+        eb = dims.get("one_pass_bytes")
+        if eb is not None:
+            if rows > k1_one_pass_rows(eb):
+                raise BudgetViolation(
+                    f"{kernel}: one pass over {rows} rows > {k1_one_pass_rows(eb)}: the "
+                    f"staging would pass the 48 KiB a block takes without the opt-in")
+            grid = (-(-(-(-dims["cols"] // K12_ELEMS)) // K1_ONE_PASS_THREADS),)
+            smem = k1_one_pass_smem_bytes(eb, rows)
+            _grid(kernel, grid, K1_ONE_PASS_THREADS, smem)
+            return {"grid": grid, "threads": K1_ONE_PASS_THREADS, "smem_bytes": smem,
+                    "aligned": bool(dims["aligned"])}
         grid = (_blocks_per_row(dims["cols"]), rows)   # empty: no launch
         _grid(kernel, grid, K12_THREADS)
         return {"grid": grid, "threads": K12_THREADS, "smem_bytes": 0,
@@ -178,6 +212,8 @@ def kernel_attributes() -> dict:
     out = {}
     for dt, name in ((0, "float32"), (1, "bfloat16")):
         out[f"gossip_program_update {name}"] = read(gu.repro_gossip_update_attributes, 0, dt)
+        out[f"gossip_program_update one-pass {name}"] = read(
+            gu.repro_gossip_update_attributes, 2, dt)
         out[f"gossip_update {name}"] = read(gu.repro_gossip_update_attributes, 1, dt)
         out[f"segment_l2_norms pass 1 {name}"] = read(l2.repro_l2_norms_attributes, 0, dt)
         for d in K4_HEAD_DIMS:
@@ -205,8 +241,10 @@ def verify_kernel_attributes(attrs: dict) -> None:
     """Each built kernel within budget: registers a thread ≤ 255 and a
     block's registers ≤ 65536, static shared memory ≤ 48 KiB, static plus
     dynamic ≤ 227 KiB, its launch's threads ≤ what it can take; K4's dynamic
-    request equal to ``k4_smem_bytes``.  Local (spill) bytes are reported,
-    not held."""
+    request equal to ``k4_smem_bytes``; K1's one-pass route at its most
+    rows asking for ``k1_one_pass_smem_bytes`` and spilling nothing (its G
+    limit assumes the staging is all in shared memory).  Other local
+    (spill) bytes are reported, not held."""
     for name, a in attrs.items():
         if a["regs_per_thread"] > MAX_REGS_PER_THREAD \
                 or a["regs_per_thread"] * a["threads"] > REGS_PER_BLOCK:
@@ -219,6 +257,13 @@ def verify_kernel_attributes(attrs: dict) -> None:
         if a["threads"] > a["max_threads_per_block"]:
             raise BudgetViolation(f"{name}: launches {a['threads']} threads, takes "
                                   f"{a['max_threads_per_block']}")
+        if name.startswith("gossip_program_update one-pass"):
+            eb = 4 if name.endswith("float32") else 2
+            want = k1_one_pass_smem_bytes(eb, k1_one_pass_rows(eb))
+            if a["dynamic_smem_bytes"] != want or a["local_bytes_per_thread"]:
+                raise BudgetViolation(
+                    f"{name}: asks for {a['dynamic_smem_bytes']} B (the budget reckons "
+                    f"{want} B) and spills {a['local_bytes_per_thread']} B a thread")
         if name.startswith("flash_attention"):
             _, dtype, dd = name.split()
             want = k4_smem_bytes(dtype, int(dd[2:]))

@@ -13,6 +13,9 @@ Each formula returns ``(bytes, operations)`` as Python integers:
 
 * K1 ``gossip_program_update`` over (G, P): θ, g, m and the wire read, θ'
   and m' written; 8 + 2·deg float32 operations an element;
+* K1's one-pass route (no wire operand: the kernel computes the senders'
+  rows): θ, g and m read, θ' and m' written, 14 B a bfloat16 element; the
+  sender's row adds 3 operations an element;
 * K2 ``gossip_update`` over (P,): θ, g, m and deg neighbour rows read, θ'
   and m' written; the same operations;
 * K3 ``segment_l2_norms``: the segments' elements read, the (R, n_seg)
@@ -31,7 +34,7 @@ from typing import Optional, Sequence
 
 import numpy as np
 
-__all__ = ["k1_cost", "k2_cost", "k3_cost", "k4_cost", "attention_pairs", "bill",
+__all__ = ["k1_cost", "k1_one_pass_cost", "k2_cost", "k3_cost", "k4_cost", "attention_pairs", "bill",
            "bill_collective"]
 
 # accounting contexts that receive every bill, innermost last
@@ -56,6 +59,13 @@ def k1_cost(rows: int, cols: int, elem_bytes: int, deg: int) -> tuple[int, int]:
     n = rows * cols
     eb = elem_bytes
     return n * (eb + eb + 4 + eb) + n * (eb + 4), n * (8 + 2 * deg)
+
+
+def k1_one_pass_cost(rows: int, cols: int, elem_bytes: int, deg: int) -> tuple[int, int]:
+    """K1's one-pass route over (rows, cols) columns of θ of ``elem_bytes`` each."""
+    n = rows * cols
+    eb = elem_bytes
+    return n * (eb + eb + 4) + n * (eb + 4), n * (11 + 2 * deg)
 
 
 def k2_cost(cols: int, elem_bytes: int, deg: int) -> tuple[int, int]:

@@ -32,6 +32,18 @@
 // row strides, so the bucketed step launches it in place on a bucket, a
 // column slice of the flat (G, P) state, with no copy either.  The weight, fault and srcs rows, lr and beta are
 // runtime operands, so a new schedule or fault never rebuilds anything.
+//
+// K1 has a second, one-pass route (repro_gossip_program_update with a null
+// wire) for the stacked step, where the wire is every sender's own row:
+// mixing is column-wise, so one thread that owns 8 columns of all G rows
+// computes each sender's row (theta* = theta - lr u (beta m + g) in the
+// plain wire's float32 operations and order, rounded to theta's dtype; or
+// theta itself for pre) into its own slot of shared memory, then mixes the
+// rows from there.  No (G, P) wire is written or read back: the round moves
+// theta, g, m in and theta', m' out, (14 B a bfloat16 element), and its
+// theta' and m' are those of the wire plus the two-operand route, bit for
+// bit.  The slots take G (16 + 32) B a thread in bfloat16, G (32 + 32) in
+// float32, so G is bounded by a block's 48 KiB (one_pass_max_rows).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -43,6 +55,7 @@ namespace {
 constexpr int kElems = 8;      // elements per thread
 constexpr int kThreads = 256;  // threads per block
 constexpr long long kMaxBlocksPerRow = 4096;
+constexpr long long kMaxOnePassBlocks = 2147483647;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -198,6 +211,127 @@ program_update_kernel(T* __restrict__ theta, const T* __restrict__ wire,
   }
 }
 
+// The one-pass route's staging: a thread's slot of row j holds the sender's
+// row in T (kStageWords<T> 16-byte words) and 8 float32 (2 words: the post
+// self term, or m' for pre).  Word w of row j of thread t sits at
+// ((j * kSlotWords<T> + w) * blockDim.x + t), so a warp's 16-byte accesses to
+// one word are contiguous (no bank conflicts); each thread touches only its
+// own slot, so no __syncthreads is needed.
+template <typename T>
+constexpr int kStageWords = (int)sizeof(T) * kElems / 16;
+template <typename T>
+constexpr int kSlotWords = kStageWords<T> + 2;
+constexpr int kOnePassThreads = 128;
+constexpr int kOnePassSmemBytes = 48 * 1024;   // a block's shared memory without the opt-in
+
+template <typename T>
+__device__ __forceinline__ void put_row(uint4* s, int ld, const float (&v)[kElems]) {
+  if constexpr (std::is_same<T, float>::value) {
+    reinterpret_cast<float4*>(s)[0] = make_float4(v[0], v[1], v[2], v[3]);
+    reinterpret_cast<float4*>(s + ld)[0] = make_float4(v[4], v[5], v[6], v[7]);
+  } else {
+    uint4 raw;
+    __nv_bfloat16* h = reinterpret_cast<__nv_bfloat16*>(&raw);
+#pragma unroll
+    for (int j = 0; j < kElems; ++j) h[j] = __float2bfloat16_rn(v[j]);
+    s[0] = raw;
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void get_row(const uint4* s, int ld, float (&v)[kElems]) {
+  if constexpr (std::is_same<T, float>::value) {
+    const float4 a = reinterpret_cast<const float4*>(s)[0];
+    const float4 b = reinterpret_cast<const float4*>(s + ld)[0];
+    v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+    v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+  } else {
+    load8(reinterpret_cast<const __nv_bfloat16*>(s), v);
+  }
+}
+
+// K1, one pass — grid (blocks, 1); each thread walks chunks of 8 columns of
+// all G rows.  Pass 1, row by row: load theta, g, m; m' (written at once);
+// the sender's row (rounded to T) and the post self term w0' (theta - lr u
+// m') or, for pre, m' into the slot.  Pass 2, row by row: update_chunk's
+// sums from the slots, neighbour k being the slot of row srcs[i, k]; theta'
+// written.  VEC as for the two-operand route, without a wire.
+template <typename T, bool PRE, bool VEC>
+__global__ void __launch_bounds__(kOnePassThreads)
+program_update_kernel_one_pass(T* __restrict__ theta, const T* __restrict__ grad,
+                               float* __restrict__ mom, const float* __restrict__ weights,
+                               const float* __restrict__ fault, const int* __restrict__ srcs,
+                               int G, long long P, long long ld_state, int deg, float lr,
+                               float beta) {
+  extern __shared__ uint4 stage[];
+  const int ld = blockDim.x;
+  uint4* mine = stage + threadIdx.x;
+  const long long nchunks = (P + kElems - 1) / kElems;
+  for (long long ch = (long long)blockIdx.x * blockDim.x + threadIdx.x; ch < nchunks;
+       ch += (long long)gridDim.x * blockDim.x) {
+    const size_t p0 = (size_t)ch * kElems;
+    const int n = VEC ? kElems : (int)min((long long)kElems, P - (long long)p0);
+    for (int j = 0; j < G; ++j) {
+      const float* wrow = weights + (size_t)j * (deg + 1);
+      const float* frow = fault + (size_t)j * (deg + 1);
+      const RowCoeffs c = row_coeffs(wrow, frow, deg, lr);
+      const size_t at = (size_t)j * (size_t)ld_state + p0;
+      float th[kElems], g[kElems], m[kElems], send[kElems], keep[kElems];
+      if (VEC) {
+        load8(theta + at, th);
+        load8(grad + at, g);
+        load8(mom + at, m);
+      } else {
+        load_n(theta + at, n, th);
+        load_n(grad + at, n, g);
+        load_n(mom + at, n, m);
+      }
+#pragma unroll
+      for (int e = 0; e < kElems; ++e) {
+        const float s = beta * m[e] + g[e];
+        // the plain wire's order: ((beta m + g) u) (-lr) + theta
+        send[e] = PRE ? th[e] : s * c.u * -lr + th[e];
+        m[e] = c.u * s + (1.0f - c.u) * m[e];
+        keep[e] = PRE ? m[e] : c.self_w * (th[e] - c.lru * m[e]);
+      }
+      if (VEC) store8(mom + at, m); else store_n(mom + at, n, m);
+      uint4* slot = mine + (size_t)j * kSlotWords<T> * ld;
+      put_row<T>(slot, ld, send);
+      put_row<float>(slot + kStageWords<T> * ld, ld, keep);
+    }
+    for (int i = 0; i < G; ++i) {
+      const float* wrow = weights + (size_t)i * (deg + 1);
+      const float* frow = fault + (size_t)i * (deg + 1);
+      const int* srow = srcs + (size_t)i * deg;
+      const RowCoeffs c = row_coeffs(wrow, frow, deg, lr);
+      const uint4* slot = mine + (size_t)i * kSlotWords<T> * ld;
+      float acc[kElems], keep[kElems];
+      get_row<float>(slot + kStageWords<T> * ld, ld, keep);
+      if (PRE) {
+        get_row<T>(slot, ld, acc);
+#pragma unroll
+        for (int e = 0; e < kElems; ++e) acc[e] = c.self_w * acc[e];
+      } else {
+#pragma unroll
+        for (int e = 0; e < kElems; ++e) acc[e] = keep[e];
+      }
+      for (int k = 0; k < deg; ++k) {
+        const float fw = frow[k + 1] * wrow[k + 1];
+        float nv[kElems];
+        get_row<T>(mine + (size_t)srow[k] * kSlotWords<T> * ld, ld, nv);
+#pragma unroll
+        for (int e = 0; e < kElems; ++e) acc[e] = acc[e] + fw * nv[e];
+      }
+      if (PRE) {
+#pragma unroll
+        for (int e = 0; e < kElems; ++e) acc[e] = acc[e] - c.lru * keep[e];
+      }
+      const size_t at = (size_t)i * (size_t)ld_state + p0;
+      if (VEC) store8(theta + at, acc); else store_n(theta + at, n, acc);
+    }
+  }
+}
+
 // K2 — one node: grid (blocks, 1); neighbour k is row k of the (deg, P)
 // landing buffer the collective-permutes filled.
 template <typename T, bool PRE, bool VEC>
@@ -249,11 +383,31 @@ unsigned blocks_per_row(long long P) {
 
 inline bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
 
+// The one-pass route's dynamic shared memory for G rows, and the most rows
+// that fit a block's 48 KiB (8 in bfloat16, 6 in float32).
+size_t one_pass_smem_bytes(int dtype, int G) {
+  const int words = dtype == 0 ? kSlotWords<float> : kSlotWords<__nv_bfloat16>;
+  return (size_t)G * words * kOnePassThreads * 16;
+}
+
+long long one_pass_max_rows(int dtype) {
+  return kOnePassSmemBytes / (long long)one_pass_smem_bytes(dtype, 1);
+}
+
+// One chunk of 8 columns a thread: ceil(ceil(P/8) / 128) blocks, within the grid's x.
+unsigned one_pass_blocks(long long P) {
+  const long long nchunks = (P + kElems - 1) / kElems;
+  const long long bx = (nchunks + kOnePassThreads - 1) / kOnePassThreads;
+  return (unsigned)(bx > kMaxOnePassBlocks ? kMaxOnePassBlocks : bx);
+}
+
 }  // namespace
 
 // K1.  dtype: 0 = float32, 1 = bfloat16 (theta, wire and grad share it).
 // theta, grad and mom are G rows of P elements with row stride ld_state,
-// the wire G rows with row stride ld_wire (both >= P).
+// the wire G rows with row stride ld_wire (both >= P).  A null wire takes
+// the one-pass route: the senders' rows are computed in the kernel (ld_wire
+// is not read), for G up to one_pass_max_rows(dtype).
 // Returns cudaGetLastError() after the launch (0 = launched).
 extern "C" int repro_gossip_program_update(int dtype, int pre, void* theta,
                                            const void* wire, const void* grad, void* mom,
@@ -263,12 +417,27 @@ extern "C" int repro_gossip_program_update(int dtype, int pre, void* theta,
                                            float lr, float beta, void* stream) {
   if (G <= 0 || P <= 0) return 0;
   if (G > 65535) return (int)cudaErrorInvalidConfiguration;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (wire == nullptr) {
+    if (ld_state < P || G > one_pass_max_rows(dtype)) return (int)cudaErrorInvalidValue;
+    const bool vec = (P % kElems == 0) && (ld_state % kElems == 0) && aligned16(theta) &&
+                     aligned16(grad) && aligned16(mom);
+    const size_t smem = one_pass_smem_bytes(dtype, (int)G);
+    const unsigned blocks = one_pass_blocks(P);
+    return dispatch(dtype, pre != 0, vec, [&](auto t, auto pre_c, auto vec_c) {
+      using T = decltype(t);
+      program_update_kernel_one_pass<T, decltype(pre_c)::value, decltype(vec_c)::value>
+          <<<blocks, kOnePassThreads, smem, s>>>(
+              static_cast<T*>(theta), static_cast<const T*>(grad), static_cast<float*>(mom),
+              static_cast<const float*>(weights), static_cast<const float*>(fault),
+              static_cast<const int*>(srcs), (int)G, P, ld_state, deg, lr, beta);
+    });
+  }
   if (ld_state < P || ld_wire < P) return (int)cudaErrorInvalidValue;
   const bool vec = (P % kElems == 0) && (ld_state % kElems == 0) &&
                    (ld_wire % kElems == 0) && aligned16(theta) && aligned16(wire) &&
                    aligned16(grad) && aligned16(mom);
   const dim3 grid(blocks_per_row(P), (unsigned)G);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   return dispatch(dtype, pre != 0, vec, [&](auto t, auto pre_c, auto vec_c) {
     using T = decltype(t);
     program_update_kernel<T, decltype(pre_c)::value, decltype(vec_c)::value>
@@ -324,13 +493,22 @@ int attributes_of(K kern, int threads, int dynamic_smem, int* out) {
 
 }  // namespace
 
-// The built K1 (which 0) or K2 (which 1), post order on the vector path,
-// dtype 0 = float32, 1 = bfloat16: attributes_of's six numbers.  Returns a
-// CUDA error code (0 = read).
+// The built K1 (which 0), K2 (which 1) or K1's one-pass route at its most
+// rows (which 2), post order on the vector path, dtype 0 = float32,
+// 1 = bfloat16: attributes_of's six numbers.  Returns a CUDA error code
+// (0 = read).
 extern "C" int repro_gossip_update_attributes(int which, int dtype, int* out) {
   if (which == 0) {
     if (dtype == 0) return attributes_of(program_update_kernel<float, false, true>, kThreads, 0, out);
     return attributes_of(program_update_kernel<__nv_bfloat16, false, true>, kThreads, 0, out);
+  }
+  if (which == 2) {
+    const int smem = (int)one_pass_smem_bytes(dtype, (int)one_pass_max_rows(dtype));
+    if (dtype == 0)
+      return attributes_of(program_update_kernel_one_pass<float, false, true>, kOnePassThreads,
+                           smem, out);
+    return attributes_of(program_update_kernel_one_pass<__nv_bfloat16, false, true>,
+                         kOnePassThreads, smem, out);
   }
   if (dtype == 0) return attributes_of(node_update_kernel<float, false, true>, kThreads, 0, out);
   return attributes_of(node_update_kernel<__nv_bfloat16, false, true>, kThreads, 0, out);

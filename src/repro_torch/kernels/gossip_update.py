@@ -23,10 +23,13 @@ State layout: the port holds the stacked state as flat (G, P) buffers
 neighbor copy; at granite-8b width that glue alone would not fit beside
 the state on one card.  Here K1 reads neighbor rows straight from the
 (G, P) wire through ``srcs``, masks the ragged tail itself, and writes
-θ' and m' IN PLACE into the state buffers.  The only transient is the
-wire: the senders' post-update θ* for ``mix_order="post"``, a copy of θ
-for ``"pre"`` (the in-place update must not overwrite rows that other
-nodes still read).  A rank sends its own θ* (or, for ``"pre"``, θ itself:
+θ' and m' IN PLACE into the state buffers.  The stacked step passes no
+wire: K1's one-pass route computes every sender's row (θ* for
+``mix_order="post"``, θ for ``"pre"``) itself, in its own slot of shared
+memory, for G up to ``k1_one_pass_rows`` (8 in bfloat16, 6 in float32);
+above that, and in a bucket, the wire is a transient (G, P) buffer (the
+in-place update must not overwrite rows that other nodes still read).
+A rank sends its own θ* (or, for ``"pre"``, θ itself:
 the landing buffer is filled before K2 writes θ) and K2 updates its (P,)
 row in place.
 
@@ -53,7 +56,7 @@ from functools import lru_cache
 import torch
 
 from repro_torch.analysis import recompile
-from repro_torch.analysis.budget import check_kernel_budget
+from repro_torch.analysis.budget import check_kernel_budget, k1_one_pass_rows
 from repro_torch.kernels import _build, cost
 
 __all__ = [
@@ -81,8 +84,13 @@ def gossip_program_update_plain(theta, wire, srcs, weights, grad, mom, *,
 
     theta/wire/grad (G, P); mom (G, P) float32; srcs (G, deg) int;
     weights/fault (G, deg+1) float32.  θ, g, m and the wire may be column
-    slices of wider buffers, as K1's operands may.
+    slices of wider buffers, as K1's operands may.  ``wire`` None: the
+    senders' rows are these rows' own, ``gossip_wire`` under the fault
+    rows' update column (the one-pass route).
     """
+    if wire is None:
+        wire = gossip_wire(theta, grad, mom, lr=lr, beta=beta, mix_order=mix_order,
+                           update=fault[:, :1])
     deg = srcs.shape[1]
     g = grad.float()
     m = mom.float()
@@ -152,10 +160,10 @@ def _aligned(n: int, *tensors) -> bool:
 
 
 def _check(theta, wire, srcs, weights, grad, mom, fault):
-    """K1's operands; returns the row strides (ld_state, ld_wire).  θ, g
-    and m may be column slices of wider buffers (a bucket of the flat
-    state) but share one row stride; the wire its own; each row's
-    elements are contiguous."""
+    """K1's operands; returns the row strides (ld_state, ld_wire; the
+    latter None without a wire).  θ, g and m may be column slices of wider
+    buffers (a bucket of the flat state) but share one row stride; the wire
+    its own; each row's elements are contiguous."""
     if theta.dim() != 2:
         raise ValueError(f"theta must be (G, P), got shape {tuple(theta.shape)}")
     g, p = theta.shape
@@ -168,10 +176,11 @@ def _check(theta, wire, srcs, weights, grad, mom, fault):
         "fault": (fault, (g, deg + 1), torch.float32),
     })
     rows = {"theta": theta, "wire": wire, "grad": grad, "mom": mom}
+    if wire is None:
+        del rows["wire"]
     _check_operands(theta, {
-        "wire": (wire, (g, p), theta.dtype),
-        "grad": (grad, (g, p), theta.dtype),
-        "mom": (mom, (g, p), torch.float32),
+        name: (t, (g, p), torch.float32 if name == "mom" else theta.dtype)
+        for name, t in rows.items() if name != "theta"
     }, contiguous=False)
     for name, t in rows.items():
         if p > 1 and t.stride(1) != 1:
@@ -182,6 +191,8 @@ def _check(theta, wire, srcs, weights, grad, mom, fault):
             "theta, grad and mom must share one row stride; got "
             f"{theta.stride()}, {grad.stride()}, {mom.stride()}"
         )
+    if wire is None:
+        return ld_state, None
     if theta.device.type != "meta":   # meta tensors have no addresses
         _check_disjoint("wire", wire, theta, mom)
     return ld_state, _row_stride(wire)
@@ -195,6 +206,11 @@ def gossip_program_update(theta, wire, srcs, weights, grad, mom, *,
     bucket of the flat state), the wire has its own row stride; every row
     is contiguous.
 
+    ``wire`` None: the senders' rows are these rows' own θ* (post) or θ
+    (pre).  For G ≤ ``k1_one_pass_rows`` K1 computes them itself (the
+    one-pass route, counted in ``one_pass`` too); above it the wrapper
+    builds them with ``gossip_wire`` and takes the two-operand route.
+
     The launch is asynchronous on the current stream; a caller may drop its
     operands right after (the wire, say), because the caching allocator
     hands their memory only to work queued later on the same stream."""
@@ -202,9 +218,16 @@ def gossip_program_update(theta, wire, srcs, weights, grad, mom, *,
         raise ValueError(f"mix_order must be 'post'|'pre', got {mix_order!r}")
     ld_state, ld_wire = _check(theta, wire, srcs, weights, grad, mom, fault)
     g, p = theta.shape
+    eb = theta.element_size()
+    one_pass = wire is None and g <= k1_one_pass_rows(eb)
     check_kernel_budget("gossip_program_update", rows=g, cols=p, deg=srcs.shape[1],
-                        aligned=_aligned(math.gcd(p, ld_state, ld_wire), theta, wire, grad,
-                                         mom))
+                        aligned=_aligned(math.gcd(p, ld_state, ld_wire or p), theta, grad,
+                                         mom, *(() if wire is None else (wire,))),
+                        **({"one_pass_bytes": eb} if one_pass else {}))
+    if wire is None and not one_pass:
+        wire = gossip_wire(theta, grad, mom, lr=lr, beta=beta, mix_order=mix_order,
+                           update=fault[:, :1])
+        ld_wire = p
     if theta.device.type == "cpu":
         new_t, new_m = gossip_program_update_plain(
             theta, wire, srcs, weights, grad, mom,
@@ -213,7 +236,7 @@ def gossip_program_update(theta, wire, srcs, weights, grad, mom, *,
         theta.copy_(new_t)
         mom.copy_(new_m)
         return theta, mom
-    billed = cost.k1_cost(g, p, theta.element_size(), srcs.shape[1])
+    billed = (cost.k1_one_pass_cost if one_pass else cost.k1_cost)(g, p, eb, srcs.shape[1])
     if theta.device.type == "meta":
         cost.bill("gossip_program_update", *billed)
         return theta, mom
@@ -224,18 +247,23 @@ def gossip_program_update(theta, wire, srcs, weights, grad, mom, *,
         stream = torch.cuda.current_stream(theta.device).cuda_stream
         err = fn(
             _DTYPES[theta.dtype], int(mix_order == "pre"), theta.data_ptr(),
-            wire.data_ptr(), grad.data_ptr(), mom.data_ptr(), weights.data_ptr(),
-            fault.data_ptr(), srcs.data_ptr(), g, p, ld_state, ld_wire, srcs.shape[1],
+            None if one_pass else wire.data_ptr(), grad.data_ptr(), mom.data_ptr(),
+            weights.data_ptr(), fault.data_ptr(), srcs.data_ptr(), g, p, ld_state,
+            ld_wire or 0, srcs.shape[1],
             ctypes.c_float(float(lr)), ctypes.c_float(float(beta)), stream,
         )
     if err != 0:
         raise RuntimeError(f"gossip_program_update kernel launch failed: CUDA error {err}")
     gossip_program_update.launches += 1
+    gossip_program_update.one_pass += one_pass
     cost.bill("gossip_program_update", *billed)
     return theta, mom
 
 
 gossip_program_update.launches = 0
+# CUDA launches that computed the senders' rows in the kernel (kept out of
+# ``ops.launch_counts``, whose dictionaries the chip checks compare whole)
+gossip_program_update.one_pass = 0
 
 
 def gossip_update_plain(theta, nbrs, weights, grad, mom, *, lr, beta, fault,
@@ -389,25 +417,25 @@ def fused_apply_stacked(program, theta, grad, mom, *, lr, beta, fault=None,
     ``theta`` and ``mom`` are updated IN PLACE and returned.  ``fault``
     carries runtime masks (``{"update", "alive", "link"}``): straggling or
     dead nodes skip the update and send their un-updated rows, dropped
-    edges renormalize onto self inside the kernel.  ``span(name)`` marks
-    the ``wire`` and ``update_mix`` (K1) layers (the recorder's
-    ``MetricsRecorder.span``; a no-op by default).  Raises ``ValueError``
-    for programs with non-permute ops.
+    edges renormalize onto self inside the kernel.  K1 gets no wire: it
+    computes the senders' rows itself (``gossip_program_update``), so no
+    (G, P) buffer is allocated where G fits its one-pass route.
+    ``span(name)`` marks the ``wire`` layer (the senders' row preparation:
+    the fault rows, or nothing) and the ``update_mix`` layer (K1) (the
+    recorder's ``MetricsRecorder.span``; a no-op by default).  Raises
+    ``ValueError`` for programs with non-permute ops.
     """
     srcs_t, weights_t, ones_t, _ = _device_tables(program, theta.device)
     n, p = theta.shape
     had_m = mom is not None
     if not had_m:
         mom = torch.zeros((n, p), dtype=torch.float32, device=theta.device)
-    rows = ones_t if fault is None else fault_rows(program, fault, theta.device)
-    lr, beta = float(lr), float(beta)
     with span("wire"):
-        wire = gossip_wire(theta, grad, mom, lr=lr, beta=beta, mix_order=mix_order,
-                           update=None if fault is None else rows[:, :1])
+        rows = ones_t if fault is None else fault_rows(program, fault, theta.device)
     with span("update_mix"):
         gossip_program_update(
-            theta, wire, srcs_t, weights_t, grad, mom,
-            lr=lr, beta=beta, fault=rows, mix_order=mix_order,
+            theta, None, srcs_t, weights_t, grad, mom,
+            lr=float(lr), beta=float(beta), fault=rows, mix_order=mix_order,
         )
     return theta, (mom if had_m else None)
 

@@ -1,7 +1,9 @@
 """chip_smoke.py's checks run on the CPU at the reduced granite-8b size in
 bfloat16: the comparison of the fused and the interpreted training step
 (phase 5; phase 14 with multi-round programs) passes the true steps and
-fails a step that mixes wrongly; the simulator equals the trainer (phase
+fails a step that mixes wrongly; K1's one-pass route against the wire and
+the two-operand route (phases 2 and 6) passes and fails a one-pass route
+that mixes the wrong senders' rows; the simulator equals the trainer (phase
 13); the paper's configurations run through the simulator (phase 15,
 shortened); the bucketed trainer equals the monolithic one and K1 with a
 wrong row stride fails (phase 16); the folded probe holds and a bucket
@@ -77,6 +79,32 @@ def test_phase5_passes_the_true_step_and_fails_a_wrong_mix(setup, mutant, monkey
         monkeypatch.setattr(gu, "gossip_program_update", mutant(gu.gossip_program_update))
         with pytest.raises(SystemExit):
             chip_smoke.phase_fused_vs_interpreter(fused, plain, state.clone(), batch)
+
+
+def _one_pass_rolled(orig):
+    """K1 whose one-pass route mixes the wrong senders' rows; its
+    two-operand route is left as it is."""
+    def run(theta, wire, srcs, *args, **kw):
+        if wire is None:
+            srcs = torch.roll(srcs, 1, 0).contiguous()
+        return orig(theta, wire, srcs, *args, **kw)
+    return run
+
+
+@pytest.mark.parametrize("mutant", [None, _one_pass_rolled])
+def test_k1_one_pass_check_passes_and_fails_a_wrong_one_pass(mutant, monkeypatch):
+    gen = torch.Generator().manual_seed(0)
+    theta = (torch.randn((chip_smoke.G, 1003), generator=gen) * 0.02).bfloat16()
+    grad = torch.randn((chip_smoke.G, 1003), generator=gen).bfloat16()
+    mom = torch.randn((chip_smoke.G, 1003), generator=gen)
+    srcs, w = chip_smoke.ring_tables("cpu")
+    args = ("cpu", theta, grad, mom, srcs, w)
+    if mutant is None:
+        chip_smoke.k1_one_pass_against_wire(*args)
+        return
+    monkeypatch.setattr(gu, "gossip_program_update", mutant(gu.gossip_program_update))
+    with pytest.raises(SystemExit):
+        chip_smoke.k1_one_pass_against_wire(*args)
 
 
 @pytest.mark.parametrize("sq,sk,causal,window", [

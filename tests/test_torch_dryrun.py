@@ -167,7 +167,9 @@ def test_lower_step_bills_the_fused_kernels(engine, kernel, fault):
     assert ops.launch_counts() == before     # meta stands in for launches
     k = rec["hlo"]["kernels"]
     p, rows = trainer.layout.size, trainer.rows
-    want = (cost.k1_cost(rows, p, 4, 2) if engine == "stacked" else cost.k2_cost(p, 4, 2))
+    # the stacked step's K1 computes the senders' rows itself: its one-pass bytes
+    want = (cost.k1_one_pass_cost(rows, p, 4, 2) if engine == "stacked"
+            else cost.k2_cost(p, 4, 2))
     assert (k[kernel]["launches"], k[kernel]["bytes"], k[kernel]["ops"]) == (1, *want)
     assert k["segment_l2_norms"]["bytes"] == cost.k3_cost(rows, trainer.layout.offsets, 4)[0]
     if engine == "ranks":

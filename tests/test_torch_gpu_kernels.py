@@ -181,6 +181,78 @@ def test_kernels_on_boost_and_ghost_rows_equal_twin_bit_for_bit(cuda, dtype, mix
             assert torch.equal(got_t, theta[i]) and torch.equal(got_m, mom[i])
 
 
+# (width of the state, columns [lo, hi) run): a granite-8b w_up row, a
+# ragged misaligned slice (the scalar path), an aligned slice with the
+# state's row stride (the vector path)
+@pytest.mark.parametrize("width,lo,hi", [(4096 * 14336, 0, 4096 * 14336), (1040, 13, 1016),
+                                         (4104, 8, 4104)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mix_order", ["post", "pre"])
+@pytest.mark.parametrize("faulty", [False, True])
+def test_one_pass_equals_wire_then_k1_bit_for_bit(cuda, width, lo, hi, dtype, mix_order,
+                                                  faulty):
+    """K1's one-pass route (no wire: the kernel computes the senders' rows)
+    against the plain wire followed by the two-operand K1, bit for bit, on
+    Star(6) with a drain boost, a ghost and a straggler; ``one_pass``
+    counts the launch."""
+    from repro_torch.kernels.gossip_update import fault_rows, gossip_wire
+
+    program = compile_graph(graphs.Star(6))
+    srcs_np, w_np = program.permute_tables()
+    n, deg = srcs_np.shape
+    masks = {"alive": torch.tensor(_ALIVE, device=cuda),
+             "update": torch.tensor(_UPDATE, device=cuda), "link": None}
+    rows = fault_rows(program, masks, cuda) if faulty else torch.ones(n, deg + 1, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(hi)
+    theta = (torch.randn((n, width), generator=gen, device=cuda) * 0.02).to(dtype)
+    grad = torch.randn((n, width), generator=gen, device=cuda).to(dtype)
+    mom = torch.randn((n, width), generator=gen, device=cuda)
+    srcs = torch.as_tensor(srcs_np, device=cuda)
+    w = torch.as_tensor(w_np, device=cuda)
+    kw = dict(lr=0.05, beta=0.9, fault=rows, mix_order=mix_order)
+    sl = (slice(None), slice(lo, hi))
+    wire = gossip_wire(theta[sl], grad[sl], mom[sl], lr=0.05, beta=0.9, mix_order=mix_order,
+                       update=rows[:, :1] if faulty else None)
+    want_t, want_m = theta.clone(), mom.clone()
+    gossip_program_update(want_t[sl], wire, srcs, w, grad[sl], want_m[sl], **kw)
+    del wire
+    before = (gossip_program_update.launches, gossip_program_update.one_pass)
+    got_t, got_m = theta.clone(), mom.clone()
+    gossip_program_update(got_t[sl], None, srcs, w, grad[sl], got_m[sl], **kw)
+    torch.cuda.synchronize()
+    assert (gossip_program_update.launches, gossip_program_update.one_pass) == (
+        before[0] + 1, before[1] + 1)
+    assert torch.equal(got_t, want_t) and torch.equal(got_m, want_m)
+    assert not torch.equal(got_t[sl], theta[sl])   # the round moved θ
+
+
+def test_no_wire_above_the_one_pass_rows_takes_the_two_operand_route(cuda):
+    """G = 9 bf16 rows, one more than the one-pass route stages: the wrapper
+    builds the wire itself, bit for bit the explicit wire + K1, and
+    ``one_pass`` does not count the launch."""
+    from repro_torch.analysis.budget import k1_one_pass_rows
+    from repro_torch.kernels.gossip_update import gossip_wire
+
+    g = k1_one_pass_rows(2) + 1
+    srcs_np, w_np = compile_graph(graphs.Ring(g)).permute_tables()
+    gen = torch.Generator(device=cuda).manual_seed(g)
+    theta = (torch.randn((g, 4099), generator=gen, device=cuda) * 0.02).bfloat16()
+    grad = torch.randn((g, 4099), generator=gen, device=cuda).bfloat16()
+    mom = torch.randn((g, 4099), generator=gen, device=cuda)
+    srcs, w = torch.as_tensor(srcs_np, device=cuda), torch.as_tensor(w_np, device=cuda)
+    kw = dict(lr=0.05, beta=0.9, fault=torch.ones_like(w))
+    want_t, want_m = theta.clone(), mom.clone()
+    gossip_program_update(want_t, gossip_wire(theta, grad, mom, lr=0.05, beta=0.9), srcs, w,
+                          grad, want_m, **kw)
+    before = (gossip_program_update.launches, gossip_program_update.one_pass)
+    got_t, got_m = theta.clone(), mom.clone()
+    gossip_program_update(got_t, None, srcs, w, grad, got_m, **kw)
+    torch.cuda.synchronize()
+    assert (gossip_program_update.launches, gossip_program_update.one_pass) == (
+        before[0] + 1, before[1])
+    assert torch.equal(got_t, want_t) and torch.equal(got_m, want_m)
+
+
 def test_fused_bucket_update_under_faults_equals_monolithic(cuda):
     """K1 per bucket on the step's fault rows (built once) == the monolithic
     fused apply under the same masks, bit for bit."""
