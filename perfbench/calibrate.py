@@ -39,11 +39,10 @@ def calibrate(workload: str, seeds, controls: int, device="cuda", root: Path = R
     cfg = manifest.config(man, wl["config"], root)
     traffic = manifest.traffic(wl["traffic"], root)
     device = torch.device(device)
-    dtype = reference.DTYPES[cfg["dtype"]]
     nodes, lr, beta = cfg["nodes"], cfg["optimizer"]["lr"], cfg["optimizer"]["momentum"]
     if device.type == "cuda":
         program.build_kernels()
-    sizes = reference.leaf_sizes(cfg)
+    sizes = reference.leaf_sizes(cfg, root)
     rows = []
 
     def free():
@@ -53,8 +52,8 @@ def calibrate(workload: str, seeds, controls: int, device="cuda", root: Path = R
 
     for i, seed in enumerate(seeds):
         t = time.perf_counter()
-        weights = reference.draw_weights(cfg, seed, device, dtype)
-        trainer, state = program.build(cfg, traffic, weights, device)
+        weights = reference.draw_weights(cfg, seed, device, root=root)
+        trainer, state = program.build(cfg, traffic, weights, device, root)
         del weights
         pool = generator.make_pool(traffic, vocab=cfg["vocab"], nodes=nodes, seed=seed,
                                    device=device)
@@ -62,8 +61,8 @@ def calibrate(workload: str, seeds, controls: int, device="cuda", root: Path = R
         batches = pool[:check.CHECKED_STEPS]
         del trainer, state, pool
         free()
-        weights = reference.draw_weights(cfg, seed, device, dtype)
-        kw = dict(nodes=nodes, lr=lr, beta=beta, topology=traffic["topology"])
+        weights = reference.draw_weights(cfg, seed, device, root=root)
+        kw = dict(nodes=nodes, lr=lr, beta=beta, topology=traffic["topology"], root=root)
         ref = reference.run_reference(cfg, weights, batches, **kw)
         free()
         raw = lambda r: {k: np.asarray(v).tolist() for k, v in r.items()}

@@ -17,7 +17,8 @@ steps each started on an idle device (the host's time inside
 ``train_step``), and steps under the profiler (``trace.py``).
 
 After the window: the peak memory is read, the program's state freed, and
-the plain reference (``reference.py``) runs the checked steps from the
+the plain reference (``reference.py`` over the model module the
+configuration names, ``reference.model``) runs the checked steps from the
 same weights and batches; ``check.py`` compares the two sides.
 """
 from __future__ import annotations
@@ -172,8 +173,8 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *,
     if device.type == "cuda":
         program.build_kernels()
     t = lap("kernels_s", t)
-    weights = reference.draw_weights(cfg, seed, device, reference.DTYPES[cfg["dtype"]])
-    trainer, state = program.build(cfg, traffic, weights, device)
+    weights = reference.draw_weights(cfg, seed, device, root=root)
+    trainer, state = program.build(cfg, traffic, weights, device, root)
     del weights
     if fault is not None:
         trainer = fault(trainer)
@@ -218,21 +219,24 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *,
     if device.type == "cuda":
         torch.cuda.empty_cache()
     t = time.perf_counter()
-    weights = reference.draw_weights(cfg, seed, device, reference.DTYPES[cfg["dtype"]])
+    weights = reference.draw_weights(cfg, seed, device, root=root)
     ref = reference.run_reference(cfg, weights, batches, nodes=nodes, lr=lr,
                                   beta=cfg["optimizer"]["momentum"],
-                                  topology=traffic["topology"])
+                                  topology=traffic["topology"], root=root)
     del weights
-    numbers = check.gaps(prog, ref, reference.leaf_sizes(cfg))
+    sizes = reference.leaf_sizes(cfg, root)
+    numbers = check.gaps(prog, ref, sizes)
     ok, table = check.judge(numbers, limits)
     log(f"reference {time.perf_counter() - t:.3f} s; not compared: "
         + (", ".join(f"{k} {v!r}" for k, v in numbers.items() if k not in limits) or "none"))
 
     ctx = {"cfg": cfg, "traffic": traffic, "nodes": nodes, "setup_s": setup_s,
            "peak_bytes": peak, "window": window, "trace": traced,
-           "params": sum(reference.leaf_sizes(cfg)),
-           "n_leaves": len(reference.leaf_table(cfg)),
-           "elem_bytes": reference.DTYPES[cfg["dtype"]].itemsize,
+           "params": sum(sizes), "n_leaves": len(sizes),
+           "param_bytes": reference.param_bytes(cfg, root),
+           "model_flops_per_step": reference.model(cfg, root).model_flops_per_step(
+               cfg, nodes=nodes, per_node_batch=traffic["per_node_batch"],
+               seq=traffic["seq_len"]),
            "tokens_per_step": generator.tokens_per_step(traffic, nodes)}
     metrics = {}
     for m in manifest.cell_metrics(man, workload, "per_layer" if trace else "end_to_end"):

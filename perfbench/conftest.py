@@ -12,26 +12,26 @@ for p in (str(ROOT), str(ROOT / "src")):
     if p not in sys.path:
         sys.path.insert(0, p)
 
-TINY = {"n_layers": 2, "d_model": 64, "n_heads": 4, "n_kv": 2, "d_head": 16, "d_ff": 96,
-        "vocab": 128, "dtype": "float32", "nodes": 4}
-TINY_MOE = {**TINY, "n_experts": 4, "top_k": 2, "d_ff": 48}
 TINY_TRAFFIC = {"per_node_batch": 2, "seq_len": 16, "pool": 4}
 
 
 def make_tiny_root(tmp: Path, dtype: str = "float32") -> Path:
     """A copy of the benchmark's files under ``tmp`` whose configurations
-    (in ``dtype``) and traffic are cut to CPU size, with float32 limits."""
+    (in ``dtype``; each cut by its reference module's ``tiny``) and traffic
+    are cut to CPU size, with float32 limits."""
+    from perfbench import reference
+
     shutil.copytree(ROOT / "perfbench", tmp / "perfbench",
                     ignore=shutil.ignore_patterns("__pycache__", "test_*.py"))
     man = json.loads((ROOT / "BENCHMARK.json").read_text())
     for c in man["configs"]:
         path = tmp / c["file"]
         cfg = json.loads(path.read_text())
-        cfg.update(TINY_MOE if cfg.get("n_experts") else TINY, dtype=dtype)
+        cfg.update(reference.model(cfg, tmp).tiny(cfg), dtype=dtype)
         path.write_text(json.dumps(cfg))
-    for w in man["workloads"]:
-        path = tmp / "perfbench" / "traffic" / f"{w['traffic']}.json"
+    for path in (tmp / "perfbench" / "traffic").glob("*.json"):
         path.write_text(json.dumps({**json.loads(path.read_text()), **TINY_TRAFFIC}))
+    for w in man["workloads"]:
         lim = {"loss_gap": 1e-4, "grad_norm_gap": 1e-4, "change_gap": 1e-3, "probe_gap": 1e-5}
         (tmp / "perfbench" / "limits" / f"{w['name']}.json").write_text(
             json.dumps({"limits": lim}))

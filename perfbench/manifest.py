@@ -1,12 +1,17 @@
 """``BENCHMARK.json`` and the files the harness finds by name in it.
 
 For a cell (an entry of ``workloads``) the harness reads its configuration
-from the file the ``configs`` entry names, its traffic from
+from the file the ``configs`` entry names, the model's plain reference
+from ``perfbench/references/<reference>.py`` (the configuration's
+``reference`` key; ``reference.model``), its traffic from
 ``perfbench/traffic/<traffic>.json``, the limits of its correctness check
 from ``perfbench/limits/<workload>.json``, and each metric from the reader
 ``perfbench/metrics/<metric>.py`` (a ``read(ctx)`` that returns the value,
-or None where it finds nothing to read).  A new configuration, traffic mix
-or metric is new files and new manifest entries; no file changes.
+or None where it finds nothing to read).
+
+A new model is a new configuration file, a new reference module (or the
+name of one there is), traffic, limits and manifest entries; a new traffic
+mix or metric is its file and its entries.  No existing file changes.
 """
 from __future__ import annotations
 
@@ -129,6 +134,14 @@ def problems(man: Mapping, root: Optional[Path] = None) -> list[str]:
     if root is not None:
         root = Path(root)
         need = [root / c["file"] for c in man["configs"]]
+        for c in man["configs"]:
+            if not (root / c["file"]).exists():
+                continue
+            ref = json.loads((root / c["file"]).read_text()).get("reference")
+            if not isinstance(ref, str) or not ref.isidentifier():
+                out.append(f"configuration {c['name']}: reference {ref!r}")
+            elif not (root / BENCH / "references" / f"{ref}.py").exists():
+                out.append(f"configuration {c['name']}: missing {BENCH}/references/{ref}.py")
         need += [root / BENCH / "traffic" / f"{w['traffic']}.json" for w in man["workloads"]]
         need += [root / BENCH / "limits" / f"{w['name']}.json" for w in man["workloads"]]
         need += [root / BENCH / "metrics" / f"{m['name']}.py" for m in metrics]

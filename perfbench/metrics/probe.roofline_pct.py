@@ -1,6 +1,6 @@
-"""The least time of the DBench probe (θ read once, the (G, leaves)
-float32 norms written once) at the card's memory rate, over K3's device
-time a step, in %."""
+"""The least time of the DBench probe (θ read once, each leaf at its
+own dtype, the (G, leaves) float32 norms written once) at the card's
+memory rate, over K3's device time a step, in %."""
 from perfbench.yardstick import least_seconds, probe_least_bytes
 
 GROUP = "probe"
@@ -10,6 +10,5 @@ def read(ctx):
     t = ctx["trace"]
     if not t or not t["group_ms"].get(GROUP):
         return None
-    nbytes = probe_least_bytes(ctx["nodes"], ctx["params"], ctx["n_leaves"],
-                               ctx["elem_bytes"])
+    nbytes = probe_least_bytes(ctx["nodes"], ctx["param_bytes"], ctx["n_leaves"])
     return 100.0 * least_seconds(nbytes) / (t["group_ms"][GROUP] / 1e3)

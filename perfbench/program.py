@@ -6,19 +6,16 @@ the program.
 from __future__ import annotations
 
 import dataclasses
-from typing import Mapping
+from pathlib import Path
+from typing import Mapping, Optional
 
 import torch
 
-from perfbench.reference import DTYPES, leaf_table, mixing_matrix
+from perfbench import reference
+from perfbench.reference import DTYPES, mixing_matrix
 
 __all__ = ["import_program", "arch_config", "build", "build_kernels", "counters",
            "watch_rebuilds", "stats_dict", "peak_bytes"]
-
-# configuration keys that are the port's ArchConfig fields
-_ARCH_KEYS = ("family", "n_layers", "d_model", "n_heads", "n_kv", "d_head", "d_ff", "vocab",
-              "n_experts", "top_k", "capacity_factor", "aux_loss_weight", "norm",
-              "rope_theta", "remat", "attn_impl")
 
 
 def import_program() -> None:
@@ -26,16 +23,14 @@ def import_program() -> None:
     import repro_torch.launch.train  # noqa: F401
 
 
-def arch_config(cfg: Mapping):
-    """The port's ``ArchConfig`` of a configuration file."""
+def arch_config(cfg: Mapping, root: Optional[Path] = None):
+    """The port's ``ArchConfig`` of a configuration file: the field values
+    its reference module gives (``arch_fields``), which refuses what the
+    reference does not compute; a key that is no field raises TypeError."""
     from repro_torch.configs.base import ArchConfig
 
-    kw = {k: cfg[k] for k in _ARCH_KEYS if k in cfg}
-    arch = ArchConfig(name=cfg["name"], dtype=DTYPES[cfg["dtype"]], source=cfg["source"], **kw)
-    if arch.norm != "rmsnorm" or arch.act != "silu" or arch.qkv_bias or arch.n_shared_experts:
-        raise ValueError(f"{cfg['name']}: the reference covers RMSNorm, SiLU, no biases and "
-                         "no shared experts")
-    return arch
+    fields = reference.model(cfg, root).arch_fields(cfg)
+    return ArchConfig(**{**fields, "dtype": DTYPES[fields["dtype"]]})
 
 
 def build_kernels() -> None:
@@ -45,15 +40,18 @@ def build_kernels() -> None:
     _build.load_all()
 
 
-def build(cfg: Mapping, traffic: Mapping, weights: Mapping, device):
+def build(cfg: Mapping, traffic: Mapping, weights: Mapping, device,
+          root: Optional[Path] = None):
     """(trainer, state): the trainer the traffic drives, its state holding
     ``weights`` on every node.  Every step mixes once and probes, as the
-    reference does; a topology the reference cannot build is refused."""
+    reference does; a topology the reference cannot build, or leaves whose
+    names, shapes or dtypes differ from the reference's table, are
+    refused."""
     from repro_torch.core.dsgd import make_topology
     from repro_torch.launch.train import SPMDTrainer
     from repro_torch.optim.sgd import sgd
 
-    arch = arch_config(cfg)
+    arch = arch_config(cfg, root)
     opt = cfg["optimizer"]
     if opt["kind"] != "sgd":
         raise ValueError(f"optimizer {opt['kind']!r}: the reference covers momentum SGD")
@@ -62,9 +60,10 @@ def build(cfg: Mapping, traffic: Mapping, weights: Mapping, device):
         arch, make_topology(traffic["topology"], cfg["nodes"]), sgd(momentum=opt["momentum"]),
         collect_norms=True, mix_every=1,
         fused_apply=traffic["fused_apply"], bucket_mb=traffic["bucket_mb"], device=device)
-    want = {k: shape for k, (shape, _) in leaf_table(cfg).items()}
-    have = dict(zip(trainer.layout.names, trainer.layout.shapes))
-    if list(have.items()) != list(want.items()):
+    want = [(k, tuple(shape), dt) for k, shape, _, dt in reference.leaves(cfg, root)]
+    layout = trainer.layout
+    have = list(zip(layout.names, layout.shapes, layout.dtypes))
+    if have != want:
         raise ValueError(f"the program's leaves {have} differ from the reference's {want}")
     state = trainer.init_state(params=weights)
     return trainer, state

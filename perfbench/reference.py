@@ -1,17 +1,27 @@
 """The plain reference of the benchmarked training step, in float32
-PyTorch (TF32 off), written from the model's and the algorithm's
-description and independent of the program: it imports nothing of
-``repro_torch``, ``repro`` or JAX, and takes nothing the program made.
+PyTorch (TF32 off), written from the algorithm's description and
+independent of the program: it imports nothing of ``repro_torch``,
+``repro`` or JAX, and takes nothing the program made.
 
-What it computes, for G nodes of a decentralized ring (d_ring):
+The model is not here: each configuration names its plain reference,
+``perfbench/references/<reference>.py`` (``model``), which exports
 
-* the model: token embedding → per layer RMSNorm, GQA attention with RoPE
-  (rotate-half, θ = ``rope_theta``) under a causal mask, RMSNorm and a
-  gated SiLU MLP or a top-k mixture of experts with a capacity (first come
-  first served in token order; assignments past it are dropped) and the
-  load-balance loss E·Σ f_e p_e → final RMSNorm → output head →
-  next-token cross-entropy over the valid targets (+ ``aux_loss_weight``
-  × the layers' load-balance losses);
+* ``leaf_table(cfg)``: name -> (shape, init, dtype) in the program's flat
+  leaf order; ``init`` a std (one normal draw), None (ones) or a callable
+  ``(gen, shape, device) -> float32 tensor`` drawn from the same
+  generator in table order; ``dtype`` the leaf's own (a ``DTYPES`` name)
+  or None for the configuration's;
+* ``loss_fn(p, cfg, tokens, targets, quant=None)``: one node's float32
+  loss, every matrix product through ``_product(quant)``;
+* ``model_flops_per_step(cfg, *, nodes, per_node_batch, seq, causal=True)``:
+  the work the model needs, from shapes alone;
+* ``arch_fields(cfg)``: the port's ``ArchConfig`` field values, the dtype
+  as its name, raising for whatever ``loss_fn`` does not compute;
+* ``tiny(cfg)``: the keys that cut the configuration to the CPU tests'
+  size.
+
+What this file computes, for G nodes of a decentralized ring (d_ring):
+
 * each node's loss and gradients on its own batch, one node at a time;
 * momentum SGD (m ← β m + g, from m = 0) and the gossip mix of the
   post-update parameters: θ'_i = W_ii (θ_i − lr m'_i) + Σ_j W_ij θ*_j,
@@ -19,13 +29,13 @@ What it computes, for G nodes of a decentralized ring (d_ring):
   Metropolis–Hastings weights (1/3 each);
 * the probe: every node's per-leaf L2 norms of θ before the update.
 
-The state is stored in the dtypes the configuration states (θ, the
-gradient and the sent rows in the model dtype, m in float32); every
-operation on it runs in float32.  ``quant="fp8"`` computes every matrix
-product as a float8 training step does (``_product``: the operands in
-e4m3, the gradient arriving at the product in e5m2, each under a
-per-tensor scale): the control, one precision below the configuration's
-bfloat16.  ``fault`` plants one of
+The state is stored in the dtypes the configuration states (θ and the
+gradient in each leaf's dtype, the sent rows in the leaves' promoted
+dtype, m in float32); every operation on it runs in float32.
+``quant="fp8"`` computes every matrix product as a float8 training step
+does (``_product``: the operands in e4m3, the gradient arriving at the
+product in e5m2, each under a per-tensor scale): the control, one
+precision below the configuration's bfloat16.  ``fault`` plants one of
 the faults a benchmark run must catch (``FAULTS``).
 
 ``draw_weights`` makes the initial weights from a seed on the device; the
@@ -33,16 +43,19 @@ benchmark hands the same ones to the program and to this reference.
 """
 from __future__ import annotations
 
+import functools
 import hashlib
+import importlib.util
 import math
+from pathlib import Path
 from typing import Mapping, Optional
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
-__all__ = ["FAULTS", "DTYPES", "sub_seed", "leaf_table", "leaf_sizes", "draw_weights", "ring_weights",
-           "mixing_matrix", "loss_fn", "Readings", "ReferenceTrainer", "run_reference", "leaf_norms"]
+__all__ = ["FAULTS", "DTYPES", "sub_seed", "model", "leaves", "leaf_sizes", "param_bytes",
+           "draw_weights", "ring_weights", "mixing_matrix", "Readings", "ReferenceTrainer",
+           "run_reference", "leaf_norms"]
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 # faults a run must catch: a step that leaves the state as it was; half of
@@ -50,7 +63,8 @@ DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 # between the nodes left out; the probe's answers shifted by one leaf (as
 # a wrong offsets table would give them)
 FAULTS = ("unchanged", "half_batch", "no_mix", "probe_shift")
-_NEG = -1e30
+# the reference modules loaded, by path (``model``)
+_MODELS: dict = {}
 
 
 def sub_seed(seed: int, tag: str) -> int:
@@ -60,58 +74,64 @@ def sub_seed(seed: int, tag: str) -> int:
     return int.from_bytes(digest[:8], "little") & ((1 << 63) - 1)
 
 
-def head_dim(cfg: Mapping) -> int:
-    return cfg.get("d_head") or cfg["d_model"] // cfg["n_heads"]
+def model(cfg: Mapping, root: Optional[Path] = None):
+    """The plain reference module the configuration names (its
+    ``reference`` key): ``perfbench/references/<reference>.py`` of the
+    checkout at ``root`` (by default the one holding this file), loaded
+    once a path."""
+    name = cfg["reference"]
+    if not name.isidentifier():
+        raise ValueError(f"reference {name!r} is not a module name")
+    base = Path(root) / "perfbench" if root is not None else Path(__file__).resolve().parent
+    path = (base / "references" / f"{name}.py").resolve()
+    mod = _MODELS.get(path)
+    if mod is None:
+        spec = importlib.util.spec_from_file_location(f"perfbench_reference_{name}", path)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        _MODELS[path] = mod
+    return mod
 
 
-def leaf_table(cfg: Mapping) -> dict:
-    """name -> (shape, std or None for ones), in the flat order the
-    parameters are laid out (sorted paths, depth first).  Matrices are
-    drawn normal with std √(2 / fan-in), the embedding and the head with
-    std 0.02, the norms' gains are ones."""
-    d, f, v, n = cfg["d_model"], cfg["d_ff"], cfg["vocab"], cfg["n_layers"]
-    h, kv, dh = cfg["n_heads"], cfg["n_kv"], head_dim(cfg)
-    he = lambda fan_in: math.sqrt(2.0 / fan_in)
-    if cfg.get("n_experts"):
-        e = cfg["n_experts"]
-        ffn = {"blocks.ffn.router": ((n, d, e), 0.02),
-               "blocks.ffn.w_down": ((n, e, f, d), he(f)),
-               "blocks.ffn.w_gate": ((n, e, d, f), he(d)),
-               "blocks.ffn.w_up": ((n, e, d, f), he(d))}
-    else:
-        ffn = {"blocks.ffn.w_down": ((n, f, d), he(f)),
-               "blocks.ffn.w_gate": ((n, d, f), he(d)),
-               "blocks.ffn.w_up": ((n, d, f), he(d))}
-    return {**ffn,
-            "blocks.ln1.g": ((n, d), None),
-            "blocks.ln2.g": ((n, d), None),
-            "blocks.wk": ((n, d, kv, dh), he(d)),
-            "blocks.wo": ((n, h, dh, d), he(h * dh)),
-            "blocks.wq": ((n, d, h, dh), he(d)),
-            "blocks.wv": ((n, d, kv, dh), he(d)),
-            "embed": ((v, d), 0.02),
-            "final_norm.g": ((d,), None),
-            "head": ((d, v), 0.02)}
+def leaves(cfg: Mapping, root: Optional[Path] = None, dtype=None) -> list:
+    """(name, shape, init, torch dtype) of every leaf, in leaf order; a
+    leaf of no dtype of its own takes ``dtype`` (the configuration's by
+    default)."""
+    dtype = dtype or DTYPES[cfg["dtype"]]
+    return [(k, shape, init, DTYPES[dt] if dt else dtype)
+            for k, (shape, init, dt) in model(cfg, root).leaf_table(cfg).items()]
 
 
-def leaf_sizes(cfg: Mapping) -> list[int]:
+def leaf_sizes(cfg: Mapping, root: Optional[Path] = None) -> list[int]:
     """Each leaf's parameter count, in leaf order."""
-    return [math.prod(shape) for shape, _ in leaf_table(cfg).values()]
+    return [math.prod(shape) for _, shape, _, _ in leaves(cfg, root)]
 
 
-def draw_weights(cfg: Mapping, seed: int, device, dtype) -> dict:
-    """One replica's initial weights in ``dtype``, drawn on ``device`` from
-    ``seed``: one normal draw a leaf, in the table's order."""
+def param_bytes(cfg: Mapping, root: Optional[Path] = None) -> int:
+    """Bytes of one node's parameters, each leaf in its own dtype."""
+    return sum(math.prod(shape) * dt.itemsize for _, shape, _, dt in leaves(cfg, root))
+
+
+def draw_weights(cfg: Mapping, seed: int, device, dtype=None,
+                 root: Optional[Path] = None) -> dict:
+    """One replica's initial weights drawn on ``device`` from ``seed``:
+    one draw a leaf from one generator, in the table's order, each leaf in
+    its own dtype (``dtype``, the configuration's by default, where the
+    table gives none)."""
     gen = torch.Generator(device=device)
     gen.manual_seed(sub_seed(seed, "weights"))
     out = {}
-    for name, (shape, std) in leaf_table(cfg).items():
-        if std is None:
-            out[name] = torch.ones(shape, dtype=dtype, device=device)
+    for name, shape, init, dt in leaves(cfg, root, dtype):
+        if init is None:
+            out[name] = torch.ones(shape, dtype=dt, device=device)
+            continue
+        if callable(init):
+            x = init(gen, shape, device)
         else:
             x = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
-            out[name] = x.mul_(std).to(dtype)
-            del x
+            x.mul_(init)
+        out[name] = x.to(dt)
+        del x
     return out
 
 
@@ -136,7 +156,7 @@ def mixing_matrix(topology: str, n: int) -> np.ndarray:
 
 
 # ---------------------------------------------------------------------------
-# the model, one node
+# matrix products: float32, or float8 (the control)
 # ---------------------------------------------------------------------------
 
 def _round8(x: torch.Tensor, dtype, top: float) -> torch.Tensor:
@@ -183,84 +203,6 @@ def _product(quant: Optional[str]):
         torch.einsum(eq, _Fp8Operand.apply(a), _Fp8Operand.apply(b)))
 
 
-def _rms(x: torch.Tensor, g: torch.Tensor, eps: float) -> torch.Tensor:
-    return x * torch.rsqrt(x.square().mean(dim=-1, keepdim=True) + eps) * g
-
-
-def _rope(x: torch.Tensor, theta: float) -> torch.Tensor:
-    """Rotate-half RoPE of (B, S, H, Dh) at positions 0..S−1."""
-    s, dh = x.shape[1], x.shape[-1]
-    half = dh // 2
-    freqs = 1.0 / theta ** (torch.arange(half, dtype=torch.float32, device=x.device) / half)
-    ang = torch.arange(s, dtype=torch.float32, device=x.device)[:, None] * freqs
-    sin, cos = torch.sin(ang)[:, None, :], torch.cos(ang)[:, None, :]
-    x1, x2 = x[..., :half], x[..., half:]
-    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
-
-
-def _moe(x, p, l, cfg, mm):
-    """Top-k experts with capacity on (T, D) tokens: (out, load-balance loss)."""
-    t = x.shape[0]
-    e, k = cfg["n_experts"], cfg["top_k"]
-    logits = mm("td,de->te", x, p["blocks.ffn.router"][l])
-    probs = torch.softmax(logits, dim=-1)
-    top_p, ids = torch.topk(probs, k, dim=-1)
-    top_p = top_p / top_p.sum(dim=-1, keepdim=True)
-    counts = torch.bincount(ids.reshape(-1), minlength=e).to(probs.dtype)
-    aux = e * torch.sum(counts / (t * k) * probs.mean(dim=0))
-    cap = int(max(k * t * cfg["capacity_factor"] / e, 4))
-    flat_ids, flat_p = ids.reshape(-1), top_p.reshape(-1)
-    out = torch.zeros_like(x)
-    for ex in range(e):
-        a = torch.nonzero(flat_ids == ex)[:, 0][:cap]   # token order: first come first served
-        tok = a // k
-        xe = x[tok]
-        hid = F.silu(mm("td,df->tf", xe, p["blocks.ffn.w_gate"][l, ex])) \
-            * mm("td,df->tf", xe, p["blocks.ffn.w_up"][l, ex])
-        out = out.index_add(0, tok, mm("tf,fd->td", hid, p["blocks.ffn.w_down"][l, ex])
-                            * flat_p[a, None])
-    return out, aux
-
-
-def loss_fn(p: Mapping, cfg: Mapping, tokens: torch.Tensor, targets: torch.Tensor,
-            quant: Optional[str] = None) -> torch.Tensor:
-    """One node's loss on its (B, S) batch; ``p`` float32 leaves."""
-    mm = _product(quant)
-    eps, theta = cfg["norm_eps"], cfg["rope_theta"]
-    h = p["embed"][tokens.long()]
-    b, s, d = h.shape
-    nh, kv, dh = cfg["n_heads"], cfg["n_kv"], head_dim(cfg)
-    causal = torch.ones(s, s, dtype=torch.bool, device=h.device).tril()
-    aux = torch.zeros((), device=h.device)
-    for l in range(cfg["n_layers"]):
-        hn = _rms(h, p["blocks.ln1.g"][l], eps)
-        qh = _rope(mm("bsd,dhk->bshk", hn, p["blocks.wq"][l]), theta)
-        kh = _rope(mm("bsd,dhk->bshk", hn, p["blocks.wk"][l]), theta)
-        vh = mm("bsd,dhk->bshk", hn, p["blocks.wv"][l])
-        qg = qh.reshape(b, s, kv, nh // kv, dh) * dh ** -0.5
-        scores = mm("bqhgd,bshd->bhgqs", qg, kh)
-        att = torch.softmax(torch.where(causal, scores, _NEG), dim=-1)
-        out = mm("bhgqs,bshd->bqhgd", att, vh).reshape(b, s, nh, dh)
-        h = h + mm("bshk,hkd->bsd", out, p["blocks.wo"][l])
-        hn2 = _rms(h, p["blocks.ln2.g"][l], eps)
-        if cfg.get("n_experts"):
-            ff, a = _moe(hn2.reshape(b * s, d), p, l, cfg, mm)
-            h = h + ff.reshape(b, s, d)
-            aux = aux + a
-        else:
-            hid = F.silu(mm("bsd,df->bsf", hn2, p["blocks.ffn.w_gate"][l])) \
-                * mm("bsd,df->bsf", hn2, p["blocks.ffn.w_up"][l])
-            h = h + mm("bsf,fd->bsd", hid, p["blocks.ffn.w_down"][l])
-    logits = mm("bsd,dv->bsv", _rms(h, p["final_norm.g"], eps), p["head"])
-    valid = targets >= 0
-    nll = torch.logsumexp(logits, dim=-1) - torch.gather(
-        logits, -1, targets.clamp_min(0).long()[..., None])[..., 0]
-    loss = torch.sum(nll * valid) / torch.clamp(valid.sum(), min=1)
-    if cfg.get("n_experts"):
-        loss = loss + cfg["aux_loss_weight"] * aux
-    return loss
-
-
 # ---------------------------------------------------------------------------
 # the decentralized step over G nodes
 # ---------------------------------------------------------------------------
@@ -296,12 +238,17 @@ class ReferenceTrainer:
     a time and mixed leaf by leaf, row by row."""
 
     def __init__(self, cfg: Mapping, weights: Mapping, nodes: int, *, lr: float, beta: float,
-                 topology: str, quant: Optional[str] = None, fault: Optional[str] = None):
+                 topology: str, quant: Optional[str] = None, fault: Optional[str] = None,
+                 root: Optional[Path] = None):
         if fault is not None and fault not in FAULTS:
             raise ValueError(f"fault must be one of {FAULTS}, got {fault!r}")
         self.cfg, self.lr, self.beta, self.quant, self.fault = cfg, lr, beta, quant, fault
-        self.dtype = DTYPES[cfg["dtype"]]
-        self.names = list(leaf_table(cfg))
+        self.loss_fn = model(cfg, root).loss_fn
+        table = leaves(cfg, root)
+        self.names = [k for k, _, _, _ in table]
+        self.dtypes = {k: dt for k, _, _, dt in table}
+        # the sent rows are of the leaves' promoted dtype (one flat state)
+        self.wire_dtype = functools.reduce(torch.promote_types, self.dtypes.values())
         self.theta = {k: weights[k][None].expand(nodes, *weights[k].shape).clone()
                       for k in self.names}
         self.mom = {k: torch.zeros(v.shape, dtype=torch.float32, device=v.device)
@@ -326,14 +273,14 @@ class ReferenceTrainer:
             tokens, targets = tokens[:, :half], targets[:, :half]
         for i in range(self.nodes):
             params = {k: self.theta[k][i].float().requires_grad_() for k in self.names}
-            loss = loss_fn(params, self.cfg, tokens[i], targets[i], self.quant)
+            loss = self.loss_fn(params, self.cfg, tokens[i], targets[i], self.quant)
             grads = torch.autograd.grad(loss, list(params.values()))
             del params
             losses.append(float(loss.detach()))
             if self.fault == "unchanged":
                 continue
             for k, g in zip(self.names, grads):
-                self.mom[k][i].mul_(self.beta).add_(g.to(self.dtype).float())
+                self.mom[k][i].mul_(self.beta).add_(g.to(self.dtypes[k]).float())
             del grads
         if self.fault != "unchanged":
             with torch.no_grad():
@@ -343,14 +290,14 @@ class ReferenceTrainer:
 
     def _mix_leaf(self, k: str) -> None:
         th, m, lr = self.theta[k], self.mom[k], self.lr
-        wire = torch.empty_like(th)
+        wire = torch.empty(th.shape, dtype=self.wire_dtype, device=th.device)
         for j in range(self.nodes):
-            wire[j] = (th[j].float() - lr * m[j]).to(self.dtype)
+            wire[j] = (th[j].float() - lr * m[j]).to(self.wire_dtype)
         for i in range(self.nodes):
             acc = self.self_w[i] * (th[i].float() - lr * m[i])
             for j, wij in self.mix[i]:
                 acc = acc + wij * wire[j].float()
-            th[i] = acc.to(self.dtype)
+            th[i] = acc.to(self.dtypes[k])
 
     def norms(self, bufs: Mapping, minus: Optional[Mapping] = None) -> np.ndarray:
         """(G, L) norms of each leaf of ``bufs`` (of ``bufs − minus``)."""
@@ -366,15 +313,16 @@ class ReferenceTrainer:
 
 def run_reference(cfg: Mapping, weights: Mapping, batches, *, nodes: int, lr: float,
                   beta: float, topology: str, quant: Optional[str] = None,
-                  fault: Optional[str] = None) -> Readings:
+                  fault: Optional[str] = None, root: Optional[Path] = None) -> Readings:
     """The reference's readings of the first ``len(batches)`` steps from
-    ``weights``; ``batches`` hold (G, B, S) ``tokens`` and ``targets``."""
+    ``weights``; ``batches`` hold (G, B, S) ``tokens`` and ``targets``;
+    the model is the one the configuration names under ``root``."""
     prev = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     try:
         ref = ReferenceTrainer(cfg, weights, nodes, lr=lr, beta=beta, topology=topology,
-                               quant=quant, fault=fault)
+                               quant=quant, fault=fault, root=root)
         losses, probes, grad = [], [], None
         for t, batch in enumerate(batches):
             loss, probe = ref.step(batch["tokens"], batch["targets"])

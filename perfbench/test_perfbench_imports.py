@@ -31,5 +31,6 @@ def test_the_harness_loads_no_jax():
 
 def test_the_reference_loads_nothing_of_the_program():
     loaded = _top_level_after("import perfbench.reference, perfbench.check, "
-                              "perfbench.generator, perfbench.yardstick")
+                              "perfbench.generator, perfbench.yardstick, "
+                              "perfbench.references.decoder")
     assert not loaded & {"repro_torch", "repro", "jax", "jaxlib", "flax"}

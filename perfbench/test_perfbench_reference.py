@@ -8,7 +8,7 @@ import torch
 from perfbench import check, generator, manifest, program, reference
 from perfbench.cell import program_readings, run_cell
 
-CELLS = ("granite8b-g4-b2x512", "phi35moe-g4-b4x1024")
+CELLS = ("granite8b-g4-b4x1024", "phi35moe-g4-b4x1024")
 
 
 def _sides(root, cell, seed, **ref_kw):

@@ -22,7 +22,8 @@ def test_new_cell_from_files_alone(tiny_root):
     traffic = json.loads((bench / "traffic" / "d_ring-b2x512.json").read_text())
     traffic.update(per_node_batch=4, seq_len=8)
     (bench / "traffic" / "d_ring-b4x8.json").write_text(json.dumps(traffic))
-    shutil.copy(bench / "limits" / "granite8b-g4-b2x512.json", bench / "limits" / "wide-b4x8.json")
+    shutil.copy(bench / "limits" / "granite8b-g4-b4x1024.json",
+                bench / "limits" / "wide-b4x8.json")
     (bench / "metrics" / "steps.count.py").write_text(
         "def read(ctx):\n    return ctx['window']['steps'] if ctx['window'] else None\n")
     man = manifest.load(tiny_root)

@@ -23,7 +23,7 @@ def _read(name, ctx):
 
 
 def _ctx(trace):
-    return {"trace": trace, "nodes": 4, "params": 1000, "elem_bytes": 2}
+    return {"trace": trace, "nodes": 4, "params": 1000, "param_bytes": 2000}
 
 
 def _rec(name, step, parent, device_ms, self_ms=None, host_ms=1.0):
@@ -56,7 +56,7 @@ def _hand_made_trace():
     ("fwd_bwd.span_ms", 51.5),
     ("wire.span_ms", 60.0),
     ("update_wire.roofline_pct",
-     100.0 * least_seconds(update_mix_least_bytes(4, 1000, 2)) / (76.5 / 1e3)),
+     100.0 * least_seconds(update_mix_least_bytes(4, 1000, 2000)) / (76.5 / 1e3)),
     ("step.idle_pct", 25.0),
 ])
 def test_readers_from_hand_made_records(name, want):
@@ -130,7 +130,7 @@ def test_both_stretches_through_a_cpu_cell(tiny_root, monkeypatch):
     listed = manifest.cell_metrics
     monkeypatch.setattr(manifest, "cell_metrics", lambda man, name, kind: (
         listed(man, name, kind) + (spans.METRICS if kind == "per_layer" else [])))
-    out = cell.run_cell("granite8b-g4-b2x512", 2**31 + 11, 0.05, True, root=tiny_root,
+    out = cell.run_cell("granite8b-g4-b4x1024", 2**31 + 11, 0.05, True, root=tiny_root,
                         device="cpu", log=lambda _: None)
     assert out["correct"] and out["attempted"] == seen["losses"] == (
         2 * (spans.SPAN_STEPS + 1) + spans.HOST_STEPS)

@@ -1,6 +1,7 @@
-"""The frozen yardstick: model FLOPs worked out by hand for both cells,
-held against the port's own matrix-multiply FLOPs counted on the CPU, and
-the least bytes and kernel groups the per-layer metrics read."""
+"""The frozen yardstick: model FLOPs (the decoder module's count) worked
+out by hand for both cells, held against the port's own matrix-multiply
+FLOPs counted on the CPU, and the least bytes and kernel groups the
+per-layer metrics read."""
 import pytest
 import torch
 from torch.utils.flop_counter import FlopCounterMode
@@ -17,20 +18,20 @@ def _cell(name):
 
 def _flops(name):
     cfg, tr = _cell(name)
-    return yardstick.model_flops_per_step(cfg, nodes=cfg["nodes"],
-                                          per_node_batch=tr["per_node_batch"],
-                                          seq=tr["seq_len"])
+    return reference.model(cfg).model_flops_per_step(cfg, nodes=cfg["nodes"],
+                                                     per_node_batch=tr["per_node_batch"],
+                                                     seq=tr["seq_len"])
 
 
 def test_granite_flops_by_hand():
     # a layer: q, k, v, o 4096·128·(32 + 8 + 8 + 32) and the MLP 3·4096·14336;
-    # 2 layers and the head 4096·49152; 4 nodes × 2 × 512 tokens
+    # 2 layers and the head 4096·49152; 4 nodes × 4 × 1024 tokens
     per_token = 2 * (4096 * 128 * 80 + 3 * 4096 * 14336) + 4096 * 49152
     assert per_token == 637_534_208
-    dense = 6 * per_token * 4 * 2 * 512
-    attn = 3 * 4 * 128 * 32 * (512 * 513 // 2) * 4 * 2 * 2  # 4·Dh a pair, 2 layers
-    assert _flops("granite8b-g4-b2x512") == dense + attn
-    assert round(_flops("granite8b-g4-b2x512") / 1e13, 3) == 1.577
+    dense = 6 * per_token * 4 * 4 * 1024
+    attn = 3 * 4 * 128 * 32 * (1024 * 1025 // 2) * 4 * 4 * 2  # 4·Dh a pair, 2 layers
+    assert _flops("granite8b-g4-b4x1024") == dense + attn
+    assert round(_flops("granite8b-g4-b4x1024") / 1e13, 2) == 6.35
 
 
 def test_phi_flops_by_hand():
@@ -50,7 +51,8 @@ def test_flops_against_the_ports_matmuls(moe):
     from perfbench.program import arch_config
     from repro_torch.models import transformer as tfm
 
-    cfg = {"name": "tiny", "source": "x", "family": "moe" if moe else "dense", "n_layers": 2,
+    cfg = {"name": "tiny", "source": "x", "reference": "decoder",
+           "family": "moe" if moe else "dense", "n_layers": 2,
            "d_model": 64, "n_heads": 4, "n_kv": 2, "d_head": 16, "d_ff": 96, "vocab": 128,
            "norm": "rmsnorm", "rope_theta": 1e4, "dtype": "float32", "remat": False}
     if moe:
@@ -63,7 +65,8 @@ def test_flops_against_the_ports_matmuls(moe):
     with FlopCounterMode(display=False) as fc:
         loss = tfm.loss_fn(params, arch, {"tokens": tokens, "targets": tokens})
         torch.autograd.grad(loss, list(params.values()))
-    want = yardstick.model_flops_per_step(cfg, nodes=1, per_node_batch=b, seq=s, causal=False)
+    want = reference.model(cfg).model_flops_per_step(cfg, nodes=1, per_node_batch=b, seq=s,
+                                                     causal=False)
     if moe:  # the experts run every capacity slot, not top_k of each token's
         cap = int(max(2 * b * s * 1.25 / 4, 4))
         want += 6 * 2 * 3 * 64 * 96 * (4 * cap - 2 * b * s)
@@ -71,8 +74,8 @@ def test_flops_against_the_ports_matmuls(moe):
 
 
 def test_least_bytes_and_groups():
-    assert yardstick.update_mix_least_bytes(4, 10, 2) == 4 * 10 * 14
-    assert yardstick.probe_least_bytes(4, 10, 3, 2) == 4 * 10 * 2 + 4 * 3 * 4
+    assert yardstick.update_mix_least_bytes(4, 10, 10 * 2) == 4 * 10 * 14
+    assert yardstick.probe_least_bytes(4, 10 * 2, 3) == 4 * 10 * 2 + 4 * 3 * 4
     assert yardstick.least_seconds(3.35e12) == pytest.approx(1.0)
     assert yardstick.kernel_group(
         "void (anonymous namespace)::program_update_kernel<__nv_bfloat16, false, true>") \
