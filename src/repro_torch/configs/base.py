@@ -2,7 +2,9 @@
 
 ``ArchConfig`` keeps the reference's fields and ``reduced()`` rule (the
 CPU smoke-test variant of the same family: ≤2 layers, d_model ≤ 256,
-float32); only ``dtype`` is a torch dtype here.  The layout knobs of the
+float32); only ``dtype`` is a torch dtype here, and ``PORT_FIELDS``, the
+port's own (Zamba2's published hybrid block, off by default), follow the
+reference's fields.  The layout knobs of the
 reference's model axis: ``pad_heads``/``pad_kv`` pad the heads at the
 mesh's tensor-parallel size (``models/transformer.attn_dims``; nothing at
 1); ``moe_impl="manual_ep"`` runs the explicit expert-parallel schedule
@@ -23,7 +25,7 @@ from typing import Any, Optional
 
 import torch
 
-__all__ = ["ArchConfig", "InputShape", "SHAPES", "input_specs"]
+__all__ = ["ArchConfig", "PORT_FIELDS", "InputShape", "SHAPES", "input_specs"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,6 +71,13 @@ class ArchConfig:
     dtype: Any = torch.bfloat16
     # citation for the config numbers
     source: str = ""
+    # the port's own fields (``PORT_FIELDS``; the reference's ArchConfig has
+    # none of them), off by default.  A hybrid family with hybrid_layer_ids
+    # runs Zamba2's published block (models/transformer.py)
+    hybrid_layer_ids: tuple = ()      # zamba2: the layers that run a shared block
+    mem_blocks: int = 1               # zamba2: shared blocks, used in turn
+    adapter_rank: int = 0             # zamba2: each use's LoRA rank on the MLP's gate/up
+    ssm_groups: int = 1               # zamba2: the mixers' groups of B and C
 
     @property
     def head_dim(self) -> int:
@@ -105,6 +114,10 @@ class ArchConfig:
             attn_chunk=64,
             dtype=torch.float32,
         )
+
+
+# ArchConfig's fields that the reference's ArchConfig does not have
+PORT_FIELDS = ("hybrid_layer_ids", "mem_blocks", "adapter_rank", "ssm_groups")
 
 
 @dataclasses.dataclass(frozen=True)

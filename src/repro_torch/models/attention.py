@@ -102,6 +102,7 @@ def multihead_attention(
     k_valid: Optional[torch.Tensor] = None,
     impl: str = "reference",
     chunk_size: int = 1024,
+    scale: Optional[float] = None,
 ) -> torch.Tensor:
     """GQA attention.
 
@@ -110,12 +111,13 @@ def multihead_attention(
       q_positions/k_positions: (B, Q) / (B, S) absolute positions (drive the
         causal/window masks; RoPE is applied by the caller).
       k_valid: optional (B, S) validity mask (cache slots in use).
+      scale: the scores' scale, D^-½ when None.
     Returns:
       (B, Q, H, D).
     """
     b, sq, h, d = q.shape
     n_kv = k.shape[2]
-    scale = d ** -0.5
+    scale = d ** -0.5 if scale is None else scale
     qg = q.reshape(b, sq, n_kv, h // n_kv, d) * scale  # (B, Q, KV, G, D)
 
     if impl == "reference":

@@ -25,9 +25,22 @@ float32 and ``tp.sum`` adds them over the group unrounded, so the mean is
 the reference's (a local norm would pass a shape check and be wrong).
 The decode state on a rank is h (B, H/tp, P, N) and the conv tail (B,
 K-1, d_inner/tp).
+
+``apply_zamba2_mixer`` is Zamba2's published mixer (``transformers``'
+``Zamba2MambaMixer`` and ``Zamba2MambaDecoderLayer``), for training on
+one rank: the input norm takes h + t (t the hybrid layer's shared-block
+output, else 0) while the residual is h; the depthwise conv and its SiLU
+run over x, B and C together (``conv_w``/``conv_b`` of d_inner + 2·G·N
+channels, in that order); B and C come in ``groups`` groups (head j reads
+group j·G // H); dt is not clamped (the fused training path's default
+``dt_limit`` is (0, ∞)); the gated RMSNorm normalises each of the G
+groups of d_inner/G channels; every norm's epsilon is the published
+1e-5.  The conv, its SiLU, the scan and the gated norm run in float32;
+the projections in the model's dtype.
 """
 from __future__ import annotations
 
+import math
 from typing import Mapping, NamedTuple
 
 import torch
@@ -43,12 +56,14 @@ from repro_torch.models.common import (
     zeros_init,
 )
 from repro_torch.models.recurrence import ssd_chunked, ssd_step
+from repro_torch.telemetry.recorder import trace_count, trace_span
 
 __all__ = ["mamba_block_defs", "apply_mamba_block", "mamba_block_decode", "MambaState",
-           "mamba_n_heads"]
+           "mamba_n_heads", "ZAMBA2_EPS", "zamba2_mixer_defs", "apply_zamba2_mixer"]
 
 _CONV_K = 4
 _HEAD_P = 64  # channels per SSD head
+ZAMBA2_EPS = 1e-5  # Zamba2's rms_norm_eps and its gated norm's fixed epsilon
 
 
 class MambaState(NamedTuple):
@@ -193,3 +208,78 @@ def mamba_block_decode(params: Mapping, x: torch.Tensor, state: MambaState, *,
     y = _gated_norm(y[:, None], z[:, None], params["gn_g"], tp)[:, 0]
     out = x + _out(params, y, tp)
     return out, MambaState(h=h_new, conv=new_tail)
+
+
+# ---------------------------------------------------------------------------
+# Zamba2's published mixer
+# ---------------------------------------------------------------------------
+
+def _dt_bias_init(gen, shape, dtype, device):
+    """softplus⁻¹ of dt = exp U(log 1e-3, log 1e-1), floored at 1e-4 (the
+    published ``time_step_min``/``max``/``floor``)."""
+    u = torch.rand(shape, generator=gen, dtype=torch.float32, device=device)
+    dt = torch.exp(u * (math.log(0.1) - math.log(1e-3)) + math.log(1e-3)).clamp(min=1e-4)
+    return (dt + torch.log(-torch.expm1(-dt))).to(dtype)
+
+
+def zamba2_mixer_defs(d_model: int, d_state: int, groups: int, *, expand: int = 2,
+                      dtype=torch.float32) -> dict:
+    """One Zamba2 mixer's leaves: ``w_b``/``w_c`` (D, G·N) group-major,
+    the conv over the d_inner + 2·G·N channels of x, B and C."""
+    d_inner = d_model * expand
+    h = d_inner // _HEAD_P
+    conv = d_inner + 2 * groups * d_state
+    return {
+        "norm_g": ParamDef((d_model,), ones_init(), dtype),
+        "w_z": ParamDef((d_model, d_inner), he_normal((-2,)), dtype),
+        "w_x": ParamDef((d_model, d_inner), he_normal((-2,)), dtype),
+        "w_b": ParamDef((d_model, groups * d_state), he_normal((-2,)), dtype),
+        "w_c": ParamDef((d_model, groups * d_state), he_normal((-2,)), dtype),
+        "w_dt": ParamDef((d_model, h), he_normal((-2,)), dtype),
+        "dt_bias": ParamDef((h,), _dt_bias_init, dtype),
+        "conv_w": ParamDef((_CONV_K, conv), normal_init(0.2), dtype),
+        "conv_b": ParamDef((conv,), zeros_init(), dtype),
+        "a_log": ParamDef((h,), _a_init, torch.float32),
+        "d_skip": ParamDef((h,), ones_init(), torch.float32),
+        "gn_g": ParamDef((d_inner,), ones_init(), dtype),
+        "w_out": ParamDef((d_inner, d_model), he_normal((-2,)), dtype),
+    }
+
+
+def _group_gated_norm(y, z, gamma, groups: int, eps: float):
+    """RMSNorm of y · silu(z) over each of ``groups`` equal groups of the
+    last dim, times ``gamma``; float32 (or wider)."""
+    x = at_least_f32(y) * F.silu(at_least_f32(z))
+    xg = x.reshape(*x.shape[:-1], groups, -1)
+    xg = xg * torch.rsqrt(xg.square().mean(dim=-1, keepdim=True) + eps)
+    return xg.reshape(x.shape) * at_least_f32(gamma)
+
+
+def apply_zamba2_mixer(params: Mapping, h: torch.Tensor, t, *, d_state: int, groups: int,
+                       chunk: int) -> torch.Tensor:
+    """h + mixer(RMSNorm(h + t)): (B, S, D) -> (B, S, D); ``t`` the
+    hybrid layer's shared-block output or None.  One product with the
+    in-projections side by side ([z | x | B | C | dt], the published
+    ``in_proj``); the scan is the ``ssd`` span of an open device trace, and
+    counts its chunks (``ssd_chunks``)."""
+    bsz, s, _ = h.shape
+    u = rms_norm(h if t is None else h + t, params["norm_g"], ZAMBA2_EPS)
+    w_in = torch.cat([params[k] for k in ("w_z", "w_x", "w_b", "w_c", "w_dt")], dim=1)
+    d_inner, n_heads = params["w_z"].shape[1], params["w_dt"].shape[1]
+    z, xbc, dt = (u @ w_in).split([d_inner, w_in.shape[1] - d_inner - n_heads, n_heads], -1)
+    conv_w = at_least_f32(params["conv_w"])
+    xbc = F.conv1d(at_least_f32(xbc).transpose(1, 2), conv_w.t()[:, None, :],
+                   at_least_f32(params["conv_b"]), padding=conv_w.shape[0] - 1,
+                   groups=conv_w.shape[1])[..., :s]
+    xi, b_in, c_in = F.silu(xbc).transpose(1, 2).split(
+        [d_inner, groups * d_state, groups * d_state], -1)
+    dt = F.softplus(at_least_f32(dt) + at_least_f32(params["dt_bias"]))
+    h0 = torch.zeros((bsz, n_heads, _HEAD_P, d_state), dtype=xi.dtype, device=h.device)
+    with trace_span("ssd"):
+        y, _ = ssd_chunked(xi.reshape(bsz, s, n_heads, _HEAD_P), dt, params["a_log"],
+                           b_in.reshape(bsz, s, groups, d_state),
+                           c_in.reshape(bsz, s, groups, d_state), params["d_skip"], h0,
+                           chunk=chunk)
+    trace_count("ssd_chunks", -(-s // min(chunk, s)))
+    y = _group_gated_norm(y.reshape(bsz, s, d_inner), z, params["gn_g"], groups, ZAMBA2_EPS)
+    return h + y.to(h.dtype) @ params["w_out"]

@@ -20,17 +20,24 @@ def mlp_defs(d_model: int, d_ff: int, *, gated: bool = True, dtype=torch.float32
     return defs
 
 
-def apply_mlp(params, x: torch.Tensor, *, act: str = "silu", tp=None) -> torch.Tensor:
-    """``tp``: the node's model group (``launch/tensor_parallel.py``) when
-    the params are its rank's shards (d_ff split): the replicated ``x``
+def apply_mlp(params, x: torch.Tensor, *, act: str = "silu", tp=None,
+              adapter=None) -> torch.Tensor:
+    """``act``: "silu", "gelu_erf" (exact GELU) or any other name for the
+    tanh GELU.  ``tp``: the node's model group (``launch/tensor_parallel.py``)
+    when the params are its rank's shards (d_ff split): the replicated ``x``
     enters the column-parallel up-projections and the row-parallel
-    down-projection's partial sums are all-reduced."""
+    down-projection's partial sums are all-reduced.  ``adapter``: a gated
+    MLP's low-rank (A (D, r), B (r, 2·F)) whose (x·A)·B adds to [gate | up]
+    (Zamba2's per-use LoRA; one rank only)."""
     if tp is not None:
         x = tp.enter(x)
     up = torch.einsum("bsd,df->bsf", x, params["w_up"])
-    fn = F.silu if act == "silu" else (lambda t: F.gelu(t, approximate="tanh"))
+    fn = {"silu": F.silu, "gelu_erf": F.gelu}.get(act, lambda t: F.gelu(t, approximate="tanh"))
     if "w_gate" in params:
         gate = torch.einsum("bsd,df->bsf", x, params["w_gate"])
+        if adapter is not None:
+            low = (x @ adapter[0]) @ adapter[1]
+            gate, up = gate + low[..., :up.shape[-1]], up + low[..., up.shape[-1]:]
         h = fn(gate) * up
     else:
         h = fn(up)

@@ -12,6 +12,9 @@ across chunks where the reference runs ``lax.scan``):
   * ``ssd_chunked`` — scalar-per-head decay (Mamba2 SSD)
         h_t = a_t h_{t-1} + dt_t · x_t B_tᵀ
         y_t = h_t C_t + D ⊙ x_t       (a_t = exp(dt_t A) ∈ (0, 1))
+    with B and C shared by every head (one group) or given per group:
+    head j of H reads group ⌊j·G/H⌋ of G (the heads group-major, as
+    Mamba2's ``ngroups`` lays them out).
 
 Both express intra-chunk interactions with pairwise relative decays
 ``exp(la_t - la_s), s ≤ t`` where ``la = cumsum(log decay)``: every exponent
@@ -129,7 +132,8 @@ def rwkv_scan_reference(r, k, v, logw, u, s0):
 def ssd_chunked(x, dt, a_log, b_in, c_in, d_skip, h0, *, chunk: int = 64):
     """Args:
       x: (B, L, H, P); dt: (B, L, H) (post-softplus, > 0);
-      a_log: (H,) (A = -exp(a_log) < 0); b_in/c_in: (B, L, N) (one group);
+      a_log: (H,) (A = -exp(a_log) < 0); b_in/c_in: (B, L, N) (one group)
+        or (B, L, G, N) (head j reads group j·G // H: ``_ssd_groups``);
       d_skip: (H,); h0: (B, H, P, N).
     Returns: (y (B, L, H, P) in x's dtype, h_final float32).
     """
@@ -137,6 +141,19 @@ def ssd_chunked(x, dt, a_log, b_in, c_in, d_skip, h0, *, chunk: int = 64):
     c = min(chunk, l)
     pad = (-l) % c
     a = -torch.exp(_f32(a_log))                    # (H,)
+    if b_in.dim() == 4:
+        y, hst = _ssd_groups(*(_f32(_pad_seq(t, pad)) for t in (x, dt, b_in, c_in)), a,
+                             h0, c)
+        y = y[:, :l]
+    else:
+        y, hst = _ssd_one_group(x, dt, a, b_in, c_in, h0, c, pad)
+    y = y + _f32(d_skip)[None, None, :, None] * _f32(x)
+    return y.to(x.dtype), hst
+
+
+def _ssd_one_group(x, dt, a, b_in, c_in, h0, c: int, pad: int):
+    """B and C shared by every head: the chunks in turn."""
+    l = x.shape[1]
     xf, dtf, bf, cf = (_chunk(_f32(_pad_seq(t, pad)), c) for t in (x, dt, b_in, c_in))
     tri = torch.tril(torch.ones((c, c), dtype=torch.bool, device=x.device))[None, :, :, None]
 
@@ -157,9 +174,42 @@ def ssd_chunked(x, dt, a_log, b_in, c_in, d_skip, h0, *, chunk: int = 64):
         hst = torch.exp(la_end[:, 0])[..., None, None] * hst + torch.einsum(
             "bshp,bsn,bsh->bhpn", xc, bc, w)
         outs.append(y)
-    y = _unchunk(torch.stack(outs))[:, :l]
-    y = y + _f32(d_skip)[None, None, :, None] * _f32(x)
-    return y.to(x.dtype), hst
+    return _unchunk(torch.stack(outs))[:, :l], hst
+
+
+def _ssd_groups(x, dt, b_in, c_in, a, h0, c: int):
+    """B and C in G groups, heads group-major (H = G·Q): every chunk at
+    once, float32.  x: (B, L, H, P); dt: (B, L, H); b_in/c_in: (B, L, G,
+    N); L a multiple of the chunk ``c``.  Within a chunk the pairs' decays
+    exp(la_t − la_s) (la the chunk's cumulative dt·A); across chunks the
+    states a chunk enters with, E_z = Σ_{i ≤ z} exp(Σ_{i ≤ r < z} T_r) U_i
+    over U = [h0, the chunks' own states] and T the chunks' total log
+    decays, summed term by term for each pair (a segment sum)."""
+    b, l, h, p = x.shape
+    g, n = b_in.shape[2:]
+    q, k = h // g, l // c
+    # (B, k chunks, G, Q, c, ...): each (group, head) a batch of chunk products
+    xq = x.view(b, k, c, g, q, p).permute(0, 1, 3, 4, 2, 5)
+    dq = dt.view(b, k, c, g, q).permute(0, 1, 3, 4, 2)
+    bq = b_in.view(b, k, c, g, n).transpose(2, 3)            # (B, k, G, c, N)
+    cq = c_in.view(b, k, c, g, n).transpose(2, 3)
+    la = torch.cumsum(dq * a.view(g, q, 1), dim=-1)          # (B, k, G, Q, c) ≤ 0
+    later = torch.ones((c, c), dtype=torch.bool, device=x.device).triu(1)
+    decay = torch.exp((la[..., :, None] - la[..., None, :]).masked_fill_(later, float("-inf")))
+    xdt = xq * dq[..., None]                                 # dt_s x_s
+    y = ((cq @ bq.transpose(-1, -2))[:, :, :, None] * decay) @ xdt    # (B, k, G, Q, c, P)
+    # each chunk's own state, from zero: Σ_s exp(la_end − la_s) dt_s x_s B_sᵀ
+    w = torch.exp(la[..., -1:] - la)
+    states = (xdt * w[..., None]).transpose(-1, -2) @ bq[:, :, :, None]  # (B, k, G, Q, P, N)
+    tp = F.pad(la[..., -1].movedim(1, -1), (1, 0))           # (B, G, Q, k+1): 0, T_0..T_{k-1}
+    steps = tp[..., :, None].expand(*tp.shape, k + 1)        # [z, i] = tp_z
+    first = torch.ones((k + 1, k + 1), dtype=torch.bool, device=x.device)
+    seg = torch.cumsum(steps.masked_fill(first.triu(), 0.0), dim=-2)    # Σ_{i<m≤z} tp_m
+    mix = torch.exp(seg.masked_fill(first.triu(1), float("-inf")))      # (B, G, Q, z, i)
+    src = torch.cat([h0.to(x.dtype).view(b, 1, g, q, p, n), states], dim=1)
+    entered = torch.einsum("bgqzi,bigqpn->bzgqpn", mix, src)  # (B, k+1, G, Q, P, N)
+    y = y + (cq[:, :, :, None] @ entered[:, :k].transpose(-1, -2)) * torch.exp(la)[..., None]
+    return y.permute(0, 1, 4, 2, 3, 5).reshape(b, l, h, p), entered[:, k].reshape(b, h, p, n)
 
 
 def ssd_step(x, dt, a_log, b_in, c_in, d_skip, h):

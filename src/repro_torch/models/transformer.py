@@ -9,7 +9,26 @@ Families:
   hybrid : Mamba2 blocks with one shared-weight attention block after
       every ``attn_every - 1`` of them (the Zamba2 pattern: the same
       ``shared_attn`` parameters run in every group, so their gradients
-      sum over the groups), then the tail's Mamba2 blocks.
+      sum over the groups), then the tail's Mamba2 blocks.  With
+      ``hybrid_layer_ids``, Zamba2's published block instead
+      (``transformers``' ``modeling_zamba2.py``; below).
+
+Zamba2's published block (a hybrid family with ``hybrid_layer_ids``;
+training on one rank: ``prefill``, ``decode_step`` and a tensor-parallel
+rank refuse it).
+e = embed(tokens), h = e; every layer l runs a Mamba2 mixer
+(``mamba2.apply_zamba2_mixer``: h ← h + mixer(RMSNorm(h + t))), with t
+= 0 except at the k-th of ``hybrid_layer_ids``, where shared block k mod
+``mem_blocks`` runs first on concat(h, e) (2·D wide): RMSNorm, attention
+of ``n_heads`` heads of ``d_head`` with RoPE and the scale (d_head/2)^-½,
+no residual; RMSNorm; the exact-GELU gated MLP whose [gate | up] gains
+this layer's own LoRA (x·A_k)·B_k; then t = its output · the layer's own
+``linear`` (D × D).  A shared block's gradient sums over its uses.  Every
+norm's epsilon is the published 1e-5.  Leaves: ``mixers`` (L, ...),
+``shared_blocks`` (mem_blocks, ...) and ``hybrid`` (one per hybrid layer:
+``adapter_a``, ``adapter_b``, ``linear``); ``a_log`` and ``d_skip``
+float32.  Each shared-block use is a ``shared_block`` span of an open
+device trace and counts ``shared_block_uses``; each scan an ``ssd`` span.
 
 Parameters are one flat dict keyed by the reference tree's paths joined
 with dots ("blocks.ffn.w_up", "mamba_groups.a_log"), in the reference's
@@ -100,11 +119,14 @@ from repro_torch.models.common import (
     zeros_init,
 )
 from repro_torch.models.mamba2 import (
+    ZAMBA2_EPS,
     MambaState,
     apply_mamba_block,
+    apply_zamba2_mixer,
     mamba_block_decode,
     mamba_block_defs,
     mamba_n_heads,
+    zamba2_mixer_defs,
 )
 from repro_torch.models.mlp import apply_mlp, mlp_defs
 from repro_torch.models.moe import apply_moe, apply_moe_manual_ep, moe_defs
@@ -114,6 +136,7 @@ from repro_torch.models.rwkv6 import (
     rwkv_block_decode,
     rwkv_block_defs,
 )
+from repro_torch.telemetry.recorder import trace_count, trace_span
 
 __all__ = [
     "FAMILIES",
@@ -138,6 +161,25 @@ FAMILIES = ("dense", "moe", "ssm", "hybrid", "audio", "vlm")
 def _check_family(cfg: ArchConfig) -> None:
     if cfg.family not in FAMILIES:
         raise ValueError(f"unknown model family {cfg.family!r}; one of {FAMILIES}")
+
+
+def _zamba2(cfg: ArchConfig) -> bool:
+    """Whether the model is Zamba2's published block (``hybrid_layer_ids``)."""
+    if not cfg.hybrid_layer_ids:
+        return False
+    if cfg.family != "hybrid" or cfg.norm != "rmsnorm":
+        raise ValueError(f"{cfg.name}: hybrid_layer_ids (Zamba2's published block) take the "
+                         f"hybrid family with RMSNorm, got {cfg.family!r} with {cfg.norm!r}")
+    if not all(0 <= i < cfg.n_layers for i in cfg.hybrid_layer_ids):
+        raise ValueError(f"{cfg.name}: hybrid_layer_ids {cfg.hybrid_layer_ids} outside the "
+                         f"{cfg.n_layers} layers")
+    return True
+
+
+def _refuse_zamba2(cfg: ArchConfig, what: str) -> None:
+    if cfg.hybrid_layer_ids:
+        raise NotImplementedError(f"{cfg.name}: hybrid_layer_ids (Zamba2's published block) "
+                                  f"run training on one rank; {what} does not take them")
 
 
 def stack_defs(defs: Mapping, n: int) -> dict:
@@ -233,6 +275,10 @@ def model_defs(cfg: ArchConfig, tp_size: int = 1) -> dict[str, ParamDef]:
     if cfg.family == "ssm":
         nested["blocks"] = stack_defs(
             rwkv_block_defs(cfg.d_model, _rwkv_heads(cfg), cfg.d_ff, dt), cfg.n_layers)
+    elif _zamba2(cfg):
+        if tp_size > 1:
+            _refuse_zamba2(cfg, "a tensor-parallel rank")
+        nested.update(_zamba2_defs(cfg))
     elif cfg.family == "hybrid":
         group = cfg.attn_every
         n_groups, tail = divmod(cfg.n_layers, group)
@@ -244,6 +290,32 @@ def model_defs(cfg: ArchConfig, tp_size: int = 1) -> dict[str, ParamDef]:
     else:  # dense | moe | audio | vlm
         nested["blocks"] = stack_defs(attn_block_defs(cfg, tp_size), cfg.n_layers)
     return flatten_tree(nested)
+
+
+def _zamba2_defs(cfg: ArchConfig) -> dict:
+    """The nested leaves of Zamba2's published block (``model_defs``)."""
+    d, dt, dh = cfg.d_model, cfg.dtype, cfg.head_dim
+    h, kv = cfg.n_heads, cfg.n_kv
+    block = {
+        "ffn": mlp_defs(d, cfg.d_ff, dtype=dt),
+        "ln1": {"g": ParamDef((2 * d,), ones_init(), dt)},
+        "ln2": {"g": ParamDef((d,), ones_init(), dt)},
+        "wk": ParamDef((2 * d, kv, dh), he_normal((-3,)), dt),
+        "wo": ParamDef((h, dh, d), he_normal((-3, -2)), dt),
+        "wq": ParamDef((2 * d, h, dh), he_normal((-3,)), dt),
+        "wv": ParamDef((2 * d, kv, dh), he_normal((-3,)), dt),
+    }
+    hybrid = {
+        "adapter_a": ParamDef((d, cfg.adapter_rank), he_normal((-2,)), dt),
+        "adapter_b": ParamDef((cfg.adapter_rank, 2 * cfg.d_ff), normal_init(0.02), dt),
+        "linear": ParamDef((d, d), he_normal((-2,)), dt),
+    }
+    return {
+        "hybrid": stack_defs(hybrid, len(cfg.hybrid_layer_ids)),
+        "mixers": stack_defs(zamba2_mixer_defs(d, cfg.ssm_state, cfg.ssm_groups, dtype=dt),
+                             cfg.n_layers),
+        "shared_blocks": stack_defs(block, cfg.mem_blocks),
+    }
 
 
 def init_model(cfg: ArchConfig, gen: torch.Generator, device,
@@ -639,6 +711,8 @@ def forward_full(params: Mapping, cfg: ArchConfig, tokens: torch.Tensor, *,
     rank's vocabulary columns where ``head`` is split, the states and
     caches the rank's heads)."""
     _check_family(cfg)
+    if tp is not None:
+        _refuse_zamba2(cfg, "a tensor-parallel rank")
     params = _gathered_at_entry(params, cfg, tp)
     h = _embed(params, cfg, tokens, patch_embeds, tp)
     b, s, _ = h.shape
@@ -658,6 +732,11 @@ def forward_full(params: Mapping, cfg: ArchConfig, tokens: torch.Tensor, *,
                           d_ff=cfg.d_ff, **kw)
             states.append(st)
         return _logits(params, cfg, h, tp), _stack_states(states), aux
+
+    if _zamba2(cfg):
+        if collect_cache:
+            _refuse_zamba2(cfg, "prefill")
+        return _zamba2_forward(params, cfg, h, positions), None, aux
 
     if cfg.family == "hybrid":
         return _hybrid_forward(params, cfg, h, positions, window, collect_cache, tp)
@@ -717,6 +796,44 @@ def _hybrid_forward(params, cfg, h, positions, window, collect_cache, tp=None):
         "tail": tail_states,
     }
     return _logits(params, cfg, h, tp), states, aux
+
+
+def _zamba2_shared(p: Mapping, use: Mapping, cfg: ArchConfig, h, e, positions):
+    """One use of a shared block on concat(h, e) (``p``: the block's
+    leaves; ``use``: this hybrid layer's ``adapter_a``, ``adapter_b`` and
+    ``linear``): the t its layer's mixer adds to its input."""
+    x = rms_norm(torch.cat([h, e], dim=-1), p["ln1.g"], ZAMBA2_EPS)
+    q, k, v = _qkv(p, cfg, x)
+    sin, cos = rope(positions, cfg.head_dim, cfg.rope_theta, at_least_f32(x).dtype)
+    out = attn_lib.multihead_attention(
+        apply_rope(q, sin, cos), apply_rope(k, sin, cos), v, q_positions=positions,
+        k_positions=positions, causal=True, impl=cfg.attn_impl, chunk_size=cfg.attn_chunk,
+        scale=(cfg.head_dim / 2) ** -0.5)
+    o = torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    f = apply_mlp(unflatten_tree(_sub(p, "ffn")), rms_norm(o, p["ln2.g"], ZAMBA2_EPS),
+                  act="gelu_erf", adapter=(use["adapter_a"], use["adapter_b"]))
+    return f @ use["linear"]
+
+
+def _zamba2_forward(params, cfg, h, positions):
+    """Logits of Zamba2's published block from the embeddings ``h``."""
+    e = h
+    uses = {layer: k for k, layer in enumerate(cfg.hybrid_layer_ids)}
+    blocks = _unstack(_sub(params, "shared_blocks"), cfg.mem_blocks)
+    hybrid = _unstack(_sub(params, "hybrid"), len(uses))
+    mixer = _remat(cfg, apply_zamba2_mixer)
+    shared = _remat(cfg, _zamba2_shared)
+    for layer, mp in enumerate(_unstack(_sub(params, "mixers"), cfg.n_layers)):
+        t = None
+        if layer in uses:
+            k = uses[layer]
+            with trace_span("shared_block"):
+                t = shared(blocks[k % cfg.mem_blocks], hybrid[k], cfg, h, e, positions)
+            trace_count("shared_block_uses", 1)
+        h = mixer(mp, h, t, d_state=cfg.ssm_state, groups=cfg.ssm_groups,
+                  chunk=cfg.rec_chunk)
+    return torch.einsum("bsd,dv->bsv", rms_norm(h, params["final_norm.g"], ZAMBA2_EPS),
+                        params["head"])
 
 
 def forward(params: Mapping, cfg: ArchConfig, tokens: torch.Tensor, *,
@@ -785,6 +902,7 @@ def init_decode_state(cfg: ArchConfig, batch: int, seq_len: int, *,
     with ``tp_rank=None`` the whole state (the reference's
     ``init_decode_state(..., tp_size=)``)."""
     _check_family(cfg)
+    _refuse_zamba2(cfg, "serving")
     slots = min(window, seq_len) if window else seq_len
     whole = tp_rank is None
     kv = attn_dims(cfg, tp_size)[1] if whole else len(cache_kv_heads(cfg, tp_size, tp_rank))
@@ -824,6 +942,7 @@ def prefill(params: Mapping, cfg: ArchConfig, tokens: torch.Tensor, *, patch_emb
     model group when ``params`` are a rank's shards; the logits are then
     the rank's vocabulary columns where ``head`` is split, the state its
     share (``init_decode_state(..., tp_size=, tp_rank=)``)."""
+    _refuse_zamba2(cfg, "prefill")
     logits, st, _ = forward_full(params, cfg, tokens, patch_embeds=patch_embeds,
                                  collect_cache=True, tp=tp)
     last = logits[:, -1]
@@ -850,6 +969,7 @@ def decode_step(params: Mapping, cfg: ArchConfig, tokens: torch.Tensor, pos: int
     is split.
     """
     _check_family(cfg)
+    _refuse_zamba2(cfg, "decode_step")
     pos = int(pos)
     h = _embed(params, cfg, tokens, tp=tp)  # (B, 1, D)
     kw = _tp_kw(tp)

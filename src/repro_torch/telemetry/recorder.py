@@ -31,6 +31,13 @@ CPU) at entry and exit, and a ``repro.<name>`` profiler range, so an
 active ``torch.profiler`` shows it on the kernels' clock; nothing
 synchronizes until the context closes, once.  Span records stay in
 memory (the context's list): the JSONL stream does not carry them.
+Code that holds no recorder (the model's layers) marks its spans with
+``trace_span`` and counts with ``trace_count``, which reach the device
+trace open in the process, if any, and are no-ops otherwise; the counts
+land in the context's list as ``counts`` ({name: {step: total}}).  Both
+mark the forward pass: they are no-ops too while autograd runs a backward
+pass, so a block under activation checkpointing, which runs its forward
+again there, is not counted twice.
 
 Same-step event coalescing (``coalesce_into``) lives here, ONE
 implementation, and the consensus controller routes its transition /
@@ -60,7 +67,8 @@ import torch
 
 from repro_torch.telemetry.schema import SCHEMA_VERSION, validate_record
 
-__all__ = ["MetricsRecorder", "coalesce_into", "host_grad_norm", "NO_SPAN"]
+__all__ = ["MetricsRecorder", "coalesce_into", "host_grad_norm", "NO_SPAN", "TraceRecords",
+           "trace_span", "trace_count"]
 
 # columns per chunk of ``host_grad_norm``: bounds its float32 temporaries
 GRAD_NORM_CHUNK = 1 << 24
@@ -162,6 +170,14 @@ class _SpanTrace:
         self.pool, self.device = pool, device    # pool None: the host clock
         self.stack: list = []
         self.spans: list = []
+        self.counts: dict = {}    # name -> {step: total}
+
+    def count(self, name: str, inc) -> None:
+        """Add ``inc`` to ``name``'s total of the step of the innermost open
+        span (None outside every span)."""
+        step = self.stack[-1].step if self.stack else None
+        per = self.counts.setdefault(name, {})
+        per[step] = per.get(step, 0) + inc
 
     def mark(self):
         return time.perf_counter() if self.pool is None else self.pool.mark()
@@ -188,6 +204,41 @@ class _SpanTrace:
                  "device_ms": ms, "host_ms": (sp.h1 - sp.h0) * 1e3,
                  "self_ms": ms - children.get(id(sp), 0.0)}
                 for sp, ms in zip(spans, device_ms)]
+
+
+class TraceRecords(list):
+    """A device trace's span records, in the order the spans opened, and
+    its ``counts``: {name: {step: total}} of ``trace_count``."""
+
+    counts: dict
+
+
+# the device trace open in this process (``device_trace``), if any
+_OPEN: list = []
+
+
+def _forward_trace():
+    """The device trace open in the process, or None when none is open or
+    autograd runs a backward pass (a checkpointed block's recompute)."""
+    if not _OPEN or torch._C._current_graph_task_id() != -1:
+        return None
+    return _OPEN[0]
+
+
+def trace_span(name: str):
+    """A span of the device trace open in the process (its step the
+    parent's), or ``NO_SPAN`` when none is open or in a backward pass."""
+    trace = _forward_trace()
+    return NO_SPAN if trace is None else _Span(trace, name, None)
+
+
+def trace_count(name: str, inc) -> None:
+    """Count ``inc`` under ``name`` in the open device trace, for the step
+    of its innermost open span; nothing when no trace is open or in a
+    backward pass."""
+    trace = _forward_trace()
+    if trace is not None:
+        trace.count(name, inc)
 
 
 class MetricsRecorder:
@@ -315,19 +366,23 @@ class MetricsRecorder:
 
     @contextmanager
     def device_trace(self):
-        """Record every ``span`` opened inside the context.  Yields a list
-        that holds the span records once the context has closed (after one
-        synchronize; see ``_SpanTrace.resolve``), in the order the spans
-        opened."""
-        if self._trace is not None:
+        """Record every ``span`` opened inside the context, and every
+        ``trace_span`` and ``trace_count`` of the process.  Yields a
+        ``TraceRecords`` list that holds the span records once the context
+        has closed (after one synchronize; see ``_SpanTrace.resolve``), in
+        the order the spans opened, and the counts."""
+        if self._trace is not None or _OPEN:
             raise RuntimeError("a device trace is already open")
         trace = _SpanTrace(self._events if self._cuda else None, self.device)
-        records: list = []
+        records = TraceRecords()
+        records.counts = trace.counts
         self._trace = trace
+        _OPEN.append(trace)
         try:
             yield records
         finally:
             self._trace = None
+            _OPEN.clear()
             records.extend(trace.resolve())
 
     def round_start(self):

@@ -43,6 +43,7 @@ from repro.launch.mesh import make_mesh  # noqa: E402
 from repro.launch.serve import ServeEngine as JServeEngine  # noqa: E402
 from repro.models import transformer as jtfm  # noqa: E402
 from repro.models.common import ParamDef as JParamDef  # noqa: E402
+from repro_torch.configs.base import PORT_FIELDS  # noqa: E402
 from repro_torch.configs import ARCH_NAMES as TARCH_NAMES  # noqa: E402
 from repro_torch.configs import get_config as tget_config  # noqa: E402
 from repro_torch.launch import serve as tserve  # noqa: E402
@@ -132,8 +133,12 @@ def test_registry_holds_the_reference_archs():
 def test_config_and_leaves_match_reference(arch, reduced):
     name = arch + ("-reduced" if reduced else "")
     jcfg, tcfg = jget_config(name), tget_config(name)
+    # the port's own fields (Zamba2's published block) follow the
+    # reference's, each at its default (off) in every registered config
     assert [f.name for f in dataclasses.fields(tcfg)] == [
-        f.name for f in dataclasses.fields(jcfg)]
+        f.name for f in dataclasses.fields(jcfg)] + list(PORT_FIELDS)
+    defaults = {f.name: f.default for f in dataclasses.fields(tcfg)}
+    assert all(getattr(tcfg, k) == defaults[k] for k in PORT_FIELDS)
     for f in dataclasses.fields(jcfg):
         if f.name != "dtype":
             assert getattr(tcfg, f.name) == getattr(jcfg, f.name), f.name
