@@ -348,16 +348,26 @@ Phases (any failure exits non-zero and prints no result line):
      row from its neighbour's), float32 for 3 steps within 5e-5 of the
      stacked engine (K1 with fault rows) under the same model, norms rtol
      1e-5, replicated leaves bit for bit; the fault step and the rejoin
-     step timed on the ranks.
+     step timed on the ranks;
+ 44. K5, Zamba2's grouped SSD scan (``kernels/ssd_scan.py``), at the
+     zamba2-7b-g4-b4x1024 cell's scan (B 4, L 1,024, H 112, P 64, G 2,
+     N 64) with a non-zero h0: y, the final state and the gradients of x,
+     dt, B, C, a and h0 against the eager ``_ssd_groups`` in float64 within
+     the float32 bars of ``tests/test_torch_ssd_kernel.py``; the launches
+     alone timed beside ``ssd_scan.scan_cost``'s bounds, forward +
+     backward through autograd beside the eager float32 scan; then one
+     training step of the cell's published block (its configuration file,
+     6 layers) on 2 nodes, which must launch the pair and count
+     ``ssd_kernel`` once a mixer and node (12).
 
-``python3 chip_smoke.py --phases 34,37,38,39,40,41,42,43`` builds the
+``python3 chip_smoke.py --phases 34,37,38,39,40,41,42,43,44`` builds the
 kernels and runs only the chosen ones of those (40 and 41 together; no
 kernels line, no result line).
 
 The last three lines of standard output are the card's name and power
-limit as nvidia-smi reports them, the per-kernel JSON (K1-K4, each with its
+limit as nvidia-smi reports them, the per-kernel JSON (K1-K5, each with its
 launches on its paths, in all and by phase, error against its twin, ms,
-plain ms, bound and library ms) and the result ``{"ok": true, "device": {...}}``.  TF32 is off
+plain ms, bound and library ms; K5's error relative, against float64) and the result ``{"ok": true, "device": {...}}``.  TF32 is off
 throughout.
 """
 import contextlib
@@ -6360,8 +6370,177 @@ def phase_g1_faults(done):
     return out42, out43
 
 
+# phase 44: K5, Zamba2's grouped SSD scan, at the zamba2-7b-g4-b4x1024 cell's shapes
+SSD_SHAPE = (4, 1024, 112, 2)     # (B, L, H, G) of one node's scan; P = N = 64
+SSD_CHUNK = 256                   # the configuration's chunk_size: the eager route's chunk
+SSD_NODES = 2                     # the published-block step: 6 mixers on each of 2 nodes
+SSD_CONFIG = ROOT / "perfbench" / "configs" / "zamba2-7b-x6-g4.json"
+# float32 relative errors against the float64 eager scan: the bars of
+# tests/test_torch_ssd_kernel.py, whose docstring gives their reasons
+SSD_BARS = {"y": 2e-5, "h": 2e-5, "dx": 2e-5, "ddt": 2e-4, "dB": 2e-5, "dC": 2e-5,
+            "da": 5e-4, "dh0": 2e-5}
+PREDICT_44 = (
+    "phase 44 prediction (PERF.md §6): K5 at the zamba2 cell's scan (4, 1024, 112, 64, G 2, "
+    "N 64) with a non-zero h0 within the float32 bars of the float64 eager scan (the gpu "
+    "test read y 1.6e-7, the gradients 1.6e-7-7.1e-6 with h0 zero); the launches alone "
+    "0.64 ms forward and 1.54 backward against bounds of 0.141 and 0.337 (22 %), forward + "
+    "backward through autograd 2.3-2.6 ms against the eager float32 scan's 10.1-10.3; a "
+    "published-block step on 2 nodes launches 12 forward and 12 backward and counts 12 "
+    "ssd_kernel; under 60 s")
+
+
+def ssd_errors(scan, shape, dev, chunk=SSD_CHUNK, seed=44):
+    """(relative errors, float32 results): ``scan`` on float32 inputs
+    against ``_ssd_groups`` in float64, for y, the final state and the
+    gradients of x, dt, B, C, a and h0 (‖got − truth‖ / ‖truth‖); dt a
+    softplus and A in [-16, -1] as the zamba2 mixer makes them, h0
+    non-zero."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.models.recurrence import _ssd_groups
+
+    bsz, l, h, g = shape
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    r = lambda *s: torch.randn(*s, generator=gen, device=dev, dtype=torch.float64)
+    a = -torch.exp(torch.rand(h, generator=gen, device=dev, dtype=torch.float64) * math.log(16))
+    ins = [r(bsz, l, h, 64), F.softplus(r(bsz, l, h)), r(bsz, l, g, 64), r(bsz, l, g, 64), a,
+           r(bsz, h, 64, 64)]
+    dy, dh = r(bsz, l, h, 64), r(bsz, h, 64, 64)
+    pad = (-l) % chunk
+
+    def eager(x, dt, b, c, a, h0):
+        p = lambda t: F.pad(t, (0, 0) * (t.dim() - 2) + (0, pad))
+        y, hf = _ssd_groups(p(x), p(dt), p(b), p(c), a, h0, chunk)
+        return y[:, :l], hf
+
+    def run(fn, ts, dy, dh):
+        ts = [t.detach().clone().requires_grad_() for t in ts]
+        y, hf = fn(*ts)
+        grads = torch.autograd.grad((y * dy).sum() + (hf * dh).sum(), ts)
+        return dict(zip(SSD_BARS, (y.detach(), hf.detach(), *grads)))
+
+    want = run(eager, ins, dy, dh)
+    got = run(scan, [t.float() for t in ins], dy.float(), dh.float())
+    rel = {k: float((got[k].double() - want[k]).norm() / want[k].norm()) for k in SSD_BARS}
+    return rel, got
+
+
+def check_ssd(scan, shape, dev, chunk=SSD_CHUNK):
+    """Fail unless ``scan`` holds every bar of ``SSD_BARS`` with finite
+    results; returns the errors."""
+    import torch
+
+    rel, got = ssd_errors(scan, shape, dev, chunk)
+    bad = {k: v for k, v in rel.items() if not v < SSD_BARS[k]}
+    bad.update({k: "not finite" for k, v in got.items() if not bool(torch.isfinite(v).all())})
+    if bad:
+        fail(f"phase 44: K5 at {shape} off the float64 eager scan: {bad} (bars {SSD_BARS})")
+    return rel
+
+
+def phase_ssd(dev):
+    """Phase 44: K5 against the eager ``_ssd_groups`` at the zamba2 cell's
+    scan (float64 truth, float32 bars), its time beside the eager float32
+    route's and its bounds (``ssd_scan.scan_cost``), then one training
+    step of the cell's published block (``SSD_CONFIG``, 6 layers at
+    published width) on ``SSD_NODES`` nodes, whose launches and
+    ``ssd_kernel`` counts must be one a mixer and node."""
+    import torch
+    import torch.nn.functional as F
+
+    from perfbench import program as bench_program
+    from repro_torch.core.dsgd import make_topology
+    from repro_torch.kernels import ssd_scan as K
+    from repro_torch.launch.train import SPMDTrainer
+    from repro_torch.models.recurrence import _ssd_groups
+    from repro_torch.optim.sgd import sgd
+    from repro_torch.telemetry.recorder import MetricsRecorder
+
+    bsz, l, h, g = SSD_SHAPE
+    before = (K.ssd_scan.launches, K.ssd_scan.backward_launches)
+    rel = check_ssd(K.ssd_scan, SSD_SHAPE, dev)
+    parity = (K.ssd_scan.launches - before[0], K.ssd_scan.backward_launches - before[1])
+    if parity != (1, 1):
+        fail(f"phase 44: the parity call launched {parity} K5 pairs, not (1, 1)")
+    torch.cuda.empty_cache()
+
+    gen = torch.Generator(device=dev).manual_seed(4401)
+    r = lambda *s: torch.randn(*s, generator=gen, device=dev)
+    ins = [r(bsz, l, h, 64), F.softplus(r(bsz, l, h)), r(bsz, l, g, 64), r(bsz, l, g, 64),
+           -torch.exp(torch.rand(h, generator=gen, device=dev) * math.log(16)),
+           r(bsz, h, 64, 64)]
+    dy, dh = r(bsz, l, h, 64), r(bsz, h, 64, 64)
+    fwd_ms = cuda_ms(lambda: K._kernel_forward(*ins), 10)
+    _, states = K._kernel_forward(*ins)
+    bwd_ms = cuda_ms(lambda: K._kernel_backward(*ins[:5], states, dy, dh), 10)
+    del states
+    leaves = [t.requires_grad_() for t in ins]
+
+    def both(fn):
+        y, hf = fn(*leaves)
+        torch.autograd.grad((y * dy).sum() + (hf * dh).sum(), leaves)
+
+    def eager(x, dt, b, c, a, h0):
+        return _ssd_groups(x, dt, b, c, a, h0, SSD_CHUNK)
+
+    ms = cuda_ms(lambda: both(K.ssd_scan), 10)
+    plain_ms = cuda_ms(lambda: both(eager), 3)
+    del leaves, ins, dy, dh
+    torch.cuda.empty_cache()
+    flops, nbytes = K.scan_cost(bsz, l, h, g)
+    bound = {k: 1e3 * max(flops[k] / F32_OPS_PER_S, nbytes[k] / HBM_BYTES_PER_S) for k in flops}
+    bound_by = {k: "operations" if flops[k] / F32_OPS_PER_S >= nbytes[k] / HBM_BYTES_PER_S
+                else "bytes" for k in flops}
+
+    cfg = json.loads(SSD_CONFIG.read_text())
+    arch = bench_program.arch_config(cfg)
+    trainer = SPMDTrainer(arch, make_topology("d_ring", SSD_NODES), sgd(momentum=0.9),
+                          collect_norms=True, fused_apply=True, device=dev)
+    state = trainer.init_state(seed=44)
+    toks = torch.randint(0, cfg["vocab"], (SSD_NODES, bsz, l + 1), generator=gen, device=dev)
+    batch = {"tokens": toks[..., :-1].int(), "targets": toks[..., 1:].int()}
+    state, losses, _ = trainer.train_step(state, batch, 1e-2)       # warm
+    recorder = MetricsRecorder()
+    recorder.configure(device=dev)
+    torch.cuda.synchronize()
+    before = (K.ssd_scan.launches, K.ssd_scan.backward_launches)
+    t0 = time.perf_counter()
+    with recorder.device_trace() as records:
+        with recorder.span("train_step", step=0):
+            state, losses, _ = trainer.train_step(state, batch, 1e-2)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    step = (K.ssd_scan.launches - before[0], K.ssd_scan.backward_launches - before[1],
+            records.counts.get("ssd_kernel", {}).get(0, 0))
+    mixers = sum(1 for kind in cfg["layers_block_type"] if kind in ("mamba", "hybrid"))
+    if step != (mixers * SSD_NODES,) * 3:
+        fail(f"phase 44: a published-block step on {SSD_NODES} nodes launched K5 {step[:2]} "
+             f"and counted {step[2]} ssd_kernel, not {mixers * SSD_NODES} each")
+    if not bool(torch.isfinite(losses).all()):
+        fail(f"phase 44: the published-block step's losses {losses.tolist()} are not finite")
+    del trainer, state, batch, toks
+    torch.cuda.empty_cache()
+    out = {"shape": list(SSD_SHAPE) + [64, 64], "rel_err": rel, "bars": SSD_BARS,
+           "forward_ms": fwd_ms, "backward_ms": bwd_ms, "ms": ms, "plain_ms": plain_ms,
+           "bound": bound, "bound_by": bound_by, "flops": flops, "bytes": nbytes,
+           "launches_by_path": {"phase 44 (parity)": parity[0],
+                                "phase 44 (published-block step)": step[0]},
+           "backward_launches_by_path": {"phase 44 (parity)": parity[1],
+                                         "phase 44 (published-block step)": step[1]},
+           "ssd_kernel_counts": step[2], "step_s": step_s}
+    log(f"phase 44: K5 at {tuple(out['shape'])} against the float64 eager scan "
+        + ", ".join(f"{k} {v:.2e}" for k, v in rel.items())
+        + f"; launches alone forward {fwd_ms:.3f} ms (bound {bound['forward']:.3f}), "
+        f"backward {bwd_ms:.3f} (bound {bound['backward']:.3f}); both through autograd "
+        f"{ms:.3f} against the eager float32 scan's {plain_ms:.3f}; a published-block step "
+        f"on {SSD_NODES} nodes: {step[0]} forward and {step[1]} backward launches, {step[2]} "
+        f"ssd_kernel counts, {step_s:.2f} s")
+    return out
+
+
 # phases that run on their own with --phases (each needs only the kernels built)
-ALONE = (34, 37, 38, 39, 40, 41, 42, 43)
+ALONE = (34, 37, 38, 39, 40, 41, 42, 43, 44)
 
 
 def selected_phases(argv):
@@ -6416,6 +6595,9 @@ def run_alone(dev, chosen, smi):
                 out[43] = check_fault_tp(res, ref)
                 out[43]["world_s"] = s
             n = which[0]
+        elif n == 44:
+            log(PREDICT_44)
+            out[n] = phase_ssd(dev)
         else:
             log(PREDICT_39)
             out[n] = phase_train_100m(dev)
@@ -6444,6 +6626,7 @@ def main():
         gossip_program_update, gossip_program_update_plain, gossip_update,
         gossip_update_plain, gossip_wire,
     )
+    from repro_torch.kernels.ssd_scan import ssd_scan
     from repro_torch.kernels.stats import segment_l2_norms, segment_l2_norms_plain
     from repro_torch.launch.train import SPMDTrainer
     from repro_torch.launch.train import main as train_main
@@ -6865,6 +7048,16 @@ def main():
     log(f"phases 42-43: {time.perf_counter() - t42:.1f} s of checks on {smi}; the world's "
         f"jobs {tp[42]['world_s']:.1f} + {tp[43]['world_s']:.1f} s")
 
+    # 44. K5 at the zamba2 cell's scan against the eager scan; a
+    # published-block step's launches
+    log(PREDICT_44)
+    t44 = time.perf_counter()
+    ssd44 = phase_ssd(dev)
+    ssd44["wall_s"] = time.perf_counter() - t44
+    ssd44["card"] = smi
+    log(f"phase 44: {ssd44['wall_s']:.1f} s on {smi}")
+    torch.cuda.empty_cache()
+
     summary = {
         "card": smi,
         "model": f"{cfg.name} x{cfg.n_layers} layers, bf16, G={G}, seq {SEQ}, "
@@ -6907,6 +7100,7 @@ def main():
         "mesh_serving": tp[41],
         "g1_placement": tp[42],
         "tp_faults": tp[43],
+        "ssd_scan": ssd44,
     }
     log("summary " + json.dumps(summary))
     # each kernel's launches on every main path that runs it
@@ -7017,6 +7211,23 @@ def main():
             "ms": attn12["k4_ms"], "plain_ms": attn12["plain_ms"],
             "bound_ms": attn12["bound_ms"], "bound_by": attn12["bound_by"],
             "library_ms": attn12["sdpa_ms"],
+        },
+        {
+            "name": "ssd_scan", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+            "replaces": None,   # the JAX package's scan is plain jnp: no Pallas kernel
+            "launches": sum(ssd44["launches_by_path"].values()),
+            "launches_by_path": ssd44["launches_by_path"],
+            "backward_launches_by_path": ssd44["backward_launches_by_path"],
+            "launches_in_script": ssd_scan.launches,
+            "max_rel_err": max(ssd44["rel_err"].values()),
+            "ms": ssd44["ms"], "plain_ms": ssd44["plain_ms"],
+            "bound_ms": ssd44["bound"]["forward"] + ssd44["bound"]["backward"],
+            "bound_by": "operations" if set(ssd44["bound_by"].values()) == {"operations"}
+            else ssd44["bound_by"],
+            "forward": {"ms": ssd44["forward_ms"], "bound_ms": ssd44["bound"]["forward"]},
+            "backward": {"ms": ssd44["backward_ms"], "bound_ms": ssd44["bound"]["backward"]},
+            "library_ms": None,
         },
     ]
     print(smi)

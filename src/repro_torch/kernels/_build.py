@@ -24,13 +24,14 @@ __all__ = ["load", "load_all", "SOURCES", "BUILD_DIR"]
 _HERE = Path(__file__).resolve().parent
 CSRC = _HERE / "csrc"
 BUILD_DIR = _HERE.parents[2] / "build" / "repro_torch"
-SOURCES = ("gossip_update", "l2_norms", "flash_attention")
+SOURCES = ("gossip_update", "l2_norms", "flash_attention", "ssd_scan")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     # no multiply-add contraction: the memory-bound kernels round every
     # product and sum as their plain twins do (FMA buys them nothing);
-    # flash_attention, held to a tolerance, calls fmaf explicitly (the f32
-    # route's products, the bf16 route's scaled exponent)
+    # flash_attention and ssd_scan, held to tolerances, call fmaf explicitly
+    # (flash_attention's f32 products and bf16 scaled exponent, ssd_scan's
+    # tile products)
     "-fmad=false",
     "-shared", "-Xcompiler", "-fPIC",
 )
@@ -59,6 +60,11 @@ _SIGNATURES = {
         "repro_flash_attention":
             [_INT, _VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT, _INT, _INT, _INT, _INT, _INT, _VP],
         "repro_flash_attention_attributes": [_INT, _INT, _VP],
+    },
+    "ssd_scan": {
+        "repro_ssd_scan_forward": [_VP] * 8 + [_INT] * 4 + [_VP],
+        "repro_ssd_scan_backward": [_VP] * 14 + [_INT] * 4 + [_VP],
+        "repro_ssd_scan_attributes": [_INT, _VP],
     },
 }
 

@@ -32,6 +32,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.ssd_scan import ssd_scan
 from repro_torch.models.common import at_least_f32 as _f32
 
 __all__ = [
@@ -136,12 +137,21 @@ def ssd_chunked(x, dt, a_log, b_in, c_in, d_skip, h0, *, chunk: int = 64):
         or (B, L, G, N) (head j reads group j·G // H: ``_ssd_groups``);
       d_skip: (H,); h0: (B, H, P, N).
     Returns: (y (B, L, H, P) in x's dtype, h_final float32).
+
+    Per-group B and C on CUDA float32 take the hand-written scan
+    (``kernels/ssd_scan.py``, whose result does not depend on the chunk;
+    it raises on a P or N it does not take); CPU, meta and float64 inputs
+    take ``_ssd_groups``.
     """
     b, l, h, p = x.shape
     c = min(chunk, l)
     pad = (-l) % c
     a = -torch.exp(_f32(a_log))                    # (H,)
-    if b_in.dim() == 4:
+    f32 = all(torch.promote_types(t.dtype, torch.float32) == torch.float32
+              for t in (x, dt, b_in, c_in, a))
+    if b_in.dim() == 4 and x.is_cuda and f32:
+        y, hst = ssd_scan(*(_f32(t) for t in (x, dt, b_in, c_in)), a, h0.to(a.dtype))
+    elif b_in.dim() == 4:
         y, hst = _ssd_groups(*(_f32(_pad_seq(t, pad)) for t in (x, dt, b_in, c_in)), a,
                              h0, c)
         y = y[:, :l]
